@@ -1,0 +1,447 @@
+"""Block Gram-Schmidt QR: the library's main path (port of the BGS slice of
+``mixedprecisionblockqr_tpu/ops/blockqr.py``).
+
+``block_qr``/``qr`` dispatch through ``resolve_panel_config`` exactly as the
+JAX package does.  This package runs the right-looking Block Gram-Schmidt
+tiers ``bgs1`` (single pass, bf16 projections), ``bgs2`` (BCGS2 re-projection
+at emulated HIGH precision) and ``bgs`` (re-projection at fp32); every other
+tier the dispatch can name raises ``NotImplementedError`` and names the
+ROADMAP item that ports it.  A CUDA tensor takes the dispatch branch of the
+accelerator; a CPU tensor with ``panel_method='auto'`` resolves to
+``'householder'`` as in the JAX package, which is not ported yet.
+
+Each group of panels runs through ``bgs_group_fused`` (kernel K2) when the
+group buffer passes the same size gate as the JAX package; otherwise each
+panel runs ``ns_chain`` (kernel K1) between plain products.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+    bgs_group_fused,
+    ns_chain,
+    tri_cholqr_robust_fused,
+)
+from mixedprecisionblockqr_tpu_torch.ops.polar import (
+    tri_head_iters,
+    tri_iters_for_aspect,
+)
+from mixedprecisionblockqr_tpu_torch.ops.policy import (
+    DTypePolicy,
+    POLICY_FP32,
+    Precision,
+    matmul,
+    mm_f32,
+    trailing_matmul,
+)
+from mixedprecisionblockqr_tpu_torch.utils.checks import NonFiniteError
+
+DEFAULT_BLOCK_SIZE = 128
+DEFAULT_GROUP_PANELS = 4
+
+_NS_TIERS = ("bgs", "bgs1", "bgs2", "polar")
+_PORTED_TIERS = ("bgs", "bgs1", "bgs2")
+QUALITY_LEVELS = ("fast", "balanced", "high", "robust")
+_QUALITY_BGS = {"fast": "bgs1", "balanced": "bgs2", "high": "bgs"}
+
+#: The group-kernel gate of the JAX package (``_group_kernel_fits``): a
+#: group buffer m x g*r of at most 10 MiB fp32 and m <= 5120.  The numbers
+#: were tuned for the TPU's scoped VMEM; they are kept so that dispatch
+#: (group kernel vs per-panel chains) stays in step with the reference.
+GROUP_KERNEL_MAX_BYTES = 10 * 2**20
+GROUP_KERNEL_MAX_M = 5120
+
+_ROADMAP_ITEM = {
+    "householder": "Queue 1 'Robust tier' (householder.py, wy.py)",
+    "scan": "Queue 1 'Scan tier' (_block_qr_bgs_scan)",
+    "cholqr": "Queue 1 'CholeskyQR/polar tiers'",
+}
+
+
+def check_policy_method(policy: DTypePolicy, panel_method: str) -> None:
+    """Refuse fp64 on the fp32-chain Newton-Schulz tiers."""
+    if policy.panel == torch.float64 and panel_method in _NS_TIERS:
+        raise ValueError(
+            f"panel_method {panel_method!r} runs fp32 NS chains and cannot "
+            "honor POLICY_FP64; use 'householder' (or 'cholqr2', whose "
+            "Cholesky path preserves the input dtype)"
+        )
+
+
+def resolve_panel_config(
+    m: int,
+    n: int,
+    block_size: int,
+    policy: DTypePolicy,
+    panel_method: str,
+    loop_mode: str,
+    group_panels: int,
+    mode: str = "reduced",
+    on_gpu: Optional[bool] = None,
+    quality: Optional[str] = None,
+) -> Tuple[str, str, int]:
+    """The dispatch table: resolve ``panel_method='auto'`` and apply the
+    shape-fallback chain, returning ``(panel_method, loop_mode,
+    group_panels)``.  Returns the JAX package's tuples for every shape,
+    with ``on_gpu`` in the role of its ``on_tpu`` (default: whether CUDA
+    is available).  The size thresholds (3072, 12288) were measured on the
+    TPU and wait to be measured again on the H100."""
+    if on_gpu is None:
+        on_gpu = torch.cuda.is_available()
+    if quality is not None:
+        if quality not in QUALITY_LEVELS:
+            raise ValueError(
+                f"quality must be one of {QUALITY_LEVELS}, got {quality!r}"
+            )
+        if panel_method != "auto":
+            raise ValueError(
+                "quality= is the auto-dispatch ladder knob; it cannot be "
+                f"combined with an explicit panel_method={panel_method!r}"
+            )
+    r = min(block_size, n)
+    if panel_method == "auto":
+        hostile = n % r != 0 or n < 2 * block_size or m < n
+        if (
+            not on_gpu
+            or hostile
+            or policy.panel == torch.float64
+            or quality == "robust"
+        ):
+            panel_method = "householder"
+        elif policy.trailing == torch.float32:
+            panel_method = _QUALITY_BGS["high" if quality is None else quality]
+            if max(m, n) > 12288:
+                loop_mode = "scan"
+        elif quality in ("balanced", "high"):
+            panel_method = _QUALITY_BGS[quality]
+            if max(m, n) > 12288:
+                loop_mode, group_panels = "scan", 4
+            else:
+                group_panels = 8
+        elif max(m, n) <= 12288:
+            panel_method, group_panels = "bgs1", 8
+        else:
+            panel_method, loop_mode = "bgs1", "scan"
+    else:
+        check_policy_method(policy, panel_method)
+
+    if panel_method in _PORTED_TIERS and (
+        n % r != 0
+        or n < 2 * block_size
+        or (mode == "complete" and m != n)
+    ):
+        panel_method = "polar"
+    if panel_method == "polar" and (n % r != 0 or n < 2 * block_size):
+        panel_method = "cholqr1"
+    if loop_mode == "scan" and (
+        n % r != 0
+        or not (panel_method.startswith("cholqr")
+                or panel_method in _PORTED_TIERS)
+        or n <= block_size
+    ):
+        loop_mode = "unroll"
+    return panel_method, loop_mode, group_panels
+
+
+def _group_kernel_fits(m0: int, r: int, group_panels: int) -> bool:
+    """Whether a group goes through ``bgs_group_fused`` (see
+    ``GROUP_KERNEL_MAX_BYTES``)."""
+    return (m0 <= GROUP_KERNEL_MAX_M
+            and m0 * r * group_panels * 4 <= GROUP_KERNEL_MAX_BYTES)
+
+
+def _unported(panel_method: str, loop_mode: str) -> NotImplementedError:
+    if loop_mode == "scan":
+        item = _ROADMAP_ITEM["scan"]
+    elif panel_method == "householder":
+        item = _ROADMAP_ITEM["householder"]
+    else:
+        item = _ROADMAP_ITEM["cholqr"]
+    return NotImplementedError(
+        f"panel_method={panel_method!r} loop_mode={loop_mode!r} is not "
+        f"ported to mixedprecisionblockqr_tpu_torch yet (ROADMAP {item}); "
+        f"the port runs {_PORTED_TIERS} with loop_mode='unroll'"
+    )
+
+
+def _poison_if_unconverged(worst_resid, R_full, Q, tol: float = 1e-4):
+    """Write a NaN canary into R[0, 0] (and Q[0, 0]) when the worst
+    normalized NS residual is not below ``tol`` -- or is NaN.  Stays on
+    the device: no host synchronization."""
+    bad = torch.where(worst_resid < tol, worst_resid.new_zeros(()),
+                      worst_resid.new_full((), float("nan")))
+    R_full[0, 0] += bad.to(R_full.dtype)
+    if Q is not None:
+        Q[0, 0] += bad.to(Q.dtype)
+    return R_full, Q
+
+
+def _rescrub_panel(Qpre, qk, t):
+    """The corner-leak rescrub of the reorth tiers' robust tail (D9): one
+    fp32 projection of the finished panel against all previous Q plus a
+    4-iteration refactorization, folded so that ``qk t = q2 (s t) +
+    Qpre (W t)``.  Returns ``(q2, s @ t, W @ t, resid)``."""
+    qf = qk.float()
+    Qp = Qpre.float()
+    W = mm_f32(Qp.T, qf)
+    q2 = qf - mm_f32(Qp, W)
+    X, s, rs = ns_chain(mm_f32(q2.T, q2), iters=4)
+    q2 = mm_f32(q2, X)
+    t32 = t.float()
+    return q2, mm_f32(s, t32), mm_f32(W, t32), rs
+
+
+def _block_qr_bgs(
+    A: torch.Tensor,
+    block_size: int,
+    policy: DTypePolicy,
+    want_q: bool,
+    group_panels: int = 4,
+    reorth: bool = True,
+    ns_impl: str = "group",
+    mid_tier: bool = False,
+    chain_mid: bool = False,
+):
+    """Right-looking Block Gram-Schmidt QR; returns ``(R_full, Q)``.
+
+    Panels keep full height, Q materializes by concatenation, R rows are
+    written directly, and the trailing projection runs once per group.
+    ``ns_impl='group'`` factors each group with ``bgs_group_fused`` while
+    the group buffer passes ``_group_kernel_fits``; ``'panel'`` (the JAX
+    package's ``'pallas'`` level) runs every panel's chain through
+    ``ns_chain`` between plain products.  ``reorth`` re-projects each
+    group against all previous Q (BCGS2) at emulated HIGH (``mid_tier``)
+    or fp32.  The last ``n_robust`` panels run the shifted three-pass
+    chain; chain budgets follow the JAX package's calibration (aspect
+    budget, +6 on the head panel, +4 on the last quarter).  ``A`` is not
+    modified.
+    """
+    if ns_impl not in ("group", "panel"):
+        raise ValueError(f"ns_impl must be 'group' or 'panel', got {ns_impl!r}")
+    m, n = A.shape
+    r = block_size
+    if n % r != 0 or m < n or n < r:
+        raise ValueError(f"BGS needs r | n and m >= n; got {A.shape}, r={r}")
+    nb = n // r
+    # Min-two-groups shrink first, then the size gate on the effective width.
+    if ns_impl == "group" and nb <= group_panels:
+        group_panels = max(2, nb // 2)
+    use_group = ns_impl == "group" and _group_kernel_fits(m, r, group_panels)
+
+    base_iters = tri_iters_for_aspect(m / r)
+
+    def _plain_iters(j: int) -> int:
+        if j == 0:
+            return tri_head_iters(base_iters)
+        return base_iters if j < 0.75 * nb else base_iters + 4
+
+    n_robust = max(1, nb // 12) if m / r >= 8 else max(2, nb // 8)
+
+    dev = A.device
+    T = A.to(policy.panel)
+    worst = torch.zeros((), dtype=torch.float32, device=dev)
+    mm_t = trailing_matmul(policy)
+    mm_e = mm_f32 if reorth else mm_t
+    gram_prec = (
+        Precision.HIGHEST
+        if policy.trailing == torch.float32 or mid_tier or reorth
+        else Precision.HIGH
+    )
+    R = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    qcols = []
+    q_dtype = policy.accum if reorth else (policy.q_store or policy.accum)
+    cast_early = (not reorth and q_dtype != policy.accum
+                  and policy.trailing == q_dtype)
+    Qacc = (torch.zeros((m, n), dtype=q_dtype, device=dev)
+            if want_q and not reorth else None)
+    is_bf16 = policy.trailing == torch.bfloat16
+
+    i = 0
+    while i < nb:
+        lam_g = i * r
+        js = list(range(i, min(i + group_panels, nb)))
+        g_end = (js[-1] + 1) * r
+        gw = g_end - lam_g
+        Pbuf, T = T[:, :gw], T[:, gw:]
+        if reorth and lam_g > 0:
+            Qprev = torch.cat(qcols, dim=1)
+            Cg = Pbuf.float()
+            rp = Precision.HIGH if mid_tier else Precision.HIGHEST
+            C2 = matmul(Qprev.T, Cg, precision=rp)
+            Pbuf = (Cg - matmul(Qprev, C2, precision=rp)).to(Pbuf.dtype)
+            R[:lam_g, lam_g:g_end] += C2
+        robust_js = tuple(j >= nb - n_robust for j in js)
+        if use_group:
+            Qg, Rg, resid = bgs_group_fused(
+                Pbuf.float().contiguous(), r,
+                tuple(_plain_iters(j) for j in js), robust_js,
+                bf16_dots=is_bf16 and not reorth,
+                bf16_gram=is_bf16 and not reorth,
+                chain_mid=chain_mid,
+            )
+            worst = torch.maximum(worst, resid)
+            R[lam_g:g_end, lam_g:g_end] = Rg
+            if reorth and any(robust_js):
+                k0 = robust_js.index(True) * r
+                rob0 = lam_g + k0
+                if rob0 > 0:
+                    pre = ([torch.cat(qcols, dim=1)] if qcols else []) + (
+                        [Qg[:, :k0]] if k0 else [])
+                    q2, t2, dW, rs = _rescrub_panel(
+                        torch.cat(pre, dim=1), Qg[:, k0:], Rg[k0:, k0:])
+                    worst = torch.maximum(worst, rs * rs)
+                    R[:rob0, rob0:g_end] += dW
+                    R[rob0:g_end, rob0:g_end] = t2
+                    Qg = torch.cat([Qg[:, :k0], q2], dim=1) if k0 else q2
+            if cast_early:
+                Qg = Qg.to(q_dtype)
+            if Qacc is not None:
+                Qacc[:, lam_g:g_end] = Qg.to(q_dtype)
+            qcols.append(Qg)
+            if g_end < n:
+                G1 = mm_t(Qg.T, T)
+                T = (T - mm_t(Qg, G1)).to(T.dtype)
+                R[lam_g:g_end, g_end:] = G1
+            i = js[-1] + 1
+            continue
+        q_start = len(qcols)
+        Pbuf = Pbuf.clone()  # updated in place below; never a view of A
+        for j in js:
+            lam = j * r
+            c0 = lam - lam_g
+            P = Pbuf[:, c0:c0 + r]
+            if j >= nb - n_robust:
+                Qk, t, _, rresid = tri_cholqr_robust_fused(
+                    P, chain_mid=chain_mid)
+                worst = torch.maximum(worst, 0.01 * rresid)
+                if reorth and qcols:
+                    Qk, t, dW, rs = _rescrub_panel(
+                        torch.cat(qcols, dim=1), Qk, t)
+                    worst = torch.maximum(worst, rs * rs)
+                    R[:lam, lam:lam + r] += dW
+            else:
+                G = matmul(P.T, P, precision=gram_prec)
+                X, t, resid = ns_chain(G.contiguous(), iters=_plain_iters(j),
+                                       chain_mid=chain_mid)
+                Qk = matmul(P, X, precision=gram_prec)
+                worst = torch.maximum(worst, resid * resid)
+            R[lam:lam + r, lam:lam + r] = t
+            if lam + r < g_end:
+                C = Pbuf[:, c0 + r:]
+                G1 = mm_e(Qk.T, C)
+                Pbuf[:, c0 + r:] = (C - mm_e(Qk, G1)).to(Pbuf.dtype)
+                R[lam:lam + r, lam + r:g_end] = G1
+            if cast_early:
+                Qk = Qk.to(q_dtype)
+            if Qacc is not None:
+                Qacc[:, lam:lam + r] = Qk.to(q_dtype)
+            qcols.append(Qk)
+        if g_end < n:
+            Qg = torch.cat(qcols[q_start:], dim=1)
+            G1 = mm_t(Qg.T, T)
+            T = (T - mm_t(Qg, G1)).to(T.dtype)
+            R[lam_g:g_end, g_end:] = G1
+        i = js[-1] + 1
+
+    R_full = (torch.cat([R, R.new_zeros((m - n, n))], dim=0)
+              if m > n else R).to(policy.accum)
+    if Qacc is not None:
+        Q = Qacc
+    else:
+        Q = torch.cat(qcols, dim=1).to(q_dtype) if want_q else None
+    return _poison_if_unconverged(worst, R_full, Q)
+
+
+def block_qr(
+    A,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    policy: DTypePolicy = POLICY_FP32,
+    mode: str = "reduced",
+    panel_method: str = "householder",
+    loop_mode: str = "unroll",
+    group_panels: int = DEFAULT_GROUP_PANELS,
+    quality: Optional[str] = None,
+    check: str = "defer",
+    device=None,
+):
+    """Blocked QR: A = QR, on the device of ``A`` (or ``device``).
+
+    Arguments as in the JAX package's ``block_qr``.  ``panel_method='auto'``
+    with ``quality='fast'`` (the default rung under mixed policies) is the
+    main path: ``bgs1`` with groups of 8 panels.  ``check='defer'`` leaves
+    a breakdown as a NaN canary in R[0, 0] / Q[0, 0]; ``check='sync'``
+    fetches the canary and raises ``NonFiniteError`` (the robust retry tier
+    is not ported yet).  Returns ``(Q, R)`` for 'reduced'/'complete' and R
+    for 'r'.
+    """
+    A = torch.as_tensor(A, device=device)
+    if A.dtype not in (torch.float32, torch.float64, torch.bfloat16):
+        A = A.to(policy.panel)
+    if check not in ("defer", "sync", "off"):
+        raise ValueError(f"check must be 'defer'|'sync'|'off', got {check!r}")
+    if mode not in ("reduced", "complete", "r"):
+        raise ValueError(f"unknown mode {mode!r}")
+    m, n = A.shape
+    if m < n:
+        raise ValueError(f"block_qr requires m >= n, got {tuple(A.shape)}")
+    want_q = mode in ("reduced", "complete")
+    panel_method, loop_mode, group_panels = resolve_panel_config(
+        m, n, block_size, policy, panel_method, loop_mode, group_panels,
+        mode=mode, on_gpu=A.is_cuda, quality=quality,
+    )
+    if panel_method not in _PORTED_TIERS or loop_mode != "unroll":
+        raise _unported(panel_method, loop_mode)
+    R_full, Q = _block_qr_bgs(
+        A, block_size, policy, want_q, group_panels=group_panels,
+        reorth=panel_method in ("bgs", "bgs2"),
+        mid_tier=panel_method == "bgs2",
+        chain_mid=panel_method == "bgs1",
+    )
+    if check == "sync" and not bool(torch.isfinite(R_full[0, 0])):
+        raise NonFiniteError(
+            f"block_qr: the {panel_method!r} factorization did not converge "
+            "(NaN canary in R[0, 0]); the robust retry tier ('householder') "
+            f"is not ported yet (ROADMAP {_ROADMAP_ITEM['householder']})"
+        )
+    if mode == "r":
+        return R_full[:n, :]
+    if mode == "reduced":
+        return Q[:, :n], R_full[:n, :]
+    return Q, R_full
+
+
+def qr(
+    A,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    policy: DTypePolicy = POLICY_FP32,
+    mode: str = "reduced",
+    panel_method: str = "auto",
+    loop_mode: str = "unroll",
+    group_panels: int = DEFAULT_GROUP_PANELS,
+    quality: Optional[str] = None,
+    check: str = "defer",
+    device=None,
+):
+    """Main entry.  Under mixed/bf16 policies ``quality=None`` means
+    'balanced' (``bgs2``), as in the JAX package; ``block_qr`` keeps 'fast'.
+    Narrow (n <= 8) and wide (m < n) problems take the unblocked
+    Householder path there, which is not ported yet."""
+    A = torch.as_tensor(A, device=device)
+    m, n = A.shape
+    if n <= 8 or m < n:
+        raise _unported("householder", "unroll")
+    if (
+        quality is None
+        and panel_method == "auto"
+        and policy.trailing == torch.bfloat16
+    ):
+        quality = "balanced"
+    return block_qr(
+        A, block_size=block_size, policy=policy, mode=mode,
+        panel_method=panel_method, loop_mode=loop_mode,
+        group_panels=group_panels, quality=quality, check=check,
+    )

@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels (csrc/) and their plain PyTorch versions."""
+
+from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (  # noqa: F401
+    LAUNCHES,
+    bgs_group_fused,
+    bgs_group_fused_plain,
+    ns_chain,
+    ns_chain_plain,
+    reset_launches,
+    tri_cholqr_robust_fused,
+)
