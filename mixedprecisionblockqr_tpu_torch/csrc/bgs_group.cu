@@ -36,6 +36,12 @@ namespace mpbqr {
 constexpr int kBM = 64, kBN = 64, kBK = 16;
 constexpr int kGemmThreads = 256;
 constexpr int kSplitRows = 256;  // m-chunk of one split-K partial
+// Chain schedule of the group, the same constants as ops/kernels/ns.py
+// (MID_FINAL, ROBUST_ITERS): with chain_mid, all but the final kMidFinal
+// iterations of a non-refine chain run the bf16-split products; robust
+// panels run passes of kRobustIt1 / kRobustIt2 / kRobustIt3 iterations.
+constexpr int kMidFinal = 2;
+constexpr int kRobustIt1 = 14, kRobustIt2 = 12, kRobustIt3 = 4;
 
 // C = op(A) @ B (sub == 0) or C -= op(A) @ B (sub == 1) for an M x N
 // output with inner dimension K; op(A) = A^T (A stored K x M) when TA.
@@ -132,7 +138,8 @@ __global__ void splitk_reduce(const float* part, int S, int M, int N,
 }
 
 // out = triu(T3 @ (T2 @ T1)) with leading dimension ldo: the robust
-// three-pass R block (ns.py:_tri_ns_panel, robust branch).  One CTA.
+// three-pass R block (ns.py:_tri_ns_panel, robust branch).  T1..T3 are the
+// full products X_k^T G_k, so this is the only truncation.  One CTA.
 template <int R>
 __global__ void __launch_bounds__(kChainThreads)
 tri_combine(const float* T1, const float* T2, const float* T3, float* out,
@@ -242,14 +249,14 @@ long long mpbqr_bgs_group_scratch_floats(int m, int r, int g) {
 // P (m x g*r, fp32, row-major, read only) -> Q (m x g*r, may equal P),
 // Rg (g*r x g*r, block upper) and *worst (one float), all device pointers.
 // iters[j] / robust[j] are host arrays of g entries.  bf16_gram rounds the
-// Gram and Q = P X operands to bf16, bf16_dots the projection operands.
+// Gram and Q = P X operands to bf16, bf16_dots the projection operands;
+// chain_mid runs the early chain iterations with bf16-split products.
 // Returns the first CUDA error met, or cudaErrorInvalidValue for an r the
 // chain kernel does not take.
 int mpbqr_bgs_group(const float* P, float* Q, float* Rg, float* worst,
                     float* scratch, int m, int r, int g, const int* iters,
                     const int* robust, int bf16_dots, int bf16_gram,
-                    int chain_mid, int mid_final, int it1, int it2, int it3,
-                    int fuse_xw, void* stream) {
+                    int chain_mid, void* stream) {
   using namespace mpbqr;
   if (r != 32 && r != 64 && r != 128) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -257,7 +264,7 @@ int mpbqr_bgs_group(const float* P, float* Q, float* Rg, float* worst,
   GroupScratch s;
   group_scratch_floats(m, r, g, &s, scratch);
   auto mid = [&](int it) {
-    return chain_mid ? std::max(0, it - mid_final) : 0;
+    return chain_mid ? std::max(0, it - kMidFinal) : 0;
   };
   cudaError_t err;
   if (Q != P) {
@@ -275,29 +282,29 @@ int mpbqr_bgs_group(const float* P, float* Q, float* Rg, float* worst,
     gemm(st, true, bg, r, r, m, Pj, w, Pj, w, s.G, r, false, s.part);
     if (!robust[j]) {
       launch_chain(r, st, s.G, s.X1, Rjj, w, s.resid + j, s.chain, iters[j],
-                   0.f, 0, 0, mid(iters[j]), 1, fuse_xw, RESID_SQUARE);
+                   0.f, 0, mid(iters[j]), 1, 1, 1, RESID_SQUARE);
       gemm(st, false, bg, m, r, r, Pj, w, s.X1, r, s.tmpA, r, false, s.part);
       err = cudaMemcpy2DAsync(Pj, sizeof(float) * w, s.tmpA,
                               sizeof(float) * r, sizeof(float) * r, m,
                               cudaMemcpyDeviceToDevice, st);
       if (err != cudaSuccess) return (int)err;
     } else {
-      // Pass 1: shifted Gram (condition capped), t1 = X1^T Gs.
-      launch_chain(r, st, s.G, s.X1, s.T1, r, s.resid + j, s.chain, it1,
-                   1e-3f, 0, 0, mid(it1), 0, fuse_xw, RESID_RAW);
+      // Pass 1: shifted Gram (condition capped), t1 = X1^T Gs in full.
+      launch_chain(r, st, s.G, s.X1, s.T1, r, s.resid + j, s.chain,
+                   kRobustIt1, 1e-3f, 0, mid(kRobustIt1), 0, 1, 0, RESID_RAW);
       gemm(st, false, bg, m, r, r, Pj, w, s.X1, r, s.tmpA, r, false, s.part);
       gemm(st, true, bg, r, r, m, s.tmpA, r, s.tmpA, r, s.G, r, false,
            s.part);
-      // Pass 2 on the fresh Gram of Q1.
-      launch_chain(r, st, s.G, s.X2, s.T2, r, s.resid + j, s.chain, it2,
-                   0.f, 0, 0, mid(it2), 0, fuse_xw, RESID_RAW);
+      // Pass 2 on the fresh Gram of Q1, t2 = X2^T M1 in full.
+      launch_chain(r, st, s.G, s.X2, s.T2, r, s.resid + j, s.chain,
+                   kRobustIt2, 0.f, 0, mid(kRobustIt2), 0, 1, 0, RESID_RAW);
       gemm(st, false, bg, m, r, r, s.tmpA, r, s.X2, r, s.tmpB, r, false,
            s.part);
       gemm(st, true, bg, r, r, m, s.tmpB, r, s.tmpB, r, s.G, r, false,
            s.part);
       // Pass 3: identity-seeded refine with the exact final residual.
-      launch_chain(r, st, s.G, s.X3, s.T3, r, s.resid + j, s.chain, it3,
-                   0.f, 1, 1, 0, 1, fuse_xw, RESID_SCALE);
+      launch_chain(r, st, s.G, s.X3, s.T3, r, s.resid + j, s.chain,
+                   kRobustIt3, 0.f, 1, 0, 1, 1, 0, RESID_SCALE);
       gemm(st, false, bg, m, r, r, s.tmpB, r, s.X3, r, Pj, w, false, s.part);
       launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w, s.chain);
     }

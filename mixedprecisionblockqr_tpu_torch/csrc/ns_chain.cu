@@ -14,16 +14,16 @@ extern "C" {
 long long mpbqr_ns_chain_scratch_floats(int r) { return 5LL * r * r; }
 
 // G (r x r, fp32, row-major) -> X (r x r), t = triu(X^T G') (r x r) and
-// resid = max|E| (one float).  All pointers are device pointers; the
+// resid = max|E| (one float; the exact final residual for `refine`
+// chains).  All pointers are device pointers; the
 // launch goes on `stream`.  Returns cudaGetLastError() after the launch,
 // or cudaErrorInvalidValue for an r the kernel does not take.
 int mpbqr_ns_chain(const float* G, float* X, float* t, float* resid,
                    float* scratch, int r, int iters, float shift, int refine,
-                   int final_exact, int mid_iters, int omega, int fuse_xw,
-                   void* stream) {
+                   int mid_iters, int omega, int fuse_xw, void* stream) {
   if (!mpbqr::launch_chain(r, (cudaStream_t)stream, G, X, t, r, resid,
-                           scratch, iters, shift, refine, final_exact,
-                           mid_iters, omega, fuse_xw, mpbqr::RESID_RAW))
+                           scratch, iters, shift, refine, mid_iters, omega,
+                           fuse_xw, 1, mpbqr::RESID_RAW))
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -243,8 +243,9 @@ __device__ void blk_axpy(float* Y, float om, const float* D) {
 }
 
 // The triangular NS chain on an SPD G (ns.py::_tri_ns): returns X in `X`
-// and the last correction E in `E` (one step behind, or the exact post-loop
-// residual I - X^T G X with `final_exact`).  Scratch: W, C, Tm (r x r each).
+// and the last correction E in `E` (one step behind, or, for `refine`
+// chains, the exact post-loop residual I - X^T G X).  `refine` seeds X = I
+// for Grams near I.  Scratch: W, C, Tm (r x r each).
 // The first `mid_iters` iterations run the bf16-split products.  With
 // fuse_xw, all but the final two iterations carry W = G X by the stacked
 // right-multiplication [X; W] <- [X; W](I + om C); the final two run the
@@ -252,8 +253,8 @@ __device__ void blk_axpy(float* Y, float om, const float* D) {
 template <int R>
 __device__ void blk_tri_ns(const float* G, float* X, float* W, float* E,
                            float* C, float* Tm, int iters, bool refine,
-                           bool final_exact, int mid_iters, bool omega,
-                           bool fuse_xw, ChainSmem<R>& sm) {
+                           int mid_iters, bool omega, bool fuse_xw,
+                           ChainSmem<R>& sm) {
   if (refine) {
     for (int e = threadIdx.x; e < R * R; e += kChainThreads) {
       X[e] = (e / R == e % R) ? 1.f : 0.f;
@@ -305,7 +306,7 @@ __device__ void blk_tri_ns(const float* G, float* X, float* W, float* E,
       blk_axpy<R>(X, om, Tm);
     }
   }
-  if (final_exact) {
+  if (refine) {
     blk_mm<R, MODE_F32>(W, G, false, X, sm);
     blk_mm<R, MODE_F32>(Tm, X, true, W, sm);
     blk_correction<R>(Tm, E, C);
@@ -315,14 +316,16 @@ __device__ void blk_tri_ns(const float* G, float* X, float* W, float* E,
 // One whole chain (ns.py::_ns_kernel) in one CTA of kChainThreads threads:
 //   G' = G + shift * ||G||_2-estimate * I   (when shift != 0)
 //   X, E = tri_ns(G')
-//   t = triu(X^T G')   written with leading dimension ldt
+//   t = X^T G'         written with leading dimension ldt, upper triangle
+//                      only with triu_t (the robust passes keep the full
+//                      product and truncate once, after combining them)
 //   *resid = max|E|, reported per resid_mode.
 // Scratch: 5 r x r floats (G', W, E, C, Tm).
 template <int R>
 __global__ void __launch_bounds__(kChainThreads)
 chain_kernel(const float* G, float* X, float* t, int ldt, float* resid,
-             float* scr, int iters, float shift, int refine, int final_exact,
-             int mid_iters, int omega, int fuse_xw, int resid_mode) {
+             float* scr, int iters, float shift, int refine, int mid_iters,
+             int omega, int fuse_xw, int triu_t, int resid_mode) {
   __shared__ ChainSmem<R> sm;
   float* Gs = scr;
   float* W = scr + R * R;
@@ -337,13 +340,13 @@ chain_kernel(const float* G, float* X, float* t, int ldt, float* resid,
     __syncthreads();
     Gp = Gs;
   }
-  blk_tri_ns<R>(Gp, X, W, E, C, Tm, iters, refine != 0, final_exact != 0,
-                mid_iters, omega != 0, fuse_xw != 0, sm);
+  blk_tri_ns<R>(Gp, X, W, E, C, Tm, iters, refine != 0, mid_iters,
+                omega != 0, fuse_xw != 0, sm);
   // X^{-1} = X^T G' at convergence: R recovered with no solve.
   blk_mm<R, MODE_F32>(Tm, X, true, Gp, sm);
   for (int e = threadIdx.x; e < R * R; e += kChainThreads) {
     const int i = e / R, j = e % R;
-    t[i * ldt + j] = j >= i ? Tm[e] : 0.f;
+    t[i * ldt + j] = (j >= i || !triu_t) ? Tm[e] : 0.f;
   }
   float m = 0.f;
   for (int e = threadIdx.x; e < R * R; e += kChainThreads)
@@ -361,12 +364,12 @@ chain_kernel(const float* G, float* X, float* t, int ldt, float* resid,
 static inline bool launch_chain(int r, cudaStream_t st, const float* G,
                                 float* X, float* t, int ldt, float* resid,
                                 float* scr, int iters, float shift, int refine,
-                                int final_exact, int mid_iters, int omega,
-                                int fuse_xw, int resid_mode) {
+                                int mid_iters, int omega, int fuse_xw,
+                                int triu_t, int resid_mode) {
 #define MPBQR_CHAIN(RR)                                                      \
   chain_kernel<RR><<<1, kChainThreads, 0, st>>>(                             \
-      G, X, t, ldt, resid, scr, iters, shift, refine, final_exact,           \
-      mid_iters, omega, fuse_xw, resid_mode)
+      G, X, t, ldt, resid, scr, iters, shift, refine, mid_iters, omega,      \
+      fuse_xw, triu_t, resid_mode)
   switch (r) {
     case 32: MPBQR_CHAIN(32); return true;
     case 64: MPBQR_CHAIN(64); return true;

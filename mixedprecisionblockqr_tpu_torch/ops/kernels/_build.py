@@ -60,12 +60,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_ns_chain_scratch_floats.argtypes = [ci]
     lib.mpbqr_ns_chain_scratch_floats.restype = ll
     lib.mpbqr_ns_chain.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, ci, ci,
-                                   ci, ci, ci, vp]
+                                   ci, ci, vp]
     lib.mpbqr_ns_chain.restype = ci
     lib.mpbqr_bgs_group_scratch_floats.argtypes = [ci, ci, ci]
     lib.mpbqr_bgs_group_scratch_floats.restype = ll
     lib.mpbqr_bgs_group.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp,
-                                    ci, ci, ci, ci, ci, ci, ci, ci, vp]
+                                    ci, ci, ci, vp]
     lib.mpbqr_bgs_group.restype = ci
     return lib
 

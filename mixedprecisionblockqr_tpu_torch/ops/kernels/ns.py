@@ -27,6 +27,12 @@ from mixedprecisionblockqr_tpu_torch.ops.policy import mm_bf16, mm_f32, mm_high
 LAUNCHES = {"ns_chain": 0, "bgs_group_fused": 0}
 #: Panel widths the CUDA kernels are instantiated for.
 KERNEL_WIDTHS = (32, 64, 128)
+#: Chain schedule inside a group (the same constants as csrc/bgs_group.cu):
+#: with ``chain_mid``, all but the final MID_FINAL iterations of a
+#: non-refine chain run bf16-split products; robust panels run three passes
+#: of ROBUST_ITERS iterations.
+MID_FINAL = 2
+ROBUST_ITERS = (14, 12, 4)
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -55,10 +61,10 @@ def _correction(E: torch.Tensor) -> torch.Tensor:
     return torch.triu(E, 1) + torch.diag_embed(torch.diagonal(E)) * 0.5
 
 
-def _tri_ns(G, iters, refine=False, final_exact=False, mid_iters=0,
-            omega=True, fuse_xw=True):
+def _tri_ns(G, iters, refine=False, mid_iters=0, omega=True, fuse_xw=True):
     """The chain on an SPD G; returns (X, E) with E the last correction
-    (one step behind), or the exact ``I - X^T G X`` with ``final_exact``.
+    (one step behind), or, for ``refine`` chains, the exact
+    ``I - X^T G X``.
     The first ``mid_iters`` iterations use the bf16-split products; with
     ``fuse_xw`` all but the final two iterations carry W = G X by the
     stacked right-multiplication."""
@@ -87,7 +93,7 @@ def _tri_ns(G, iters, refine=False, final_exact=False, mid_iters=0,
             E = eye - mm(X.T, W)
             C = _correction(E)
             X = X + om * mm(X, C)
-    if final_exact:
+    if refine:
         E = eye - mm_f32(X.T, mm_f32(G, X))
     return X, E
 
@@ -99,7 +105,7 @@ def ns_chain_plain(G, iters=10, shift=0.0, refine=False, chain_mid=False,
     if shift:
         eye = torch.eye(G.shape[0], dtype=torch.float32, device=G.device)
         G = G + (shift * _norm2_est(G)) * eye
-    X, E = _tri_ns(G, iters, refine=refine, final_exact=refine,
+    X, E = _tri_ns(G, iters, refine=refine,
                    mid_iters=max(0, iters - 2)
                    if chain_mid and not refine else 0,
                    omega=omega, fuse_xw=fuse_xw)
@@ -107,14 +113,13 @@ def ns_chain_plain(G, iters=10, shift=0.0, refine=False, chain_mid=False,
     return X, t, E.abs().max()
 
 
-def _tri_ns_panel(P, iters, robust, bf16_gram, chain_mid, mid_final,
-                  robust_iters):
+def _tri_ns_panel(P, iters, robust, bf16_gram, chain_mid):
     """One panel's factorization (``_tri_ns_panel``): (Qk, t, resid)."""
     tall = mm_bf16 if bf16_gram else mm_f32
     G = tall(P.T, P)
-    mid = (lambda it: max(0, it - mid_final)) if chain_mid else (lambda it: 0)
+    mid = (lambda it: max(0, it - MID_FINAL)) if chain_mid else (lambda it: 0)
     if robust:
-        i1, i2, i3 = robust_iters
+        i1, i2, i3 = ROBUST_ITERS
         eye = torch.eye(G.shape[0], dtype=torch.float32, device=G.device)
         Gs = G + (1e-3 * _norm2_est(G)) * eye
         X1, _ = _tri_ns(Gs, i1, mid_iters=mid(i1), omega=False)
@@ -125,7 +130,7 @@ def _tri_ns_panel(P, iters, robust, bf16_gram, chain_mid, mid_final,
         t2 = mm_f32(X2.T, M1)
         Q2 = tall(Q1, X2)
         M2 = tall(Q2.T, Q2)
-        X3, E = _tri_ns(M2, i3, refine=True, final_exact=True)
+        X3, E = _tri_ns(M2, i3, refine=True)
         t3 = mm_f32(X3.T, M2)
         Qk = tall(Q2, X3)
         t = torch.triu(mm_f32(t3, mm_f32(t2, t1)))
@@ -137,8 +142,7 @@ def _tri_ns_panel(P, iters, robust, bf16_gram, chain_mid, mid_final,
 
 
 def bgs_group_fused_plain(Pg, r, iters, robust, bf16_dots=True,
-                          bf16_gram=None, chain_mid=False, mid_final=2,
-                          robust_iters=(14, 12, 4)):
+                          bf16_gram=None, chain_mid=False):
     """Plain version of :func:`bgs_group_fused` (``_group_loop``
     transcription).  Works on a copy of ``Pg``."""
     if bf16_gram is None:
@@ -153,7 +157,6 @@ def bgs_group_fused_plain(Pg, r, iters, robust, bf16_dots=True,
         c0 = j * r
         Qk, t, resid = _tri_ns_panel(
             Q[:, c0:c0 + r], iters[j], robust[j], bf16_gram, chain_mid,
-            mid_final, robust_iters,
         )
         # Robust chains report the exact final residual (healthy up to
         # ~1e-2, so pre-scaled by 1e-2); plain chains the one-behind
@@ -228,8 +231,8 @@ def ns_chain(
     mid_iters = max(0, iters - 2) if chain_mid and not refine else 0
     code = lib.mpbqr_ns_chain(
         G.data_ptr(), X.data_ptr(), t.data_ptr(), resid.data_ptr(),
-        scratch.data_ptr(), r, iters, float(shift), int(refine), int(refine),
-        mid_iters, int(omega), int(fuse_xw), _stream(G),
+        scratch.data_ptr(), r, iters, float(shift), int(refine), mid_iters,
+        int(omega), int(fuse_xw), _stream(G),
     )
     check(code, "ns_chain")
     LAUNCHES["ns_chain"] += 1
@@ -244,8 +247,6 @@ def bgs_group_fused(
     bf16_dots: bool = True,
     bf16_gram=None,
     chain_mid: bool = False,
-    mid_final: int = 2,
-    robust_iters: Tuple[int, int, int] = (14, 12, 4),
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One whole BGS group: g sequential panel factorizations plus their
     in-group eager projections.
@@ -255,6 +256,8 @@ def bgs_group_fused(
     whether it runs the shifted three-pass chain.  ``bf16_dots`` rounds the
     projection operands to bf16, ``bf16_gram`` (default: ``bf16_dots``) the
     Gram and ``Q = P X`` operands; accumulation is fp32 throughout.
+    ``chain_mid`` runs all but the final ``MID_FINAL`` iterations of each
+    non-refine chain with bf16-split products.
     Returns ``(Qg (m, g*r), Rg (g*r, g*r) block-upper, worst residual)``.
     ``Pg`` is never modified: Qg is a new tensor.
     """
@@ -262,8 +265,7 @@ def bgs_group_fused(
         bf16_gram = bf16_dots
     if Pg.device.type == "cpu":
         return bgs_group_fused_plain(Pg, r, iters, robust, bf16_dots,
-                                     bf16_gram, chain_mid, mid_final,
-                                     robust_iters)
+                                     bf16_gram, chain_mid)
     _require_cuda_f32(Pg, "Pg")
     m, w = Pg.shape
     g = w // r
@@ -286,12 +288,10 @@ def bgs_group_fused(
                           dtype=torch.float32, device=Pg.device)
     it_arr = (ctypes.c_int * g)(*[int(i) for i in iters])
     rb_arr = (ctypes.c_int * g)(*[int(bool(b)) for b in robust])
-    i1, i2, i3 = robust_iters
     code = lib.mpbqr_bgs_group(
         Pg.data_ptr(), Q.data_ptr(), Rg.data_ptr(), worst.data_ptr(),
         scratch.data_ptr(), m, r, g, it_arr, rb_arr, int(bf16_dots),
-        int(bf16_gram), int(chain_mid), mid_final, i1, i2, i3, 1,
-        _stream(Pg),
+        int(bf16_gram), int(chain_mid), _stream(Pg),
     )
     check(code, "bgs_group_fused")
     LAUNCHES["bgs_group_fused"] += 1

@@ -7,7 +7,8 @@ reference's FP16 TensorCore path; the mixed-precision acceptance bound is
 ``2^-8 * m`` (bf16 has an 8-bit mantissa).
 
 Precision contract of every product (``Precision`` below):
-  * ``HIGHEST`` -- true fp32.  TF32 is switched off on every call.
+  * ``HIGHEST`` -- true fp32.  TF32 is switched off for every call and
+    the caller's setting restored after it.
   * ``DEFAULT`` with bf16 inputs -- operands rounded to bf16, exact
     products, fp32 accumulation.  On CUDA that is ``torch.mm(...,
     out_dtype=torch.float32)``; on the CPU (which refuses that form for
@@ -107,9 +108,15 @@ def policy_by_name(name: str) -> DTypePolicy:
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """True fp32 product (Precision.HIGHEST), TF32 off for this call."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.matmul(a.float(), b.float())
+    """True fp32 product (Precision.HIGHEST): TF32 is off for this call and
+    the caller's setting is restored afterwards."""
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        return torch.matmul(a.float(), b.float())
+    finally:
+        flags.allow_tf32 = prev
 
 
 def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

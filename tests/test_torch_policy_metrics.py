@@ -75,6 +75,20 @@ def test_high_precision_split_beats_bf16():
     assert err_high < 1e-3
 
 
+@pytest.mark.parametrize("caller_tf32", [False, True])
+def test_mm_f32_restores_callers_tf32_setting(caller_tf32):
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_tf32
+    flags.allow_tf32 = caller_tf32
+    try:
+        a = torch.ones((4, 4))
+        tpolicy.matmul(a, a)
+        tpolicy.mm_high(a, a)
+        assert flags.allow_tf32 is caller_tf32
+    finally:
+        flags.allow_tf32 = prev
+
+
 def _metric_inputs():
     rng = np.random.default_rng(3)
     A = rng.standard_normal((96, 64)).astype(np.float32)
