@@ -1,16 +1,17 @@
-"""Drive the PyTorch + CUDA port of the mixed-precision Block Gram-Schmidt QR
-on one NVIDIA GPU, end to end.
+"""Drive the PyTorch + CUDA port of the mixed-precision blocked QR on one
+NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line (any failure exits non-zero before the
 last line):
   1. device   -- the card's name and power limit (nvidia-smi), torch, CUDA;
-  2. build    -- build (or load) the kernel library from csrc/;
-  3. kernels  -- ns_chain and bgs_group_fused against their plain PyTorch
-                 versions on the card at the main path's shapes, with the
-                 stated tolerances, and both times (CUDA events, median of
-                 20 calls);
+  2. build    -- build (or load) the kernel library from csrc/ (one nvcc
+                 per source, in parallel);
+  3. kernels  -- ns_chain, bgs_group_fused, panel_qr_fused and
+                 sketch_qrcp_ranks against their plain PyTorch versions on
+                 the card at the main paths' shapes, with the stated
+                 tolerances, and both times (CUDA events, median of 20);
   4. main     -- block_qr(A, 128, POLICY_MIXED_FAST, mode='complete',
                  panel_method='auto', quality='fast', check='defer') on the
                  2048^2 benchmark input (numpy seed 0, uniform - 0.5):
@@ -18,9 +19,18 @@ last line):
                  gates, time and TFLOP/s;
   5. qr       -- qr(A, policy=POLICY_MIXED): the 'balanced' (bgs2) default;
   6. band     -- block_qr as in phase 4 at 4096^2: the per-panel ns_chain
-                 route.
-Then a line with every kernel's launches on the main path (phases 4-6, one
-call each), error and times, and as the last line
+                 route;
+  7. lstsq    -- the rank-revealing least-squares path: lstsq(J, -b) on a
+                 4096 x 2048 gauge-deficient SLAM Jacobian (64 dependent
+                 columns) reroutes to RQRCP, 16 panel_qr_fused and 16
+                 sketch_qrcp_ranks launches, checked against the float64
+                 np.linalg.lstsq oracle; pivoted_qr's contract; times of
+                 lstsq and of pivoted_qr_qtb's two tiers;
+  8. robust   -- block_qr(A, 128, POLICY_FP32, panel_method='householder')
+                 on the 2048^2 input: the robust Householder tier.
+Then a line with every kernel's launches on its main path (phases 4-6 for
+ns_chain and bgs_group_fused, phase 7 for panel_qr_fused and
+sketch_qrcp_ranks, one call each), error and times, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2 and
 prints no result.
 """
@@ -58,12 +68,18 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from mixedprecisionblockqr_tpu_torch import (
+        POLICY_FP32,
         POLICY_MIXED,
         POLICY_MIXED_FAST,
         block_qr,
+        lstsq,
         metrics,
+        numerical_rank,
+        pivoted_qr,
+        pivoted_qr_qtb,
         qr,
     )
+    from mixedprecisionblockqr_tpu_torch.ops import pivoted
     from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
         resolve_panel_config,
     )
@@ -74,9 +90,16 @@ def main() -> int:
         bgs_group_fused_plain,
         ns_chain,
         ns_chain_plain,
+        panel_qr_fused,
+        panel_qr_fused_plain,
         reset_launches,
     )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.sketch import (
+        sketch_qrcp_ranks,
+        sketch_qrcp_ranks_plain,
+    )
     from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
+    from mixedprecisionblockqr_tpu_torch.utils.datagen import slam_jacobian
     from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
     from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
 
@@ -179,6 +202,72 @@ def main() -> int:
                        "bf16 flags: ||dQ||/||Q||, ||dR||/||R|| <= 5e-3",
           "configs": grp_rows, "card": card})
 
+    # K3 at the RQRCP panels' shape (m = 4096, r = 128), on a uniform panel
+    # and on the same panel with its columns graded over three decades.
+    Pk = torch.rand((4096, 128), generator=gen, device=dev) - 0.5
+    panels = {"uniform": Pk,
+              "graded": Pk * torch.logspace(0, -3, 128, device=dev)}
+    k3_modes = {"robust": dict(robust=True),
+                "plain10": dict(iters=10),
+                "robust_mid": dict(robust=True, chain_mid=True)}
+    k3_rows, k3_err = {}, 0.0
+    for pname, Pm in panels.items():
+        for mname, kw in k3_modes.items():
+            Q, t, res = panel_qr_fused(Pm, **kw)
+            Qp, tp, resp = panel_qr_fused_plain(Pm, **kw)
+            torch.cuda.synchronize()
+            robust = kw.get("robust", False)
+
+            def canary(x):  # the drivers' scaling of the raw residual
+                return (0.01 * x if robust else x * x) < 1e-4
+
+            eq, lim_q = max_abs(Q, Qp), TOL_F32 * float(Qp.abs().max())
+            row = {"max_abs_Q": eq, "lim_Q": lim_q, "rel_t": rel_fro(t, tp),
+                   "resid": float(res), "resid_plain": float(resp)}
+            row["ok"] = (eq <= lim_q and row["rel_t"] <= TOL_F32
+                         and canary(row["resid"]) == canary(
+                             row["resid_plain"]))
+            row["ms"] = cuda_time_ms(lambda: panel_qr_fused(Pm, **kw))
+            row["plain_ms"] = cuda_time_ms(
+                lambda: panel_qr_fused_plain(Pm, **kw))
+            k3_rows[f"{pname}_{mname}"] = row
+            k3_err = max(k3_err, eq)
+            assert row["ok"], (pname, mname, row)
+    emit({"phase": "kernels", "kernel": "panel_qr_fused",
+          "shape": [4096, 128],
+          "tolerance": "max|dQ| <= 1e-4 * max|Q|, ||dt||/||t|| <= 1e-4; "
+                       "same canary class (0.01 resid < 1e-4 robust, "
+                       "resid^2 < 1e-4 plain)",
+          "modes": k3_rows, "card": card})
+
+    # K7 on seeded Gaussian sketches of d = 128 + 8 at the RQRCP panels'
+    # widths, and on one with a zero column and a duplicated column.
+    sketches = {f"w{w}": torch.randn((136, w), generator=gen, device=dev)
+                for w in (2048, 1920, 200)}
+    Sz = torch.randn((136, 2048), generator=gen, device=dev)
+    Sz[:, 3] = 0.0
+    Sz[:, 7] = Sz[:, 1000]
+    sketches["zero_dup"] = Sz
+    k7_rows, k7_err = {}, 0
+    for sname, S in sketches.items():
+        rk = sketch_qrcp_ranks(S, 128)
+        rp = sketch_qrcp_ranks_plain(S, 128)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(torch.argsort(rk, stable=True),
+                                torch.argsort(rp, stable=True)))
+        err = int((rk.long() - rp.long()).abs().max())
+        row = {"same_order": same, "max_abs_rank": err,
+               "ms": cuda_time_ms(lambda: sketch_qrcp_ranks(S, 128)),
+               "plain_ms": cuda_time_ms(
+                   lambda: sketch_qrcp_ranks_plain(S, 128))}
+        k7_rows[sname] = row
+        k7_err = max(k7_err, err)
+        assert same and err == 0, (sname, row)
+    emit({"phase": "kernels", "kernel": "sketch_qrcp_ranks", "d": 136,
+          "r": 128, "tolerance": "identical stable-argsort order (and "
+                                 "identical ranks)",
+          "sketches": k7_rows, "card": card})
+
     # 4-6. the main path: one call each, launch counts from these calls only
     a = np.random.default_rng(0).random((2048, 2048), dtype=np.float32) - 0.5
     A = torch.from_numpy(a).to(dev)
@@ -245,8 +334,92 @@ def main() -> int:
           "tflops": qr_flops(4096, 4096) / (ms6 * 1e-3) / 1e12,
           "card": card})
 
-    for k, n in main_launches.items():
-        assert n > 0, f"kernel {k} was not launched on the main path"
+    for k in ("ns_chain", "bgs_group_fused"):
+        assert main_launches[k] > 0, f"{k} was not launched on the main path"
+
+    # 7. the rank-revealing least-squares path at full size
+    Jn = slam_jacobian(4096, 2048, seed=0)
+    Cn = np.random.default_rng(1).standard_normal((64, 64)).astype(np.float32)
+    Jn[:, -64:] = Jn[:, :64] @ Cn
+    bn = np.random.default_rng(2).standard_normal(4096).astype(np.float32)
+    t0 = time.perf_counter()
+    x_o, _, rank_o, _ = np.linalg.lstsq(
+        Jn.astype(np.float64), -bn.astype(np.float64),
+        rcond=float(np.finfo(np.float32).eps) * 4096)
+    oracle_s = time.perf_counter() - t0
+    J = torch.from_numpy(Jn).to(dev)
+    b = torch.from_numpy(bn).to(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    x = lstsq(J, -b)
+    torch.cuda.synchronize()
+    c7 = dict(LAUNCHES)
+    assert c7["panel_qr_fused"] == 16 and c7["sketch_qrcp_ranks"] == 16, c7
+    # The same deterministic RQRCP call as inside lstsq (seed 0): its worst
+    # panel residual shows that the exact fallback did not fire.
+    R7, _, _, _, worst7 = pivoted._rqrcp_impl(J, -b[:, None], False, True,
+                                             128, 8, 0)
+    rank7 = numerical_rank(R7[:2048], m=4096)
+    J64 = torch.from_numpy(Jn).double()
+    x64 = x.double().cpu()
+    res_o = float(torch.linalg.norm(J64 @ torch.from_numpy(x_o)
+                                    + torch.from_numpy(bn).double()))
+    res_x = float(torch.linalg.norm(J64 @ x64 + torch.from_numpy(bn).double()))
+    x_err = float(torch.linalg.norm(x64 - torch.from_numpy(x_o))
+                  / torch.linalg.norm(torch.from_numpy(x_o)))
+    row7 = {"worst_resid": float(worst7), "rank": rank7,
+            "rank_oracle": int(rank_o), "resid": res_x,
+            "resid_oracle": res_o, "resid_rel": abs(res_x - res_o) / res_o,
+            "x_rel_err": x_err}
+    assert row7["worst_resid"] < 1e-4, row7
+    assert rank7 == int(rank_o) == 1984, row7
+    assert row7["resid_rel"] <= 1e-5 and x_err <= 1e-4, row7
+    # pivoted_qr's contract (tests/test_pivoted.py::_check_rqrcp)
+    Qp, Rp, pp = pivoted_qr(J, mode="reduced")
+    Qd, Rd = Qp.double(), Rp.double()
+    Jd = J.double()
+    rec = float(torch.linalg.norm(Jd[:, pp] - Qd @ Rd) / torch.linalg.norm(Jd))
+    orth = float((Qd.T @ Qd - torch.eye(2048, dtype=torch.float64,
+                                        device=dev)).abs().max())
+    dd = Rd.diagonal().abs()
+    runmax = torch.cummax(dd, 0).values[:-1]
+    decay = bool((dd[1:] <= 1.3 * runmax + 5e-6 * (dd[0] + 1e-30)).all())
+    perm_ok = bool(torch.equal(torch.sort(pp).values,
+                               torch.arange(2048, device=dev)))
+    row7.update({"pivoted_qr_reconstruction": rec,
+                 "pivoted_qr_orthogonality": orth, "diag_decay": decay,
+                 "perm_valid": perm_ok})
+    assert rec < 5e-6 and orth < 5e-6 and decay and perm_ok, row7
+    row7["ms"] = cuda_time_ms(lambda: lstsq(J, -b), warmup=1, iters=5)
+    row7["rqrcp_ms"] = cuda_time_ms(
+        lambda: pivoted_qr_qtb(J, -b, method="rqrcp"), warmup=1, iters=5)
+    row7["exact_ms"] = cuda_time_ms(
+        lambda: pivoted_qr_qtb(J, -b, method="exact"), warmup=1, iters=5)
+    emit({"phase": "lstsq", "call": "lstsq(J, -b) POLICY_FP32, J = "
+          "slam_jacobian(4096, 2048, seed=0) with 64 dependent columns",
+          "launches": c7, "oracle": "np.linalg.lstsq float64, rcond = "
+          "eps_f32 * 4096", "oracle_seconds": oracle_s, **row7,
+          "tolerance": "rank equal, residual 1e-5 relative, x 1e-4 "
+                       "relative; pivoted_qr reconstruction and "
+                       "orthogonality < 5e-6", "card": card})
+    for k in ("panel_qr_fused", "sketch_qrcp_ranks"):
+        assert c7[k] > 0, f"{k} was not launched on the lstsq path"
+
+    # 8. the robust Householder tier on the 2048^2 input
+    Q8, R8 = block_qr(A, 128, POLICY_FP32, panel_method="householder")
+    rep8 = metrics.evaluate(A, Q8, R8, POLICY_FP32.precision_bits)
+    assert rep8.all_ok and rep8.tight_ok, str(rep8)
+    ms8 = cuda_time_ms(
+        lambda: block_qr(A, 128, POLICY_FP32, panel_method="householder"),
+        warmup=1, iters=5)
+    emit({"phase": "robust", "call": "block_qr 2048^2 POLICY_FP32 "
+          "householder reduced", "backward": rep8.backward,
+          "orthogonality": rep8.orthogonality,
+          "lower_trapezoid": rep8.lower_trapezoid, "all_ok": rep8.all_ok,
+          "tight_ok": rep8.tight_ok, "ms": ms8,
+          "tflops": qr_flops(2048, 2048) / (ms8 * 1e-3) / 1e12,
+          "card": card})
+
     emit({"kernels": [
         {"name": "ns_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ns_chain.cu",
@@ -261,6 +434,18 @@ def main() -> int:
          "max_abs_err": grp_err,
          "ms": grp_rows["bgs1_robust=True"]["ms"],
          "plain_ms": grp_rows["bgs1_robust=True"]["plain_ms"]},
+        {"name": "panel_qr_fused", "route": "cuda",
+         "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_qr.cu",
+         "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:501",
+         "launches": c7["panel_qr_fused"], "max_abs_err": k3_err,
+         "ms": k3_rows["uniform_robust"]["ms"],
+         "plain_ms": k3_rows["uniform_robust"]["plain_ms"]},
+        {"name": "sketch_qrcp_ranks", "route": "cuda",
+         "source": "mixedprecisionblockqr_tpu_torch/csrc/sketch_qrcp.cu",
+         "replaces": "mixedprecisionblockqr_tpu/ops/pallas/sketch.py:88",
+         "launches": c7["sketch_qrcp_ranks"], "max_abs_err": k7_err,
+         "ms": k7_rows["w2048"]["ms"],
+         "plain_ms": k7_rows["w2048"]["plain_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

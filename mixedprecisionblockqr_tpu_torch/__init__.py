@@ -1,13 +1,18 @@
 """mixedprecisionblockqr_tpu_torch — the PyTorch + CUDA port of
 mixedprecisionblockqr_tpu for NVIDIA Hopper.
 
-This slice ports the main path: the Block Gram-Schmidt QR tiers ``bgs1``,
-``bgs2`` and ``bgs`` behind ``block_qr``/``qr``, with the two kernels that
-carry them (``ns_chain`` and ``bgs_group_fused``) written in CUDA C++ for
-``sm_90a`` under ``csrc/``.  The package imports torch and numpy, never jax.
+Ported so far: the Block Gram-Schmidt QR tiers ``bgs1``, ``bgs2`` and
+``bgs`` and the robust Householder tier behind ``block_qr``/``qr``/
+``block_qr_qtb``, and the rank-revealing least-squares path (``lstsq`` ->
+RQRCP pivoted QR -> Householder tier).  Their kernels are written in CUDA
+C++ for ``sm_90a`` under ``csrc/``: ``ns_chain`` (K1), ``bgs_group_fused``
+(K2), ``panel_qr_fused`` (K3) and ``sketch_qrcp_ranks`` (K7).  The package
+imports torch and numpy, never jax.
 
 Public API:
-    qr, block_qr
+    qr, block_qr, block_qr_qtb, householder_qr
+    pivoted_qr, pivoted_qr_qtb, numerical_rank
+    lstsq, lstsq_pivoted, back_substitution, gauss_newton_step
     DTypePolicy, POLICY_FP32, POLICY_MIXED, POLICY_MIXED_FAST, POLICY_BF16,
     POLICY_BF16_FAST, POLICY_FP64, policy_by_name
     metrics: backward_error, orthogonality_error, lower_trapezoid_error,
@@ -15,8 +20,24 @@ Public API:
     checked_qr, NonFiniteError
 """
 
+from mixedprecisionblockqr_tpu_torch.models.lstsq import (
+    back_substitution,
+    lstsq,
+    lstsq_pivoted,
+)
+from mixedprecisionblockqr_tpu_torch.models.slam import gauss_newton_step
 from mixedprecisionblockqr_tpu_torch.ops import metrics
-from mixedprecisionblockqr_tpu_torch.ops.blockqr import block_qr, qr
+from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
+    block_qr,
+    block_qr_qtb,
+    qr,
+)
+from mixedprecisionblockqr_tpu_torch.ops.householder import householder_qr
+from mixedprecisionblockqr_tpu_torch.ops.pivoted import (
+    numerical_rank,
+    pivoted_qr,
+    pivoted_qr_qtb,
+)
 from mixedprecisionblockqr_tpu_torch.ops.policy import (
     DTypePolicy,
     POLICY_BF16,
@@ -44,7 +65,16 @@ __all__ = [
     "POLICY_FP64",
     "policy_by_name",
     "block_qr",
+    "block_qr_qtb",
     "qr",
+    "householder_qr",
+    "pivoted_qr",
+    "pivoted_qr_qtb",
+    "numerical_rank",
+    "lstsq",
+    "lstsq_pivoted",
+    "back_substitution",
+    "gauss_newton_step",
     "metrics",
     "checked_qr",
     "NonFiniteError",

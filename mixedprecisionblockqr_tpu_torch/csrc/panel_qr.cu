@@ -1,0 +1,108 @@
+// K3: one whole panel factorization -- the fp32 Gram, the triangular NS
+// chain(s), Q = P X and the R block t -- with the shifted three-pass chain
+// when `robust`.
+//
+// Replaces mixedprecisionblockqr_tpu/ops/pallas/ns.py::panel_qr_fused
+// (_panel_qr_fused_jit -> pl.pallas_call of _panel_qr_kernel).
+//
+// The TPU kernel holds the whole m x r panel and its intermediates in VMEM;
+// at the RQRCP panels' 4096 x 128 the panel alone is 2 MB, far beyond one
+// SM's 227 KB.  So this is one C entry point that issues a fixed kernel
+// sequence on the caller's stream, built from the pieces K2 uses
+// (panel.cuh): the split-K Gram over 256-row slices with its deterministic
+// second pass, the one-CTA device chain of ns_chain.cuh, the tall Q = P X
+// products into scratch panels (L2-resident at these sizes), and the
+// triangular combine of the robust R block.
+// What bounds it: the r x r chains are latency-bound on one SM (26 + 4
+// sequential iterations in robust mode); the tall products read the m x r
+// panel once each and are memory-bound.  Spreading the chain over a
+// cluster is the same later work as for K1.
+//
+// Residual convention (unlike K2, which squares or scales inside): resid
+// is the raw max|E| of the last chain -- one step behind in plain mode,
+// the exact final residual of the refine pass in robust mode.
+#include "panel.cuh"
+
+namespace mpbqr {
+
+struct PanelScratch {
+  float *chain, *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *part;
+};
+
+static long long panel_scratch_floats(int m, int r, PanelScratch* s,
+                                      float* base) {
+  const long long rr = (long long)r * r, mr = (long long)m * r;
+  long long off = 0;
+  auto take = [&](float** p, long long n) {
+    if (s) *p = base + off;
+    off += n;
+  };
+  PanelScratch dummy;
+  PanelScratch* d = s ? s : &dummy;
+  take(&d->chain, 5 * rr);
+  take(&d->G, rr);
+  take(&d->X1, rr);
+  take(&d->X2, rr);
+  take(&d->X3, rr);
+  take(&d->T1, rr);
+  take(&d->T2, rr);
+  take(&d->T3, rr);
+  take(&d->tmpA, mr);
+  take(&d->tmpB, mr);
+  take(&d->part, split_count(m) * rr);
+  return off;
+}
+
+}  // namespace mpbqr
+
+extern "C" {
+
+// Floats of global scratch that mpbqr_panel_qr needs for an m x r panel.
+long long mpbqr_panel_qr_scratch_floats(int m, int r) {
+  return mpbqr::panel_scratch_floats(m, r, nullptr, nullptr);
+}
+
+// P (m x r, fp32, row-major, read only) -> Q (m x r), t (r x r, upper) and
+// *resid (one float), all device pointers; the launches go on `stream`.
+// Plain mode runs `iters` iterations; robust mode the fixed three-pass
+// schedule.  chain_mid runs all but the final kMidFinal iterations of each
+// non-refine chain with bf16-split products.  Returns the first CUDA error
+// met, or cudaErrorInvalidValue for an r the chain kernel does not take.
+int mpbqr_panel_qr(const float* P, float* Q, float* t, float* resid,
+                   float* scratch, int m, int r, int iters, int robust,
+                   int chain_mid, void* stream) {
+  using namespace mpbqr;
+  if (r != 32 && r != 64 && r != 128) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  PanelScratch s;
+  panel_scratch_floats(m, r, &s, scratch);
+  auto mid = [&](int it) {
+    return chain_mid ? std::max(0, it - kMidFinal) : 0;
+  };
+  gemm(st, true, false, r, r, m, P, r, P, r, s.G, r, false, s.part);
+  if (!robust) {
+    launch_chain(r, st, s.G, s.X1, t, r, resid, s.chain, iters, 0.f, 0,
+                 mid(iters), 1, 1, 1, RESID_RAW);
+    gemm(st, false, false, m, r, r, P, r, s.X1, r, Q, r, false, s.part);
+    return (int)cudaGetLastError();
+  }
+  // Pass 1: shifted Gram (condition capped), t1 = X1^T Gs in full.
+  launch_chain(r, st, s.G, s.X1, s.T1, r, resid, s.chain, kRobustIt1, 1e-3f,
+               0, mid(kRobustIt1), 0, 1, 0, RESID_RAW);
+  gemm(st, false, false, m, r, r, P, r, s.X1, r, s.tmpA, r, false, s.part);
+  gemm(st, true, false, r, r, m, s.tmpA, r, s.tmpA, r, s.G, r, false, s.part);
+  // Pass 2 on the fresh Gram of Q1, t2 = X2^T M1 in full.
+  launch_chain(r, st, s.G, s.X2, s.T2, r, resid, s.chain, kRobustIt2, 0.f, 0,
+               mid(kRobustIt2), 0, 1, 0, RESID_RAW);
+  gemm(st, false, false, m, r, r, s.tmpA, r, s.X2, r, s.tmpB, r, false,
+       s.part);
+  gemm(st, true, false, r, r, m, s.tmpB, r, s.tmpB, r, s.G, r, false, s.part);
+  // Pass 3: identity-seeded refine with the exact final residual.
+  launch_chain(r, st, s.G, s.X3, s.T3, r, resid, s.chain, kRobustIt3, 0.f, 1,
+               0, 1, 1, 0, RESID_RAW);
+  gemm(st, false, false, m, r, r, s.tmpB, r, s.X3, r, Q, r, false, s.part);
+  launch_combine(r, st, s.T1, s.T2, s.T3, t, r, s.chain);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

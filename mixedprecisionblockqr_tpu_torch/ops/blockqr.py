@@ -1,18 +1,24 @@
-"""Block Gram-Schmidt QR: the library's main path (port of the BGS slice of
-``mixedprecisionblockqr_tpu/ops/blockqr.py``).
+"""Blocked QR drivers: the Block Gram-Schmidt main path and the robust
+Householder tier (port of ``mixedprecisionblockqr_tpu/ops/blockqr.py``).
 
-``block_qr``/``qr`` dispatch through ``resolve_panel_config`` exactly as the
-JAX package does.  This package runs the right-looking Block Gram-Schmidt
-tiers ``bgs1`` (single pass, bf16 projections), ``bgs2`` (BCGS2 re-projection
-at emulated HIGH precision) and ``bgs`` (re-projection at fp32); every other
-tier the dispatch can name raises ``NotImplementedError`` and names the
-ROADMAP item that ports it.  A CUDA tensor takes the dispatch branch of the
-accelerator; a CPU tensor with ``panel_method='auto'`` resolves to
-``'householder'`` as in the JAX package, which is not ported yet.
+``block_qr``/``qr``/``block_qr_qtb`` dispatch through
+``resolve_panel_config`` exactly as the JAX package does.  This package
+runs the right-looking Block Gram-Schmidt tiers ``bgs1`` (single pass, bf16
+projections), ``bgs2`` (BCGS2 re-projection at emulated HIGH precision)
+and ``bgs`` (re-projection at fp32), and the blocked Householder tier
+``householder`` (``_block_qr_traced``: compact-WY panels, exact for any
+input including rank-deficient ones).  A CUDA tensor takes the dispatch
+branch of the accelerator; a CPU tensor with ``panel_method='auto'``
+resolves to ``'householder'``, as in the JAX package.  ``check='sync'``
+retries a poisoned factorization through ``'householder'``.  The scan and
+CholeskyQR/polar tiers raise ``NotImplementedError`` and name the ROADMAP
+item that ports them.
 
-Each group of panels runs through ``bgs_group_fused`` (kernel K2) when the
-group buffer passes the same size gate as the JAX package; otherwise each
-panel runs ``ns_chain`` (kernel K1) between plain products.
+Each BGS group of panels runs through ``bgs_group_fused`` (kernel K2) when
+the group buffer passes the same size gate as the JAX package; otherwise
+each panel runs ``ns_chain`` (kernel K1) between plain products.  The
+Householder tier's column loop is plain tensor code, as the JAX package's
+``panel_factor`` is plain XLA code.
 """
 
 from __future__ import annotations
@@ -21,6 +27,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from mixedprecisionblockqr_tpu_torch.ops.householder import (
+    householder_qr,
+    panel_factor,
+)
 from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
     bgs_group_fused,
     ns_chain,
@@ -38,13 +48,18 @@ from mixedprecisionblockqr_tpu_torch.ops.policy import (
     mm_f32,
     trailing_matmul,
 )
+from mixedprecisionblockqr_tpu_torch.ops.wy import (
+    apply_block_reflector_left_t,
+    apply_block_reflector_right,
+)
 from mixedprecisionblockqr_tpu_torch.utils.checks import NonFiniteError
 
 DEFAULT_BLOCK_SIZE = 128
 DEFAULT_GROUP_PANELS = 4
 
 _NS_TIERS = ("bgs", "bgs1", "bgs2", "polar")
-_PORTED_TIERS = ("bgs", "bgs1", "bgs2")
+_BGS_TIERS = ("bgs", "bgs1", "bgs2")
+_PORTED_TIERS = _BGS_TIERS + ("householder",)
 QUALITY_LEVELS = ("fast", "balanced", "high", "robust")
 _QUALITY_BGS = {"fast": "bgs1", "balanced": "bgs2", "high": "bgs"}
 
@@ -56,9 +71,8 @@ GROUP_KERNEL_MAX_BYTES = 10 * 2**20
 GROUP_KERNEL_MAX_M = 5120
 
 _ROADMAP_ITEM = {
-    "householder": "Queue 1 'Robust tier' (householder.py, wy.py)",
-    "scan": "Queue 1 'Scan tier' (_block_qr_bgs_scan)",
-    "cholqr": "Queue 1 'CholeskyQR/polar tiers'",
+    "scan": "Queue 1 item 7, 'Scan tier' (_block_qr_bgs_scan)",
+    "cholqr": "Queue 1 item 8, 'CholeskyQR/polar tiers'",
 }
 
 
@@ -129,7 +143,7 @@ def resolve_panel_config(
     else:
         check_policy_method(policy, panel_method)
 
-    if panel_method in _PORTED_TIERS and (
+    if panel_method in _BGS_TIERS and (
         n % r != 0
         or n < 2 * block_size
         or (mode == "complete" and m != n)
@@ -140,7 +154,7 @@ def resolve_panel_config(
     if loop_mode == "scan" and (
         n % r != 0
         or not (panel_method.startswith("cholqr")
-                or panel_method in _PORTED_TIERS)
+                or panel_method in _BGS_TIERS)
         or n <= block_size
     ):
         loop_mode = "unroll"
@@ -155,12 +169,7 @@ def _group_kernel_fits(m0: int, r: int, group_panels: int) -> bool:
 
 
 def _unported(panel_method: str, loop_mode: str) -> NotImplementedError:
-    if loop_mode == "scan":
-        item = _ROADMAP_ITEM["scan"]
-    elif panel_method == "householder":
-        item = _ROADMAP_ITEM["householder"]
-    else:
-        item = _ROADMAP_ITEM["cholqr"]
+    item = _ROADMAP_ITEM["scan" if loop_mode == "scan" else "cholqr"]
     return NotImplementedError(
         f"panel_method={panel_method!r} loop_mode={loop_mode!r} is not "
         f"ported to mixedprecisionblockqr_tpu_torch yet (ROADMAP {item}); "
@@ -168,16 +177,32 @@ def _unported(panel_method: str, loop_mode: str) -> NotImplementedError:
     )
 
 
-def _poison_if_unconverged(worst_resid, R_full, Q, tol: float = 1e-4):
-    """Write a NaN canary into R[0, 0] (and Q[0, 0]) when the worst
-    normalized NS residual is not below ``tol`` -- or is NaN.  Stays on
-    the device: no host synchronization."""
+def _sync_retry_method(panel_method, loop_mode, policy, mode, m, n):
+    """The robust retry target of ``check='sync'``, or None when the
+    primary method already is the most robust one for its loop mode.
+    Unrolled: 'householder' (exact for any input, rank-deficient ones
+    included, by the zero-column skip).  Scan: the all-robust scan-BGS
+    tier 'bgs', or 'cholqr2s' where BGS's contract does not hold
+    (complete Q with m > n, fp64)."""
+    if loop_mode == "scan":
+        bgs_ok = (mode != "complete" or m == n) and (
+            policy.panel != torch.float64)
+        retry = "bgs" if bgs_ok else "cholqr2s"
+    else:
+        retry = "householder"
+    return None if retry == panel_method else retry
+
+
+def _poison_if_unconverged(worst_resid, R_full, Q, B, tol: float = 1e-4):
+    """Write a NaN canary into R[0, 0] (and Q[0, 0], B[0, 0]) when the
+    worst normalized NS residual is not below ``tol`` -- or is NaN.  Stays
+    on the device: no host synchronization."""
     bad = torch.where(worst_resid < tol, worst_resid.new_zeros(()),
                       worst_resid.new_full((), float("nan")))
-    R_full[0, 0] += bad.to(R_full.dtype)
-    if Q is not None:
-        Q[0, 0] += bad.to(Q.dtype)
-    return R_full, Q
+    for X in (R_full, Q, B):
+        if X is not None:
+            X[0, 0] += bad.to(X.dtype)
+    return R_full, Q, B
 
 
 def _rescrub_panel(Qpre, qk, t):
@@ -200,13 +225,14 @@ def _block_qr_bgs(
     block_size: int,
     policy: DTypePolicy,
     want_q: bool,
+    B: Optional[torch.Tensor] = None,
     group_panels: int = 4,
     reorth: bool = True,
     ns_impl: str = "group",
     mid_tier: bool = False,
     chain_mid: bool = False,
 ):
-    """Right-looking Block Gram-Schmidt QR; returns ``(R_full, Q)``.
+    """Right-looking Block Gram-Schmidt QR; returns ``(R_full, Q, QtB)``.
 
     Panels keep full height, Q materializes by concatenation, R rows are
     written directly, and the trailing projection runs once per group.
@@ -217,8 +243,9 @@ def _block_qr_bgs(
     group against all previous Q (BCGS2) at emulated HIGH (``mid_tier``)
     or fp32.  The last ``n_robust`` panels run the shifted three-pass
     chain; chain budgets follow the JAX package's calibration (aspect
-    budget, +6 on the head panel, +4 on the last quarter).  ``A`` is not
-    modified.
+    budget, +6 on the head panel, +4 on the last quarter).  With ``B``
+    (m x k), ``QtB = Q^T B`` is formed panel by panel and Q need not be
+    kept.  ``A`` is not modified.
     """
     if ns_impl not in ("group", "panel"):
         raise ValueError(f"ns_impl must be 'group' or 'panel', got {ns_impl!r}")
@@ -253,6 +280,7 @@ def _block_qr_bgs(
     )
     R = torch.zeros((n, n), dtype=torch.float32, device=dev)
     qcols = []
+    qtb = []
     q_dtype = policy.accum if reorth else (policy.q_store or policy.accum)
     cast_early = (not reorth and q_dtype != policy.accum
                   and policy.trailing == q_dtype)
@@ -299,6 +327,8 @@ def _block_qr_bgs(
                     Qg = torch.cat([Qg[:, :k0], q2], dim=1) if k0 else q2
             if cast_early:
                 Qg = Qg.to(q_dtype)
+            if B is not None:
+                qtb.append(mm_t(Qg.T, B))
             if Qacc is not None:
                 Qacc[:, lam_g:g_end] = Qg.to(q_dtype)
             qcols.append(Qg)
@@ -337,6 +367,8 @@ def _block_qr_bgs(
                 R[lam:lam + r, lam + r:g_end] = G1
             if cast_early:
                 Qk = Qk.to(q_dtype)
+            if B is not None:
+                qtb.append(mm_t(Qk.T, B))
             if Qacc is not None:
                 Qacc[:, lam:lam + r] = Qk.to(q_dtype)
             qcols.append(Qk)
@@ -353,7 +385,75 @@ def _block_qr_bgs(
         Q = Qacc
     else:
         Q = torch.cat(qcols, dim=1).to(q_dtype) if want_q else None
-    return _poison_if_unconverged(worst, R_full, Q)
+    QtB = torch.cat(qtb, dim=0) if B is not None else None
+    return _poison_if_unconverged(worst, R_full, Q, QtB)
+
+
+def _block_qr_traced(
+    A: torch.Tensor,
+    block_size: int,
+    policy: DTypePolicy,
+    want_q: bool,
+    B: Optional[torch.Tensor] = None,
+    panel_method: str = "householder",
+):
+    """The blocked Householder tier (the ``'householder'`` branch of the
+    JAX package's ``_block_qr_traced``): returns ``(R_full (m x n), Q (m x
+    m) or None, QtB or None)``.
+
+    Each r-wide panel (the last may be narrower) is factored by the
+    reflector loop of ``panel_factor``; the trailing columns, ``B`` and Q
+    are updated with its compact-WY block reflector under the policy.
+    Non-finite panel output is funneled into the NaN canary as
+    ``sum(Rp * 0) + sum(T * 0)`` (0 for finite values, NaN otherwise), so a
+    mid-matrix breakdown still reaches R[0, 0].  The CholeskyQR branches of
+    the JAX function are not ported.  ``A`` and ``B`` are not modified.
+    """
+    if panel_method != "householder":
+        raise _unported(panel_method, "unroll")
+    m, n = A.shape
+    r = min(block_size, n)
+    dev = A.device
+    A = A.to(policy.panel, copy=True)
+    q_dtype = policy.q_store or policy.accum
+    Q = torch.eye(m, dtype=q_dtype, device=dev) if want_q else None
+    if B is not None:
+        B = B.clone()
+    worst = torch.zeros((), dtype=torch.float32, device=dev)
+    lam = 0
+    while lam < n:
+        w = min(r, n - lam)
+        V, T, Rp = panel_factor(A[lam:, lam:lam + w])
+        A[lam:, lam:lam + w] = Rp
+        worst = torch.maximum(worst, (Rp * 0).sum() + (T * 0).sum())
+        if lam + w < n:
+            A[lam:, lam + w:] = apply_block_reflector_left_t(
+                A[lam:, lam + w:], V, T, policy).to(A.dtype)
+        if B is not None:
+            B[lam:] = apply_block_reflector_left_t(
+                B[lam:], V, T, policy).to(B.dtype)
+        if want_q:
+            Q[:, lam:] = apply_block_reflector_right(
+                Q[:, lam:], V, T, policy).to(q_dtype)
+        lam += w
+    R_full = torch.triu(A.to(policy.accum))
+    return _poison_if_unconverged(worst, R_full, Q, B)
+
+
+def _driver(A, block_size, policy, want_q, B, panel_method, loop_mode,
+            group_panels=DEFAULT_GROUP_PANELS):
+    """Run one resolved tier: ``(R_full, Q, QtB)`` (the JAX package's
+    ``_jitted_driver``)."""
+    if loop_mode != "unroll":
+        raise _unported(panel_method, loop_mode)
+    if panel_method in _BGS_TIERS:
+        return _block_qr_bgs(
+            A, block_size, policy, want_q, B, group_panels=group_panels,
+            reorth=panel_method in ("bgs", "bgs2"),
+            mid_tier=panel_method == "bgs2",
+            chain_mid=panel_method == "bgs1",
+        )
+    return _block_qr_traced(A, block_size, policy, want_q, B, panel_method)
 
 
 def block_qr(
@@ -374,9 +474,9 @@ def block_qr(
     with ``quality='fast'`` (the default rung under mixed policies) is the
     main path: ``bgs1`` with groups of 8 panels.  ``check='defer'`` leaves
     a breakdown as a NaN canary in R[0, 0] / Q[0, 0]; ``check='sync'``
-    fetches the canary and raises ``NonFiniteError`` (the robust retry tier
-    is not ported yet).  Returns ``(Q, R)`` for 'reduced'/'complete' and R
-    for 'r'.
+    fetches the canary and reruns the factorization through the robust
+    tier (``_sync_retry_method``), raising ``NonFiniteError`` if that
+    fails too.  Returns ``(Q, R)`` for 'reduced'/'complete' and R for 'r'.
     """
     A = torch.as_tensor(A, device=device)
     if A.dtype not in (torch.float32, torch.float64, torch.bfloat16):
@@ -393,25 +493,81 @@ def block_qr(
         m, n, block_size, policy, panel_method, loop_mode, group_panels,
         mode=mode, on_gpu=A.is_cuda, quality=quality,
     )
-    if panel_method not in _PORTED_TIERS or loop_mode != "unroll":
-        raise _unported(panel_method, loop_mode)
-    R_full, Q = _block_qr_bgs(
-        A, block_size, policy, want_q, group_panels=group_panels,
-        reorth=panel_method in ("bgs", "bgs2"),
-        mid_tier=panel_method == "bgs2",
-        chain_mid=panel_method == "bgs1",
-    )
+    R_full, Q, _ = _driver(A, block_size, policy, want_q, None,
+                           panel_method, loop_mode, group_panels)
     if check == "sync" and not bool(torch.isfinite(R_full[0, 0])):
-        raise NonFiniteError(
-            f"block_qr: the {panel_method!r} factorization did not converge "
-            "(NaN canary in R[0, 0]); the robust retry tier ('householder') "
-            f"is not ported yet (ROADMAP {_ROADMAP_ITEM['householder']})"
-        )
+        retry_pm = _sync_retry_method(panel_method, loop_mode, policy, mode,
+                                      m, n)
+        if retry_pm is None:
+            raise NonFiniteError(
+                f"block_qr: non-finite factorization via {panel_method!r} "
+                "- the input likely contains NaN/Inf"
+            )
+        R_full, Q, _ = _driver(A, block_size, policy, want_q, None,
+                               retry_pm, loop_mode)
+        if not bool(torch.isfinite(R_full[0, 0])):
+            raise NonFiniteError(
+                f"block_qr: non-finite factorization even via {retry_pm!r} "
+                "- the input contains NaN/Inf, or is numerically "
+                "rank-deficient (use panel_method='householder' with "
+                "loop_mode='unroll', or pivoted_qr/lstsq for rank-revealing "
+                "handling)"
+            )
+        if Q is not None and panel_method in ("bgs", "bgs2"):
+            # The reorth tiers return an fp32 Q: the retry keeps that dtype.
+            Q = Q.to(policy.accum)
     if mode == "r":
         return R_full[:n, :]
     if mode == "reduced":
         return Q[:, :n], R_full[:n, :]
     return Q, R_full
+
+
+def block_qr_qtb(
+    A,
+    B,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    policy: DTypePolicy = POLICY_FP32,
+    panel_method: str = "householder",
+    quality: Optional[str] = None,
+    check: str = "defer",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Factor A and return ``(R (n x n), Q^T B)`` without materializing Q:
+    the least-squares path.  ``B`` (m,) or (m, k) rides through the same
+    panel updates.  ``check`` as in ``block_qr`` ('sync' retries a
+    poisoned factorization through 'householder')."""
+    A = torch.as_tensor(A)
+    B = torch.as_tensor(B, device=A.device)
+    squeeze = B.dim() == 1
+    if squeeze:
+        B = B[:, None]
+    if check not in ("defer", "sync", "off"):
+        raise ValueError(f"check must be 'defer'|'sync'|'off', got {check!r}")
+    m, n = A.shape
+    panel_method, _, group_panels = resolve_panel_config(
+        m, n, block_size, policy, panel_method, "unroll",
+        DEFAULT_GROUP_PANELS, mode="qtb", on_gpu=A.is_cuda, quality=quality,
+    )
+    Bp = B.to(policy.panel)
+    R_full, _, QtB = _driver(A, block_size, policy, False, Bp, panel_method,
+                             "unroll", group_panels)
+    if check == "sync" and not bool(torch.isfinite(R_full[0, 0])):
+        if panel_method == "householder":
+            raise NonFiniteError(
+                "block_qr_qtb: non-finite factorization via 'householder' "
+                "- the input likely contains NaN/Inf"
+            )
+        R_full, _, QtB = _driver(A, block_size, policy, False, Bp,
+                                 "householder", "unroll")
+        if not bool(torch.isfinite(R_full[0, 0])):
+            raise NonFiniteError(
+                "block_qr_qtb: non-finite factorization even via "
+                "'householder' - the input likely contains NaN/Inf"
+            )
+    QtB = QtB.to(policy.accum)
+    if squeeze:
+        QtB = QtB[:, 0]
+    return R_full[:n, :], QtB
 
 
 def qr(
@@ -426,14 +582,16 @@ def qr(
     check: str = "defer",
     device=None,
 ):
-    """Main entry.  Under mixed/bf16 policies ``quality=None`` means
-    'balanced' (``bgs2``), as in the JAX package; ``block_qr`` keeps 'fast'.
-    Narrow (n <= 8) and wide (m < n) problems take the unblocked
-    Householder path there, which is not ported yet."""
+    """Main entry.  Narrow (n <= 8) and wide (m < n) problems take the
+    unblocked Householder path (Q (m, k) / (m, m), R (k, n) / (m, n) with
+    k = min(m, n)); the rest goes to ``block_qr``.  Under mixed/bf16
+    policies ``quality=None`` means 'balanced' (``bgs2``), as in the JAX
+    package; ``block_qr`` keeps 'fast'."""
     A = torch.as_tensor(A, device=device)
     m, n = A.shape
     if n <= 8 or m < n:
-        raise _unported("householder", "unroll")
+        return householder_qr(A.to(policy.panel), mode=mode,
+                              dtype=policy.panel)
     if (
         quality is None
         and panel_method == "auto"

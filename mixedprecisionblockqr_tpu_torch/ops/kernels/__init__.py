@@ -6,6 +6,12 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (  # noqa: F401
     bgs_group_fused_plain,
     ns_chain,
     ns_chain_plain,
+    panel_qr_fused,
+    panel_qr_fused_plain,
     reset_launches,
     tri_cholqr_robust_fused,
+)
+from mixedprecisionblockqr_tpu_torch.ops.kernels.sketch import (  # noqa: F401
+    sketch_qrcp_ranks,
+    sketch_qrcp_ranks_plain,
 )

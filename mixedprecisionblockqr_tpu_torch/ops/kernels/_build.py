@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (plain C interface, ctypes).
 
-The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into
-one shared library at first use, into ``_build/<hash>/`` inside the package
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` at
+first use, one ``nvcc`` process per source, all started together, and
+linked into one shared library in ``_build/<hash>/`` inside the package
 (listed in ``.gitignore``).  The directory name is a hash of the sources and
 the compile command, so an edited source builds anew and an unchanged one
 loads the existing library.  Nothing is built at import time.
@@ -22,11 +23,11 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("ns_chain.cu", "bgs_group.cu")
-HEADERS = ("ns_chain.cuh",)
+SOURCES = ("ns_chain.cu", "bgs_group.cu", "panel_qr.cu", "sketch_qrcp.cu")
+HEADERS = ("ns_chain.cuh", "panel.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lib: Optional[ctypes.CDLL] = None
@@ -67,7 +68,28 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_bgs_group.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp,
                                     ci, ci, ci, vp]
     lib.mpbqr_bgs_group.restype = ci
+    lib.mpbqr_panel_qr_scratch_floats.argtypes = [ci, ci]
+    lib.mpbqr_panel_qr_scratch_floats.restype = ll
+    lib.mpbqr_panel_qr.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.mpbqr_panel_qr.restype = ci
+    lib.mpbqr_sketch_qrcp_max_floats.argtypes = []
+    lib.mpbqr_sketch_qrcp_max_floats.restype = ci
+    lib.mpbqr_sketch_qrcp.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.mpbqr_sketch_qrcp.restype = ci
     return lib
+
+
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with the output of the first
+    that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
 
 
 def library() -> ctypes.CDLL:
@@ -80,16 +102,15 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(CSRC / s) for s in SOURCES]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            objs = [os.path.join(tmp, Path(src).stem + ".o")
+                    for src in SOURCES]
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
+                      for src, obj in zip(SOURCES, objs)])
+            lib_tmp = os.path.join(tmp, so.name)
+            _run_all([[nvcc, "-shared", "-o", lib_tmp, *objs]])
+            os.replace(lib_tmp, so)
         build_seconds = time.perf_counter() - t0
     _lib = _declare(ctypes.CDLL(str(so)))
     return _lib

@@ -1,5 +1,6 @@
-"""Triangular Newton-Schulz chain kernels: ``ns_chain`` (K1) and
-``bgs_group_fused`` (K2), each beside its plain PyTorch version.
+"""Triangular Newton-Schulz chain kernels: ``ns_chain`` (K1),
+``bgs_group_fused`` (K2) and ``panel_qr_fused`` (K3), each beside its plain
+PyTorch version.
 
 Port of ``mixedprecisionblockqr_tpu/ops/pallas/ns.py``.  The wrappers
 launch the hand-written CUDA kernels of ``csrc/`` for CUDA tensors and
@@ -23,11 +24,13 @@ import torch
 
 from mixedprecisionblockqr_tpu_torch.ops.policy import mm_bf16, mm_f32, mm_high
 
-#: Kernel launches per wrapper since the last ``reset_launches()``.
-LAUNCHES = {"ns_chain": 0, "bgs_group_fused": 0}
+#: Kernel launches per wrapper since the last ``reset_launches()`` (one
+#: entry per kernel of the package, ``sketch_qrcp_ranks`` included).
+LAUNCHES = {"ns_chain": 0, "bgs_group_fused": 0, "panel_qr_fused": 0,
+            "sketch_qrcp_ranks": 0}
 #: Panel widths the CUDA kernels are instantiated for.
 KERNEL_WIDTHS = (32, 64, 128)
-#: Chain schedule inside a group (the same constants as csrc/bgs_group.cu):
+#: Chain schedule of a panel (the same constants as csrc/panel.cuh):
 #: with ``chain_mid``, all but the final MID_FINAL iterations of a
 #: non-refine chain run bf16-split products; robust panels run three passes
 #: of ROBUST_ITERS iterations.
@@ -139,6 +142,12 @@ def _tri_ns_panel(P, iters, robust, bf16_gram, chain_mid):
     Qk = tall(P, X)
     t = torch.triu(mm_f32(X.T, G))
     return Qk, t, E.abs().max()
+
+
+def panel_qr_fused_plain(P, iters=10, robust=False, chain_mid=False):
+    """Plain version of :func:`panel_qr_fused` (``_panel_qr_kernel``
+    transcription: fp32 Gram and tall products, raw residual)."""
+    return _tri_ns_panel(P.float(), iters, robust, False, chain_mid)
 
 
 def bgs_group_fused_plain(Pg, r, iters, robust, bf16_dots=True,
@@ -296,6 +305,51 @@ def bgs_group_fused(
     check(code, "bgs_group_fused")
     LAUNCHES["bgs_group_fused"] += 1
     return Q, Rg, worst
+
+
+def panel_qr_fused(
+    P: torch.Tensor,
+    iters: int = 10,
+    robust: bool = False,
+    chain_mid: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One whole panel factorization: the fp32 Gram, the chain(s),
+    ``Q = P X`` and the R block.
+
+    Returns ``(Q (m, r), t (r, r), resid)``.  Plain mode runs one chain of
+    ``iters`` iterations: ``t = triu(X^T G)`` and ``resid`` is the raw
+    one-behind ``max|E|``.  ``robust=True`` runs the shifted three-pass
+    chain (``ROBUST_ITERS``): ``t = triu(t3 t2 t1)`` of the full products
+    ``t_k = X_k^T G_k``, and ``resid`` is the raw exact residual of the
+    final pass (callers scale it).  ``chain_mid`` runs all but the final
+    ``MID_FINAL`` iterations of each non-refine chain with bf16-split
+    products.  On CUDA, r must be one of ``KERNEL_WIDTHS``.
+    """
+    if P.device.type == "cpu":
+        return panel_qr_fused_plain(P, iters, robust, chain_mid)
+    _require_cuda_f32(P, "P")
+    m, r = P.shape
+    if r not in KERNEL_WIDTHS:
+        raise ValueError(f"panel_qr_fused kernel takes m x r, r in "
+                         f"{KERNEL_WIDTHS}; got {tuple(P.shape)}")
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
+        check, library,
+    )
+
+    lib = library()
+    Q = torch.empty_like(P)
+    t = torch.empty((r, r), dtype=torch.float32, device=P.device)
+    resid = torch.empty((), dtype=torch.float32, device=P.device)
+    scratch = torch.empty(lib.mpbqr_panel_qr_scratch_floats(m, r),
+                          dtype=torch.float32, device=P.device)
+    code = lib.mpbqr_panel_qr(
+        P.data_ptr(), Q.data_ptr(), t.data_ptr(), resid.data_ptr(),
+        scratch.data_ptr(), m, r, iters, int(robust), int(chain_mid),
+        _stream(P),
+    )
+    check(code, "panel_qr_fused")
+    LAUNCHES["panel_qr_fused"] += 1
+    return Q, t, resid
 
 
 def tri_cholqr_robust_fused(P: torch.Tensor, chain_mid: bool = False):

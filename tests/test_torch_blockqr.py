@@ -59,9 +59,9 @@ def test_per_panel_route_matches_jax():
     Rj, Qj, _ = jbq._block_qr_bgs(jnp.asarray(a), 32, jpolicy.POLICY_FP32,
                                   True, None, 4, False, reorth=False,
                                   ns_impl="pallas")
-    Rt, Qt = tbq._block_qr_bgs(torch.from_numpy(a), 32, tpolicy.POLICY_FP32,
-                               True, group_panels=4, reorth=False,
-                               ns_impl="panel")
+    Rt, Qt, _ = tbq._block_qr_bgs(torch.from_numpy(a), 32, tpolicy.POLICY_FP32,
+                                  True, group_panels=4, reorth=False,
+                                  ns_impl="panel")
     np.testing.assert_allclose(Qt.numpy(), np.asarray(Qj), atol=1e-4)
     np.testing.assert_allclose(Rt.numpy(), np.asarray(Rj), atol=1e-4)
 

@@ -84,21 +84,30 @@ def test_canary_fires_in_both_packages(cond1e9):
     Rj, _, _ = jbq._block_qr_bgs(jnp.asarray(cond1e9), 128,
                                  jpolicy.POLICY_FP32, True, None, 4, False,
                                  reorth=False, ns_impl="group")
-    Rt, Qt = tbq._block_qr_bgs(torch.from_numpy(cond1e9), 128,
-                               tpolicy.POLICY_FP32, True, group_panels=4,
-                               reorth=False)
+    Rt, Qt, _ = tbq._block_qr_bgs(torch.from_numpy(cond1e9), 128,
+                                  tpolicy.POLICY_FP32, True, group_panels=4,
+                                  reorth=False)
     assert not np.isfinite(np.asarray(Rj)[0, 0])
     assert not torch.isfinite(Rt[0, 0]) and not torch.isfinite(Qt[0, 0])
 
 
 def test_sync_check_raises_on_breakdown(cond1e9):
-    with pytest.raises(pt.NonFiniteError, match="not ported yet"):
-        pt.block_qr(torch.from_numpy(cond1e9), 128, pt.POLICY_FP32,
-                    mode="complete", panel_method="bgs1", check="sync")
-    # 'defer' returns the poisoned factors without synchronizing.
+    # 'defer' returns the poisoned factors without synchronizing; 'sync'
+    # retries through the Householder tier, and raises only when that
+    # fails too (a NaN input).
     Q, R = pt.block_qr(torch.from_numpy(cond1e9), 128, pt.POLICY_FP32,
                        mode="complete", panel_method="bgs1")
     assert not torch.isfinite(R[0, 0])
+    Q, R = pt.block_qr(torch.from_numpy(cond1e9), 128, pt.POLICY_FP32,
+                       mode="complete", panel_method="bgs1", check="sync")
+    assert torch.isfinite(R).all() and Q.dtype == torch.float32
+    rep = pt.metrics.evaluate(torch.from_numpy(cond1e9), Q, R, 23)
+    assert rep.all_ok, str(rep)
+    bad = cond1e9.copy()
+    bad[7, 3] = np.nan
+    with pytest.raises(pt.NonFiniteError, match="even via 'householder'"):
+        pt.block_qr(torch.from_numpy(bad), 128, pt.POLICY_FP32,
+                    mode="complete", panel_method="bgs1", check="sync")
 
 
 @pytest.mark.parametrize("scale", [1e6, 1e-12])
@@ -116,21 +125,24 @@ def test_scaled_input_no_poison(scale):
 
 def test_cpu_auto_dispatch_is_not_ported():
     # Off the accelerator auto resolves to 'householder', as in the JAX
-    # package; the port names the ROADMAP item instead of picking another
-    # tier.
-    a = torch.rand((256, 256))
-    with pytest.raises(NotImplementedError, match="Robust tier"):
-        pt.block_qr(a, 64, pt.POLICY_MIXED_FAST, mode="complete",
-                    panel_method="auto", quality="fast")
-    with pytest.raises(NotImplementedError, match="Robust tier"):
-        pt.qr(a, policy=pt.POLICY_MIXED)
+    # package, and now runs it (the name dates from before the tier was
+    # ported).
+    a = torch.rand((256, 256), generator=torch.Generator().manual_seed(0))
+    Q, R = pt.block_qr(a, 64, pt.POLICY_MIXED_FAST, mode="complete",
+                       panel_method="auto", quality="fast")
+    Qh, Rh = pt.block_qr(a, 64, pt.POLICY_MIXED_FAST, mode="complete",
+                         panel_method="householder")
+    torch.testing.assert_close(R, Rh, rtol=0, atol=0)
+    assert Q.shape == (256, 256) and Q.dtype == torch.bfloat16
+    Q, R = pt.qr(a, policy=pt.POLICY_MIXED)
+    assert pt.metrics.evaluate(a, Q, R, 8).all_ok
 
 
 @pytest.mark.parametrize("pm,lm,item", [
     ("cholqr1", "unroll", "CholeskyQR"),
     ("polar", "unroll", "CholeskyQR"),
     ("bgs1", "scan", "Scan tier"),
-    ("householder", "unroll", "Robust tier"),
+    ("cholqr1x2", "unroll", "item 8"),
 ])
 def test_unported_tiers_raise(pm, lm, item):
     with pytest.raises(NotImplementedError, match=item):

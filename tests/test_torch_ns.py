@@ -126,7 +126,8 @@ def test_cpu_tensors_never_count_launches():
         np.random.default_rng(5).random((256, 128), dtype=np.float32))
     tns.bgs_group_fused(P, 32, (12, 6, 6, 10), (False,) * 3 + (True,))
     tns.tri_cholqr_robust_fused(P[:, :32])
-    assert tns.LAUNCHES == {"ns_chain": 0, "bgs_group_fused": 0}
+    assert tns.LAUNCHES == {"ns_chain": 0, "bgs_group_fused": 0,
+                            "panel_qr_fused": 0, "sketch_qrcp_ranks": 0}
 
 
 def test_wrappers_reject_other_devices():
