@@ -99,7 +99,9 @@ def main() -> int:
         sketch_qrcp_ranks_plain,
     )
     from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
-    from mixedprecisionblockqr_tpu_torch.utils.datagen import slam_jacobian
+    from mixedprecisionblockqr_tpu_torch.utils.datagen import (
+        gauge_deficient_system,
+    )
     from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
     from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
 
@@ -338,10 +340,7 @@ def main() -> int:
         assert main_launches[k] > 0, f"{k} was not launched on the main path"
 
     # 7. the rank-revealing least-squares path at full size
-    Jn = slam_jacobian(4096, 2048, seed=0)
-    Cn = np.random.default_rng(1).standard_normal((64, 64)).astype(np.float32)
-    Jn[:, -64:] = Jn[:, :64] @ Cn
-    bn = np.random.default_rng(2).standard_normal(4096).astype(np.float32)
+    Jn, bn = gauge_deficient_system(4096, 2048, 64)
     t0 = time.perf_counter()
     x_o, _, rank_o, _ = np.linalg.lstsq(
         Jn.astype(np.float64), -bn.astype(np.float64),

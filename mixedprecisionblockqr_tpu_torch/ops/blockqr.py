@@ -177,22 +177,6 @@ def _unported(panel_method: str, loop_mode: str) -> NotImplementedError:
     )
 
 
-def _sync_retry_method(panel_method, loop_mode, policy, mode, m, n):
-    """The robust retry target of ``check='sync'``, or None when the
-    primary method already is the most robust one for its loop mode.
-    Unrolled: 'householder' (exact for any input, rank-deficient ones
-    included, by the zero-column skip).  Scan: the all-robust scan-BGS
-    tier 'bgs', or 'cholqr2s' where BGS's contract does not hold
-    (complete Q with m > n, fp64)."""
-    if loop_mode == "scan":
-        bgs_ok = (mode != "complete" or m == n) and (
-            policy.panel != torch.float64)
-        retry = "bgs" if bgs_ok else "cholqr2s"
-    else:
-        retry = "householder"
-    return None if retry == panel_method else retry
-
-
 def _poison_if_unconverged(worst_resid, R_full, Q, B, tol: float = 1e-4):
     """Write a NaN canary into R[0, 0] (and Q[0, 0], B[0, 0]) when the
     worst normalized NS residual is not below ``tol`` -- or is NaN.  Stays
@@ -475,8 +459,9 @@ def block_qr(
     main path: ``bgs1`` with groups of 8 panels.  ``check='defer'`` leaves
     a breakdown as a NaN canary in R[0, 0] / Q[0, 0]; ``check='sync'``
     fetches the canary and reruns the factorization through the robust
-    tier (``_sync_retry_method``), raising ``NonFiniteError`` if that
-    fails too.  Returns ``(Q, R)`` for 'reduced'/'complete' and R for 'r'.
+    'householder' tier (exact for any input, rank-deficient ones included,
+    by its zero-column skip), raising ``NonFiniteError`` if that fails
+    too.  Returns ``(Q, R)`` for 'reduced'/'complete' and R for 'r'.
     """
     A = torch.as_tensor(A, device=device)
     if A.dtype not in (torch.float32, torch.float64, torch.bfloat16):
@@ -496,18 +481,16 @@ def block_qr(
     R_full, Q, _ = _driver(A, block_size, policy, want_q, None,
                            panel_method, loop_mode, group_panels)
     if check == "sync" and not bool(torch.isfinite(R_full[0, 0])):
-        retry_pm = _sync_retry_method(panel_method, loop_mode, policy, mode,
-                                      m, n)
-        if retry_pm is None:
+        if panel_method == "householder":
             raise NonFiniteError(
-                f"block_qr: non-finite factorization via {panel_method!r} "
+                "block_qr: non-finite factorization via 'householder' "
                 "- the input likely contains NaN/Inf"
             )
         R_full, Q, _ = _driver(A, block_size, policy, want_q, None,
-                               retry_pm, loop_mode)
+                               "householder", loop_mode)
         if not bool(torch.isfinite(R_full[0, 0])):
             raise NonFiniteError(
-                f"block_qr: non-finite factorization even via {retry_pm!r} "
+                "block_qr: non-finite factorization even via 'householder' "
                 "- the input contains NaN/Inf, or is numerically "
                 "rank-deficient (use panel_method='householder' with "
                 "loop_mode='unroll', or pivoted_qr/lstsq for rank-revealing "

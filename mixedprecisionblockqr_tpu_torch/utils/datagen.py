@@ -112,3 +112,17 @@ def slam_jacobian(
                           replace=False) + pose_cols
         a[i, cols] = rng.standard_normal(nnz_per_row).astype(np.float32)
     return a
+
+
+def gauge_deficient_system(
+    m: int, n: int, k: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """A rank-deficient least-squares system ``(J, b)``, as an undamped
+    bundle adjustment gives one: ``slam_jacobian(m, n, seed=0)`` with its
+    last k columns replaced by combinations of its first k (drawn with
+    ``default_rng(1)``), rank n - k, and b from ``default_rng(2)``."""
+    J = slam_jacobian(m, n, seed=0)
+    C = np.random.default_rng(1).standard_normal((k, k)).astype(np.float32)
+    J[:, -k:] = J[:, :k] @ C
+    b = np.random.default_rng(2).standard_normal(m).astype(np.float32)
+    return J, b

@@ -1,0 +1,178 @@
+"""Where the time goes: profile the calls that ``chip_smoke.py`` drives, on
+one CUDA device.
+
+    python3 -m mixedprecisionblockqr_tpu_torch.utils.profile_cells
+
+For each cell it prints one JSON line:
+  * ``wall_ms``: host clock around one synchronized call, median of 3
+    (after one warm-up);
+  * ``profiled_ms``: host clock per call across ``calls`` calls under
+    ``torch.profiler`` (CPU and CUDA activity), which slows the host side;
+  * ``busy_share``: the union of the device's activity intervals (kernels,
+    copies, memsets) over the profiled wall time: the share of the call in
+    which the device had work;
+  * ``device_events``: device activities per call;
+  * ``top``: the largest device items by time per call, with their counts
+    per call.
+The cells: ``headline`` (block_qr 2048^2 POLICY_MIXED_FAST, bgs1), ``qr
+default`` (qr 2048^2 POLICY_MIXED, bgs2), ``band`` (the headline call at
+4096^2), ``lstsq`` (the 4096 x 2048 gauge-deficient system of
+``datagen.gauge_deficient_system``) and its four stages as ``lstsq`` runs
+them, and ``robust`` (the Householder tier at 2048^2).  Without a CUDA
+device it exits 2.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import statistics
+import subprocess
+import sys
+import time
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+Span = Tuple[str, float, float]  # (name, start us, end us)
+
+
+def device_spans(prof) -> List[Span]:
+    """Every device activity of a finished profile."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def busy_us(spans: List[Span]) -> float:
+    """Length of the union of the spans' intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted((s, e) for _, s, e in spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
+def top_items(spans: List[Span], calls: int, k: int = 6) -> List[Dict]:
+    """The k largest device items by total time, per call, each under the
+    first 80 characters of its demangled name."""
+    ms: Dict[str, float] = collections.defaultdict(float)
+    count: Dict[str, int] = collections.Counter()
+    for name, s, e in spans:
+        ms[name] += (e - s) / 1e3
+        count[name] += 1
+    return [{"name": n.removeprefix("void ").replace(
+                "(anonymous namespace)::", "")[:80],
+             "ms": ms[n] / calls, "count": count[n] / calls}
+            for n in sorted(ms, key=ms.get, reverse=True)[:k]]
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def profile_cell(fn: Callable[[], object], calls: int) -> Dict:
+    """Host walls of ``fn`` and one profile of ``calls`` calls of it."""
+    fn()
+    _sync()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        _sync()
+        profiled_us = (time.perf_counter() - t0) * 1e6
+    spans = device_spans(prof)
+    return {"wall_ms": statistics.median(walls), "calls": calls,
+            "profiled_ms": profiled_us / 1e3 / calls,
+            "busy_share": busy_us(spans) / profiled_us,
+            "device_events": len(spans) / calls,
+            "top": top_items(spans, calls)}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_cells: no CUDA device", file=sys.stderr)
+        return 2
+    from mixedprecisionblockqr_tpu_torch import (
+        POLICY_FP32,
+        POLICY_MIXED,
+        POLICY_MIXED_FAST,
+        back_substitution,
+        block_qr,
+        block_qr_qtb,
+        lstsq,
+        numerical_rank,
+        pivoted_qr_qtb,
+        qr,
+    )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
+    from mixedprecisionblockqr_tpu_torch.utils.datagen import (
+        gauge_deficient_system,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _build.library()
+
+    rng = np.random.default_rng(0)
+    A = torch.from_numpy(rng.random((2048, 2048), dtype=np.float32)
+                         - 0.5).to(dev)
+    A4 = torch.from_numpy(rng.random((4096, 4096), dtype=np.float32)
+                          - 0.5).to(dev)
+    Jn, bn = gauge_deficient_system(4096, 2048, 64)
+    J = torch.from_numpy(Jn).to(dev)
+    nb = -torch.from_numpy(bn).to(dev)
+    # The pivoted stage's outputs feed the two stages after it.
+    R, qtb, _ = pivoted_qr_qtb(J, nb[:, None])
+    k = numerical_rank(R, m=4096)
+    RkT = R[:k, :].T.contiguous()
+    _, T = qr(RkT, mode="reduced", panel_method="householder")
+
+    def headline(x):
+        return block_qr(x, 128, POLICY_MIXED_FAST, mode="complete",
+                        panel_method="auto", quality="fast", check="defer")
+
+    cells = [
+        ("headline", lambda: headline(A), 5),
+        ("qr default", lambda: qr(A, policy=POLICY_MIXED), 5),
+        ("band", lambda: headline(A4), 5),
+        ("lstsq", lambda: lstsq(J, nb), 1),
+        ("lstsq: block_qr_qtb householder",
+         lambda: block_qr_qtb(J, nb, panel_method="householder",
+                              check="sync"), 1),
+        ("lstsq: pivoted_qr_qtb rqrcp",
+         lambda: pivoted_qr_qtb(J, nb[:, None]), 1),
+        (f"lstsq: qr(Rk.T) householder 2048 x {k}",
+         lambda: qr(RkT, mode="reduced", panel_method="householder"), 1),
+        ("lstsq: back_substitution",
+         lambda: back_substitution(T.T, qtb[:k, :], lower=True), 1),
+        ("robust", lambda: block_qr(A, 128, POLICY_FP32,
+                                    panel_method="householder"), 1),
+    ]
+    for name, fn, calls in cells:
+        print(json.dumps({"cell": name, **profile_cell(fn, calls),
+                          "card": smi}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -123,10 +123,9 @@ def test_scaled_input_no_poison(scale):
     assert rep.all_ok, str(rep)
 
 
-def test_cpu_auto_dispatch_is_not_ported():
+def test_cpu_auto_dispatch_runs_householder():
     # Off the accelerator auto resolves to 'householder', as in the JAX
-    # package, and now runs it (the name dates from before the tier was
-    # ported).
+    # package.
     a = torch.rand((256, 256), generator=torch.Generator().manual_seed(0))
     Q, R = pt.block_qr(a, 64, pt.POLICY_MIXED_FAST, mode="complete",
                        panel_method="auto", quality="fast")

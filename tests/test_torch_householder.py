@@ -78,11 +78,13 @@ def test_householder_qr_zero_column_skip():
     np.testing.assert_allclose((Q @ R).numpy(), a, atol=1e-5)
 
 
-@pytest.mark.parametrize("num_cols", [None, 20])
-def test_panel_factor_matches_jax(num_cols):
-    p = _mat(96, 32, seed=2)
-    Vt, Tt, Rt = thh.panel_factor(torch.from_numpy(p), num_cols)
-    Vj, Tj, Rj = jhh.panel_factor(jnp.asarray(p), num_cols)
+# A full panel, and a narrow one as the ragged last panel of a blocked
+# factorization gives it (w = n - lam < r).
+@pytest.mark.parametrize("shape", [(96, 32), (130, 17)])
+def test_panel_factor_matches_jax(shape):
+    p = _mat(*shape, seed=2)
+    Vt, Tt, Rt = thh.panel_factor(torch.from_numpy(p))
+    Vj, Tj, Rj = jhh.panel_factor(jnp.asarray(p))
     _close(Vt.numpy(), Vj)
     _close(Tt.numpy(), Tj)
     # below the diagonal the panel holds rounding residue in both packages

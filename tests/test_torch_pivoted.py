@@ -17,7 +17,9 @@ from mixedprecisionblockqr_tpu.ops import pivoted as jpiv
 from mixedprecisionblockqr_tpu.ops import policy as jpolicy
 from mixedprecisionblockqr_tpu_torch.models import slam as tslam
 from mixedprecisionblockqr_tpu_torch.ops import pivoted as tpiv
-from mixedprecisionblockqr_tpu_torch.utils.datagen import slam_jacobian
+from mixedprecisionblockqr_tpu_torch.utils.datagen import (
+    gauge_deficient_system,
+)
 
 
 def _rel(t, j):
@@ -137,13 +139,8 @@ def test_pivoted_dispatch_and_guards():
 
 @pytest.fixture(scope="module")
 def gauge_deficient():
-    # slam_jacobian(1024, 512) with its last 32 columns replaced by
-    # combinations of the first 32: rank 480, as in chip_smoke.py's
-    # full-size 4096 x 2048 input.
-    J = slam_jacobian(1024, 512, seed=0)
-    C = np.random.default_rng(1).standard_normal((32, 32)).astype(np.float32)
-    J[:, -32:] = J[:, :32] @ C
-    b = np.random.default_rng(2).standard_normal(1024).astype(np.float32)
+    # Rank 480, as chip_smoke.py's full-size 4096 x 2048 input is 1984.
+    J, b = gauge_deficient_system(1024, 512, 32)
     x_np, _, rank, _ = np.linalg.lstsq(
         J.astype(np.float64), -b.astype(np.float64),
         rcond=np.finfo(np.float32).eps * 1024)
