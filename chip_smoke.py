@@ -8,10 +8,12 @@ last line):
   1. device   -- the card's name and power limit (nvidia-smi), torch, CUDA;
   2. build    -- build (or load) the kernel library from csrc/ (one nvcc
                  per source, in parallel);
-  3. kernels  -- ns_chain, bgs_group_fused, panel_qr_fused and
-                 sketch_qrcp_ranks against their plain PyTorch versions on
-                 the card at the main paths' shapes, with the stated
-                 tolerances, and both times (CUDA events, median of 20);
+  3. kernels  -- ns_chain, bgs_group_fused, panel_qr_fused, ninv_chain,
+                 panel_factor_fused and sketch_qrcp_ranks against their
+                 plain PyTorch versions on the card at the main paths'
+                 shapes, with the stated tolerances; the kernel's, the plain
+                 version's and the library call's times (CUDA events,
+                 median of 20 unless a line says otherwise);
   4. main     -- block_qr(A, 128, POLICY_MIXED_FAST, mode='complete',
                  panel_method='auto', quality='fast', check='defer') on the
                  2048^2 benchmark input (numpy seed 0, uniform - 0.5):
@@ -27,12 +29,25 @@ last line):
                  np.linalg.lstsq oracle; pivoted_qr's contract; times of
                  lstsq and of pivoted_qr_qtb's two tiers;
   8. robust   -- block_qr(A, 128, POLICY_FP32, panel_method='householder')
-                 on the 2048^2 input: the robust Householder tier.
+                 on the 2048^2 input: the robust Householder tier;
+  9. polar    -- block_qr(A, 128, POLICY_MIXED_FAST, mode='complete',
+                 panel_method='auto', quality='fast') on a 4096 x 2048 input
+                 resolves to polar / g8: 16 ns_chain and 16 ninv_chain
+                 launches, quality within 2x of the JAX package's;
+ 10. pallas   -- block_qr(A, 128, POLICY_FP32,
+                 panel_method='householder_pallas') at 2048^2: 16
+                 panel_factor_fused launches, R against phase 8's;
+ 11. cholqr   -- cholqr1 / cholqr2 / cholqr2s / cholqr1x2 at 2048^2 (one
+                 panel_factor_fused launch each), cholqr1 scan (15
+                 ninv_chain launches), and bgs1 on a 2000 x 2000 input
+                 (resolves to cholqr1; K6 at 208 x 128 and 80 x 80);
+ 12. device   -- a numpy input with no device= runs on the card.
 Then a line with every kernel's launches on its main path (phases 4-6 for
 ns_chain and bgs_group_fused, phase 7 for panel_qr_fused and
-sketch_qrcp_ranks, one call each), error and times, and as the last line
-{"ok": true, "device": {...}}.  Without a CUDA device it exits 2 and
-prints no result.
+sketch_qrcp_ranks, phase 9 for ninv_chain, phase 10 for
+panel_factor_fused, one call each), error, times and bound, and as the
+last line {"ok": true, "device": {...}}.  Without a CUDA device it exits 2
+and prints no result.
 """
 
 import json
@@ -46,6 +61,12 @@ import torch
 # Quality of the same call in the JAX reference (BENCH_r05.json).
 REF_BACKWARD = 2.42e-3
 REF_ORTH = 7.66e-2
+# The JAX package's block_qr(A, 128, POLICY_MIXED_FAST, mode='complete',
+# panel_method='polar', group_panels=8) on phase 9's 4096 x 2048 input, run
+# on the CPU (JAX 0.9.0, XLA branch of the polar driver), measured by its
+# ops/metrics.py::evaluate with precision_bits = 8.
+REF_POLAR_BACKWARD = 6.290683057159185e-3
+REF_POLAR_ORTH = 8.180379867553711e-3
 TOL_F32 = 1e-4   # fp32 kernels vs plain: summation order only
 TOL_BF16 = 5e-3  # bf16-rounded operands: a rounding may flip
 
@@ -84,21 +105,36 @@ def main() -> int:
         resolve_panel_config,
     )
     from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
+    from mixedprecisionblockqr_tpu_torch.ops import blockqr as bq
     from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
         LAUNCHES,
         bgs_group_fused,
         bgs_group_fused_plain,
+        ninv_chain,
+        ninv_chain_plain,
         ns_chain,
         ns_chain_plain,
         panel_qr_fused,
         panel_qr_fused_plain,
         reset_launches,
     )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        panel_factor_fused,
+        panel_factor_fused_plain,
+    )
     from mixedprecisionblockqr_tpu_torch.ops.kernels.sketch import (
         sketch_qrcp_ranks,
         sketch_qrcp_ranks_plain,
     )
     from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
+    from mixedprecisionblockqr_tpu_torch.utils.bounds import (
+        group_bound,
+        ninv_chain_bound,
+        ns_chain_bound,
+        panel_factor_bound,
+        panel_qr_bound,
+        sketch_bound,
+    )
     from mixedprecisionblockqr_tpu_torch.utils.datagen import (
         gauge_deficient_system,
     )
@@ -162,10 +198,12 @@ def main() -> int:
                              lambda: ns_chain_plain(Gm, **kw))}
         ns_err = max(ns_err, ex, et)
         assert ok, (name, ns_rows[name])
+    lib_k1 = cuda_time_ms(lambda: torch.linalg.cholesky(G))
     emit({"phase": "kernels", "kernel": "ns_chain", "r": 128,
           "tolerance": "max|diff| <= 1e-4 * max|plain| for X and t; same "
                        "canary class (resid < 1e-4)",
-          "modes": ns_rows, "card": card})
+          "modes": ns_rows, "library_call": "torch.linalg.cholesky(G)",
+          "library_ms": lib_k1, "card": card})
 
     Pg = torch.rand((2048, 1024), generator=gen, device=dev) - 0.5
     iters = (12, 6, 6, 6, 6, 6, 6, 10)
@@ -198,11 +236,13 @@ def main() -> int:
             grp_rows[f"{'bgs1' if bf else 'bgs2'}_robust={rob}"] = row
             grp_err = max(grp_err, row["max_abs_Q"])
             assert row["ok"], (bf, rob, row)
+    lib_k2 = cuda_time_ms(lambda: torch.linalg.qr(Pg))
     emit({"phase": "kernels", "kernel": "bgs_group_fused",
           "shape": [2048, 1024], "r": 128, "g": 8,
           "tolerance": "fp32 flags: max|dQ| <= 1e-4, ||dR||/||R|| <= 1e-4; "
                        "bf16 flags: ||dQ||/||Q||, ||dR||/||R|| <= 5e-3",
-          "configs": grp_rows, "card": card})
+          "configs": grp_rows, "library_call": "torch.linalg.qr(Pg)",
+          "library_ms": lib_k2, "card": card})
 
     # K3 at the RQRCP panels' shape (m = 4096, r = 128), on a uniform panel
     # and on the same panel with its columns graded over three decades.
@@ -235,12 +275,108 @@ def main() -> int:
             k3_rows[f"{pname}_{mname}"] = row
             k3_err = max(k3_err, eq)
             assert row["ok"], (pname, mname, row)
+    lib_k3 = cuda_time_ms(lambda: torch.linalg.qr(Pk))
     emit({"phase": "kernels", "kernel": "panel_qr_fused",
           "shape": [4096, 128],
           "tolerance": "max|dQ| <= 1e-4 * max|Q|, ||dt||/||t|| <= 1e-4; "
                        "same canary class (0.01 resid < 1e-4 robust, "
                        "resid^2 < 1e-4 plain)",
-          "modes": k3_rows, "card": card})
+          "modes": k3_rows, "library_call": "torch.linalg.qr(P)",
+          "library_ms": lib_k3, "card": card})
+
+    # K4 on Yamamoto S matrices (I - Q1^T, Q1 the sign-fixed top block of
+    # a panel's orthonormal basis): a 4096 x 128 panel (aspect 32, 5
+    # iterations, the polar phase's), a 256 x 128 one (aspect 2, 12), and a
+    # near-singular S: the rotation by pi about (1,1,1)/sqrt(3) of the JAX
+    # package's ops/cholqr.py:110-115, scaled by 0.999, in the top corner.
+    def yamamoto_S(m):
+        Qb, _ = torch.linalg.qr(
+            torch.rand((m, 128), generator=gen, device=dev) - 0.5)
+        D = torch.where(torch.diagonal(Qb[:128]) > 0, -1.0, 1.0)
+        return (torch.eye(128, device=dev) - (Qb * D)[:128].T).contiguous()
+
+    c3 = torch.ones(3, device=dev) / 3 ** 0.5
+    S_sing = torch.eye(128, device=dev)
+    S_sing[:3, :3] -= 0.999 * (2 * torch.outer(c3, c3)
+                               - torch.eye(3, device=dev)).T
+    k4_inputs = {"panel4096_it5": (yamamoto_S(4096), 5),
+                 "panel256_it12": (yamamoto_S(256), 12),
+                 "near_singular_it12": (S_sing.contiguous(), 12)}
+    k4_rows, k4_err = {}, 0.0
+    for name, (S, it) in k4_inputs.items():
+        X, res = ninv_chain(S, it)
+        Xp, resp = ninv_chain_plain(S, it)
+        torch.cuda.synchronize()
+        ex, lim = max_abs(X, Xp), TOL_F32 * float(Xp.abs().max())
+        row = {"iters": it, "max_abs_X": ex, "lim_X": lim,
+               "resid": float(res), "resid_plain": float(resp),
+               "ok": ex <= lim and (float(res) < 1e-3) == (
+                   float(resp) < 1e-3),
+               "ms": cuda_time_ms(lambda: ninv_chain(S, it)),
+               "plain_ms": cuda_time_ms(lambda: ninv_chain_plain(S, it)),
+               "library_ms": cuda_time_ms(lambda: torch.linalg.inv(S))}
+        k4_rows[name] = row
+        k4_err = max(k4_err, ex)
+        assert row["ok"], (name, row)
+    emit({"phase": "kernels", "kernel": "ninv_chain", "r": 128,
+          "tolerance": "max|dX| <= 1e-4 * max|X|; same fallback class "
+                       "(resid < 1e-3)", "library_call": "torch.linalg.inv(S)",
+          "inputs": k4_rows, "card": card})
+
+    # K6 at the paths' panel shapes: householder_pallas's first panel
+    # (2048 x 128) and square last one (128 x 128), the cholqr hybrid's
+    # tails at 2000^2 (208 x 128, 80 x 80), and a 2048 x 128 panel with a
+    # zero column and one with a NaN.
+    k6_inputs = {f"{m}x{w}": torch.rand((m, w), generator=gen, device=dev)
+                 - 0.5 for m, w in ((2048, 128), (128, 128), (208, 128),
+                                    (80, 80))}
+    Pz = torch.rand((2048, 128), generator=gen, device=dev) - 0.5
+    Pz[:, 5] = 0.0
+    k6_inputs["2048x128_zero_column"] = Pz
+    Pn = torch.rand((2048, 128), generator=gen, device=dev) - 0.5
+    Pn[300, 9] = float("nan")
+    k6_inputs["2048x128_nan"] = Pn
+
+    def finite_err(a, b):
+        """max|a - b| and max|b| over the entries finite in both."""
+        keep = torch.isfinite(a) & torch.isfinite(b)
+        return (float((a - b)[keep].abs().max()),
+                float(b[keep].abs().max()))
+
+    k6_rows, k6_err = {}, 0.0
+    for name, Pm in k6_inputs.items():
+        V, T, Rr = panel_factor_fused(Pm)
+        Vp, Tp, Rp = panel_factor_fused_plain(Pm)
+        torch.cuda.synchronize()
+        Rp = torch.triu(Rp)
+        row, ok = {}, True
+        for key, a, b in (("V", V, Vp), ("T", T, Tp), ("R", Rr, Rp)):
+            e, mx = finite_err(a, b)
+            row[f"max_abs_{key}"], row[f"lim_{key}"] = e, TOL_F32 * mx
+            ok = ok and e <= TOL_F32 * mx
+            k6_err = max(k6_err, e)
+        row["nan_in_R"] = bool(torch.isnan(Rr).any())
+        same_nan = bool(torch.equal(torch.isnan(Rr), torch.isnan(Rp)))
+        finite_vt = bool(torch.isfinite(V).all() and torch.isfinite(T).all())
+        if name.endswith("nan"):
+            ok = ok and row["nan_in_R"] and same_nan
+        else:
+            ok = ok and finite_vt and bool(torch.isfinite(Rr).all())
+        row["ok"] = ok
+        row["ms"] = cuda_time_ms(lambda: panel_factor_fused(Pm))
+        row["plain_ms"] = cuda_time_ms(lambda: panel_factor_fused_plain(Pm),
+                                       warmup=1, iters=3)
+        row["library_ms"] = cuda_time_ms(lambda: torch.geqrf(Pm))
+        k6_rows[name] = row
+        assert ok, (name, row)
+    emit({"phase": "kernels", "kernel": "panel_factor_fused",
+          "tolerance": "V, T and R's upper triangle each within 1e-4 * "
+                       "max|plain| over finite entries (the kernel writes "
+                       "exact zeros below R's diagonal, the plain version "
+                       "residue); the NaN reaches R, in the plain version's "
+                       "places; plain ms: median of 3",
+          "library_call": "torch.geqrf(P)", "inputs": k6_rows,
+          "card": card})
 
     # K7 on seeded Gaussian sketches of d = 128 + 8 at the RQRCP panels'
     # widths, and on one with a zero column and a duplicated column.
@@ -419,32 +555,170 @@ def main() -> int:
           "tflops": qr_flops(2048, 2048) / (ms8 * 1e-3) / 1e12,
           "card": card})
 
+    # 9. polar: the auto-dispatched complete Q of a tall matrix
+    a9 = np.random.default_rng(0).random((4096, 2048), dtype=np.float32) - 0.5
+    A9 = torch.from_numpy(a9).to(dev)
+
+    def polar_call(x):
+        return block_qr(x, 128, POLICY_MIXED_FAST, mode="complete",
+                        panel_method="auto", quality="fast")
+
+    assert resolve_panel_config(
+        4096, 2048, 128, POLICY_MIXED_FAST, "auto", "unroll", 4,
+        mode="complete", on_gpu=True, quality="fast",
+    ) == ("polar", "unroll", 8)
+    torch.cuda.synchronize()
+    reset_launches()
+    Q9, R9 = polar_call(A9)
+    torch.cuda.synchronize()
+    c9 = dict(LAUNCHES)
+    rep9 = metrics.evaluate(A9, Q9, R9, POLICY_MIXED_FAST.precision_bits)
+    assert c9["ninv_chain"] == 16 and c9["ns_chain"] == 16, c9
+    assert rep9.all_ok, str(rep9)
+    for got, ref in ((rep9.backward, REF_POLAR_BACKWARD),
+                     (rep9.orthogonality, REF_POLAR_ORTH)):
+        assert 0.5 * ref <= got <= 2 * ref, (got, ref, str(rep9))
+    ms9 = cuda_time_ms(lambda: polar_call(A9), warmup=1, iters=10)
+    emit({"phase": "polar", "call": "block_qr 4096x2048 POLICY_MIXED_FAST "
+          "complete auto fast defer", "resolved": ["polar", "unroll", 8],
+          "launches": c9, "backward": rep9.backward,
+          "orthogonality": rep9.orthogonality,
+          "ref_backward": REF_POLAR_BACKWARD, "ref_orthogonality":
+          REF_POLAR_ORTH, "lower_trapezoid": rep9.lower_trapezoid,
+          "all_ok": rep9.all_ok, "tight_ok": rep9.tight_ok, "ms": ms9,
+          "tflops": qr_flops(4096, 2048) / (ms9 * 1e-3) / 1e12,
+          "card": card})
+
+    # 10. householder_pallas: every panel through K6
+    def pallas_call(x):
+        return block_qr(x, 128, POLICY_FP32, panel_method="householder_pallas")
+
+    torch.cuda.synchronize()
+    reset_launches()
+    Q10, R10 = pallas_call(A)
+    torch.cuda.synchronize()
+    c10 = dict(LAUNCHES)
+    rep10 = metrics.evaluate(A, Q10, R10, POLICY_FP32.precision_bits)
+    rel10 = rel_fro(R10, R8)
+    assert c10["panel_factor_fused"] == 16, c10
+    assert rep10.all_ok and rep10.tight_ok, str(rep10)
+    assert rel10 <= 1e-4, rel10
+    ms10 = cuda_time_ms(lambda: pallas_call(A), warmup=1, iters=5)
+    emit({"phase": "pallas", "call": "block_qr 2048^2 POLICY_FP32 "
+          "householder_pallas reduced", "launches": c10,
+          "backward": rep10.backward, "orthogonality": rep10.orthogonality,
+          "lower_trapezoid": rep10.lower_trapezoid, "all_ok": rep10.all_ok,
+          "tight_ok": rep10.tight_ok, "rel_R_vs_householder": rel10,
+          "ms": ms10, "householder_ms": ms8,
+          "tflops": qr_flops(2048, 2048) / (ms10 * 1e-3) / 1e12,
+          "card": card})
+
+    # 11. the CholeskyQR tiers, one call each, with the launches they make
+    a11 = np.random.default_rng(0).random((2000, 2000), dtype=np.float32) - 0.5
+    A11 = torch.from_numpy(a11).to(dev)
+    assert resolve_panel_config(2000, 2000, 128, POLICY_MIXED, "bgs1",
+                                "unroll", 4, on_gpu=True) == (
+        "cholqr1", "unroll", 4)
+    k6_shapes = []
+    k6_wrapper = bq.panel_factor_fused
+
+    def recording_k6(panel):
+        k6_shapes.append(list(panel.shape))
+        return k6_wrapper(panel)
+
+    chol_calls = [
+        ("cholqr1", POLICY_MIXED, "unroll", A, {"panel_factor_fused": 1}),
+        ("cholqr2", POLICY_FP32, "unroll", A, {"panel_factor_fused": 1}),
+        ("cholqr2s", POLICY_FP32, "unroll", A, {"panel_factor_fused": 1}),
+        ("cholqr1x2", POLICY_MIXED, "unroll", A, {"panel_factor_fused": 1}),
+        ("cholqr1", POLICY_MIXED, "scan", A, {"ninv_chain": 15}),
+        ("bgs1", POLICY_MIXED, "unroll", A11, {"panel_factor_fused": 2}),
+    ]
+    chol_rows = {}
+    for pm, pol, lm, X, want in chol_calls:
+        def call():
+            return block_qr(X, 128, pol, mode="complete", panel_method=pm,
+                            loop_mode=lm)
+
+        name = f"{pm}_{lm}_{pol.name}_{X.shape[0]}"
+        k6_shapes.clear()
+        bq.panel_factor_fused = recording_k6
+        torch.cuda.synchronize()
+        reset_launches()
+        Qc, Rc = call()
+        torch.cuda.synchronize()
+        cc = dict(LAUNCHES)
+        bq.panel_factor_fused = k6_wrapper
+        repc = metrics.evaluate(X, Qc, Rc, pol.precision_bits)
+        row = {"launches": cc, "k6_shapes": list(k6_shapes),
+               "backward": repc.backward,
+               "orthogonality": repc.orthogonality, "all_ok": repc.all_ok,
+               "tight_ok": repc.tight_ok}
+        assert repc.all_ok, (name, str(repc))
+        for k, v in want.items():
+            assert cc[k] == v, (name, cc)
+        if pm == "bgs1":
+            assert k6_shapes == [[208, 128], [80, 80]], k6_shapes
+        row["ms"] = cuda_time_ms(call, warmup=1, iters=5)
+        chol_rows[name] = row
+    emit({"phase": "cholqr", "calls": chol_rows, "card": card})
+
+    # 12. a numpy input with no device= runs on the card
+    Qd, Rd = qr(a, policy=POLICY_MIXED)
+    assert Qd.is_cuda and Rd.is_cuda, (Qd.device, Rd.device)
+    emit({"phase": "device", "call": "qr(numpy 2048^2, POLICY_MIXED)",
+          "q_device": str(Qd.device), "r_device": str(Rd.device)})
+
     emit({"kernels": [
         {"name": "ns_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ns_chain.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:335",
          "launches": main_launches["ns_chain"], "max_abs_err": ns_err,
          "ms": ns_rows["chain_mid"]["ms"],
-         "plain_ms": ns_rows["chain_mid"]["plain_ms"]},
+         "plain_ms": ns_rows["chain_mid"]["plain_ms"],
+         **ns_chain_bound(128, 6),
+         "library_ms": lib_k1},
         {"name": "bgs_group_fused", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:900",
          "launches": main_launches["bgs_group_fused"],
          "max_abs_err": grp_err,
          "ms": grp_rows["bgs1_robust=True"]["ms"],
-         "plain_ms": grp_rows["bgs1_robust=True"]["plain_ms"]},
+         "plain_ms": grp_rows["bgs1_robust=True"]["plain_ms"],
+         **group_bound(2048, 128, iters, (False,) * 7 + (True,), True),
+         "library_ms": lib_k2},
         {"name": "panel_qr_fused", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_qr.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:501",
          "launches": c7["panel_qr_fused"], "max_abs_err": k3_err,
          "ms": k3_rows["uniform_robust"]["ms"],
-         "plain_ms": k3_rows["uniform_robust"]["plain_ms"]},
+         "plain_ms": k3_rows["uniform_robust"]["plain_ms"],
+         **panel_qr_bound(4096, 128),
+         "library_ms": lib_k3},
+        {"name": "ninv_chain", "route": "cuda",
+         "source": "mixedprecisionblockqr_tpu_torch/csrc/ninv_chain.cu",
+         "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:384",
+         "launches": c9["ninv_chain"], "max_abs_err": k4_err,
+         "ms": k4_rows["panel4096_it5"]["ms"],
+         "plain_ms": k4_rows["panel4096_it5"]["plain_ms"],
+         **ninv_chain_bound(128, 5),
+         "library_ms": k4_rows["panel4096_it5"]["library_ms"]},
+        {"name": "panel_factor_fused", "route": "cuda",
+         "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_factor.cu",
+         "replaces": "mixedprecisionblockqr_tpu/ops/pallas/panel.py:115",
+         "launches": c10["panel_factor_fused"], "max_abs_err": k6_err,
+         "ms": k6_rows["2048x128"]["ms"],
+         "plain_ms": k6_rows["2048x128"]["plain_ms"],
+         **panel_factor_bound(2048, 128),
+         "library_ms": k6_rows["2048x128"]["library_ms"]},
         {"name": "sketch_qrcp_ranks", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/sketch_qrcp.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/sketch.py:88",
          "launches": c7["sketch_qrcp_ranks"], "max_abs_err": k7_err,
          "ms": k7_rows["w2048"]["ms"],
-         "plain_ms": k7_rows["w2048"]["plain_ms"]},
+         "plain_ms": k7_rows["w2048"]["plain_ms"],
+         **sketch_bound(136, 2048, 128),
+         "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

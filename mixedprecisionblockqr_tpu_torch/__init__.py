@@ -1,16 +1,26 @@
 """mixedprecisionblockqr_tpu_torch — the PyTorch + CUDA port of
 mixedprecisionblockqr_tpu for NVIDIA Hopper.
 
-Ported so far: the Block Gram-Schmidt QR tiers ``bgs1``, ``bgs2`` and
-``bgs`` and the robust Householder tier behind ``block_qr``/``qr``/
-``block_qr_qtb``, and the rank-revealing least-squares path (``lstsq`` ->
-RQRCP pivoted QR -> Householder tier).  Their kernels are written in CUDA
-C++ for ``sm_90a`` under ``csrc/``: ``ns_chain`` (K1), ``bgs_group_fused``
-(K2), ``panel_qr_fused`` (K3) and ``sketch_qrcp_ranks`` (K7).  The package
+Ported so far, behind ``block_qr``/``qr``/``block_qr_qtb``: the Block
+Gram-Schmidt tiers ``bgs1``, ``bgs2`` and ``bgs``; the ``polar`` tier; the
+CholeskyQR tiers ``cholqr1``, ``cholqr2``, ``cholqr2s`` and ``cholqr1x2``
+(unrolled, and the cholqr scan tier); the Householder tiers
+``householder`` and ``householder_pallas``; ``block_recursive_qr`` and
+``block_qr_batched``.  Also the rank-revealing least-squares path
+(``lstsq`` -> RQRCP pivoted QR -> Householder tier).  The kernels are
+written in CUDA C++ for ``sm_90a`` under ``csrc/``: ``ns_chain`` (K1),
+``bgs_group_fused`` (K2), ``panel_qr_fused`` (K3), ``ninv_chain`` (K4),
+``panel_factor_fused`` (K6) and ``sketch_qrcp_ranks`` (K7).  The package
 imports torch and numpy, never jax.
 
+Entry points run on the card unless the caller asks for the CPU: a tensor
+stays on its device, and a numpy array or list goes to ``device=`` or, by
+default, to ``cuda`` (without a CUDA device it raises and names
+``device='cpu'``).
+
 Public API:
-    qr, block_qr, block_qr_qtb, householder_qr
+    qr, block_qr, block_qr_qtb, block_recursive_qr, block_qr_batched,
+    householder_qr, cholesky_qr2
     pivoted_qr, pivoted_qr_qtb, numerical_rank
     lstsq, lstsq_pivoted, back_substitution, gauss_newton_step
     DTypePolicy, POLICY_FP32, POLICY_MIXED, POLICY_MIXED_FAST, POLICY_BF16,
@@ -29,9 +39,12 @@ from mixedprecisionblockqr_tpu_torch.models.slam import gauss_newton_step
 from mixedprecisionblockqr_tpu_torch.ops import metrics
 from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
     block_qr,
+    block_qr_batched,
     block_qr_qtb,
+    block_recursive_qr,
     qr,
 )
+from mixedprecisionblockqr_tpu_torch.ops.cholqr import cholesky_qr2
 from mixedprecisionblockqr_tpu_torch.ops.householder import householder_qr
 from mixedprecisionblockqr_tpu_torch.ops.pivoted import (
     numerical_rank,
@@ -66,6 +79,9 @@ __all__ = [
     "policy_by_name",
     "block_qr",
     "block_qr_qtb",
+    "block_recursive_qr",
+    "block_qr_batched",
+    "cholesky_qr2",
     "qr",
     "householder_qr",
     "pivoted_qr",

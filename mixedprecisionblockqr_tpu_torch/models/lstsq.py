@@ -31,6 +31,7 @@ from mixedprecisionblockqr_tpu_torch.ops.policy import (
     POLICY_FP32,
     mm_f32,
 )
+from mixedprecisionblockqr_tpu_torch.utils.device import as_device_tensor
 
 _EPS = torch.finfo(torch.float32).eps
 _PARALLEL_ITEM = "ROADMAP Queue 1 item 11 (parallel/: tsqr, caqr)"
@@ -67,13 +68,13 @@ def _back_substitution(R: torch.Tensor, b: torch.Tensor, block_size: int):
     return x[:, 0] if squeeze else x
 
 
-def lstsq_pivoted(A, b, rcond: Optional[float] = None):
+def lstsq_pivoted(A, b, rcond: Optional[float] = None, device=None):
     """Rank-deficient least squares: the min-norm solution
     (``np.linalg.lstsq`` semantics) through a complete orthogonal
     decomposition.  ``A P = Q R`` reveals the rank k; ``R[:k, :]^T = Z T``
     (tall unpivoted Householder QR) gives ``y = Z T^{-T} (Q^T b)[:k]`` and
-    ``x[perm] = y``."""
-    A = torch.as_tensor(A).float()
+    ``x[perm] = y``.  ``device`` as in ``utils/device.py``."""
+    A = as_device_tensor(A, device).float()
     b = torch.as_tensor(b, device=A.device).float()
     squeeze = b.dim() == 1
     bc = b[:, None] if squeeze else b
@@ -100,8 +101,10 @@ def lstsq(
     panel_method: str = "householder",
     rcond: Optional[float] = None,
     quality: Optional[str] = None,
+    device=None,
 ):
-    """Minimize ``||A x - b||_2`` via QR, on the device of ``A``.
+    """Minimize ``||A x - b||_2`` via QR, on the device of ``A`` (a
+    non-tensor ``A`` runs on CUDA unless ``device='cpu'``).
 
     ``method='blocked'`` factors with ``block_qr_qtb(check='sync')``;
     ``'pivoted'`` (and any m < n) goes to ``lstsq_pivoted``.  ``rcond`` is
@@ -110,7 +113,7 @@ def lstsq(
     ``lstsq_pivoted`` instead; ``rcond=0`` disables it.  ``panel_method``
     and ``quality`` are forwarded to the blocked driver.
     """
-    A = torch.as_tensor(A).float()
+    A = as_device_tensor(A, device).float()
     b = torch.as_tensor(b, device=A.device).float()
     m, n = A.shape
     if method == "pivoted" or m < n:

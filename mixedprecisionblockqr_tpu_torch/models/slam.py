@@ -21,6 +21,7 @@ from mixedprecisionblockqr_tpu_torch.ops.policy import (
     POLICY_MIXED,
 )
 from mixedprecisionblockqr_tpu_torch.utils.datagen import slam_jacobian
+from mixedprecisionblockqr_tpu_torch.utils.device import as_device_tensor
 
 _EUROC = ("the Euroc-MAV Jacobian files are not ported to "
           "mixedprecisionblockqr_tpu_torch yet (ROADMAP Queue 1 item 12)")
@@ -65,11 +66,13 @@ def gauss_newton_step(
     residual,
     policy: DTypePolicy = POLICY_MIXED,
     damping: float = 0.0,
+    device=None,
 ) -> torch.Tensor:
     """One Gauss-Newton / Levenberg update: solve ``J dx = -residual``.
     With ``damping > 0`` the stacked Tikhonov system ``[J; sqrt(damping)
-    I] dx = [-r; 0]`` is solved instead."""
-    J = torch.as_tensor(J).float()
+    I] dx = [-r; 0]`` is solved instead.  ``device`` as in
+    ``utils/device.py``."""
+    J = as_device_tensor(J, device).float()
     residual = torch.as_tensor(residual, device=J.device).float()
     n = J.shape[1]
     if damping > 0.0:
@@ -78,9 +81,10 @@ def gauss_newton_step(
     return lstsq(J, -residual, policy=policy)
 
 
-def factor_and_report(A, policy: DTypePolicy, block_size: int = 128
-                      ) -> metrics.QRReport:
-    """Factor one Jacobian and report the metric triple."""
-    A = torch.as_tensor(A)
+def factor_and_report(A, policy: DTypePolicy, block_size: int = 128,
+                      device=None) -> metrics.QRReport:
+    """Factor one Jacobian and report the metric triple (``device`` as in
+    ``utils/device.py``)."""
+    A = as_device_tensor(A, device)
     Q, R = block_qr(A, block_size=block_size, policy=policy)
     return metrics.evaluate(A, Q, R, policy.precision_bits)

@@ -1,24 +1,33 @@
-"""Blocked QR drivers: the Block Gram-Schmidt main path and the robust
-Householder tier (port of ``mixedprecisionblockqr_tpu/ops/blockqr.py``).
+"""Blocked QR drivers (port of ``mixedprecisionblockqr_tpu/ops/blockqr.py``).
 
 ``block_qr``/``qr``/``block_qr_qtb`` dispatch through
-``resolve_panel_config`` exactly as the JAX package does.  This package
-runs the right-looking Block Gram-Schmidt tiers ``bgs1`` (single pass, bf16
-projections), ``bgs2`` (BCGS2 re-projection at emulated HIGH precision)
-and ``bgs`` (re-projection at fp32), and the blocked Householder tier
-``householder`` (``_block_qr_traced``: compact-WY panels, exact for any
-input including rank-deficient ones).  A CUDA tensor takes the dispatch
-branch of the accelerator; a CPU tensor with ``panel_method='auto'``
-resolves to ``'householder'``, as in the JAX package.  ``check='sync'``
-retries a poisoned factorization through ``'householder'``.  The scan and
-CholeskyQR/polar tiers raise ``NotImplementedError`` and name the ROADMAP
-item that ports them.
+``resolve_panel_config`` exactly as the JAX package does, to one of:
+  * the right-looking Block Gram-Schmidt tiers ``bgs1`` (single pass, bf16
+    projections), ``bgs2`` (BCGS2 re-projection at emulated HIGH
+    precision) and ``bgs`` (re-projection at fp32): ``_block_qr_bgs``;
+  * ``polar``: triangular-NS panels through ``ns_chain`` (K1), Yamamoto
+    S-inverses through ``ninv_chain`` (K4) and group-merged W-form
+    reflectors: ``_block_qr_grouped``;
+  * the reflector tiers of ``_block_qr_traced``: ``householder``
+    (``panel_factor``'s column loop), ``householder_pallas`` (every panel
+    through ``panel_factor_fused``, K6), ``cholqr1``/``cholqr2``/
+    ``cholqr2s`` (CholeskyQR panels applied through the Yamamoto
+    reflector, with K6 for panels of aspect < 2 on the GPU) and the paired
+    ``cholqr1x2``;
+  * the cholqr scan tier ``_block_qr_scan`` (``loop_mode='scan'``): K4
+    with an on-device LU fallback per panel.
+A CUDA tensor takes the dispatch branch of the accelerator; a CPU tensor
+with ``panel_method='auto'`` resolves to ``'householder'``, as in the JAX
+package, and every kernel wrapper runs its plain version on the CPU.
+``check='sync'`` retries a poisoned factorization as
+``_sync_retry_method`` says.  The BGS scan tier raises
+``NotImplementedError`` and names the ROADMAP item that ports it.
 
 Each BGS group of panels runs through ``bgs_group_fused`` (kernel K2) when
 the group buffer passes the same size gate as the JAX package; otherwise
-each panel runs ``ns_chain`` (kernel K1) between plain products.  The
-Householder tier's column loop is plain tensor code, as the JAX package's
-``panel_factor`` is plain XLA code.
+each panel runs ``ns_chain`` (kernel K1) between plain products.  A
+float64 panel always takes ``panel_factor``: K6 is fp32, as the TPU kernel
+is, and a POLICY_FP64 factorization stays float64.
 """
 
 from __future__ import annotations
@@ -27,14 +36,26 @@ from typing import Optional, Tuple
 
 import torch
 
+from mixedprecisionblockqr_tpu_torch.ops.cholqr import (
+    cholesky_qr2,
+    lu_inv,
+    newton_inv,
+    newton_iters_for_aspect,
+    yamamoto_reflector,
+)
 from mixedprecisionblockqr_tpu_torch.ops.householder import (
     householder_qr,
     panel_factor,
 )
 from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
     bgs_group_fused,
+    ninv_chain,
     ns_chain,
+    tri_cholqr_fused,
     tri_cholqr_robust_fused,
+)
+from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+    panel_factor_fused,
 )
 from mixedprecisionblockqr_tpu_torch.ops.polar import (
     tri_head_iters,
@@ -44,8 +65,10 @@ from mixedprecisionblockqr_tpu_torch.ops.policy import (
     DTypePolicy,
     POLICY_FP32,
     Precision,
+    accum_matmul,
     matmul,
     mm_f32,
+    q_matmul,
     trailing_matmul,
 )
 from mixedprecisionblockqr_tpu_torch.ops.wy import (
@@ -53,13 +76,14 @@ from mixedprecisionblockqr_tpu_torch.ops.wy import (
     apply_block_reflector_right,
 )
 from mixedprecisionblockqr_tpu_torch.utils.checks import NonFiniteError
+from mixedprecisionblockqr_tpu_torch.utils.device import as_device_tensor
 
 DEFAULT_BLOCK_SIZE = 128
 DEFAULT_GROUP_PANELS = 4
 
 _NS_TIERS = ("bgs", "bgs1", "bgs2", "polar")
 _BGS_TIERS = ("bgs", "bgs1", "bgs2")
-_PORTED_TIERS = _BGS_TIERS + ("householder",)
+_CHOLQR_TIERS = ("cholqr1", "cholqr2", "cholqr2s")
 QUALITY_LEVELS = ("fast", "balanced", "high", "robust")
 _QUALITY_BGS = {"fast": "bgs1", "balanced": "bgs2", "high": "bgs"}
 
@@ -69,12 +93,6 @@ _QUALITY_BGS = {"fast": "bgs1", "balanced": "bgs2", "high": "bgs"}
 #: (group kernel vs per-panel chains) stays in step with the reference.
 GROUP_KERNEL_MAX_BYTES = 10 * 2**20
 GROUP_KERNEL_MAX_M = 5120
-
-_ROADMAP_ITEM = {
-    "scan": "Queue 1 item 7, 'Scan tier' (_block_qr_bgs_scan)",
-    "cholqr": "Queue 1 item 8, 'CholeskyQR/polar tiers'",
-}
-
 
 def check_policy_method(policy: DTypePolicy, panel_method: str) -> None:
     """Refuse fp64 on the fp32-chain Newton-Schulz tiers."""
@@ -168,13 +186,20 @@ def _group_kernel_fits(m0: int, r: int, group_panels: int) -> bool:
             and m0 * r * group_panels * 4 <= GROUP_KERNEL_MAX_BYTES)
 
 
-def _unported(panel_method: str, loop_mode: str) -> NotImplementedError:
-    item = _ROADMAP_ITEM["scan" if loop_mode == "scan" else "cholqr"]
-    return NotImplementedError(
-        f"panel_method={panel_method!r} loop_mode={loop_mode!r} is not "
-        f"ported to mixedprecisionblockqr_tpu_torch yet (ROADMAP {item}); "
-        f"the port runs {_PORTED_TIERS} with loop_mode='unroll'"
-    )
+def _sync_retry_method(panel_method, loop_mode, policy, mode, m, n):
+    """The robust retry target of ``check='sync'``, or None when the
+    primary method already is it.  Unrolled: 'householder' (exact for any
+    input, rank-deficient ones included).  Scan: the all-robust scan-BGS
+    tier 'bgs' (not ported: it raises and names its ROADMAP item), or
+    'cholqr2s' where BGS's contract does not hold (complete Q with m > n,
+    fp64)."""
+    if loop_mode == "scan":
+        bgs_ok = (mode != "complete" or m == n) and (
+            policy.panel != torch.float64)
+        retry = "bgs" if bgs_ok else "cholqr2s"
+    else:
+        retry = "householder"
+    return None if retry == panel_method else retry
 
 
 def _poison_if_unconverged(worst_resid, R_full, Q, B, tol: float = 1e-4):
@@ -373,6 +398,20 @@ def _block_qr_bgs(
     return _poison_if_unconverged(worst, R_full, Q, QtB)
 
 
+
+
+def _householder_panel(panel: torch.Tensor, policy: DTypePolicy,
+                       fused: bool):
+    """``(V, T, Rp)`` of one Householder panel: ``panel_factor_fused`` (K6,
+    fp32) when ``fused``, else ``panel_factor``.  A float64 panel always
+    takes ``panel_factor``: K6 is fp32, as the TPU kernel is, and a
+    POLICY_FP64 factorization must stay float64."""
+    if fused and panel.dtype != torch.float64:
+        V, T, Rp = panel_factor_fused(panel.float().contiguous())
+        return (V.to(policy.panel), T.to(policy.panel), Rp.to(policy.panel))
+    return panel_factor(panel)
+
+
 def _block_qr_traced(
     A: torch.Tensor,
     block_size: int,
@@ -381,45 +420,283 @@ def _block_qr_traced(
     B: Optional[torch.Tensor] = None,
     panel_method: str = "householder",
 ):
-    """The blocked Householder tier (the ``'householder'`` branch of the
-    JAX package's ``_block_qr_traced``): returns ``(R_full (m x n), Q (m x
-    m) or None, QtB or None)``.
+    """The reflector tiers (the JAX package's ``_block_qr_traced``):
+    returns ``(R_full (m x n), Q (m x m) or None, QtB or None)``.
 
-    Each r-wide panel (the last may be narrower) is factored by the
-    reflector loop of ``panel_factor``; the trailing columns, ``B`` and Q
-    are updated with its compact-WY block reflector under the policy.
+    * ``'householder'``: each r-wide panel (the last may be narrower) by
+      ``panel_factor``'s column loop; ``'householder_pallas'``: by K6.
+      Trailing columns, ``B`` and Q take its compact-WY block reflector.
+    * ``'cholqr1'``/``'cholqr2'``/``'cholqr2s'``: a (1-pass / 2-pass /
+      shifted) CholeskyQR panel applied through the Yamamoto reflector
+      ``H = I - Y Sinv Y^T`` with a Newton-Schulz S-inverse (residual-
+      checked LU fallback on panels of aspect < 4).  Hybrid rule: a panel
+      of aspect < 2 (the square final panel) takes the Householder panel
+      instead, K6 on the GPU.
+    * ``'cholqr1x2'``: two adjacent cholqr1 panels merged into one 2r-wide
+      reflector while the second stays tall (aspect >= 2).
     Non-finite panel output is funneled into the NaN canary as
-    ``sum(Rp * 0) + sum(T * 0)`` (0 for finite values, NaN otherwise), so a
-    mid-matrix breakdown still reaches R[0, 0].  The CholeskyQR branches of
-    the JAX function are not ported.  ``A`` and ``B`` are not modified.
+    ``sum(X * 0)`` (0 for finite X, NaN otherwise), so a mid-matrix
+    breakdown still reaches R[0, 0].  ``A`` and ``B`` are not modified.
     """
-    if panel_method != "householder":
-        raise _unported(panel_method, "unroll")
     m, n = A.shape
     r = min(block_size, n)
+    dev = A.device
+    on_gpu = A.is_cuda
+    A = A.to(policy.panel, copy=True)
+    q_dtype = policy.q_store or policy.accum
+    Q = torch.eye(m, dtype=q_dtype, device=dev) if want_q else None
+    if B is not None:
+        B = B.clone()
+    mm_t, mm_q, hi = (trailing_matmul(policy), q_matmul(policy),
+                      accum_matmul(policy))
+
+    def sub_reflector(cols):
+        Q_red, Rp = cholesky_qr2(cols, passes=1)
+        return yamamoto_reflector(Q_red, Rp, inv_method="newton")
+
+    worst = torch.zeros((), dtype=torch.float32, device=dev)
+    pair_mode = panel_method == "cholqr1x2"
+    base_method = "cholqr1" if pair_mode else panel_method
+    lam = 0
+    while lam < n:
+        w = min(r, n - lam)
+        if (pair_mode and w == r and lam + 2 * r <= n
+                and (m - lam - r) >= 2 * r):
+            # H1 H2 = I - Yc Sc Yc^T, Sc = [[S1, -S1 (Y1^T Y2) S2], [0, S2]]
+            Y1, S1, R1 = sub_reflector(A[lam:, lam:lam + r])
+            A[lam:, lam:lam + r] = 0
+            A[lam:lam + r, lam:lam + r] = R1.to(A.dtype)
+            C = A[lam:, lam + r:lam + 2 * r]
+            C = C - mm_t(Y1, hi(S1.T, mm_t(Y1.T, C)))
+            Y2b, S2, R2 = sub_reflector(C[r:, :])
+            A[lam:, lam + r:lam + 2 * r] = 0
+            A[lam:lam + r, lam + r:lam + 2 * r] = C[:r, :].to(A.dtype)
+            A[lam + r:lam + 2 * r, lam + r:lam + 2 * r] = R2.to(A.dtype)
+            Y2 = torch.cat([Y2b.new_zeros((r, r)), Y2b], dim=0)
+            cross = hi(hi(S1, mm_t(Y1.T, Y2)), S2)
+            Yc = torch.cat([Y1, Y2], dim=1)
+            Sc = torch.cat([torch.cat([S1, -cross.to(S1.dtype)], dim=1),
+                            torch.cat([S2.new_zeros((r, r)), S2], dim=1)],
+                           dim=0)
+            worst = torch.maximum(
+                worst, (Sc * 0).sum() + (R1 * 0).sum() + (R2 * 0).sum())
+            if lam + 2 * r < n:
+                C2 = A[lam:, lam + 2 * r:]
+                A[lam:, lam + 2 * r:] = (
+                    C2 - mm_t(Yc, hi(Sc.T, mm_t(Yc.T, C2)))).to(A.dtype)
+            if B is not None:
+                Bl = B[lam:]
+                B[lam:] = (Bl - mm_t(Yc, hi(Sc.T, mm_t(Yc.T, Bl)))).to(
+                    B.dtype)
+            if want_q:
+                Qc = Q[:, lam:]
+                Q[:, lam:] = (Qc - mm_q(hi(mm_q(Qc, Yc), Sc), Yc.T)).to(
+                    q_dtype)
+            lam += 2 * r
+            continue
+
+        panel = A[lam:, lam:lam + w]
+        pm = base_method
+        if pm in _CHOLQR_TIERS and (m - lam) < 2 * w:
+            pm = "householder_pallas" if on_gpu else "householder"
+        if pm in ("householder", "householder_pallas"):
+            V, T, Rp = _householder_panel(panel, policy,
+                                          pm == "householder_pallas")
+            A[lam:, lam:lam + w] = Rp
+            # Rp, not only T: an input NaN may leave V and T finite.
+            worst = torch.maximum(worst, (Rp * 0).sum() + (T * 0).sum())
+
+            def left(X, V=V, T=T):
+                return apply_block_reflector_left_t(X, V, T, policy)
+
+            def right(X, V=V, T=T):
+                return apply_block_reflector_right(X, V, T, policy)
+        elif pm in _CHOLQR_TIERS:
+            Q_red, Rp = cholesky_qr2(panel, shifted=pm == "cholqr2s",
+                                     passes=1 if pm == "cholqr1" else 2)
+            Y, Sinv, Rp = yamamoto_reflector(Q_red, Rp, inv_method="newton",
+                                             check=(m - lam) < 4 * w)
+            A[lam:, lam:lam + w] = 0
+            A[lam:lam + w, lam:lam + w] = Rp.to(A.dtype)
+            worst = torch.maximum(worst, (Sinv * 0).sum() + (Rp * 0).sum())
+
+            def left(X, Y=Y, Sinv=Sinv):  # H^T X = X - Y Sinv^T (Y^T X)
+                return X - mm_t(Y, hi(Sinv.T, mm_t(Y.T, X)))
+
+            def right(X, Y=Y, Sinv=Sinv):  # X H = X - ((X Y) Sinv) Y^T
+                return X - mm_q(hi(mm_q(X, Y), Sinv), Y.T)
+        else:
+            raise ValueError(f"unknown panel_method {pm!r}")
+        if lam + w < n:
+            A[lam:, lam + w:] = left(A[lam:, lam + w:]).to(A.dtype)
+        if B is not None:
+            B[lam:] = left(B[lam:]).to(B.dtype)
+        if want_q:
+            Q[:, lam:] = right(Q[:, lam:]).to(q_dtype)
+        lam += w
+    R_full = torch.triu(A.to(policy.accum))
+    return _poison_if_unconverged(worst, R_full, Q, B)
+
+
+def _block_qr_scan(
+    A: torch.Tensor,
+    block_size: int,
+    policy: DTypePolicy,
+    want_q: bool,
+    B: Optional[torch.Tensor] = None,
+    panel_method: str = "cholqr1",
+):
+    """The cholqr scan tier (the JAX package's ``_block_qr_scan``): every
+    panel but the last runs the same full-width step -- a CholeskyQR panel
+    masked to rows >= lam and its Yamamoto reflector applied to all of A,
+    B and Q (finished columns are invariant under it).  The S-inverse is
+    sized for the squarest in-loop panel: 12 Newton iterations (K4, or
+    ``newton_inv`` for a float64 S) with the residual-checked LU fallback
+    on the device.
+    The square final panel runs ``panel_factor``.  Requires r | n; like
+    the JAX tier it writes no canary (a NaN spreads through the full-width
+    updates)."""
+    m, n = A.shape
+    r = block_size
+    if n % r != 0:
+        raise ValueError(f"scan mode needs r | n; got n={n}, r={r}")
     dev = A.device
     A = A.to(policy.panel, copy=True)
     q_dtype = policy.q_store or policy.accum
     Q = torch.eye(m, dtype=q_dtype, device=dev) if want_q else None
     if B is not None:
         B = B.clone()
-    worst = torch.zeros((), dtype=torch.float32, device=dev)
-    lam = 0
-    while lam < n:
-        w = min(r, n - lam)
-        V, T, Rp = panel_factor(A[lam:, lam:lam + w])
-        A[lam:, lam:lam + w] = Rp
-        worst = torch.maximum(worst, (Rp * 0).sum() + (T * 0).sum())
-        if lam + w < n:
-            A[lam:, lam + w:] = apply_block_reflector_left_t(
-                A[lam:, lam + w:], V, T, policy).to(A.dtype)
+    mm_t, mm_q, hi = (trailing_matmul(policy), q_matmul(policy),
+                      accum_matmul(policy))
+
+    rows = torch.arange(m, device=dev)[:, None]
+    cols = torch.arange(r, device=dev)[None, :]
+    for k in range(n // r - 1):
+        lam = k * r
+        P = torch.where(rows >= lam, A[:, lam:lam + r], 0.0)
+        Q_red, _ = cholesky_qr2(P, shifted=panel_method == "cholqr2s",
+                                passes=1 if panel_method == "cholqr1" else 2)
+        Q1 = Q_red[lam:lam + r, :]
+        D = torch.where(torch.diagonal(Q1) > 0, -1.0, 1.0).to(Q_red.dtype)
+        Y = Q_red * D[None, :] - (rows - lam == cols).to(Q_red.dtype)
+        S = torch.eye(r, dtype=Q_red.dtype, device=dev) - (Q1 * D).T
+        if S.dtype == torch.float64:
+            Sinv = newton_inv(S, iters=12, check=True)
+        else:
+            Xn, resid = ninv_chain(S.float().contiguous(), iters=12)
+            Sinv = torch.where(resid < 1e-3, Xn, lu_inv(S.float()))
+        A = (A - mm_t(Y, hi(Sinv.T, mm_t(Y.T, A)))).to(A.dtype)
         if B is not None:
-            B[lam:] = apply_block_reflector_left_t(
-                B[lam:], V, T, policy).to(B.dtype)
+            B = (B - mm_t(Y, hi(Sinv.T, mm_t(Y.T, B)))).to(B.dtype)
         if want_q:
-            Q[:, lam:] = apply_block_reflector_right(
-                Q[:, lam:], V, T, policy).to(q_dtype)
-        lam += w
+            Q = (Q - mm_q(hi(mm_q(Q, Y), Sinv), Y.T)).to(q_dtype)
+    lam = n - r
+    V, T, Rp = panel_factor(A[lam:, lam:])
+    A[lam:, lam:] = Rp
+    if B is not None:
+        B[lam:] = apply_block_reflector_left_t(B[lam:], V, T, policy).to(
+            B.dtype)
+    if want_q:
+        Q[:, lam:] = apply_block_reflector_right(
+            Q[:, lam:].to(policy.accum), V, T, policy).to(q_dtype)
+    return torch.triu(A.to(policy.accum)), Q, B
+
+
+def _block_qr_grouped(
+    A: torch.Tensor,
+    block_size: int,
+    policy: DTypePolicy,
+    want_q: bool,
+    B: Optional[torch.Tensor] = None,
+    group_panels: int = 4,
+    polar_iters: Optional[int] = None,
+):
+    """The ``polar`` tier (the JAX package's ``_block_qr_grouped``):
+    triangular-NS panels and group-merged W-form reflectors.
+
+    Each panel is factored with no triangular library call: tall panels by
+    ``tri_cholqr_fused`` (one K1 chain, aspect budget, +6 on the head
+    panel), tail panels (aspect < 2) by the shifted three-pass
+    ``tri_cholqr_robust_fused``, both sign-fixed.  Each reflector is folded
+    to ``H = I - W Y^T`` with ``W = Y S^-1`` (S-inverse by K4 with
+    ``newton_iters_for_aspect`` iterations; the LU fallback armed only at
+    aspect < 4); the square final panel uses ``Y = I``, ``W = I - Qs``.
+    Panels update their own group's columns eagerly; the trailing matrix,
+    B and Q are each updated once per group by the merged
+    ``H_g H_j = I - [Wg, Wj - Wg (Yg^T Wj)] [Yg, Yj]^T``.  Residuals enter
+    the canary as the robust residual x 0.01 and the plain one squared.
+    Requires r | n and m >= n."""
+    m, n = A.shape
+    r = block_size
+    if n % r != 0 or m < n:
+        raise ValueError(f"polar needs r | n and m >= n; got {A.shape}, "
+                         f"r={r}")
+    nb = n // r
+    dev = A.device
+    A = A.to(policy.panel, copy=True)
+    q_dtype = policy.q_store or policy.accum
+    Q = torch.eye(m, dtype=q_dtype, device=dev) if want_q else None
+    if B is not None:
+        B = B.clone()
+    mm_t, mm_q = trailing_matmul(policy), q_matmul(policy)
+    worst = torch.zeros((), dtype=torch.float32, device=dev)
+    eye_r = torch.eye(r, dtype=torch.float32, device=dev)
+    i = 0
+    while i < nb:
+        lam_g = i * r
+        js = list(range(i, min(i + group_panels, nb)))
+        g_end = (js[-1] + 1) * r
+        Yg = Wg = None
+        for j in js:
+            lam = j * r
+            P = A[lam:, lam:lam + r]
+            if (m - lam) < 2 * r:
+                Qs, t, _, rresid = tri_cholqr_robust_fused(P, sign_fix=True)
+                worst = torch.maximum(worst, 0.01 * rresid)
+            else:
+                iters = (polar_iters if polar_iters is not None
+                         else tri_iters_for_aspect((m - lam) / r))
+                if lam == 0:
+                    iters = tri_head_iters(iters)
+                Qs, t, _, resid = tri_cholqr_fused(P, iters=iters)
+                worst = torch.maximum(worst, resid * resid)
+            if m - lam == r:  # square final panel: H = Qs, no inversion
+                Y = eye_r
+                W = eye_r - Qs
+            else:
+                Y = Qs - torch.eye(m - lam, r, dtype=Qs.dtype, device=dev)
+                S = eye_r - Qs[:r, :].T
+                aspect = (m - lam) / r
+                Xn, nresid = ninv_chain(S.contiguous(),
+                                        iters=newton_iters_for_aspect(aspect))
+                Sinv = (torch.where(nresid < 1e-3, Xn, lu_inv(S))
+                        if aspect < 4 else Xn)
+                W = mm_f32(Y, Sinv)
+            A[lam:, lam:lam + r] = 0
+            A[lam:lam + r, lam:lam + r] = t.to(A.dtype)
+            if lam + r < g_end:  # eager update of the group's own columns
+                C = A[lam:, lam + r:g_end]
+                A[lam:, lam + r:g_end] = (C - mm_t(Y, mm_t(W.T, C))).to(
+                    A.dtype)
+            pad = lam - lam_g
+            Yj = torch.cat([Y.new_zeros((pad, r)), Y]) if pad else Y
+            Wj = torch.cat([W.new_zeros((pad, r)), W]) if pad else W
+            if Yg is None:
+                Yg, Wg = Yj, Wj
+            else:
+                Wj = Wj - mm_t(Wg, mm_t(Yg.T, Wj))
+                Yg = torch.cat([Yg, Yj], dim=1)
+                Wg = torch.cat([Wg, Wj], dim=1)
+        if g_end < n:
+            C = A[lam_g:, g_end:]
+            A[lam_g:, g_end:] = (C - mm_t(Yg, mm_t(Wg.T, C))).to(A.dtype)
+        if B is not None:
+            Bl = B[lam_g:]
+            B[lam_g:] = (Bl - mm_t(Yg, mm_t(Wg.T, Bl))).to(B.dtype)
+        if want_q:
+            Qc = Q[:, lam_g:]
+            Q[:, lam_g:] = (Qc - mm_q(mm_q(Qc, Wg), Yg.T)).to(q_dtype)
+        i = js[-1] + 1
     R_full = torch.triu(A.to(policy.accum))
     return _poison_if_unconverged(worst, R_full, Q, B)
 
@@ -428,15 +705,25 @@ def _driver(A, block_size, policy, want_q, B, panel_method, loop_mode,
             group_panels=DEFAULT_GROUP_PANELS):
     """Run one resolved tier: ``(R_full, Q, QtB)`` (the JAX package's
     ``_jitted_driver``)."""
-    if loop_mode != "unroll":
-        raise _unported(panel_method, loop_mode)
     if panel_method in _BGS_TIERS:
+        if loop_mode == "scan":
+            raise NotImplementedError(
+                f"panel_method={panel_method!r} loop_mode='scan' is not "
+                "ported to mixedprecisionblockqr_tpu_torch yet (ROADMAP "
+                "Queue 1 item 7, 'Scan tier' (_block_qr_bgs_scan)); the "
+                "port's scan tier runs the cholqr methods"
+            )
         return _block_qr_bgs(
             A, block_size, policy, want_q, B, group_panels=group_panels,
             reorth=panel_method in ("bgs", "bgs2"),
             mid_tier=panel_method == "bgs2",
             chain_mid=panel_method == "bgs1",
         )
+    if panel_method == "polar":
+        return _block_qr_grouped(A, block_size, policy, want_q, B,
+                                 group_panels=group_panels)
+    if loop_mode == "scan":
+        return _block_qr_scan(A, block_size, policy, want_q, B, panel_method)
     return _block_qr_traced(A, block_size, policy, want_q, B, panel_method)
 
 
@@ -452,18 +739,21 @@ def block_qr(
     check: str = "defer",
     device=None,
 ):
-    """Blocked QR: A = QR, on the device of ``A`` (or ``device``).
+    """Blocked QR: A = QR.
 
-    Arguments as in the JAX package's ``block_qr``.  ``panel_method='auto'``
-    with ``quality='fast'`` (the default rung under mixed policies) is the
-    main path: ``bgs1`` with groups of 8 panels.  ``check='defer'`` leaves
-    a breakdown as a NaN canary in R[0, 0] / Q[0, 0]; ``check='sync'``
-    fetches the canary and reruns the factorization through the robust
-    'householder' tier (exact for any input, rank-deficient ones included,
-    by its zero-column skip), raising ``NonFiniteError`` if that fails
-    too.  Returns ``(Q, R)`` for 'reduced'/'complete' and R for 'r'.
+    Arguments as in the JAX package's ``block_qr``; ``device`` as in
+    ``utils/device.py`` (a non-tensor input runs on CUDA unless
+    ``device='cpu'``).  ``panel_method='auto'`` with ``quality='fast'``
+    (the default rung under mixed policies) is the main path: ``bgs1``
+    with groups of 8 panels; a complete Q of a tall matrix resolves to
+    ``polar``.  ``check='defer'`` leaves a breakdown as a NaN canary in
+    R[0, 0] / Q[0, 0]; ``check='sync'`` fetches the canary and reruns the
+    factorization through ``_sync_retry_method``'s tier ('householder'
+    when unrolled: exact for any input, rank-deficient ones included),
+    raising ``NonFiniteError`` if that fails too.  Returns ``(Q, R)`` for
+    'reduced'/'complete' and R for 'r'.
     """
-    A = torch.as_tensor(A, device=device)
+    A = as_device_tensor(A, device)
     if A.dtype not in (torch.float32, torch.float64, torch.bfloat16):
         A = A.to(policy.panel)
     if check not in ("defer", "sync", "off"):
@@ -481,16 +771,18 @@ def block_qr(
     R_full, Q, _ = _driver(A, block_size, policy, want_q, None,
                            panel_method, loop_mode, group_panels)
     if check == "sync" and not bool(torch.isfinite(R_full[0, 0])):
-        if panel_method == "householder":
+        retry_pm = _sync_retry_method(panel_method, loop_mode, policy, mode,
+                                      m, n)
+        if retry_pm is None:
             raise NonFiniteError(
-                "block_qr: non-finite factorization via 'householder' "
+                f"block_qr: non-finite factorization via {panel_method!r} "
                 "- the input likely contains NaN/Inf"
             )
         R_full, Q, _ = _driver(A, block_size, policy, want_q, None,
-                               "householder", loop_mode)
+                               retry_pm, loop_mode)
         if not bool(torch.isfinite(R_full[0, 0])):
             raise NonFiniteError(
-                "block_qr: non-finite factorization even via 'householder' "
+                f"block_qr: non-finite factorization even via {retry_pm!r} "
                 "- the input contains NaN/Inf, or is numerically "
                 "rank-deficient (use panel_method='householder' with "
                 "loop_mode='unroll', or pivoted_qr/lstsq for rank-revealing "
@@ -514,12 +806,13 @@ def block_qr_qtb(
     panel_method: str = "householder",
     quality: Optional[str] = None,
     check: str = "defer",
+    device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Factor A and return ``(R (n x n), Q^T B)`` without materializing Q:
     the least-squares path.  ``B`` (m,) or (m, k) rides through the same
     panel updates.  ``check`` as in ``block_qr`` ('sync' retries a
-    poisoned factorization through 'householder')."""
-    A = torch.as_tensor(A)
+    poisoned factorization through 'householder'); ``device`` as there."""
+    A = as_device_tensor(A, device)
     B = torch.as_tensor(B, device=A.device)
     squeeze = B.dim() == 1
     if squeeze:
@@ -553,6 +846,59 @@ def block_qr_qtb(
     return R_full[:n, :], QtB
 
 
+def block_recursive_qr(A, mode: str = "reduced", min_block: int = 64,
+                       device=None):
+    """Recursive blocked QR on reduced factors (GVL Alg 5.2.4): the columns
+    split in half recursively, leaves run the Householder tier at width
+    ``min_block`` under POLICY_FP32, and each combine is two fp32 products.
+    Only ``mode='reduced'``, as in the JAX package."""
+    if mode != "reduced":
+        raise ValueError("block_recursive_qr supports mode='reduced' only")
+    A = as_device_tensor(A, device).float()
+
+    def rec(A):
+        m, n = A.shape
+        if n <= min_block:
+            R_full, Q, _ = _block_qr_traced(A, min_block, POLICY_FP32, True)
+            return Q[:, :n], R_full[:n, :]
+        n1 = n // 2
+        Q1, R11 = rec(A[:, :n1])
+        R12 = mm_f32(Q1.T, A[:, n1:])
+        Q2, R22 = rec(A[:, n1:] - mm_f32(Q1, R12))
+        top = torch.cat([R11, R12], dim=1)
+        bot = torch.cat([R22.new_zeros((R22.shape[0], n1)), R22], dim=1)
+        return torch.cat([Q1, Q2], dim=1), torch.cat([top, bot], dim=0)
+
+    return rec(A)
+
+
+def block_qr_batched(
+    A_batch,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    policy: DTypePolicy = POLICY_FP32,
+    mode: str = "reduced",
+    panel_method: str = "householder",
+    device=None,
+):
+    """Blocked QR over a leading batch axis: each (m, n) matrix of the
+    batch runs the same unrolled driver (the JAX package ``vmap``s it).
+    ``panel_method`` is taken as given, as there."""
+    A_batch = as_device_tensor(A_batch, device)
+    if A_batch.dim() != 3:
+        raise ValueError(f"expected (batch, m, n), got {tuple(A_batch.shape)}")
+    want_q = mode in ("reduced", "complete")
+    outs = [_driver(A, block_size, policy, want_q, None, panel_method,
+                    "unroll") for A in A_batch]
+    R_full = torch.stack([o[0] for o in outs])
+    n = A_batch.shape[2]
+    if mode == "r":
+        return R_full[:, :n, :]
+    Q = torch.stack([o[1] for o in outs])
+    if mode == "reduced":
+        return Q[:, :, :n], R_full[:, :n, :]
+    return Q, R_full
+
+
 def qr(
     A,
     block_size: int = DEFAULT_BLOCK_SIZE,
@@ -569,8 +915,8 @@ def qr(
     unblocked Householder path (Q (m, k) / (m, m), R (k, n) / (m, n) with
     k = min(m, n)); the rest goes to ``block_qr``.  Under mixed/bf16
     policies ``quality=None`` means 'balanced' (``bgs2``), as in the JAX
-    package; ``block_qr`` keeps 'fast'."""
-    A = torch.as_tensor(A, device=device)
+    package; ``block_qr`` keeps 'fast'.  ``device`` as in ``block_qr``."""
+    A = as_device_tensor(A, device)
     m, n = A.shape
     if n <= 8 or m < n:
         return householder_qr(A.to(policy.panel), mode=mode,

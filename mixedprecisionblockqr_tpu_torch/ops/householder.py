@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 
 from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
+from mixedprecisionblockqr_tpu_torch.utils.device import as_device_tensor
 
 _EPS_BY_DTYPE = {
     torch.float64: 1e-300,
@@ -109,11 +110,12 @@ def q_backward_accumulation(V: torch.Tensor,
 
 
 def householder_qr(A, mode: str = "reduced",
-                   dtype: torch.dtype = torch.float32):
+                   dtype: torch.dtype = torch.float32, device=None):
     """Unblocked Householder QR.  ``'reduced'`` -> (Q[:, :n], R[:n, :]),
     ``'complete'`` -> (Q (m x m), R (m x n)), ``'raw'`` -> (V, beta) with
-    Q = H_0 ... H_{K-1}, H_k = I - beta_k v_k v_k^T."""
-    A = torch.as_tensor(A).to(dtype)
+    Q = H_0 ... H_{K-1}, H_k = I - beta_k v_k v_k^T.  ``device`` as in
+    ``utils/device.py``."""
+    A = as_device_tensor(A, device).to(dtype)
     n = A.shape[1]
     R_full, V, beta = _householder_qr_impl(A)
     if mode == "raw":

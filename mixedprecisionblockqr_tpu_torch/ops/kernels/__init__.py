@@ -4,12 +4,19 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (  # noqa: F401
     LAUNCHES,
     bgs_group_fused,
     bgs_group_fused_plain,
+    ninv_chain,
+    ninv_chain_plain,
     ns_chain,
     ns_chain_plain,
     panel_qr_fused,
     panel_qr_fused_plain,
     reset_launches,
+    tri_cholqr_fused,
     tri_cholqr_robust_fused,
+)
+from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (  # noqa: F401
+    panel_factor_fused,
+    panel_factor_fused_plain,
 )
 from mixedprecisionblockqr_tpu_torch.ops.kernels.sketch import (  # noqa: F401
     sketch_qrcp_ranks,

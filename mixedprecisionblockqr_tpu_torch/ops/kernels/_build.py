@@ -23,7 +23,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("ns_chain.cu", "bgs_group.cu", "panel_qr.cu", "sketch_qrcp.cu")
+SOURCES = ("ns_chain.cu", "bgs_group.cu", "panel_qr.cu", "sketch_qrcp.cu",
+           "ninv_chain.cu", "panel_factor.cu")
 HEADERS = ("ns_chain.cuh", "panel.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -76,6 +77,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_sketch_qrcp_max_floats.restype = ci
     lib.mpbqr_sketch_qrcp.argtypes = [vp, vp, vp, ci, ci, ci, vp]
     lib.mpbqr_sketch_qrcp.restype = ci
+    lib.mpbqr_ninv_chain_scratch_floats.argtypes = [ci]
+    lib.mpbqr_ninv_chain_scratch_floats.restype = ll
+    lib.mpbqr_ninv_chain.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.mpbqr_ninv_chain.restype = ci
+    lib.mpbqr_panel_factor.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.mpbqr_panel_factor.restype = ci
     return lib
 
 

@@ -1,6 +1,7 @@
-"""Triangular Newton-Schulz chain kernels: ``ns_chain`` (K1),
-``bgs_group_fused`` (K2) and ``panel_qr_fused`` (K3), each beside its plain
-PyTorch version.
+"""Newton-Schulz chain kernels: ``ns_chain`` (K1), ``bgs_group_fused`` (K2),
+``panel_qr_fused`` (K3) and ``ninv_chain`` (K4), each beside its plain
+PyTorch version, and the compositions ``tri_cholqr_fused`` and
+``tri_cholqr_robust_fused`` over K1.
 
 Port of ``mixedprecisionblockqr_tpu/ops/pallas/ns.py``.  The wrappers
 launch the hand-written CUDA kernels of ``csrc/`` for CUDA tensors and
@@ -22,12 +23,13 @@ from typing import Sequence, Tuple
 
 import torch
 
+from mixedprecisionblockqr_tpu_torch.ops.cholqr import newton_inv
 from mixedprecisionblockqr_tpu_torch.ops.policy import mm_bf16, mm_f32, mm_high
 
 #: Kernel launches per wrapper since the last ``reset_launches()`` (one
 #: entry per kernel of the package, ``sketch_qrcp_ranks`` included).
 LAUNCHES = {"ns_chain": 0, "bgs_group_fused": 0, "panel_qr_fused": 0,
-            "sketch_qrcp_ranks": 0}
+            "ninv_chain": 0, "panel_factor_fused": 0, "sketch_qrcp_ranks": 0}
 #: Panel widths the CUDA kernels are instantiated for.
 KERNEL_WIDTHS = (32, 64, 128)
 #: Chain schedule of a panel (the same constants as csrc/panel.cuh):
@@ -180,6 +182,15 @@ def bgs_group_fused_plain(Pg, r, iters, robust, bf16_dots=True,
             Q[:, c0 + r:] = C - proj(Qk, G1)
             Rg[c0:c0 + r, c0 + r:] = G1
     return Q, Rg, worst
+
+
+def ninv_chain_plain(S, iters=6):
+    """Plain version of :func:`ninv_chain` (``_ninv_kernel`` transcription:
+    ``newton_inv`` in fp32 and the final residual)."""
+    S = S.float()
+    X = newton_inv(S, iters=iters)
+    eye = torch.eye(S.shape[0], dtype=torch.float32, device=S.device)
+    return X, (eye - mm_f32(S, X)).abs().max()
 
 
 # -- kernel wrappers -------------------------------------------------------
@@ -352,10 +363,62 @@ def panel_qr_fused(
     return Q, t, resid
 
 
-def tri_cholqr_robust_fused(P: torch.Tensor, chain_mid: bool = False):
+def ninv_chain(S: torch.Tensor, iters: int = 6
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused general Newton-Schulz inverse of the r x r Yamamoto ``S``:
+    X0 = (2/3) I and ``iters`` steps of X <- X (2I - S X), in fp32.
+    Returns ``(X, resid)`` with ``resid = max|I - S X|`` of the final
+    iterate (NaN-propagating); callers arm their own LU fallback on it.
+    On CUDA, r must be one of ``KERNEL_WIDTHS``."""
+    if S.device.type == "cpu":
+        return ninv_chain_plain(S, iters)
+    _require_cuda_f32(S, "S")
+    r = S.shape[0]
+    if S.shape != (r, r) or r not in KERNEL_WIDTHS:
+        raise ValueError(f"ninv_chain kernel takes r x r, r in "
+                         f"{KERNEL_WIDTHS}; got {tuple(S.shape)}")
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
+        check, library,
+    )
+
+    lib = library()
+    X = torch.empty_like(S)
+    resid = torch.empty((), dtype=torch.float32, device=S.device)
+    scratch = torch.empty(lib.mpbqr_ninv_chain_scratch_floats(r),
+                          dtype=torch.float32, device=S.device)
+    code = lib.mpbqr_ninv_chain(S.data_ptr(), X.data_ptr(), resid.data_ptr(),
+                                scratch.data_ptr(), r, iters, _stream(S))
+    check(code, "ninv_chain")
+    LAUNCHES["ninv_chain"] += 1
+    return X, resid
+
+
+def _sign_fix(Q1: torch.Tensor):
+    """The Yamamoto column convention: D = -1 where diag(Q1) > 0, else 1."""
+    return torch.where(torch.diagonal(Q1) > 0, -1.0, 1.0)
+
+
+def tri_cholqr_fused(P: torch.Tensor, iters: int = 10):
+    """Panel factorization over :func:`ns_chain` (a composition, not a
+    kernel): fp32 Gram, one chain, ``Q = P X``, with the Yamamoto column
+    convention (diag of Q's top r x r block <= 0) that the reflector
+    drivers need: the JAX package's ``tri_cholqr_fused(sign_fix=True)``.
+    Returns ``(Q, t, X, resid)`` with ``resid`` the chain's one-behind
+    residual."""
+    P = P.float()
+    r = P.shape[1]
+    X, t, resid = ns_chain(mm_f32(P.T, P).contiguous(), iters=iters)
+    D = _sign_fix(mm_f32(P[:r, :], X))
+    X = X * D[None, :]
+    return mm_f32(P, X), D[:, None] * t, X, resid
+
+
+def tri_cholqr_robust_fused(P: torch.Tensor, chain_mid: bool = False,
+                            sign_fix: bool = False):
     """Shifted three-pass panel factorization over :func:`ns_chain` for
     ill-conditioned tail panels (a composition, not a kernel).  Returns
-    ``(Q, t, X, resid)`` with ``resid`` the final pass's exact residual."""
+    ``(Q, t, X, resid)`` with ``resid`` the final pass's exact residual;
+    ``sign_fix`` applies the Yamamoto column convention at the end."""
     P = P.float()
     X1, t1, _ = ns_chain(mm_f32(P.T, P), iters=14, shift=1e-3,
                          chain_mid=chain_mid, omega=False)
@@ -367,4 +430,9 @@ def tri_cholqr_robust_fused(P: torch.Tensor, chain_mid: bool = False):
     Qs = mm_f32(Q1f, X3)
     t = torch.triu(mm_f32(t3, mm_f32(t2, t1)))
     X = mm_f32(mm_f32(X1, X2), X3)
+    if sign_fix:
+        D = _sign_fix(Qs[:P.shape[1], :])
+        Qs = Qs * D[None, :]
+        t = D[:, None] * t
+        X = X * D[None, :]
     return Qs, t, X, resid

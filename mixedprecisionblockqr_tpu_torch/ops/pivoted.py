@@ -37,6 +37,7 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.sketch import (
     sketch_qrcp_ranks,
 )
 from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
+from mixedprecisionblockqr_tpu_torch.utils.device import as_device_tensor
 
 _TINY = torch.finfo(torch.float32).tiny
 _EPS = torch.finfo(torch.float32).eps
@@ -175,14 +176,15 @@ def pivoted_qr(
     block_size: int = 128,
     oversample: int = 8,
     seed: int = 0,
+    device=None,
 ):
     """Column-pivoted QR: ``A[:, perm] = Q @ R`` with (sketch-)decaying
     ``|diag(R)|``.  Returns ``(Q, R, perm)`` -- reduced: Q (m, k), R (k,
     n); complete: Q (m, m), R (m, n) -- or ``(R (k, n), perm)`` for mode
     'r'.  ``method`` is 'exact', 'rqrcp' or 'auto' (module docstring); an
     'rqrcp' call whose panels poison is redone by 'exact' (one scalar
-    fetch)."""
-    A = torch.as_tensor(A)
+    fetch).  ``device`` as in ``utils/device.py``."""
+    A = as_device_tensor(A, device)
     m, n = A.shape
     k = min(m, n)
     want_q = mode in ("reduced", "complete")
@@ -212,11 +214,12 @@ def pivoted_qr_qtb(
     block_size: int = 128,
     oversample: int = 8,
     seed: int = 0,
+    device=None,
 ):
     """Pivoted factorization returning ``(R (k, n), Q^T B, perm)`` without
     materializing Q: the rank-deficient least-squares path.  ``method``
-    as in :func:`pivoted_qr`."""
-    A = torch.as_tensor(A)
+    and ``device`` as in :func:`pivoted_qr`."""
+    A = as_device_tensor(A, device)
     B = torch.as_tensor(B, device=A.device)
     squeeze = B.dim() == 1
     if squeeze:

@@ -170,5 +170,19 @@ def matmul(
 
 
 def trailing_matmul(policy: DTypePolicy):
+    """The trailing-matrix / projection products of a policy."""
     return lambda a, b: matmul(a, b, in_dtype=policy.trailing,
+                               accum_dtype=policy.accum)
+
+
+def q_matmul(policy: DTypePolicy):
+    """The Q-accumulation products of a policy."""
+    return lambda a, b: matmul(a, b, in_dtype=policy.q_update,
+                               accum_dtype=policy.accum)
+
+
+def accum_matmul(policy: DTypePolicy):
+    """The small (r x r) reflector products: full precision in the
+    accumulation dtype."""
+    return lambda a, b: matmul(a, b, in_dtype=policy.accum,
                                accum_dtype=policy.accum)

@@ -17,7 +17,9 @@ from mixedprecisionblockqr_tpu_torch.ops.householder import _mm
 from mixedprecisionblockqr_tpu_torch.ops.policy import (
     DTypePolicy,
     POLICY_FP32,
-    matmul,
+    accum_matmul,
+    q_matmul,
+    trailing_matmul,
 )
 
 
@@ -41,11 +43,6 @@ def wy_representation(V: torch.Tensor, beta: torch.Tensor
     return _mm(V, T), V
 
 
-def _small(policy: DTypePolicy):
-    return lambda a, b: matmul(a, b, in_dtype=policy.accum,
-                               accum_dtype=policy.accum)
-
-
 def apply_block_reflector_left_t(
     C: torch.Tensor,
     V: torch.Tensor,
@@ -53,10 +50,8 @@ def apply_block_reflector_left_t(
     policy: DTypePolicy = POLICY_FP32,
 ) -> torch.Tensor:
     """``Q^T C = C - V (T^T (V^T C))``: the trailing-matrix update."""
-    mm = lambda a, b: matmul(a, b, in_dtype=policy.trailing,
-                             accum_dtype=policy.accum)
-    VtC = mm(V.T, C)
-    return C - mm(V, _small(policy)(T.T, VtC))
+    mm = trailing_matmul(policy)
+    return C - mm(V, accum_matmul(policy)(T.T, mm(V.T, C)))
 
 
 def apply_block_reflector_right(
@@ -66,10 +61,8 @@ def apply_block_reflector_right(
     policy: DTypePolicy = POLICY_FP32,
 ) -> torch.Tensor:
     """``Q (I - V T V^T) = Q - ((Q V) T) V^T``: the Q-accumulation update."""
-    mm = lambda a, b: matmul(a, b, in_dtype=policy.q_update,
-                             accum_dtype=policy.accum)
-    QVT = _small(policy)(mm(Q, V), T)
-    return Q - mm(QVT, V.T)
+    mm = q_matmul(policy)
+    return Q - mm(accum_matmul(policy)(mm(Q, V), T), V.T)
 
 
 def reduced_q_from_vt(V: torch.Tensor, T: torch.Tensor,

@@ -18,8 +18,10 @@ The cells: ``headline`` (block_qr 2048^2 POLICY_MIXED_FAST, bgs1), ``qr
 default`` (qr 2048^2 POLICY_MIXED, bgs2), ``band`` (the headline call at
 4096^2), ``lstsq`` (the 4096 x 2048 gauge-deficient system of
 ``datagen.gauge_deficient_system``) and its four stages as ``lstsq`` runs
-them, and ``robust`` (the Householder tier at 2048^2).  Without a CUDA
-device it exits 2.
+them, ``robust`` (the Householder tier at 2048^2), ``householder_pallas``
+(the same call with every panel through K6) and ``polar`` (the
+auto-dispatched complete Q of a 4096 x 2048 input, POLICY_MIXED_FAST).
+Without a CUDA device it exits 2.
 """
 
 from __future__ import annotations
@@ -138,6 +140,8 @@ def main() -> int:
                          - 0.5).to(dev)
     A4 = torch.from_numpy(rng.random((4096, 4096), dtype=np.float32)
                           - 0.5).to(dev)
+    A42 = torch.from_numpy(np.random.default_rng(0).random(
+        (4096, 2048), dtype=np.float32) - 0.5).to(dev)
     Jn, bn = gauge_deficient_system(4096, 2048, 64)
     J = torch.from_numpy(Jn).to(dev)
     nb = -torch.from_numpy(bn).to(dev)
@@ -167,6 +171,11 @@ def main() -> int:
          lambda: back_substitution(T.T, qtb[:k, :], lower=True), 1),
         ("robust", lambda: block_qr(A, 128, POLICY_FP32,
                                     panel_method="householder"), 1),
+        ("householder_pallas", lambda: block_qr(
+            A, 128, POLICY_FP32, panel_method="householder_pallas"), 5),
+        ("polar 4096x2048", lambda: block_qr(
+            A42, 128, POLICY_MIXED_FAST, mode="complete",
+            panel_method="auto", quality="fast"), 5),
     ]
     for name, fn, calls in cells:
         print(json.dumps({"cell": name, **profile_cell(fn, calls),

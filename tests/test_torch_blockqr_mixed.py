@@ -138,12 +138,12 @@ def test_cpu_auto_dispatch_runs_householder():
 
 
 @pytest.mark.parametrize("pm,lm,item", [
-    ("cholqr1", "unroll", "CholeskyQR"),
-    ("polar", "unroll", "CholeskyQR"),
     ("bgs1", "scan", "Scan tier"),
-    ("cholqr1x2", "unroll", "item 8"),
 ])
 def test_unported_tiers_raise(pm, lm, item):
+    # The BGS scan tier is the one tier still to port (the CholeskyQR and
+    # polar tiers are held against the JAX package in test_torch_cholqr.py
+    # and test_torch_polar.py).
     with pytest.raises(NotImplementedError, match=item):
         pt.block_qr(torch.rand((256, 256)), 64, pt.POLICY_MIXED,
                     panel_method=pm, loop_mode=lm)

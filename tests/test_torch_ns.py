@@ -126,8 +126,11 @@ def test_cpu_tensors_never_count_launches():
         np.random.default_rng(5).random((256, 128), dtype=np.float32))
     tns.bgs_group_fused(P, 32, (12, 6, 6, 10), (False,) * 3 + (True,))
     tns.tri_cholqr_robust_fused(P[:, :32])
+    tns.ninv_chain(torch.eye(32) * 1.5, iters=3)
+    tns.tri_cholqr_fused(P[:, :32], iters=6)
     assert tns.LAUNCHES == {"ns_chain": 0, "bgs_group_fused": 0,
-                            "panel_qr_fused": 0, "sketch_qrcp_ranks": 0}
+                            "panel_qr_fused": 0, "ninv_chain": 0,
+                            "panel_factor_fused": 0, "sketch_qrcp_ranks": 0}
 
 
 def test_wrappers_reject_other_devices():
@@ -139,3 +142,44 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tns.bgs_group_fused(torch.empty((256, 128), device="meta"), 32,
                             (6,) * 4, (False,) * 4)
+
+
+def _yamamoto_S(m, r, seed):
+    # tests/test_ns_kernel.py:130-146: I - Q1^T with Q1 the sign-fixed top
+    # block of an m x r orthonormal basis (sigma(S) in [1, 2]).
+    rng = np.random.default_rng(seed)
+    Qb, _ = np.linalg.qr(rng.standard_normal((m, r)))
+    Qb = Qb * np.where(np.diag(Qb[:r]) > 0, -1.0, 1.0)[None, :]
+    return (np.eye(r) - Qb[:r].T).astype(np.float32)
+
+
+@pytest.mark.parametrize("m,r,iters", [(512, 64, 6), (512, 64, 5),
+                                       (128, 64, 12), (256, 32, 8)])
+def test_ninv_chain_matches_jax(m, r, iters):
+    # K4's plain version against the Pallas kernel in interpret mode: the
+    # same products, summation order only (rtol/atol 1e-5); the fallback
+    # class (resid < 1e-3) must agree.
+    S = _yamamoto_S(m, r, 7)
+    Xj, rj = jns.ninv_chain(jnp.asarray(S), iters=iters, interpret=True)
+    Xt, rt = tns.ninv_chain(torch.from_numpy(S), iters=iters)
+    np.testing.assert_allclose(Xt.numpy(), np.asarray(Xj), rtol=1e-5,
+                               atol=1e-5)
+    assert (float(rt) < 1e-3) == (float(rj) < 1e-3), (float(rt), float(rj))
+    assert float(rt) < 1e-3
+
+
+def test_ninv_chain_residual_propagates_nan_and_stalls():
+    # A NaN in S must reach the residual (the drivers' LU fallback keys on
+    # resid < 1e-3, which NaN fails); a near-singular S stalls above 1e-3.
+    S = _yamamoto_S(256, 32, 3)
+    S[4, 9] = np.nan
+    _, rj = jns.ninv_chain(jnp.asarray(S), iters=5, interpret=True)
+    _, rt = tns.ninv_chain(torch.from_numpy(S), iters=5)
+    assert np.isnan(float(rj)) and np.isnan(float(rt))
+    c = np.ones(3) / np.sqrt(3.0)
+    S = np.zeros((32, 32), np.float32)
+    S[:3, :3] = np.eye(3) - 0.999 * (2.0 * np.outer(c, c) - np.eye(3))
+    S[3:, 3:] = np.eye(29)
+    _, rj = jns.ninv_chain(jnp.asarray(S), iters=6, interpret=True)
+    _, rt = tns.ninv_chain(torch.from_numpy(S), iters=6)
+    assert float(rt) >= 1e-3 and float(rj) >= 1e-3
