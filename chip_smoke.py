@@ -104,6 +104,7 @@ def main() -> int:
     from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
         resolve_panel_config,
     )
+    from mixedprecisionblockqr_tpu_torch.ops.cholqr import _sign_fix
     from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
     from mixedprecisionblockqr_tpu_torch.ops import blockqr as bq
     from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
@@ -292,7 +293,7 @@ def main() -> int:
     def yamamoto_S(m):
         Qb, _ = torch.linalg.qr(
             torch.rand((m, 128), generator=gen, device=dev) - 0.5)
-        D = torch.where(torch.diagonal(Qb[:128]) > 0, -1.0, 1.0)
+        D = _sign_fix(Qb[:128])
         return (torch.eye(128, device=dev) - (Qb * D)[:128].T).contiguous()
 
     c3 = torch.ones(3, device=dev) / 3 ** 0.5
@@ -326,10 +327,13 @@ def main() -> int:
     # K6 at the paths' panel shapes: householder_pallas's first panel
     # (2048 x 128) and square last one (128 x 128), the cholqr hybrid's
     # tails at 2000^2 (208 x 128, 80 x 80), and a 2048 x 128 panel with a
-    # zero column and one with a NaN.
+    # zero column and one with a NaN.  4096 x 128 (householder_pallas's
+    # first panel at 4096 x 2048) and 8192 x 128 (the wrapper's top height)
+    # exceed the cluster's shared memory: the kernel works on their rows in
+    # place in R.
     k6_inputs = {f"{m}x{w}": torch.rand((m, w), generator=gen, device=dev)
                  - 0.5 for m, w in ((2048, 128), (128, 128), (208, 128),
-                                    (80, 80))}
+                                    (80, 80), (4096, 128), (8192, 128))}
     Pz = torch.rand((2048, 128), generator=gen, device=dev) - 0.5
     Pz[:, 5] = 0.0
     k6_inputs["2048x128_zero_column"] = Pz

@@ -37,11 +37,13 @@ _EPS = torch.finfo(torch.float32).eps
 _PARALLEL_ITEM = "ROADMAP Queue 1 item 11 (parallel/: tsqr, caqr)"
 
 
-def back_substitution(R, b, lower: bool = False, block_size: int = 64):
+def back_substitution(R, b, lower: bool = False, block_size: int = 64,
+                      device=None):
     """Solve the triangular system ``R x = b`` (upper by default; ``lower``
     flips the problem to the upper case) in fp32: the diagonal r x r blocks
-    by a triangular solve, the eliminations between blocks by products."""
-    R = torch.as_tensor(R)
+    by a triangular solve, the eliminations between blocks by products.
+    ``device`` as in ``utils/device.py``."""
+    R = as_device_tensor(R, device)
     b = torch.as_tensor(b, device=R.device)
     if lower:
         x = _back_substitution(R.flip(0, 1), b.flip(0), block_size)

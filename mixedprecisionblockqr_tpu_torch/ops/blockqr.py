@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from mixedprecisionblockqr_tpu_torch.ops.cholqr import (
+    _sign_fix,
     cholesky_qr2,
     lu_inv,
     newton_inv,
@@ -577,7 +578,7 @@ def _block_qr_scan(
         Q_red, _ = cholesky_qr2(P, shifted=panel_method == "cholqr2s",
                                 passes=1 if panel_method == "cholqr1" else 2)
         Q1 = Q_red[lam:lam + r, :]
-        D = torch.where(torch.diagonal(Q1) > 0, -1.0, 1.0).to(Q_red.dtype)
+        D = _sign_fix(Q1)
         Y = Q_red * D[None, :] - (rows - lam == cols).to(Q_red.dtype)
         S = torch.eye(r, dtype=Q_red.dtype, device=dev) - (Q1 * D).T
         if S.dtype == torch.float64:
@@ -609,7 +610,6 @@ def _block_qr_grouped(
     want_q: bool,
     B: Optional[torch.Tensor] = None,
     group_panels: int = 4,
-    polar_iters: Optional[int] = None,
 ):
     """The ``polar`` tier (the JAX package's ``_block_qr_grouped``):
     triangular-NS panels and group-merged W-form reflectors.
@@ -654,8 +654,7 @@ def _block_qr_grouped(
                 Qs, t, _, rresid = tri_cholqr_robust_fused(P, sign_fix=True)
                 worst = torch.maximum(worst, 0.01 * rresid)
             else:
-                iters = (polar_iters if polar_iters is not None
-                         else tri_iters_for_aspect((m - lam) / r))
+                iters = tri_iters_for_aspect((m - lam) / r)
                 if lam == 0:
                     iters = tri_head_iters(iters)
                 Qs, t, _, resid = tri_cholqr_fused(P, iters=iters)

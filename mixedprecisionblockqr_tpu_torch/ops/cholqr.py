@@ -21,7 +21,7 @@ so a float64 panel stays float64.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -100,28 +100,33 @@ def newton_iters_for_aspect(aspect: float) -> int:
     return 12
 
 
+def _sign_fix(Q1: torch.Tensor) -> torch.Tensor:
+    """The Yamamoto column convention for the top r x r block Q1 of a
+    panel's Q: D = -1 where diag(Q1) > 0, else 1 (in Q1's dtype).  Columns
+    scaled by D give diag(Q1 D) <= 0, so cond(S) ~ 2."""
+    return torch.where(torch.diagonal(Q1) > 0, -1.0, 1.0).to(Q1.dtype)
+
+
 def yamamoto_reflector(
     Q_red: torch.Tensor,
     R: torch.Tensor,
     inv_method: str = "lu",
-    newton_iters: Optional[int] = None,
     check: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Block reflector ``(Y, Sinv)`` with ``H = I - Y Sinv Y^T`` orthogonal
     and ``H[:, :r] = Q_red``, plus the sign-fixed R.  Columns flip so that
-    diag(Q1) <= 0 (cond(S) ~ 2); R's rows flip with them.  Then ``H^T
-    panel = [R; 0]``."""
+    diag(Q1) <= 0 (``_sign_fix``); R's rows flip with them.  Then ``H^T
+    panel = [R; 0]``.  ``inv_method='newton'`` runs
+    ``newton_iters_for_aspect(m / r)`` iterations."""
     m, r = Q_red.shape
-    D = torch.where(torch.diagonal(Q_red[:r, :]) > 0, -1.0, 1.0).to(
-        Q_red.dtype)
+    D = _sign_fix(Q_red[:r, :])
     Qs = Q_red * D[None, :]
     R = R * D[:, None]
     Y = Qs - torch.eye(m, r, dtype=Qs.dtype, device=Qs.device)
     S = torch.eye(r, dtype=Qs.dtype, device=Qs.device) - Qs[:r, :].T
     if inv_method == "newton":
-        iters = (newton_iters if newton_iters is not None
-                 else newton_iters_for_aspect(m / r))
-        Sinv = newton_inv(S, iters=iters, check=check)
+        Sinv = newton_inv(S, iters=newton_iters_for_aspect(m / r),
+                          check=check)
     else:
         Sinv = lu_inv(S)
     return Y, Sinv, R

@@ -23,7 +23,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from mixedprecisionblockqr_tpu_torch.ops.cholqr import newton_inv
+from mixedprecisionblockqr_tpu_torch.ops.cholqr import _sign_fix, newton_inv
 from mixedprecisionblockqr_tpu_torch.ops.policy import mm_bf16, mm_f32, mm_high
 
 #: Kernel launches per wrapper since the last ``reset_launches()`` (one
@@ -391,11 +391,6 @@ def ninv_chain(S: torch.Tensor, iters: int = 6
     check(code, "ninv_chain")
     LAUNCHES["ninv_chain"] += 1
     return X, resid
-
-
-def _sign_fix(Q1: torch.Tensor):
-    """The Yamamoto column convention: D = -1 where diag(Q1) > 0, else 1."""
-    return torch.where(torch.diagonal(Q1) > 0, -1.0, 1.0)
 
 
 def tri_cholqr_fused(P: torch.Tensor, iters: int = 10):

@@ -239,13 +239,14 @@ def pivoted_qr_qtb(
 
 
 def numerical_rank(R, rcond: Optional[float] = None,
-                   m: Optional[int] = None) -> int:
+                   m: Optional[int] = None, device=None) -> int:
     """Numerical rank from a pivoted R's diagonal: the count of
     ``|R[i, i]| > rcond * max|diag(R)|``.  The default rcond is
     ``eps_f32 * max(m, n)``; callers holding the trimmed (k, n) factor
     pass the original row count ``m``.  The cutoff keys on ``max|d|``, not
-    ``d[0]``: RQRCP's sketch-greedy order can put d[0] below the max."""
-    R = torch.as_tensor(R)
+    ``d[0]``: RQRCP's sketch-greedy order can put d[0] below the max.
+    ``device`` as in ``utils/device.py``."""
+    R = as_device_tensor(R, device)
     d = torch.diagonal(R).abs()
     if rcond is None:
         rcond = _EPS * max(R.shape[1], m if m is not None else 0, R.shape[0])

@@ -7,8 +7,8 @@ prints one JSON line per kernel of the repository (K1-K9) at the shapes
 named in their lines).  A bound is the larger of two times: the operations
 the kernel does on these inputs over the peak rate for their type, and the
 bytes it must move (each input read once, each output written once) over
-the memory rate.  The peaks are the H100 SXM data sheet's (dense, 700 W),
-as the on-chip-measurement guide lists them.  This is arithmetic on shapes:
+the memory rate.  The peaks are the H100 SXM data sheet's (dense, 700 W).
+This is arithmetic on shapes:
 it needs no device and measures nothing.
 """
 

@@ -309,7 +309,11 @@ def test_numpy_input_needs_a_device_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     a = _mat(96, 64, 12)
     b = np.ones(96, np.float32)
+    Ru = np.triu(a[:64]) + 4.0 * np.eye(64, dtype=np.float32)
     calls = {
+        "back_substitution": lambda **k: pt.back_substitution(Ru, b[:64],
+                                                              **k),
+        "numerical_rank": lambda **k: pt.numerical_rank(Ru, **k),
         "block_qr": lambda **k: pt.block_qr(a, 32, **k),
         "qr": lambda **k: pt.qr(a, 32, **k),
         "block_qr_qtb": lambda **k: pt.block_qr_qtb(a, b, 32, **k),
@@ -327,6 +331,9 @@ def test_numpy_input_needs_a_device_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
         out = call(device="cpu")
+        if name == "numerical_rank":  # an int: the rank of the CPU call
+            assert out == 64
+            continue
         first = out[0] if isinstance(out, tuple) else out
         assert first.device.type == "cpu", name
     Q, R = pt.block_qr(torch.from_numpy(a), 32)

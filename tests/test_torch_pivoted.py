@@ -91,7 +91,7 @@ def test_rqrcp_contract_full_rank_and_graded():
     g = (rng.standard_normal((512, 512)) * np.logspace(0, -8, 512)).astype(
         np.float32)
     _, R, _ = _check_rqrcp(g, rtol=2e-5)
-    r_port = pt.numerical_rank(R, m=512)
+    r_port = pt.numerical_rank(R, m=512, device="cpu")
     r_jax = jpiv.numerical_rank(jnp.asarray(R.astype(np.float32)), m=512)
     assert r_port == r_jax
 
@@ -108,7 +108,7 @@ def test_rqrcp_exactly_singular_falls_back_to_exact():
                                          False, 128, 8, 0)
     assert not float(worst) < 1e-4
     _, R, _ = _check_rqrcp(a)
-    assert pt.numerical_rank(R, m=512) == 298
+    assert pt.numerical_rank(R, m=512, device="cpu") == 298
 
 
 def test_numerical_rank_keys_on_max_diagonal():
@@ -116,7 +116,7 @@ def test_numerical_rank_keys_on_max_diagonal():
     d = np.zeros((4, 4), np.float32)
     np.fill_diagonal(d, [0.8, 1.0, 0.5, eps * 4 * 0.9])
     assert pt.numerical_rank(torch.from_numpy(d)) == 3
-    assert pt.numerical_rank(d, rcond=0.6) == 2
+    assert pt.numerical_rank(d, rcond=0.6, device="cpu") == 2
     assert jpiv.numerical_rank(jnp.asarray(d)) == 3
 
 
