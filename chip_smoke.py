@@ -8,12 +8,14 @@ last line):
   1. device   -- the card's name and power limit (nvidia-smi), torch, CUDA;
   2. build    -- build (or load) the kernel library from csrc/ (one nvcc
                  per source, in parallel);
-  3. kernels  -- ns_chain, bgs_group_fused, panel_qr_fused, ninv_chain,
-                 panel_factor_fused and sketch_qrcp_ranks against their
-                 plain PyTorch versions on the card at the main paths'
-                 shapes, with the stated tolerances; the kernel's, the plain
-                 version's and the library call's times (CUDA events,
-                 median of 20 unless a line says otherwise);
+  3. kernels  -- all nine kernels (ns_chain, bgs_group_fused,
+                 panel_qr_fused, ninv_chain, panel_factor_fused,
+                 sketch_qrcp_ranks, bgs_group_fused_proj, tiled_matmul,
+                 chol_rinv) against their plain PyTorch versions on the
+                 card at the main paths' shapes, with the stated tolerances;
+                 the kernel's, the plain version's and the library call's
+                 times (CUDA events, median of 20 unless a line says
+                 otherwise);
   4. main     -- block_qr(A, 128, POLICY_MIXED_FAST, mode='complete',
                  panel_method='auto', quality='fast', check='defer') on the
                  2048^2 benchmark input (numpy seed 0, uniform - 0.5):
@@ -41,18 +43,35 @@ last line):
                  panel_factor_fused launch each), cholqr1 scan (15
                  ninv_chain launches), and bgs1 on a 2000 x 2000 input
                  (resolves to cholqr1; K6 at 208 x 128 and 80 x 80);
- 12. device   -- a numpy input with no device= runs on the card.
+ 12. device   -- a numpy input with no device= runs on the card;
+ 13. proj_entry -- _block_qr_bgs on the 2048^2 input, POLICY_MIXED_FAST, g8,
+                 with proj_entry=True: one bgs_group_fused and one
+                 bgs_group_fused_proj launch, quality within 2x of phase
+                 4's, R against the default route's; both routes' times;
+ 14. scan     -- (a) phase 4's call at 16384^2 resolves to bgs1 / scan:
+                 3 x 128 ns_chain launches; (b) block_qr(A, 128,
+                 POLICY_FP32, panel_method='bgs', loop_mode='scan') at
+                 4096^2: 32 panel_qr_fused launches; (c) block_qr_resumable
+                 on (b)'s input, stopped after 3 segments and called again:
+                 torch.equal with (b), only step_32 left;
+ 15. exported -- tiled_matmul and chol_rinv through their own entry points:
+                 CholeskyQR2 of a 4096 x 256 panel built from them, and
+                 matmul_bf16_accum_f32 at 2048^3.
 Then a line with every kernel's launches on its main path (phases 4-6 for
 ns_chain and bgs_group_fused, phase 7 for panel_qr_fused and
 sketch_qrcp_ranks, phase 9 for ninv_chain, phase 10 for
-panel_factor_fused, one call each), error, times and bound, and as the
-last line {"ok": true, "device": {...}}.  Without a CUDA device it exits 2
+panel_factor_fused, phase 13 for bgs_group_fused_proj, phase 15 for
+tiled_matmul and chol_rinv; the counts are set to 0 just before each path
+and read just after), error, times and bound, and as the last line
+{"ok": true, "device": {...}}.  Without a CUDA device it exits 2
 and prints no result.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -93,6 +112,7 @@ def main() -> int:
         POLICY_MIXED,
         POLICY_MIXED_FAST,
         block_qr,
+        block_qr_resumable,
         lstsq,
         metrics,
         numerical_rank,
@@ -107,10 +127,23 @@ def main() -> int:
     from mixedprecisionblockqr_tpu_torch.ops.cholqr import _sign_fix
     from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
     from mixedprecisionblockqr_tpu_torch.ops import blockqr as bq
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.chol import (
+        chol_rinv,
+        chol_rinv_plain,
+    )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.gemm import (
+        matmul_bf16_accum_f32,
+        matmul_int8_accum_i32,
+        matmul_uint8_accum_i32,
+        tiled_matmul,
+        tiled_matmul_plain,
+    )
     from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
         LAUNCHES,
         bgs_group_fused,
         bgs_group_fused_plain,
+        bgs_group_fused_proj,
+        bgs_group_fused_proj_plain,
         ninv_chain,
         ninv_chain_plain,
         ns_chain,
@@ -129,7 +162,9 @@ def main() -> int:
     )
     from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
     from mixedprecisionblockqr_tpu_torch.utils.bounds import (
+        chol_rinv_bound,
         group_bound,
+        matmul_bound,
         ninv_chain_bound,
         ns_chain_bound,
         panel_factor_bound,
@@ -410,6 +445,226 @@ def main() -> int:
                                  "identical ranks)",
           "sketches": k7_rows, "card": card})
 
+    # K5 at the proj_entry route's shape at 2048^2 g8: the second group's
+    # raw columns (2048 x 1024) and the 1024 columns of Q written before
+    # it, a column slice of the 2048-wide Q buffer (leading dimension 2048)
+    # in fp32 and, as under the compact policies, in bf16.  After the scrub
+    # the group spans the 1024-dimensional complement of Qprev: effectively
+    # a square matrix, whose later panels are ill-conditioned.
+    Qfull = torch.linalg.qr(
+        torch.rand((2048, 2048), generator=gen, device=dev) - 0.5
+    )[0].contiguous()
+    robust_tail = (False,) * 7 + (True,)
+    eye_w = torch.eye(1024, device=dev)
+    k5_rows, k5_err = {}, 0.0
+    for bf in (False, True):
+        Qprev = Qfull.to(torch.bfloat16 if bf else torch.float32)[:, :1024]
+        kw = dict(bf16_dots=bf, chain_mid=bf)
+
+        def contract(Qg, Rprev, Rg):
+            """Reconstruction, orthogonality and cross-orthogonality."""
+            rec = rel_fro(mm_f32(Qprev, Rprev) + mm_f32(Qg, Rg), Pg)
+            return (rec, max_abs(mm_f32(Qg.T, Qg), eye_w),
+                    float(mm_f32(Qprev.T, Qg).abs().max()))
+
+        Qg, Rprev, Rg, w = bgs_group_fused_proj(Pg, Qprev, 128, iters,
+                                                robust_tail, **kw)
+        Qp, Rprevp, Rgp, wp = bgs_group_fused_proj_plain(
+            Pg, Qprev, 128, iters, robust_tail, **kw)
+        torch.cuda.synchronize()
+        ck, cp = contract(Qg, Rprev, Rg), contract(Qp, Rprevp, Rgp)
+        row = {"max_abs_Q": max_abs(Qg, Qp), "rel_Q": rel_fro(Qg, Qp),
+               "rel_Q_panels": [rel_fro(Qg[:, j:j + 128], Qp[:, j:j + 128])
+                                for j in range(0, 1024, 128)],
+               "rel_Rprev": rel_fro(Rprev, Rprevp),
+               "rel_Rg": rel_fro(Rg, Rgp),
+               "reconstruction": ck[0], "reconstruction_plain": cp[0],
+               "orthogonality": ck[1], "orthogonality_plain": cp[1],
+               "cross": ck[2], "cross_plain": cp[2],
+               "resid": float(w), "resid_plain": float(wp)}
+        tol = TOL_BF16 if bf else TOL_F32
+        ok = row["rel_Rprev"] <= tol and row["rel_Rg"] <= tol
+        if bf:
+            # bf16 roundings that flip between the two versions are
+            # amplified by the later panels' conditioning, so Q is held
+            # entry-wise on the first panel and by the factorization's
+            # contract on the whole group: within 2x of the plain version's.
+            ok = ok and row["rel_Q_panels"][0] <= TOL_BF16 and all(
+                a <= 2 * b for a, b in zip(ck, cp))
+        else:
+            ok = ok and row["max_abs_Q"] <= TOL_F32
+        row["ok"] = ok and (row["resid"] < 1e-4) == (
+            row["resid_plain"] < 1e-4)
+        row["ms"] = cuda_time_ms(lambda: bgs_group_fused_proj(
+            Pg, Qprev, 128, iters, robust_tail, **kw))
+        row["plain_ms"] = cuda_time_ms(lambda: bgs_group_fused_proj_plain(
+            Pg, Qprev, 128, iters, robust_tail, **kw), warmup=1, iters=5)
+
+        def library_k5():
+            C2 = torch.matmul(Qprev.float().T, Pg)
+            return torch.linalg.qr(Pg - torch.matmul(Qprev.float(), C2))
+
+        row["library_ms"] = cuda_time_ms(library_k5)
+        k5_rows["bf16" if bf else "fp32"] = row
+        k5_err = max(k5_err, row["max_abs_Q"])
+        assert not Qprev.is_contiguous() and Qprev.stride(0) == 2048
+        assert row["ok"], (bf, row)
+    emit({"phase": "kernels", "kernel": "bgs_group_fused_proj",
+          "shape": [2048, 1024], "r": 128, "g": 8, "p": 1024,
+          "tolerance": "fp32: max|dQ| <= 1e-4, ||dRprev||, ||dRg|| <= 1e-4 "
+                       "relative; bf16 (bf16 Qprev): ||dRprev||, ||dRg|| "
+                       "and the first panel's ||dQ|| <= 5e-3 relative, and "
+                       "reconstruction, orthogonality and |Qprev^T Qg| "
+                       "within 2x of the plain version's; plain ms: median "
+                       "of 5",
+          "configs": k5_rows,
+          "library_call": "two torch.matmul and torch.linalg.qr of the "
+                          "scrubbed group", "card": card})
+
+    # K8 at 2048^3 and on a ragged shape, every type combination; int8 and
+    # uint8 against the exact integer product: float64 on the card (every
+    # partial sum is an integer below 2^53) and, at the ragged shape, int64
+    # on the host as well.
+    def exact_product(x, y):
+        return torch.matmul(x.double(), y.double()).long()
+
+    def bf16_ulp_ok(c, ref, slack):
+        """One bf16 ulp apart at most, beyond the fp32 sums' own
+        difference (``slack``: sums that cancel to near zero differ by
+        many ulps of their small result)."""
+        ulp = ref.float().abs() * 2.0 ** -7
+        return bool(((c.float() - ref.float()).abs() <= ulp + slack).all())
+
+    combos = {"f32": (torch.float32, torch.float32),
+              "bf16_f32": (torch.bfloat16, torch.float32),
+              "bf16_bf16": (torch.bfloat16, torch.bfloat16)}
+    k8_rows, k8_err = {}, 0.0
+    for m8, kk8, n8 in ((2048, 2048, 2048), (1000, 777, 513)):
+        a8 = torch.rand((m8, kk8), generator=gen, device=dev) - 0.5
+        b8 = torch.rand((kk8, n8), generator=gen, device=dev) - 0.5
+        for cname, (dt, od) in combos.items():
+            x, y = a8.to(dt), b8.to(dt)
+            c = tiled_matmul(x, y, od)
+            cp = tiled_matmul_plain(x, y, od)
+            torch.cuda.synchronize()
+            err = max_abs(c.float(), cp.float())
+            lim = TOL_F32 * float(cp.float().abs().max())
+            row = {"max_abs": err, "lim": lim}
+            if od == torch.bfloat16:
+                # the kernel's own fp32 result, rounded once
+                row["one_rounding"] = bool(torch.equal(
+                    c, tiled_matmul(x, y, torch.float32).bfloat16()))
+                row["ok"] = row["one_rounding"] and bf16_ulp_ok(c, cp, lim)
+            else:
+                row["ok"] = err <= lim
+                k8_err = max(k8_err, err)
+            row["ms"] = cuda_time_ms(lambda: tiled_matmul(x, y, od))
+            row["plain_ms"] = cuda_time_ms(
+                lambda: tiled_matmul_plain(x, y, od))
+            row["library_ms"] = (
+                cuda_time_ms(lambda: torch.mm(x, y)) if dt == od else
+                cuda_time_ms(lambda: torch.mm(x, y, out_dtype=od)))
+            k8_rows[f"{m8}x{kk8}x{n8}_{cname}"] = row
+            assert row["ok"], (cname, row)
+        ai = torch.randint(-128, 128, (m8, kk8), generator=gen, device=dev,
+                           dtype=torch.int8)
+        bi = torch.randint(-128, 128, (kk8, n8), generator=gen, device=dev,
+                           dtype=torch.int8)
+        au = torch.randint(0, 256, (m8, kk8), generator=gen, device=dev,
+                           dtype=torch.uint8)
+        bu = torch.randint(0, 256, (kk8, n8), generator=gen, device=dev,
+                           dtype=torch.uint8)
+        ci = matmul_int8_accum_i32(ai, bi)
+        cu = matmul_uint8_accum_i32(au, bu)
+        torch.cuda.synchronize()
+        row = {"int8_exact": bool(torch.equal(ci.long(),
+                                              exact_product(ai, bi))),
+               "uint8_exact": bool(torch.equal(cu.long(),
+                                               exact_product(au, bu))),
+               "int8_equals_plain": bool(torch.equal(
+                   ci, tiled_matmul_plain(ai, bi, torch.int32))),
+               "ms": cuda_time_ms(lambda: matmul_int8_accum_i32(ai, bi)),
+               "plain_ms": cuda_time_ms(
+                   lambda: tiled_matmul_plain(ai, bi, torch.int32)),
+               "uint8_ms": cuda_time_ms(
+                   lambda: matmul_uint8_accum_i32(au, bu))}
+        # torch._int_mm takes k and n in multiples of 8 only
+        row["library_ms"] = (cuda_time_ms(lambda: torch._int_mm(ai, bi))
+                             if kk8 % 8 == 0 and n8 % 8 == 0 else None)
+        if m8 == 1000:
+            row["int8_exact_host"] = bool(torch.equal(
+                ci.cpu().long(), ai.cpu().long() @ bi.cpu().long()))
+            row["uint8_exact_host"] = bool(torch.equal(
+                cu.cpu().long(), au.cpu().long() @ bu.cpu().long()))
+        row["ok"] = all(v for k, v in row.items() if "exact" in k
+                        or k == "int8_equals_plain")
+        k8_rows[f"{m8}x{kk8}x{n8}_int8"] = row
+        assert row["ok"], row
+    emit({"phase": "kernels", "kernel": "tiled_matmul",
+          "tolerance": "f32 and bf16 -> f32: max|diff| <= 1e-4 * max|plain| "
+                       "(summation order); bf16 -> bf16: equal to the bf16 "
+                       "-> f32 result rounded once, and within one bf16 ulp "
+                       "plus that limit of the plain version; int8 and uint8: torch.equal with the "
+                       "exact integer product",
+          "library_call": "torch.mm (out_dtype=float32 for bf16 -> f32), "
+                          "torch._int_mm",
+          "shapes": k8_rows, "card": card})
+
+    # K9 on Grams of a seeded 2048 x r panel, and on an indefinite one.
+    P9 = torch.rand((2048, 512), generator=gen, device=dev) - 0.5
+    k9_rows, k9_err = {}, 0.0
+    for r9 in (128, 256, 512):
+        G9 = mm_f32(P9[:, :r9].T, P9[:, :r9]).contiguous()
+        eye9 = torch.eye(r9, device=dev)
+        R9, Ri9 = chol_rinv(G9)
+        Rp9, Rip9 = chol_rinv_plain(G9)
+        torch.cuda.synchronize()
+        row = {"max_abs_R": max_abs(R9, Rp9),
+               "lim_R": TOL_F32 * float(Rp9.abs().max()),
+               "max_abs_Rinv": max_abs(Ri9, Rip9),
+               "lim_Rinv": TOL_F32 * float(Rip9.abs().max()),
+               "factor": max_abs(mm_f32(R9.T, R9), G9)
+               / float(G9.abs().max()),
+               "inverse": max_abs(mm_f32(R9, Ri9), eye9),
+               "lower_zero": bool((torch.tril(R9, -1) == 0).all()
+                                  and (torch.tril(Ri9, -1) == 0).all())}
+        row["ok"] = (row["max_abs_R"] <= row["lim_R"]
+                     and row["max_abs_Rinv"] <= row["lim_Rinv"]
+                     and row["factor"] <= 1e-5 and row["inverse"] <= 1e-4
+                     and row["lower_zero"])
+        row["ms"] = cuda_time_ms(lambda: chol_rinv(G9))
+        row["plain_ms"] = cuda_time_ms(lambda: chol_rinv_plain(G9),
+                                       warmup=1, iters=3)
+
+        def library_k9():
+            Rl = torch.linalg.cholesky_ex(G9, upper=True)[0]
+            return Rl, torch.linalg.solve_triangular(Rl, eye9, upper=True)
+
+        row["library_ms"] = cuda_time_ms(library_k9)
+        k9_rows[f"r{r9}"] = row
+        k9_err = max(k9_err, row["max_abs_R"], row["max_abs_Rinv"])
+        assert row["ok"], (r9, row)
+    G9[300, 300] = -1.0
+    Rn, Rin = chol_rinv(G9)
+    Rnp, _ = chol_rinv_plain(G9)
+    torch.cuda.synchronize()
+    k9_rows["indefinite_r512"] = {
+        "nan_in_R": bool(torch.isnan(Rn).any()),
+        "nan_in_Rinv": bool(torch.isnan(Rin).any()),
+        "finite_before_the_pivot": bool(torch.isfinite(Rn[:288]).all()),
+        "same_nan_rows_as_plain": bool(torch.equal(
+            torch.isnan(Rn).any(dim=1), torch.isnan(Rnp).any(dim=1)))}
+    assert all(k9_rows["indefinite_r512"].values()), k9_rows
+    emit({"phase": "kernels", "kernel": "chol_rinv",
+          "tolerance": "R and Rinv within 1e-4 * max|plain|; max|R^T R - G| "
+                       "<= 1e-5 max|G|; max|R Rinv - I| <= 1e-4; exact "
+                       "zeros below both diagonals; an indefinite G gives "
+                       "NaN from its bad pivot on, in the plain version's "
+                       "rows; plain ms: median of 3",
+          "library_call": "torch.linalg.cholesky_ex(upper=True) + "
+                          "solve_triangular against I",
+          "sizes": k9_rows, "card": card})
+
     # 4-6. the main path: one call each, launch counts from these calls only
     a = np.random.default_rng(0).random((2048, 2048), dtype=np.float32) - 0.5
     A = torch.from_numpy(a).to(dev)
@@ -673,6 +928,151 @@ def main() -> int:
     emit({"phase": "device", "call": "qr(numpy 2048^2, POLICY_MIXED)",
           "q_device": str(Qd.device), "r_device": str(Rd.device)})
 
+    # 13. proj_entry: the headline factorization with the inter-group
+    # projection inside the second group's kernel (K5), beside the default
+    # route with the projection between the groups.
+    def bgs_headline(pe):
+        return bq._block_qr_bgs(A, 128, POLICY_MIXED_FAST, True,
+                                group_panels=8, reorth=False, chain_mid=True,
+                                proj_entry=pe)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    R13, Q13, _ = bgs_headline(True)
+    torch.cuda.synchronize()
+    c13 = dict(LAUNCHES)
+    R13d, Q13d, _ = bgs_headline(False)
+    rep13 = metrics.evaluate(A, Q13, R13, POLICY_MIXED_FAST.precision_bits)
+    rel13 = rel_fro(R13, R13d)
+    assert (c13["bgs_group_fused"], c13["bgs_group_fused_proj"]) == (1, 1), c13
+    assert rep13.all_ok, str(rep13)
+    assert rep13.backward <= 2 * rep.backward, (rep13.backward, rep.backward)
+    assert rep13.orthogonality <= 2 * rep.orthogonality, str(rep13)
+    assert rel13 <= TOL_BF16, rel13
+    # alternating, so that neither arm always runs on the warmer card
+    ms13, ms13d = [], []
+    for _ in range(2):
+        ms13.append(cuda_time_ms(lambda: bgs_headline(True), warmup=1,
+                                 iters=10))
+        ms13d.append(cuda_time_ms(lambda: bgs_headline(False), warmup=1,
+                                  iters=10))
+    emit({"phase": "proj_entry", "call": "_block_qr_bgs 2048^2 "
+          "POLICY_MIXED_FAST g8 bgs1 proj_entry=True", "launches": c13,
+          "backward": rep13.backward, "orthogonality": rep13.orthogonality,
+          "all_ok": rep13.all_ok, "tight_ok": rep13.tight_ok,
+          "rel_R_vs_default": rel13, "ms": min(ms13), "ms_runs": ms13,
+          "default_ms": min(ms13d), "default_ms_runs": ms13d,
+          "tolerance": "backward and orthogonality within 2x of phase 4's; "
+                       "R within 5e-3 (relative Frobenius) of the default "
+                       "route's", "card": card})
+
+    # 14. scan: (a) the auto-dispatched large call; (b) the all-robust bgs
+    # scan tier through K3; (c) the same factorization checkpointed,
+    # stopped and resumed.
+    assert resolve_panel_config(
+        16384, 16384, 128, POLICY_MIXED_FAST, "auto", "unroll", 4,
+        mode="complete", on_gpu=True, quality="fast",
+    ) == ("bgs1", "scan", 4)
+    a14 = np.random.default_rng(0).random((16384, 16384),
+                                          dtype=np.float32) - 0.5
+    A14 = torch.from_numpy(a14).to(dev)
+    del a14
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    Q14, R14 = headline(A14)
+    torch.cuda.synchronize()
+    c14 = dict(LAUNCHES)
+    peak14 = torch.cuda.max_memory_allocated()
+    assert c14["ns_chain"] == 3 * 128 and c14["panel_qr_fused"] == 0, c14
+    rep14 = metrics.evaluate(A14, Q14, R14, POLICY_MIXED_FAST.precision_bits)
+    assert rep14.all_ok, str(rep14)
+    del Q14, R14
+    ms14 = cuda_time_ms(lambda: headline(A14), warmup=1, iters=3)
+    del A14
+    torch.cuda.empty_cache()
+    row14 = {"a": {"call": "block_qr 16384^2 POLICY_MIXED_FAST complete "
+                   "auto fast defer", "resolved": ["bgs1", "scan", 4],
+                   "launches": c14, "backward": rep14.backward,
+                   "orthogonality": rep14.orthogonality,
+                   "lower_trapezoid": rep14.lower_trapezoid,
+                   "all_ok": rep14.all_ok, "tight_ok": rep14.tight_ok,
+                   "ms": ms14, "timing": "median of 3",
+                   "tflops": qr_flops(16384, 16384) / (ms14 * 1e-3) / 1e12,
+                   "peak_bytes": peak14}}
+
+    def bgs_scan(x):
+        return block_qr(x, 128, POLICY_FP32, panel_method="bgs",
+                        loop_mode="scan")
+
+    torch.cuda.synchronize()
+    reset_launches()
+    Q14b, R14b = bgs_scan(A4)
+    torch.cuda.synchronize()
+    c14b = dict(LAUNCHES)
+    rep14b = metrics.evaluate(A4, Q14b, R14b, POLICY_FP32.precision_bits)
+    assert c14b["panel_qr_fused"] == 32, c14b
+    assert rep14b.all_ok and rep14b.tight_ok, str(rep14b)
+    row14["b"] = {"call": "block_qr 4096^2 POLICY_FP32 bgs scan",
+                  "launches": c14b, "backward": rep14b.backward,
+                  "orthogonality": rep14b.orthogonality,
+                  "all_ok": rep14b.all_ok, "tight_ok": rep14b.tight_ok,
+                  "ms": cuda_time_ms(lambda: bgs_scan(A4), warmup=1, iters=3),
+                  "timing": "median of 3"}
+
+    with tempfile.TemporaryDirectory() as ckdir:
+        kw14 = dict(block_size=128, policy=POLICY_FP32, segment_groups=8)
+        t0 = time.perf_counter()
+        stopped = block_qr_resumable(A4, ckdir, max_segments=3, **kw14)
+        left_mid = sorted(os.listdir(ckdir))
+        Q14c, R14c = block_qr_resumable(A4, ckdir, **kw14)
+        torch.cuda.synchronize()
+        resumable_s = time.perf_counter() - t0
+        left_end = sorted(os.listdir(ckdir))
+    row14["c"] = {"call": "block_qr_resumable 4096^2 POLICY_FP32, 8 steps "
+                  "per segment, stopped after 3 segments and resumed",
+                  "stopped_returned_none": stopped is None,
+                  "checkpoints_when_stopped": left_mid,
+                  "checkpoints_at_end": left_end,
+                  "q_equal": bool(torch.equal(Q14c, Q14b)),
+                  "r_equal": bool(torch.equal(R14c, R14b)),
+                  "seconds": resumable_s}
+    assert stopped is None and left_mid == ["step_24"], row14["c"]
+    assert left_end == ["step_32"], row14["c"]
+    assert row14["c"]["q_equal"] and row14["c"]["r_equal"], row14["c"]
+    emit({"phase": "scan", **row14, "card": card})
+    del Q14b, R14b, Q14c, R14c
+
+    # 15. exported: K8 and K9 have no driver above them, in the JAX package
+    # either; their path is their own entry point.  One CholeskyQR2 panel
+    # built from them: Gram by tiled_matmul, chol_rinv, Q = P Rinv, twice.
+    P15 = torch.rand((4096, 256), generator=gen, device=dev) - 0.5
+    torch.cuda.synchronize()
+    reset_launches()
+    Qc, Rc = P15, None
+    for _ in range(2):
+        G15 = tiled_matmul(Qc.T.contiguous(), Qc)
+        Rk, Rik = chol_rinv(G15)
+        Qc = tiled_matmul(Qc, Rik)
+        Rc = Rk if Rc is None else tiled_matmul(Rk, Rc)
+    C15 = matmul_bf16_accum_f32(A, A)
+    torch.cuda.synchronize()
+    c15 = dict(LAUNCHES)
+    orth15 = max_abs(mm_f32(Qc.T, Qc), torch.eye(256, device=dev))
+    rec15 = rel_fro(mm_f32(Qc, Rc), P15)
+    mm15 = rel_fro(C15, torch.mm(A.bfloat16(), A.bfloat16(),
+                                 out_dtype=torch.float32))
+    assert c15["tiled_matmul"] == 6 and c15["chol_rinv"] == 2, c15
+    assert orth15 <= 1e-5 and rec15 <= 1e-5 and mm15 <= 1e-5, (
+        orth15, rec15, mm15)
+    emit({"phase": "exported", "call": "CholeskyQR2 of a 4096 x 256 panel "
+          "through tiled_matmul and chol_rinv; matmul_bf16_accum_f32 at "
+          "2048^3", "launches": c15, "orthogonality": orth15,
+          "reconstruction": rec15, "bf16_matmul_rel_vs_torch": mm15,
+          "tolerance": "max|Q^T Q - I|, ||QR - P||/||P|| and the bf16 "
+                       "product's relative distance from torch.mm <= 1e-5",
+          "card": card})
+
     emit({"kernels": [
         {"name": "ns_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ns_chain.cu",
@@ -707,6 +1107,14 @@ def main() -> int:
          "plain_ms": k4_rows["panel4096_it5"]["plain_ms"],
          **ninv_chain_bound(128, 5),
          "library_ms": k4_rows["panel4096_it5"]["library_ms"]},
+        {"name": "bgs_group_fused_proj", "route": "cuda",
+         "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
+         "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:1023",
+         "launches": c13["bgs_group_fused_proj"], "max_abs_err": k5_err,
+         "ms": k5_rows["bf16"]["ms"],
+         "plain_ms": k5_rows["bf16"]["plain_ms"],
+         **group_bound(2048, 128, iters, robust_tail, True, proj_cols=1024),
+         "library_ms": k5_rows["bf16"]["library_ms"]},
         {"name": "panel_factor_fused", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_factor.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/panel.py:115",
@@ -723,6 +1131,22 @@ def main() -> int:
          "plain_ms": k7_rows["w2048"]["plain_ms"],
          **sketch_bound(136, 2048, 128),
          "library_ms": None},
+        {"name": "tiled_matmul", "route": "cuda",
+         "source": "mixedprecisionblockqr_tpu_torch/csrc/tiled_matmul.cu",
+         "replaces": "mixedprecisionblockqr_tpu/ops/pallas/gemm.py:103",
+         "launches": c15["tiled_matmul"], "max_abs_err": k8_err,
+         "ms": k8_rows["2048x2048x2048_bf16_f32"]["ms"],
+         "plain_ms": k8_rows["2048x2048x2048_bf16_f32"]["plain_ms"],
+         **matmul_bound(2048, 2048, 2048, "bf16"),
+         "library_ms": k8_rows["2048x2048x2048_bf16_f32"]["library_ms"]},
+        {"name": "chol_rinv", "route": "cuda",
+         "source": "mixedprecisionblockqr_tpu_torch/csrc/chol_rinv.cu",
+         "replaces": "mixedprecisionblockqr_tpu/ops/pallas/chol.py:119",
+         "launches": c15["chol_rinv"], "max_abs_err": k9_err,
+         "ms": k9_rows["r256"]["ms"],
+         "plain_ms": k9_rows["r256"]["plain_ms"],
+         **chol_rinv_bound(256),
+         "library_ms": k9_rows["r256"]["library_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

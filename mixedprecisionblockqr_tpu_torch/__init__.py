@@ -4,14 +4,19 @@ mixedprecisionblockqr_tpu for NVIDIA Hopper.
 Ported so far, behind ``block_qr``/``qr``/``block_qr_qtb``: the Block
 Gram-Schmidt tiers ``bgs1``, ``bgs2`` and ``bgs``; the ``polar`` tier; the
 CholeskyQR tiers ``cholqr1``, ``cholqr2``, ``cholqr2s`` and ``cholqr1x2``
-(unrolled, and the cholqr scan tier); the Householder tiers
+(unrolled, and the cholqr scan tier); the BGS scan tier
+(``loop_mode='scan'``, and every ``'auto'`` input beyond 12288) with its
+checkpointed driver ``block_qr_resumable``; the Householder tiers
 ``householder`` and ``householder_pallas``; ``block_recursive_qr`` and
 ``block_qr_batched``.  Also the rank-revealing least-squares path
-(``lstsq`` -> RQRCP pivoted QR -> Householder tier).  The kernels are
-written in CUDA C++ for ``sm_90a`` under ``csrc/``: ``ns_chain`` (K1),
-``bgs_group_fused`` (K2), ``panel_qr_fused`` (K3), ``ninv_chain`` (K4),
-``panel_factor_fused`` (K6) and ``sketch_qrcp_ranks`` (K7).  The package
-imports torch and numpy, never jax.
+(``lstsq`` -> RQRCP pivoted QR -> Householder tier).  All nine kernels of
+the JAX package are written in CUDA C++ for ``sm_90a`` under ``csrc/``:
+``ns_chain`` (K1), ``bgs_group_fused`` (K2), ``panel_qr_fused`` (K3),
+``ninv_chain`` (K4), ``bgs_group_fused_proj`` (K5), ``panel_factor_fused``
+(K6), ``sketch_qrcp_ranks`` (K7), ``tiled_matmul`` (K8) and ``chol_rinv``
+(K9); K8 and K9 are exported from ``ops.kernels``, as the JAX package
+exports them from ``ops.pallas``.  The package imports torch and numpy,
+never jax.
 
 Entry points run on the card unless the caller asks for the CPU: a tensor
 stays on its device, and a numpy array or list goes to ``device=`` or, by
@@ -20,7 +25,7 @@ default, to ``cuda`` (without a CUDA device it raises and names
 
 Public API:
     qr, block_qr, block_qr_qtb, block_recursive_qr, block_qr_batched,
-    householder_qr, cholesky_qr2
+    householder_qr, cholesky_qr2, block_qr_resumable, clear_checkpoints
     pivoted_qr, pivoted_qr_qtb, numerical_rank
     lstsq, lstsq_pivoted, back_substitution, gauss_newton_step
     DTypePolicy, POLICY_FP32, POLICY_MIXED, POLICY_MIXED_FAST, POLICY_BF16,
@@ -34,6 +39,10 @@ from mixedprecisionblockqr_tpu_torch.models.lstsq import (
     back_substitution,
     lstsq,
     lstsq_pivoted,
+)
+from mixedprecisionblockqr_tpu_torch.models.resumable import (
+    block_qr_resumable,
+    clear_checkpoints,
 )
 from mixedprecisionblockqr_tpu_torch.models.slam import gauss_newton_step
 from mixedprecisionblockqr_tpu_torch.ops import metrics
@@ -91,6 +100,8 @@ __all__ = [
     "lstsq_pivoted",
     "back_substitution",
     "gauss_newton_step",
+    "block_qr_resumable",
+    "clear_checkpoints",
     "metrics",
     "checked_qr",
     "NonFiniteError",

@@ -2,10 +2,15 @@
 // factorizations (Gram, NS chain, Q = P X, t) plus the eager in-group
 // projections C -= Qk (Qk^T C), with the shifted three-pass chain on
 // robust tail panels.
+// K5: the same group with the inter-group projection on entry: the raw
+// columns are scrubbed against all previous Q (C2 = Qprev^T P,
+// P -= Qprev C2) before the group body runs.
 //
 // Replaces mixedprecisionblockqr_tpu/ops/pallas/ns.py::bgs_group_fused
-// (_bgs_group_fused_jit -> pl.pallas_call of _bgs_group_kernel, with
-// _group_loop, _tri_ns_panel and _robust_spill).
+// (_bgs_group_fused_jit -> pl.pallas_call of _bgs_group_kernel) and
+// ::bgs_group_fused_proj (_bgs_group_fused_proj_jit -> pl.pallas_call of
+// _bgs_group_proj_kernel); both share _group_loop, _tri_ns_panel and
+// _robust_spill there, and group_body here.
 //
 // The TPU kernel keeps the whole m x g*r group (8 MB at the 2048 x 1024
 // headline) and the 4 MB Rg in VMEM.  No SM holds that, so this port is one
@@ -27,6 +32,9 @@
 // when asked) keeps every product inside this repository's sources, as
 // the TPU kernel computes them in its own body.  Fusing the sequence into
 // one persistent or cluster kernel with wgmma and TMA is later work.
+// K5's scrub adds two products over the m x p prefix of previous Q, which
+// is read twice (p grows to n - g r): at p = w = 1024, m = 2048 they are
+// 8.6 GFLOP of fp32 FMA, more than twice the group body's projections.
 #include "panel.cuh"
 
 namespace mpbqr {
@@ -71,44 +79,20 @@ static long long group_scratch_floats(int m, int r, int g, GroupScratch* s,
   return off;
 }
 
-}  // namespace mpbqr
-
-extern "C" {
-
-// Floats of global scratch that mpbqr_bgs_group needs.
-long long mpbqr_bgs_group_scratch_floats(int m, int r, int g) {
-  return mpbqr::group_scratch_floats(m, r, g, nullptr, nullptr);
-}
-
-// P (m x g*r, fp32, row-major, read only) -> Q (m x g*r, may equal P),
-// Rg (g*r x g*r, block upper) and *worst (one float), all device pointers.
-// iters[j] / robust[j] are host arrays of g entries.  bf16_gram rounds the
-// Gram and Q = P X operands to bf16, bf16_dots the projection operands;
-// chain_mid runs the early chain iterations with bf16-split products.
-// Returns the first CUDA error met, or cudaErrorInvalidValue for an r the
-// chain kernel does not take.
-int mpbqr_bgs_group(const float* P, float* Q, float* Rg, float* worst,
-                    float* scratch, int m, int r, int g, const int* iters,
-                    const int* robust, int bf16_dots, int bf16_gram,
-                    int chain_mid, void* stream) {
-  using namespace mpbqr;
-  if (r != 32 && r != 64 && r != 128) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+// The group body on Q (m x g*r, already scrubbed against previous groups,
+// factored in place): per panel the Gram, the chain(s), Q = P X, t into
+// Rg's diagonal block and the eager projection of the later columns; then
+// the worst residual.  Rg must be zeroed by the caller.  Returns the first
+// CUDA error met.
+static int group_body(cudaStream_t st, float* Q, float* Rg, float* worst,
+                      const GroupScratch& s, int m, int r, int g,
+                      const int* iters, const int* robust, bool bd, bool bg,
+                      bool chain_mid) {
   const int w = g * r;
-  GroupScratch s;
-  group_scratch_floats(m, r, g, &s, scratch);
   auto mid = [&](int it) {
     return chain_mid ? std::max(0, it - kMidFinal) : 0;
   };
   cudaError_t err;
-  if (Q != P) {
-    err = cudaMemcpyAsync(Q, P, sizeof(float) * (size_t)m * w,
-                          cudaMemcpyDeviceToDevice, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  err = cudaMemsetAsync(Rg, 0, sizeof(float) * (size_t)w * w, st);
-  if (err != cudaSuccess) return (int)err;
-  const bool bg = bf16_gram != 0, bd = bf16_dots != 0;
   for (int j = 0; j < g; ++j) {
     const int c0 = j * r;
     float* Pj = Q + c0;
@@ -152,6 +136,88 @@ int mpbqr_bgs_group(const float* P, float* Q, float* Rg, float* worst,
   }
   worst_resid<<<1, 32, 0, st>>>(s.resid, g, worst);
   return (int)cudaGetLastError();
+}
+
+}  // namespace mpbqr
+
+extern "C" {
+
+// Floats of global scratch that mpbqr_bgs_group needs.
+long long mpbqr_bgs_group_scratch_floats(int m, int r, int g) {
+  return mpbqr::group_scratch_floats(m, r, g, nullptr, nullptr);
+}
+
+// P (m x g*r, fp32, row-major, read only) -> Q (m x g*r, may equal P),
+// Rg (g*r x g*r, block upper) and *worst (one float), all device pointers.
+// iters[j] / robust[j] are host arrays of g entries.  bf16_gram rounds the
+// Gram and Q = P X operands to bf16, bf16_dots the projection operands;
+// chain_mid runs the early chain iterations with bf16-split products.
+// Returns the first CUDA error met, or cudaErrorInvalidValue for an r the
+// chain kernel does not take.
+int mpbqr_bgs_group(const float* P, float* Q, float* Rg, float* worst,
+                    float* scratch, int m, int r, int g, const int* iters,
+                    const int* robust, int bf16_dots, int bf16_gram,
+                    int chain_mid, void* stream) {
+  using namespace mpbqr;
+  if (r != 32 && r != 64 && r != 128) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int w = g * r;
+  GroupScratch s;
+  group_scratch_floats(m, r, g, &s, scratch);
+  cudaError_t err;
+  if (Q != P) {
+    err = cudaMemcpyAsync(Q, P, sizeof(float) * (size_t)m * w,
+                          cudaMemcpyDeviceToDevice, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = cudaMemsetAsync(Rg, 0, sizeof(float) * (size_t)w * w, st);
+  if (err != cudaSuccess) return (int)err;
+  return group_body(st, Q, Rg, worst, s, m, r, g, iters, robust,
+                    bf16_dots != 0, bf16_gram != 0, chain_mid != 0);
+}
+
+// K5.  P (m x g*r, fp32, raw columns, read only) and Qprev (m x p, leading
+// dimension ldq, fp32 or bf16 per qprev_bf16: the strided prefix of the
+// driver's Q buffer is read in place, bf16 widened on load) -> Q (m x g*r),
+// Rprev (p x g*r) = Qprev^T P, Rg and *worst as in mpbqr_bgs_group.
+// The scrub is block-classical: all of C2 comes from the raw P, then one
+// subtracting product Q -= Qprev C2 in place on the group buffer.  The
+// transposed product runs split-K through the same `part` scratch as the
+// group body (sized for an r-row output), so Qprev's columns are taken r
+// at a time, each block's rows going straight into Rprev.  With bf16_dots
+// both products round their operands to bf16 on load (the second one
+// rounds C2 as it reads it); Rprev keeps the unrounded fp32 C2.
+int mpbqr_bgs_group_proj(const float* P, const void* Qprev, int ldq,
+                         int qprev_bf16, int p, float* Q, float* Rprev,
+                         float* Rg, float* worst, float* scratch, int m,
+                         int r, int g, const int* iters, const int* robust,
+                         int bf16_dots, int bf16_gram, int chain_mid,
+                         void* stream) {
+  using namespace mpbqr;
+  if (r != 32 && r != 64 && r != 128) return (int)cudaErrorInvalidValue;
+  if (p < 1 || ldq < p) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int w = g * r;
+  GroupScratch s;
+  group_scratch_floats(m, r, g, &s, scratch);
+  cudaError_t err = cudaMemcpyAsync(Q, P, sizeof(float) * (size_t)m * w,
+                                    cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(Rg, 0, sizeof(float) * (size_t)w * w, st);
+  if (err != cudaSuccess) return (int)err;
+  const bool bd = bf16_dots != 0;
+  auto scrub = [&](auto* Qp) {
+    for (int b0 = 0; b0 < p; b0 += r)
+      gemm(st, true, bd, std::min(r, p - b0), w, m, Qp + b0, ldq, Q, w,
+           Rprev + (size_t)b0 * w, w, false, s.part);
+    gemm(st, false, bd, m, w, p, Qp, ldq, Rprev, w, Q, w, true, s.part);
+  };
+  if (qprev_bf16)
+    scrub(static_cast<const __nv_bfloat16*>(Qprev));
+  else
+    scrub(static_cast<const float*>(Qprev));
+  return group_body(st, Q, Rg, worst, s, m, r, g, iters, robust, bd,
+                    bf16_gram != 0, chain_mid != 0);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// Tall-panel pieces shared by bgs_group.cu (K2) and panel_qr.cu (K3): the
+// Tall-panel pieces shared by bgs_group.cu (K2, K5) and panel_qr.cu (K3): the
 // tiled fp32-FMA GEMM with its split-K form, the deterministic split-K
 // reduction, the robust three-pass R-block combine and the panel chain
 // schedule.
@@ -26,13 +26,19 @@ constexpr int kSplitRows = 256;  // m-chunk of one split-K partial
 constexpr int kMidFinal = 2;
 constexpr int kRobustIt1 = 14, kRobustIt2 = 12, kRobustIt3 = 4;
 
+__device__ __forceinline__ float as_f32(float x) { return x; }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 // C = op(A) @ B (sub == 0) or C -= op(A) @ B (sub == 1) for an M x N
 // output with inner dimension K; op(A) = A^T (A stored K x M) when TA.
+// A holds fp32 or bf16 (AT), widened on load.
 // With gridDim.z > 1 each z-slice takes K rows [z*kch, (z+1)*kch) and
 // writes its partial product to C + z*M*N with leading dimension N.
-template <bool TA, bool BF>
+template <bool TA, bool BF, typename AT>
 __global__ void __launch_bounds__(kGemmThreads)
-tall_gemm(int M, int N, int K, const float* A, int lda, const float* B,
+tall_gemm(int M, int N, int K, const AT* A, int lda, const float* B,
           int ldb, float* C, int ldc, int kch, int sub) {
   __shared__ float As[kBK][kBM];
   __shared__ float Bs[kBK][kBN];
@@ -60,8 +66,8 @@ tall_gemm(int M, int N, int K, const float* A, int lda, const float* B,
       }
       float v = 0.f;
       if (i0 + i < M && k0 + k < ke)
-        v = TA ? A[(long long)(k0 + k) * lda + i0 + i]
-               : A[(long long)(i0 + i) * lda + k0 + k];
+        v = as_f32(TA ? A[(long long)(k0 + k) * lda + i0 + i]
+                      : A[(long long)(i0 + i) * lda + k0 + k]);
       As[k][i] = BF ? bf16_round(v) : v;
       const int kk = e / kBN, j = e % kBN;
       float w = 0.f;
@@ -144,30 +150,31 @@ static inline long long split_count(int m) {
 
 // op(A) @ B into C (or C -= ... with sub, only for the non-transposed
 // form).  The transposed form runs split-K through `part`.
+template <typename AT>
 static inline void gemm(cudaStream_t st, bool ta, bool bf, int M, int N,
-                        int K, const float* A, int lda, const float* B,
+                        int K, const AT* A, int lda, const float* B,
                         int ldb, float* C, int ldc, bool sub, float* part) {
   const dim3 blk(kGemmThreads);
   if (ta) {
     const int S = (int)split_count(K);
     const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, S);
     if (bf)
-      tall_gemm<true, true><<<grid, blk, 0, st>>>(M, N, K, A, lda, B, ldb,
-                                                  part, N, kSplitRows, 0);
+      tall_gemm<true, true, AT><<<grid, blk, 0, st>>>(
+          M, N, K, A, lda, B, ldb, part, N, kSplitRows, 0);
     else
-      tall_gemm<true, false><<<grid, blk, 0, st>>>(M, N, K, A, lda, B, ldb,
-                                                   part, N, kSplitRows, 0);
+      tall_gemm<true, false, AT><<<grid, blk, 0, st>>>(
+          M, N, K, A, lda, B, ldb, part, N, kSplitRows, 0);
     const long long n = (long long)M * N;
     const int nb = (int)std::min<long long>((n + 255) / 256, 1024);
     splitk_reduce<<<nb, 256, 0, st>>>(part, S, M, N, C, ldc);
   } else {
     const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, 1);
     if (bf)
-      tall_gemm<false, true><<<grid, blk, 0, st>>>(M, N, K, A, lda, B, ldb,
-                                                   C, ldc, K, sub ? 1 : 0);
+      tall_gemm<false, true, AT><<<grid, blk, 0, st>>>(
+          M, N, K, A, lda, B, ldb, C, ldc, K, sub ? 1 : 0);
     else
-      tall_gemm<false, false><<<grid, blk, 0, st>>>(M, N, K, A, lda, B, ldb,
-                                                    C, ldc, K, sub ? 1 : 0);
+      tall_gemm<false, false, AT><<<grid, blk, 0, st>>>(
+          M, N, K, A, lda, B, ldb, C, ldc, K, sub ? 1 : 0);
   }
 }
 

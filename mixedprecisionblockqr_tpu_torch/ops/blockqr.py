@@ -15,16 +15,22 @@
     reflector, with K6 for panels of aspect < 2 on the GPU) and the paired
     ``cholqr1x2``;
   * the cholqr scan tier ``_block_qr_scan`` (``loop_mode='scan'``): K4
-    with an on-device LU fallback per panel.
+    with an on-device LU fallback per panel;
+  * the BGS scan tier ``_block_qr_bgs_scan`` (``loop_mode='scan'`` with a
+    BGS method, and every ``'auto'`` input with ``max(m, n) > 12288``):
+    one step function over a preallocated Q buffer, every panel robust,
+    through ``panel_qr_fused`` (K3) or the three-chain K1 composition;
+    ``models/resumable.py`` checkpoints the same step.
 A CUDA tensor takes the dispatch branch of the accelerator; a CPU tensor
 with ``panel_method='auto'`` resolves to ``'householder'``, as in the JAX
 package, and every kernel wrapper runs its plain version on the CPU.
 ``check='sync'`` retries a poisoned factorization as
-``_sync_retry_method`` says.  The BGS scan tier raises
-``NotImplementedError`` and names the ROADMAP item that ports it.
+``_sync_retry_method`` says.
 
 Each BGS group of panels runs through ``bgs_group_fused`` (kernel K2) when
-the group buffer passes the same size gate as the JAX package; otherwise
+the group buffer passes the same size gate as the JAX package (with
+``proj_entry``, every group after the first through
+``bgs_group_fused_proj``, K5); otherwise
 each panel runs ``ns_chain`` (kernel K1) between plain products.  A
 float64 panel always takes ``panel_factor``: K6 is fp32, as the TPU kernel
 is, and a POLICY_FP64 factorization stays float64.
@@ -50,8 +56,10 @@ from mixedprecisionblockqr_tpu_torch.ops.householder import (
 )
 from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
     bgs_group_fused,
+    bgs_group_fused_proj,
     ninv_chain,
     ns_chain,
+    panel_qr_fused,
     tri_cholqr_fused,
     tri_cholqr_robust_fused,
 )
@@ -191,9 +199,8 @@ def _sync_retry_method(panel_method, loop_mode, policy, mode, m, n):
     """The robust retry target of ``check='sync'``, or None when the
     primary method already is it.  Unrolled: 'householder' (exact for any
     input, rank-deficient ones included).  Scan: the all-robust scan-BGS
-    tier 'bgs' (not ported: it raises and names its ROADMAP item), or
-    'cholqr2s' where BGS's contract does not hold (complete Q with m > n,
-    fp64)."""
+    tier 'bgs', or 'cholqr2s' where BGS's contract does not hold (complete
+    Q with m > n, fp64)."""
     if loop_mode == "scan":
         bgs_ok = (mode != "complete" or m == n) and (
             policy.panel != torch.float64)
@@ -241,6 +248,7 @@ def _block_qr_bgs(
     ns_impl: str = "group",
     mid_tier: bool = False,
     chain_mid: bool = False,
+    proj_entry: bool = False,
 ):
     """Right-looking Block Gram-Schmidt QR; returns ``(R_full, Q, QtB)``.
 
@@ -255,7 +263,11 @@ def _block_qr_bgs(
     chain; chain budgets follow the JAX package's calibration (aspect
     budget, +6 on the head panel, +4 on the last quarter).  With ``B``
     (m x k), ``QtB = Q^T B`` is formed panel by panel and Q need not be
-    kept.  ``A`` is not modified.
+    kept.  ``proj_entry`` (effective only on the group route without
+    ``reorth``; off in every public path, as in the JAX package) drops the
+    trailing projection between groups: every group after the first goes
+    raw into ``bgs_group_fused_proj``, which scrubs it against the Q
+    written so far.  ``A`` is not modified.
     """
     if ns_impl not in ("group", "panel"):
         raise ValueError(f"ns_impl must be 'group' or 'panel', got {ns_impl!r}")
@@ -268,6 +280,7 @@ def _block_qr_bgs(
     if ns_impl == "group" and nb <= group_panels:
         group_panels = max(2, nb // 2)
     use_group = ns_impl == "group" and _group_kernel_fits(m, r, group_panels)
+    proj_entry = proj_entry and use_group and not reorth
 
     base_iters = tri_iters_for_aspect(m / r)
 
@@ -294,8 +307,9 @@ def _block_qr_bgs(
     q_dtype = policy.accum if reorth else (policy.q_store or policy.accum)
     cast_early = (not reorth and q_dtype != policy.accum
                   and policy.trailing == q_dtype)
+    # With proj_entry the buffer is K5's Qprev source, wanted or not.
     Qacc = (torch.zeros((m, n), dtype=q_dtype, device=dev)
-            if want_q and not reorth else None)
+            if (want_q or proj_entry) and not reorth else None)
     is_bf16 = policy.trailing == torch.bfloat16
 
     i = 0
@@ -314,13 +328,21 @@ def _block_qr_bgs(
             R[:lam_g, lam_g:g_end] += C2
         robust_js = tuple(j >= nb - n_robust for j in js)
         if use_group:
-            Qg, Rg, resid = bgs_group_fused(
-                Pbuf.float().contiguous(), r,
-                tuple(_plain_iters(j) for j in js), robust_js,
-                bf16_dots=is_bf16 and not reorth,
-                bf16_gram=is_bf16 and not reorth,
-                chain_mid=chain_mid,
-            )
+            iters_js = tuple(_plain_iters(j) for j in js)
+            if proj_entry and lam_g > 0:
+                Qg, Rprev, Rg, resid = bgs_group_fused_proj(
+                    Pbuf.float().contiguous(), Qacc[:, :lam_g], r, iters_js,
+                    robust_js, bf16_dots=is_bf16, bf16_gram=is_bf16,
+                    chain_mid=chain_mid,
+                )
+                R[:lam_g, lam_g:g_end] = Rprev
+            else:
+                Qg, Rg, resid = bgs_group_fused(
+                    Pbuf.float().contiguous(), r, iters_js, robust_js,
+                    bf16_dots=is_bf16 and not reorth,
+                    bf16_gram=is_bf16 and not reorth,
+                    chain_mid=chain_mid,
+                )
             worst = torch.maximum(worst, resid)
             R[lam_g:g_end, lam_g:g_end] = Rg
             if reorth and any(robust_js):
@@ -342,7 +364,8 @@ def _block_qr_bgs(
             if Qacc is not None:
                 Qacc[:, lam_g:g_end] = Qg.to(q_dtype)
             qcols.append(Qg)
-            if g_end < n:
+            # proj_entry: the next group's kernel scrubs its own columns.
+            if g_end < n and not proj_entry:
                 G1 = mm_t(Qg.T, T)
                 T = (T - mm_t(Qg, G1)).to(T.dtype)
                 R[lam_g:g_end, g_end:] = G1
@@ -392,12 +415,162 @@ def _block_qr_bgs(
     R_full = (torch.cat([R, R.new_zeros((m - n, n))], dim=0)
               if m > n else R).to(policy.accum)
     if Qacc is not None:
-        Q = Qacc
+        Q = Qacc if want_q else None
     else:
         Q = torch.cat(qcols, dim=1).to(q_dtype) if want_q else None
     QtB = torch.cat(qtb, dim=0) if B is not None else None
     return _poison_if_unconverged(worst, R_full, Q, QtB)
 
+
+#: The scan tier's panel gate of the JAX package: five m x r fp32 residents
+#: within 14 MiB choose the fused panel kernel (K3), anything taller the
+#: three-chain composition over K1.  Sized for the TPU's VMEM; kept so that
+#: dispatch stays in step with the reference.
+SCAN_FUSED_PANEL_MAX_BYTES = 14 * 2**20
+
+
+def _bgs_scan_machinery(
+    A: torch.Tensor,
+    B: Optional[torch.Tensor],
+    block_size: int,
+    policy: DTypePolicy,
+    reorth: bool,
+    group_panels: int,
+    chain_mid: bool,
+    reorth_grouped: bool = False,
+):
+    """The scan-BGS step, shared by the one-shot driver
+    (``_block_qr_bgs_scan``) and the checkpointed one
+    (``models/resumable.py``): the same step sequence on the same carry,
+    so a resumed run is bit-identical to an uninterrupted one.  Returns
+    ``(step, carry0, nsteps)``; ``step(k, carry)`` factors the k-th group
+    of ``g`` panels and returns the carry ``(Qbuf, R, QtB, worst_resid)``,
+    whose buffers it updates in place.
+
+    Each step projects its group's columns against the written prefix of
+    ``Qbuf`` (classical GS; twice with ``reorth``), then factors each panel
+    with the shifted three-pass chain (K3 while the panel passes
+    ``SCAN_FUSED_PANEL_MAX_BYTES``, else the K1 composition), its residual
+    scaled by 0.01 as for every robust panel, and projects the group's
+    later columns eagerly.  ``g`` is ``group_panels`` when that divides
+    the panel count and the tier is single-pass or ``reorth_grouped``
+    ('bgs2'), else 1.  The reorth tiers run fp32 projections on an fp32
+    ``Qbuf``, and rescrub each panel of the last
+    ``ceil(max(2, nb // 8) / g)`` steps against everything written before
+    it, in-group panels included.
+    """
+    m, n = A.shape
+    r = block_size
+    if n % r != 0 or m < n:
+        raise ValueError(f"scan BGS needs r | n and m >= n; got "
+                         f"{tuple(A.shape)}, r={r}")
+    nb = n // r
+    dev = A.device
+    A = A.to(policy.panel)
+    mm_t = trailing_matmul(policy)
+    mm_p = mm_f32 if reorth else mm_t
+    qbuf_dtype = (torch.float32 if reorth
+                  else (policy.q_store or policy.accum))
+    fused_panel = m * r * 4 * 5 <= SCAN_FUSED_PANEL_MAX_BYTES
+
+    def panel(P):
+        if fused_panel:
+            return panel_qr_fused(P.float().contiguous(), robust=True,
+                                  chain_mid=chain_mid)
+        Qk, t, _, resid = tri_cholqr_robust_fused(P, chain_mid=chain_mid)
+        return Qk, t, resid
+
+    g = (group_panels
+         if group_panels > 1 and nb % group_panels == 0
+         and (not reorth or reorth_grouped) else 1)
+    gw = g * r
+    nsteps = nb // g
+    rescrub_from = nsteps - min(nsteps, -(-max(2, nb // 8) // g))
+
+    def step(k, carry):
+        Qbuf, R, QtB, wr = carry
+        lam_g = k * gw
+        # A copy where the eager in-group projection writes into it.
+        Cg = A[:, lam_g:lam_g + gw].to(policy.accum, copy=g > 1)
+        if lam_g > 0:
+            Qpre = Qbuf[:, :lam_g]
+            C = mm_p(Qpre.T, Cg)
+            Cg = Cg - mm_p(Qpre, C)
+            if reorth:
+                C2 = mm_p(Qpre.T, Cg)
+                Cg = Cg - mm_p(Qpre, C2)
+                C = C + C2
+            R[:lam_g, lam_g:lam_g + gw] = C
+        for j in range(g):
+            lam = lam_g + j * r
+            Qk, t, resid = panel(Cg[:, j * r:(j + 1) * r])
+            wr = torch.maximum(wr, 0.01 * resid)
+            if reorth and k >= rescrub_from:
+                Qk, t, dW, rs = _rescrub_panel(Qbuf[:, :lam], Qk, t)
+                wr = torch.maximum(wr, rs * rs)
+                R[:lam, lam:lam + r] += dW
+            Qbuf[:, lam:lam + r] = Qk.to(qbuf_dtype)
+            R[lam:lam + r, lam:lam + r] = t
+            if j + 1 < g:
+                Ct = Cg[:, (j + 1) * r:]
+                G1 = mm_p(Qk.T, Ct)
+                Cg[:, (j + 1) * r:] = Ct - mm_p(Qk, G1)
+                R[lam:lam + r, lam + r:lam_g + gw] = G1
+            if B is not None:
+                QtB[lam:lam + r] = mm_t(Qk.T, B)
+        return Qbuf, R, QtB, wr
+
+    carry0 = (
+        torch.zeros((m, n), dtype=qbuf_dtype, device=dev),
+        torch.zeros((n, n), dtype=torch.float32, device=dev),
+        torch.zeros((n, B.shape[1] if B is not None else 1),
+                    dtype=torch.float32, device=dev),
+        torch.zeros((), dtype=torch.float32, device=dev),
+    )
+    return step, carry0, nsteps
+
+
+def _bgs_scan_finalize(m, n, policy, want_q, with_b, Qbuf, R, QtB,
+                       worst_resid, reorth=True):
+    """Close a scan-BGS carry into ``(R_full, Q, QtB)``: R zero-padded to
+    m rows and cut to its upper triangle, Q in fp32 on the reorth tiers
+    (a bf16 Q would undo their scrub) and in the policy's storage dtype on
+    bgs1, and the NaN canary."""
+    R_full = (torch.cat([R, R.new_zeros((m - n, n))], dim=0)
+              if m > n else R)
+    R_full = torch.triu(R_full.to(policy.accum))
+    q_dtype = policy.accum if reorth else (policy.q_store or policy.accum)
+    Q = Qbuf.to(q_dtype) if want_q else None
+    return _poison_if_unconverged(worst_resid, R_full, Q,
+                                  QtB if with_b else None)
+
+
+def _block_qr_bgs_scan(
+    A: torch.Tensor,
+    block_size: int,
+    policy: DTypePolicy,
+    want_q: bool,
+    B: Optional[torch.Tensor] = None,
+    reorth: bool = True,
+    group_panels: int = 1,
+    chain_mid: bool = False,
+    reorth_grouped: bool = False,
+):
+    """Scan-mode Block Gram-Schmidt (the JAX package's
+    ``_block_qr_bgs_scan``): ``_bgs_scan_machinery``'s step over every
+    group in turn, then ``_bgs_scan_finalize``.  Returns ``(R_full, Q,
+    QtB)``.  The JAX tier compiles one full-width step and projects against
+    the still-zero columns of its Q buffer too; here a Python loop projects
+    against the written prefix only, the same values to summation order at
+    half the projection work.  Requires r | n and m >= n."""
+    step, carry, nsteps = _bgs_scan_machinery(
+        A, B, block_size, policy, reorth=reorth, group_panels=group_panels,
+        chain_mid=chain_mid, reorth_grouped=reorth_grouped)
+    for k in range(nsteps):
+        carry = step(k, carry)
+    m, n = A.shape
+    return _bgs_scan_finalize(m, n, policy, want_q, B is not None, *carry,
+                              reorth=reorth)
 
 
 
@@ -706,11 +879,12 @@ def _driver(A, block_size, policy, want_q, B, panel_method, loop_mode,
     ``_jitted_driver``)."""
     if panel_method in _BGS_TIERS:
         if loop_mode == "scan":
-            raise NotImplementedError(
-                f"panel_method={panel_method!r} loop_mode='scan' is not "
-                "ported to mixedprecisionblockqr_tpu_torch yet (ROADMAP "
-                "Queue 1 item 7, 'Scan tier' (_block_qr_bgs_scan)); the "
-                "port's scan tier runs the cholqr methods"
+            # chain_mid stays off here, as in the JAX package.
+            return _block_qr_bgs_scan(
+                A, block_size, policy, want_q, B,
+                reorth=panel_method in ("bgs", "bgs2"),
+                group_panels=group_panels,
+                reorth_grouped=panel_method == "bgs2",
             )
         return _block_qr_bgs(
             A, block_size, policy, want_q, B, group_panels=group_panels,

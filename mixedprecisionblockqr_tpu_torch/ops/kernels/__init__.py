@@ -1,9 +1,22 @@
 """Hand-written CUDA kernels (csrc/) and their plain PyTorch versions."""
 
+from mixedprecisionblockqr_tpu_torch.ops.kernels.chol import (  # noqa: F401
+    chol_rinv,
+    chol_rinv_plain,
+)
+from mixedprecisionblockqr_tpu_torch.ops.kernels.gemm import (  # noqa: F401
+    matmul_bf16_accum_f32,
+    matmul_int8_accum_i32,
+    matmul_uint8_accum_i32,
+    tiled_matmul,
+    tiled_matmul_plain,
+)
 from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (  # noqa: F401
     LAUNCHES,
     bgs_group_fused,
     bgs_group_fused_plain,
+    bgs_group_fused_proj,
+    bgs_group_fused_proj_plain,
     ninv_chain,
     ninv_chain_plain,
     ns_chain,

@@ -24,7 +24,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("ns_chain.cu", "bgs_group.cu", "panel_qr.cu", "sketch_qrcp.cu",
-           "ninv_chain.cu", "panel_factor.cu")
+           "ninv_chain.cu", "panel_factor.cu", "tiled_matmul.cu",
+           "chol_rinv.cu")
 HEADERS = ("ns_chain.cuh", "panel.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -69,6 +70,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_bgs_group.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp,
                                     ci, ci, ci, vp]
     lib.mpbqr_bgs_group.restype = ci
+    lib.mpbqr_bgs_group_proj.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp,
+                                         vp, ci, ci, ci, vp, vp, ci, ci, ci,
+                                         vp]
+    lib.mpbqr_bgs_group_proj.restype = ci
     lib.mpbqr_panel_qr_scratch_floats.argtypes = [ci, ci]
     lib.mpbqr_panel_qr_scratch_floats.restype = ll
     lib.mpbqr_panel_qr.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
@@ -83,6 +88,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_ninv_chain.restype = ci
     lib.mpbqr_panel_factor.argtypes = [vp, vp, vp, vp, ci, ci, vp]
     lib.mpbqr_panel_factor.restype = ci
+    lib.mpbqr_tiled_matmul.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                                       vp]
+    lib.mpbqr_tiled_matmul.restype = ci
+    lib.mpbqr_chol_rinv.argtypes = [vp, vp, vp, vp, ci, vp]
+    lib.mpbqr_chol_rinv.restype = ci
     return lib
 
 

@@ -1,7 +1,7 @@
 """Newton-Schulz chain kernels: ``ns_chain`` (K1), ``bgs_group_fused`` (K2),
-``panel_qr_fused`` (K3) and ``ninv_chain`` (K4), each beside its plain
-PyTorch version, and the compositions ``tri_cholqr_fused`` and
-``tri_cholqr_robust_fused`` over K1.
+``panel_qr_fused`` (K3), ``ninv_chain`` (K4) and ``bgs_group_fused_proj``
+(K5), each beside its plain PyTorch version, and the compositions
+``tri_cholqr_fused`` and ``tri_cholqr_robust_fused`` over K1.
 
 Port of ``mixedprecisionblockqr_tpu/ops/pallas/ns.py``.  The wrappers
 launch the hand-written CUDA kernels of ``csrc/`` for CUDA tensors and
@@ -27,9 +27,11 @@ from mixedprecisionblockqr_tpu_torch.ops.cholqr import _sign_fix, newton_inv
 from mixedprecisionblockqr_tpu_torch.ops.policy import mm_bf16, mm_f32, mm_high
 
 #: Kernel launches per wrapper since the last ``reset_launches()`` (one
-#: entry per kernel of the package, ``sketch_qrcp_ranks`` included).
+#: entry per kernel of the package, those of the other modules included).
 LAUNCHES = {"ns_chain": 0, "bgs_group_fused": 0, "panel_qr_fused": 0,
-            "ninv_chain": 0, "panel_factor_fused": 0, "sketch_qrcp_ranks": 0}
+            "ninv_chain": 0, "bgs_group_fused_proj": 0,
+            "panel_factor_fused": 0, "sketch_qrcp_ranks": 0,
+            "tiled_matmul": 0, "chol_rinv": 0}
 #: Panel widths the CUDA kernels are instantiated for.
 KERNEL_WIDTHS = (32, 64, 128)
 #: Chain schedule of a panel (the same constants as csrc/panel.cuh):
@@ -184,6 +186,20 @@ def bgs_group_fused_plain(Pg, r, iters, robust, bf16_dots=True,
     return Q, Rg, worst
 
 
+def bgs_group_fused_proj_plain(Pg, Qprev, r, iters, robust, bf16_dots=True,
+                               bf16_gram=None, chain_mid=False):
+    """Plain version of :func:`bgs_group_fused_proj`
+    (``_bgs_group_proj_kernel`` transcription): the block-classical scrub
+    of the raw columns against ``Qprev``, then the group body."""
+    P = Pg.float()
+    proj = mm_bf16 if bf16_dots else mm_f32
+    C2 = proj(Qprev.T, P)
+    Qg, Rg, worst = bgs_group_fused_plain(P - proj(Qprev, C2), r, iters,
+                                          robust, bf16_dots, bf16_gram,
+                                          chain_mid)
+    return Qg, C2, Rg, worst
+
+
 def ninv_chain_plain(S, iters=6):
     """Plain version of :func:`ninv_chain` (``_ninv_kernel`` transcription:
     ``newton_inv`` in fp32 and the final residual)."""
@@ -259,6 +275,33 @@ def ns_chain(
     return X, t, resid
 
 
+def _group_shape(Pg, r, iters, robust):
+    """``(m, w, g)`` of a CUDA group buffer the group kernels take."""
+    _require_cuda_f32(Pg, "Pg")
+    m, w = Pg.shape
+    g = w // r
+    if (r not in KERNEL_WIDTHS or w != g * r or len(iters) != g
+            or len(robust) != g):
+        raise ValueError(
+            f"the group kernels take r in {KERNEL_WIDTHS}, width g*r and "
+            f"g entries of iters/robust; got r={r}, shape {tuple(Pg.shape)}, "
+            f"{len(iters)} iters, {len(robust)} robust"
+        )
+    return m, w, g
+
+
+def _group_buffers(lib, Pg, r, g, iters, robust):
+    """Outputs ``Q``, ``Rg``, ``worst``, the scratch and the host arrays of
+    one group-kernel launch."""
+    m, w = Pg.shape
+    f32 = dict(dtype=torch.float32, device=Pg.device)
+    return (torch.empty_like(Pg), torch.empty((w, w), **f32),
+            torch.empty((), **f32),
+            torch.empty(lib.mpbqr_bgs_group_scratch_floats(m, r, g), **f32),
+            (ctypes.c_int * g)(*[int(i) for i in iters]),
+            (ctypes.c_int * g)(*[int(bool(b)) for b in robust]))
+
+
 def bgs_group_fused(
     Pg: torch.Tensor,
     r: int,
@@ -286,28 +329,14 @@ def bgs_group_fused(
     if Pg.device.type == "cpu":
         return bgs_group_fused_plain(Pg, r, iters, robust, bf16_dots,
                                      bf16_gram, chain_mid)
-    _require_cuda_f32(Pg, "Pg")
-    m, w = Pg.shape
-    g = w // r
-    if (r not in KERNEL_WIDTHS or w != g * r or len(iters) != g
-            or len(robust) != g):
-        raise ValueError(
-            f"bgs_group_fused kernel: r in {KERNEL_WIDTHS}, width g*r and "
-            f"g entries of iters/robust; got r={r}, shape {tuple(Pg.shape)}, "
-            f"{len(iters)} iters, {len(robust)} robust"
-        )
+    m, w, g = _group_shape(Pg, r, iters, robust)
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
         check, library,
     )
 
     lib = library()
-    Q = torch.empty_like(Pg)
-    Rg = torch.empty((w, w), dtype=torch.float32, device=Pg.device)
-    worst = torch.empty((), dtype=torch.float32, device=Pg.device)
-    scratch = torch.empty(lib.mpbqr_bgs_group_scratch_floats(m, r, g),
-                          dtype=torch.float32, device=Pg.device)
-    it_arr = (ctypes.c_int * g)(*[int(i) for i in iters])
-    rb_arr = (ctypes.c_int * g)(*[int(bool(b)) for b in robust])
+    Q, Rg, worst, scratch, it_arr, rb_arr = _group_buffers(
+        lib, Pg, r, g, iters, robust)
     code = lib.mpbqr_bgs_group(
         Pg.data_ptr(), Q.data_ptr(), Rg.data_ptr(), worst.data_ptr(),
         scratch.data_ptr(), m, r, g, it_arr, rb_arr, int(bf16_dots),
@@ -316,6 +345,64 @@ def bgs_group_fused(
     check(code, "bgs_group_fused")
     LAUNCHES["bgs_group_fused"] += 1
     return Q, Rg, worst
+
+
+def bgs_group_fused_proj(
+    Pg: torch.Tensor,
+    Qprev: torch.Tensor,
+    r: int,
+    iters: Sequence[int],
+    robust: Sequence[bool],
+    bf16_dots: bool = True,
+    bf16_gram=None,
+    chain_mid: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`bgs_group_fused` with the inter-group projection on entry.
+
+    ``Pg`` (m, g*r) holds the group's raw columns and ``Qprev`` (m, p) all
+    previous groups' Q, fp32 or bf16: ``C2 = Qprev^T Pg`` and
+    ``Pg - Qprev C2`` (operands rounded to bf16 with fp32 accumulation
+    when ``bf16_dots``, true fp32 otherwise), then the group body.
+    Returns ``(Qg (m, g*r), Rprev (p, g*r) = C2 unrounded, Rg, worst
+    residual)``.  ``Pg`` is not modified.  On CUDA ``Qprev`` may be a
+    column slice of a wider row-major buffer (unit column stride): the
+    kernel reads it in place, bf16 included.
+    """
+    if bf16_gram is None:
+        bf16_gram = bf16_dots
+    if Pg.device.type == "cpu":
+        return bgs_group_fused_proj_plain(Pg, Qprev, r, iters, robust,
+                                          bf16_dots, bf16_gram, chain_mid)
+    m, w, g = _group_shape(Pg, r, iters, robust)
+    if (Qprev.device != Pg.device or Qprev.dim() != 2
+            or Qprev.dtype not in (torch.float32, torch.bfloat16)
+            or Qprev.shape[0] != m or Qprev.shape[1] < 1
+            or Qprev.stride(1) != 1 or Qprev.stride(0) < Qprev.shape[1]):
+        raise ValueError(
+            "Qprev must be a float32 or bfloat16 (m, p >= 1) tensor on "
+            "Pg's device with unit column stride; got "
+            f"{Qprev.dtype} {tuple(Qprev.shape)} strides {Qprev.stride()} "
+            f"on {Qprev.device}"
+        )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
+        check, library,
+    )
+
+    lib = library()
+    p = Qprev.shape[1]
+    Q, Rg, worst, scratch, it_arr, rb_arr = _group_buffers(
+        lib, Pg, r, g, iters, robust)
+    Rprev = torch.empty((p, w), dtype=torch.float32, device=Pg.device)
+    code = lib.mpbqr_bgs_group_proj(
+        Pg.data_ptr(), Qprev.data_ptr(), Qprev.stride(0),
+        int(Qprev.dtype == torch.bfloat16), p, Q.data_ptr(),
+        Rprev.data_ptr(), Rg.data_ptr(), worst.data_ptr(),
+        scratch.data_ptr(), m, r, g, it_arr, rb_arr, int(bf16_dots),
+        int(bf16_gram), int(chain_mid), _stream(Pg),
+    )
+    check(code, "bgs_group_fused_proj")
+    LAUNCHES["bgs_group_fused_proj"] += 1
+    return Q, Rprev, Rg, worst
 
 
 def panel_qr_fused(

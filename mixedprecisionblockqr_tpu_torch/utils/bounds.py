@@ -3,8 +3,7 @@
     python3 -m mixedprecisionblockqr_tpu_torch.utils.bounds
 
 prints one JSON line per kernel of the repository (K1-K9) at the shapes
-``chip_smoke.py`` times it (K5, K8 and K9, not ported yet, at the shapes
-named in their lines).  A bound is the larger of two times: the operations
+``chip_smoke.py`` times it.  A bound is the larger of two times: the operations
 the kernel does on these inputs over the peak rate for their type, and the
 bytes it must move (each input read once, each output written once) over
 the memory rate.  The peaks are the H100 SXM data sheet's (dense, 700 W).
@@ -18,12 +17,14 @@ import json
 
 PEAK_F32 = 67e12       # fp32 outside the tensor cores
 PEAK_BF16 = 989e12     # bf16 tensor cores
+PEAK_INT8 = 1979e12    # int8 tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 
-def bound(f32_ops=0.0, bf16_ops=0.0, nbytes=0.0):
+def bound(f32_ops=0.0, bf16_ops=0.0, nbytes=0.0, int8_ops=0.0):
     """``{"bound_ms", "bound_by"}`` for the given work."""
-    t_ops = f32_ops / PEAK_F32 + bf16_ops / PEAK_BF16
+    t_ops = (f32_ops / PEAK_F32 + bf16_ops / PEAK_BF16
+             + int8_ops / PEAK_INT8)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -47,19 +48,22 @@ def ns_chain_bound(r, iters):
 
 def group_bound(m, r, iters, robust, bf16, proj_cols=0):
     """K2 (and K5 with ``proj_cols`` previous columns projected out on
-    entry, in fp32) on an m x (g r) group: per panel the Gram(s), the
-    chain(s), Q = P X and the projection of the group's later columns."""
+    entry) on an m x (g r) group: per panel the Gram(s), the chain(s),
+    Q = P X and the projection of the group's later columns.  With
+    ``bf16`` the tall products and K5's scrub count at the bf16 rate, and
+    K5's previous Q is read as bf16."""
     chain = tall = 0
     w = len(iters) * r
     for j, (it, rb) in enumerate(zip(iters, robust)):
         chain += (ROBUST_PRODUCTS if rb else chain_products(it)) * 2 * r ** 3
         tall += (6 if rb else 2) * 2 * m * r * r
         tall += 2 * 2 * m * r * (w - (j + 1) * r)
-    proj = 2 * 2 * m * proj_cols * w
-    nbytes = (2 * m * w + w * w + m * proj_cols + proj_cols * w) * 4
+    tall += 2 * 2 * m * proj_cols * w
+    nbytes = ((2 * m * w + w * w + proj_cols * w) * 4
+              + m * proj_cols * (2 if bf16 else 4))
     if bf16:
-        return bound(f32_ops=chain + proj, bf16_ops=tall, nbytes=nbytes)
-    return bound(f32_ops=chain + tall + proj, nbytes=nbytes)
+        return bound(f32_ops=chain, bf16_ops=tall, nbytes=nbytes)
+    return bound(f32_ops=chain + tall, nbytes=nbytes)
 
 
 def panel_qr_bound(m, r):
@@ -90,9 +94,22 @@ def sketch_bound(d, w, r):
     return bound(f32_ops=r * 4 * d * w, nbytes=(d * w + w) * 4)
 
 
+def matmul_bound(m, k, n, kind, out_bytes=4):
+    """K8: ``2 m k n`` operations of ``kind`` ('f32', 'bf16' or 'int8')
+    and each operand read, the output written, once."""
+    in_bytes = {"f32": 4, "bf16": 2, "int8": 1}[kind]
+    return bound(**{f"{kind}_ops": 2.0 * m * k * n},
+                 nbytes=(m * k + k * n) * in_bytes + m * n * out_bytes)
+
+
+def chol_rinv_bound(r):
+    """K9: the Cholesky factor and the triangular inverse, r^3 / 3
+    operations each; G read, R and Rinv written."""
+    return bound(f32_ops=2 * r ** 3 / 3, nbytes=3 * r * r * 4)
+
+
 def kernel_bounds():
-    """Every kernel's bound at the shapes ``chip_smoke.py`` times (K5, K8,
-    K9: the shapes in the ``shape`` field)."""
+    """Every kernel's bound at the shapes ``chip_smoke.py`` times."""
     head = (12, 6, 6, 6, 6, 6, 6, 10)
     return {
         "K1 ns_chain": {"shape": "r=128, 6 iterations (chain_mid)",
@@ -112,13 +129,14 @@ def kernel_bounds():
                                   **panel_factor_bound(2048, 128)},
         "K7 sketch_qrcp_ranks": {"shape": "136 x 2048, 128 pivots",
                                  **sketch_bound(136, 2048, 128)},
-        "K8 tiled_matmul": {"shape": "2048 x 2048 x 2048 bf16",
-                            **bound(bf16_ops=2 * 2048 ** 3,
-                                    nbytes=3 * 2048 * 2048 * 2)},
-        # Cholesky (2 r^3 / 3) and the triangular inverse (r^3 / 3)
-        "K9 chol_rinv": {"shape": "r=128",
-                         **bound(f32_ops=128 ** 3,
-                                 nbytes=3 * 128 * 128 * 4)},
+        "K8 tiled_matmul": {"shape": "2048^3 bf16 -> f32",
+                            **matmul_bound(2048, 2048, 2048, "bf16")},
+        "K8 tiled_matmul f32": {"shape": "2048^3 f32",
+                                **matmul_bound(2048, 2048, 2048, "f32")},
+        "K8 tiled_matmul int8": {"shape": "2048^3 int8 -> int32",
+                                 **matmul_bound(2048, 2048, 2048, "int8")},
+        **{f"K9 chol_rinv r={r}": {"shape": f"r={r}", **chol_rinv_bound(r)}
+           for r in (128, 256, 512)},
     }
 
 

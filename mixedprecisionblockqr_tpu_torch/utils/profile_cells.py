@@ -1,9 +1,10 @@
 """Where the time goes: profile the calls that ``chip_smoke.py`` drives, on
 one CUDA device.
 
-    python3 -m mixedprecisionblockqr_tpu_torch.utils.profile_cells
+    python3 -m mixedprecisionblockqr_tpu_torch.utils.profile_cells [name ...]
 
-For each cell it prints one JSON line:
+With names, only the cells whose name contains one of them.  For each cell
+it prints one JSON line:
   * ``wall_ms``: host clock around one synchronized call, median of 3
     (after one warm-up);
   * ``profiled_ms``: host clock per call across ``calls`` calls under
@@ -19,8 +20,11 @@ default`` (qr 2048^2 POLICY_MIXED, bgs2), ``band`` (the headline call at
 4096^2), ``lstsq`` (the 4096 x 2048 gauge-deficient system of
 ``datagen.gauge_deficient_system``) and its four stages as ``lstsq`` runs
 them, ``robust`` (the Householder tier at 2048^2), ``householder_pallas``
-(the same call with every panel through K6) and ``polar`` (the
-auto-dispatched complete Q of a 4096 x 2048 input, POLICY_MIXED_FAST).
+(the same call with every panel through K6), ``polar`` (the
+auto-dispatched complete Q of a 4096 x 2048 input, POLICY_MIXED_FAST),
+``proj_entry`` (the headline's BGS driver with the inter-group projection
+inside K5), ``scan 16384^2`` (the headline call at 16384^2: bgs1 / scan)
+and ``bgs scan 4096^2`` (the all-robust scan tier under POLICY_FP32).
 Without a CUDA device it exits 2.
 """
 
@@ -32,7 +36,7 @@ import statistics
 import subprocess
 import sys
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -104,7 +108,7 @@ def profile_cell(fn: Callable[[], object], calls: int) -> Dict:
             "top": top_items(spans, calls)}
 
 
-def main() -> int:
+def main(only: Sequence[str] = ()) -> int:
     if not torch.cuda.is_available():
         print("profile_cells: no CUDA device", file=sys.stderr)
         return 2
@@ -120,6 +124,7 @@ def main() -> int:
         pivoted_qr_qtb,
         qr,
     )
+    from mixedprecisionblockqr_tpu_torch.ops.blockqr import _block_qr_bgs
     from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
     from mixedprecisionblockqr_tpu_torch.utils.datagen import (
         gauge_deficient_system,
@@ -155,6 +160,16 @@ def main() -> int:
         return block_qr(x, 128, POLICY_MIXED_FAST, mode="complete",
                         panel_method="auto", quality="fast", check="defer")
 
+    big_input = []
+
+    def big():
+        """The 16384^2 input (1 GiB), made on the card at first use."""
+        if not big_input:
+            big_input.append(torch.rand(
+                (16384, 16384), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(0)) - 0.5)
+        return big_input[0]
+
     cells = [
         ("headline", lambda: headline(A), 5),
         ("qr default", lambda: qr(A, policy=POLICY_MIXED), 5),
@@ -176,12 +191,20 @@ def main() -> int:
         ("polar 4096x2048", lambda: block_qr(
             A42, 128, POLICY_MIXED_FAST, mode="complete",
             panel_method="auto", quality="fast"), 5),
+        ("proj_entry", lambda: _block_qr_bgs(
+            A, 128, POLICY_MIXED_FAST, True, group_panels=8, reorth=False,
+            chain_mid=True, proj_entry=True), 5),
+        ("scan 16384^2", lambda: headline(big()), 1),
+        ("bgs scan 4096^2", lambda: block_qr(
+            A4, 128, POLICY_FP32, panel_method="bgs", loop_mode="scan"), 1),
     ]
     for name, fn, calls in cells:
+        if only and not any(o in name for o in only):
+            continue
         print(json.dumps({"cell": name, **profile_cell(fn, calls),
                           "card": smi}), flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -141,12 +141,14 @@ def test_cpu_auto_dispatch_runs_householder():
     ("bgs1", "scan", "Scan tier"),
 ])
 def test_unported_tiers_raise(pm, lm, item):
-    # The BGS scan tier is the one tier still to port (the CholeskyQR and
-    # polar tiers are held against the JAX package in test_torch_cholqr.py
-    # and test_torch_polar.py).
-    with pytest.raises(NotImplementedError, match=item):
-        pt.block_qr(torch.rand((256, 256)), 64, pt.POLICY_MIXED,
-                    panel_method=pm, loop_mode=lm)
+    # Every tier of the dispatch table is ported: the BGS scan tier, the
+    # last to raise NotImplementedError, now returns its factorization
+    # (held against the JAX package in test_torch_scan.py).
+    a = torch.rand((256, 256), generator=torch.Generator().manual_seed(1))
+    Q, R = pt.block_qr(a, 64, pt.POLICY_MIXED, panel_method=pm, loop_mode=lm)
+    assert Q.shape == (256, 256) and R.shape == (256, 256)
+    rep = pt.metrics.evaluate(a, Q, R, 8)
+    assert rep.all_ok, str(rep)
 
 
 def test_block_qr_modes_and_reduced_shapes():

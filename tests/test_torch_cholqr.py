@@ -21,6 +21,7 @@ from mixedprecisionblockqr_tpu.ops import blockqr as jbq
 from mixedprecisionblockqr_tpu.ops import cholqr as jcq
 from mixedprecisionblockqr_tpu.ops import metrics as jmetrics
 from mixedprecisionblockqr_tpu.ops import policy as jpolicy
+from mixedprecisionblockqr_tpu.utils import checks as jchecks
 from mixedprecisionblockqr_tpu.utils.datagen import conditioned_matrix
 from mixedprecisionblockqr_tpu_torch.ops import blockqr as tbq
 from mixedprecisionblockqr_tpu_torch.ops import cholqr as tcq
@@ -251,8 +252,8 @@ def test_cholqr_sync_retries_through_householder():
 
 
 def test_scan_sync_retry_rule_matches_jax():
-    # Scan retries through the scan-BGS tier (not ported: it raises and
-    # names its ROADMAP item), or 'cholqr2s' outside BGS's contract.
+    # Scan retries through the scan-BGS tier 'bgs', or 'cholqr2s' outside
+    # BGS's contract.
     for args in (("cholqr1", "scan", "mixed", "complete", 512, 512),
                  ("cholqr1", "scan", "mixed", "complete", 768, 512),
                  ("cholqr1", "scan", "fp64", "reduced", 512, 512),
@@ -268,9 +269,15 @@ def test_scan_sync_retry_rule_matches_jax():
     a = np.random.default_rng(0).standard_normal((256, 256)).astype(
         np.float32)
     a[:, 40] = 0.0
-    with pytest.raises(NotImplementedError, match="Scan tier"):
+    # A zero column poisons the cholqr scan; the retry through 'bgs' scan
+    # runs and, the matrix being rank-deficient, fails too, in both
+    # packages.
+    with pytest.raises(pt.NonFiniteError, match="even via 'bgs'"):
         pt.block_qr(torch.from_numpy(a), 32, pt.POLICY_MIXED,
                     panel_method="cholqr1", loop_mode="scan", check="sync")
+    with pytest.raises(jchecks.NonFiniteError, match="even via 'bgs'"):
+        jbq.block_qr(jnp.asarray(a), 32, jpolicy.POLICY_MIXED,
+                     panel_method="cholqr1", loop_mode="scan", check="sync")
 
 
 def test_block_recursive_qr_matches_jax():

@@ -128,9 +128,12 @@ def test_cpu_tensors_never_count_launches():
     tns.tri_cholqr_robust_fused(P[:, :32])
     tns.ninv_chain(torch.eye(32) * 1.5, iters=3)
     tns.tri_cholqr_fused(P[:, :32], iters=6)
+    tns.bgs_group_fused_proj(P[:, 64:], P[:, :64], 32, (6, 6), (False, True))
     assert tns.LAUNCHES == {"ns_chain": 0, "bgs_group_fused": 0,
                             "panel_qr_fused": 0, "ninv_chain": 0,
-                            "panel_factor_fused": 0, "sketch_qrcp_ranks": 0}
+                            "bgs_group_fused_proj": 0,
+                            "panel_factor_fused": 0, "sketch_qrcp_ranks": 0,
+                            "tiled_matmul": 0, "chol_rinv": 0}
 
 
 def test_wrappers_reject_other_devices():
@@ -142,6 +145,10 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tns.bgs_group_fused(torch.empty((256, 128), device="meta"), 32,
                             (6,) * 4, (False,) * 4)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tns.bgs_group_fused_proj(torch.empty((256, 128), device="meta"),
+                                 torch.empty((256, 64), device="meta"), 32,
+                                 (6,) * 4, (False,) * 4)
 
 
 def _yamamoto_S(m, r, seed):
