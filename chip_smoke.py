@@ -13,9 +13,12 @@ last line):
                  sketch_qrcp_ranks, bgs_group_fused_proj, tiled_matmul,
                  chol_rinv) against their plain PyTorch versions on the
                  card at the main paths' shapes, with the stated tolerances;
-                 the kernel's, the plain version's and the library call's
-                 times (CUDA events, median of 20 unless a line says
-                 otherwise);
+                 ns_chain at r = 32, 64, 128 in every option combination
+                 the QR tiers use, bitwise repeatable, NaN in -> NaN resid;
+                 tiled_matmul on both routes (fed by TMA, predicated
+                 loaders), the route of each call asserted; the kernel's,
+                 the plain version's and the library call's times (CUDA
+                 events, median of 20 unless a line says otherwise);
   4. main     -- block_qr(A, 128, POLICY_MIXED_FAST, mode='complete',
                  panel_method='auto', quality='fast', check='defer') on the
                  2048^2 benchmark input (numpy seed 0, uniform - 0.5):
@@ -131,6 +134,7 @@ def main() -> int:
         chol_rinv,
         chol_rinv_plain,
     )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels import gemm as gemm_mod
     from mixedprecisionblockqr_tpu_torch.ops.kernels.gemm import (
         matmul_bf16_accum_f32,
         matmul_int8_accum_i32,
@@ -140,6 +144,7 @@ def main() -> int:
     )
     from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
         LAUNCHES,
+        ROUTE_LAUNCHES,
         bgs_group_fused,
         bgs_group_fused_plain,
         bgs_group_fused_proj,
@@ -204,41 +209,83 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     P = torch.rand((2048, 128), generator=gen, device=dev) - 0.5
     G = mm_f32(P.T, P).contiguous()
-    Pill = P * torch.logspace(0, -3, 128, device=dev)
-    G_ill = mm_f32(Pill.T, Pill).contiguous()
-    X0, _, _ = ns_chain_plain(G, iters=10)
-    Qn = mm_f32(P, X0)
-    G_ref = mm_f32(Qn.T, Qn).contiguous()
-    modes = {
-        "plain": (G, dict(iters=10)),
-        "shift": (G_ill, dict(iters=14, shift=1e-3)),
-        "refine": (G_ref, dict(iters=4, refine=True)),
-        "chain_mid": (G, dict(iters=6, chain_mid=True)),
-        "classic": (G, dict(iters=10, fuse_xw=False)),
-    }
-    ns_rows, ns_err = {}, 0.0
-    for name, (Gm, kw) in modes.items():
-        X, t, res = ns_chain(Gm, **kw)
-        Xp, tp, resp = ns_chain_plain(Gm, **kw)
-        torch.cuda.synchronize()
-        ex, et = max_abs(X, Xp), max_abs(t, tp)
-        lim_x = TOL_F32 * float(Xp.abs().max())
-        lim_t = TOL_F32 * float(tp.abs().max())
-        ok = (ex <= lim_x and et <= lim_t
-              and (float(res) < 1e-4) == (float(resp) < 1e-4))
-        ns_rows[name] = {"err_X": ex, "lim_X": lim_x, "err_t": et,
-                         "lim_t": lim_t, "resid": float(res),
-                         "resid_plain": float(resp), "ok": ok,
-                         "ms": cuda_time_ms(lambda: ns_chain(Gm, **kw)),
-                         "plain_ms": cuda_time_ms(
-                             lambda: ns_chain_plain(Gm, **kw))}
-        ns_err = max(ns_err, ex, et)
-        assert ok, (name, ns_rows[name])
+    # K1 at every panel width, with every option combination the QR tiers
+    # use, on a well-conditioned Gram, on one graded over three decades
+    # (condition ~1e6, shifted chains only, as in the tiers) and on the
+    # near-identity Gram of an orthonormalized panel (refine).  Two
+    # launches on the same input must agree bitwise.
+    ns_all, ns_err = {}, 0.0
+    for r1 in (128, 64, 32):
+        Pw = P[:, :r1]
+        Gr = mm_f32(Pw.T, Pw).contiguous()
+        Pill = Pw * torch.logspace(0, -3, r1, device=dev)
+        G_ill = mm_f32(Pill.T, Pill).contiguous()
+        X0, _, _ = ns_chain_plain(Gr, iters=10)
+        Qn = mm_f32(Pw, X0)
+        G_ref = mm_f32(Qn.T, Qn).contiguous()
+        modes = {
+            "plain": (Gr, dict(iters=10)),
+            "shift": (G_ill, dict(iters=14, shift=1e-3)),
+            "shift_mid": (G_ill, dict(iters=14, shift=1e-3, omega=False,
+                                      chain_mid=True)),
+            "pass2_mid": (Gr, dict(iters=12, omega=False, chain_mid=True)),
+            "refine": (G_ref, dict(iters=4, refine=True)),
+            "chain_mid": (Gr, dict(iters=6, chain_mid=True)),
+            "chain_mid10": (Gr, dict(iters=10, chain_mid=True)),
+            "classic": (Gr, dict(iters=10, fuse_xw=False)),
+        }
+        rows = {}
+        for name, (Gm, kw) in modes.items():
+            X, t, res = ns_chain(Gm, **kw)
+            X2, t2, res2 = ns_chain(Gm, **kw)
+            Xp, tp, resp = ns_chain_plain(Gm, **kw)
+            torch.cuda.synchronize()
+            ex, et = max_abs(X, Xp), max_abs(t, tp)
+            lim_x = TOL_F32 * float(Xp.abs().max())
+            lim_t = TOL_F32 * float(tp.abs().max())
+            same_bits = bool(torch.equal(X, X2) and torch.equal(t, t2)
+                             and torch.equal(res, res2))
+            ok = (ex <= lim_x and et <= lim_t and same_bits
+                  and (float(res) < 1e-4) == (float(resp) < 1e-4))
+            rows[name] = {"err_X": ex, "lim_X": lim_x, "err_t": et,
+                          "lim_t": lim_t, "resid": float(res),
+                          "resid_plain": float(resp),
+                          "bitwise_repeatable": same_bits, "ok": ok,
+                          "ms": cuda_time_ms(lambda: ns_chain(Gm, **kw))}
+            if r1 == 128:
+                rows[name]["plain_ms"] = cuda_time_ms(
+                    lambda: ns_chain_plain(Gm, **kw))
+            ns_err = max(ns_err, ex, et)
+            assert ok, (r1, name, rows[name])
+        # A NaN in G must reach the residual; an indefinite G must fail the
+        # canary as the plain version does.
+        G_nan = Gr.clone()
+        G_nan[3, 5] = float("nan")
+        G_ind = Gr.clone()
+        G_ind[r1 // 2, r1 // 2] = -1.0
+        canary = {}
+        for cname, kw in (("chain_mid", dict(iters=6, chain_mid=True)),
+                          ("refine", dict(iters=4, refine=True)),
+                          ("shift", dict(iters=14, shift=1e-3))):
+            res_nan = float(ns_chain(G_nan, **kw)[2])
+            res_ind = float(ns_chain(G_ind, **kw)[2])
+            res_ind_p = float(ns_chain_plain(G_ind, **kw)[2])
+            canary[cname] = {"nan_resid": res_nan, "indefinite": res_ind,
+                             "indefinite_plain": res_ind_p}
+            assert res_nan != res_nan, (r1, cname, canary)
+            assert (res_ind < 1e-4) == (res_ind_p < 1e-4), (r1, cname, canary)
+        rows["canary"] = canary
+        ns_all[r1] = rows
+    ns_rows = ns_all[128]
     lib_k1 = cuda_time_ms(lambda: torch.linalg.cholesky(G))
-    emit({"phase": "kernels", "kernel": "ns_chain", "r": 128,
+    emit({"phase": "kernels", "kernel": "ns_chain",
           "tolerance": "max|diff| <= 1e-4 * max|plain| for X and t; same "
-                       "canary class (resid < 1e-4)",
-          "modes": ns_rows, "library_call": "torch.linalg.cholesky(G)",
+                       "canary class (resid < 1e-4); two launches bitwise "
+                       "equal; NaN in G gives a NaN resid",
+          "r128": ns_all[128], "r64": ns_all[64], "r32": ns_all[32],
+          "bound_chain_mid_6": ns_chain_bound(128, 6, chain_mid=True),
+          "bound_shift_mid_14": ns_chain_bound(128, 14, chain_mid=True),
+          "library_call": "torch.linalg.cholesky(G)",
           "library_ms": lib_k1, "card": card})
 
     Pg = torch.rand((2048, 1024), generator=gen, device=dev) - 0.5
@@ -521,10 +568,14 @@ def main() -> int:
           "library_call": "two torch.matmul and torch.linalg.qr of the "
                           "scrubbed group", "card": card})
 
-    # K8 at 2048^3 and on a ragged shape, every type combination; int8 and
-    # uint8 against the exact integer product: float64 on the card (every
-    # partial sum is an integer below 2^53) and, at the ragged shape, int64
-    # on the host as well.
+    # K8 at 2048^3, on a ragged shape whose row strides TMA can describe
+    # (1000 x 520 x 776) and on one it cannot (1000 x 777 x 513: bf16 rows
+    # of 1,026 bytes), every type combination, with the route each call
+    # took: bf16 (wgmma) and f32 (fp32 FMA) are fed by TMA where base and
+    # strides allow it, everything else goes through the predicated loaders.  int8 and uint8
+    # against the exact integer product: float64 on the card (every partial
+    # sum is an integer below 2^53) and, at the ragged shapes, int64 on the
+    # host as well.
     def exact_product(x, y):
         return torch.matmul(x.double(), y.double()).long()
 
@@ -539,17 +590,21 @@ def main() -> int:
               "bf16_f32": (torch.bfloat16, torch.float32),
               "bf16_bf16": (torch.bfloat16, torch.bfloat16)}
     k8_rows, k8_err = {}, 0.0
-    for m8, kk8, n8 in ((2048, 2048, 2048), (1000, 777, 513)):
+    for m8, kk8, n8, float_route in ((2048, 2048, 2048, "tma"),
+                                     (1000, 520, 776, "tma"),
+                                     (1000, 777, 513, "predicated")):
         a8 = torch.rand((m8, kk8), generator=gen, device=dev) - 0.5
         b8 = torch.rand((kk8, n8), generator=gen, device=dev) - 0.5
         for cname, (dt, od) in combos.items():
             x, y = a8.to(dt), b8.to(dt)
             c = tiled_matmul(x, y, od)
+            route = gemm_mod.last_route
             cp = tiled_matmul_plain(x, y, od)
             torch.cuda.synchronize()
             err = max_abs(c.float(), cp.float())
             lim = TOL_F32 * float(cp.float().abs().max())
-            row = {"max_abs": err, "lim": lim}
+            row = {"max_abs": err, "lim": lim, "route": route}
+            assert route == float_route, (cname, row)
             if od == torch.bfloat16:
                 # the kernel's own fp32 result, rounded once
                 row["one_rounding"] = bool(torch.equal(
@@ -575,9 +630,11 @@ def main() -> int:
         bu = torch.randint(0, 256, (kk8, n8), generator=gen, device=dev,
                            dtype=torch.uint8)
         ci = matmul_int8_accum_i32(ai, bi)
+        assert gemm_mod.last_route == "predicated"
         cu = matmul_uint8_accum_i32(au, bu)
         torch.cuda.synchronize()
-        row = {"int8_exact": bool(torch.equal(ci.long(),
+        row = {"route": "predicated",
+               "int8_exact": bool(torch.equal(ci.long(),
                                               exact_product(ai, bi))),
                "uint8_exact": bool(torch.equal(cu.long(),
                                                exact_product(au, bu))),
@@ -591,7 +648,7 @@ def main() -> int:
         # torch._int_mm takes k and n in multiples of 8 only
         row["library_ms"] = (cuda_time_ms(lambda: torch._int_mm(ai, bi))
                              if kk8 % 8 == 0 and n8 % 8 == 0 else None)
-        if m8 == 1000:
+        if m8 != 2048:
             row["int8_exact_host"] = bool(torch.equal(
                 ci.cpu().long(), ai.cpu().long() @ bi.cpu().long()))
             row["uint8_exact_host"] = bool(torch.equal(
@@ -600,12 +657,61 @@ def main() -> int:
                         or k == "int8_equals_plain")
         k8_rows[f"{m8}x{kk8}x{n8}_int8"] = row
         assert row["ok"], row
+    # Column slices of a wider row-major bf16 buffer, read in place: at a
+    # 16-byte offset the TMA route, at an odd one the predicated route;
+    # m = 1 and n = 1; k = 0 gives zeros in every combination.
+    wide = (torch.rand((512, 1024), generator=gen, device=dev)
+            - 0.5).bfloat16()
+    edge = {}
+    for off, want in ((8, "tma"), (3, "predicated")):
+        x, y = wide[:, off:off + 256], wide[:256, off:off + 384]
+        c = tiled_matmul(x, y, torch.float32)
+        route = gemm_mod.last_route
+        cp = tiled_matmul_plain(x, y, torch.float32)
+        edge[f"slice_offset_{off}"] = {
+            "route": route, "max_abs": max_abs(c, cp),
+            "lim": TOL_F32 * float(cp.abs().max())}
+        assert route == want and max_abs(c, cp) <= TOL_F32 * float(
+            cp.abs().max()), edge
+    for ename, (em, ek, en) in (("m1", (1, 512, 384)), ("n1", (256, 512, 1)),
+                                ("k0", (300, 0, 200))):
+        a1 = torch.rand((em, ek), generator=gen, device=dev) - 0.5
+        b1 = torch.rand((ek, en), generator=gen, device=dev) - 0.5
+        row = {}
+        for cname, (dt, od) in combos.items():
+            x, y = a1.to(dt), b1.to(dt)
+            c = tiled_matmul(x, y, od)
+            cp = tiled_matmul_plain(x, y, od)
+            row[cname] = {"route": gemm_mod.last_route,
+                          "max_abs": max_abs(c.float(), cp.float())}
+            lim = TOL_F32 * float(cp.float().abs().max()) if ek else 0.0
+            if od == torch.bfloat16:
+                assert bf16_ulp_ok(c, cp, lim), (ename, row)
+            else:
+                assert row[cname]["max_abs"] <= lim, (ename, row)
+        ai = torch.randint(-128, 128, (em, ek), generator=gen, device=dev,
+                           dtype=torch.int8)
+        bi = torch.randint(-128, 128, (ek, en), generator=gen, device=dev,
+                           dtype=torch.int8)
+        row["int8_exact"] = bool(torch.equal(
+            matmul_int8_accum_i32(ai, bi).long(), exact_product(ai, bi)))
+        assert row["int8_exact"], (ename, row)
+        edge[ename] = row
+    assert edge["m1"]["bf16_f32"]["route"] == "tma", edge
+    assert edge["m1"]["f32"]["route"] == "tma", edge
+    assert edge["n1"]["f32"]["route"] == "predicated", edge
+    assert edge["k0"]["bf16_f32"]["route"] == "predicated", edge
     emit({"phase": "kernels", "kernel": "tiled_matmul",
           "tolerance": "f32 and bf16 -> f32: max|diff| <= 1e-4 * max|plain| "
                        "(summation order); bf16 -> bf16: equal to the bf16 "
                        "-> f32 result rounded once, and within one bf16 ulp "
                        "plus that limit of the plain version; int8 and uint8: torch.equal with the "
                        "exact integer product",
+          "routes": "bf16 and f32 with 16-byte-aligned bases and row strides "
+                    "and k > 0: wgmma / fp32 FMA fed by TMA; everything "
+                    "else: predicated loaders (mma.sync for bf16 and int8, "
+                    "fp32 FMA for f32)",
+          "edges": edge,
           "library_call": "torch.mm (out_dtype=float32 for bf16 -> f32), "
                           "torch._int_mm",
           "shapes": k8_rows, "card": card})
@@ -1058,16 +1164,20 @@ def main() -> int:
     C15 = matmul_bf16_accum_f32(A, A)
     torch.cuda.synchronize()
     c15 = dict(LAUNCHES)
+    routes15 = dict(ROUTE_LAUNCHES)
     orth15 = max_abs(mm_f32(Qc.T, Qc), torch.eye(256, device=dev))
     rec15 = rel_fro(mm_f32(Qc, Rc), P15)
     mm15 = rel_fro(C15, torch.mm(A.bfloat16(), A.bfloat16(),
                                  out_dtype=torch.float32))
     assert c15["tiled_matmul"] == 6 and c15["chol_rinv"] == 2, c15
+    # five fp32 products and one bf16 product, all fed by TMA
+    assert routes15 == {"tma": 6, "predicated": 0}, routes15
     assert orth15 <= 1e-5 and rec15 <= 1e-5 and mm15 <= 1e-5, (
         orth15, rec15, mm15)
     emit({"phase": "exported", "call": "CholeskyQR2 of a 4096 x 256 panel "
           "through tiled_matmul and chol_rinv; matmul_bf16_accum_f32 at "
-          "2048^3", "launches": c15, "orthogonality": orth15,
+          "2048^3", "launches": c15, "tiled_matmul_routes": routes15,
+          "orthogonality": orth15,
           "reconstruction": rec15, "bf16_matmul_rel_vs_torch": mm15,
           "tolerance": "max|Q^T Q - I|, ||QR - P||/||P|| and the bf16 "
                        "product's relative distance from torch.mm <= 1e-5",
@@ -1080,7 +1190,7 @@ def main() -> int:
          "launches": main_launches["ns_chain"], "max_abs_err": ns_err,
          "ms": ns_rows["chain_mid"]["ms"],
          "plain_ms": ns_rows["chain_mid"]["plain_ms"],
-         **ns_chain_bound(128, 6),
+         **ns_chain_bound(128, 6, chain_mid=True),
          "library_ms": lib_k1},
         {"name": "bgs_group_fused", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",

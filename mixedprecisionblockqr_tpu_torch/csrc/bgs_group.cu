@@ -18,7 +18,7 @@
 // kernels per panel j:
 //   * the tall Gram P^T P, split over m into 256-row chunks, with a
 //     deterministic second-pass reduction (no atomics);
-//   * the device NS chain of ns_chain.cuh (one CTA);
+//   * the device NS chain of ns_chain.cuh (one thread-block cluster);
 //   * Q = P X into a scratch panel, then copied into the panel's slot;
 //   * t = triu(X^T G) straight into Rg's diagonal block;
 //   * the eager projection pair G1 = Qk^T C (written to Rg's row block) and
@@ -27,7 +27,7 @@
 //     _tri_ns_panel(robust=True), spilling Q1 / Q2 through scratch panels.
 // What bounds it: at g*r <= 1024 the tall products are memory-bound
 // (each reads the m x r panel and the m x c trailing block once per
-// panel), and the r x r chains are latency-bound on one SM.  The simple
+// panel), and the r x r chains are latency-bound on one cluster.  The simple
 // tiled fp32-FMA GEMM of panel.cuh (64 x 64 tiles, bf16 rounding on load
 // when asked) keeps every product inside this repository's sources, as
 // the TPU kernel computes them in its own body.  Fusing the sequence into
@@ -49,7 +49,7 @@ __global__ void worst_resid(const float* resid, int g, float* worst) {
 }
 
 struct GroupScratch {
-  float *chain, *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *resid,
+  float *comb, *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *resid,
       *part;
 };
 
@@ -64,7 +64,7 @@ static long long group_scratch_floats(int m, int r, int g, GroupScratch* s,
   };
   GroupScratch dummy;
   GroupScratch* d = s ? s : &dummy;
-  take(&d->chain, 5 * rr);
+  take(&d->comb, 2 * rr);
   take(&d->G, rr);
   take(&d->X1, rr);
   take(&d->X2, rr);
@@ -99,7 +99,7 @@ static int group_body(cudaStream_t st, float* Q, float* Rg, float* worst,
     float* Rjj = Rg + (size_t)c0 * w + c0;
     gemm(st, true, bg, r, r, m, Pj, w, Pj, w, s.G, r, false, s.part);
     if (!robust[j]) {
-      launch_chain(r, st, s.G, s.X1, Rjj, w, s.resid + j, s.chain, iters[j],
+      launch_chain(r, st, s.G, s.X1, Rjj, w, s.resid + j, iters[j],
                    0.f, 0, mid(iters[j]), 1, 1, 1, RESID_SQUARE);
       gemm(st, false, bg, m, r, r, Pj, w, s.X1, r, s.tmpA, r, false, s.part);
       err = cudaMemcpy2DAsync(Pj, sizeof(float) * w, s.tmpA,
@@ -108,23 +108,23 @@ static int group_body(cudaStream_t st, float* Q, float* Rg, float* worst,
       if (err != cudaSuccess) return (int)err;
     } else {
       // Pass 1: shifted Gram (condition capped), t1 = X1^T Gs in full.
-      launch_chain(r, st, s.G, s.X1, s.T1, r, s.resid + j, s.chain,
+      launch_chain(r, st, s.G, s.X1, s.T1, r, s.resid + j,
                    kRobustIt1, 1e-3f, 0, mid(kRobustIt1), 0, 1, 0, RESID_RAW);
       gemm(st, false, bg, m, r, r, Pj, w, s.X1, r, s.tmpA, r, false, s.part);
       gemm(st, true, bg, r, r, m, s.tmpA, r, s.tmpA, r, s.G, r, false,
            s.part);
       // Pass 2 on the fresh Gram of Q1, t2 = X2^T M1 in full.
-      launch_chain(r, st, s.G, s.X2, s.T2, r, s.resid + j, s.chain,
+      launch_chain(r, st, s.G, s.X2, s.T2, r, s.resid + j,
                    kRobustIt2, 0.f, 0, mid(kRobustIt2), 0, 1, 0, RESID_RAW);
       gemm(st, false, bg, m, r, r, s.tmpA, r, s.X2, r, s.tmpB, r, false,
            s.part);
       gemm(st, true, bg, r, r, m, s.tmpB, r, s.tmpB, r, s.G, r, false,
            s.part);
       // Pass 3: identity-seeded refine with the exact final residual.
-      launch_chain(r, st, s.G, s.X3, s.T3, r, s.resid + j, s.chain,
+      launch_chain(r, st, s.G, s.X3, s.T3, r, s.resid + j,
                    kRobustIt3, 0.f, 1, 0, 1, 1, 0, RESID_SCALE);
       gemm(st, false, bg, m, r, r, s.tmpB, r, s.X3, r, Pj, w, false, s.part);
-      launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w, s.chain);
+      launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w, s.comb);
     }
     if (j + 1 < g) {
       const int cn = w - c0 - r;

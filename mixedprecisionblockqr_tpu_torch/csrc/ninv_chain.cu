@@ -6,14 +6,13 @@
 // Replaces mixedprecisionblockqr_tpu/ops/pallas/ns.py::ninv_chain
 // (pl.pallas_call of _ninv_kernel).  On the TPU S, X and S X sit in VMEM;
 // on Hopper the three 64 KB operands at r = 128 do not fit one SM's shared
-// memory, which is K1's problem, so K4 reuses K1's pieces (ns_chain.cuh):
-// one CTA of 256 threads runs the whole chain with its operands in
-// L2-resident global scratch, each r x r product streaming 16-deep k-slices
-// through shared memory.
+// memory, so one CTA of 256 threads runs the whole chain with its operands
+// in L2-resident global scratch, each r x r product streaming 16-deep
+// k-slices through shared memory (blk_mm of ns_chain.cuh).
 // What bounds it: 2 * iters + 1 strictly sequential r x r products, so it
 // is latency-bound on one SM (about 25 products of 2 MFMA each at 12
 // iterations), not FLOP- or byte-bound; spreading the products over a
-// thread-block cluster is the same later work as for K1.
+// thread-block cluster, as K1's chain does, is later work.
 #include "ns_chain.cuh"
 
 namespace mpbqr {
@@ -30,16 +29,16 @@ ninv_kernel(const float* S, float* X, float* resid, float* scr, int iters) {
     cur[e] = (e / R == e % R) ? (2.0f / 3.0f) : 0.f;
   __syncthreads();
   for (int it = 0; it < iters; ++it) {
-    blk_mm<R, MODE_F32>(Tm, S, false, cur, sm);  // S X
+    blk_mm<R>(Tm, S, false, cur, sm);  // S X
     for (int e = threadIdx.x; e < R * R; e += kChainThreads)
       Tm[e] = ((e / R == e % R) ? 2.f : 0.f) - Tm[e];
     __syncthreads();
-    blk_mm<R, MODE_F32>(nxt, cur, false, Tm, sm);  // X (2I - S X)
+    blk_mm<R>(nxt, cur, false, Tm, sm);  // X (2I - S X)
     float* sw = cur;
     cur = nxt;
     nxt = sw;
   }
-  blk_mm<R, MODE_F32>(Tm, S, false, cur, sm);
+  blk_mm<R>(Tm, S, false, cur, sm);
   float m = 0.f;
   for (int e = threadIdx.x; e < R * R; e += kChainThreads) {
     X[e] = cur[e];

@@ -136,8 +136,8 @@ tri_combine(const float* T1, const float* T2, const float* T3, float* out,
   __shared__ ChainSmem<R> sm;
   float* A = scr;
   float* B = scr + R * R;
-  blk_mm<R, MODE_F32>(A, T2, false, T1, sm);
-  blk_mm<R, MODE_F32>(B, T3, false, A, sm);
+  blk_mm<R>(A, T2, false, T1, sm);
+  blk_mm<R>(B, T3, false, A, sm);
   for (int e = threadIdx.x; e < R * R; e += kChainThreads) {
     const int i = e / R, j = e % R;
     out[i * ldo + j] = j >= i ? B[e] : 0.f;

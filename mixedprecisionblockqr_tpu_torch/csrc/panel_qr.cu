@@ -10,13 +10,12 @@
 // SM's 227 KB.  So this is one C entry point that issues a fixed kernel
 // sequence on the caller's stream, built from the pieces K2 uses
 // (panel.cuh): the split-K Gram over 256-row slices with its deterministic
-// second pass, the one-CTA device chain of ns_chain.cuh, the tall Q = P X
+// second pass, the cluster chain of ns_chain.cuh, the tall Q = P X
 // products into scratch panels (L2-resident at these sizes), and the
 // triangular combine of the robust R block.
-// What bounds it: the r x r chains are latency-bound on one SM (26 + 4
+// What bounds it: the r x r chains are latency-bound on one cluster (26 + 4
 // sequential iterations in robust mode); the tall products read the m x r
-// panel once each and are memory-bound.  Spreading the chain over a
-// cluster is the same later work as for K1.
+// panel once each and are memory-bound.
 //
 // Residual convention (unlike K2, which squares or scales inside): resid
 // is the raw max|E| of the last chain -- one step behind in plain mode,
@@ -26,7 +25,7 @@
 namespace mpbqr {
 
 struct PanelScratch {
-  float *chain, *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *part;
+  float *comb, *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *part;
 };
 
 static long long panel_scratch_floats(int m, int r, PanelScratch* s,
@@ -39,7 +38,7 @@ static long long panel_scratch_floats(int m, int r, PanelScratch* s,
   };
   PanelScratch dummy;
   PanelScratch* d = s ? s : &dummy;
-  take(&d->chain, 5 * rr);
+  take(&d->comb, 2 * rr);
   take(&d->G, rr);
   take(&d->X1, rr);
   take(&d->X2, rr);
@@ -81,27 +80,27 @@ int mpbqr_panel_qr(const float* P, float* Q, float* t, float* resid,
   };
   gemm(st, true, false, r, r, m, P, r, P, r, s.G, r, false, s.part);
   if (!robust) {
-    launch_chain(r, st, s.G, s.X1, t, r, resid, s.chain, iters, 0.f, 0,
+    launch_chain(r, st, s.G, s.X1, t, r, resid, iters, 0.f, 0,
                  mid(iters), 1, 1, 1, RESID_RAW);
     gemm(st, false, false, m, r, r, P, r, s.X1, r, Q, r, false, s.part);
     return (int)cudaGetLastError();
   }
   // Pass 1: shifted Gram (condition capped), t1 = X1^T Gs in full.
-  launch_chain(r, st, s.G, s.X1, s.T1, r, resid, s.chain, kRobustIt1, 1e-3f,
+  launch_chain(r, st, s.G, s.X1, s.T1, r, resid, kRobustIt1, 1e-3f,
                0, mid(kRobustIt1), 0, 1, 0, RESID_RAW);
   gemm(st, false, false, m, r, r, P, r, s.X1, r, s.tmpA, r, false, s.part);
   gemm(st, true, false, r, r, m, s.tmpA, r, s.tmpA, r, s.G, r, false, s.part);
   // Pass 2 on the fresh Gram of Q1, t2 = X2^T M1 in full.
-  launch_chain(r, st, s.G, s.X2, s.T2, r, resid, s.chain, kRobustIt2, 0.f, 0,
+  launch_chain(r, st, s.G, s.X2, s.T2, r, resid, kRobustIt2, 0.f, 0,
                mid(kRobustIt2), 0, 1, 0, RESID_RAW);
   gemm(st, false, false, m, r, r, s.tmpA, r, s.X2, r, s.tmpB, r, false,
        s.part);
   gemm(st, true, false, r, r, m, s.tmpB, r, s.tmpB, r, s.G, r, false, s.part);
   // Pass 3: identity-seeded refine with the exact final residual.
-  launch_chain(r, st, s.G, s.X3, s.T3, r, resid, s.chain, kRobustIt3, 0.f, 1,
+  launch_chain(r, st, s.G, s.X3, s.T3, r, resid, kRobustIt3, 0.f, 1,
                0, 1, 1, 0, RESID_RAW);
   gemm(st, false, false, m, r, r, s.tmpB, r, s.X3, r, Q, r, false, s.part);
-  launch_combine(r, st, s.T1, s.T2, s.T3, t, r, s.chain);
+  launch_combine(r, st, s.T1, s.T2, s.T3, t, r, s.comb);
   return (int)cudaGetLastError();
 }
 

@@ -60,10 +60,8 @@ def _digest() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci, cf, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.mpbqr_ns_chain_scratch_floats.argtypes = [ci]
-    lib.mpbqr_ns_chain_scratch_floats.restype = ll
-    lib.mpbqr_ns_chain.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, ci, ci,
-                                   ci, ci, vp]
+    lib.mpbqr_ns_chain.argtypes = [vp, vp, vp, vp, ci, ci, cf, ci, ci, ci,
+                                   ci, vp]
     lib.mpbqr_ns_chain.restype = ci
     lib.mpbqr_bgs_group_scratch_floats.argtypes = [ci, ci, ci]
     lib.mpbqr_bgs_group_scratch_floats.restype = ll
@@ -89,7 +87,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_panel_factor.argtypes = [vp, vp, vp, vp, ci, ci, vp]
     lib.mpbqr_panel_factor.restype = ci
     lib.mpbqr_tiled_matmul.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                                       vp]
+                                       ci, vp]
     lib.mpbqr_tiled_matmul.restype = ci
     lib.mpbqr_chol_rinv.argtypes = [vp, vp, vp, vp, ci, vp]
     lib.mpbqr_chol_rinv.restype = ci
@@ -126,7 +124,9 @@ def library() -> ctypes.CDLL:
             _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
                       for src, obj in zip(SOURCES, objs)])
             lib_tmp = os.path.join(tmp, so.name)
-            _run_all([[nvcc, "-shared", "-o", lib_tmp, *objs]])
+            # -ldl: tiled_matmul.cu looks cuTensorMapEncodeTiled up in
+            # libcuda at run time with dlsym (no link against it).
+            _run_all([[nvcc, "-shared", "-o", lib_tmp, *objs, "-ldl"]])
             os.replace(lib_tmp, so)
         build_seconds = time.perf_counter() - t0
     _lib = _declare(ctypes.CDLL(str(so)))

@@ -7,15 +7,31 @@ for any (m, k) x (k, n) in the reference's combinations: f32 x f32 -> f32
 accumulator, one rounding at the end) and int8 x int8 -> int32 (exact);
 uint8 operands go through the signed lift with rank-1 corrections.  The
 TPU wrapper's ``bm``/``bn``/``bk``/``interpret`` arguments and its padding
-to tile multiples have no counterpart: the CUDA kernel predicates its
+to tile multiples have no counterpart: the CUDA kernels predicate their
 ragged edges.
+
+Two routes on the card, chosen by :func:`tma_route`, a rule on what the
+hardware takes and not a retry after a failure (a failed build or launch
+raises on either route).  ``"tma"``: bf16 and float32 operands that the
+Tensor Memory Accelerator can describe (base address a multiple of 16
+bytes, row stride a multiple of 16 bytes, k > 0) go to the kernels fed by a
+TMA ring: ``wgmma`` for bf16, true fp32 FMA for float32.  ``"predicated"``:
+everything else -- operands that TMA cannot describe (an odd row stride, a
+column slice at an odd offset, k == 0) and int8 (tensor cores through
+``mma.sync``, whose B tile is transposed in registers on its way into
+shared memory, which a TMA copy cannot do) -- goes through the predicated
+loaders: ``mma.sync`` for bf16 and int8, fp32 FMA for float32.
+``LAUNCHES["tiled_matmul"]`` counts both routes, ``ROUTE_LAUNCHES`` each,
+and ``last_route`` names the one the last call took.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import LAUNCHES, _stream
+from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+    LAUNCHES, ROUTE_LAUNCHES, _stream,
+)
 from mixedprecisionblockqr_tpu_torch.ops.policy import mm_bf16, mm_f32
 
 #: (input dtype, output dtype) -> the C entry's combo code.
@@ -25,6 +41,24 @@ _COMBOS = {
     (torch.bfloat16, torch.bfloat16): 2,
     (torch.int8, torch.int32): 3,
 }
+#: Bytes that TMA wants a base address and a row stride to be a multiple of.
+TMA_ALIGN = 16
+#: The route of the last ``tiled_matmul`` launch: "tma" or "predicated".
+last_route = None
+
+
+def tma_route(dtype: torch.dtype, m: int, k: int, n: int, a_ptr: int,
+              a_stride0: int, b_ptr: int, b_stride0: int) -> bool:
+    """Whether ``tiled_matmul`` takes a kernel fed by TMA for operands of
+    ``dtype`` with these shapes, ``data_ptr()``s and row strides (in
+    elements): bf16 or float32, k > 0, both base addresses and both row
+    strides in bytes multiples of ``TMA_ALIGN``.  A one-row operand's
+    stride is still held to the rule: the tensor map encodes it."""
+    if dtype not in (torch.bfloat16, torch.float32) or min(m, k, n) < 1:
+        return False
+    esize = 2 if dtype == torch.bfloat16 else 4
+    return all(v % TMA_ALIGN == 0 for v in
+               (a_ptr, b_ptr, a_stride0 * esize, b_stride0 * esize))
 
 
 def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -48,8 +82,10 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor,
     the dtypes float32, bfloat16 or int8, have unit column stride (a column
     slice of a wider row-major buffer is read in place), and
     ``(dtype, out_dtype)`` is one of the four combinations of the module
-    docstring; anything else raises.
+    docstring; anything else raises.  The route (module docstring) follows
+    from :func:`tma_route` alone.
     """
+    global last_route
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"tiled_matmul takes (m, k) x (k, n); got "
                          f"{tuple(a.shape)} x {tuple(b.shape)}")
@@ -75,12 +111,16 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor,
         check, library,
     )
 
+    tma = tma_route(a.dtype, m, k, n, a.data_ptr(), a.stride(0),
+                    b.data_ptr(), b.stride(0))
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     code = library().mpbqr_tiled_matmul(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, a.stride(0),
-        b.stride(0), n, combo, _stream(a))
+        b.stride(0), n, combo, int(tma), _stream(a))
     check(code, "tiled_matmul")
+    last_route = "tma" if tma else "predicated"
     LAUNCHES["tiled_matmul"] += 1
+    ROUTE_LAUNCHES[last_route] += 1
     return c
 
 

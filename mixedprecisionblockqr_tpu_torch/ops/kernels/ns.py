@@ -32,6 +32,9 @@ LAUNCHES = {"ns_chain": 0, "bgs_group_fused": 0, "panel_qr_fused": 0,
             "ninv_chain": 0, "bgs_group_fused_proj": 0,
             "panel_factor_fused": 0, "sketch_qrcp_ranks": 0,
             "tiled_matmul": 0, "chol_rinv": 0}
+#: ``tiled_matmul``'s launches by route (ops/kernels/gemm.py); both count
+#: in ``LAUNCHES["tiled_matmul"]`` as well.
+ROUTE_LAUNCHES = {"tma": 0, "predicated": 0}
 #: Panel widths the CUDA kernels are instantiated for.
 KERNEL_WIDTHS = (32, 64, 128)
 #: Chain schedule of a panel (the same constants as csrc/panel.cuh):
@@ -45,8 +48,9 @@ _TINY = torch.finfo(torch.float32).tiny
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # -- plain PyTorch versions ------------------------------------------------
@@ -244,7 +248,9 @@ def ns_chain(
     reports the exact final residual; ``chain_mid`` runs all but the final
     two iterations with bf16-split products; ``omega`` over-relaxes the
     early iterations; ``fuse_xw=False`` forces the classic 3-product
-    iteration.  On CUDA, r must be one of ``KERNEL_WIDTHS``.
+    iteration.  On CUDA, r must be one of ``KERNEL_WIDTHS``; the kernel runs
+    as one thread-block cluster with every operand in shared memory and
+    takes no global scratch: its only allocations are the three outputs.
     """
     if G.device.type == "cpu":
         return ns_chain_plain(G, iters, shift, refine, chain_mid, omega,
@@ -262,13 +268,11 @@ def ns_chain(
     X = torch.empty_like(G)
     t = torch.empty_like(G)
     resid = torch.empty((), dtype=torch.float32, device=G.device)
-    scratch = torch.empty(lib.mpbqr_ns_chain_scratch_floats(r),
-                          dtype=torch.float32, device=G.device)
     mid_iters = max(0, iters - 2) if chain_mid and not refine else 0
     code = lib.mpbqr_ns_chain(
-        G.data_ptr(), X.data_ptr(), t.data_ptr(), resid.data_ptr(),
-        scratch.data_ptr(), r, iters, float(shift), int(refine), mid_iters,
-        int(omega), int(fuse_xw), _stream(G),
+        G.data_ptr(), X.data_ptr(), t.data_ptr(), resid.data_ptr(), r, iters,
+        float(shift), int(refine), mid_iters, int(omega), int(fuse_xw),
+        _stream(G),
     )
     check(code, "ns_chain")
     LAUNCHES["ns_chain"] += 1

@@ -19,6 +19,7 @@ PEAK_F32 = 67e12       # fp32 outside the tensor cores
 PEAK_BF16 = 989e12     # bf16 tensor cores
 PEAK_INT8 = 1979e12    # int8 tensor cores
 HBM_BYTES_PER_S = 3.35e12
+SMS = 132              # streaming multiprocessors the peak rates are for
 
 
 def bound(f32_ops=0.0, bf16_ops=0.0, nbytes=0.0, int8_ops=0.0):
@@ -41,9 +42,23 @@ ROBUST_PRODUCTS = (chain_products(14) + chain_products(12)
                    + chain_products(4, True) + 2)
 
 
-def ns_chain_bound(r, iters):
-    return bound(f32_ops=chain_products(iters) * 2 * r ** 3,
-                 nbytes=3 * r * r * 4)
+def ns_chain_bound(r, iters, chain_mid=False, refine=False):
+    """K1: G read, X and t written.  With ``chain_mid`` all but the final
+    two iterations of a non-refine chain run their three products as three
+    bf16 products each (hi*hi + hi*lo + lo*hi), at the tensor cores' rate;
+    every other product is fp32.  Beside the whole card's bound,
+    ``cluster_bound_ms`` is the bound of the r / 16 SMs that the one
+    thread-block cluster of a chain can use: the same operations at that
+    share of the peak rates (the bytes still at the card's memory rate)."""
+    mid = max(0, iters - 2) if chain_mid and not refine else 0
+    f32 = (chain_products(iters, refine) - 3 * mid) * 2 * r ** 3
+    bf16 = 3 * mid * 3 * 2 * r ** 3
+    nbytes = 3 * r * r * 4
+    whole = bound(f32_ops=f32, bf16_ops=bf16, nbytes=nbytes)
+    share = SMS / (r // 16)
+    one = bound(f32_ops=f32 * share, bf16_ops=bf16 * share, nbytes=nbytes)
+    return {**whole, "cluster_sms": r // 16,
+            "cluster_bound_ms": one["bound_ms"]}
 
 
 def group_bound(m, r, iters, robust, bf16, proj_cols=0):
@@ -113,7 +128,12 @@ def kernel_bounds():
     head = (12, 6, 6, 6, 6, 6, 6, 10)
     return {
         "K1 ns_chain": {"shape": "r=128, 6 iterations (chain_mid)",
-                        **ns_chain_bound(128, 6)},
+                        **ns_chain_bound(128, 6, chain_mid=True)},
+        "K1 ns_chain shift": {
+            "shape": "r=128, 14 iterations (chain_mid, shift)",
+            **ns_chain_bound(128, 14, chain_mid=True)},
+        "K1 ns_chain refine": {"shape": "r=128, 4 iterations (refine)",
+                               **ns_chain_bound(128, 4, refine=True)},
         "K2 bgs_group_fused": {
             "shape": "2048 x 1024, g=8, bf16, robust last panel",
             **group_bound(2048, 128, head, (False,) * 7 + (True,), True)},

@@ -190,3 +190,71 @@ def test_ninv_chain_residual_propagates_nan_and_stalls():
     _, rj = jns.ninv_chain(jnp.asarray(S), iters=6, interpret=True)
     _, rt = tns.ninv_chain(torch.from_numpy(S), iters=6)
     assert float(rt) >= 1e-3 and float(rj) >= 1e-3
+
+
+# -- the bounds of K1 and the wrapper's scratch contract --------------------
+
+
+@pytest.mark.parametrize("r,iters,chain_mid,refine", [
+    (128, 6, True, False), (128, 10, True, False), (128, 14, True, False),
+    (128, 10, False, False), (128, 4, False, True), (128, 4, True, True),
+    (64, 6, True, False), (32, 6, True, False),
+])
+def test_ns_chain_bound_counts_split_iterations_at_the_bf16_rate(
+        r, iters, chain_mid, refine):
+    from mixedprecisionblockqr_tpu_torch.utils import bounds
+
+    row = bounds.ns_chain_bound(r, iters, chain_mid=chain_mid, refine=refine)
+    mid = max(0, iters - 2) if chain_mid and not refine else 0
+    products = 3 * iters + (2 if refine else 0) + 1
+    f32 = (products - 3 * mid) * 2 * r ** 3 / bounds.PEAK_F32
+    bf16 = 9 * mid * 2 * r ** 3 / bounds.PEAK_BF16
+    t_bytes = 3 * r * r * 4 / bounds.HBM_BYTES_PER_S
+    want = max(f32 + bf16, t_bytes) * 1e3
+    assert row["bound_ms"] == pytest.approx(want, rel=1e-12)
+    assert row["bound_by"] == ("operations" if f32 + bf16 >= t_bytes
+                               else "bytes")
+    # one cluster of r / 16 SMs: that share of the card's peak rates
+    assert row["cluster_sms"] == r // 16
+    share = bounds.SMS / (r // 16)
+    assert row["cluster_bound_ms"] == pytest.approx(
+        max((f32 + bf16) * share, t_bytes) * 1e3, rel=1e-12)
+    assert row["cluster_bound_ms"] >= row["bound_ms"]
+    # the split iterations on the tensor cores lower the least time
+    if mid:
+        all_f32 = bounds.ns_chain_bound(r, iters)
+        assert row["bound_ms"] < all_f32["bound_ms"]
+
+
+def test_kernel_bounds_lists_the_chain_rows():
+    from mixedprecisionblockqr_tpu_torch.utils import bounds
+
+    rows = bounds.kernel_bounds()
+    for name in ("K1 ns_chain", "K1 ns_chain shift", "K1 ns_chain refine"):
+        assert {"bound_ms", "bound_by", "cluster_bound_ms",
+                "cluster_sms"} <= set(rows[name])
+    # K8's rows have no cluster bound and keep their whole-card form
+    assert set(rows["K8 tiled_matmul"]) == {"shape", "bound_ms", "bound_by"}
+
+
+def test_ns_chain_kernel_takes_no_global_scratch():
+    # The chain's C entry takes G, three outputs, eight scalars and the
+    # stream: every operand of the chain lives in shared memory, so the
+    # wrapper allocates the outputs and nothing else.
+    import ctypes
+
+    from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            object.__setattr__(self, name, fn)
+            return fn
+
+    lib = _build._declare(Lib())
+    args = lib.mpbqr_ns_chain.argtypes
+    assert args.count(ctypes.c_void_p) == 5     # G, X, t, resid, stream
+    assert args.count(ctypes.c_float) == 1      # shift
+    assert len(args) == 12
+    assert "mpbqr_ns_chain_scratch_floats" not in vars(lib)
+    assert len(lib.mpbqr_tiled_matmul.argtypes) == 12   # ..., tma, stream
