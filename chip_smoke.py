@@ -673,6 +673,14 @@ def main() -> int:
             "lim": TOL_F32 * float(cp.abs().max())}
         assert route == want and max_abs(c, cp) <= TOL_F32 * float(
             cp.abs().max()), edge
+    # The route rule lives in gemm.py alone: the C entry, asked for TMA on
+    # the odd-offset slices, is refused by the tensor-map encoder and
+    # launches nothing.
+    c = torch.empty((512, 384), device=dev)
+    edge["tma_refused_code"] = _build.library().mpbqr_tiled_matmul(
+        x.data_ptr(), y.data_ptr(), c.data_ptr(), 512, 384, 256, 1024, 1024,
+        384, 1, 1, torch.cuda.current_stream().cuda_stream)
+    assert edge["tma_refused_code"] != 0, edge
     for ename, (em, ek, en) in (("m1", (1, 512, 384)), ("n1", (256, 512, 1)),
                                 ("k0", (300, 0, 200))):
         a1 = torch.rand((em, ek), generator=gen, device=dev) - 0.5

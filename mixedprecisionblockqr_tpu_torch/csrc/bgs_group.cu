@@ -99,8 +99,9 @@ static int group_body(cudaStream_t st, float* Q, float* Rg, float* worst,
     float* Rjj = Rg + (size_t)c0 * w + c0;
     gemm(st, true, bg, r, r, m, Pj, w, Pj, w, s.G, r, false, s.part);
     if (!robust[j]) {
-      launch_chain(r, st, s.G, s.X1, Rjj, w, s.resid + j, iters[j],
-                   0.f, 0, mid(iters[j]), 1, 1, 1, RESID_SQUARE);
+      err = launch_chain(r, st, s.G, s.X1, Rjj, w, s.resid + j, iters[j],
+                         0.f, 0, mid(iters[j]), 1, 1, 1, RESID_SQUARE);
+      if (err != cudaSuccess) return (int)err;
       gemm(st, false, bg, m, r, r, Pj, w, s.X1, r, s.tmpA, r, false, s.part);
       err = cudaMemcpy2DAsync(Pj, sizeof(float) * w, s.tmpA,
                               sizeof(float) * r, sizeof(float) * r, m,
@@ -108,21 +109,26 @@ static int group_body(cudaStream_t st, float* Q, float* Rg, float* worst,
       if (err != cudaSuccess) return (int)err;
     } else {
       // Pass 1: shifted Gram (condition capped), t1 = X1^T Gs in full.
-      launch_chain(r, st, s.G, s.X1, s.T1, r, s.resid + j,
-                   kRobustIt1, 1e-3f, 0, mid(kRobustIt1), 0, 1, 0, RESID_RAW);
+      err = launch_chain(r, st, s.G, s.X1, s.T1, r, s.resid + j,
+                         kRobustIt1, 1e-3f, 0, mid(kRobustIt1), 0, 1, 0,
+                         RESID_RAW);
+      if (err != cudaSuccess) return (int)err;
       gemm(st, false, bg, m, r, r, Pj, w, s.X1, r, s.tmpA, r, false, s.part);
       gemm(st, true, bg, r, r, m, s.tmpA, r, s.tmpA, r, s.G, r, false,
            s.part);
       // Pass 2 on the fresh Gram of Q1, t2 = X2^T M1 in full.
-      launch_chain(r, st, s.G, s.X2, s.T2, r, s.resid + j,
-                   kRobustIt2, 0.f, 0, mid(kRobustIt2), 0, 1, 0, RESID_RAW);
+      err = launch_chain(r, st, s.G, s.X2, s.T2, r, s.resid + j,
+                         kRobustIt2, 0.f, 0, mid(kRobustIt2), 0, 1, 0,
+                         RESID_RAW);
+      if (err != cudaSuccess) return (int)err;
       gemm(st, false, bg, m, r, r, s.tmpA, r, s.X2, r, s.tmpB, r, false,
            s.part);
       gemm(st, true, bg, r, r, m, s.tmpB, r, s.tmpB, r, s.G, r, false,
            s.part);
       // Pass 3: identity-seeded refine with the exact final residual.
-      launch_chain(r, st, s.G, s.X3, s.T3, r, s.resid + j,
-                   kRobustIt3, 0.f, 1, 0, 1, 1, 0, RESID_SCALE);
+      err = launch_chain(r, st, s.G, s.X3, s.T3, r, s.resid + j,
+                         kRobustIt3, 0.f, 1, 0, 1, 1, 0, RESID_SCALE);
+      if (err != cudaSuccess) return (int)err;
       gemm(st, false, bg, m, r, r, s.tmpB, r, s.X3, r, Pj, w, false, s.part);
       launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w, s.comb);
     }

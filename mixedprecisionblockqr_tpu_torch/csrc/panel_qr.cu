@@ -79,26 +79,31 @@ int mpbqr_panel_qr(const float* P, float* Q, float* t, float* resid,
     return chain_mid ? std::max(0, it - kMidFinal) : 0;
   };
   gemm(st, true, false, r, r, m, P, r, P, r, s.G, r, false, s.part);
+  cudaError_t err;
   if (!robust) {
-    launch_chain(r, st, s.G, s.X1, t, r, resid, iters, 0.f, 0,
-                 mid(iters), 1, 1, 1, RESID_RAW);
+    err = launch_chain(r, st, s.G, s.X1, t, r, resid, iters, 0.f, 0,
+                       mid(iters), 1, 1, 1, RESID_RAW);
+    if (err != cudaSuccess) return (int)err;
     gemm(st, false, false, m, r, r, P, r, s.X1, r, Q, r, false, s.part);
     return (int)cudaGetLastError();
   }
   // Pass 1: shifted Gram (condition capped), t1 = X1^T Gs in full.
-  launch_chain(r, st, s.G, s.X1, s.T1, r, resid, kRobustIt1, 1e-3f,
-               0, mid(kRobustIt1), 0, 1, 0, RESID_RAW);
+  err = launch_chain(r, st, s.G, s.X1, s.T1, r, resid, kRobustIt1, 1e-3f,
+                     0, mid(kRobustIt1), 0, 1, 0, RESID_RAW);
+  if (err != cudaSuccess) return (int)err;
   gemm(st, false, false, m, r, r, P, r, s.X1, r, s.tmpA, r, false, s.part);
   gemm(st, true, false, r, r, m, s.tmpA, r, s.tmpA, r, s.G, r, false, s.part);
   // Pass 2 on the fresh Gram of Q1, t2 = X2^T M1 in full.
-  launch_chain(r, st, s.G, s.X2, s.T2, r, resid, kRobustIt2, 0.f, 0,
-               mid(kRobustIt2), 0, 1, 0, RESID_RAW);
+  err = launch_chain(r, st, s.G, s.X2, s.T2, r, resid, kRobustIt2, 0.f, 0,
+                     mid(kRobustIt2), 0, 1, 0, RESID_RAW);
+  if (err != cudaSuccess) return (int)err;
   gemm(st, false, false, m, r, r, s.tmpA, r, s.X2, r, s.tmpB, r, false,
        s.part);
   gemm(st, true, false, r, r, m, s.tmpB, r, s.tmpB, r, s.G, r, false, s.part);
   // Pass 3: identity-seeded refine with the exact final residual.
-  launch_chain(r, st, s.G, s.X3, s.T3, r, resid, kRobustIt3, 0.f, 1,
-               0, 1, 1, 0, RESID_RAW);
+  err = launch_chain(r, st, s.G, s.X3, s.T3, r, resid, kRobustIt3, 0.f, 1,
+                     0, 1, 1, 0, RESID_RAW);
+  if (err != cudaSuccess) return (int)err;
   gemm(st, false, false, m, r, r, s.tmpB, r, s.X3, r, Q, r, false, s.part);
   launch_combine(r, st, s.T1, s.T2, s.T3, t, r, s.comb);
   return (int)cudaGetLastError();

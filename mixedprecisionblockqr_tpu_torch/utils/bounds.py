@@ -37,22 +37,42 @@ def chain_products(iters, refine=False):
     return 3 * iters + (2 if refine else 0) + 1
 
 
-#: r x r products of the shifted three-pass chain, with the t3 t2 t1 combine.
-ROBUST_PRODUCTS = (chain_products(14) + chain_products(12)
-                   + chain_products(4, True) + 2)
+def tri_product_ops(r):
+    """Operations of one r x r product of the chain.  Every one of them
+    (X^T W, G X, X C, W C, X^T G) has an upper triangular operand, X or
+    C, so output row p sums p + 1 terms over r columns: r^2 (r + 1)
+    operations, about half of a full product's 2 r^3."""
+    return r * r * (r + 1)
+
+
+def chain_ops(r, iters, chain_mid=False, refine=False):
+    """``(f32_ops, bf16_ops)`` of one chain.  With ``chain_mid`` all but
+    the final two iterations of a non-refine chain run their three products
+    as three bf16 products each (hi*hi + hi*lo + lo*hi), at the tensor
+    cores' rate; every other product is fp32."""
+    mid = max(0, iters - 2) if chain_mid and not refine else 0
+    one = tri_product_ops(r)
+    return ((chain_products(iters, refine) - 3 * mid) * one,
+            3 * mid * 3 * one)
+
+
+def robust_ops(r, chain_mid=False):
+    """``(f32_ops, bf16_ops)`` of the shifted three-pass chain: 14 and 12
+    iterations, a 4-iteration refine chain (never split), and the two full
+    r x r products of the t3 t2 t1 combine."""
+    f1, b1 = chain_ops(r, 14, chain_mid)
+    f2, b2 = chain_ops(r, 12, chain_mid)
+    f3, _ = chain_ops(r, 4, refine=True)
+    return f1 + f2 + f3 + 2 * 2 * r ** 3, b1 + b2
 
 
 def ns_chain_bound(r, iters, chain_mid=False, refine=False):
-    """K1: G read, X and t written.  With ``chain_mid`` all but the final
-    two iterations of a non-refine chain run their three products as three
-    bf16 products each (hi*hi + hi*lo + lo*hi), at the tensor cores' rate;
-    every other product is fp32.  Beside the whole card's bound,
-    ``cluster_bound_ms`` is the bound of the r / 16 SMs that the one
-    thread-block cluster of a chain can use: the same operations at that
-    share of the peak rates (the bytes still at the card's memory rate)."""
-    mid = max(0, iters - 2) if chain_mid and not refine else 0
-    f32 = (chain_products(iters, refine) - 3 * mid) * 2 * r ** 3
-    bf16 = 3 * mid * 3 * 2 * r ** 3
+    """K1: G read, X and t written; the operations of ``chain_ops``.
+    Beside the whole card's bound, ``cluster_bound_ms`` is the bound of
+    the r / 16 SMs that the one thread-block cluster of a chain can use:
+    the same operations at that share of the peak rates (the bytes still
+    at the card's memory rate)."""
+    f32, bf16 = chain_ops(r, iters, chain_mid, refine)
     nbytes = 3 * r * r * 4
     whole = bound(f32_ops=f32, bf16_ops=bf16, nbytes=nbytes)
     share = SMS / (r // 16)
@@ -65,25 +85,29 @@ def group_bound(m, r, iters, robust, bf16, proj_cols=0):
     """K2 (and K5 with ``proj_cols`` previous columns projected out on
     entry) on an m x (g r) group: per panel the Gram(s), the chain(s),
     Q = P X and the projection of the group's later columns.  With
-    ``bf16`` the tall products and K5's scrub count at the bf16 rate, and
-    K5's previous Q is read as bf16."""
-    chain = tall = 0
+    ``bf16`` the tall products and K5's scrub count at the bf16 rate,
+    K5's previous Q is read as bf16, and the chains run ``chain_mid``
+    (the drivers set the two together)."""
+    chain_f32 = chain_bf16 = tall = 0
     w = len(iters) * r
     for j, (it, rb) in enumerate(zip(iters, robust)):
-        chain += (ROBUST_PRODUCTS if rb else chain_products(it)) * 2 * r ** 3
+        f, b = robust_ops(r, bf16) if rb else chain_ops(r, it, bf16)
+        chain_f32 += f
+        chain_bf16 += b
         tall += (6 if rb else 2) * 2 * m * r * r
         tall += 2 * 2 * m * r * (w - (j + 1) * r)
     tall += 2 * 2 * m * proj_cols * w
     nbytes = ((2 * m * w + w * w + proj_cols * w) * 4
               + m * proj_cols * (2 if bf16 else 4))
     if bf16:
-        return bound(f32_ops=chain, bf16_ops=tall, nbytes=nbytes)
-    return bound(f32_ops=chain + tall, nbytes=nbytes)
+        return bound(f32_ops=chain_f32, bf16_ops=chain_bf16 + tall,
+                     nbytes=nbytes)
+    return bound(f32_ops=chain_f32 + tall, nbytes=nbytes)
 
 
 def panel_qr_bound(m, r):
     """K3, robust mode: three Grams, three tall products, three chains."""
-    return bound(f32_ops=ROBUST_PRODUCTS * 2 * r ** 3 + 6 * 2 * m * r * r,
+    return bound(f32_ops=robust_ops(r)[0] + 6 * 2 * m * r * r,
                  nbytes=(2 * m * r + r * r) * 4)
 
 

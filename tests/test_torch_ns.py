@@ -207,8 +207,11 @@ def test_ns_chain_bound_counts_split_iterations_at_the_bf16_rate(
     row = bounds.ns_chain_bound(r, iters, chain_mid=chain_mid, refine=refine)
     mid = max(0, iters - 2) if chain_mid and not refine else 0
     products = 3 * iters + (2 if refine else 0) + 1
-    f32 = (products - 3 * mid) * 2 * r ** 3 / bounds.PEAK_F32
-    bf16 = 9 * mid * 2 * r ** 3 / bounds.PEAK_BF16
+    # every product has a triangular operand: r^2 (r + 1) operations each
+    one = r * r * (r + 1)
+    assert bounds.tri_product_ops(r) == one < 2 * r ** 3
+    f32 = (products - 3 * mid) * one / bounds.PEAK_F32
+    bf16 = 9 * mid * one / bounds.PEAK_BF16
     t_bytes = 3 * r * r * 4 / bounds.HBM_BYTES_PER_S
     want = max(f32 + bf16, t_bytes) * 1e3
     assert row["bound_ms"] == pytest.approx(want, rel=1e-12)
@@ -224,6 +227,36 @@ def test_ns_chain_bound_counts_split_iterations_at_the_bf16_rate(
     if mid:
         all_f32 = bounds.ns_chain_bound(r, iters)
         assert row["bound_ms"] < all_f32["bound_ms"]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_group_and_panel_bounds_count_the_chains_as_ns_chain_bound_does(bf16):
+    from mixedprecisionblockqr_tpu_torch.utils import bounds
+
+    m, r, one = 2048, 128, 128 * 128 * 129
+    # the robust schedule: 14 and 12 iterations (split but for the final
+    # two when chain_mid), a 4-iteration refine chain in fp32, and the two
+    # full products of the t3 t2 t1 combine
+    f32, b16 = bounds.robust_ops(r, chain_mid=bf16)
+    mid = (12 + 10) if bf16 else 0
+    assert b16 == 9 * mid * one
+    assert f32 == (43 + 37 + 15 - 3 * mid) * one + 2 * 2 * r ** 3
+    # one plain panel and one robust panel: chains, Grams, Q = P X, and
+    # the projection of the second panel's columns
+    row = bounds.group_bound(m, r, (6, 10), (False, True), bf16)
+    cf, cb = bounds.chain_ops(r, 6, chain_mid=bf16)
+    tall = (2 + 6) * 2 * m * r * r + 2 * 2 * m * r * r
+    if bf16:
+        t_ops = ((cf + f32) / bounds.PEAK_F32
+                 + (cb + b16 + tall) / bounds.PEAK_BF16)
+    else:
+        t_ops = (cf + f32 + tall) / bounds.PEAK_F32
+    assert row["bound_by"] == "operations"
+    assert row["bound_ms"] == pytest.approx(t_ops * 1e3, rel=1e-12)
+    if not bf16:
+        k3 = bounds.panel_qr_bound(m, r)
+        assert k3["bound_ms"] == pytest.approx(
+            (f32 + 6 * 2 * m * r * r) / bounds.PEAK_F32 * 1e3, rel=1e-12)
 
 
 def test_kernel_bounds_lists_the_chain_rows():
