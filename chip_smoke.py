@@ -16,7 +16,10 @@ last line):
                  ns_chain at r = 32, 64, 128 in every option combination
                  the QR tiers use, bitwise repeatable, NaN in -> NaN resid;
                  tiled_matmul on both routes (fed by TMA, predicated
-                 loaders), the route of each call asserted; the kernel's,
+                 loaders), the route of each call asserted; chol_rinv at
+                 r = 32, 96, 128, 256, 320, 512 (shared-memory route) and
+                 1024 (in place), with its cluster and route per r, on a
+                 Gram of condition 1e6 and on an indefinite one; the kernel's,
                  the plain version's and the library call's times (CUDA
                  events, median of 20 unless a line says otherwise);
   4. main     -- block_qr(A, 128, POLICY_MIXED_FAST, mode='complete',
@@ -58,8 +61,9 @@ last line):
                  on (b)'s input, stopped after 3 segments and called again:
                  torch.equal with (b), only step_32 left;
  15. exported -- tiled_matmul and chol_rinv through their own entry points:
-                 CholeskyQR2 of a 4096 x 256 panel built from them, and
-                 matmul_bf16_accum_f32 at 2048^3.
+                 CholeskyQR2 of a 4096 x 256 panel built from them, timed
+                 beside the same panel with cholesky_ex + solve_triangular
+                 in chol_rinv's place, and matmul_bf16_accum_f32 at 2048^3.
 Then a line with every kernel's launches on its main path (phases 4-6 for
 ns_chain and bgs_group_fused, phase 7 for panel_qr_fused and
 sketch_qrcp_ranks, phase 9 for ninv_chain, phase 10 for
@@ -131,6 +135,7 @@ def main() -> int:
     from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
     from mixedprecisionblockqr_tpu_torch.ops import blockqr as bq
     from mixedprecisionblockqr_tpu_torch.ops.kernels.chol import (
+        chol_layout,
         chol_rinv,
         chol_rinv_plain,
     )
@@ -724,16 +729,35 @@ def main() -> int:
                           "torch._int_mm",
           "shapes": k8_rows, "card": card})
 
-    # K9 on Grams of a seeded 2048 x r panel, and on an indefinite one.
+    # K9 on Grams of a seeded 2048 x r panel (extra columns for r = 1024
+    # from a generator of their own, so that the later phases' inputs stay
+    # as they were), on a Gram of condition 1e6 and on an indefinite one.
     P9 = torch.rand((2048, 512), generator=gen, device=dev) - 0.5
+    gen9 = torch.Generator(device=dev).manual_seed(9)
+    P9 = torch.cat([P9, torch.rand((2048, 512), generator=gen9,
+                                   device=dev) - 0.5], dim=1)
+
+    eyes = {}
+
+    def library_k9(Gl):
+        n = Gl.shape[0]
+        if n not in eyes:
+            eyes[n] = torch.eye(n, device=dev)
+        Rl = torch.linalg.cholesky_ex(Gl, upper=True)[0]
+        return Rl, torch.linalg.solve_triangular(Rl, eyes[n], upper=True)
+
     k9_rows, k9_err = {}, 0.0
-    for r9 in (128, 256, 512):
+    for r9 in (32, 96, 128, 256, 320, 512, 1024):
         G9 = mm_f32(P9[:, :r9].T, P9[:, :r9]).contiguous()
         eye9 = torch.eye(r9, device=dev)
         R9, Ri9 = chol_rinv(G9)
+        R9b, Ri9b = chol_rinv(G9)
         Rp9, Rip9 = chol_rinv_plain(G9)
         torch.cuda.synchronize()
-        row = {"max_abs_R": max_abs(R9, Rp9),
+        lay9 = chol_layout(r9)
+        row = {"cluster": lay9.cluster, "stripe": lay9.stripe,
+               "route": "smem" if lay9.in_smem else "in_place",
+               "max_abs_R": max_abs(R9, Rp9),
                "lim_R": TOL_F32 * float(Rp9.abs().max()),
                "max_abs_Rinv": max_abs(Ri9, Rip9),
                "lim_Rinv": TOL_F32 * float(Rip9.abs().max()),
@@ -741,23 +765,50 @@ def main() -> int:
                / float(G9.abs().max()),
                "inverse": max_abs(mm_f32(R9, Ri9), eye9),
                "lower_zero": bool((torch.tril(R9, -1) == 0).all()
-                                  and (torch.tril(Ri9, -1) == 0).all())}
+                                  and (torch.tril(Ri9, -1) == 0).all()),
+               "bitwise_repeatable": bool(torch.equal(R9, R9b)
+                                          and torch.equal(Ri9, Ri9b))}
         row["ok"] = (row["max_abs_R"] <= row["lim_R"]
                      and row["max_abs_Rinv"] <= row["lim_Rinv"]
                      and row["factor"] <= 1e-5 and row["inverse"] <= 1e-4
-                     and row["lower_zero"])
+                     and row["lower_zero"] and row["bitwise_repeatable"])
         row["ms"] = cuda_time_ms(lambda: chol_rinv(G9))
         row["plain_ms"] = cuda_time_ms(lambda: chol_rinv_plain(G9),
                                        warmup=1, iters=3)
-
-        def library_k9():
-            Rl = torch.linalg.cholesky_ex(G9, upper=True)[0]
-            return Rl, torch.linalg.solve_triangular(Rl, eye9, upper=True)
-
-        row["library_ms"] = cuda_time_ms(library_k9)
+        row["library_ms"] = cuda_time_ms(lambda: library_k9(G9))
+        row.update(chol_rinv_bound(r9))
         k9_rows[f"r{r9}"] = row
         k9_err = max(k9_err, row["max_abs_R"], row["max_abs_Rinv"])
         assert row["ok"], (r9, row)
+    # Condition 1e3 panel (singular values logspace(0, -3)): the factor's
+    # and the inverse's residuals (float64, Frobenius) within 2x of the
+    # plain version's on the same G.
+    Uc = torch.linalg.qr(torch.rand((2048, 256), generator=gen9,
+                                    device=dev) - 0.5)[0]
+    Vc = torch.linalg.qr(torch.rand((256, 256), generator=gen9,
+                                    device=dev) - 0.5)[0]
+    Pc = mm_f32(Uc * torch.logspace(0, -3, 256, device=dev), Vc.T)
+    Gc = mm_f32(Pc.T, Pc).contiguous()
+    Gd, eye_d = Gc.double(), torch.eye(256, dtype=torch.float64, device=dev)
+
+    def residuals(Rr, Rri):
+        Rr, Rri = Rr.double(), Rri.double()
+        return (float(torch.linalg.norm(Rr.T @ Rr - Gd) / torch.linalg.norm(Gd)),
+                float(torch.linalg.norm(Rr @ Rri - eye_d)))
+
+    Rc, Ric = chol_rinv(Gc)
+    Rc2, Ric2 = chol_rinv(Gc)
+    fk, ik = residuals(Rc, Ric)
+    fp, ip = residuals(*chol_rinv_plain(Gc))
+    cond_row = {"factor": fk, "factor_plain": fp, "inverse": ik,
+                "inverse_plain": ip,
+                "bitwise_repeatable": bool(torch.equal(Rc, Rc2)
+                                           and torch.equal(Ric, Ric2))}
+    cond_row["ok"] = (fk <= 2 * fp and ik <= 2 * ip
+                      and cond_row["bitwise_repeatable"])
+    k9_rows["cond1e3_r256"] = cond_row
+    assert cond_row["ok"], cond_row
+    G9 = mm_f32(P9[:, :512].T, P9[:, :512]).contiguous()
     G9[300, 300] = -1.0
     Rn, Rin = chol_rinv(G9)
     Rnp, _ = chol_rinv_plain(G9)
@@ -772,9 +823,11 @@ def main() -> int:
     emit({"phase": "kernels", "kernel": "chol_rinv",
           "tolerance": "R and Rinv within 1e-4 * max|plain|; max|R^T R - G| "
                        "<= 1e-5 max|G|; max|R Rinv - I| <= 1e-4; exact "
-                       "zeros below both diagonals; an indefinite G gives "
-                       "NaN from its bad pivot on, in the plain version's "
-                       "rows; plain ms: median of 3",
+                       "zeros below both diagonals; two calls bitwise "
+                       "equal; condition 1e3 panel: ||R^T R - G||/||G|| and "
+                       "||R Rinv - I|| within 2x of the plain version's; an "
+                       "indefinite G gives NaN from its bad pivot on, in "
+                       "the plain version's rows; plain ms: median of 3",
           "library_call": "torch.linalg.cholesky_ex(upper=True) + "
                           "solve_triangular against I",
           "sizes": k9_rows, "card": card})
@@ -1182,13 +1235,30 @@ def main() -> int:
     assert routes15 == {"tma": 6, "predicated": 0}, routes15
     assert orth15 <= 1e-5 and rec15 <= 1e-5 and mm15 <= 1e-5, (
         orth15, rec15, mm15)
+
+    def cholqr2_panel(chol):
+        # cholesky_ex(upper=True) and solve_triangular return column-major
+        # factors; tiled_matmul takes row-major operands (a no-op for
+        # chol_rinv's).
+        Qp, Rp = P15, None
+        for _ in range(2):
+            Rk, Rik = (x.contiguous()
+                       for x in chol(tiled_matmul(Qp.T.contiguous(), Qp)))
+            Qp = tiled_matmul(Qp, Rik)
+            Rp = Rk if Rp is None else tiled_matmul(Rk, Rp)
+        return Qp, Rp
+
+    panel_ms = cuda_time_ms(lambda: cholqr2_panel(chol_rinv))
+    panel_library_ms = cuda_time_ms(lambda: cholqr2_panel(library_k9))
     emit({"phase": "exported", "call": "CholeskyQR2 of a 4096 x 256 panel "
           "through tiled_matmul and chol_rinv; matmul_bf16_accum_f32 at "
           "2048^3", "launches": c15, "tiled_matmul_routes": routes15,
           "orthogonality": orth15,
           "reconstruction": rec15, "bf16_matmul_rel_vs_torch": mm15,
+          "panel_ms": panel_ms, "panel_with_library_chol_ms": panel_library_ms,
           "tolerance": "max|Q^T Q - I|, ||QR - P||/||P|| and the bf16 "
-                       "product's relative distance from torch.mm <= 1e-5",
+                       "product's relative distance from torch.mm <= 1e-5; "
+                       "panel times: CUDA events, median of 20",
           "card": card})
 
     emit({"kernels": [

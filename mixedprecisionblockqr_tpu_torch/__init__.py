@@ -26,6 +26,9 @@ default, to ``cuda`` (without a CUDA device it raises and names
 Public API:
     qr, block_qr, block_qr_qtb, block_recursive_qr, block_qr_batched,
     householder_qr, cholesky_qr2, block_qr_resumable, clear_checkpoints
+    householder_reflector, q_backward_accumulation, build_t_matrix,
+    wy_representation, apply_block_reflector_left_t,
+    apply_block_reflector_right
     pivoted_qr, pivoted_qr_qtb, numerical_rank
     lstsq, lstsq_pivoted, back_substitution, gauss_newton_step
     DTypePolicy, POLICY_FP32, POLICY_MIXED, POLICY_MIXED_FAST, POLICY_BF16,
@@ -54,7 +57,11 @@ from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
     qr,
 )
 from mixedprecisionblockqr_tpu_torch.ops.cholqr import cholesky_qr2
-from mixedprecisionblockqr_tpu_torch.ops.householder import householder_qr
+from mixedprecisionblockqr_tpu_torch.ops.householder import (
+    householder_qr,
+    householder_reflector,
+    q_backward_accumulation,
+)
 from mixedprecisionblockqr_tpu_torch.ops.pivoted import (
     numerical_rank,
     pivoted_qr,
@@ -69,6 +76,12 @@ from mixedprecisionblockqr_tpu_torch.ops.policy import (
     POLICY_MIXED,
     POLICY_MIXED_FAST,
     policy_by_name,
+)
+from mixedprecisionblockqr_tpu_torch.ops.wy import (
+    apply_block_reflector_left_t,
+    apply_block_reflector_right,
+    build_t_matrix,
+    wy_representation,
 )
 from mixedprecisionblockqr_tpu_torch.utils.checks import (
     NonFiniteError,
@@ -93,6 +106,12 @@ __all__ = [
     "cholesky_qr2",
     "qr",
     "householder_qr",
+    "householder_reflector",
+    "q_backward_accumulation",
+    "build_t_matrix",
+    "wy_representation",
+    "apply_block_reflector_left_t",
+    "apply_block_reflector_right",
     "pivoted_qr",
     "pivoted_qr_qtb",
     "numerical_rank",

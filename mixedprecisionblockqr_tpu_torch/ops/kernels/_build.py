@@ -89,7 +89,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_tiled_matmul.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                        ci, vp]
     lib.mpbqr_tiled_matmul.restype = ci
-    lib.mpbqr_chol_rinv.argtypes = [vp, vp, vp, vp, ci, vp]
+    lib.mpbqr_chol_rinv.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.mpbqr_chol_rinv.restype = ci
     return lib
 
@@ -107,27 +107,31 @@ def _run_all(cmds) -> None:
                                f"{' '.join(cmd)}\n{out}")
 
 
+def build(so: Path, flags=()) -> None:
+    """Compile every source with ``NVCC_FLAGS`` and ``flags``, in parallel,
+    and link them into the shared library ``so``."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
+        objs = [os.path.join(tmp, Path(src).stem + ".o") for src in SOURCES]
+        _run_all([[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj,
+                   str(CSRC / src)] for src, obj in zip(SOURCES, objs)])
+        lib_tmp = os.path.join(tmp, so.name)
+        # -ldl: tiled_matmul.cu looks cuTensorMapEncodeTiled up in
+        # libcuda at run time with dlsym (no link against it).
+        _run_all([[nvcc, "-shared", "-o", lib_tmp, *objs, "-ldl"]])
+        os.replace(lib_tmp, so)
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it first if needed."""
     global _lib, build_seconds
     if _lib is not None:
         return _lib
-    out_dir = BUILD_ROOT / _digest()
-    so = out_dir / "libmpbqr_kernels.so"
+    so = BUILD_ROOT / _digest() / "libmpbqr_kernels.so"
     if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        nvcc = _nvcc()
-        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-            objs = [os.path.join(tmp, Path(src).stem + ".o")
-                    for src in SOURCES]
-            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
-                      for src, obj in zip(SOURCES, objs)])
-            lib_tmp = os.path.join(tmp, so.name)
-            # -ldl: tiled_matmul.cu looks cuTensorMapEncodeTiled up in
-            # libcuda at run time with dlsym (no link against it).
-            _run_all([[nvcc, "-shared", "-o", lib_tmp, *objs, "-ldl"]])
-            os.replace(lib_tmp, so)
+        build(so)
         build_seconds = time.perf_counter() - t0
     _lib = _declare(ctypes.CDLL(str(so)))
     return _lib

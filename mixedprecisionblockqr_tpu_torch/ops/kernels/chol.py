@@ -10,12 +10,14 @@ loop also builds the block's inverse row by row (bordered form), a
 row-panel solve and a trailing update per block, then the block-row
 back-fill of ``R^-1``; every product in true fp32.  A pivot that is not
 positive gives ``sqrt(negative) = NaN``, which spreads: nothing raises.
-The strictly lower parts of ``R`` and ``R^-1`` are exact zeros.
+The strictly lower parts of ``R`` and ``R^-1`` are exact zeros.  The CUDA
+kernel runs one thread-block cluster laid out by :func:`chol_layout`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -28,6 +30,49 @@ from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
 
 #: Diagonal block size; r must be a multiple of it.
 BLOCK = 32
+#: Most CTAs of the kernel's thread-block cluster (the portable size).
+MAX_CLUSTER = 8
+#: Shared memory one CTA may use on an H100 (bytes).
+SMEM_LIMIT = 232448
+#: Rows of R the in-place route stages at a time.
+INPLACE_CHUNK = 512
+#: Fewest rows staged: the staging buffer (32 x (chunk + 4) floats) also
+#: holds the back-fill's partial sums, 8192 floats.
+MIN_CHUNK = 256
+#: Floats of shared memory besides the staged rows and the columns, as the
+#: kernel carves them (csrc/chol_rinv.cu): Linv^T (32 x 36), the diagonal
+#: warp's column (2 x 32) and the back-fill's sums (8 units of 32 x 8).
+_BASE_FLOATS = BLOCK * (BLOCK + 4) + 2 * BLOCK + BLOCK * 64
+
+
+class CholLayout(NamedTuple):
+    """How the kernel splits an r x r problem over its cluster."""
+    cluster: int      # CTAs, one column stripe each
+    stripe: int       # columns per stripe (the last may be narrower)
+    chunk: int        # rows of R staged in shared memory at a time
+    in_smem: bool     # stripes in shared memory, else in place in R, Rinv
+    smem_bytes: int   # dynamic shared memory per CTA
+
+
+@functools.lru_cache(maxsize=None)
+def chol_layout(r: int) -> CholLayout:
+    """The kernel's layout for size ``r`` (a positive multiple of 32):
+    stripes of 64 columns (32 when r = 32), widened by 32 at a time while
+    more than ``MAX_CLUSTER`` would be needed, 32-column blocks dealt to
+    the CTAs in snake order; the stripes and all of R's rows (at least
+    ``MIN_CHUNK``) in shared memory when they fit ``SMEM_LIMIT``, else the
+    in-place route, which stages ``INPLACE_CHUNK`` rows at a time."""
+    nb = r // BLOCK
+    per = max(min(2, nb), -(-nb // MAX_CLUSTER))
+    stripe = BLOCK * per
+    cluster = -(-nb // per)
+    chunk = max(r, MIN_CHUNK)
+    floats = _BASE_FLOATS + BLOCK * (chunk + 4) + r * stripe
+    if floats * 4 <= SMEM_LIMIT:
+        return CholLayout(cluster, stripe, chunk, True, floats * 4)
+    chunk = max(MIN_CHUNK, min(r, INPLACE_CHUNK))
+    return CholLayout(cluster, stripe, chunk, False,
+                      (_BASE_FLOATS + BLOCK * (chunk + 4)) * 4)
 
 
 def _check_size(G: torch.Tensor) -> int:
@@ -79,20 +124,28 @@ def chol_rinv(G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ``(R, R^-1)``.  ``G`` must be symmetric positive definite with a size
     that is a multiple of 32 (``ValueError`` otherwise); on CUDA a
     contiguous fp32 tensor."""
-    r = _check_size(G)
+    _check_size(G)
     if G.device.type == "cpu":
         return chol_rinv_plain(G)
     _require_cuda_f32(G, "G")
-    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
-        check, library,
-    )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
 
+    R, Rinv = _launch(library(), G)
+    LAUNCHES["chol_rinv"] += 1
+    return R, Rinv
+
+
+def _launch(lib, G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``mpbqr_chol_rinv`` from the kernel library ``lib``
+    with the layout of :func:`chol_layout`; counts nothing."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
+
+    r = G.shape[0]
+    lay = chol_layout(r)
     R = torch.empty_like(G)
     Rinv = torch.empty_like(G)
-    scratch = torch.empty_like(G)
-    code = library().mpbqr_chol_rinv(G.data_ptr(), R.data_ptr(),
-                                     Rinv.data_ptr(), scratch.data_ptr(), r,
-                                     _stream(G))
+    code = lib.mpbqr_chol_rinv(G.data_ptr(), R.data_ptr(), Rinv.data_ptr(),
+                               r, lay.stripe, lay.chunk, int(lay.in_smem),
+                               lay.smem_bytes, _stream(G))
     check(code, "chol_rinv")
-    LAUNCHES["chol_rinv"] += 1
     return R, Rinv

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import json
 
+from mixedprecisionblockqr_tpu_torch.ops.kernels.chol import chol_layout
+
 PEAK_F32 = 67e12       # fp32 outside the tensor cores
 PEAK_BF16 = 989e12     # bf16 tensor cores
 PEAK_INT8 = 1979e12    # int8 tensor cores
@@ -141,10 +143,20 @@ def matmul_bound(m, k, n, kind, out_bytes=4):
                  nbytes=(m * k + k * n) * in_bytes + m * n * out_bytes)
 
 
-def chol_rinv_bound(r):
+def chol_rinv_bound(r, cluster_sms=None):
     """K9: the Cholesky factor and the triangular inverse, r^3 / 3
-    operations each; G read, R and Rinv written."""
-    return bound(f32_ops=2 * r ** 3 / 3, nbytes=3 * r * r * 4)
+    operations each; the upper triangle of the symmetric G read (r (r + 1)
+    / 2 floats), R and Rinv written.  Beside the whole card's
+    bound, ``cluster_bound_ms`` is the bound of the ``cluster_sms`` SMs of
+    the kernel's one thread-block cluster (by default the cluster that
+    ``chol_layout`` gives r): the same operations at that share of the
+    fp32 peak, the bytes still at the card's memory rate."""
+    if cluster_sms is None:
+        cluster_sms = chol_layout(r).cluster
+    ops, nbytes = 2 * r ** 3 / 3, (r * (r + 1) // 2 + 2 * r * r) * 4
+    one = bound(f32_ops=ops * SMS / cluster_sms, nbytes=nbytes)
+    return {**bound(f32_ops=ops, nbytes=nbytes), "cluster_sms": cluster_sms,
+            "cluster_bound_ms": one["bound_ms"]}
 
 
 def kernel_bounds():
@@ -180,7 +192,7 @@ def kernel_bounds():
         "K8 tiled_matmul int8": {"shape": "2048^3 int8 -> int32",
                                  **matmul_bound(2048, 2048, 2048, "int8")},
         **{f"K9 chol_rinv r={r}": {"shape": f"r={r}", **chol_rinv_bound(r)}
-           for r in (128, 256, 512)},
+           for r in (32, 96, 128, 256, 320, 512, 1024)},
     }
 
 

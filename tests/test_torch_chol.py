@@ -82,3 +82,53 @@ def test_indefinite_input_gives_nan_not_an_error():
     # the first block, factored before the bad pivot, is finite in both
     assert torch.isfinite(Rt[:32, :32]).all()
     assert np.array_equal(np.isnan(Rt.numpy()), np.isnan(np.asarray(Rj)))
+
+
+@pytest.mark.parametrize("r", range(32, 2049, 32))
+def test_layout_fits_the_card_for_every_size(r):
+    # The rule the wrapper passes to the kernel: one cluster of at most 8
+    # CTAs that together hold all r / 32 column blocks, each CTA's shared
+    # memory within an H100 block's 232,448 bytes, on one of the two routes.
+    lay = tchol.chol_layout(r)
+    assert 1 <= lay.cluster <= tchol.MAX_CLUSTER
+    assert lay.stripe % 32 == 0 and lay.chunk % 32 == 0
+    assert (lay.cluster - 1) * lay.stripe < r <= lay.cluster * lay.stripe
+    assert lay.smem_bytes <= tchol.SMEM_LIMIT
+    staged = 4 * 32 * (lay.chunk + 4)
+    assert 32 * (lay.chunk + 4) >= 8192  # the back-fill's partial sums
+    if lay.in_smem:
+        assert lay.chunk == max(r, tchol.MIN_CHUNK)
+        assert lay.smem_bytes == 4 * (tchol._BASE_FLOATS + r * lay.stripe) + staged
+    else:
+        assert lay.chunk == min(r, tchol.INPLACE_CHUNK)
+        assert lay.smem_bytes == 4 * tchol._BASE_FLOATS + staged
+
+
+def test_layout_routes():
+    # Up to r = 512 the columns stay in shared memory (64 per CTA, eight
+    # CTAs at 512); beyond, the kernel works in place in R and Rinv.
+    assert [tchol.chol_layout(r).cluster for r in (32, 96, 320, 512)] == [
+        1, 2, 5, 8]
+    assert all(tchol.chol_layout(r).in_smem for r in range(32, 513, 32))
+    assert not any(tchol.chol_layout(r).in_smem
+                   for r in range(544, 2049, 32))
+    assert tchol.chol_layout(1024).stripe == 128
+
+
+def test_bound_uses_the_kernels_cluster():
+    from mixedprecisionblockqr_tpu_torch.utils import bounds
+
+    row = bounds.chol_rinv_bound(512)
+    assert row["cluster_sms"] == tchol.chol_layout(512).cluster == 8
+    # the same operations on 8 of 132 SMs
+    assert row["cluster_bound_ms"] == pytest.approx(
+        2 * 512 ** 3 / 3 / (bounds.PEAK_F32 * 8 / bounds.SMS) * 1e3)
+    assert row["bound_ms"] < row["cluster_bound_ms"]
+    # bytes: G's upper triangle read, R and Rinv written; at r = 256 they
+    # set the whole card's bound
+    row = bounds.chol_rinv_bound(256)
+    nbytes = (256 * 257 // 2 + 2 * 256 * 256) * 4
+    assert row["bound_by"] == "bytes"
+    assert row["bound_ms"] == pytest.approx(
+        nbytes / bounds.HBM_BYTES_PER_S * 1e3)
+
