@@ -19,7 +19,13 @@ last line):
                  loaders), the route of each call asserted; chol_rinv at
                  r = 32, 96, 128, 256, 320, 512 (shared-memory route) and
                  1024 (in place), with its cluster and route per r, on a
-                 Gram of condition 1e6 and on an indefinite one; the kernel's,
+                 Gram of condition 1e6 and on an indefinite one;
+                 sketch_qrcp_ranks on 136 x 2048, 1920, 200 and 8192 (in
+                 place), 72 x 1024 (r = 64), 138 x 2048, 73 x 300, 700 x 256
+                 and 700 x 1024 (in place), zero / duplicate, NaN and inf
+                 columns and a 6-wide sketch, with its cluster and route,
+                 bitwise repeatable and rank for rank the plain version's;
+                 the kernel's,
                  the plain version's and the library call's times (CUDA
                  events, median of 20 unless a line says otherwise);
   4. main     -- block_qr(A, 128, POLICY_MIXED_FAST, mode='complete',
@@ -166,10 +172,6 @@ def main() -> int:
         panel_factor_fused,
         panel_factor_fused_plain,
     )
-    from mixedprecisionblockqr_tpu_torch.ops.kernels.sketch import (
-        sketch_qrcp_ranks,
-        sketch_qrcp_ranks_plain,
-    )
     from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
     from mixedprecisionblockqr_tpu_torch.utils.bounds import (
         chol_rinv_bound,
@@ -185,6 +187,10 @@ def main() -> int:
         gauge_deficient_system,
     )
     from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
+    from mixedprecisionblockqr_tpu_torch.utils.sketch_probe import (
+        k7_row,
+        k7_sketches,
+    )
     from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
 
     dev = torch.device("cuda", 0)
@@ -469,32 +475,22 @@ def main() -> int:
           "library_call": "torch.geqrf(P)", "inputs": k6_rows,
           "card": card})
 
-    # K7 on seeded Gaussian sketches of d = 128 + 8 at the RQRCP panels'
-    # widths, and on one with a zero column and a duplicated column.
-    sketches = {f"w{w}": torch.randn((136, w), generator=gen, device=dev)
-                for w in (2048, 1920, 200)}
-    Sz = torch.randn((136, 2048), generator=gen, device=dev)
-    Sz[:, 3] = 0.0
-    Sz[:, 7] = Sz[:, 1000]
-    sketches["zero_dup"] = Sz
-    k7_rows, k7_err = {}, 0
-    for sname, S in sketches.items():
-        rk = sketch_qrcp_ranks(S, 128)
-        rp = sketch_qrcp_ranks_plain(S, 128)
-        torch.cuda.synchronize()
-        same = bool(torch.equal(torch.argsort(rk, stable=True),
-                                torch.argsort(rp, stable=True)))
-        err = int((rk.long() - rp.long()).abs().max())
-        row = {"same_order": same, "max_abs_rank": err,
-               "ms": cuda_time_ms(lambda: sketch_qrcp_ranks(S, 128)),
-               "plain_ms": cuda_time_ms(
-                   lambda: sketch_qrcp_ranks_plain(S, 128))}
-        k7_rows[sname] = row
-        k7_err = max(k7_err, err)
-        assert same and err == 0, (sname, row)
-    emit({"phase": "kernels", "kernel": "sketch_qrcp_ranks", "d": 136,
-          "r": 128, "tolerance": "identical stable-argsort order (and "
-                                 "identical ranks)",
+    # K7 on the sketches of utils/sketch_probe.py::k7_sketches: d = 128 + 8
+    # at the RQRCP panels' widths (2048, 1920, 200), a zero and a
+    # duplicated column, at 8192 (in place), 72 x 1024 with r = 64, rows
+    # not a multiple of 4 (138 x 2048, 73 x 300), 700 rows in shared memory
+    # and in place, a NaN column, an inf entry and a 6-wide one; the ranks
+    # of two launches bitwise equal and equal to the plain version's, with
+    # each sketch's cluster and route.  The sketches past zero_dup come from
+    # a generator of their own, so that the later inputs stay as they were.
+    k7_rows = {sname: k7_row(S, r7) for sname, (S, r7) in k7_sketches(
+        gen, dev, torch.Generator(device=dev).manual_seed(1)).items()}
+    k7_err = max(row["max_abs_rank"] for row in k7_rows.values())
+    for sname, row in k7_rows.items():
+        assert row["ok"], (sname, row)
+    emit({"phase": "kernels", "kernel": "sketch_qrcp_ranks",
+          "tolerance": "ranks equal to the plain version's; two launches "
+                       "bitwise equal",
           "sketches": k7_rows, "card": card})
 
     # K5 at the proj_entry route's shape at 2048^2 g8: the second group's

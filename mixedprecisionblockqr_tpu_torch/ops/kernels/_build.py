@@ -10,6 +10,7 @@ loads the existing library.  Nothing is built at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -76,9 +77,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_panel_qr_scratch_floats.restype = ll
     lib.mpbqr_panel_qr.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.mpbqr_panel_qr.restype = ci
-    lib.mpbqr_sketch_qrcp_max_floats.argtypes = []
-    lib.mpbqr_sketch_qrcp_max_floats.restype = ci
-    lib.mpbqr_sketch_qrcp.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+    lib.mpbqr_sketch_qrcp.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                                      vp]
     lib.mpbqr_sketch_qrcp.restype = ci
     lib.mpbqr_ninv_chain_scratch_floats.argtypes = [ci]
     lib.mpbqr_ninv_chain_scratch_floats.restype = ll
@@ -121,6 +121,24 @@ def build(so: Path, flags=()) -> None:
         # libcuda at run time with dlsym (no link against it).
         _run_all([[nvcc, "-shared", "-o", lib_tmp, *objs, "-ldl"]])
         os.replace(lib_tmp, so)
+
+
+@contextlib.contextmanager
+def instrumented_library(flag: str, entry: str, nargs: int):
+    """A second kernel library, built with the macro ``flag`` (``-D...``)
+    into a temporary directory under ``_build/`` that is removed on exit,
+    with every C entry declared and the instrumented build's extra entry
+    ``entry`` (``nargs`` pointers -> CUDA error) too.  For the developer's
+    phase probes; the library that :func:`library` loads is not touched."""
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
+        so = Path(tmp) / "libmpbqr_kernels.so"
+        build(so, (flag,))
+        lib = _declare(ctypes.CDLL(str(so)))
+        fn = getattr(lib, entry)
+        fn.argtypes = [ctypes.c_void_p] * nargs
+        fn.restype = ctypes.c_int
+        yield lib
 
 
 def library() -> ctypes.CDLL:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import json
 
 from mixedprecisionblockqr_tpu_torch.ops.kernels.chol import chol_layout
+from mixedprecisionblockqr_tpu_torch.ops.kernels.sketch import sketch_layout
 
 PEAK_F32 = 67e12       # fp32 outside the tensor cores
 PEAK_BF16 = 989e12     # bf16 tensor cores
@@ -129,10 +130,20 @@ def panel_factor_bound(m, w):
                  nbytes=(3 * m * w + w * w) * 4)
 
 
-def sketch_bound(d, w, r):
+def sketch_bound(d, w, r, cluster_sms=None):
     """K7: per selection step the pivot's coefficients over the sketch and
-    the rank-1 downdate."""
-    return bound(f32_ops=r * 4 * d * w, nbytes=(d * w + w) * 4)
+    the rank-1 downdate (4 d w operations); the sketch read and the ranks
+    written once.  Beside the whole card's bound, ``cluster_bound_ms`` is
+    the bound of the ``cluster_sms`` SMs of the kernel's one thread-block
+    cluster (by default the cluster that ``sketch_layout`` gives (d, w)):
+    the same operations at that share of the fp32 peak, the bytes still at
+    the card's memory rate."""
+    if cluster_sms is None:
+        cluster_sms = sketch_layout(d, w).cluster
+    ops, nbytes = r * 4 * d * w, (d * w + w) * 4
+    one = bound(f32_ops=ops * SMS / cluster_sms, nbytes=nbytes)
+    return {**bound(f32_ops=ops, nbytes=nbytes), "cluster_sms": cluster_sms,
+            "cluster_bound_ms": one["bound_ms"]}
 
 
 def matmul_bound(m, k, n, kind, out_bytes=4):

@@ -22,8 +22,6 @@ from __future__ import annotations
 import ctypes
 import json
 import sys
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -34,17 +32,6 @@ import torch
 #: update); 100+3k / 101+3k / 102+3k the back-fill's row k (start, rows
 #: staged, end); 300 after the last barrier, 301 after the back-fill.
 _SLOTS, _DIAGS = 320, 64
-
-
-def _build(out_dir: str) -> ctypes.CDLL:
-    from mixedprecisionblockqr_tpu_torch.ops.kernels import _build as b
-
-    so = Path(out_dir) / "libmpbqr_kernels.so"
-    b.build(so, ("-DMPBQR_CHOL_PROF",))
-    lib = b._declare(ctypes.CDLL(str(so)))
-    lib.mpbqr_chol_prof.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.mpbqr_chol_prof.restype = ctypes.c_int
-    return lib
 
 
 def phases(lib: ctypes.CDLL, r: int, seed: int = 0) -> dict:
@@ -102,11 +89,12 @@ def main(argv) -> int:
         print("chol_phases: r must be a multiple of 32 up to 512 (the "
               "clock buffer's slots)", file=sys.stderr)
         return 2
-    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import BUILD_ROOT
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
+        instrumented_library,
+    )
 
-    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
-        lib = _build(tmp)
+    with instrumented_library("-DMPBQR_CHOL_PROF", "mpbqr_chol_prof",
+                              2) as lib:
         for r in sizes:
             print(json.dumps(phases(lib, r)), flush=True)
     return 0

@@ -83,6 +83,107 @@ def test_sketch_ranks_nan_column_as_the_jax_kernel():
     np.testing.assert_array_equal(_order(rank), _order(rank_j))
 
 
+def test_sketch_ranks_inf_entry_as_the_jax_kernel():
+    # An inf entry makes its column's norm inf: it is selected first, its
+    # qn is NaN in that row (inf * 0), every coefficient then NaN, and no
+    # later step selects anything.
+    a = _sketch(40, 300, seed=4)
+    a[11, 123] = np.inf
+    rank = tsk.sketch_qrcp_ranks(torch.from_numpy(a), 32).numpy()
+    rank_j = np.asarray(jax_ranks(jnp.asarray(a), 32, interpret=True))
+    assert rank[123] == 0 and (np.delete(rank, 123) == 300).all()
+    np.testing.assert_array_equal(_order(rank), _order(rank_j))
+
+
+# (d, w): the RQRCP panels' sketches (d = 128 + 8 at every panel width of
+# n = 2048, d = 64 + 8), the widest shared-memory stripe at d = 136 and
+# the first in-place one, RQRCP's first panel at n = 8192, widths below
+# the cluster's 8 CTAs, rows that are not a multiple of 4, tall sketches,
+# and the largest d and w the in-place route takes.
+LAYOUT_CASES = ([(136, w) for w in range(128, 2049, 128)]
+                + [(72, 1024), (72, 64), (136, 200), (136, 3352),
+                   (136, 3353), (136, 8192), (1, 1), (24, 3), (40, 6),
+                   (40, 7), (24, 9), (2000, 300), (138, 2048), (73, 300),
+                   (700, 256), (700, 1024), (57592, 8), (136, 459680)])
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_sketch_layout_covers_the_width(case):
+    # The rule the wrapper passes to the kernel: one cluster of at most 8
+    # CTAs whose contiguous stripes cover the w columns exactly, each CTA's
+    # shared memory within an H100 block's 232,448 bytes on the shared-
+    # memory route (the stripe's columns of 4 ceil(d / 4) floats, its norms
+    # and the pivot column), only the norms and the pivot column in place.
+    d, w = case
+    lay = tsk.sketch_layout(d, w)
+    assert 1 <= lay.cluster <= tsk.MAX_CLUSTER and lay.cluster <= w
+    assert (lay.cluster - 1) * lay.stripe < w <= lay.cluster * lay.stripe
+    ldc = 4 * -(-d // 4)
+    fixed = tsk._BASE_FLOATS + ldc + 4 * -(-lay.stripe // 4)
+    assert lay.smem_bytes <= tsk.SMEM_LIMIT
+    if lay.in_smem:
+        assert lay.smem_bytes == 4 * (fixed + lay.stripe * ldc)
+    else:
+        assert lay.smem_bytes == 4 * fixed
+        assert 4 * (fixed + lay.stripe * ldc) > tsk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("case", [(57593, 1), (57593, 8), (60000, 64),
+                                  (136, 459688), (8, 10 ** 6)])
+def test_sketch_layout_refuses_what_no_block_holds(case):
+    # Past the in-place route's own carve-out (the pivot column and the
+    # stripe's norms) no layout fits: the rule raises, naming the limit,
+    # before anything is launched.
+    with pytest.raises(ValueError, match=str(tsk.SMEM_LIMIT)):
+        tsk.sketch_layout(*case)
+
+
+def test_sketch_layout_routes():
+    # RQRCP at n = 2048: every panel's sketch in shared memory on 8 CTAs;
+    # the first panel at n = 8192 in place; fewer columns than 8 CTAs one
+    # column per CTA.
+    lay = tsk.sketch_layout(136, 2048)
+    assert lay == (8, 256, True, lay.smem_bytes) and lay.smem_bytes <= 145000
+    assert all(tsk.sketch_layout(136, w).in_smem
+               for w in range(128, 3353, 8))
+    assert not tsk.sketch_layout(136, 3353).in_smem
+    assert not tsk.sketch_layout(136, 8192).in_smem
+    assert [tuple(tsk.sketch_layout(40, w)[:2]) for w in (1, 6, 8, 9)] == [
+        (1, 1), (6, 1), (8, 1), (5, 2)]
+
+
+def test_sketch_kernel_entry_takes_the_layout():
+    # The C entry takes B, the scratch, the ranks, d, w, r, the four layout
+    # fields and the stream; nothing else sizes the launch.
+    import ctypes
+
+    from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            object.__setattr__(self, name, fn)
+            return fn
+
+    args = _build._declare(Lib()).mpbqr_sketch_qrcp.argtypes
+    assert args == [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+
+
+def test_sketch_bound_uses_the_kernels_cluster():
+    from mixedprecisionblockqr_tpu_torch.utils import bounds
+
+    row = bounds.sketch_bound(136, 2048, 128)
+    ops = 128 * 4 * 136 * 2048
+    assert row["cluster_sms"] == tsk.sketch_layout(136, 2048).cluster == 8
+    assert row["bound_ms"] == pytest.approx(ops / bounds.PEAK_F32 * 1e3)
+    assert row["cluster_bound_ms"] == pytest.approx(
+        ops / (bounds.PEAK_F32 * 8 / bounds.SMS) * 1e3)
+    assert bounds.sketch_bound(40, 6, 6)["cluster_sms"] == 6
+    assert {"cluster_sms", "cluster_bound_ms"} <= set(
+        bounds.kernel_bounds()["K7 sketch_qrcp_ranks"])
+
+
 def test_sketch_ranks_cpu_plain_and_device_guard():
     tns.reset_launches()
     tsk.sketch_qrcp_ranks(torch.from_numpy(_sketch(24, 256, 3)), 16)
