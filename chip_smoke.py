@@ -20,6 +20,11 @@ last line):
                  r = 32, 96, 128, 256, 320, 512 (shared-memory route) and
                  1024 (in place), with its cluster and route per r, on a
                  Gram of condition 1e6 and on an indefinite one;
+                 panel_factor_fused at 2048, 4096, 3072 and 2176 x 128
+                 (lstsq's panels, in shared memory), 8192 x 128 (in
+                 place), 128 x 128, 208 x 128 and 80 x 80, a zero column
+                 and a NaN, with its cluster, rows per CTA and route,
+                 bitwise repeatable;
                  sketch_qrcp_ranks on 136 x 2048, 1920, 200 and 8192 (in
                  place), 72 x 1024 (r = 64), 138 x 2048, 73 x 300, 700 x 256
                  and 700 x 1024 (in place), zero / duplicate, NaN and inf
@@ -39,18 +44,23 @@ last line):
   7. lstsq    -- the rank-revealing least-squares path: lstsq(J, -b) on a
                  4096 x 2048 gauge-deficient SLAM Jacobian (64 dependent
                  columns) reroutes to RQRCP, 16 panel_qr_fused and 16
-                 sketch_qrcp_ranks launches, checked against the float64
+                 sketch_qrcp_ranks launches, and its two Householder
+                 stages make 32 panel_factor_fused launches; checked
+                 against the float64
                  np.linalg.lstsq oracle; pivoted_qr's contract; times of
                  lstsq and of pivoted_qr_qtb's two tiers;
   8. robust   -- block_qr(A, 128, POLICY_FP32, panel_method='householder')
-                 on the 2048^2 input: the robust Householder tier;
+                 on the 2048^2 input: the robust Householder tier, 16
+                 panel_factor_fused launches, the metric triple and R
+                 against a POLICY_FP64 'householder' run (plain loop);
   9. polar    -- block_qr(A, 128, POLICY_MIXED_FAST, mode='complete',
                  panel_method='auto', quality='fast') on a 4096 x 2048 input
                  resolves to polar / g8: 16 ns_chain and 16 ninv_chain
                  launches, quality within 2x of the JAX package's;
  10. pallas   -- block_qr(A, 128, POLICY_FP32,
                  panel_method='householder_pallas') at 2048^2: 16
-                 panel_factor_fused launches, R against phase 8's;
+                 panel_factor_fused launches, R against phase 8's (K6
+                 against K6);
  11. cholqr   -- cholqr1 / cholqr2 / cholqr2s / cholqr1x2 at 2048^2 (one
                  panel_factor_fused launch each), cholqr1 scan (15
                  ninv_chain launches), and bgs1 on a 2000 x 2000 input
@@ -71,9 +81,9 @@ last line):
                  beside the same panel with cholesky_ex + solve_triangular
                  in chol_rinv's place, and matmul_bf16_accum_f32 at 2048^3.
 Then a line with every kernel's launches on its main path (phases 4-6 for
-ns_chain and bgs_group_fused, phase 7 for panel_qr_fused and
-sketch_qrcp_ranks, phase 9 for ninv_chain, phase 10 for
-panel_factor_fused, phase 13 for bgs_group_fused_proj, phase 15 for
+ns_chain and bgs_group_fused, phase 7 for panel_qr_fused,
+sketch_qrcp_ranks and panel_factor_fused, phase 9 for ninv_chain,
+phase 13 for bgs_group_fused_proj, phase 15 for
 tiled_matmul and chol_rinv; the counts are set to 0 just before each path
 and read just after), error, times and bound, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2
@@ -122,6 +132,7 @@ def main() -> int:
         return 2
     from mixedprecisionblockqr_tpu_torch import (
         POLICY_FP32,
+        POLICY_FP64,
         POLICY_MIXED,
         POLICY_MIXED_FAST,
         block_qr,
@@ -169,8 +180,7 @@ def main() -> int:
         reset_launches,
     )
     from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
-        panel_factor_fused,
-        panel_factor_fused_plain,
+        max_cluster as panel_max_cluster,
     )
     from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
     from mixedprecisionblockqr_tpu_torch.utils.bounds import (
@@ -187,6 +197,7 @@ def main() -> int:
         gauge_deficient_system,
     )
     from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
+    from mixedprecisionblockqr_tpu_torch.utils.panel_probe import k6_row
     from mixedprecisionblockqr_tpu_torch.utils.sketch_probe import (
         k7_row,
         k7_sketches,
@@ -417,13 +428,14 @@ def main() -> int:
                        "(resid < 1e-3)", "library_call": "torch.linalg.inv(S)",
           "inputs": k4_rows, "card": card})
 
-    # K6 at the paths' panel shapes: householder_pallas's first panel
-    # (2048 x 128) and square last one (128 x 128), the cholqr hybrid's
-    # tails at 2000^2 (208 x 128, 80 x 80), and a 2048 x 128 panel with a
-    # zero column and one with a NaN.  4096 x 128 (householder_pallas's
-    # first panel at 4096 x 2048) and 8192 x 128 (the wrapper's top height)
-    # exceed the cluster's shared memory: the kernel works on their rows in
-    # place in R.
+    # K6 at the paths' panel shapes (utils/panel_probe.py::k6_row):
+    # lstsq's panels (4096, 3072 and 2176 x 128 in its first stage, 2048 x
+    # 128 in both), householder_pallas's square last panel (128 x 128), the
+    # cholqr hybrid's tails at 2000^2 (208 x 128, 80 x 80), 8192 x 128 (the
+    # in-place route), and a 2048 x 128 panel with a zero column and one
+    # with a NaN.  Each row has its cluster, rows per CTA and route.  The
+    # 3072 and 2176 panels come from a generator of their own, so that the
+    # later kernels' inputs stay the draws they were.
     k6_inputs = {f"{m}x{w}": torch.rand((m, w), generator=gen, device=dev)
                  - 0.5 for m, w in ((2048, 128), (128, 128), (208, 128),
                                     (80, 80), (4096, 128), (8192, 128))}
@@ -433,45 +445,26 @@ def main() -> int:
     Pn = torch.rand((2048, 128), generator=gen, device=dev) - 0.5
     Pn[300, 9] = float("nan")
     k6_inputs["2048x128_nan"] = Pn
-
-    def finite_err(a, b):
-        """max|a - b| and max|b| over the entries finite in both."""
-        keep = torch.isfinite(a) & torch.isfinite(b)
-        return (float((a - b)[keep].abs().max()),
-                float(b[keep].abs().max()))
-
-    k6_rows, k6_err = {}, 0.0
-    for name, Pm in k6_inputs.items():
-        V, T, Rr = panel_factor_fused(Pm)
-        Vp, Tp, Rp = panel_factor_fused_plain(Pm)
-        torch.cuda.synchronize()
-        Rp = torch.triu(Rp)
-        row, ok = {}, True
-        for key, a, b in (("V", V, Vp), ("T", T, Tp), ("R", Rr, Rp)):
-            e, mx = finite_err(a, b)
-            row[f"max_abs_{key}"], row[f"lim_{key}"] = e, TOL_F32 * mx
-            ok = ok and e <= TOL_F32 * mx
-            k6_err = max(k6_err, e)
-        row["nan_in_R"] = bool(torch.isnan(Rr).any())
-        same_nan = bool(torch.equal(torch.isnan(Rr), torch.isnan(Rp)))
-        finite_vt = bool(torch.isfinite(V).all() and torch.isfinite(T).all())
-        if name.endswith("nan"):
-            ok = ok and row["nan_in_R"] and same_nan
-        else:
-            ok = ok and finite_vt and bool(torch.isfinite(Rr).all())
-        row["ok"] = ok
-        row["ms"] = cuda_time_ms(lambda: panel_factor_fused(Pm))
-        row["plain_ms"] = cuda_time_ms(lambda: panel_factor_fused_plain(Pm),
-                                       warmup=1, iters=3)
-        row["library_ms"] = cuda_time_ms(lambda: torch.geqrf(Pm))
-        k6_rows[name] = row
-        assert ok, (name, row)
+    gen6 = torch.Generator(device=dev).manual_seed(6)
+    for m in (3072, 2176):
+        k6_inputs[f"{m}x128"] = torch.rand((m, 128), generator=gen6,
+                                           device=dev) - 0.5
+    k6_rows = {name: k6_row(Pm, nan_input=name.endswith("nan"))
+               for name, Pm in k6_inputs.items()}
+    k6_err = max(max(row[f"max_abs_{x}"] for x in "VTR")
+                 for row in k6_rows.values())
+    for name, row in k6_rows.items():
+        assert row["ok"], (name, row)
+    for name in ("4096x128", "3072x128", "2176x128", "2048x128"):
+        assert k6_rows[name]["route"] == "smem", (name, k6_rows[name])
     emit({"phase": "kernels", "kernel": "panel_factor_fused",
+          "max_cluster": panel_max_cluster(dev),
           "tolerance": "V, T and R's upper triangle each within 1e-4 * "
                        "max|plain| over finite entries (the kernel writes "
                        "exact zeros below R's diagonal, the plain version "
-                       "residue); the NaN reaches R, in the plain version's "
-                       "places; plain ms: median of 3",
+                       "residue); two launches bitwise equal; the NaN "
+                       "reaches R, in the plain version's places; plain "
+                       "ms: median of 3",
           "library_call": "torch.geqrf(P)", "inputs": k6_rows,
           "card": card})
 
@@ -911,7 +904,11 @@ def main() -> int:
     x = lstsq(J, -b)
     torch.cuda.synchronize()
     c7 = dict(LAUNCHES)
+    # 16 K6 per Householder stage: block_qr_qtb's 16 panels of the
+    # 4096 x 2048 J (4096 down to 2176 rows), then lstsq_pivoted's
+    # qr(R[:1984].T), 2048 x 1984: 15 panels of 128 columns and one of 64.
     assert c7["panel_qr_fused"] == 16 and c7["sketch_qrcp_ranks"] == 16, c7
+    assert c7["panel_factor_fused"] == 32, c7
     # The same deterministic RQRCP call as inside lstsq (seed 0): its worst
     # panel residual shows that the exact fallback did not fire.
     R7, _, _, _, worst7 = pivoted._rqrcp_impl(J, -b[:, None], False, True,
@@ -959,18 +956,40 @@ def main() -> int:
           "tolerance": "rank equal, residual 1e-5 relative, x 1e-4 "
                        "relative; pivoted_qr reconstruction and "
                        "orthogonality < 5e-6", "card": card})
-    for k in ("panel_qr_fused", "sketch_qrcp_ranks"):
+    for k in ("panel_qr_fused", "sketch_qrcp_ranks", "panel_factor_fused"):
         assert c7[k] > 0, f"{k} was not launched on the lstsq path"
 
-    # 8. the robust Householder tier on the 2048^2 input
+    # 8. the robust Householder tier on the 2048^2 input: 16 K6 panels,
+    # held against the metric triple and against R of a POLICY_FP64
+    # 'householder' run on the card (float64 panels stay on panel_factor's
+    # column loop, no K6)
+    torch.cuda.synchronize()
+    reset_launches()
     Q8, R8 = block_qr(A, 128, POLICY_FP32, panel_method="householder")
+    torch.cuda.synchronize()
+    c8 = dict(LAUNCHES)
     rep8 = metrics.evaluate(A, Q8, R8, POLICY_FP32.precision_bits)
+    assert c8["panel_factor_fused"] == 16, c8
     assert rep8.all_ok and rep8.tight_ok, str(rep8)
+    reset_launches()
+    t0 = time.perf_counter()
+    R64 = block_qr(A.double(), 128, POLICY_FP64, mode="r",
+                   panel_method="householder")
+    torch.cuda.synchronize()
+    fp64_s = time.perf_counter() - t0
+    assert LAUNCHES["panel_factor_fused"] == 0, dict(LAUNCHES)
+    rel8 = float(torch.linalg.norm(R8.double() - R64)
+                 / torch.linalg.norm(R64))
+    assert rel8 <= 1e-4, rel8
     ms8 = cuda_time_ms(
         lambda: block_qr(A, 128, POLICY_FP32, panel_method="householder"),
         warmup=1, iters=5)
     emit({"phase": "robust", "call": "block_qr 2048^2 POLICY_FP32 "
-          "householder reduced", "backward": rep8.backward,
+          "householder reduced", "launches": c8,
+          "rel_R_vs_fp64_loop": rel8, "fp64_loop_seconds": fp64_s,
+          "tolerance": "metric triple all_ok and tight_ok; R within 1e-4 "
+                       "relative (Frobenius) of the POLICY_FP64 plain "
+                       "loop's", "backward": rep8.backward,
           "orthogonality": rep8.orthogonality,
           "lower_trapezoid": rep8.lower_trapezoid, "all_ok": rep8.all_ok,
           "tight_ok": rep8.tight_ok, "ms": ms8,
@@ -1011,7 +1030,9 @@ def main() -> int:
           "tflops": qr_flops(4096, 2048) / (ms9 * 1e-3) / 1e12,
           "card": card})
 
-    # 10. householder_pallas: every panel through K6
+    # 10. householder_pallas: every panel through K6.  Phase 8's
+    # 'householder' runs K6 on the card too, so R against phase 8's is K6
+    # against K6; phase 8 holds K6 against the float64 loop.
     def pallas_call(x):
         return block_qr(x, 128, POLICY_FP32, panel_method="householder_pallas")
 
@@ -1031,6 +1052,8 @@ def main() -> int:
           "backward": rep10.backward, "orthogonality": rep10.orthogonality,
           "lower_trapezoid": rep10.lower_trapezoid, "all_ok": rep10.all_ok,
           "tight_ok": rep10.tight_ok, "rel_R_vs_householder": rel10,
+          "rel_R_vs_householder_note": "K6 against K6: phase 8's "
+                                       "'householder' runs K6 on the card",
           "ms": ms10, "householder_ms": ms8,
           "tflops": qr_flops(2048, 2048) / (ms10 * 1e-3) / 1e12,
           "card": card})
@@ -1302,11 +1325,11 @@ def main() -> int:
         {"name": "panel_factor_fused", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_factor.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/panel.py:115",
-         "launches": c10["panel_factor_fused"], "max_abs_err": k6_err,
-         "ms": k6_rows["2048x128"]["ms"],
-         "plain_ms": k6_rows["2048x128"]["plain_ms"],
-         **panel_factor_bound(2048, 128),
-         "library_ms": k6_rows["2048x128"]["library_ms"]},
+         "launches": c7["panel_factor_fused"], "max_abs_err": k6_err,
+         "ms": k6_rows["4096x128"]["ms"],
+         "plain_ms": k6_rows["4096x128"]["plain_ms"],
+         **panel_factor_bound(4096, 128, k6_rows["4096x128"]["cluster"]),
+         "library_ms": k6_rows["4096x128"]["library_ms"]},
         {"name": "sketch_qrcp_ranks", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/sketch_qrcp.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/sketch.py:88",

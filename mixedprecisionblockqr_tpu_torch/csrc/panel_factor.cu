@@ -4,28 +4,49 @@
 // Replaces mixedprecisionblockqr_tpu/ops/pallas/panel.py::panel_factor_fused
 // (pl.pallas_call of _panel_kernel).  Semantics as there: unit-norm
 // reflectors with beta = 2, sign +1 when alpha >= 0, beta = 0 for a column
-// whose live norm sigma <= 1e-30, T built column by column
-// (T[:j, j] = -beta T (V^T w), T[j, j] = beta), all arithmetic true fp32.
+// whose live norm sigma <= 1e-30, T[:j, j] = -beta T (V^T w), T[j, j] =
+// beta, all arithmetic true fp32.
 //
 // The TPU kernel keeps the whole panel, V and T in VMEM for the column
-// loop.  A 2048 x 128 panel is 1 MB, far beyond one SM's 227 KB, so here a
-// thread-block cluster of up to 8 CTAs splits the panel's rows: each CTA
-// holds its rows in its own shared memory (or, when they do not fit, works
-// on them in place in R, which stays in L2), and the per-column reductions
-// -- the column norm and the dots w^T [V | P] -- are exchanged through
-// distributed shared memory with two cluster barriers per column.
-// Rank 0 also builds T in its shared memory.
-//
-// One pass over a CTA's rows gives both dot vectors of a column: V is kept
-// strictly below the diagonal of the working rows (as LAPACK does; its
-// diagonal goes to `vdiag`), so for column j, w^T work[:, k] is (V^T w)_k
-// for k < j and (w^T P)_k for k >= j.  The output R is the upper triangle
-// (exact zeros below the diagonal, where the TPU kernel leaves rounding
-// residue); a NaN in the input reaches R through the dots, as on the TPU.
+// loop.  A 4096 x 128 panel is 2 MB, far beyond one SM's 227 KB, so here a
+// thread-block cluster of up to 16 CTAs (a non-portable size) splits the
+// panel's rows: each CTA holds its rows in its own shared memory -- up to
+// 428 rows at w = 128, so 16 CTAs keep 6848 rows -- or, when they do not
+// fit, works on them in place in R, which stays in L2.  The layout rule is
+// ops/kernels/panel.py::panel_layout (128 rows per CTA aimed at, which
+// utils/panel_probe.py measured fastest); the entry below only checks that
+// a layout is one the kernel can run.  Thread (k, g) owns column k of the
+// rows g, g + 4, ... of its CTA.  Per column j:
+//   * after the first cluster barrier every warp adds the pushed (tail^2,
+//     alpha) partials of column j in a butterfly, so every thread of every
+//     CTA holds the same scalars (sigma, u, beta); one pass over the rows
+//     writes w = x / |u| and turns column j - 1 below its diagonal into V;
+//   * one pass gives the CTA's dots w^T work[:, k] for all k, in four
+//     independent partial sums per thread (fixed order: runs repeat bit for
+//     bit); the CTA pushes them into every CTA's shared memory, then the
+//     second cluster barrier;
+//   * every thread sums the pushed dots of its column itself and applies
+//     the rank-1 update to its rows, column j included, four rows at a time
+//     and with no branch per row; the squares of column j + 1 ride along,
+//     and its four threads push them for the next step.
+// V is kept strictly below the diagonal of the working rows (as LAPACK
+// does; its diagonal goes to `vdiag`), so for column j, w^T work[:, k] is
+// (V^T w)_k for k < j and (w^T P)_k for k >= j.  Nothing in the loop reads
+// T: rank 0 only stores the dots (V^T w)_k, k < j -- column j of
+// G = triu(V^T V, 1) -- in the global scratch G.  After the loop every CTA
+// copies G into its shared memory and one warp per row of T runs that
+// row's own forward recurrence T[i, j] = -beta_j sum_{i <= k < j} T[i, k]
+// G[k, j], T[i, i] = beta_i, with the rows spread over the whole cluster.
+// The output R is the upper triangle (exact zeros below the diagonal, where
+// the TPU kernel leaves rounding residue); a NaN in the input reaches R
+// through the dots, as on the TPU.
 //
 // What bounds it: the column loop is sequential (w steps, each two cluster
-// barriers and two passes over the live rows), so it is latency-bound; at
-// 2048 x 128 each CTA's 256 rows are 128 KB of shared memory.
+// barriers, two CTA barriers and two passes over the live rows), so it is
+// latency-bound, far from its 4 m w^2 fp32 operations or its bytes: at
+// 2048 x 128 on 16 CTAs a column takes about 5 us, more than half of it in
+// the two cluster barriers.  utils/panel_probe.py --phases reads the
+// phases' times from the kernel's own clock.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,180 +56,224 @@ namespace cg = cooperative_groups;
 namespace mpbqr {
 
 constexpr int kPfThreads = 512;
+constexpr int kPfWarps = kPfThreads / 32;
 constexpr int kPfCols = 128;                      // widest panel taken
 constexpr int kPfGroups = kPfThreads / kPfCols;   // row groups per column
-constexpr int kPfMaxCluster = 8;                  // portable cluster size
-constexpr int kPfRowsTarget = 256;                // rows per CTA aimed at
+constexpr int kPfMaxCluster = 16;                 // non-portable cluster
 constexpr long long kPfSmemLimit = 232448;        // bytes a block may use
+// Floats of shared memory before the reflector entries and the rows: the
+// pushed dots [16][128] and norm partials [16][4][2], the row groups' dots
+// [4][128], beta [128], V's diagonal [128] and a pad of 4.
+// ops/kernels/panel.py::_FIXED_FLOATS mirrors it.
+constexpr int kPfFixedFloats = kPfMaxCluster * kPfCols +
+                               2 * kPfMaxCluster * kPfGroups +
+                               kPfGroups * kPfCols + 2 * kPfCols + 4;
 
-// Floats of shared memory besides the working rows.
-static inline long long pf_base_floats(int w, int rows) {
-  return (long long)w * w + rows + kPfGroups * kPfCols + 2 * kPfCols +
-         2 * kPfGroups + 2 + kPfCols + 4;
+// Dynamic shared memory of a layout: the fixed carve-out, the reflector
+// entries of `rows` rows (padded to 4), and a region that holds the rows
+// (in_smem) and, after the loop, G (w x w).
+static inline long long pf_smem_bytes(int w, int rows, int in_smem) {
+  const long long region = (long long)w * w;
+  const long long held = in_smem ? (long long)rows * w : 0;
+  return 4 * (kPfFixedFloats + ((rows + 3) & ~3) +
+              (held > region ? held : region));
 }
 
-__global__ void __launch_bounds__(kPfThreads)
+// Per-CTA clock64 sums of a launch's phases, as the CTA's last thread
+// (column 127 of the last row group, live on every column) sees them,
+// compiled in only with -DMPBQR_PANEL_PROF; read by utils/panel_probe.py
+// --phases, which names the slots.
+#ifdef MPBQR_PANEL_PROF
+__device__ long long g_pf_prof[kPfMaxCluster][8];
+#define PROF_INIT long long pt = clock64(), pacc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#define PROF(s) if (t == kPfThreads - 1) { const long long c = clock64(); pacc[s] += c - pt; pt = c; }
+#define PROF_SAVE if (t == kPfThreads - 1) for (int s = 0; s < 8; ++s) g_pf_prof[rank][s] = pacc[s];
+#else
+#define PROF_INIT
+#define PROF(s)
+#define PROF_SAVE
+#endif
+
+template <bool kInSmem>
+__global__ void __launch_bounds__(kPfThreads, 1)
 panel_factor_kernel(const float* __restrict__ P, float* V, float* Tout,
-                    float* R, int m, int w, int rows, int in_smem) {
-  extern __shared__ float smem[];
+                    float* G, float* R, int m, int w, int rows) {
+  extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int csize = (int)cluster.num_blocks();
 
-  float* Tcm = smem;                       // T, column-major (rank 0)
-  float* wv = Tcm + w * w;                 // reflector entries of own rows
-  float* grp = wv + rows;                  // row-group partial dots
-  float* dpart = grp + kPfGroups * kPfCols;  // this CTA's dots (cluster)
-  float* dfull = dpart + kPfCols;          // reduced dots
-  float* npart = dfull + kPfCols;          // row-group (tail2, alpha)
-  float* nrm = npart + 2 * kPfGroups;      // this CTA's (tail2, alpha)
-  float* vdiag = nrm + 2;                  // V's diagonal
-  float* scal = vdiag + kPfCols;           // unorm, u, live, beta
+  float* rdots = smem;                              // [16][128] pushed dots
+  float* rnorm = rdots + kPfMaxCluster * kPfCols;   // [16][4] (tail^2, alpha)
+  float* grp = rnorm + 2 * kPfMaxCluster * kPfGroups;  // [4][128] group dots
+  float* betas = grp + kPfGroups * kPfCols;         // beta of each column
+  float* vdiag = betas + kPfCols;                   // V's diagonal
+  float* wv = vdiag + kPfCols + 4;                  // reflector, own rows
+  float* region = wv + ((rows + 3) & ~3);           // rows, then G
   const int r0 = rank * rows;
   const int nr = max(0, min(rows, m - r0));
-  float* work = in_smem ? scal + 4 : R + (long long)r0 * w;
+  // The route is a template argument, so that on the shared-memory route
+  // the compiler knows every access to the rows is a shared one.
+  float* work = kInSmem ? region : R + (long long)r0 * w;
 
   const int t = threadIdx.x;
   const int k = t % kPfCols, g = t / kPfCols;
+  PROF_INIT
 
   for (long long e = t; e < (long long)nr * w; e += kPfThreads)
     work[e] = P[(long long)r0 * w + e];
-  for (int e = t; e < w * w; e += kPfThreads) Tcm[e] = 0.f;
-  __syncthreads();
+  cluster.sync();  // every CTA runs before any shared memory is pushed
 
-  // Partial (sum of x_i^2 over own rows i > c, x_c if owned) of column c,
-  // by the kPfGroups threads of column c.
-  auto norm_partial = [&](int c, int lstart) {
-    float tail = 0.f, alpha = 0.f;
-    for (int li = lstart + g; li < nr; li += kPfGroups) {
-      const float v = work[(long long)li * w + c];
-      const int i = r0 + li;
-      if (i > c) tail = fmaf(v, v, tail);
-      else if (i == c) alpha = v;
-    }
-    npart[2 * g] = tail;
-    npart[2 * g + 1] = alpha;
-  };
-  auto combine_norm = [&]() {
-    if (t == 0) {
-      float a = 0.f, b = 0.f;
-      for (int q = 0; q < kPfGroups; ++q) {
-        a += npart[2 * q];
-        b += npart[2 * q + 1];
-      }
-      nrm[0] = a;
-      nrm[1] = b;
-    }
+  // A row group's (tail^2, alpha) of a column, pushed by its one thread
+  // into slot (rank, g) of every CTA, while the other threads still work.
+  auto push_norm = [&](float tail, float alpha) {
+    for (int q = 0; q < csize; ++q)
+      reinterpret_cast<float2*>(cluster.map_shared_rank(rnorm, q))
+          [rank * kPfGroups + g] = make_float2(tail, alpha);
   };
 
-  if (k == 0) norm_partial(0, 0);
-  __syncthreads();
-  combine_norm();
+  // Column 0's norm partial, by the kPfGroups threads of column 0.
+  if (k == 0) {
+    float ta = 0.f, tb = 0.f, alpha = 0.f;
+    int li = g;
+    for (; li + kPfGroups < nr; li += 2 * kPfGroups) {
+      const float v0 = work[(long long)li * w];
+      const float v1 = work[(long long)(li + kPfGroups) * w];
+      if (r0 + li > 0) ta = fmaf(v0, v0, ta); else alpha = v0;
+      tb = fmaf(v1, v1, tb);  // row r0 + li + 4 > 0
+    }
+    if (li < nr) {
+      const float v0 = work[(long long)li * w];
+      if (r0 + li > 0) ta = fmaf(v0, v0, ta); else alpha = v0;
+    }
+    push_norm(ta + tb, alpha);
+  }
 
   for (int j = 0; j < w; ++j) {
     const int lstart = max(0, j - r0);
-    cluster.sync();  // every CTA's (tail2, alpha) of column j is written
+    cluster.sync();  // every CTA's (tail^2, alpha) of column j is pushed
+    PROF(0)
+    // The column's scalars: every warp adds the csize x 4 pushed pairs in
+    // a butterfly, which leaves the same sums in every lane, warp and CTA.
+    const int lane = t & 31;
+    const float2* rn = reinterpret_cast<const float2*>(rnorm);
+    const int np = csize * kPfGroups;
+    float tail2 = lane < np ? rn[lane].x : 0.f;
+    float alpha = lane < np ? rn[lane].y : 0.f;
+    if (lane + 32 < np) {
+      tail2 += rn[lane + 32].x;
+      alpha += rn[lane + 32].y;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      tail2 += __shfl_xor_sync(0xffffffffu, tail2, o);
+      alpha += __shfl_xor_sync(0xffffffffu, alpha, o);
+    }
+    const float sigma = sqrtf(fmaf(alpha, alpha, tail2));
+    const float sgn = alpha >= 0.f ? 1.f : -1.f;
+    const float u = alpha + sgn * sigma;
+    const float unorm = sqrtf(fmaf(u, u, tail2));
+    const bool live = sigma > 1e-30f;
+    const float beta = live ? 2.f : 0.f;
     if (t == 0) {
-      float pa[kPfMaxCluster], pb[kPfMaxCluster];
-#pragma unroll
-      for (int q = 0; q < kPfMaxCluster; ++q) {
-        const float* rn = q < csize ? cluster.map_shared_rank(nrm, q) : nrm;
-        pa[q] = q < csize ? rn[0] : 0.f;
-        pb[q] = q < csize ? rn[1] : 0.f;
-      }
-      float tail2 = 0.f, alpha = 0.f;
-#pragma unroll
-      for (int q = 0; q < kPfMaxCluster; ++q) {
-        tail2 += pa[q];
-        alpha += pb[q];
-      }
-      const float sigma = sqrtf(fmaf(alpha, alpha, tail2));
-      const float sgn = alpha >= 0.f ? 1.f : -1.f;
-      const float u = alpha + sgn * sigma;
-      const float unorm = sqrtf(fmaf(u, u, tail2));
-      const bool live = sigma > 1e-30f;
-      const float beta = live ? 2.f : 0.f;
-      scal[0] = unorm;
-      scal[1] = u;
-      scal[2] = live ? 1.f : 0.f;
-      scal[3] = beta;
+      betas[j] = beta;
       vdiag[j] = live ? u / unorm : 0.f;
     }
-    __syncthreads();
-    const float unorm = scal[0], u = scal[1], beta = scal[3];
-    const bool live = scal[2] != 0.f;
+    // Column j's reflector; column j - 1 below its diagonal becomes V here
+    // (the update left its rows as it left every other column's).
     for (int li = lstart + t; li < nr; li += kPfThreads) {
       const int i = r0 + li;
-      const float x = i == j ? u : work[(long long)li * w + j];
+      float* p = work + (long long)li * w + j;
+      const float x = i == j ? u : *p;
+      if (j > 0) p[-1] = wv[li];
       wv[li] = live ? x / unorm : 0.f;
     }
     __syncthreads();
+    PROF(1)
 
-    // d_k = sum over own rows i >= j of w_i work[i, k], every k < w.
+    // d_k = sum over own rows i >= j of w_i work[i, k], every k < w, in
+    // four independent partial sums of the group's rows.
     if (k < w) {
-      float acc = 0.f;
-      for (int li = lstart + g; li < nr; li += kPfGroups)
-        acc = fmaf(wv[li], work[(long long)li * w + k], acc);
-      grp[g * kPfCols + k] = acc;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      int li = lstart + g;
+      for (; li + 3 * kPfGroups < nr; li += 4 * kPfGroups) {
+        const float* p = work + (long long)li * w + k;
+        a0 = fmaf(wv[li], p[0], a0);
+        a1 = fmaf(wv[li + kPfGroups], p[kPfGroups * w], a1);
+        a2 = fmaf(wv[li + 2 * kPfGroups], p[2 * kPfGroups * w], a2);
+        a3 = fmaf(wv[li + 3 * kPfGroups], p[3 * kPfGroups * w], a3);
+      }
+      for (; li < nr; li += kPfGroups)
+        a0 = fmaf(wv[li], work[(long long)li * w + k], a0);
+      grp[g * kPfCols + k] = (a0 + a1) + (a2 + a3);
     }
     __syncthreads();
-    if (t < w) {
-      float s = 0.f;
-      for (int q = 0; q < kPfGroups; ++q) s += grp[q * kPfCols + t];
-      dpart[t] = s;
+    PROF(2)
+    // The CTA's dots, pushed into slot `rank` of every CTA.
+    for (int e = t; e < csize * kPfCols; e += kPfThreads) {
+      const int q = e / kPfCols, kk = e % kPfCols;
+      if (kk < w) {
+        const float s = (grp[kk] + grp[kPfCols + kk]) +
+                        (grp[2 * kPfCols + kk] + grp[3 * kPfCols + kk]);
+        cluster.map_shared_rank(rdots, q)[rank * kPfCols + kk] = s;
+      }
     }
-    cluster.sync();  // every CTA's partial dots are written
-    if (t < w) {
-      float pv[kPfMaxCluster];
-#pragma unroll
-      for (int q = 0; q < kPfMaxCluster; ++q)
-        pv[q] = q < csize ? *cluster.map_shared_rank(dpart + t, q) : 0.f;
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < kPfMaxCluster; ++q) s += pv[q];
-      dfull[t] = s;
-    }
-    __syncthreads();
+    cluster.sync();  // every CTA's partial dots are pushed
+    PROF(3)
 
-    // T column j (rank 0): T[i, j] = -beta sum_{i <= k < j} T[i, k] d_k.
-    if (rank == 0 && t <= j) {
-      if (t < j) {
-        float s = 0.f;
-        for (int kk = t; kk < j; ++kk) s = fmaf(Tcm[kk * w + t], dfull[kk], s);
-        Tcm[j * w + t] = -beta * s;
-      } else {
-        Tcm[j * w + j] = beta;
-      }
-    }
-    // Rank-1 update of columns k >= j of the live rows; column j below the
-    // diagonal becomes V.  Column j + 1's norm partial rides along.
-    if (k < w && k >= j) {
-      const float dk = dfull[k];
-      float tail = 0.f, alpha = 0.f;
-      for (int li = lstart + g; li < nr; li += kPfGroups) {
-        const int i = r0 + li;
+    if (k < w && k < j && rank == 0 && g == 0) {
+      // (V^T w)_k: column j of G, stored by rank 0 for the T build.
+      float dk = 0.f;
+      for (int q = 0; q < csize; ++q) dk += rdots[q * kPfCols + k];
+      G[(long long)k * w + j] = dk;
+    } else if (k < w && k >= j) {
+      // The full dot of column k, by every thread of it in the same order.
+      float dk = 0.f;
+      for (int q = 0; q < csize; ++q) dk += rdots[q * kPfCols + k];
+      // Rank-1 update of column k over the live rows, column j included
+      // (its rows below the diagonal become V in the next step's pass).
+      // Column j + 1's norm partial rides along: every lane adds the squares
+      // of rows i >= j + 2 in two sums (cheaper than a select), and only the
+      // thread of column j + 1 pushes them; the at most one row i <= j + 1
+      // of the group comes first and gives alpha.  Four rows at a time,
+      // their loads issued before the stores.
+      const bool ncol = k == j + 1;
+      float ta = 0.f, tb = 0.f, al = 0.f;
+      constexpr int kS = kPfGroups;
+      int li = lstart + g;
+      for (; li < nr && r0 + li <= j + 1; li += kS) {
         float* p = work + (long long)li * w + k;
-        float v;
-        if (k == j && i > j) {
-          v = wv[li];
-        } else {
-          v = *p - beta * (wv[li] * dk);
-          if (k == j + 1) {
-            if (i > k) tail = fmaf(v, v, tail);
-            else if (i == k) alpha = v;
-          }
-        }
+        const float v = *p - beta * (wv[li] * dk);
         *p = v;
+        if (r0 + li == j + 1) al = v;
       }
-      if (k == j + 1) {
-        npart[2 * g] = tail;
-        npart[2 * g + 1] = alpha;
+      for (; li + 3 * kS < nr; li += 4 * kS) {
+        float* p = work + (long long)li * w + k;
+        const float x0 = p[0], x1 = p[kS * w], x2 = p[2 * kS * w],
+                    x3 = p[3 * kS * w];
+        const float w0 = wv[li], w1 = wv[li + kS], w2 = wv[li + 2 * kS],
+                    w3 = wv[li + 3 * kS];
+        const float v0 = x0 - beta * (w0 * dk), v1 = x1 - beta * (w1 * dk),
+                    v2 = x2 - beta * (w2 * dk), v3 = x3 - beta * (w3 * dk);
+        p[0] = v0;
+        p[kS * w] = v1;
+        p[2 * kS * w] = v2;
+        p[3 * kS * w] = v3;
+        ta = fmaf(v0, v0, ta);
+        tb = fmaf(v1, v1, tb);
+        ta = fmaf(v2, v2, ta);
+        tb = fmaf(v3, v3, tb);
       }
+      for (; li < nr; li += kS) {
+        float* p = work + (long long)li * w + k;
+        const float v = *p - beta * (wv[li] * dk);
+        *p = v;
+        ta = fmaf(v, v, ta);
+      }
+      if (ncol) push_norm(ta + tb, al);
     }
-    __syncthreads();
-    if (j + 1 < w) combine_norm();
+    PROF(4)
   }
-  cluster.sync();  // no CTA leaves while another may read its shared memory
 
   for (long long e = t; e < (long long)nr * w; e += kPfThreads) {
     const int li = (int)(e / w), c = (int)(e % w);
@@ -216,50 +281,146 @@ panel_factor_kernel(const float* __restrict__ P, float* V, float* Tout,
     const float v = work[e];
     const long long o = (long long)i * w + c;
     R[o] = c >= i ? v : 0.f;
-    V[o] = c < i ? v : (c == i ? vdiag[c] : 0.f);
+    // Column w - 1 below its diagonal is still its reflector in wv.
+    V[o] = c < i ? (c == w - 1 ? wv[li] : v) : (c == i ? vdiag[c] : 0.f);
   }
-  if (rank == 0)
-    for (int e = t; e < w * w; e += kPfThreads)
-      Tout[e] = Tcm[(e % w) * w + e / w];
+  __threadfence();
+  cluster.sync();  // G is complete; no CTA reads the rows any more
+  PROF(5)
+
+  // T, one warp per row i, rows spread over the cluster.  Lane l keeps the
+  // running sums acc_c = sum_{i <= k' < k} T[i, k'] G[k', j'] of columns
+  // j' = l + 32 c; at step k the owner of column k turns its sum into
+  // T[i, k] and broadcasts it.
+  for (int e = t; e < w * w; e += kPfThreads) region[e] = __ldcg(G + e);
+  __syncthreads();
+  const int lane = t & 31, warp = t >> 5;
+  for (int i = rank * kPfWarps + warp; i < w; i += csize * kPfWarps) {
+    float acc[kPfCols / 32] = {0.f, 0.f, 0.f, 0.f};
+    for (int kk = i; kk + 1 < w; ++kk) {
+      float a = acc[0];
+#pragma unroll
+      for (int c = 1; c < kPfCols / 32; ++c)
+        if ((kk >> 5) == c) a = acc[c];
+      const float mine = kk == i ? betas[i] : -betas[kk] * a;
+      const float tk = __shfl_sync(0xffffffffu, mine, kk & 31);
+      const float* grow = region + (long long)kk * w;
+#pragma unroll
+      for (int c = 0; c < kPfCols / 32; ++c) {
+        const int jp = lane + 32 * c;
+        if (jp > kk && jp < w) acc[c] = fmaf(tk, grow[jp], acc[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kPfCols / 32; ++c) {
+      const int jp = lane + 32 * c;
+      if (jp < w)
+        Tout[(long long)i * w + jp] =
+            jp < i ? 0.f : (jp == i ? betas[i] : -betas[jp] * acc[c]);
+    }
+  }
+  PROF(6)
+  PROF_SAVE
+}
+
+// Whether the layout is one the kernel runs: 1 <= w <= 128, m >= w, a
+// cluster of 1..16 CTAs whose `rows` each cover m, and `smem_bytes` equal
+// to pf_smem_bytes of the route and within the block limit.
+static bool pf_layout_ok(int m, int w, int cluster, int rows, int in_smem,
+                         int smem_bytes) {
+  if (w < 1 || w > kPfCols || m < w) return false;
+  if (cluster < 1 || cluster > kPfMaxCluster || rows < 1) return false;
+  if ((long long)cluster * rows < m) return false;
+  const long long bytes = pf_smem_bytes(w, rows, in_smem);
+  return bytes == smem_bytes && bytes <= kPfSmemLimit;
+}
+
+// The launch configuration of one cluster of `cluster` CTAs, after the
+// kernel's attributes (non-portable cluster size, `smem_bytes` of dynamic
+// shared memory) are set.
+template <bool kInSmem>
+static cudaError_t pf_config(cudaLaunchConfig_t* cfg,
+                             cudaLaunchAttribute* attr, int cluster,
+                             int smem_bytes, void* stream) {
+  auto kern = panel_factor_kernel<kInSmem>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  *cfg = {};
+  cfg->gridDim = dim3(cluster, 1, 1);
+  cfg->blockDim = dim3(kPfThreads, 1, 1);
+  cfg->dynamicSmemBytes = (size_t)smem_bytes;
+  cfg->stream = (cudaStream_t)stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace mpbqr
 
 extern "C" {
 
-// P (m x w, fp32, row-major, read only; 1 <= w <= 128, m >= w) -> V (m x w),
-// T (w x w) and R (m x w, upper triangle), all device pointers, launched on
-// `stream` as one cluster.  Returns the launch's CUDA error, or
-// cudaErrorInvalidValue for a shape the kernel does not take.
-int mpbqr_panel_factor(const float* P, float* V, float* T, float* R, int m,
-                       int w, void* stream) {
+#ifdef MPBQR_PANEL_PROF
+// Copy the phase clocks (16 x 8 signed 64-bit) to the host.
+int mpbqr_panel_prof(long long* prof) {
+  return (int)cudaMemcpyFromSymbol(prof, mpbqr::g_pf_prof,
+                                   sizeof(mpbqr::g_pf_prof));
+}
+#endif
+
+// The largest cluster (CTAs, at most 16) of which the card can place at
+// least one with `smem_bytes` of dynamic shared memory per CTA, in *out
+// (0 when not even one CTA fits).  Returns the CUDA error of the query.
+int mpbqr_panel_factor_max_cluster(int smem_bytes, int* out) {
   using namespace mpbqr;
-  if (w < 1 || w > kPfCols || m < w) return (int)cudaErrorInvalidValue;
-  int csize = (m + kPfRowsTarget - 1) / kPfRowsTarget;
-  csize = csize < 1 ? 1 : (csize > kPfMaxCluster ? kPfMaxCluster : csize);
-  const int rows = (m + csize - 1) / csize;
-  const long long base = pf_base_floats(w, rows);
-  const bool in_smem = (base + (long long)rows * w) * 4 <= kPfSmemLimit;
-  const size_t bytes = (size_t)((in_smem ? base + (long long)rows * w : base) * 4);
-  if ((long long)bytes > kPfSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      panel_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(csize, 1, 1);
-  cfg.blockDim = dim3(kPfThreads, 1, 1);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = (cudaStream_t)stream;
+  *out = 0;
+  for (int c = kPfMaxCluster; c >= 1; --c) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    cudaError_t err = pf_config<true>(&cfg, attr, c, smem_bytes, nullptr);
+    if (err != cudaSuccess) return (int)err;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, panel_factor_kernel<true>,
+                                         &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters >= 1) {
+      *out = c;
+      return 0;
+    }
+  }
+  return 0;
+}
+
+// P (m x w, fp32, row-major, read only) -> V (m x w), T (w x w) and R
+// (m x w, upper triangle); G (w x w) is scratch.  All device pointers; one
+// cluster launch on `stream` with the layout that ops/kernels/panel.py::
+// panel_layout gives: `cluster` CTAs of `rows` rows each (the last may
+// hold fewer), in shared memory when `in_smem`, else in place in R, with
+// `smem_bytes` of dynamic shared memory.  Returns cudaErrorInvalidValue
+// for a shape or layout the kernel does not run, else the launch's error.
+int mpbqr_panel_factor(const float* P, float* V, float* T, float* G,
+                       float* R, int m, int w, int cluster, int rows,
+                       int in_smem, int smem_bytes, void* stream) {
+  using namespace mpbqr;
+  if (!pf_layout_ok(m, w, cluster, rows, in_smem, smem_bytes))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = csize;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, panel_factor_kernel, P, V, T, R, m, w, rows,
-                           in_smem ? 1 : 0);
+  cudaError_t err =
+      in_smem ? pf_config<true>(&cfg, attr, cluster, smem_bytes, stream)
+              : pf_config<false>(&cfg, attr, cluster, smem_bytes, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = in_smem ? cudaLaunchKernelEx(&cfg, panel_factor_kernel<true>, P, V, T,
+                                     G, R, m, w, rows)
+                : cudaLaunchKernelEx(&cfg, panel_factor_kernel<false>, P, V,
+                                     T, G, R, m, w, rows);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

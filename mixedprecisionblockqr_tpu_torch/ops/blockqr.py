@@ -9,7 +9,8 @@
     S-inverses through ``ninv_chain`` (K4) and group-merged W-form
     reflectors: ``_block_qr_grouped``;
   * the reflector tiers of ``_block_qr_traced``: ``householder``
-    (``panel_factor``'s column loop), ``householder_pallas`` (every panel
+    (``panel_factor``'s column loop; on CUDA, fp32 panels at most 128
+    wide through K6), ``householder_pallas`` (every panel
     through ``panel_factor_fused``, K6), ``cholqr1``/``cholqr2``/
     ``cholqr2s`` (CholeskyQR panels applied through the Yamamoto
     reflector, with K6 for panels of aspect < 2 on the GPU) and the paired
@@ -64,6 +65,7 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
     tri_cholqr_robust_fused,
 )
 from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+    MAX_WIDTH as PANEL_MAX_WIDTH,
     panel_factor_fused,
 )
 from mixedprecisionblockqr_tpu_torch.ops.polar import (
@@ -574,6 +576,16 @@ def _block_qr_bgs_scan(
 
 
 
+def _householder_fused(device_type: str, dtype: torch.dtype, w: int) -> bool:
+    """Whether a ``'householder'`` panel runs K6 (``panel_factor_fused``):
+    on a CUDA device, for an fp32 panel at most ``MAX_WIDTH`` (128) wide.
+    On the CPU, and for float64 or wider panels, ``panel_factor``'s loop
+    runs, as the reference's XLA loop does on the TPU; K6's results agree
+    with that loop to fp32 summation order."""
+    return (device_type == "cuda" and dtype == torch.float32
+            and w <= PANEL_MAX_WIDTH)
+
+
 def _householder_panel(panel: torch.Tensor, policy: DTypePolicy,
                        fused: bool):
     """``(V, T, Rp)`` of one Householder panel: ``panel_factor_fused`` (K6,
@@ -598,7 +610,9 @@ def _block_qr_traced(
     returns ``(R_full (m x n), Q (m x m) or None, QtB or None)``.
 
     * ``'householder'``: each r-wide panel (the last may be narrower) by
-      ``panel_factor``'s column loop; ``'householder_pallas'``: by K6.
+      ``panel_factor``'s column loop, or by K6 where ``_householder_fused``
+      says (fp32 panels at most 128 wide on CUDA); ``'householder_pallas'``:
+      by K6.
       Trailing columns, ``B`` and Q take its compact-WY block reflector.
     * ``'cholqr1'``/``'cholqr2'``/``'cholqr2s'``: a (1-pass / 2-pass /
       shifted) CholeskyQR panel applied through the Yamamoto reflector
@@ -674,8 +688,9 @@ def _block_qr_traced(
         if pm in _CHOLQR_TIERS and (m - lam) < 2 * w:
             pm = "householder_pallas" if on_gpu else "householder"
         if pm in ("householder", "householder_pallas"):
-            V, T, Rp = _householder_panel(panel, policy,
-                                          pm == "householder_pallas")
+            fused = pm == "householder_pallas" or _householder_fused(
+                panel.device.type, panel.dtype, w)
+            V, T, Rp = _householder_panel(panel, policy, fused)
             A[lam:, lam:lam + w] = Rp
             # Rp, not only T: an input NaN may leave V and T finite.
             worst = torch.maximum(worst, (Rp * 0).sum() + (T * 0).sum())

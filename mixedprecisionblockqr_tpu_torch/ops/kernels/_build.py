@@ -84,8 +84,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_ninv_chain_scratch_floats.restype = ll
     lib.mpbqr_ninv_chain.argtypes = [vp, vp, vp, vp, ci, ci, vp]
     lib.mpbqr_ninv_chain.restype = ci
-    lib.mpbqr_panel_factor.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.mpbqr_panel_factor.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                       ci, ci, vp]
     lib.mpbqr_panel_factor.restype = ci
+    lib.mpbqr_panel_factor_max_cluster.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.mpbqr_panel_factor_max_cluster.restype = ci
     lib.mpbqr_tiled_matmul.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                        ci, vp]
     lib.mpbqr_tiled_matmul.restype = ci

@@ -10,6 +10,7 @@ computed in fp32 with TF32 off, on the device of its inputs:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -101,8 +102,10 @@ class QRReport:
         )
 
 
-def evaluate(A, Q, R, precision_bits: int = 23) -> QRReport:
-    """Compute all three metrics for a factorization A ~= Q R."""
+def evaluate(A, Q, R, precision_bits: int = 23,
+             R_has_full_rows: Optional[bool] = None) -> QRReport:
+    """Compute all three metrics for a factorization A ~= Q R.
+    ``R_has_full_rows`` is accepted and ignored, as in the JAX package."""
     A = _f32(A)
     m, n = A.shape
     return QRReport(

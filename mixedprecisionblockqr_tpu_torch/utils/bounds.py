@@ -16,6 +16,7 @@ from __future__ import annotations
 import json
 
 from mixedprecisionblockqr_tpu_torch.ops.kernels.chol import chol_layout
+from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import panel_layout
 from mixedprecisionblockqr_tpu_torch.ops.kernels.sketch import sketch_layout
 
 PEAK_F32 = 67e12       # fp32 outside the tensor cores
@@ -125,9 +126,19 @@ def householder_panel_ops(m, w):
                for j in range(w))
 
 
-def panel_factor_bound(m, w):
-    return bound(f32_ops=householder_panel_ops(m, w),
-                 nbytes=(3 * m * w + w * w) * 4)
+def panel_factor_bound(m, w, cluster_sms=None):
+    """K6: the operations of ``householder_panel_ops``; P read, V, R and T
+    written.  Beside the whole card's bound, ``cluster_bound_ms`` is the
+    bound of the ``cluster_sms`` SMs of the kernel's one thread-block
+    cluster (by default the cluster that ``panel_layout`` gives (m, w) on
+    a card that places 16): the same operations at that share of the fp32
+    peak, the bytes still at the card's memory rate."""
+    if cluster_sms is None:
+        cluster_sms = panel_layout(m, w).cluster
+    ops, nbytes = householder_panel_ops(m, w), (3 * m * w + w * w) * 4
+    one = bound(f32_ops=ops * SMS / cluster_sms, nbytes=nbytes)
+    return {**bound(f32_ops=ops, nbytes=nbytes), "cluster_sms": cluster_sms,
+            "cluster_bound_ms": one["bound_ms"]}
 
 
 def sketch_bound(d, w, r, cluster_sms=None):
@@ -192,8 +203,9 @@ def kernel_bounds():
             "shape": "2048 x 1024, g=8, bf16, 1024 previous columns",
             **group_bound(2048, 128, head, (False,) * 7 + (True,), True,
                           proj_cols=1024)},
-        "K6 panel_factor_fused": {"shape": "2048 x 128",
-                                  **panel_factor_bound(2048, 128)},
+        **{f"K6 panel_factor_fused {m}x128": {
+            "shape": f"{m} x 128", **panel_factor_bound(m, 128)}
+           for m in (2048, 2176, 3072, 4096, 8192)},
         "K7 sketch_qrcp_ranks": {"shape": "136 x 2048, 128 pivots",
                                  **sketch_bound(136, 2048, 128)},
         "K8 tiled_matmul": {"shape": "2048^3 bf16 -> f32",

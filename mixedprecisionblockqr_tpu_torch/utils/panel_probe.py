@@ -1,0 +1,200 @@
+"""K6 ``panel_factor_fused`` alone on the card, against its plain version
+and ``torch.geqrf``.
+
+    python3 -m mixedprecisionblockqr_tpu_torch.utils.panel_probe [--phases]
+
+Builds (or loads) the kernel library, then for each panel of
+:data:`PROBE_SHAPES` (uniform in [-0.5, 0.5), seeded) prints one JSON line
+from :func:`k6_row`: the layout (cluster, rows, route), whether V, T and R
+are within 1e-4 of max|plain| and two launches agree bit for bit, the
+kernel's, the plain version's and ``torch.geqrf``'s times (CUDA events,
+median of 20; the plain version's median of 3), and the bounds.  A second
+line per panel times the kernel at the other candidate layouts
+(``rows_target`` of :data:`ROWS_TARGETS`, launched through the same C entry).
+The first line is the card's name and power limit (nvidia-smi).
+``chip_smoke.py`` phase 3 runs the same rows through :func:`k6_row`.
+
+With ``--phases``, the kernel library is built a second time with
+``-DMPBQR_PANEL_PROF`` (``_build.instrumented_library``); one more launch
+per panel from it gives a line per panel: the microseconds that CTA 0's
+last thread (column 127, live on every column) spent in each phase
+(summed over the columns; the T build after the loop), at the SM clock
+that ``nvidia-smi`` reads beside it, each phase's share, and every CTA's
+microseconds.  It
+needs a CUDA device and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import torch
+
+#: Panel heights at w = 128: lstsq's panels (4096 down to 2176 rows in its
+#: first stage, 2048 and below in its second), and the in-place route.
+PROBE_SHAPES = ((2048, 128), (4096, 128), (3072, 128), (2176, 128),
+                (8192, 128))
+#: Rows per CTA the layout may aim at: 128 and 256 (16 x 128 and 8 x 256 at
+#: 2048 rows), 342 (12 x 342 at 4096) and 428 (the most a CTA holds).
+ROWS_TARGETS = (128, 256, 342, 428)
+TOL = 1e-4  # fp32 summation order only
+
+
+def _finite_err(a: torch.Tensor, b: torch.Tensor):
+    """max|a - b| and max|b| over the entries finite in both."""
+    keep = torch.isfinite(a) & torch.isfinite(b)
+    if not bool(keep.any()):
+        return 0.0, 0.0
+    return (float((a - b)[keep].abs().max()), float(b[keep].abs().max()))
+
+
+def k6_row(P: torch.Tensor, nan_input: bool = False) -> dict:
+    """K6 on ``P`` against the plain version: layout, per-output error and
+    limit, bitwise repeat, times and bounds.  ``ok`` holds when V, T and
+    R's upper triangle are within ``TOL`` * max|plain| over the entries
+    finite in both, two launches agree bit for bit, and either every
+    output is finite or (``nan_input``) the NaN reaches R in the plain
+    version's places."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        max_cluster,
+        panel_factor_fused,
+        panel_factor_fused_plain,
+        panel_layout,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.bounds import (
+        panel_factor_bound,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    m, w = P.shape
+    lay = panel_layout(m, w, max_cluster(P.device))
+    V, T, R = panel_factor_fused(P)
+    V2, T2, R2 = panel_factor_fused(P)
+    Vp, Tp, Rp = panel_factor_fused_plain(P)
+    torch.cuda.synchronize()
+    Rp = torch.triu(Rp)
+    row = {"shape": [m, w], "cluster": lay.cluster, "rows": lay.rows,
+           "route": "smem" if lay.in_smem else "in_place"}
+    ok = all(bool(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+             for a, b in ((V, V2), (T, T2), (R, R2)))
+    row["bitwise_repeatable"] = ok
+    for key, a, b in (("V", V, Vp), ("T", T, Tp), ("R", R, Rp)):
+        e, mx = _finite_err(a, b)
+        row[f"max_abs_{key}"], row[f"lim_{key}"] = e, TOL * mx
+        ok = ok and e <= TOL * mx
+    row["nan_in_R"] = bool(torch.isnan(R).any())
+    if nan_input:
+        ok = ok and row["nan_in_R"] and bool(
+            torch.equal(torch.isnan(R), torch.isnan(Rp)))
+    else:
+        ok = ok and all(bool(torch.isfinite(x).all()) for x in (V, T, R))
+    row["ok"] = ok
+    row["ms"] = cuda_time_ms(lambda: panel_factor_fused(P))
+    row["plain_ms"] = cuda_time_ms(lambda: panel_factor_fused_plain(P),
+                                   warmup=1, iters=3)
+    row["library_ms"] = cuda_time_ms(lambda: torch.geqrf(P))
+    row.update(panel_factor_bound(m, w, lay.cluster))
+    return row
+
+
+def layout_times(P: torch.Tensor) -> dict:
+    """The kernel's time (CUDA events, median of 20) at each distinct
+    layout of :data:`ROWS_TARGETS`, keyed ``"<cluster>x<rows>_<route>"``."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        _launch,
+        max_cluster,
+        panel_layout,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    lib, out = library(), {}
+    for target in ROWS_TARGETS:
+        lay = panel_layout(*P.shape, max_cluster(P.device), target)
+        name = (f"{lay.cluster}x{lay.rows}_"
+                f"{'smem' if lay.in_smem else 'in_place'}")
+        if name not in out:
+            out[name] = cuda_time_ms(lambda: _launch(lib, P, lay))
+    return out
+
+
+#: Slots of the kernel's phase clocks (csrc/panel_factor.cu, PROF), as a
+#: CTA's last thread sees them: the first cluster barrier (the wait for every row
+#: group's pushed norm partial), the scalars and w, the dot pass, the dot
+#: push and the second barrier, the update (with the norm push), the
+#: outputs' write (after the loop) and the T build.
+PHASES = {"norm_exchange": 0, "wv": 1, "dot_pass": 2,
+          "dot_exchange": 3, "update": 4, "outputs": 5, "t_build": 6}
+
+
+def _phases(lib, P: torch.Tensor, mhz: float) -> dict:
+    import numpy as np
+
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        _launch,
+        max_cluster,
+        panel_layout,
+    )
+
+    lay = panel_layout(*P.shape, max_cluster(P.device))
+    _launch(lib, P, lay)
+    torch.cuda.synchronize()
+    prof = np.zeros((16, 8), np.int64)
+    check(lib.mpbqr_panel_prof(prof.ctypes.data), "panel_prof")
+    us = {name: float(prof[0][k]) / mhz for name, k in PHASES.items()}
+    total = sum(us.values())
+    return {"cluster": lay.cluster, "rows": lay.rows, "cta0_us": us,
+            "share": {k: v / total for k, v in us.items()},
+            "per_cta_us": {name: [round(float(p[k]) / mhz, 1)
+                                  for p in prof[:lay.cluster]]
+                           for name, k in PHASES.items()}}
+
+
+def _sm_mhz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("panel_probe: no CUDA device", file=sys.stderr)
+        return 2
+    from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    _build.library()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    panels = {f"{m}x{w}": torch.rand((m, w), generator=gen, device=dev) - 0.5
+              for m, w in PROBE_SHAPES}
+    ok = True
+    for name, P in panels.items():
+        row = k6_row(P)
+        ok = ok and row["ok"]
+        print(json.dumps({"panel": name, **row}), flush=True)
+        print(json.dumps({"panel": name, "layouts_ms": layout_times(P)}),
+              flush=True)
+    if args.phases:
+        with _build.instrumented_library("-DMPBQR_PANEL_PROF",
+                                         "mpbqr_panel_prof", 1) as prof:
+            for name, P in panels.items():
+                mhz = _sm_mhz()
+                print(json.dumps({"panel": name, "sm_mhz": mhz,
+                                  **_phases(prof, P, mhz)}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -88,3 +88,103 @@ def test_panel_factor_fused_cpu_never_counts_and_rejects_others():
     assert tns.LAUNCHES["panel_factor_fused"] == 0
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tpanel.panel_factor_fused(torch.empty((64, 16), device="meta"))
+
+
+# (m, w, max_cluster) -> (cluster, rows, in_smem): 128 rows per CTA aimed
+# at, more CTAs while the rows do not fit, the in-place route past what
+# max_cluster CTAs of at most 428 rows (w = 128) hold.
+LAYOUTS = {
+    (80, 80, 8): (1, 80, True), (80, 80, 16): (1, 80, True),
+    (2048, 128, 8): (8, 256, True), (2048, 128, 16): (16, 128, True),
+    (4096, 128, 8): (8, 512, False), (4096, 128, 16): (16, 256, True),
+    (7000, 128, 8): (8, 875, False), (7000, 128, 16): (16, 438, False),
+    (8192, 128, 8): (8, 1024, False), (8192, 128, 16): (16, 512, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUTS))
+def test_panel_layout(case):
+    m, w, max_cluster = case
+    lay = tpanel.panel_layout(m, w, max_cluster)
+    assert (lay.cluster, lay.rows, lay.in_smem) == LAYOUTS[case]
+    assert lay.cluster * lay.rows >= m > (lay.cluster - 1) * lay.rows
+    assert lay.smem_bytes <= tpanel.SMEM_LIMIT == 232448
+    # The kernel's carve-out: fixed floats, the reflector entries, and the
+    # rows (shared-memory route) or at least G (w x w).
+    held = lay.rows * w if lay.in_smem else 0
+    assert lay.smem_bytes == 4 * (tpanel._FIXED_FLOATS
+                                  + -(-lay.rows // 4) * 4
+                                  + max(held, w * w))
+    if not lay.in_smem:
+        # the rows would not have fit
+        assert tpanel._smem_bytes(w, lay.rows, True) > tpanel.SMEM_LIMIT
+
+
+def test_panel_layout_rejects_what_the_kernel_does_not_take():
+    for m, w, mc in ((128, 129, 16), (64, 80, 16), (2048, 128, 17),
+                     (2048, 128, 0)):
+        with pytest.raises(ValueError, match="panel_layout"):
+            tpanel.panel_layout(m, w, mc)
+
+
+@pytest.mark.parametrize("device_type, dtype, w, fused", [
+    ("cuda", torch.float32, 128, True),
+    ("cuda", torch.float32, 64, True),
+    ("cpu", torch.float32, 128, False),
+    ("cuda", torch.float64, 128, False),
+    ("cuda", torch.float32, 129, False),
+    ("cuda", torch.bfloat16, 128, False),
+])
+def test_householder_routes_to_k6_only_for_cuda_fp32_up_to_128(
+        device_type, dtype, w, fused):
+    from mixedprecisionblockqr_tpu_torch.ops import blockqr as tbq
+    assert tbq._householder_fused(device_type, dtype, w) is fused
+
+
+def test_householder_tier_on_cpu_runs_the_plain_loop(monkeypatch):
+    # On CPU tensors 'householder' never reaches K6's wrapper: the parity
+    # tests against the reference keep the reference's column loop.
+    from mixedprecisionblockqr_tpu_torch.ops import blockqr as tbq
+
+    def no_k6(panel):
+        raise AssertionError("K6 reached on the CPU")
+
+    monkeypatch.setattr(tbq, "panel_factor_fused", no_k6)
+    A = torch.from_numpy(_panel(96, 64, 6))
+    Q, R = tbq.block_qr(A, 32, panel_method="householder")
+    assert torch.allclose(Q @ R, A, atol=1e-5)
+
+
+@pytest.mark.parametrize("m", [2048, 4096, 8192])
+def test_panel_factor_bound_uses_the_kernels_cluster(m):
+    from mixedprecisionblockqr_tpu_torch.utils import bounds
+
+    row = bounds.panel_factor_bound(m, 128)
+    assert row["cluster_sms"] == tpanel.panel_layout(m, 128).cluster == 16
+    ops = bounds.householder_panel_ops(m, 128)
+    assert row["cluster_bound_ms"] == pytest.approx(
+        ops * bounds.SMS / 16 / bounds.PEAK_F32 * 1e3, rel=1e-12)
+    assert row["bound_ms"] == pytest.approx(
+        ops / bounds.PEAK_F32 * 1e3, rel=1e-12)
+    assert bounds.panel_factor_bound(m, 128, 8)["cluster_sms"] == 8
+
+
+def test_panel_factor_entry_takes_the_layout():
+    # The C entry takes P, V, T, G (scratch), R, m, w, the layout's four
+    # numbers and the stream; the cluster query takes the shared memory
+    # size and an out pointer.
+    import ctypes
+
+    from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            object.__setattr__(self, name, fn)
+            return fn
+
+    lib = _build._declare(Lib())
+    args = lib.mpbqr_panel_factor.argtypes
+    assert args.count(ctypes.c_void_p) == 6
+    assert args.count(ctypes.c_int) == 6 and len(args) == 12
+    assert len(lib.mpbqr_panel_factor_max_cluster.argtypes) == 2

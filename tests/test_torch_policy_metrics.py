@@ -125,6 +125,24 @@ def test_evaluate_and_limits_match_jax():
         assert tmetrics.tight_limit(bits, m) == jmetrics.tight_limit(bits, m)
 
 
+@pytest.mark.parametrize("full_rows", [None, True, False])
+def test_evaluate_accepts_r_has_full_rows_like_jax(full_rows):
+    # The JAX package accepts the keyword and ignores it: the same report.
+    A, Q, R = _metric_inputs()
+    rj = jmetrics.evaluate(A, jnp.asarray(Q), jnp.asarray(R), precision_bits=8,
+                           R_has_full_rows=full_rows)
+    rt = tmetrics.evaluate(torch.from_numpy(A), torch.from_numpy(Q),
+                           torch.from_numpy(R), precision_bits=8,
+                           R_has_full_rows=full_rows)
+    plain = tmetrics.evaluate(torch.from_numpy(A), torch.from_numpy(Q),
+                              torch.from_numpy(R), precision_bits=8)
+    assert rt == plain
+    for f in ("backward", "orthogonality", "lower_trapezoid"):
+        assert getattr(rt, f) == pytest.approx(getattr(rj, f), rel=1e-5)
+    for f in ("limit", "tight", "all_ok", "tight_ok"):
+        assert getattr(rt, f) == getattr(rj, f)
+
+
 @pytest.mark.parametrize("aspect", [1, 2, 3.9, 4, 7.5, 8, 15, 16, 64])
 def test_iteration_budgets_match_jax(aspect):
     it = tpolar.tri_iters_for_aspect(aspect)
