@@ -30,6 +30,10 @@ last line):
                  and 700 x 1024 (in place), zero / duplicate, NaN and inf
                  columns and a 6-wide sketch, with its cluster and route,
                  bitwise repeatable and rank for rank the plain version's;
+                 bgs_group_fused, bgs_group_fused_proj and panel_qr_fused
+                 each launched twice and compared bit for bit, with their
+                 product layout (ops/kernels/ns.py::group_layout) and the
+                 device kernels and streams of one call (torch.profiler);
                  the kernel's,
                  the plain version's and the library call's times (CUDA
                  events, median of 20 unless a line says otherwise);
@@ -121,6 +125,22 @@ def rel_fro(a, b):
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
+def bitwise_equal(xs, ys):
+    return all(bool(torch.equal(x, y)) for x, y in zip(xs, ys))
+
+
+def device_kernels(fn):
+    """The device kernels (name -> count) and streams of one call of fn."""
+    from mixedprecisionblockqr_tpu_torch.utils.group_probe import (
+        device_breakdown,
+    )
+
+    row = device_breakdown(fn, calls=1)
+    return {"device_kernels": {k: v["count"]
+                               for k, v in row["kernels"].items()},
+            "device_events": row["device_events"], "streams": row["streams"]}
+
+
 def max_abs(a, b):
     return float((a - b).abs().max())
 
@@ -171,6 +191,7 @@ def main() -> int:
         bgs_group_fused_plain,
         bgs_group_fused_proj,
         bgs_group_fused_proj_plain,
+        group_layout,
         ninv_chain,
         ninv_chain_plain,
         ns_chain,
@@ -318,6 +339,7 @@ def main() -> int:
             robust = (False,) * 7 + (rob,)
             kw = dict(bf16_dots=bf, chain_mid=bf)
             Q, R, w = bgs_group_fused(Pg, 128, iters, robust, **kw)
+            again = bgs_group_fused(Pg, 128, iters, robust, **kw)
             Qp, Rp, wp = bgs_group_fused_plain(Pg, 128, iters, robust, **kw)
             torch.cuda.synchronize()
             # The tail panel's diagonal block alone, where the robust
@@ -325,9 +347,11 @@ def main() -> int:
             row = {"max_abs_Q": max_abs(Q, Qp), "rel_Q": rel_fro(Q, Qp),
                    "rel_R": rel_fro(R, Rp),
                    "rel_R_tail": rel_fro(R[-128:, -128:], Rp[-128:, -128:]),
-                   "resid": float(w), "resid_plain": float(wp)}
+                   "resid": float(w), "resid_plain": float(wp),
+                   "bitwise_repeatable": bitwise_equal((Q, R, w), again)}
             tol = TOL_BF16 if bf else TOL_F32
-            ok = row["rel_R"] <= tol and row["rel_R_tail"] <= tol
+            ok = (row["rel_R"] <= tol and row["rel_R_tail"] <= tol
+                  and row["bitwise_repeatable"])
             if bf:
                 ok = ok and row["rel_Q"] <= TOL_BF16
             else:
@@ -338,14 +362,18 @@ def main() -> int:
                 lambda: bgs_group_fused(Pg, 128, iters, robust, **kw))
             row["plain_ms"] = cuda_time_ms(
                 lambda: bgs_group_fused_plain(Pg, 128, iters, robust, **kw))
+            row.update(device_kernels(
+                lambda: bgs_group_fused(Pg, 128, iters, robust, **kw)))
             grp_rows[f"{'bgs1' if bf else 'bgs2'}_robust={rob}"] = row
             grp_err = max(grp_err, row["max_abs_Q"])
             assert row["ok"], (bf, rob, row)
     lib_k2 = cuda_time_ms(lambda: torch.linalg.qr(Pg))
     emit({"phase": "kernels", "kernel": "bgs_group_fused",
           "shape": [2048, 1024], "r": 128, "g": 8,
+          "layout": group_layout(2048, 128)._asdict(),
           "tolerance": "fp32 flags: max|dQ| <= 1e-4, ||dR||/||R|| <= 1e-4; "
-                       "bf16 flags: ||dQ||/||Q||, ||dR||/||R|| <= 5e-3",
+                       "bf16 flags: ||dQ||/||Q||, ||dR||/||R|| <= 5e-3; two "
+                       "launches bitwise equal",
           "configs": grp_rows, "library_call": "torch.linalg.qr(Pg)",
           "library_ms": lib_k2, "card": card})
 
@@ -361,6 +389,7 @@ def main() -> int:
     for pname, Pm in panels.items():
         for mname, kw in k3_modes.items():
             Q, t, res = panel_qr_fused(Pm, **kw)
+            again = panel_qr_fused(Pm, **kw)
             Qp, tp, resp = panel_qr_fused_plain(Pm, **kw)
             torch.cuda.synchronize()
             robust = kw.get("robust", False)
@@ -370,22 +399,25 @@ def main() -> int:
 
             eq, lim_q = max_abs(Q, Qp), TOL_F32 * float(Qp.abs().max())
             row = {"max_abs_Q": eq, "lim_Q": lim_q, "rel_t": rel_fro(t, tp),
-                   "resid": float(res), "resid_plain": float(resp)}
+                   "resid": float(res), "resid_plain": float(resp),
+                   "bitwise_repeatable": bitwise_equal((Q, t, res), again)}
             row["ok"] = (eq <= lim_q and row["rel_t"] <= TOL_F32
+                         and row["bitwise_repeatable"]
                          and canary(row["resid"]) == canary(
                              row["resid_plain"]))
             row["ms"] = cuda_time_ms(lambda: panel_qr_fused(Pm, **kw))
             row["plain_ms"] = cuda_time_ms(
                 lambda: panel_qr_fused_plain(Pm, **kw))
+            row.update(device_kernels(lambda: panel_qr_fused(Pm, **kw)))
             k3_rows[f"{pname}_{mname}"] = row
             k3_err = max(k3_err, eq)
             assert row["ok"], (pname, mname, row)
     lib_k3 = cuda_time_ms(lambda: torch.linalg.qr(Pk))
     emit({"phase": "kernels", "kernel": "panel_qr_fused",
-          "shape": [4096, 128],
+          "shape": [4096, 128], "layout": group_layout(4096, 128)._asdict(),
           "tolerance": "max|dQ| <= 1e-4 * max|Q|, ||dt||/||t|| <= 1e-4; "
                        "same canary class (0.01 resid < 1e-4 robust, "
-                       "resid^2 < 1e-4 plain)",
+                       "resid^2 < 1e-4 plain); two launches bitwise equal",
           "modes": k3_rows, "library_call": "torch.linalg.qr(P)",
           "library_ms": lib_k3, "card": card})
 
@@ -510,6 +542,8 @@ def main() -> int:
 
         Qg, Rprev, Rg, w = bgs_group_fused_proj(Pg, Qprev, 128, iters,
                                                 robust_tail, **kw)
+        again = bgs_group_fused_proj(Pg, Qprev, 128, iters, robust_tail,
+                                     **kw)
         Qp, Rprevp, Rgp, wp = bgs_group_fused_proj_plain(
             Pg, Qprev, 128, iters, robust_tail, **kw)
         torch.cuda.synchronize()
@@ -522,9 +556,11 @@ def main() -> int:
                "reconstruction": ck[0], "reconstruction_plain": cp[0],
                "orthogonality": ck[1], "orthogonality_plain": cp[1],
                "cross": ck[2], "cross_plain": cp[2],
-               "resid": float(w), "resid_plain": float(wp)}
+               "resid": float(w), "resid_plain": float(wp),
+               "bitwise_repeatable": bitwise_equal((Qg, Rprev, Rg, w), again)}
         tol = TOL_BF16 if bf else TOL_F32
-        ok = row["rel_Rprev"] <= tol and row["rel_Rg"] <= tol
+        ok = (row["rel_Rprev"] <= tol and row["rel_Rg"] <= tol
+              and row["bitwise_repeatable"])
         if bf:
             # bf16 roundings that flip between the two versions are
             # amplified by the later panels' conditioning, so Q is held
@@ -546,6 +582,8 @@ def main() -> int:
             return torch.linalg.qr(Pg - torch.matmul(Qprev.float(), C2))
 
         row["library_ms"] = cuda_time_ms(library_k5)
+        row.update(device_kernels(lambda: bgs_group_fused_proj(
+            Pg, Qprev, 128, iters, robust_tail, **kw)))
         k5_rows["bf16" if bf else "fp32"] = row
         k5_err = max(k5_err, row["max_abs_Q"])
         assert not Qprev.is_contiguous() and Qprev.stride(0) == 2048
@@ -556,8 +594,8 @@ def main() -> int:
                        "relative; bf16 (bf16 Qprev): ||dRprev||, ||dRg|| "
                        "and the first panel's ||dQ|| <= 5e-3 relative, and "
                        "reconstruction, orthogonality and |Qprev^T Qg| "
-                       "within 2x of the plain version's; plain ms: median "
-                       "of 5",
+                       "within 2x of the plain version's; two launches "
+                       "bitwise equal; plain ms: median of 5",
           "configs": k5_rows,
           "library_call": "two torch.matmul and torch.linalg.qr of the "
                           "scrubbed group", "card": card})

@@ -14,27 +14,45 @@
 //
 // The TPU kernel keeps the whole m x g*r group (8 MB at the 2048 x 1024
 // headline) and the 4 MB Rg in VMEM.  No SM holds that, so this port is one
-// C entry point that issues, on the caller's stream, a fixed sequence of
-// kernels per panel j:
-//   * the tall Gram P^T P, split over m into 256-row chunks, with a
-//     deterministic second-pass reduction (no atomics);
+// C entry point that issues a fixed sequence of kernels per panel j:
+//   * the Gram P^T P (gemm_tn of panel.cuh: one launch, its K split over
+//     the CTAs of thread-block clusters that add their tiles in rank order);
 //   * the device NS chain of ns_chain.cuh (one thread-block cluster);
-//   * Q = P X into a scratch panel, then copied into the panel's slot;
+//   * Q = P X, written in place into the panel's columns (gemm_nt: a CTA
+//     owns whole rows);
 //   * t = triu(X^T G) straight into Rg's diagonal block;
-//   * the eager projection pair G1 = Qk^T C (written to Rg's row block) and
-//     C -= Qk G1, in place over the group's remaining columns;
-//   * for robust panels, the three-pass chain of
-//     _tri_ns_panel(robust=True), spilling Q1 / Q2 through scratch panels.
-// What bounds it: at g*r <= 1024 the tall products are memory-bound
-// (each reads the m x r panel and the m x c trailing block once per
-// panel), and the r x r chains are latency-bound on one cluster.  The simple
-// tiled fp32-FMA GEMM of panel.cuh (64 x 64 tiles, bf16 rounding on load
-// when asked) keeps every product inside this repository's sources, as
-// the TPU kernel computes them in its own body.  Fusing the sequence into
-// one persistent or cluster kernel with wgmma and TMA is later work.
-// K5's scrub adds two products over the m x p prefix of previous Q, which
-// is read twice (p grows to n - g r): at p = w = 1024, m = 2048 they are
-// 8.6 GFLOP of fp32 FMA, more than twice the group body's projections.
+//   * the eager projection G1 = Qj^T C into Rg's row block and C -= Qj G1,
+//     split by columns: the narrow part, panel j+1's r columns, on the
+//     critical stream right after Q_j, and the wide part, every later
+//     column, on a second stream from an event recorded after panel j+1's
+//     Gram (so after Q_j), so that it runs under panel j+1's chain and
+//     Q = P X;
+//   * for robust panels, the three-pass chain of _tri_ns_panel(robust=True),
+//     spilling Q1 / Q2 through scratch panels.
+// What bounds it: the r x r chains are latency-bound on one cluster (~0.1
+// ms each at r = 128); the products are tens to hundreds of MFLOP each
+// (with the bf16 flags on the tensor cores), bounded by fill and latency.
+// Critical path: per panel the Gram, the chain, Q = P X and the narrow
+// projection; ~78% of the products' work (the wide projection) runs beside
+// it.
+// Streams: the critical stream has the card's highest priority and the
+// wide stream its lowest, and a wide part becomes ready together with the
+// chain it runs under, so the block scheduler places the chain's cluster
+// first instead of waiting for wide CTAs to drain.  Both streams are made
+// once per device (non-blocking, so the legacy default stream does not
+// serialize them) with their events, and the entry joins them back into
+// the caller's stream before it returns, so scratch the caller took on its
+// stream is safe.  They are shared by every call on the device: one host
+// thread at a time may call the entries on a device.
+// Ordering: the narrow projection of panel j+1 waits for the wide part of
+// panel j, which updated its columns; every column block sees its updates
+// in panel order, so every output element has the same sum in the same
+// order as in one stream.  Built with -DMPBQR_GROUP_SERIAL (a probe-only
+// build, utils/group_probe.py --serial), the same kernels run in program
+// order on the caller's stream.
+// K5's scrub adds two products over the m x p prefix of previous Q on the
+// critical stream before the group body (p grows to n - g r: at p = w =
+// 1024, m = 2048 they are 8.6 GFLOP).
 #include "panel.cuh"
 
 namespace mpbqr {
@@ -49,14 +67,12 @@ __global__ void worst_resid(const float* resid, int g, float* worst) {
 }
 
 struct GroupScratch {
-  float *comb, *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *resid,
-      *part;
+  float *comb, *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *resid;
 };
 
 static long long group_scratch_floats(int m, int r, int g, GroupScratch* s,
                                       float* base) {
   const long long rr = (long long)r * r, mr = (long long)m * r;
-  const long long w = (long long)g * r;
   long long off = 0;
   auto take = [&](float** p, long long n) {
     if (s) *p = base + off;
@@ -75,73 +91,201 @@ static long long group_scratch_floats(int m, int r, int g, GroupScratch* s,
   take(&d->tmpA, mr);
   take(&d->tmpB, mr);
   take(&d->resid, ((g + 31) / 32) * 32);
-  take(&d->part, split_count(m) * r * w);
   return off;
 }
 
+constexpr int kMaxDevices = 64;
+
+// The streams and events of one entry: the critical and wide streams, and
+// the events that order them (entry, Q_j written, wide part done, exit).
+struct GroupStreams {
+  cudaStream_t crit = nullptr, wide = nullptr;
+  cudaEvent_t in = nullptr, q = nullptr, done = nullptr, out = nullptr;
+};
+
+// The current device's streams and events, made at its first call.
+static cudaError_t group_streams(GroupStreams** out) {
+  static GroupStreams per_device[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  GroupStreams& s = per_device[dev];
+  if (s.crit == nullptr) {
+    int least = 0, greatest = 0;
+    err = cudaDeviceGetStreamPriorityRange(&least, &greatest);
+    if (err != cudaSuccess) return err;
+    GroupStreams made;
+    err = cudaStreamCreateWithPriority(&made.crit, cudaStreamNonBlocking,
+                                       greatest);
+    if (err == cudaSuccess)
+      err = cudaStreamCreateWithPriority(&made.wide, cudaStreamNonBlocking,
+                                         least);
+    for (cudaEvent_t* e : {&made.in, &made.q, &made.done, &made.out})
+      if (err == cudaSuccess)
+        err = cudaEventCreateWithFlags(e, cudaEventDisableTiming);
+    if (err != cudaSuccess) return err;
+    s = made;
+  }
+  *out = &s;
+  return cudaSuccess;
+}
+
+// Where one entry's kernels go: the critical and wide streams and their
+// events, or (serial, -DMPBQR_GROUP_SERIAL) the caller's stream for both.
+struct Sched {
+  cudaStream_t caller, crit, wide;
+  GroupStreams* gs;
+  bool serial;
+  bool wide_pending;
+
+  cudaError_t begin(cudaStream_t st) {
+    caller = crit = wide = st;
+    gs = nullptr;
+    wide_pending = false;
+#ifdef MPBQR_GROUP_SERIAL
+    serial = true;
+    return cudaSuccess;
+#else
+    serial = false;
+    cudaError_t err = group_streams(&gs);
+    if (err != cudaSuccess) return err;
+    crit = gs->crit;
+    wide = gs->wide;
+    err = cudaEventRecord(gs->in, caller);
+    if (err != cudaSuccess) return err;
+    return cudaStreamWaitEvent(crit, gs->in, 0);
+#endif
+  }
+  // Before the narrow projection: wait for the wide part of the previous
+  // panel (the latest record of `done`).
+  cudaError_t wait_wide() {
+    if (serial || !wide_pending) return cudaSuccess;
+    return cudaStreamWaitEvent(crit, gs->done, 0);
+  }
+  // The point on the critical stream after which the next wide part may
+  // run (recorded before the chain is launched, waited on after it).
+  cudaError_t mark() {
+    return serial ? cudaSuccess : cudaEventRecord(gs->q, crit);
+  }
+  cudaError_t fork() {
+    return serial ? cudaSuccess : cudaStreamWaitEvent(wide, gs->q, 0);
+  }
+  cudaError_t wide_done() {
+    if (serial) return cudaSuccess;
+    wide_pending = true;
+    return cudaEventRecord(gs->done, wide);
+  }
+  // Join the wide stream into the critical one, and that into the caller's.
+  cudaError_t end() {
+    if (serial) return cudaSuccess;
+    cudaError_t err = wait_wide();
+    if (err != cudaSuccess) return err;
+    err = cudaEventRecord(gs->out, crit);
+    if (err != cudaSuccess) return err;
+    return cudaStreamWaitEvent(caller, gs->out, 0);
+  }
+};
+
+#define MPBQR_TRY(x)                        \
+  do {                                      \
+    const cudaError_t e_ = (x);             \
+    if (e_ != cudaSuccess) return (int)e_;  \
+  } while (0)
+
 // The group body on Q (m x g*r, already scrubbed against previous groups,
 // factored in place): per panel the Gram, the chain(s), Q = P X, t into
-// Rg's diagonal block and the eager projection of the later columns; then
-// the worst residual.  Rg must be zeroed by the caller.  Returns the first
-// CUDA error met.
-static int group_body(cudaStream_t st, float* Q, float* Rg, float* worst,
+// Rg's diagonal block and the projection of the later columns, narrow on
+// the critical stream and wide beside it; then the worst residual.  Rg must
+// be zeroed first (on sc.crit).  Returns the first CUDA error met.
+static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
                       const GroupScratch& s, int m, int r, int g,
                       const int* iters, const int* robust, bool bd, bool bg,
-                      bool chain_mid) {
+                      bool chain_mid, const ProductLayout& lay) {
   const int w = g * r;
+  const cudaStream_t st = sc.crit;
   auto mid = [&](int it) {
     return chain_mid ? std::max(0, it - kMidFinal) : 0;
   };
-  cudaError_t err;
+  auto gram = [&](const float* P, int ld, float* G) {
+    return tn(st, bg, r, r, m, P, ld, P, ld, G, r, lay.split, lay.chunk);
+  };
+  // Q = P X (P with leading dimension ldp, into Qo with ldo; in place when
+  // Qo == P).
+  auto qprod = [&](const float* P, int ldp, const float* X, float* Qo,
+                   int ldo) {
+    return nt(st, bg, m, r, r, P, ldp, X, r, Qo, ldo, false, lay.bm_panel,
+              lay.bn);
+  };
+  // Panel k's wide part: G1 = Qk^T C and C -= Qk G1 over the columns
+  // after panel k+1's, on the wide stream from the last mark().
+  auto wide = [&](int k) -> cudaError_t {
+    const int c0 = k * r, cw = w - c0 - 2 * r;
+    const float* Pk = Q + c0;
+    float* C = Q + c0 + 2 * r;
+    float* G1 = Rg + (size_t)c0 * w + c0 + 2 * r;
+    cudaError_t err = sc.fork();
+    if (err == cudaSuccess)
+      err = tn(sc.wide, bd, r, cw, m, Pk, w, C, w, G1, w, lay.split,
+               lay.chunk);
+    if (err == cudaSuccess)
+      err = nt(sc.wide, bd, m, cw, r, Pk, w, G1, w, C, w, true, lay.bm_wide,
+               lay.bn);
+    if (err == cudaSuccess) err = sc.wide_done();
+    return err;
+  };
+  int pending = -1;  // the panel whose wide part is still to be issued
   for (int j = 0; j < g; ++j) {
     const int c0 = j * r;
     float* Pj = Q + c0;
     float* Rjj = Rg + (size_t)c0 * w + c0;
-    gemm(st, true, bg, r, r, m, Pj, w, Pj, w, s.G, r, false, s.part);
+    MPBQR_TRY(gram(Pj, w, s.G));
+    // The previous panel's wide part runs from this Gram on, under this
+    // panel's chain, which is issued first and has the critical stream's
+    // priority: its cluster is placed before the wide CTAs.
+    if (pending >= 0) MPBQR_TRY(sc.mark());
     if (!robust[j]) {
-      err = launch_chain(r, st, s.G, s.X1, Rjj, w, s.resid + j, iters[j],
-                         0.f, 0, mid(iters[j]), 1, 1, 1, RESID_SQUARE);
-      if (err != cudaSuccess) return (int)err;
-      gemm(st, false, bg, m, r, r, Pj, w, s.X1, r, s.tmpA, r, false, s.part);
-      err = cudaMemcpy2DAsync(Pj, sizeof(float) * w, s.tmpA,
-                              sizeof(float) * r, sizeof(float) * r, m,
-                              cudaMemcpyDeviceToDevice, st);
-      if (err != cudaSuccess) return (int)err;
+      MPBQR_TRY(launch_chain(r, st, s.G, s.X1, Rjj, w, s.resid + j, iters[j],
+                             0.f, 0, mid(iters[j]), 1, 1, 1, RESID_SQUARE));
     } else {
       // Pass 1: shifted Gram (condition capped), t1 = X1^T Gs in full.
-      err = launch_chain(r, st, s.G, s.X1, s.T1, r, s.resid + j,
-                         kRobustIt1, 1e-3f, 0, mid(kRobustIt1), 0, 1, 0,
-                         RESID_RAW);
-      if (err != cudaSuccess) return (int)err;
-      gemm(st, false, bg, m, r, r, Pj, w, s.X1, r, s.tmpA, r, false, s.part);
-      gemm(st, true, bg, r, r, m, s.tmpA, r, s.tmpA, r, s.G, r, false,
-           s.part);
+      MPBQR_TRY(launch_chain(r, st, s.G, s.X1, s.T1, r, s.resid + j,
+                             kRobustIt1, 1e-3f, 0, mid(kRobustIt1), 0, 1, 0,
+                             RESID_RAW));
+    }
+    if (pending >= 0) MPBQR_TRY(wide(pending));
+    pending = -1;
+    if (!robust[j]) {
+      MPBQR_TRY(qprod(Pj, w, s.X1, Pj, w));
+    } else {
+      MPBQR_TRY(qprod(Pj, w, s.X1, s.tmpA, r));
+      MPBQR_TRY(gram(s.tmpA, r, s.G));
       // Pass 2 on the fresh Gram of Q1, t2 = X2^T M1 in full.
-      err = launch_chain(r, st, s.G, s.X2, s.T2, r, s.resid + j,
-                         kRobustIt2, 0.f, 0, mid(kRobustIt2), 0, 1, 0,
-                         RESID_RAW);
-      if (err != cudaSuccess) return (int)err;
-      gemm(st, false, bg, m, r, r, s.tmpA, r, s.X2, r, s.tmpB, r, false,
-           s.part);
-      gemm(st, true, bg, r, r, m, s.tmpB, r, s.tmpB, r, s.G, r, false,
-           s.part);
+      MPBQR_TRY(launch_chain(r, st, s.G, s.X2, s.T2, r, s.resid + j,
+                             kRobustIt2, 0.f, 0, mid(kRobustIt2), 0, 1, 0,
+                             RESID_RAW));
+      MPBQR_TRY(qprod(s.tmpA, r, s.X2, s.tmpB, r));
+      MPBQR_TRY(gram(s.tmpB, r, s.G));
       // Pass 3: identity-seeded refine with the exact final residual.
-      err = launch_chain(r, st, s.G, s.X3, s.T3, r, s.resid + j,
-                         kRobustIt3, 0.f, 1, 0, 1, 1, 0, RESID_SCALE);
-      if (err != cudaSuccess) return (int)err;
-      gemm(st, false, bg, m, r, r, s.tmpB, r, s.X3, r, Pj, w, false, s.part);
+      MPBQR_TRY(launch_chain(r, st, s.G, s.X3, s.T3, r, s.resid + j,
+                             kRobustIt3, 0.f, 1, 0, 1, 1, 0, RESID_SCALE));
+      MPBQR_TRY(qprod(s.tmpB, r, s.X3, Pj, w));
       launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w, s.comb);
     }
-    if (j + 1 < g) {
-      const int cn = w - c0 - r;
-      float* Cp = Pj + r;
-      float* G1 = Rjj + r;
-      gemm(st, true, bd, r, cn, m, Pj, w, Cp, w, G1, w, false, s.part);
-      gemm(st, false, bd, m, cn, r, Pj, w, G1, w, Cp, w, true, s.part);
-    }
+    if (j + 1 == g) break;
+    // The narrow part, panel j+1's columns, after the wide part of panel
+    // j-1 that updated them; panel j's wide part waits for the next Gram.
+    float* Cn = Pj + r;
+    float* G1 = Rjj + r;
+    MPBQR_TRY(sc.wait_wide());
+    MPBQR_TRY(tn(st, bd, r, r, m, Pj, w, Cn, w, G1, w, lay.split, lay.chunk));
+    MPBQR_TRY(nt(st, bd, m, r, r, Pj, w, G1, w, Cn, w, true, lay.bm_panel,
+                 lay.bn));
+    if (w - c0 - 2 * r > 0) pending = j;
   }
   worst_resid<<<1, 32, 0, st>>>(s.resid, g, worst);
-  return (int)cudaGetLastError();
+  MPBQR_TRY(cudaGetLastError());
+  return (int)sc.end();
 }
 
 }  // namespace mpbqr
@@ -158,72 +302,100 @@ long long mpbqr_bgs_group_scratch_floats(int m, int r, int g) {
 // iters[j] / robust[j] are host arrays of g entries.  bf16_gram rounds the
 // Gram and Q = P X operands to bf16, bf16_dots the projection operands;
 // chain_mid runs the early chain iterations with bf16-split products.
-// Returns the first CUDA error met, or cudaErrorInvalidValue for an r the
-// chain kernel does not take.
+// split, chunk, bm_panel, bm_wide, bn: the layout of ops/kernels/ns.py::
+// group_layout(m, r).  The kernels run on the entry's own streams, joined
+// into `stream` before it returns.  Returns the first CUDA error met, or
+// cudaErrorInvalidValue for an r the chain kernel does not take or a
+// layout the products do not run.
 int mpbqr_bgs_group(const float* P, float* Q, float* Rg, float* worst,
                     float* scratch, int m, int r, int g, const int* iters,
                     const int* robust, int bf16_dots, int bf16_gram,
-                    int chain_mid, void* stream) {
+                    int chain_mid, int split, int chunk, int bm_panel,
+                    int bm_wide, int bn, void* stream) {
   using namespace mpbqr;
-  if (r != 32 && r != 64 && r != 128) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+  const ProductLayout lay{split, chunk, bm_panel, bm_wide, bn};
+  if (!product_layout_ok(m, r, lay)) return (int)cudaErrorInvalidValue;
   const int w = g * r;
   GroupScratch s;
   group_scratch_floats(m, r, g, &s, scratch);
-  cudaError_t err;
-  if (Q != P) {
-    err = cudaMemcpyAsync(Q, P, sizeof(float) * (size_t)m * w,
-                          cudaMemcpyDeviceToDevice, st);
-    if (err != cudaSuccess) return (int)err;
-  }
-  err = cudaMemsetAsync(Rg, 0, sizeof(float) * (size_t)w * w, st);
-  if (err != cudaSuccess) return (int)err;
-  return group_body(st, Q, Rg, worst, s, m, r, g, iters, robust,
-                    bf16_dots != 0, bf16_gram != 0, chain_mid != 0);
+  Sched sc;
+  MPBQR_TRY(sc.begin((cudaStream_t)stream));
+  if (Q != P)
+    MPBQR_TRY(cudaMemcpyAsync(Q, P, sizeof(float) * (size_t)m * w,
+                              cudaMemcpyDeviceToDevice, sc.crit));
+  MPBQR_TRY(cudaMemsetAsync(Rg, 0, sizeof(float) * (size_t)w * w, sc.crit));
+  return group_body(sc, Q, Rg, worst, s, m, r, g, iters, robust,
+                    bf16_dots != 0, bf16_gram != 0, chain_mid != 0, lay);
 }
 
 // K5.  P (m x g*r, fp32, raw columns, read only) and Qprev (m x p, leading
 // dimension ldq, fp32 or bf16 per qprev_bf16: the strided prefix of the
 // driver's Q buffer is read in place, bf16 widened on load) -> Q (m x g*r),
 // Rprev (p x g*r) = Qprev^T P, Rg and *worst as in mpbqr_bgs_group.
-// The scrub is block-classical: all of C2 comes from the raw P, then one
-// subtracting product Q -= Qprev C2 in place on the group buffer.  The
-// transposed product runs split-K through the same `part` scratch as the
-// group body (sized for an r-row output), so Qprev's columns are taken r
-// at a time, each block's rows going straight into Rprev.  With bf16_dots
-// both products round their operands to bf16 on load (the second one
-// rounds C2 as it reads it); Rprev keeps the unrounded fp32 C2.
+// The scrub is block-classical: all of C2 comes from the raw P (one
+// gemm_tn over m, split by scrub_split / scrub_chunk of ops/kernels/ns.py::
+// tn_split(p, g*r, m)), then one subtracting product Q -= Qprev C2 in
+// place on the group buffer, with gemm_nt's wide tile.  With bf16_dots
+// both products round their operands to bf16 as they stage them (the
+// second one rounds C2 as it reads it); Rprev keeps the unrounded fp32 C2.
 int mpbqr_bgs_group_proj(const float* P, const void* Qprev, int ldq,
                          int qprev_bf16, int p, float* Q, float* Rprev,
                          float* Rg, float* worst, float* scratch, int m,
                          int r, int g, const int* iters, const int* robust,
                          int bf16_dots, int bf16_gram, int chain_mid,
+                         int split, int chunk, int bm_panel, int bm_wide,
+                         int bn, int scrub_split, int scrub_chunk,
                          void* stream) {
   using namespace mpbqr;
-  if (r != 32 && r != 64 && r != 128) return (int)cudaErrorInvalidValue;
+  const ProductLayout lay{split, chunk, bm_panel, bm_wide, bn};
+  if (!product_layout_ok(m, r, lay)) return (int)cudaErrorInvalidValue;
   if (p < 1 || ldq < p) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+  if (scrub_split < 1 || scrub_split > kTnMaxSplit || scrub_chunk < 1 ||
+      (long long)scrub_split * scrub_chunk < m ||
+      (long long)(scrub_split - 1) * scrub_chunk >= m)
+    return (int)cudaErrorInvalidValue;
   const int w = g * r;
   GroupScratch s;
   group_scratch_floats(m, r, g, &s, scratch);
-  cudaError_t err = cudaMemcpyAsync(Q, P, sizeof(float) * (size_t)m * w,
-                                    cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(Rg, 0, sizeof(float) * (size_t)w * w, st);
-  if (err != cudaSuccess) return (int)err;
+  Sched sc;
+  MPBQR_TRY(sc.begin((cudaStream_t)stream));
+  const cudaStream_t st = sc.crit;
+  MPBQR_TRY(cudaMemcpyAsync(Q, P, sizeof(float) * (size_t)m * w,
+                            cudaMemcpyDeviceToDevice, st));
+  MPBQR_TRY(cudaMemsetAsync(Rg, 0, sizeof(float) * (size_t)w * w, st));
   const bool bd = bf16_dots != 0;
-  auto scrub = [&](auto* Qp) {
-    for (int b0 = 0; b0 < p; b0 += r)
-      gemm(st, true, bd, std::min(r, p - b0), w, m, Qp + b0, ldq, Q, w,
-           Rprev + (size_t)b0 * w, w, false, s.part);
-    gemm(st, false, bd, m, w, p, Qp, ldq, Rprev, w, Q, w, true, s.part);
+  auto scrub = [&](auto* Qp) -> cudaError_t {
+    cudaError_t err = tn(st, bd, p, w, m, Qp, ldq, Q, w, Rprev, w,
+                         scrub_split, scrub_chunk);
+    if (err != cudaSuccess) return err;
+    return nt(st, bd, m, w, p, Qp, ldq, Rprev, w, Q, w, true, lay.bm_wide,
+              lay.bn);
   };
-  if (qprev_bf16)
-    scrub(static_cast<const __nv_bfloat16*>(Qprev));
-  else
-    scrub(static_cast<const float*>(Qprev));
-  return group_body(st, Q, Rg, worst, s, m, r, g, iters, robust, bd,
-                    bf16_gram != 0, chain_mid != 0);
+  MPBQR_TRY(qprev_bf16 ? scrub(static_cast<const __nv_bfloat16*>(Qprev))
+                       : scrub(static_cast<const float*>(Qprev)));
+  return group_body(sc, Q, Rg, worst, s, m, r, g, iters, robust, bd,
+                    bf16_gram != 0, chain_mid != 0, lay);
+}
+
+// One product of the group's kinds, alone on `stream`, for the probe
+// (utils/group_probe.py): C = A^T B (ta) with gemm_tn's split / chunk, or
+// C = A B / C -= A B (sub) with gemm_nt's (bm, bn) tile; A fp32 or bf16
+// (a_bf16); bf16 rounds the operands and runs on the tensor cores.
+int mpbqr_group_product(int ta, int bf16, int M, int N, int K,
+                        const void* A, int lda, int a_bf16, const float* B,
+                        int ldb, float* C, int ldc, int sub, int split,
+                        int chunk, int bm, int bn, void* stream) {
+  using namespace mpbqr;
+  const cudaStream_t st = (cudaStream_t)stream;
+  auto run = [&](auto* Ap) -> cudaError_t {
+    if (ta)
+      return tn(st, bf16 != 0, M, N, K, Ap, lda, B, ldb, C, ldc, split,
+                chunk);
+    return nt(st, bf16 != 0, M, N, K, Ap, lda, B, ldb, C, ldc, sub != 0, bm,
+              bn);
+  };
+  return (int)(a_bf16 ? run(static_cast<const __nv_bfloat16*>(A))
+                      : run(static_cast<const float*>(A)));
 }
 
 }  // extern "C"

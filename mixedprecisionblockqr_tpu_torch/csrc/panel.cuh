@@ -1,24 +1,55 @@
 // Tall-panel pieces shared by bgs_group.cu (K2, K5) and panel_qr.cu (K3): the
-// tiled fp32-FMA GEMM with its split-K form, the deterministic split-K
-// reduction, the robust three-pass R-block combine and the panel chain
-// schedule.
+// two panel products with their launch helpers, the robust three-pass
+// R-block combine and the panel chain schedule.
 //
-// The GEMM is a simple 64 x 64-tile kernel (bf16 rounding on load when
-// asked), so every product of a panel factorization stays inside this
-// repository's sources, as the TPU kernels compute them in their own body.
-// At r <= 128 the tall products are memory-bound (each reads the m x r
-// panel once); wgmma and TMA are later work.
+// The products of a panel factorization (Grams, Q = P X, the projections
+// and K5's scrub) stay inside this repository's sources, as the TPU kernels
+// compute them in their own body.  Two kernels cover them, each in two
+// arithmetic forms chosen per call:
+//   * gemm_tn: C = A^T B with the long K (m) as the summed index: the Grams
+//     and G1 = Q^T C.  A CTA computes one 32 x 32 output tile over one chunk
+//     of K rows; its four warps take interleaved 16-row slices of every
+//     64-row stage and sum their partial tiles in warp order through shared
+//     memory.  The `split` chunks of one tile are the CTAs of one
+//     thread-block cluster along z, which add their tiles over distributed
+//     shared memory in rank order: one launch, no float atomics, no global
+//     partials, and the same bits every run.  The split is chosen in Python
+//     (ops/kernels/ns.py::tn_split) so that an r x r product runs on ~128
+//     CTAs.  Every element's sum has the same order whatever the tile's
+//     place, so a product split by output columns into two launches gives
+//     the bits of one launch.
+//   * gemm_nt: C = A B or C -= A B with the short K (r, or K5's p) summed in
+//     32-deep stages, k ascending.  A CTA owns BM whole rows of a BN-wide
+//     column block; with BN covering all of N a CTA reads only the rows it
+//     writes, and reads them all before it writes, so Q = P X runs in place
+//     on the group buffer.
+// Arithmetic: with bf16 operands asked for (bf16_dots / bf16_gram) both
+// operands are rounded to bf16 to nearest-even while they are staged into
+// shared memory (the same rounding as bf16_round and mm_bf16) and the
+// product runs on the tensor cores: mma.sync m16n8k16 bf16 -> fp32 fed by
+// ldmatrix (.trans for the k-major operands).  Each bf16 x bf16 product is
+// exact in fp32; only the order of the fp32 sum differs from an FMA loop.
+// Otherwise (Precision.HIGHEST) the product is true fp32 FMA on the CUDA
+// cores, never TF32 and never a bf16 split.  Stages are double-buffered
+// through registers (the next stage's loads are in flight while the current
+// one is multiplied): cp.async cannot convert fp32 to bf16 on the way in.
+// What bounds them: at r <= 128 each product is tens to hundreds of MFLOP,
+// below a microsecond at the bf16 rate, so launch latency and fill set
+// their time; their ~128-CTA grids keep the card's SMs busy while they run.
 #pragma once
 
 #include <algorithm>
+#include <type_traits>
 
 #include "ns_chain.cuh"
 
 namespace mpbqr {
 
-constexpr int kBM = 64, kBN = 64, kBK = 16;
-constexpr int kGemmThreads = 256;
-constexpr int kSplitRows = 256;  // m-chunk of one split-K partial
+constexpr int kGemmThreads = 128;  // four warps
+constexpr int kTnTile = 32;        // gemm_tn: square output tile
+constexpr int kTnStage = 64;       // gemm_tn: K rows per stage (16 a warp)
+constexpr int kTnMaxSplit = 8;     // gemm_tn: CTAs of one cluster
+constexpr int kNtDepth = 32;       // gemm_nt: K per stage
 // Chain schedule of a panel, the same constants as ops/kernels/ns.py
 // (MID_FINAL, ROBUST_ITERS): with chain_mid, all but the final kMidFinal
 // iterations of a non-refine chain run the bf16-split products; robust
@@ -26,104 +57,516 @@ constexpr int kSplitRows = 256;  // m-chunk of one split-K partial
 constexpr int kMidFinal = 2;
 constexpr int kRobustIt1 = 14, kRobustIt2 = 12, kRobustIt3 = 4;
 
-__device__ __forceinline__ float as_f32(float x) { return x; }
-__device__ __forceinline__ float as_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// C = op(A) @ B (sub == 0) or C -= op(A) @ B (sub == 1) for an M x N
-// output with inner dimension K; op(A) = A^T (A stored K x M) when TA.
-// A holds fp32 or bf16 (AT), widened on load.
-// With gridDim.z > 1 each z-slice takes K rows [z*kch, (z+1)*kch) and
-// writes its partial product to C + z*M*N with leading dimension N.
-template <bool TA, bool BF, typename AT>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// Four consecutive elements p[0..3] as fp32, the first `valid` of them read
+// (the rest 0); one 16-byte (fp32) or 8-byte (bf16) load when `vec` and all
+// four are valid.
+__device__ __forceinline__ void ld4(float (&v)[4], const float* p, int valid,
+                                    bool vec) {
+  if (vec && valid >= 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = i < valid ? p[i] : 0.f;
+}
+
+__device__ __forceinline__ void ld4(float (&v)[4], const __nv_bfloat16* p,
+                                    int valid, bool vec) {
+  if (vec && valid >= 4) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&x.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&x.y);
+    v[0] = __low2float(lo);
+    v[1] = __high2float(lo);
+    v[2] = __low2float(hi);
+    v[3] = __high2float(hi);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v[i] = i < valid ? __bfloat162float(p[i]) : 0.f;
+}
+
+// Four fp32 values rounded to bf16 (nearest-even) into 8 bytes of shared
+// memory (bf16 bit patterns, kept as uint16_t).
+__device__ __forceinline__ void st4_bf16(uint16_t* p, const float (&v)[4]) {
+  uint2 x;
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  x.x = *reinterpret_cast<uint32_t*>(&lo);
+  x.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = x;
+}
+
+__device__ __forceinline__ int clamp4(int n) { return n < 0 ? 0 : n; }
+
+// -- gemm_tn: C (M x N, ldc) = A^T B, A stored K x M (lda), B K x N (ldb) --
+
+template <bool BF>
+struct TnStage {
+  static constexpr int P = BF ? kTnTile + 8 : kTnTile;  // row pitch
+  using T = typename std::conditional<BF, uint16_t, float>::type;
+  T a[2][kTnStage][P];
+  T b[2][kTnStage][P];
+};
+
+template <bool BF, typename AT>
 __global__ void __launch_bounds__(kGemmThreads)
-tall_gemm(int M, int N, int K, const AT* A, int lda, const float* B,
-          int ldb, float* C, int ldc, int kch, int sub) {
-  __shared__ float As[kBK][kBM];
-  __shared__ float Bs[kBK][kBN];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int i0 = blockIdx.y * kBM, j0 = blockIdx.x * kBN;
-  const int kb = blockIdx.z * kch;
-  const int ke = min(K, kb + kch);
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+gemm_tn(int M, int N, int K, const AT* A, int lda, const float* B, int ldb,
+        float* C, int ldc, int chunk, int vec_a, int vec_b) {
+  constexpr int kRedP = kTnTile + 1;
+  constexpr int kStageBytes = (int)sizeof(TnStage<BF>);
+  constexpr int kRedBytes = 4 * kTnTile * kRedP * 4;
+  __shared__ __align__(16)
+      unsigned char raw[kStageBytes > kRedBytes ? kStageBytes : kRedBytes];
+  __shared__ float tile[kTnTile * kTnTile];
+  TnStage<BF>& s = *reinterpret_cast<TnStage<BF>*>(raw);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int i0 = blockIdx.y * kTnTile, j0 = blockIdx.x * kTnTile;
+  const int kb = blockIdx.z * chunk;
+  const int ke = min(K, kb + chunk);
 
-  for (int k0 = kb; k0 < ke; k0 += kBK) {
+  // 64 x 32 of each operand per stage: four 4-wide pieces a thread.
+  float ra[4][4], rb[4][4];
+  auto load = [&](int k0) {
 #pragma unroll
-    for (int q = 0; q < (kBM * kBK) / kGemmThreads; ++q) {
-      const int e = threadIdx.x + q * kGemmThreads;
-      int i, k;
-      if (TA) {
-        k = e / kBM;
-        i = e % kBM;
+    for (int q = 0; q < 4; ++q) {
+      const int e = t + kGemmThreads * q, row = e >> 3, c4 = (e & 7) * 4;
+      const int k = k0 + row;
+      const bool live = k < ke;
+      ld4(ra[q], live ? A + (long long)k * lda + i0 + c4 : A,
+          live ? min(4, clamp4(M - i0 - c4)) : 0, vec_a != 0);
+      ld4(rb[q], live ? B + (long long)k * ldb + j0 + c4 : B,
+          live ? min(4, clamp4(N - j0 - c4)) : 0, vec_b != 0);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int e = t + kGemmThreads * q, row = e >> 3, c4 = (e & 7) * 4;
+      if constexpr (BF) {
+        st4_bf16(&s.a[buf][row][c4], ra[q]);
+        st4_bf16(&s.b[buf][row][c4], rb[q]);
       } else {
-        i = e / kBK;
-        k = e % kBK;
+        *reinterpret_cast<float4*>(&s.a[buf][row][c4]) =
+            make_float4(ra[q][0], ra[q][1], ra[q][2], ra[q][3]);
+        *reinterpret_cast<float4*>(&s.b[buf][row][c4]) =
+            make_float4(rb[q][0], rb[q][1], rb[q][2], rb[q][3]);
       }
-      float v = 0.f;
-      if (i0 + i < M && k0 + k < ke)
-        v = as_f32(TA ? A[(long long)(k0 + k) * lda + i0 + i]
-                      : A[(long long)(i0 + i) * lda + k0 + k]);
-      As[k][i] = BF ? bf16_round(v) : v;
-      const int kk = e / kBN, j = e % kBN;
-      float w = 0.f;
-      if (j0 + j < N && k0 + kk < ke)
-        w = B[(long long)(k0 + kk) * ldb + j0 + j];
-      Bs[kk][j] = BF ? bf16_round(w) : w;
     }
-    __syncthreads();
+  };
+
+  // Accumulators: bf16 -> 2 x 4 mma tiles (rows mi*16 + g (+8), columns
+  // ni*8 + 2c (+1)); fp32 -> rows 4*(lane/4) + a, columns 8*(lane%4) + b.
+  float acc[32];
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float ra[4], rb[4];
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const int kk = 16 * warp;  // this warp's slice of every stage
+  auto compute = [&](int buf) {
+    if constexpr (BF) {
+      uint32_t af[2][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) ra[a] = As[k][ty + 16 * a];
+      for (int mi = 0; mi < 2; ++mi)
+        ldsm_x4_t(af[mi], &s.a[buf][kk + (lane & 7) + ((lane >> 4) & 1) * 8]
+                              [mi * 16 + ((lane >> 3) & 1) * 8]);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) rb[b] = Bs[k][tx + 16 * b];
+      for (int nj = 0; nj < 2; ++nj) {
+        uint32_t b[4];
+        ldsm_x4_t(b, &s.b[buf][kk + (lane & 15)][nj * 16 + (lane >> 4) * 8]);
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+        for (int mi = 0; mi < 2; ++mi) {
+          float(&c0)[4] = *reinterpret_cast<float(*)[4]>(
+              &acc[(mi * 4 + 2 * nj) * 4]);
+          float(&c1)[4] = *reinterpret_cast<float(*)[4]>(
+              &acc[(mi * 4 + 2 * nj + 1) * 4]);
+          mma_bf16(c0, af[mi], b[0], b[1]);
+          mma_bf16(c1, af[mi], b[2], b[3]);
+        }
+      }
+    } else {
+      const int ty = lane >> 2, tx = lane & 3;
 #pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(ra[a], rb[b], acc[a][b]);
+      for (int k = 0; k < 16; ++k) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            &s.a[buf][kk + k][4 * ty]);
+        const float4 b0 = *reinterpret_cast<const float4*>(
+            &s.b[buf][kk + k][8 * tx]);
+        const float4 b1 = *reinterpret_cast<const float4*>(
+            &s.b[buf][kk + k][8 * tx + 4]);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+          for (int y = 0; y < 8; ++y)
+            acc[x * 8 + y] = fmaf(av[x], bv[y], acc[x * 8 + y]);
+      }
     }
-    __syncthreads();
+  };
+
+  int buf = 0;
+  load(kb);
+  store(0);
+  __syncthreads();
+  for (int k0 = kb; k0 < ke; k0 += kTnStage) {
+    const bool next = k0 + kTnStage < ke;
+    if (next) load(k0 + kTnStage);
+    compute(buf);
+    if (next) {
+      store(buf ^ 1);
+      __syncthreads();
+      buf ^= 1;
+    }
   }
-  float* out = C;
-  int ld = ldc;
-  if (gridDim.z > 1) {
-    out = C + (long long)blockIdx.z * M * N;
-    ld = N;
+  __syncthreads();  // the stage buffers become the warps' partial tiles
+
+  float* red = reinterpret_cast<float*>(raw);
+  float* mine = red + warp * kTnTile * kRedP;
+  if constexpr (BF) {
+    const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const float* v = &acc[(mi * 4 + ni) * 4];
+        const int i = mi * 16 + g, j = ni * 8 + 2 * c;
+        mine[i * kRedP + j] = v[0];
+        mine[i * kRedP + j + 1] = v[1];
+        mine[(i + 8) * kRedP + j] = v[2];
+        mine[(i + 8) * kRedP + j + 1] = v[3];
+      }
+  } else {
+    const int ty = lane >> 2, tx = lane & 3;
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 8; ++y)
+        mine[(4 * ty + x) * kRedP + 8 * tx + y] = acc[x * 8 + y];
   }
+  __syncthreads();
+  const int S = (int)gridDim.z;
+  for (int e = t; e < kTnTile * kTnTile; e += kGemmThreads) {
+    const int i = e >> 5, j = e & 31, o = i * kRedP + j;
+    const int W = kTnTile * kRedP;
+    const float v = ((red[o] + red[W + o]) + red[2 * W + o]) + red[3 * W + o];
+    if (S == 1) {
+      if (i0 + i < M && j0 + j < N) C[(long long)(i0 + i) * ldc + j0 + j] = v;
+    } else {
+      tile[e] = v;
+    }
+  }
+  if (S == 1) return;
+  // The cluster's S partial tiles, added in rank order: rank q finishes
+  // every element e with (e / 128) % S == q.
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int q = (int)cluster.block_rank();
+  for (int e = q * kGemmThreads + t; e < kTnTile * kTnTile;
+       e += S * kGemmThreads) {
+    float v = *cluster.map_shared_rank(tile + e, 0);
+    for (int p = 1; p < S; ++p) v += *cluster.map_shared_rank(tile + e, p);
+    const int i = e >> 5, j = e & 31;
+    if (i0 + i < M && j0 + j < N) C[(long long)(i0 + i) * ldc + j0 + j] = v;
+  }
+  cluster.sync();  // no CTA leaves while another reads its tile
+}
+
+// -- gemm_nt: C (M x N, ldc) = / -= A B, A M x K (lda), B K x N (ldb) -----
+
+// Warps of a BM x BN tile: four along N when BN >= 64, else two by two.
+template <int BM, int BN>
+struct NtShape {
+  static constexpr int WN = BN >= 64 ? 4 : 2, WM = 4 / WN;
+  static constexpr int MI = BM / WM / 16, NI = BN / WN / 8;  // mma tiles
+  static constexpr int TX = BN / 4, TY = kGemmThreads / TX;  // fp32 threads
+  static constexpr int RM = BM / TY;                         // fp32 rows
+  static constexpr int QA = BM * kNtDepth / 4 / kGemmThreads;
+  static constexpr int QB = BN * kNtDepth / 4 / kGemmThreads;
+  static_assert(MI >= 1 && NI % 2 == 0 && RM >= 1, "tile too small");
+};
+
+template <int BM, int BN, bool BF>
+struct NtStage;
+template <int BM, int BN>
+struct NtStage<BM, BN, true> {
+  uint16_t a[2][BM][kNtDepth + 8];  // bf16, m-major: ldmatrix
+  uint16_t b[2][kNtDepth][BN + 8];  // bf16, k-major: ldmatrix.trans
+};
+template <int BM, int BN>
+struct NtStage<BM, BN, false> {
+  float a[1][kNtDepth][BM];  // k-major for broadcast reads
+  float b[1][kNtDepth][BN];
+};
+
+template <int BM, int BN, bool BF, typename AT>
+__global__ void __launch_bounds__(kGemmThreads)
+gemm_nt(int M, int N, int K, const AT* A, int lda, const float* B, int ldb,
+        float* C, int ldc, int sub, int vec_a, int vec_b, int vec_c) {
+  using Sh = NtShape<BM, BN>;
+  __shared__ __align__(16) NtStage<BM, BN, BF> s;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
+
+  float ra[Sh::QA][4], rb[Sh::QB][4];
+  auto load = [&](int k0) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + 16 * a;
-    if (i >= M) continue;
+    for (int q = 0; q < Sh::QA; ++q) {
+      const int e = t + kGemmThreads * q, row = e >> 3, c4 = (e & 7) * 4;
+      const bool live = i0 + row < M;
+      ld4(ra[q], live ? A + (long long)(i0 + row) * lda + k0 + c4 : A,
+          live ? min(4, clamp4(K - k0 - c4)) : 0, vec_a != 0);
+    }
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = j0 + tx + 16 * b;
-      if (j >= N) continue;
-      float* p = out + (long long)i * ld + j;
-      if (sub && gridDim.z == 1)
-        *p -= acc[a][b];
+    for (int q = 0; q < Sh::QB; ++q) {
+      const int e = t + kGemmThreads * q;
+      const int row = e / (BN / 4), c4 = (e % (BN / 4)) * 4;
+      const bool live = k0 + row < K;
+      ld4(rb[q], live ? B + (long long)(k0 + row) * ldb + j0 + c4 : B,
+          live ? min(4, clamp4(N - j0 - c4)) : 0, vec_b != 0);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < Sh::QA; ++q) {
+      const int e = t + kGemmThreads * q, row = e >> 3, c4 = (e & 7) * 4;
+      if constexpr (BF) {
+        st4_bf16(&s.a[buf][row][c4], ra[q]);
+      } else {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) s.a[0][c4 + x][row] = ra[q][x];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < Sh::QB; ++q) {
+      const int e = t + kGemmThreads * q;
+      const int row = e / (BN / 4), c4 = (e % (BN / 4)) * 4;
+      if constexpr (BF)
+        st4_bf16(&s.b[buf][row][c4], rb[q]);
       else
-        *p = acc[a][b];
+        *reinterpret_cast<float4*>(&s.b[0][row][c4]) =
+            make_float4(rb[q][0], rb[q][1], rb[q][2], rb[q][3]);
     }
+  };
+
+  constexpr int kAcc = BF ? Sh::MI * Sh::NI * 4 : Sh::RM * 4;
+  float acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  const int wm0 = (warp / Sh::WN) * (BM / Sh::WM);
+  const int wn0 = (warp % Sh::WN) * (BN / Sh::WN);
+  const int tx = t % Sh::TX, ty = t / Sh::TX;
+  auto compute = [&](int buf) {
+    if constexpr (BF) {
+#pragma unroll
+      for (int ks = 0; ks < kNtDepth; ks += 16) {
+        uint32_t af[Sh::MI][4];
+#pragma unroll
+        for (int mi = 0; mi < Sh::MI; ++mi)
+          ldsm_x4(af[mi], &s.a[buf][wm0 + mi * 16 + (lane & 15)]
+                              [ks + (lane >> 4) * 8]);
+#pragma unroll
+        for (int nj = 0; nj < Sh::NI / 2; ++nj) {
+          uint32_t b[4];
+          ldsm_x4_t(b, &s.b[buf][ks + (lane & 15)]
+                           [wn0 + nj * 16 + (lane >> 4) * 8]);
+#pragma unroll
+          for (int mi = 0; mi < Sh::MI; ++mi) {
+            float(&c0)[4] = *reinterpret_cast<float(*)[4]>(
+                &acc[(mi * Sh::NI + 2 * nj) * 4]);
+            float(&c1)[4] = *reinterpret_cast<float(*)[4]>(
+                &acc[(mi * Sh::NI + 2 * nj + 1) * 4]);
+            mma_bf16(c0, af[mi], b[0], b[1]);
+            mma_bf16(c1, af[mi], b[2], b[3]);
+          }
+        }
+      }
+    } else {
+#pragma unroll 8
+      for (int k = 0; k < kNtDepth; ++k) {
+        float bv[4];
+#pragma unroll
+        for (int y = 0; y < 4; ++y) bv[y] = s.b[0][k][tx + Sh::TX * y];
+#pragma unroll
+        for (int x = 0; x < Sh::RM; ++x) {
+          const float av = s.a[0][k][ty + Sh::TY * x];
+#pragma unroll
+          for (int y = 0; y < 4; ++y)
+            acc[x * 4 + y] = fmaf(av, bv[y], acc[x * 4 + y]);
+        }
+      }
+    }
+  };
+
+  // bf16: two stage buffers; fp32: one (the next stage waits in registers
+  // until every warp has read the current one).
+  int buf = 0;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int k0 = 0; k0 < K; k0 += kNtDepth) {
+    const bool next = k0 + kNtDepth < K;
+    if (next) load(k0 + kNtDepth);
+    compute(buf);
+    if (next) {
+      if constexpr (BF) {
+        store(buf ^ 1);
+        buf ^= 1;
+      } else {
+        __syncthreads();
+        store(0);
+      }
+      __syncthreads();
+    }
+  }
+
+  auto put = [&](int i, int j, float v) {
+    if (i < M && j < N) {
+      float* p = C + (long long)i * ldc + j;
+      *p = sub ? *p - v : v;
+    }
+  };
+  if constexpr (BF) {
+    const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+    for (int mi = 0; mi < Sh::MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < Sh::NI; ++ni) {
+        const float* v = &acc[(mi * Sh::NI + ni) * 4];
+        const int j = j0 + wn0 + ni * 8 + 2 * c;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = i0 + wm0 + mi * 16 + g + 8 * h;
+          if (vec_c && i < M && j + 1 < N) {
+            float2* p = reinterpret_cast<float2*>(C + (long long)i * ldc + j);
+            float2 o = sub ? *p : make_float2(0.f, 0.f);
+            o.x = sub ? o.x - v[2 * h] : v[2 * h];
+            o.y = sub ? o.y - v[2 * h + 1] : v[2 * h + 1];
+            *p = o;
+          } else {
+            put(i, j, v[2 * h]);
+            put(i, j + 1, v[2 * h + 1]);
+          }
+        }
+      }
+  } else {
+#pragma unroll
+    for (int x = 0; x < Sh::RM; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y)
+        put(i0 + ty + Sh::TY * x, j0 + tx + Sh::TX * y, acc[x * 4 + y]);
   }
 }
 
-// C[i, j] = sum over s (in order) of part[s, i, j]: the deterministic
-// second pass of a split-K product.
-static __global__ void splitk_reduce(const float* part, int S, int M,
-                                     int N, float* C, int ldc) {
-  const long long n = (long long)M * N;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n;
-       e += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < S; ++z) s += part[z * n + e];
-    C[(e / N) * ldc + e % N] = s;
+// -- launch helpers ------------------------------------------------------
+
+template <typename T>
+static inline bool aligned_rows(const T* p, int ld, int elems) {
+  return ld % elems == 0 &&
+         reinterpret_cast<uintptr_t>(p) % (sizeof(T) * elems) == 0;
+}
+
+// C = A^T B (gemm_tn): `split` CTAs of one cluster share each 32 x 32
+// tile's K, in chunks of `chunk` rows (ops/kernels/ns.py::tn_split).
+template <typename AT>
+static inline cudaError_t tn(cudaStream_t st, bool bf, int M, int N, int K,
+                             const AT* A, int lda, const float* B, int ldb,
+                             float* C, int ldc, int split, int chunk) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+  if (split < 1 || split > kTnMaxSplit || chunk < 1 ||
+      (long long)split * chunk < K)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + kTnTile - 1) / kTnTile, (M + kTnTile - 1) / kTnTile,
+                     split);
+  cfg.blockDim = dim3(kGemmThreads, 1, 1);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int va = aligned_rows(A, lda, 4), vb = aligned_rows(B, ldb, 4);
+  return bf ? cudaLaunchKernelEx(&cfg, gemm_tn<true, AT>, M, N, K, A, lda, B,
+                                 ldb, C, ldc, chunk, va, vb)
+            : cudaLaunchKernelEx(&cfg, gemm_tn<false, AT>, M, N, K, A, lda, B,
+                                 ldb, C, ldc, chunk, va, vb);
+}
+
+template <int BM, int BN, typename AT>
+static inline cudaError_t nt_launch(cudaStream_t st, bool bf, int M, int N,
+                                    int K, const AT* A, int lda,
+                                    const float* B, int ldb, float* C,
+                                    int ldc, bool sub) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, 1);
+  cfg.blockDim = dim3(kGemmThreads, 1, 1);
+  cfg.stream = st;
+  const int va = aligned_rows(A, lda, 4), vb = aligned_rows(B, ldb, 4);
+  const int vc = aligned_rows(C, ldc, 2);
+  return bf ? cudaLaunchKernelEx(&cfg, gemm_nt<BM, BN, true, AT>, M, N, K, A,
+                                 lda, B, ldb, C, ldc, (int)sub, va, vb, vc)
+            : cudaLaunchKernelEx(&cfg, gemm_nt<BM, BN, false, AT>, M, N, K,
+                                 A, lda, B, ldb, C, ldc, (int)sub, va, vb,
+                                 vc);
+}
+
+// The (bm, bn) tiles gemm_nt is built for: bn is the panel width r (at most
+// 128), bm the small tile of the r-wide products or the 64-row tile of the
+// wide ones (ops/kernels/ns.py::NT_SMALL_BM, NT_WIDE_BM).
+static inline bool nt_tile_ok(int bm, int bn) {
+  switch (bn) {
+    case 128:
+    case 64: return bm == 16 || bm == 64;
+    case 32: return bm == 32 || bm == 64;
+    default: return false;
   }
+}
+
+// C = A B (sub == false) or C -= A B with the (bm, bn) tile.  A in place of
+// C (Q = P X) needs bn >= N: every CTA then reads only the rows it writes.
+template <typename AT>
+static inline cudaError_t nt(cudaStream_t st, bool bf, int M, int N, int K,
+                             const AT* A, int lda, const float* B, int ldb,
+                             float* C, int ldc, bool sub, int bm, int bn) {
+  if (M <= 0 || N <= 0) return cudaSuccess;
+#define MPBQR_NT(BM, BN)                                                     \
+  if (bm == BM && bn == BN)                                                  \
+    return nt_launch<BM, BN, AT>(st, bf, M, N, K, A, lda, B, ldb, C, ldc, sub)
+  MPBQR_NT(16, 128);
+  MPBQR_NT(64, 128);
+  MPBQR_NT(16, 64);
+  MPBQR_NT(64, 64);
+  MPBQR_NT(32, 32);
+  MPBQR_NT(64, 32);
+#undef MPBQR_NT
+  return cudaErrorInvalidValue;
 }
 
 // out = triu(T3 @ (T2 @ T1)) with leading dimension ldo: the robust
@@ -144,40 +587,6 @@ tri_combine(const float* T1, const float* T2, const float* T3, float* out,
   }
 }
 
-static inline long long split_count(int m) {
-  return (m + kSplitRows - 1) / kSplitRows;
-}
-
-// op(A) @ B into C (or C -= ... with sub, only for the non-transposed
-// form).  The transposed form runs split-K through `part`.
-template <typename AT>
-static inline void gemm(cudaStream_t st, bool ta, bool bf, int M, int N,
-                        int K, const AT* A, int lda, const float* B,
-                        int ldb, float* C, int ldc, bool sub, float* part) {
-  const dim3 blk(kGemmThreads);
-  if (ta) {
-    const int S = (int)split_count(K);
-    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, S);
-    if (bf)
-      tall_gemm<true, true, AT><<<grid, blk, 0, st>>>(
-          M, N, K, A, lda, B, ldb, part, N, kSplitRows, 0);
-    else
-      tall_gemm<true, false, AT><<<grid, blk, 0, st>>>(
-          M, N, K, A, lda, B, ldb, part, N, kSplitRows, 0);
-    const long long n = (long long)M * N;
-    const int nb = (int)std::min<long long>((n + 255) / 256, 1024);
-    splitk_reduce<<<nb, 256, 0, st>>>(part, S, M, N, C, ldc);
-  } else {
-    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, 1);
-    if (bf)
-      tall_gemm<false, true, AT><<<grid, blk, 0, st>>>(
-          M, N, K, A, lda, B, ldb, C, ldc, K, sub ? 1 : 0);
-    else
-      tall_gemm<false, false, AT><<<grid, blk, 0, st>>>(
-          M, N, K, A, lda, B, ldb, C, ldc, K, sub ? 1 : 0);
-  }
-}
-
 static inline bool launch_combine(int r, cudaStream_t st, const float* T1,
                                   const float* T2, const float* T3,
                                   float* out, int ldo, float* scr) {
@@ -187,6 +596,28 @@ static inline bool launch_combine(int r, cudaStream_t st, const float* T1,
     case 128: tri_combine<128><<<1, kChainThreads, 0, st>>>(T1, T2, T3, out, ldo, scr); return true;
     default: return false;
   }
+}
+
+// The layout a panel product sequence runs with (ops/kernels/ns.py::
+// group_layout): the tall products' split and chunk, the small and wide
+// row tiles of gemm_nt and its column tile (r).
+struct ProductLayout {
+  int split, chunk, bm_panel, bm_wide, bn;
+};
+
+// Whether `lay` is one the kernels run for an m x r panel: the split's
+// chunks cover m with none empty and a chunk a whole number of stages,
+// tiles that gemm_nt is built for with bn == r.
+static inline bool product_layout_ok(int m, int r, const ProductLayout& lay) {
+  if (r != 32 && r != 64 && r != 128) return false;
+  if (lay.split < 1 || lay.split > kTnMaxSplit || lay.chunk < kTnStage ||
+      lay.chunk % kTnStage != 0)
+    return false;
+  if ((long long)lay.split * lay.chunk < m ||
+      (long long)(lay.split - 1) * lay.chunk >= m)
+    return false;
+  return lay.bn == r && nt_tile_ok(lay.bm_panel, r) &&
+         nt_tile_ok(lay.bm_wide, r);
 }
 
 }  // namespace mpbqr

@@ -9,13 +9,16 @@
 // at the RQRCP panels' 4096 x 128 the panel alone is 2 MB, far beyond one
 // SM's 227 KB.  So this is one C entry point that issues a fixed kernel
 // sequence on the caller's stream, built from the pieces K2 uses
-// (panel.cuh): the split-K Gram over 256-row slices with its deterministic
-// second pass, the cluster chain of ns_chain.cuh, the tall Q = P X
-// products into scratch panels (L2-resident at these sizes), and the
-// triangular combine of the robust R block.
+// (panel.cuh): the Gram as one gemm_tn launch whose K is split over the
+// CTAs of thread-block clusters, the cluster chain of ns_chain.cuh, the
+// tall Q = P X products (gemm_nt, a CTA owning whole rows) into scratch
+// panels (L2-resident at these sizes), and the triangular combine of the
+// robust R block.  Every product is true fp32 FMA (the reference's
+// Precision.HIGHEST for this kernel); the layout is ops/kernels/ns.py::
+// group_layout(m, r)'s.  Its chains are serial, so it has no look-ahead.
 // What bounds it: the r x r chains are latency-bound on one cluster (26 + 4
 // sequential iterations in robust mode); the tall products read the m x r
-// panel once each and are memory-bound.
+// panel once each and fill the card with ~128-CTA grids.
 //
 // Residual convention (unlike K2, which squares or scales inside): resid
 // is the raw max|E| of the last chain -- one step behind in plain mode,
@@ -25,7 +28,7 @@
 namespace mpbqr {
 
 struct PanelScratch {
-  float *comb, *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *part;
+  float *comb, *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB;
 };
 
 static long long panel_scratch_floats(int m, int r, PanelScratch* s,
@@ -48,7 +51,6 @@ static long long panel_scratch_floats(int m, int r, PanelScratch* s,
   take(&d->T3, rr);
   take(&d->tmpA, mr);
   take(&d->tmpB, mr);
-  take(&d->part, split_count(m) * rr);
   return off;
 }
 
@@ -65,46 +67,55 @@ long long mpbqr_panel_qr_scratch_floats(int m, int r) {
 // *resid (one float), all device pointers; the launches go on `stream`.
 // Plain mode runs `iters` iterations; robust mode the fixed three-pass
 // schedule.  chain_mid runs all but the final kMidFinal iterations of each
-// non-refine chain with bf16-split products.  Returns the first CUDA error
-// met, or cudaErrorInvalidValue for an r the chain kernel does not take.
+// non-refine chain with bf16-split products.  split, chunk, bm_panel,
+// bm_wide, bn: the layout of ops/kernels/ns.py::group_layout(m, r).
+// Returns the first CUDA error met, or cudaErrorInvalidValue for an r the
+// chain kernel does not take or a layout the products do not run.
 int mpbqr_panel_qr(const float* P, float* Q, float* t, float* resid,
                    float* scratch, int m, int r, int iters, int robust,
-                   int chain_mid, void* stream) {
+                   int chain_mid, int split, int chunk, int bm_panel,
+                   int bm_wide, int bn, void* stream) {
   using namespace mpbqr;
-  if (r != 32 && r != 64 && r != 128) return (int)cudaErrorInvalidValue;
+  const ProductLayout lay{split, chunk, bm_panel, bm_wide, bn};
+  if (!product_layout_ok(m, r, lay)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   PanelScratch s;
   panel_scratch_floats(m, r, &s, scratch);
   auto mid = [&](int it) {
     return chain_mid ? std::max(0, it - kMidFinal) : 0;
   };
-  gemm(st, true, false, r, r, m, P, r, P, r, s.G, r, false, s.part);
-  cudaError_t err;
+  auto gram = [&](const float* A, float* G) {
+    return tn(st, false, r, r, m, A, r, A, r, G, r, lay.split, lay.chunk);
+  };
+  auto qprod = [&](const float* A, const float* X, float* Qo) {
+    return nt(st, false, m, r, r, A, r, X, r, Qo, r, false, lay.bm_panel,
+              lay.bn);
+  };
+  cudaError_t err = gram(P, s.G);
+  if (err != cudaSuccess) return (int)err;
   if (!robust) {
     err = launch_chain(r, st, s.G, s.X1, t, r, resid, iters, 0.f, 0,
                        mid(iters), 1, 1, 1, RESID_RAW);
     if (err != cudaSuccess) return (int)err;
-    gemm(st, false, false, m, r, r, P, r, s.X1, r, Q, r, false, s.part);
-    return (int)cudaGetLastError();
+    return (int)qprod(P, s.X1, Q);
   }
   // Pass 1: shifted Gram (condition capped), t1 = X1^T Gs in full.
   err = launch_chain(r, st, s.G, s.X1, s.T1, r, resid, kRobustIt1, 1e-3f,
                      0, mid(kRobustIt1), 0, 1, 0, RESID_RAW);
-  if (err != cudaSuccess) return (int)err;
-  gemm(st, false, false, m, r, r, P, r, s.X1, r, s.tmpA, r, false, s.part);
-  gemm(st, true, false, r, r, m, s.tmpA, r, s.tmpA, r, s.G, r, false, s.part);
+  if (err == cudaSuccess) err = qprod(P, s.X1, s.tmpA);
+  if (err == cudaSuccess) err = gram(s.tmpA, s.G);
   // Pass 2 on the fresh Gram of Q1, t2 = X2^T M1 in full.
-  err = launch_chain(r, st, s.G, s.X2, s.T2, r, resid, kRobustIt2, 0.f, 0,
-                     mid(kRobustIt2), 0, 1, 0, RESID_RAW);
-  if (err != cudaSuccess) return (int)err;
-  gemm(st, false, false, m, r, r, s.tmpA, r, s.X2, r, s.tmpB, r, false,
-       s.part);
-  gemm(st, true, false, r, r, m, s.tmpB, r, s.tmpB, r, s.G, r, false, s.part);
+  if (err == cudaSuccess)
+    err = launch_chain(r, st, s.G, s.X2, s.T2, r, resid, kRobustIt2, 0.f, 0,
+                       mid(kRobustIt2), 0, 1, 0, RESID_RAW);
+  if (err == cudaSuccess) err = qprod(s.tmpA, s.X2, s.tmpB);
+  if (err == cudaSuccess) err = gram(s.tmpB, s.G);
   // Pass 3: identity-seeded refine with the exact final residual.
-  err = launch_chain(r, st, s.G, s.X3, s.T3, r, resid, kRobustIt3, 0.f, 1,
-                     0, 1, 1, 0, RESID_RAW);
+  if (err == cudaSuccess)
+    err = launch_chain(r, st, s.G, s.X3, s.T3, r, resid, kRobustIt3, 0.f, 1,
+                       0, 1, 1, 0, RESID_RAW);
+  if (err == cudaSuccess) err = qprod(s.tmpB, s.X3, Q);
   if (err != cudaSuccess) return (int)err;
-  gemm(st, false, false, m, r, r, s.tmpB, r, s.X3, r, Q, r, false, s.part);
   launch_combine(r, st, s.T1, s.T2, s.T3, t, r, s.comb);
   return (int)cudaGetLastError();
 }

@@ -66,16 +66,21 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_ns_chain.restype = ci
     lib.mpbqr_bgs_group_scratch_floats.argtypes = [ci, ci, ci]
     lib.mpbqr_bgs_group_scratch_floats.restype = ll
+    layout = [ci] * 5  # ns.py::GroupLayout
     lib.mpbqr_bgs_group.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp,
-                                    ci, ci, ci, vp]
+                                    ci, ci, ci, *layout, vp]
     lib.mpbqr_bgs_group.restype = ci
     lib.mpbqr_bgs_group_proj.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp,
                                          vp, ci, ci, ci, vp, vp, ci, ci, ci,
-                                         vp]
+                                         *layout, ci, ci, vp]
     lib.mpbqr_bgs_group_proj.restype = ci
+    lib.mpbqr_group_product.argtypes = [ci, ci, ci, ci, ci, vp, ci, ci, vp,
+                                        ci, vp, ci, ci, ci, ci, ci, ci, vp]
+    lib.mpbqr_group_product.restype = ci
     lib.mpbqr_panel_qr_scratch_floats.argtypes = [ci, ci]
     lib.mpbqr_panel_qr_scratch_floats.restype = ll
-    lib.mpbqr_panel_qr.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+    lib.mpbqr_panel_qr.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                   *layout, vp]
     lib.mpbqr_panel_qr.restype = ci
     lib.mpbqr_sketch_qrcp.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                       vp]
@@ -127,20 +132,23 @@ def build(so: Path, flags=()) -> None:
 
 
 @contextlib.contextmanager
-def instrumented_library(flag: str, entry: str, nargs: int):
+def instrumented_library(flag: str, entry: Optional[str] = None,
+                         nargs: int = 0):
     """A second kernel library, built with the macro ``flag`` (``-D...``)
     into a temporary directory under ``_build/`` that is removed on exit,
     with every C entry declared and the instrumented build's extra entry
-    ``entry`` (``nargs`` pointers -> CUDA error) too.  For the developer's
-    phase probes; the library that :func:`library` loads is not touched."""
+    ``entry``, if it has one (``nargs`` pointers -> CUDA error), too.  For
+    the developer's probes; the library that :func:`library` loads is not
+    touched."""
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
         so = Path(tmp) / "libmpbqr_kernels.so"
         build(so, (flag,))
         lib = _declare(ctypes.CDLL(str(so)))
-        fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p] * nargs
-        fn.restype = ctypes.c_int
+        if entry is not None:
+            fn = getattr(lib, entry)
+            fn.argtypes = [ctypes.c_void_p] * nargs
+            fn.restype = ctypes.c_int
         yield lib
 
 

@@ -19,7 +19,8 @@ convergence, so the panel's R block needs no solve.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -43,8 +44,66 @@ KERNEL_WIDTHS = (32, 64, 128)
 #: of ROBUST_ITERS iterations.
 MID_FINAL = 2
 ROBUST_ITERS = (14, 12, 4)
+#: The panel products of K2, K3 and K5 (csrc/panel.cuh).  gemm_tn (the
+#: Grams and G1 = Q^T C, K = m) computes TN_TILE x TN_TILE output tiles,
+#: TN_STAGE rows of K at a time, its K split over the CTAs of one
+#: thread-block cluster of at most TN_MAX_SPLIT.  gemm_nt (Q = P X and the
+#: updates, K = r) takes r-wide column blocks of NT_SMALL_BM[r] rows per
+#: CTA (the r-wide products) or NT_WIDE_BM (the wide ones).
+TN_TILE = 32
+TN_STAGE = 64
+TN_MAX_SPLIT = 8
+NT_SMALL_BM = {128: 16, 64: 16, 32: 32}
+NT_WIDE_BM = 64
+#: CTAs an r x r product aims at (the card has 132 SMs).
+TARGET_CTAS = 128
+#: Most rows gemm_nt's grid covers (65,535 row blocks of NT_WIDE_BM).
+MAX_ROWS = 65535 * NT_WIDE_BM
 
 _TINY = torch.finfo(torch.float32).tiny
+
+
+class GroupLayout(NamedTuple):
+    """How the panel products of K2, K3 and K5 run on an m x r panel."""
+    split: int     # gemm_tn CTAs (one cluster) sharing a tile's K
+    chunk: int     # rows of K each of them sums (whole TN_STAGEs)
+    bm_panel: int  # gemm_nt rows per CTA: Q = P X, narrow projection
+    bm_wide: int   # gemm_nt rows per CTA: wide projection, K5's scrub
+    bn: int        # gemm_nt columns per CTA (r)
+
+
+def tn_split(M: int, N: int, K: int) -> Tuple[int, int]:
+    """``(split, chunk)`` of gemm_tn for an M x N output summed over K: the
+    split doubles, up to TN_MAX_SPLIT, while the output tiles times the
+    split fall short of TARGET_CTAS and each chunk keeps a whole
+    TN_STAGE; the chunk is ceil(K / split) rounded up to whole stages, and
+    the split the number of chunks that cover K (none empty)."""
+    if min(M, N, K) < 1:
+        raise ValueError(f"tn_split takes a nonempty product; got "
+                         f"{M} x {N} over {K}")
+    tiles = -(-M // TN_TILE) * -(-N // TN_TILE)
+    split = 1
+    while (split < TN_MAX_SPLIT and tiles * split < TARGET_CTAS
+           and K >= 2 * split * TN_STAGE):
+        split *= 2
+    chunk = -(-(-(-K // split)) // TN_STAGE) * TN_STAGE
+    return -(-K // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def group_layout(m: int, r: int) -> GroupLayout:
+    """The layout of the panel products on an m x r panel: the r x r
+    products' :func:`tn_split`, and gemm_nt's small row tile unless even
+    NT_WIDE_BM rows per CTA give TARGET_CTAS row blocks.  A rule on shapes
+    alone: it needs no device.  Raises ``ValueError`` for r outside
+    ``KERNEL_WIDTHS`` or m outside [1, MAX_ROWS]."""
+    if r not in KERNEL_WIDTHS or not 1 <= m <= MAX_ROWS:
+        raise ValueError(f"the panel products take r in {KERNEL_WIDTHS} and "
+                         f"1 <= m <= {MAX_ROWS}; got m={m}, r={r}")
+    split, chunk = tn_split(r, r, m)
+    wide = NT_WIDE_BM
+    bm = wide if -(-m // wide) >= TARGET_CTAS else NT_SMALL_BM[r]
+    return GroupLayout(split, chunk, bm, wide, r)
 
 
 def reset_launches() -> None:
@@ -306,6 +365,26 @@ def _group_buffers(lib, Pg, r, g, iters, robust):
             (ctypes.c_int * g)(*[int(bool(b)) for b in robust]))
 
 
+def _launch_group(lib, Pg, r, iters, robust, bf16_dots, bf16_gram,
+                  chain_mid):
+    """One launch of ``mpbqr_bgs_group`` from the kernel library ``lib``
+    on a checked group buffer; counts nothing.  Returns ``(Q, Rg,
+    worst)``."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
+
+    m, w = Pg.shape
+    g = w // r
+    Q, Rg, worst, scratch, it_arr, rb_arr = _group_buffers(
+        lib, Pg, r, g, iters, robust)
+    code = lib.mpbqr_bgs_group(
+        Pg.data_ptr(), Q.data_ptr(), Rg.data_ptr(), worst.data_ptr(),
+        scratch.data_ptr(), m, r, g, it_arr, rb_arr, int(bf16_dots),
+        int(bf16_gram), int(chain_mid), *group_layout(m, r), _stream(Pg),
+    )
+    check(code, "bgs_group_fused")
+    return Q, Rg, worst
+
+
 def bgs_group_fused(
     Pg: torch.Tensor,
     r: int,
@@ -326,29 +405,24 @@ def bgs_group_fused(
     ``chain_mid`` runs all but the final ``MID_FINAL`` iterations of each
     non-refine chain with bf16-split products.
     Returns ``(Qg (m, g*r), Rg (g*r, g*r) block-upper, worst residual)``.
-    ``Pg`` is never modified: Qg is a new tensor.
+    ``Pg`` is never modified: Qg is a new tensor.  On CUDA the products
+    run with :func:`group_layout`'s layout, on the library's own critical
+    and wide streams, which are joined into the current stream before the
+    call returns; one host thread at a time may call the group kernels on
+    a device.
     """
     if bf16_gram is None:
         bf16_gram = bf16_dots
     if Pg.device.type == "cpu":
         return bgs_group_fused_plain(Pg, r, iters, robust, bf16_dots,
                                      bf16_gram, chain_mid)
-    m, w, g = _group_shape(Pg, r, iters, robust)
-    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
-        check, library,
-    )
+    _group_shape(Pg, r, iters, robust)
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
 
-    lib = library()
-    Q, Rg, worst, scratch, it_arr, rb_arr = _group_buffers(
-        lib, Pg, r, g, iters, robust)
-    code = lib.mpbqr_bgs_group(
-        Pg.data_ptr(), Q.data_ptr(), Rg.data_ptr(), worst.data_ptr(),
-        scratch.data_ptr(), m, r, g, it_arr, rb_arr, int(bf16_dots),
-        int(bf16_gram), int(chain_mid), _stream(Pg),
-    )
-    check(code, "bgs_group_fused")
+    out = _launch_group(library(), Pg, r, iters, robust, bf16_dots,
+                        bf16_gram, chain_mid)
     LAUNCHES["bgs_group_fused"] += 1
-    return Q, Rg, worst
+    return out
 
 
 def bgs_group_fused_proj(
@@ -402,7 +476,8 @@ def bgs_group_fused_proj(
         int(Qprev.dtype == torch.bfloat16), p, Q.data_ptr(),
         Rprev.data_ptr(), Rg.data_ptr(), worst.data_ptr(),
         scratch.data_ptr(), m, r, g, it_arr, rb_arr, int(bf16_dots),
-        int(bf16_gram), int(chain_mid), _stream(Pg),
+        int(bf16_gram), int(chain_mid), *group_layout(m, r),
+        *tn_split(p, w, m), _stream(Pg),
     )
     check(code, "bgs_group_fused_proj")
     LAUNCHES["bgs_group_fused_proj"] += 1
@@ -447,7 +522,7 @@ def panel_qr_fused(
     code = lib.mpbqr_panel_qr(
         P.data_ptr(), Q.data_ptr(), t.data_ptr(), resid.data_ptr(),
         scratch.data_ptr(), m, r, iters, int(robust), int(chain_mid),
-        _stream(P),
+        *group_layout(m, r), _stream(P),
     )
     check(code, "panel_qr_fused")
     LAUNCHES["panel_qr_fused"] += 1
