@@ -34,6 +34,11 @@ last line):
                  each launched twice and compared bit for bit, with their
                  product layout (ops/kernels/ns.py::group_layout) and the
                  device kernels and streams of one call (torch.profiler);
+                 the combine that closes their robust panels on its own
+                 (tri_combine, r = 128), twice, bit for bit; ninv_chain on
+                 utils/ninv_probe.py's inputs (5 and 12 iterations, a
+                 near-singular S), twice, bit for bit, with its cluster,
+                 and NaN in S -> NaN resid;
                  the kernel's,
                  the plain version's and the library call's times (CUDA
                  events, median of 20 unless a line says otherwise);
@@ -168,7 +173,6 @@ def main() -> int:
     from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
         resolve_panel_config,
     )
-    from mixedprecisionblockqr_tpu_torch.ops.cholqr import _sign_fix
     from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
     from mixedprecisionblockqr_tpu_torch.ops import blockqr as bq
     from mixedprecisionblockqr_tpu_torch.ops.kernels.chol import (
@@ -193,12 +197,13 @@ def main() -> int:
         bgs_group_fused_proj_plain,
         group_layout,
         ninv_chain,
-        ninv_chain_plain,
+        ninv_layout,
         ns_chain,
         ns_chain_plain,
         panel_qr_fused,
         panel_qr_fused_plain,
         reset_launches,
+        robust_products,
     )
     from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
         max_cluster as panel_max_cluster,
@@ -218,6 +223,11 @@ def main() -> int:
         gauge_deficient_system,
     )
     from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
+    from mixedprecisionblockqr_tpu_torch.utils.ninv_probe import (
+        combine_row,
+        k4_inputs,
+        k4_row,
+    )
     from mixedprecisionblockqr_tpu_torch.utils.panel_probe import k6_row
     from mixedprecisionblockqr_tpu_torch.utils.sketch_probe import (
         k7_row,
@@ -421,44 +431,38 @@ def main() -> int:
           "modes": k3_rows, "library_call": "torch.linalg.qr(P)",
           "library_ms": lib_k3, "card": card})
 
-    # K4 on Yamamoto S matrices (I - Q1^T, Q1 the sign-fixed top block of
-    # a panel's orthonormal basis): a 4096 x 128 panel (aspect 32, 5
-    # iterations, the polar phase's), a 256 x 128 one (aspect 2, 12), and a
-    # near-singular S: the rotation by pi about (1,1,1)/sqrt(3) of the JAX
-    # package's ops/cholqr.py:110-115, scaled by 0.999, in the top corner.
-    def yamamoto_S(m):
-        Qb, _ = torch.linalg.qr(
-            torch.rand((m, 128), generator=gen, device=dev) - 0.5)
-        D = _sign_fix(Qb[:128])
-        return (torch.eye(128, device=dev) - (Qb * D)[:128].T).contiguous()
+    # The combine that closes K2's and K3's robust panels, on its own, on
+    # the t1, t2, t3 of a robust K3 call on the RQRCP panel (the plain
+    # route's values), launched twice.
+    cmb = combine_row(*robust_products(Pk))
+    assert cmb["ok"], cmb
+    emit({"phase": "kernels", "kernel": "tri_combine", "shape": [128, 128],
+          "tolerance": "max|d| <= 1e-4 * max|out|; two launches bitwise "
+                       "equal",
+          **cmb, "card": card})
 
-    c3 = torch.ones(3, device=dev) / 3 ** 0.5
-    S_sing = torch.eye(128, device=dev)
-    S_sing[:3, :3] -= 0.999 * (2 * torch.outer(c3, c3)
-                               - torch.eye(3, device=dev)).T
-    k4_inputs = {"panel4096_it5": (yamamoto_S(4096), 5),
-                 "panel256_it12": (yamamoto_S(256), 12),
-                 "near_singular_it12": (S_sing.contiguous(), 12)}
+    # K4 on utils/ninv_probe.py::k4_inputs: Yamamoto S matrices of a 4096 x
+    # 128 panel (5 iterations, the polar phase's) and a 256 x 128 one (12,
+    # the cholqr scan's), and a near-singular S (12); each launched twice.
+    # A NaN in S must reach the residual.
+    k4_in = k4_inputs(gen, dev)
     k4_rows, k4_err = {}, 0.0
-    for name, (S, it) in k4_inputs.items():
-        X, res = ninv_chain(S, it)
-        Xp, resp = ninv_chain_plain(S, it)
-        torch.cuda.synchronize()
-        ex, lim = max_abs(X, Xp), TOL_F32 * float(Xp.abs().max())
-        row = {"iters": it, "max_abs_X": ex, "lim_X": lim,
-               "resid": float(res), "resid_plain": float(resp),
-               "ok": ex <= lim and (float(res) < 1e-3) == (
-                   float(resp) < 1e-3),
-               "ms": cuda_time_ms(lambda: ninv_chain(S, it)),
-               "plain_ms": cuda_time_ms(lambda: ninv_chain_plain(S, it)),
-               "library_ms": cuda_time_ms(lambda: torch.linalg.inv(S))}
+    for name, (S, it) in k4_in.items():
+        row = k4_row(S, it)
         k4_rows[name] = row
-        k4_err = max(k4_err, ex)
+        k4_err = max(k4_err, row["max_abs_X"])
         assert row["ok"], (name, row)
+    S_nan = k4_in["panel4096_it5"][0].clone()
+    S_nan[4, 9] = float("nan")
+    k4_nan = float(ninv_chain(S_nan, 5)[1])
+    assert k4_nan != k4_nan, k4_nan
     emit({"phase": "kernels", "kernel": "ninv_chain", "r": 128,
+          "cluster": ninv_layout(128).ctas,
           "tolerance": "max|dX| <= 1e-4 * max|X|; same fallback class "
-                       "(resid < 1e-3)", "library_call": "torch.linalg.inv(S)",
-          "inputs": k4_rows, "card": card})
+                       "(resid < 1e-3); two launches bitwise equal; NaN in "
+                       "S gives a NaN resid",
+          "library_call": "torch.linalg.inv(S)", "inputs": k4_rows,
+          "nan_in_S_resid": k4_nan, "card": card})
 
     # K6 at the paths' panel shapes (utils/panel_probe.py::k6_row):
     # lstsq's panels (4096, 3072 and 2176 x 128 in its first stage, 2048 x
@@ -1343,7 +1347,7 @@ def main() -> int:
          "ms": k3_rows["uniform_robust"]["ms"],
          "plain_ms": k3_rows["uniform_robust"]["plain_ms"],
          **panel_qr_bound(4096, 128),
-         "library_ms": lib_k3},
+         "library_ms": lib_k3, "combine_ms": cmb["device_ms"]},
         {"name": "ninv_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ninv_chain.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:384",

@@ -67,7 +67,7 @@ __global__ void worst_resid(const float* resid, int g, float* worst) {
 }
 
 struct GroupScratch {
-  float *comb, *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *resid;
+  float *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *resid;
 };
 
 static long long group_scratch_floats(int m, int r, int g, GroupScratch* s,
@@ -80,7 +80,6 @@ static long long group_scratch_floats(int m, int r, int g, GroupScratch* s,
   };
   GroupScratch dummy;
   GroupScratch* d = s ? s : &dummy;
-  take(&d->comb, 2 * rr);
   take(&d->G, rr);
   take(&d->X1, rr);
   take(&d->X2, rr);
@@ -270,7 +269,7 @@ static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
       MPBQR_TRY(launch_chain(r, st, s.G, s.X3, s.T3, r, s.resid + j,
                              kRobustIt3, 0.f, 1, 0, 1, 1, 0, RESID_SCALE));
       MPBQR_TRY(qprod(s.tmpB, r, s.X3, Pj, w));
-      launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w, s.comb);
+      MPBQR_TRY(launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w));
     }
     if (j + 1 == g) break;
     // The narrow part, panel j+1's columns, after the wide part of panel

@@ -48,8 +48,9 @@
 // callers' poison canary depends on it.  Two launches on the same input give
 // the same bits: no atomics, every reduction in a fixed order.
 //
-// blk_mm / ChainSmem below are the one-CTA streaming fp32 product that
-// ninv_chain.cu (K4) and panel.cuh's tri_combine still use.
+// The general (not triangular) fp32 product prod_gen, the cp.async loads
+// of a whole replicated operand and the cluster launch below also run
+// ninv_chain.cu (K4) and panel.cuh's combine.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -64,7 +65,6 @@ namespace mpbqr {
 namespace cg = cooperative_groups;
 
 constexpr int kChainThreads = 256;
-constexpr int kKT = 16;      // k-depth of one blk_mm shared-memory slice
 constexpr int kStripe = 16;  // rows of every chain matrix that one CTA owns
 
 // How a chain kernel reports its residual max|E| (ns.py:715-727):
@@ -114,69 +114,6 @@ __device__ __forceinline__ float blk_max(float v, float* red) {
   const float s = red[0];
   __syncthreads();
   return s;
-}
-
-// -- the one-CTA streaming product (K4, tri_combine) -----------------------
-
-template <int R>
-struct ChainSmem {
-  float ah[kKT * R], bh[kKT * R];
-  float red[32];
-};
-
-// out = op(A) @ B in true fp32 for r x r row-major matrices in global
-// memory, op(A) = A^T when `ta`.  `out` must alias neither operand.  Each
-// thread owns the outputs (ty + 16 a, tx + 16 b), a, b < R / 16.
-template <int R>
-__device__ void blk_mm(float* out, const float* A, bool ta, const float* B,
-                       ChainSmem<R>& sm) {
-  constexpr int TM = R / 16;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[TM][TM];
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int b = 0; b < TM; ++b) acc[a][b] = 0.f;
-
-  for (int k0 = 0; k0 < R; k0 += kKT) {
-    for (int e = threadIdx.x; e < kKT * R; e += kChainThreads) {
-      int i, k;
-      float av;
-      if (ta) {  // A^T[i][k] = A[k][i]: contiguous along i
-        k = e / R;
-        i = e % R;
-        av = A[(k0 + k) * R + i];
-      } else {   // A[i][k]: contiguous along k
-        i = e / kKT;
-        k = e % kKT;
-        av = A[i * R + k0 + k];
-      }
-      const int kb = e / R, j = e % R;
-      sm.ah[k * R + i] = av;
-      sm.bh[kb * R + j] = B[(k0 + kb) * R + j];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kKT; ++k) {
-      float ra[TM], rb[TM];
-#pragma unroll
-      for (int a = 0; a < TM; ++a) ra[a] = sm.ah[k * R + ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < TM; ++b) rb[b] = sm.bh[k * R + tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < TM; ++a)
-#pragma unroll
-        for (int b = 0; b < TM; ++b)
-          acc[a][b] = fmaf(ra[a], rb[b], acc[a][b]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < TM; ++a)
-#pragma unroll
-    for (int b = 0; b < TM; ++b)
-      out[(ty + 16 * a) * R + tx + 16 * b] = acc[a][b];
-  __syncthreads();
 }
 
 // -- the cluster chain -----------------------------------------------------
@@ -285,6 +222,74 @@ __device__ __forceinline__ void prod_f32(const float* P, const float* Q,
   for (int j = 0; j < QPT; ++j) {
     epi(pa, qq + QG * j, acc[0][j]);
     epi(pb, qq + QG * j, acc[1][j]);
+  }
+}
+
+// The general (not triangular) D[p][q] = sum_k P[p][k] Q[q][k] of K4 and
+// the R-block combine, in true fp32 FMA; P [R][LDF] and Q [16][LDF] in
+// shared memory as for prod_f32.  What bounds it is the shared memory's
+// 128 bytes a clock, not the FMA rate: measured, prod_f32's form runs as if
+// a 16-byte load cost a warp four wavefronts whatever it broadcasts.  So
+// each thread keeps a 4-row x 4-q tile (R / 32 rows at R < 128): 8 loads
+// a k-quad for 64 FMA, against prod_f32's 6 for 32.  The 128 threads that
+// cover D take half of k each, twice over: threads 128..255 sum the upper
+// half of k and leave their partial sums in `part` (kGenPart<R> floats),
+// which threads 0..127 add to their own after a block barrier, so every
+// element is (lower half, k ascending) + (upper half, k ascending), the
+// same bits every launch.
+// epi(p, q, value) runs once per element of D, on threads 0..127, after
+// that barrier: an epilogue may overwrite P or Q.  Two calls that share
+// `part` need a block barrier between them.
+template <int R>
+constexpr int kGenPart = 128 * (R / 32) * 4;
+
+template <int R, class Epi>
+__device__ __forceinline__ void prod_gen(const float* P, const float* Q,
+                                         float* part, Epi epi) {
+  using L = ChainLayout<R>;
+  constexpr int RP = R / 32;           // rows per thread, 32 apart
+  constexpr int K4 = R / 8;            // k-quads per half
+  const int h = threadIdx.x >> 7, u = threadIdx.x & 127;
+  const int pg = u & 31, qg = u >> 5;  // rows pg + 32 i, q's 4 qg + j
+  float acc[RP][4];
+#pragma unroll
+  for (int i = 0; i < RP; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const float4* pr = reinterpret_cast<const float4*>(P + pg * L::LDF) + h * K4;
+  const float4* qr =
+      reinterpret_cast<const float4*>(Q + 4 * qg * L::LDF) + h * K4;
+  constexpr int PSTEP = 32 * L::LDF / 4, QSTEP = L::LDF / 4;
+#pragma unroll 2
+  for (int k4 = 0; k4 < K4; ++k4) {
+    float4 a[RP], b[4];
+#pragma unroll
+    for (int i = 0; i < RP; ++i) a[i] = pr[i * PSTEP + k4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = qr[j * QSTEP + k4];
+#pragma unroll
+    for (int i = 0; i < RP; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+      }
+  }
+  if (h == 1) {
+#pragma unroll
+    for (int i = 0; i < RP; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) part[(i * 4 + j) * 128 + u] = acc[i][j];
+  }
+  __syncthreads();
+  if (h == 0) {
+#pragma unroll
+    for (int i = 0; i < RP; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        epi(pg + 32 * i, 4 * qg + j, acc[i][j] + part[(i * 4 + j) * 128 + u]);
   }
 }
 
@@ -410,6 +415,47 @@ __device__ __forceinline__ void gather_store8(cg::cluster_group& cluster,
       rp[1] = b;
     }
   }
+}
+
+// The two halves of a cluster barrier (cluster.sync() is both at once):
+// arrive publishes this thread's earlier writes, DSMEM included; wait
+// returns once every thread of the cluster has arrived, and makes their
+// writes visible.  A thread alternates them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes from global to shared memory, asynchronously (cp.async; both
+// addresses 16-byte aligned).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+// Wait until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy an R x R row-major matrix (leading dimension ld, rows 16-byte
+// aligned) into shared memory [R][LDF] as one cp.async group of this
+// thread's share.  The caller waits (cp_async_wait) and then syncs.
+template <int R>
+__device__ __forceinline__ void load_full_async(float* dst, const float* src,
+                                                int ld) {
+  constexpr int V = R / 4;  // 16-byte vectors a row
+  for (int e = threadIdx.x; e < R * V; e += kChainThreads) {
+    const int i = e / V, c = 4 * (e % V);
+    cp_async16(dst + i * ChainLayout<R>::LDF + c, src + (size_t)i * ld + c);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 // Upper estimate of ||M||_2: 1.05 x two power-iteration steps, computed
@@ -656,6 +702,39 @@ chain_kernel(const float* G, float* X, float* t, int ldt, float* resid,
   }
 }
 
+// Launch `kern` as one thread-block cluster of `ctas` CTAs of kChainThreads
+// threads, with `smem` bytes of dynamic shared memory, on `st`.  `fits` is
+// a static of the caller's kernel instance: the first launch checks that
+// the card can place one such cluster.
+template <class... KArgs, class... Args>
+static inline cudaError_t launch_cluster(void (*kern)(KArgs...), int ctas,
+                                         int smem, cudaStream_t st,
+                                         bool& fits, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.blockDim = dim3(kChainThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (!fits) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    fits = true;
+  }
+  return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
 template <int R>
 static inline cudaError_t launch_chain_r(cudaStream_t st, const float* G,
                                          float* X, float* t, int ldt,
@@ -664,33 +743,10 @@ static inline cudaError_t launch_chain_r(cudaStream_t st, const float* G,
                                          int fuse_xw, int triu_t,
                                          int resid_mode) {
   using L = ChainLayout<R>;
-  auto kern = chain_kernel<R>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(L::CS, 1, 1);
-  cfg.blockDim = dim3(kChainThreads, 1, 1);
-  cfg.dynamicSmemBytes = L::BYTES;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = L::CS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  static bool fits = false;  // checked once: the card can place one cluster
-  if (!fits) {
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorLaunchOutOfResources;
-    fits = true;
-  }
-  return cudaLaunchKernelEx(&cfg, kern, G, X, t, ldt, resid, iters, shift,
-                            refine, mid_iters, omega, fuse_xw, triu_t,
-                            resid_mode);
+  static bool fits = false;
+  return launch_cluster(chain_kernel<R>, L::CS, L::BYTES, st, fits, G, X, t,
+                        ldt, resid, iters, shift, refine, mid_iters, omega,
+                        fuse_xw, triu_t, resid_mode);
 }
 
 // Launch the chain for a runtime r in {32, 64, 128} on `st`: G (r x r,

@@ -570,31 +570,94 @@ static inline cudaError_t nt(cudaStream_t st, bool bf, int M, int N, int K,
 }
 
 // out = triu(T3 @ (T2 @ T1)) with leading dimension ldo: the robust
-// three-pass R block (ns.py:_tri_ns_panel, robust branch).  T1..T3 are the
-// full products X_k^T G_k, so this is the only truncation.  One CTA.
+// three-pass R block (ns.py:_tri_ns_panel, robust branch; the plain
+// version is ops/kernels/ns.py::tri_combine_plain).  T1..T3 are the full
+// r x r products X_k^T G_k, so the triangle is cut once, on write.
+// r / 16 CTAs; CTA p owns the 16 columns 16 p .. 16 p + 15 of T1, A = T2 T1
+// and the output.  Each holds T2 and T3 whole in shared memory (cp.async,
+// T3 still arriving while the first product runs) and its columns of T1
+// and A transposed, so both products have the form of ns_chain.cuh's
+// general prod_gen and are local:
+//   A[:, own] = T2 T1[:, own],   out[:, own] = triu(T3 A[:, own]).
+// No exchange, so no cluster: a plain grid, whose CTAs can be placed
+// wherever K2's wide stream leaves room.  True fp32 FMA in prod_gen's
+// fixed order.  What bounds it: two dependent 2 r^3 products, each bound
+// by its CTA's shared-memory bandwidth, and at r = 128 the 128 KB of T2
+// and T3 that each CTA reads from L2 (T3's load overlaps the first).
 template <int R>
-__global__ void __launch_bounds__(kChainThreads)
-tri_combine(const float* T1, const float* T2, const float* T3, float* out,
-            int ldo, float* scr) {
-  __shared__ ChainSmem<R> sm;
-  float* A = scr;
-  float* B = scr + R * R;
-  blk_mm<R>(A, T2, false, T1, sm);
-  blk_mm<R>(B, T3, false, A, sm);
-  for (int e = threadIdx.x; e < R * R; e += kChainThreads) {
-    const int i = e / R, j = e % R;
-    out[i * ldo + j] = j >= i ? B[e] : 0.f;
+struct CombineLayout {
+  static constexpr int CTAS = R / kStripe;
+  static constexpr int LDF = ChainLayout<R>::LDF;
+  static constexpr int FULL = R * LDF;
+  static constexpr int STRIPE = kStripe * LDF;
+  static constexpr int OFF_T2 = 0;
+  static constexpr int OFF_T3 = FULL;
+  static constexpr int OFF_T1 = 2 * FULL;        // own columns of T1^T
+  static constexpr int OFF_A = OFF_T1 + STRIPE;  // own columns of A^T
+  static constexpr int OFF_PART = OFF_A + STRIPE;  // prod_gen's partials
+  static constexpr int BYTES = (OFF_PART + kGenPart<R>) * 4;
+};
+
+template <int R>
+__global__ void __launch_bounds__(kChainThreads, 1)
+combine_kernel(const float* T1, const float* T2, const float* T3, float* out,
+               int ldo) {
+  using L = CombineLayout<R>;
+  extern __shared__ __align__(16) float sm[];
+  const int c0 = kStripe * blockIdx.x;
+  float* T1t = sm + L::OFF_T1;
+  float* At = sm + L::OFF_A;
+  float* part = sm + L::OFF_PART;
+  load_full_async<R>(sm + L::OFF_T2, T2, R);
+  load_full_async<R>(sm + L::OFF_T3, T3, R);
+  for (int e = threadIdx.x; e < kStripe * R; e += kChainThreads) {
+    const int k = e / kStripe, q = e % kStripe;
+    T1t[q * L::LDF + k] = T1[(size_t)k * R + c0 + q];
+  }
+  cp_async_wait<1>();  // T2
+  __syncthreads();
+  prod_gen<R>(sm + L::OFF_T2, T1t, part,
+              [&](int p, int q, float v) { At[q * L::LDF + p] = v; });
+  cp_async_wait<0>();  // T3
+  __syncthreads();
+  // The tile goes through A's buffer (read in full before the epilogue)
+  // so that the stores below write whole 64-byte row segments.
+  prod_gen<R>(sm + L::OFF_T3, At, part, [&](int p, int q, float v) {
+    At[q * L::LDF + p] = c0 + q >= p ? v : 0.f;
+  });
+  __syncthreads();
+  for (int e = threadIdx.x; e < kStripe * R; e += kChainThreads) {
+    const int p = e / kStripe, q = e % kStripe;
+    out[(size_t)p * ldo + c0 + q] = At[q * L::LDF + p];
   }
 }
 
-static inline bool launch_combine(int r, cudaStream_t st, const float* T1,
-                                  const float* T2, const float* T3,
-                                  float* out, int ldo, float* scr) {
+template <int R>
+static inline cudaError_t launch_combine_r(cudaStream_t st, const float* T1,
+                                           const float* T2, const float* T3,
+                                           float* out, int ldo) {
+  using L = CombineLayout<R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      combine_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::BYTES);
+  if (err != cudaSuccess) return err;
+  combine_kernel<R><<<L::CTAS, kChainThreads, L::BYTES, st>>>(T1, T2, T3,
+                                                              out, ldo);
+  return cudaGetLastError();
+}
+
+// The combine for a runtime r in {32, 64, 128} on `st`; T1..T3 r x r,
+// row-major and 16-byte aligned.  Returns the launch's error, or
+// cudaErrorInvalidValue for another r.
+static inline cudaError_t launch_combine(int r, cudaStream_t st,
+                                         const float* T1, const float* T2,
+                                         const float* T3, float* out,
+                                         int ldo) {
   switch (r) {
-    case 32: tri_combine<32><<<1, kChainThreads, 0, st>>>(T1, T2, T3, out, ldo, scr); return true;
-    case 64: tri_combine<64><<<1, kChainThreads, 0, st>>>(T1, T2, T3, out, ldo, scr); return true;
-    case 128: tri_combine<128><<<1, kChainThreads, 0, st>>>(T1, T2, T3, out, ldo, scr); return true;
-    default: return false;
+    case 32: return launch_combine_r<32>(st, T1, T2, T3, out, ldo);
+    case 64: return launch_combine_r<64>(st, T1, T2, T3, out, ldo);
+    case 128: return launch_combine_r<128>(st, T1, T2, T3, out, ldo);
+    default: return cudaErrorInvalidValue;
   }
 }
 

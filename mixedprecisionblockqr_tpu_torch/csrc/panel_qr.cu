@@ -13,7 +13,8 @@
 // CTAs of thread-block clusters, the cluster chain of ns_chain.cuh, the
 // tall Q = P X products (gemm_nt, a CTA owning whole rows) into scratch
 // panels (L2-resident at these sizes), and the triangular combine of the
-// robust R block.  Every product is true fp32 FMA (the reference's
+// robust R block (panel.cuh's combine_kernel: r / 16 CTAs, both of its
+// r x r products in shared memory).  Every product is true fp32 FMA (the reference's
 // Precision.HIGHEST for this kernel); the layout is ops/kernels/ns.py::
 // group_layout(m, r)'s.  Its chains are serial, so it has no look-ahead.
 // What bounds it: the r x r chains are latency-bound on one cluster (26 + 4
@@ -28,7 +29,7 @@
 namespace mpbqr {
 
 struct PanelScratch {
-  float *comb, *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB;
+  float *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB;
 };
 
 static long long panel_scratch_floats(int m, int r, PanelScratch* s,
@@ -41,7 +42,6 @@ static long long panel_scratch_floats(int m, int r, PanelScratch* s,
   };
   PanelScratch dummy;
   PanelScratch* d = s ? s : &dummy;
-  take(&d->comb, 2 * rr);
   take(&d->G, rr);
   take(&d->X1, rr);
   take(&d->X2, rr);
@@ -116,8 +116,18 @@ int mpbqr_panel_qr(const float* P, float* Q, float* t, float* resid,
                        0, 1, 1, 0, RESID_RAW);
   if (err == cudaSuccess) err = qprod(s.tmpB, s.X3, Q);
   if (err != cudaSuccess) return (int)err;
-  launch_combine(r, st, s.T1, s.T2, s.T3, t, r, s.comb);
-  return (int)cudaGetLastError();
+  return (int)launch_combine(r, st, s.T1, s.T2, s.T3, t, r);
+}
+
+// out = triu(T3 @ (T2 @ T1)) (r x r each, fp32, row-major, 16-byte
+// aligned; out with leading dimension ldo), device pointers, launched on
+// `stream`: the combine that closes a robust panel of K2 and K3, on its
+// own.  Returns the launch's error, or cudaErrorInvalidValue for an r the
+// kernel does not take.
+int mpbqr_tri_combine(const float* T1, const float* T2, const float* T3,
+                      float* out, int r, int ldo, void* stream) {
+  return (int)mpbqr::launch_combine(r, (cudaStream_t)stream, T1, T2, T3, out,
+                                    ldo);
 }
 
 }  // extern "C"

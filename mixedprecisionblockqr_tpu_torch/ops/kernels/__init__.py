@@ -19,6 +19,7 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (  # noqa: F401
     bgs_group_fused_proj_plain,
     ninv_chain,
     ninv_chain_plain,
+    ninv_layout,
     ns_chain,
     ns_chain_plain,
     panel_qr_fused,
@@ -26,6 +27,8 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (  # noqa: F401
     reset_launches,
     tri_cholqr_fused,
     tri_cholqr_robust_fused,
+    tri_combine,
+    tri_combine_plain,
 )
 from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (  # noqa: F401
     panel_factor_fused,

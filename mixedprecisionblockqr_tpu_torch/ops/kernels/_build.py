@@ -85,10 +85,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_sketch_qrcp.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                       vp]
     lib.mpbqr_sketch_qrcp.restype = ci
-    lib.mpbqr_ninv_chain_scratch_floats.argtypes = [ci]
-    lib.mpbqr_ninv_chain_scratch_floats.restype = ll
-    lib.mpbqr_ninv_chain.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.mpbqr_ninv_chain.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
     lib.mpbqr_ninv_chain.restype = ci
+    lib.mpbqr_tri_combine.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.mpbqr_tri_combine.restype = ci
     lib.mpbqr_panel_factor.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                        ci, ci, vp]
     lib.mpbqr_panel_factor.restype = ci

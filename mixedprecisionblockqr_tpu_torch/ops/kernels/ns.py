@@ -1,7 +1,8 @@
 """Newton-Schulz chain kernels: ``ns_chain`` (K1), ``bgs_group_fused`` (K2),
 ``panel_qr_fused`` (K3), ``ninv_chain`` (K4) and ``bgs_group_fused_proj``
-(K5), each beside its plain PyTorch version, and the compositions
-``tri_cholqr_fused`` and ``tri_cholqr_robust_fused`` over K1.
+(K5), each beside its plain PyTorch version, the R-block combine
+``tri_combine`` that closes K2's and K3's robust panels, on its own, and the
+compositions ``tri_cholqr_fused`` and ``tri_cholqr_robust_fused`` over K1.
 
 Port of ``mixedprecisionblockqr_tpu/ops/pallas/ns.py``.  The wrappers
 launch the hand-written CUDA kernels of ``csrc/`` for CUDA tensors and
@@ -36,8 +37,13 @@ LAUNCHES = {"ns_chain": 0, "bgs_group_fused": 0, "panel_qr_fused": 0,
 #: ``tiled_matmul``'s launches by route (ops/kernels/gemm.py); both count
 #: in ``LAUNCHES["tiled_matmul"]`` as well.
 ROUTE_LAUNCHES = {"tma": 0, "predicated": 0}
+#: Launches of a kernel piece through its own wrapper: the combine, which
+#: otherwise runs inside K2's and K3's entries (counted there).
+PIECE_LAUNCHES = {"tri_combine": 0}
 #: Panel widths the CUDA kernels are instantiated for.
 KERNEL_WIDTHS = (32, 64, 128)
+#: Columns of X (K4) and of the combine's T1 that one CTA owns.
+STRIPE = 16
 #: Chain schedule of a panel (the same constants as csrc/panel.cuh):
 #: with ``chain_mid``, all but the final MID_FINAL iterations of a
 #: non-refine chain run bf16-split products; robust panels run three passes
@@ -106,8 +112,28 @@ def group_layout(m: int, r: int) -> GroupLayout:
     return GroupLayout(split, chunk, bm, wide, r)
 
 
+class NinvLayout(NamedTuple):
+    """How K4 runs an r x r S: one thread-block cluster."""
+    ctas: int        # CTAs of the cluster, STRIPE columns of X each
+    smem_bytes: int  # dynamic shared memory per CTA
+
+
+@functools.lru_cache(maxsize=None)
+def ninv_layout(r: int) -> NinvLayout:
+    """K4's layout (csrc/ninv_chain.cu, NinvLayout): r / STRIPE CTAs, each
+    holding S and two buffers of X whole, its own columns of X and E
+    transposed (rows padded to r + 4 floats), the product's 16 r partial
+    sums and 64 floats of reductions.  Raises ``ValueError`` for r outside
+    ``KERNEL_WIDTHS``."""
+    if r not in KERNEL_WIDTHS:
+        raise ValueError(f"ninv_chain kernel takes r in {KERNEL_WIDTHS}; "
+                         f"got r={r}")
+    floats = (3 * r + 2 * STRIPE) * (r + 4) + 16 * r + 64
+    return NinvLayout(r // STRIPE, 4 * floats)
+
+
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+    for counts in (LAUNCHES, ROUTE_LAUNCHES, PIECE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -183,32 +209,51 @@ def ns_chain_plain(G, iters=10, shift=0.0, refine=False, chain_mid=False,
     return X, t, E.abs().max()
 
 
+def _robust_passes(P, G, tall, mid):
+    """The shifted three-pass chain of a robust panel with Gram ``G``:
+    ``(Qk, (t1, t2, t3), E)``, the t's the full products X_k^T G_k."""
+    i1, i2, i3 = ROBUST_ITERS
+    eye = torch.eye(G.shape[0], dtype=torch.float32, device=G.device)
+    Gs = G + (1e-3 * _norm2_est(G)) * eye
+    X1, _ = _tri_ns(Gs, i1, mid_iters=mid(i1), omega=False)
+    t1 = mm_f32(X1.T, Gs)
+    Q1 = tall(P, X1)
+    M1 = tall(Q1.T, Q1)
+    X2, _ = _tri_ns(M1, i2, mid_iters=mid(i2), omega=False)
+    t2 = mm_f32(X2.T, M1)
+    Q2 = tall(Q1, X2)
+    M2 = tall(Q2.T, Q2)
+    X3, E = _tri_ns(M2, i3, refine=True)
+    t3 = mm_f32(X3.T, M2)
+    return tall(Q2, X3), (t1, t2, t3), E
+
+
+def robust_products(P):
+    """``(t1, t2, t3)`` of :func:`panel_qr_fused_plain`'s robust mode on
+    ``P`` (fp32 throughout): the combine's inputs, for checking and timing
+    :func:`tri_combine` at a robust panel's values."""
+    P = P.float()
+    return _robust_passes(P, mm_f32(P.T, P), mm_f32, lambda it: 0)[1]
+
+
 def _tri_ns_panel(P, iters, robust, bf16_gram, chain_mid):
     """One panel's factorization (``_tri_ns_panel``): (Qk, t, resid)."""
     tall = mm_bf16 if bf16_gram else mm_f32
     G = tall(P.T, P)
     mid = (lambda it: max(0, it - MID_FINAL)) if chain_mid else (lambda it: 0)
     if robust:
-        i1, i2, i3 = ROBUST_ITERS
-        eye = torch.eye(G.shape[0], dtype=torch.float32, device=G.device)
-        Gs = G + (1e-3 * _norm2_est(G)) * eye
-        X1, _ = _tri_ns(Gs, i1, mid_iters=mid(i1), omega=False)
-        t1 = mm_f32(X1.T, Gs)
-        Q1 = tall(P, X1)
-        M1 = tall(Q1.T, Q1)
-        X2, _ = _tri_ns(M1, i2, mid_iters=mid(i2), omega=False)
-        t2 = mm_f32(X2.T, M1)
-        Q2 = tall(Q1, X2)
-        M2 = tall(Q2.T, Q2)
-        X3, E = _tri_ns(M2, i3, refine=True)
-        t3 = mm_f32(X3.T, M2)
-        Qk = tall(Q2, X3)
-        t = torch.triu(mm_f32(t3, mm_f32(t2, t1)))
-        return Qk, t, E.abs().max()
+        Qk, ts, E = _robust_passes(P, G, tall, mid)
+        return Qk, tri_combine_plain(*ts), E.abs().max()
     X, E = _tri_ns(G, iters, mid_iters=mid(iters))
     Qk = tall(P, X)
     t = torch.triu(mm_f32(X.T, G))
     return Qk, t, E.abs().max()
+
+
+def tri_combine_plain(T1, T2, T3):
+    """Plain version of :func:`tri_combine`: ``triu(T3 (T2 T1))`` in fp32,
+    the robust R block of ``_tri_ns_panel``."""
+    return torch.triu(mm_f32(T3, mm_f32(T2, T1)))
 
 
 def panel_qr_fused_plain(P, iters=10, robust=False, chain_mid=False):
@@ -529,34 +574,86 @@ def panel_qr_fused(
     return Q, t, resid
 
 
+def _require_aligned(x: torch.Tensor, name: str) -> None:
+    """The kernels that load whole matrices with 16-byte copies need it."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def ninv_chain(S: torch.Tensor, iters: int = 6
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused general Newton-Schulz inverse of the r x r Yamamoto ``S``:
     X0 = (2/3) I and ``iters`` steps of X <- X (2I - S X), in fp32.
     Returns ``(X, resid)`` with ``resid = max|I - S X|`` of the final
     iterate (NaN-propagating); callers arm their own LU fallback on it.
-    On CUDA, r must be one of ``KERNEL_WIDTHS``."""
+    On CUDA, r must be one of ``KERNEL_WIDTHS`` and ``S`` 16-byte aligned;
+    the kernel runs as one thread-block cluster laid out by
+    :func:`ninv_layout`, takes no global scratch and does not synchronize
+    the host."""
     if S.device.type == "cpu":
         return ninv_chain_plain(S, iters)
     _require_cuda_f32(S, "S")
     r = S.shape[0]
-    if S.shape != (r, r) or r not in KERNEL_WIDTHS:
+    if S.shape != (r, r) or r not in KERNEL_WIDTHS or iters < 0:
         raise ValueError(f"ninv_chain kernel takes r x r, r in "
-                         f"{KERNEL_WIDTHS}; got {tuple(S.shape)}")
+                         f"{KERNEL_WIDTHS}, iters >= 0; got "
+                         f"{tuple(S.shape)}, iters={iters}")
+    _require_aligned(S, "S")
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
+
+    out = _launch_ninv(library(), S, iters)
+    LAUNCHES["ninv_chain"] += 1
+    return out
+
+
+def _launch_ninv(lib, S: torch.Tensor, iters: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``mpbqr_ninv_chain`` from the kernel library ``lib``
+    on a checked S, with the layout of :func:`ninv_layout`; counts
+    nothing."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
+
+    r = S.shape[0]
+    X = torch.empty_like(S)
+    resid = torch.empty((), dtype=torch.float32, device=S.device)
+    code = lib.mpbqr_ninv_chain(S.data_ptr(), X.data_ptr(), resid.data_ptr(),
+                                r, iters, *ninv_layout(r), _stream(S))
+    check(code, "ninv_chain")
+    return X, resid
+
+
+def tri_combine(T1: torch.Tensor, T2: torch.Tensor, T3: torch.Tensor
+                ) -> torch.Tensor:
+    """The R block of a robust panel, ``triu(T3 (T2 T1))``, from the three
+    passes' full products ``T_k = X_k^T G_k`` (r x r each): the combine
+    that closes K2's and K3's robust panels, launched on its own.  On CUDA
+    the three are contiguous fp32, 16-byte aligned, on one device, with r
+    in ``KERNEL_WIDTHS``; the kernel runs r / STRIPE CTAs, both products in
+    shared memory, in true fp32."""
+    if T1.device.type == "cpu":
+        return tri_combine_plain(T1, T2, T3)
+    r = T1.shape[0]
+    for name, T in (("T1", T1), ("T2", T2), ("T3", T3)):
+        _require_cuda_f32(T, name)
+        if T.shape != (r, r) or T.device != T1.device:
+            raise ValueError(f"tri_combine takes three r x r tensors on one "
+                             f"device; got {name} {tuple(T.shape)} on "
+                             f"{T.device}")
+        _require_aligned(T, name)
+    if r not in KERNEL_WIDTHS:
+        raise ValueError(f"tri_combine kernel takes r in {KERNEL_WIDTHS}; "
+                         f"got {r}")
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
         check, library,
     )
 
-    lib = library()
-    X = torch.empty_like(S)
-    resid = torch.empty((), dtype=torch.float32, device=S.device)
-    scratch = torch.empty(lib.mpbqr_ninv_chain_scratch_floats(r),
-                          dtype=torch.float32, device=S.device)
-    code = lib.mpbqr_ninv_chain(S.data_ptr(), X.data_ptr(), resid.data_ptr(),
-                                scratch.data_ptr(), r, iters, _stream(S))
-    check(code, "ninv_chain")
-    LAUNCHES["ninv_chain"] += 1
-    return X, resid
+    out = torch.empty_like(T1)
+    code = library().mpbqr_tri_combine(T1.data_ptr(), T2.data_ptr(),
+                                       T3.data_ptr(), out.data_ptr(), r, r,
+                                       _stream(T1))
+    check(code, "tri_combine")
+    PIECE_LAUNCHES["tri_combine"] += 1
+    return out
 
 
 def tri_cholqr_fused(P: torch.Tensor, iters: int = 10):

@@ -35,6 +35,22 @@ def bound(f32_ops=0.0, bf16_ops=0.0, nbytes=0.0, int8_ops=0.0):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def cluster_bound(f32_ops, nbytes, sms):
+    """The whole card's bound for ``f32_ops`` and ``nbytes``, and beside it
+    ``cluster_bound_ms``: the bound of the ``sms`` SMs of a kernel's one
+    thread-block cluster (or grid), the same operations at that share of
+    the fp32 peak, the bytes still at the card's memory rate."""
+    one = bound(f32_ops=f32_ops * SMS / sms, nbytes=nbytes)
+    return {**bound(f32_ops=f32_ops, nbytes=nbytes), "cluster_sms": sms,
+            "cluster_bound_ms": one["bound_ms"]}
+
+
+def combine_ops(r):
+    """Operations of the robust R-block combine triu(t3 (t2 t1)): two full
+    r x r products."""
+    return 2 * 2 * r ** 3
+
+
 def chain_products(iters, refine=False):
     """r x r products of one ``ns_chain``: three per iteration, two more
     for a refine chain's exact residual, one for t = X^T G."""
@@ -67,7 +83,7 @@ def robust_ops(r, chain_mid=False):
     f1, b1 = chain_ops(r, 14, chain_mid)
     f2, b2 = chain_ops(r, 12, chain_mid)
     f3, _ = chain_ops(r, 4, refine=True)
-    return f1 + f2 + f3 + 2 * 2 * r ** 3, b1 + b2
+    return f1 + f2 + f3 + combine_ops(r), b1 + b2
 
 
 def ns_chain_bound(r, iters, chain_mid=False, refine=False):
@@ -116,7 +132,18 @@ def panel_qr_bound(m, r):
 
 
 def ninv_chain_bound(r, iters):
-    return bound(f32_ops=(2 * iters + 1) * 2 * r ** 3, nbytes=2 * r * r * 4)
+    """K4: 2 iters + 1 general r x r products (2 r^3 operations each); S
+    read, X written.  Beside the whole card's bound, the bound of the r / 16
+    SMs of its one thread-block cluster (``cluster_bound``)."""
+    return cluster_bound((2 * iters + 1) * 2 * r ** 3, 2 * r * r * 4,
+                         r // 16)
+
+
+def tri_combine_bound(r):
+    """The combine that closes K2's and K3's robust panels: ``combine_ops``;
+    T1..T3 read, the r x r R block written.  Beside the whole card's bound,
+    the bound of the r / 16 SMs its CTAs run on (``cluster_bound``)."""
+    return cluster_bound(combine_ops(r), 4 * r * r * 4, r // 16)
 
 
 def householder_panel_ops(m, w):
@@ -135,10 +162,8 @@ def panel_factor_bound(m, w, cluster_sms=None):
     peak, the bytes still at the card's memory rate."""
     if cluster_sms is None:
         cluster_sms = panel_layout(m, w).cluster
-    ops, nbytes = householder_panel_ops(m, w), (3 * m * w + w * w) * 4
-    one = bound(f32_ops=ops * SMS / cluster_sms, nbytes=nbytes)
-    return {**bound(f32_ops=ops, nbytes=nbytes), "cluster_sms": cluster_sms,
-            "cluster_bound_ms": one["bound_ms"]}
+    return cluster_bound(householder_panel_ops(m, w),
+                         (3 * m * w + w * w) * 4, cluster_sms)
 
 
 def sketch_bound(d, w, r, cluster_sms=None):
@@ -151,10 +176,7 @@ def sketch_bound(d, w, r, cluster_sms=None):
     the card's memory rate."""
     if cluster_sms is None:
         cluster_sms = sketch_layout(d, w).cluster
-    ops, nbytes = r * 4 * d * w, (d * w + w) * 4
-    one = bound(f32_ops=ops * SMS / cluster_sms, nbytes=nbytes)
-    return {**bound(f32_ops=ops, nbytes=nbytes), "cluster_sms": cluster_sms,
-            "cluster_bound_ms": one["bound_ms"]}
+    return cluster_bound(r * 4 * d * w, (d * w + w) * 4, cluster_sms)
 
 
 def matmul_bound(m, k, n, kind, out_bytes=4):
@@ -175,10 +197,8 @@ def chol_rinv_bound(r, cluster_sms=None):
     fp32 peak, the bytes still at the card's memory rate."""
     if cluster_sms is None:
         cluster_sms = chol_layout(r).cluster
-    ops, nbytes = 2 * r ** 3 / 3, (r * (r + 1) // 2 + 2 * r * r) * 4
-    one = bound(f32_ops=ops * SMS / cluster_sms, nbytes=nbytes)
-    return {**bound(f32_ops=ops, nbytes=nbytes), "cluster_sms": cluster_sms,
-            "cluster_bound_ms": one["bound_ms"]}
+    return cluster_bound(2 * r ** 3 / 3, (r * (r + 1) // 2 + 2 * r * r) * 4,
+                         cluster_sms)
 
 
 def kernel_bounds():
@@ -197,8 +217,12 @@ def kernel_bounds():
             **group_bound(2048, 128, head, (False,) * 7 + (True,), True)},
         "K3 panel_qr_fused": {"shape": "4096 x 128, robust",
                               **panel_qr_bound(4096, 128)},
+        "K3 tri_combine": {"shape": "r=128 (robust R block)",
+                           **tri_combine_bound(128)},
         "K4 ninv_chain": {"shape": "r=128, 5 iterations",
                           **ninv_chain_bound(128, 5)},
+        "K4 ninv_chain 12": {"shape": "r=128, 12 iterations",
+                             **ninv_chain_bound(128, 12)},
         "K5 bgs_group_fused_proj": {
             "shape": "2048 x 1024, g=8, bf16, 1024 previous columns",
             **group_bound(2048, 128, head, (False,) * 7 + (True,), True,

@@ -20,7 +20,9 @@ default`` (qr 2048^2 POLICY_MIXED, bgs2), ``band`` (the headline call at
 4096^2), ``lstsq`` (the 4096 x 2048 gauge-deficient system of
 ``datagen.gauge_deficient_system``) and its four stages as ``lstsq`` runs
 them, ``robust`` (the Householder tier at 2048^2), ``householder_pallas``
-(the same call with every panel through K6), ``polar`` (the
+(the same call with every panel through K6), ``cholqr1 scan`` (the
+2048^2 CholeskyQR tier under POLICY_MIXED with ``loop_mode='scan'``: 15
+K4 launches, ``chip_smoke.py`` phase 11's), ``polar`` (the
 auto-dispatched complete Q of a 4096 x 2048 input, POLICY_MIXED_FAST),
 ``proj_entry`` (the headline's BGS driver with the inter-group projection
 inside K5), ``scan 16384^2`` (the headline call at 16384^2: bgs1 / scan)
@@ -188,6 +190,9 @@ def main(only: Sequence[str] = ()) -> int:
                                     panel_method="householder"), 1),
         ("householder_pallas", lambda: block_qr(
             A, 128, POLICY_FP32, panel_method="householder_pallas"), 5),
+        ("cholqr1 scan", lambda: block_qr(
+            A, 128, POLICY_MIXED, mode="complete", panel_method="cholqr1",
+            loop_mode="scan"), 5),
         ("polar 4096x2048", lambda: block_qr(
             A42, 128, POLICY_MIXED_FAST, mode="complete",
             panel_method="auto", quality="fast"), 5),

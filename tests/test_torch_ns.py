@@ -161,7 +161,8 @@ def _yamamoto_S(m, r, seed):
 
 
 @pytest.mark.parametrize("m,r,iters", [(512, 64, 6), (512, 64, 5),
-                                       (128, 64, 12), (256, 32, 8)])
+                                       (128, 64, 12), (256, 32, 8),
+                                       (4096, 128, 5), (256, 128, 12)])
 def test_ninv_chain_matches_jax(m, r, iters):
     # K4's plain version against the Pallas kernel in interpret mode: the
     # same products, summation order only (rtol/atol 1e-5); the fallback
