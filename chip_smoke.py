@@ -88,13 +88,35 @@ last line):
  15. exported -- tiled_matmul and chol_rinv through their own entry points:
                  CholeskyQR2 of a 4096 x 256 panel built from them, timed
                  beside the same panel with cholesky_ex + solve_triangular
-                 in chol_rinv's place, and matmul_bf16_accum_f32 at 2048^3.
+                 in chol_rinv's place, and matmul_bf16_accum_f32 at 2048^3;
+ 16. tsqr     -- tsqr(A) on a 100000 x 64 input (numpy seed 0, uniform -
+                 0.5): 64 leaves, 127 panel_factor_fused launches (64
+                 leaves + 63 tree nodes), the metric triple; its time beside
+                 torch.linalg.qr and one panel_factor_fused call on the
+                 whole panel (in place); lstsq(A, b, method='tsqr') against
+                 float64 np.linalg.lstsq;
+ 17. refine   -- lstsq(J, b, refine_steps=2) on the full-rank
+                 slam_jacobian(4096, 2048, seed=0): stored-factor CAQR (only
+                 panel_factor_fused launches, as many as its leaves and tree
+                 nodes: no reroute), x against float64 np.linalg.lstsq with
+                 and without the sweeps, its time beside method='blocked';
+                 lstsq_batched on 8 systems slam_jacobian(2048, 512, seed=i)
+                 (8 x 4 panel_factor_fused launches), each against float64;
+ 18. autodiff -- qr_autodiff on the first 1024 columns of phase 4's input,
+                 POLICY_FP32 (resolves to bgs: bgs_group_fused in the
+                 forward, no kernel in the backward): gA of a seeded weighted
+                 loss against float64 torch.linalg.qr autograd on
+                 sign-canonicalized factors, NaN in A -> NaN in gA, forward
+                 and backward time beside fp32 torch.linalg.qr + autograd;
+                 lstsq_autodiff's x and gradients in A and b against a
+                 float64 oracle.
 Then a line with every kernel's launches on its main path (phases 4-6 for
 ns_chain and bgs_group_fused, phase 7 for panel_qr_fused,
 sketch_qrcp_ranks and panel_factor_fused, phase 9 for ninv_chain,
 phase 13 for bgs_group_fused_proj, phase 15 for
 tiled_matmul and chol_rinv; the counts are set to 0 just before each path
-and read just after), error, times and bound, and as the last line
+and read just after; phases 16-18 assert their own counts the same way),
+error, times and bound, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2
 and prints no result.
 """
@@ -150,6 +172,23 @@ def max_abs(a, b):
     return float((a - b).abs().max())
 
 
+def solve_errors(a, b, x):
+    """A least-squares solution x (on the card) of the numpy system (a, b)
+    against float64 np.linalg.lstsq (rcond = eps_f32 * m): relative
+    residual difference and relative x error, with the oracle's rank."""
+    m = a.shape[0]
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    x_o, _, rank_o, _ = np.linalg.lstsq(
+        a64, b64, rcond=float(np.finfo(np.float32).eps) * m)
+    x64 = x.detach().double().cpu().numpy()
+    res_o = float(np.linalg.norm(a64 @ x_o - b64))
+    res_x = float(np.linalg.norm(a64 @ x64 - b64))
+    return {"rank_oracle": int(rank_o), "resid": res_x, "resid_oracle": res_o,
+            "resid_rel": abs(res_x - res_o) / res_o,
+            "x_rel_err": float(np.linalg.norm(x64 - x_o)
+                               / np.linalg.norm(x_o))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -160,14 +199,19 @@ def main() -> int:
         POLICY_FP64,
         POLICY_MIXED,
         POLICY_MIXED_FAST,
+        back_substitution,
         block_qr,
         block_qr_resumable,
         lstsq,
+        lstsq_autodiff,
+        lstsq_batched,
         metrics,
         numerical_rank,
         pivoted_qr,
         pivoted_qr_qtb,
         qr,
+        qr_autodiff,
+        tsqr,
     )
     from mixedprecisionblockqr_tpu_torch.ops import pivoted
     from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
@@ -207,6 +251,8 @@ def main() -> int:
     )
     from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
         max_cluster as panel_max_cluster,
+        panel_factor_fused,
+        panel_layout,
     )
     from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
     from mixedprecisionblockqr_tpu_torch.utils.bounds import (
@@ -219,8 +265,15 @@ def main() -> int:
         panel_qr_bound,
         sketch_bound,
     )
+    from mixedprecisionblockqr_tpu_torch.parallel import caqr as caqr_mod
+    from mixedprecisionblockqr_tpu_torch.parallel import tsqr as tsqr_mod
+    from mixedprecisionblockqr_tpu_torch.parallel.caqr import (
+        apply_qt,
+        caqr_factor,
+    )
     from mixedprecisionblockqr_tpu_torch.utils.datagen import (
         gauge_deficient_system,
+        slam_jacobian,
     )
     from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
     from mixedprecisionblockqr_tpu_torch.utils.ninv_probe import (
@@ -1321,6 +1374,197 @@ def main() -> int:
                        "product's relative distance from torch.mm <= 1e-5; "
                        "panel times: CUDA events, median of 20",
           "card": card})
+
+    # 16. tsqr: the tall-skinny cell, 100000 x 64 (seed 0, uniform - 0.5):
+    # 64 leaves of 1563 rows and 63 tree nodes of 128 x 64, one K6 each.
+    a16 = np.random.default_rng(0).random((100000, 64),
+                                          dtype=np.float32) - 0.5
+    A16 = torch.from_numpy(a16).to(dev)
+    leaves16 = tsqr_mod._pick_leaves(100000, 64, None)
+    assert leaves16 == 64, leaves16
+    torch.cuda.synchronize()
+    reset_launches()
+    Q16, R16 = tsqr(A16)
+    torch.cuda.synchronize()
+    c16 = dict(LAUNCHES)
+    assert c16["panel_factor_fused"] == 2 * leaves16 - 1, c16
+    rep16 = metrics.evaluate(A16, Q16, R16, POLICY_FP32.precision_bits)
+    assert rep16.all_ok, str(rep16)
+    b16n = np.random.default_rng(1).standard_normal(100000).astype(
+        np.float32)
+    b16 = torch.from_numpy(b16n).to(dev)
+    reset_launches()
+    x16 = lstsq(A16, b16, method="tsqr")
+    torch.cuda.synchronize()
+    c16_lstsq = dict(LAUNCHES)
+    assert c16_lstsq["panel_factor_fused"] == 2 * leaves16 - 1, c16_lstsq
+    row16 = solve_errors(a16, b16n, x16)
+    assert row16["resid_rel"] <= 1e-5 and row16["x_rel_err"] <= 1e-4, row16
+    row16.update({
+        "ms": cuda_time_ms(lambda: tsqr(A16), warmup=1, iters=5),
+        "library_qr_ms": cuda_time_ms(lambda: torch.linalg.qr(A16),
+                                      warmup=1, iters=5),
+        "one_k6_whole_panel_ms": cuda_time_ms(
+            lambda: panel_factor_fused(A16), warmup=1, iters=5),
+        "one_k6_whole_panel_layout": list(panel_layout(
+            100000, 64, panel_max_cluster(dev))),
+        "lstsq_tsqr_ms": cuda_time_ms(
+            lambda: lstsq(A16, b16, method="tsqr"), warmup=1, iters=5)})
+    emit({"phase": "tsqr", "call": "tsqr(A) 100000 x 64 fp32 (seed 0 "
+          "uniform - 0.5); lstsq(A, b, method='tsqr')", "leaves": leaves16,
+          "launches": c16, "lstsq_launches": c16_lstsq,
+          "backward": rep16.backward, "orthogonality": rep16.orthogonality,
+          "lower_trapezoid": rep16.lower_trapezoid, "all_ok": rep16.all_ok,
+          "tight_ok": rep16.tight_ok, **row16,
+          "tolerance": "metric triple within 2^-23 m; lstsq residual 1e-5 "
+                       "and x 1e-4 relative of float64 np.linalg.lstsq; "
+                       "times: CUDA events, median of 5", "card": card})
+    del Q16, R16, A16
+
+    # 17. refine: lstsq(J, b, refine_steps=2) on the full-rank SLAM Jacobian
+    # (rank 2048, condition 18.5 in float64): stored-factor CAQR at 128
+    # columns a panel, no reroute; then lstsq_batched on 8 systems.
+    Jn17 = slam_jacobian(4096, 2048, seed=0)
+    bn17 = np.random.default_rng(2).standard_normal(4096).astype(np.float32)
+    J17 = torch.from_numpy(Jn17).to(dev)
+    b17 = torch.from_numpy(bn17).to(dev)
+    w17 = min(128, max(2048 // 2, 1))
+    k6_17 = sum(2 * caqr_mod._pick_row_blocks(4096 - lam, w17, None) - 1
+                for lam in range(0, 2048, w17))
+    torch.cuda.synchronize()
+    reset_launches()
+    x17 = lstsq(J17, b17, refine_steps=2)
+    torch.cuda.synchronize()
+    c17 = dict(LAUNCHES)
+    # the CAQR path ran: K6 only, as many as its panels' leaves and tree
+    # nodes; a reroute to lstsq_pivoted would launch K3 and K7
+    assert (c17["panel_factor_fused"] == k6_17
+            and c17["panel_qr_fused"] == 0
+            and c17["sketch_qrcp_ranks"] == 0), (c17, k6_17)
+    row17 = solve_errors(Jn17, bn17, x17)
+    assert row17["rank_oracle"] == 2048, row17
+    assert row17["resid_rel"] <= 1e-5 and row17["x_rel_err"] <= 1e-4, row17
+    factors17, Rc17 = caqr_factor(J17, block_size=w17)
+    x17_caqr = back_substitution(Rc17, apply_qt(factors17, b17[:, None])
+                                 [:2048, :])[:, 0]
+    row17["x_rel_err_caqr_no_sweeps"] = solve_errors(
+        Jn17, bn17, x17_caqr)["x_rel_err"]
+    row17["x_rel_err_blocked"] = solve_errors(
+        Jn17, bn17, lstsq(J17, b17))["x_rel_err"]
+    row17["ms"] = cuda_time_ms(lambda: lstsq(J17, b17, refine_steps=2),
+                               warmup=1, iters=3)
+    row17["blocked_ms"] = cuda_time_ms(lambda: lstsq(J17, b17), warmup=1,
+                                       iters=3)
+    del factors17, Rc17
+    Abn = np.stack([slam_jacobian(2048, 512, seed=i) for i in range(8)])
+    bbn = np.random.default_rng(2).standard_normal((8, 2048)).astype(
+        np.float32)
+    Ab = torch.from_numpy(Abn).to(dev)
+    bb = torch.from_numpy(bbn).to(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    xb = lstsq_batched(Ab, bb)
+    torch.cuda.synchronize()
+    cb = dict(LAUNCHES)
+    assert cb["panel_factor_fused"] == 8 * 4, cb
+    errs_b = [solve_errors(Abn[i], bbn[i], xb[i]) for i in range(8)]
+    assert all(e["resid_rel"] <= 1e-5 and e["x_rel_err"] <= 1e-4
+               for e in errs_b), errs_b
+    emit({"phase": "refine", "call": "lstsq(J, b, refine_steps=2), J = "
+          "slam_jacobian(4096, 2048, seed=0), b from default_rng(2)",
+          "caqr_panel_width": w17, "launches": c17, **row17,
+          "batched": {"call": "lstsq_batched on slam_jacobian(2048, 512, "
+                      "seed=i), i < 8", "launches": cb,
+                      "x_rel_err_max": max(e["x_rel_err"] for e in errs_b),
+                      "resid_rel_max": max(e["resid_rel"] for e in errs_b),
+                      "ms": cuda_time_ms(lambda: lstsq_batched(Ab, bb),
+                                         warmup=1, iters=5)},
+          "tolerance": "residual 1e-5 and x 1e-4 relative of float64 "
+                       "np.linalg.lstsq (rcond = eps_f32 * m); times: CUDA "
+                       "events, median of 3 (batched: 5)", "card": card})
+    del J17, b17, Ab, bb
+
+    # 18. autodiff: qr_autodiff forward and backward on the first 1024
+    # columns of the 2048^2 headline input, POLICY_FP32, against float64
+    # torch.linalg.qr autograd on sign-canonicalized factors.
+    A18 = A[:, :1024].contiguous()
+    cfg18 = resolve_panel_config(2048, 1024, 128, POLICY_FP32, "auto",
+                                 "unroll", 4, mode="reduced", on_gpu=True)
+    gen18 = torch.Generator(device=dev).manual_seed(18)
+    wq18 = torch.randn((2048, 1024), generator=gen18, device=dev)
+    wr18 = torch.randn((1024, 1024), generator=gen18, device=dev)
+
+    def loss18(Q, R, canon=True):
+        d = torch.ones(R.shape[0], dtype=R.dtype, device=dev)
+        if canon:
+            d = torch.where(torch.diagonal(R) < 0, -d, d)
+        return ((wq18.to(Q.dtype) * (Q * d[None, :])).sum()
+                + (wr18.to(R.dtype) * (R * d[:, None])).sum())
+
+    X18 = A18.clone().requires_grad_()
+    torch.cuda.synchronize()
+    reset_launches()
+    Q18, R18 = qr_autodiff(X18, 128, POLICY_FP32)
+    torch.cuda.synchronize()
+    c18 = dict(LAUNCHES)
+    loss18(Q18, R18).backward()
+    torch.cuda.synchronize()
+    c18_backward = {k: LAUNCHES[k] - c18[k] for k in LAUNCHES}
+    assert cfg18[0] == "bgs" and c18["bgs_group_fused"] > 0, (cfg18, c18)
+    assert not any(c18_backward.values()), c18_backward
+    X64 = A18.double().requires_grad_()
+    loss18(*torch.linalg.qr(X64)).backward()
+    row18 = {"gA_rel_vs_fp64": rel_fro(X18.grad.double(), X64.grad)}
+    Xn = A18.clone()
+    Xn[5, 7] = float("nan")
+    Xn.requires_grad_()
+    Qn, Rn = qr_autodiff(Xn, 128, POLICY_FP32)
+    (Qn.sum() + Rn.sum()).backward()
+    row18["nan_in_nan_gA"] = bool(torch.isnan(Xn.grad).any())
+    b18 = torch.randn(2048, generator=gen18, device=dev)
+    t18 = torch.randn(1024, generator=gen18, device=dev)
+    Xa, ba = A18.clone().requires_grad_(), b18.clone().requires_grad_()
+    xa = lstsq_autodiff(Xa, ba, 128, POLICY_FP32)
+    ((xa - t18) ** 2).sum().backward()
+    Xa64, ba64 = A18.double().requires_grad_(), b18.double().requires_grad_()
+    Q64, R64 = torch.linalg.qr(Xa64)
+    xa64 = torch.linalg.solve_triangular(R64, (Q64.T @ ba64)[:, None],
+                                         upper=True)[:, 0]
+    ((xa64 - t18.double()) ** 2).sum().backward()
+    row18.update({"lstsq_x_rel_vs_fp64": rel_fro(xa.detach().double(),
+                                                 xa64.detach()),
+                  "lstsq_gA_rel_vs_fp64": rel_fro(Xa.grad.double(),
+                                                  Xa64.grad),
+                  "lstsq_gb_rel_vs_fp64": rel_fro(ba.grad.double(),
+                                                  ba64.grad)})
+    assert row18["gA_rel_vs_fp64"] <= 1e-4 and row18["nan_in_nan_gA"], row18
+    assert max(row18[k] for k in ("lstsq_x_rel_vs_fp64",
+                                  "lstsq_gA_rel_vs_fp64",
+                                  "lstsq_gb_rel_vs_fp64")) <= 1e-4, row18
+
+    def fwd_bwd(qr_fn):
+        X = A18.clone().requires_grad_()
+        loss18(*qr_fn(X), canon=False).backward()
+
+    row18.update({
+        "forward_ms": cuda_time_ms(
+            lambda: qr_autodiff(A18, 128, POLICY_FP32), warmup=1, iters=5),
+        "forward_backward_ms": cuda_time_ms(
+            lambda: fwd_bwd(lambda X: qr_autodiff(X, 128, POLICY_FP32)),
+            warmup=1, iters=5),
+        "library_forward_backward_ms": cuda_time_ms(
+            lambda: fwd_bwd(torch.linalg.qr), warmup=1, iters=5)})
+    emit({"phase": "autodiff", "call": "qr_autodiff(A[:, :1024], 128, "
+          "POLICY_FP32) forward and backward of a seeded weighted loss; "
+          "lstsq_autodiff on the same A", "resolved": list(cfg18),
+          "forward_launches": c18, **row18,
+          "tolerance": "gA, and lstsq_autodiff's x, gA and gb, within 1e-4 "
+                       "relative (Frobenius) of float64 torch.linalg.qr "
+                       "autograd (sign-canonicalized for qr_autodiff); a NaN "
+                       "in A gives NaN in gA; times: CUDA events, median "
+                       "of 5 (library: fp32 torch.linalg.qr + autograd)",
+          "card": card})
+    del Q18, R18, X18, X64, Xn, Xa, Xa64
 
     emit({"kernels": [
         {"name": "ns_chain", "route": "cuda",

@@ -9,7 +9,11 @@ CholeskyQR tiers ``cholqr1``, ``cholqr2``, ``cholqr2s`` and ``cholqr1x2``
 checkpointed driver ``block_qr_resumable``; the Householder tiers
 ``householder`` and ``householder_pallas``; ``block_recursive_qr`` and
 ``block_qr_batched``.  Also the rank-revealing least-squares path
-(``lstsq`` -> RQRCP pivoted QR -> Householder tier).  All nine kernels of
+(``lstsq`` -> RQRCP pivoted QR -> Householder tier) with its TSQR and
+refinement (stored-factor CAQR) options and ``lstsq_batched``; the
+differentiable QR (``qr_autodiff``, ``make_differentiable_qr``,
+``lstsq_autodiff``); single-device TSQR (``tsqr``, ``tsqr_batched``) and
+CAQR (``caqr``), whose panels run K6 on the card.  All nine kernels of
 the JAX package are written in CUDA C++ for ``sm_90a`` under ``csrc/``:
 ``ns_chain`` (K1), ``bgs_group_fused`` (K2), ``panel_qr_fused`` (K3),
 ``ninv_chain`` (K4), ``bgs_group_fused_proj`` (K5), ``panel_factor_fused``
@@ -30,7 +34,10 @@ Public API:
     wy_representation, apply_block_reflector_left_t,
     apply_block_reflector_right
     pivoted_qr, pivoted_qr_qtb, numerical_rank
-    lstsq, lstsq_pivoted, back_substitution, gauss_newton_step
+    lstsq, lstsq_pivoted, lstsq_batched, back_substitution,
+    gauss_newton_step
+    qr_autodiff, make_differentiable_qr, lstsq_autodiff
+    tsqr, tsqr_batched, caqr
     DTypePolicy, POLICY_FP32, POLICY_MIXED, POLICY_MIXED_FAST, POLICY_BF16,
     POLICY_BF16_FAST, POLICY_FP64, policy_by_name
     metrics: backward_error, orthogonality_error, lower_trapezoid_error,
@@ -41,6 +48,8 @@ Public API:
 from mixedprecisionblockqr_tpu_torch.models.lstsq import (
     back_substitution,
     lstsq,
+    lstsq_autodiff,
+    lstsq_batched,
     lstsq_pivoted,
 )
 from mixedprecisionblockqr_tpu_torch.models.resumable import (
@@ -49,6 +58,10 @@ from mixedprecisionblockqr_tpu_torch.models.resumable import (
 )
 from mixedprecisionblockqr_tpu_torch.models.slam import gauss_newton_step
 from mixedprecisionblockqr_tpu_torch.ops import metrics
+from mixedprecisionblockqr_tpu_torch.ops.autodiff import (
+    make_differentiable_qr,
+    qr_autodiff,
+)
 from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
     block_qr,
     block_qr_batched,
@@ -83,6 +96,8 @@ from mixedprecisionblockqr_tpu_torch.ops.wy import (
     build_t_matrix,
     wy_representation,
 )
+from mixedprecisionblockqr_tpu_torch.parallel.caqr import caqr
+from mixedprecisionblockqr_tpu_torch.parallel.tsqr import tsqr, tsqr_batched
 from mixedprecisionblockqr_tpu_torch.utils.checks import (
     NonFiniteError,
     checked_qr,
@@ -117,6 +132,13 @@ __all__ = [
     "numerical_rank",
     "lstsq",
     "lstsq_pivoted",
+    "lstsq_batched",
+    "lstsq_autodiff",
+    "qr_autodiff",
+    "make_differentiable_qr",
+    "tsqr",
+    "tsqr_batched",
+    "caqr",
     "back_substitution",
     "gauss_newton_step",
     "block_qr_resumable",

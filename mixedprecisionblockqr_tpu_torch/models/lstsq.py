@@ -1,14 +1,15 @@
 """QR-based linear least squares (port of
-``mixedprecisionblockqr_tpu/models/lstsq.py``).
+``mixedprecisionblockqr_tpu/models/lstsq.py``, less the recursive
+least-squares functions ``RLSState`` / ``rls_*``).
 
 ``lstsq`` factors with ``block_qr_qtb`` (b rides through the panel
 updates, Q is never formed), checks R's diagonal for decay and, on a
 rank-deficient system, reroutes to ``lstsq_pivoted``: the min-norm
 solution through a pivoted QR (RQRCP at n >= 512) and a complete
-orthogonal decomposition.  Not ported yet: ``method='tsqr'`` and
-``refine_steps > 0`` (ROADMAP Queue 1 item 11, ``parallel/``),
-``lstsq_batched`` and the recursive-least-squares functions (items 9-10),
-``lstsq_autodiff`` (item 9).
+orthogonal decomposition.  ``method='tsqr'`` solves through TSQR's
+reduced Q; ``refine_steps > 0`` factors once by stored-factor CAQR and
+replays its Q^T per refinement sweep.  ``lstsq_batched`` solves a stack of
+systems, ``lstsq_autodiff`` is differentiable in A and b.
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ from typing import Optional
 
 import torch
 
+from mixedprecisionblockqr_tpu_torch.ops.autodiff import qr_autodiff
 from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
     DEFAULT_BLOCK_SIZE,
+    _driver,
     block_qr_qtb,
     qr,
 )
@@ -31,10 +34,11 @@ from mixedprecisionblockqr_tpu_torch.ops.policy import (
     POLICY_FP32,
     mm_f32,
 )
+from mixedprecisionblockqr_tpu_torch.parallel.caqr import apply_qt, caqr_factor
+from mixedprecisionblockqr_tpu_torch.parallel.tsqr import tsqr
 from mixedprecisionblockqr_tpu_torch.utils.device import as_device_tensor
 
 _EPS = torch.finfo(torch.float32).eps
-_PARALLEL_ITEM = "ROADMAP Queue 1 item 11 (parallel/: tsqr, caqr)"
 
 
 def back_substitution(R, b, lower: bool = False, block_size: int = 64,
@@ -109,9 +113,15 @@ def lstsq(
     non-tensor ``A`` runs on CUDA unless ``device='cpu'``).
 
     ``method='blocked'`` factors with ``block_qr_qtb(check='sync')``;
-    ``'pivoted'`` (and any m < n) goes to ``lstsq_pivoted``.  ``rcond`` is
-    the rank tripwire: when R's diagonal decays to ``rcond * max|diag|``
-    or below (default ``eps_f32 * max(m, n)``) the system is solved by
+    ``'tsqr'`` through ``tsqr(A)``'s reduced Q (for very tall A);
+    ``'pivoted'`` (and any m < n) goes to ``lstsq_pivoted``.
+    ``refine_steps`` sweeps of iterative refinement (solve A dx = r on the
+    same factorization, x += dx): with ``'tsqr'`` on its Q and R, otherwise
+    on a stored-factor CAQR (``caqr_factor`` at ``min(block_size, n // 2)``
+    columns a panel, its Q^T replayed by ``apply_qt``), which takes no
+    ``quality=``.  ``rcond`` is the rank tripwire of the blocked and the
+    CAQR path: when R's diagonal decays to ``rcond * max|diag|`` or below
+    (default ``eps_f32 * max(m, n)``) the system is solved by
     ``lstsq_pivoted`` instead; ``rcond=0`` disables it.  ``panel_method``
     and ``quality`` are forwarded to the blocked driver.
     """
@@ -120,20 +130,99 @@ def lstsq(
     m, n = A.shape
     if method == "pivoted" or m < n:
         return lstsq_pivoted(A, b, rcond=rcond)
-    if method == "tsqr" or refine_steps > 0:
-        raise NotImplementedError(
-            f"lstsq(method={method!r}, refine_steps={refine_steps}) is not "
-            f"ported to mixedprecisionblockqr_tpu_torch yet ({_PARALLEL_ITEM})"
-        )
+    if method == "tsqr":
+        Q, R = tsqr(A)
+        x = back_substitution(R, mm_f32(Q.T, b))
+        for _ in range(refine_steps):
+            r = b - mm_f32(A, x)
+            x = x + back_substitution(R, mm_f32(Q.T, r))
+        return x
+    if refine_steps > 0:
+        # Refinement needs a reusable implicit Q: stored-factor CAQR, whose
+        # apply_qt replays the factors per sweep.  quality= selects
+        # blocked-driver tiers and does not apply here.
+        if quality is not None:
+            raise ValueError(
+                "refine_steps uses the stored-factor CAQR path; the "
+                "quality ladder applies to the blocked driver only - "
+                "drop quality= or refine_steps="
+            )
+        factors, Rc = caqr_factor(A, block_size=min(block_size,
+                                                    max(n // 2, 1)))
+        if _rank_deficient(Rc, m, n, rcond):
+            return lstsq_pivoted(A, b, rcond=rcond)
+        squeeze = b.dim() == 1
+        bc = b[:, None] if squeeze else b
+        x = back_substitution(Rc, apply_qt(factors, bc)[:n, :])
+        for _ in range(refine_steps):
+            r = bc - mm_f32(A, x)
+            x = x + back_substitution(Rc, apply_qt(factors, r)[:n, :])
+        return x[:, 0] if squeeze else x
     R, qtb = block_qr_qtb(A, b, block_size=block_size, policy=policy,
                           panel_method=panel_method, quality=quality,
                           check="sync")
     Rn = R[:n, :]
-    if rcond is None or rcond > 0:
-        # Plain QR puts at least one tiny pivot on a rank-deficient R's
-        # diagonal (no guarantee where): the solve must reroute.
-        d = torch.diagonal(Rn).abs()
-        tol = _EPS * max(m, n) if rcond is None else rcond
-        if float(d.min()) <= tol * float(d.max()):
-            return lstsq_pivoted(A, b, rcond=rcond)
+    if _rank_deficient(Rn, m, n, rcond):
+        return lstsq_pivoted(A, b, rcond=rcond)
     return back_substitution(Rn, qtb[:n])
+
+
+def _rank_deficient(Rn: torch.Tensor, m: int, n: int,
+                    rcond: Optional[float]) -> bool:
+    """The rank tripwire: R's diagonal decays to ``rcond * max|diag|`` or
+    below (default ``eps_f32 * max(m, n)``; ``rcond=0`` disables it).
+    Plain QR puts at least one tiny pivot on a rank-deficient R's diagonal
+    (no guarantee where): the solve must reroute."""
+    if rcond is not None and rcond <= 0:
+        return False
+    d = torch.diagonal(Rn).abs()
+    tol = _EPS * max(m, n) if rcond is None else rcond
+    return float(d.min()) <= tol * float(d.max())
+
+
+def lstsq_batched(
+    A_batch,
+    b_batch,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    policy: DTypePolicy = POLICY_FP32,
+    device=None,
+):
+    """Least squares of each system of a (batch, m, n) stack: the
+    Householder driver with b threaded through, then back substitution
+    (the JAX package ``vmap``s the same).  ``b_batch`` (batch, m) gives x
+    (batch, n); (batch, m, k) gives (batch, n, k).  ``device`` as in
+    ``utils/device.py``."""
+    A_batch = as_device_tensor(A_batch, device).float()
+    b_batch = torch.as_tensor(b_batch, device=A_batch.device).float()
+    squeeze = b_batch.dim() == 2
+    if squeeze:
+        b_batch = b_batch[:, :, None]
+    n = A_batch.shape[2]
+    xs = []
+    for A, B in zip(A_batch, b_batch):
+        R_full, _, qtb = _driver(A, block_size, policy, False,
+                                 B.to(policy.panel), "householder", "unroll")
+        xs.append(back_substitution(R_full[:n, :], qtb[:n, :].float()))
+    x = torch.stack(xs)
+    return x[:, :, 0] if squeeze else x
+
+
+def lstsq_autodiff(
+    A,
+    b,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    policy: DTypePolicy = POLICY_FP32,
+):
+    """Differentiable least squares ``x = argmin ||A x - b||`` with
+    gradients in A and b: ``qr_autodiff`` (any blocked driver, closed-form
+    adjoint; ``ops/autodiff.py``), ``Q^T b`` and a triangular solve, all of
+    which autograd differentiates.  Needs full column rank; for
+    rank-deficient systems use ``lstsq_pivoted`` (forward only).  Unlike
+    ``lstsq`` it forms the reduced Q (m x n)."""
+    Q, R = qr_autodiff(A, block_size=block_size, policy=policy,
+                       panel_method="auto")
+    b = torch.as_tensor(b, device=Q.device)
+    qtb = mm_f32(Q.T, b)
+    rhs = qtb[:, None] if qtb.dim() == 1 else qtb
+    x = torch.linalg.solve_triangular(R.float(), rhs, upper=True)
+    return x[:, 0] if qtb.dim() == 1 else x

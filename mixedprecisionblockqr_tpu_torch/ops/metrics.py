@@ -51,6 +51,12 @@ def lower_trapezoid_error(R) -> torch.Tensor:
     return torch.linalg.norm(torch.tril(_f32(R), -1))
 
 
+def strip_r(A) -> torch.Tensor:
+    """Upper-triangular part of A (``h_strip_R_from_A``, ``Cuda/qr.cu:85-100``
+    of the reference)."""
+    return torch.triu(torch.as_tensor(A))
+
+
 @dataclasses.dataclass
 class QRReport:
     """One factorization's quality report, with pass/fail per criterion."""

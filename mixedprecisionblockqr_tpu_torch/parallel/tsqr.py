@@ -1,0 +1,189 @@
+"""TSQR: tall-skinny QR with a binary reduction tree, on one device (port
+of ``mixedprecisionblockqr_tpu/parallel/tsqr.py``, less the mesh-sharded
+``tsqr_sharded``).
+
+The rows split into a power-of-two number of leaves (zero-padded); each
+leaf is one Householder panel, and each tree level factors the stacked
+pairs of the level below: (2n x n) panels.  Q is rebuilt top-down from
+(n x n) path factors.  Every leaf and tree node goes through the routing
+of the ``'householder'`` tier (``ops/blockqr.py::_householder_panel``):
+K6 (``panel_factor_fused``) on the card for an fp32 panel at most 128
+wide, ``panel_factor``'s column loop otherwise (the CPU, float64, wider
+panels).  The JAX package ``vmap``s the leaves and the pairs of a level;
+here they are a loop, one panel launch each.
+
+Rank caveat (the reference's): Q assumes nonsingular leaf R factors;
+rank-deficient inputs still give a valid R and residual A = QR.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
+    _householder_fused,
+    _householder_panel,
+)
+from mixedprecisionblockqr_tpu_torch.ops.cholqr import cholesky_qr2
+from mixedprecisionblockqr_tpu_torch.ops.householder import _mm
+from mixedprecisionblockqr_tpu_torch.ops.policy import DTypePolicy, POLICY_FP32
+from mixedprecisionblockqr_tpu_torch.ops.wy import reduced_q_from_vt
+from mixedprecisionblockqr_tpu_torch.utils.device import as_device_tensor
+
+LEAF_METHODS = ("householder", "cholqr2", "cholqr2s")
+
+
+def householder_panel(block: torch.Tensor,
+                      policy: DTypePolicy = POLICY_FP32):
+    """``(V, T, Rp)`` of one Householder panel, routed as the
+    ``'householder'`` tier routes its panels: K6 on CUDA for fp32 at most
+    128 wide, else ``panel_factor``."""
+    return _householder_panel(
+        block, policy,
+        fused=_householder_fused(block.device.type, block.dtype,
+                                 block.shape[1]))
+
+
+def _leaf_qr(block: torch.Tensor, method: str = "householder"
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reduced QR of one (h x n) leaf: ``(Q (h x n), R (n x n))``.
+    'cholqr2' / 'cholqr2s' run (shifted) CholeskyQR2; 'householder' is
+    the unconditionally robust default."""
+    n = block.shape[1]
+    if method in ("cholqr2", "cholqr2s"):
+        return cholesky_qr2(block, shifted=method == "cholqr2s")
+    V, T, Rf = householder_panel(block)
+    return reduced_q_from_vt(V, T, n), torch.triu(Rf[:n, :])
+
+
+def reduction_tree(Rs: torch.Tensor, method: str = "householder"
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Binary-tree QR of L stacked (n x n) R factors.
+
+    Given ``Rs`` of shape (L, n, n), L a power of two, returns ``(F, R)``
+    with R the (n x n) triangular factor of the (L*n x n) stack and F the
+    (L, n, n) path factors: ``vstack(Rs) = vstack(F) @ R`` with
+    ``vstack(F)`` orthonormal.  Pairs factor by CholeskyQR2 when
+    ``method == 'cholqr2'``, else as Householder panels (as in the JAX
+    package, 'cholqr2s' trees are Householder).
+    """
+    L, n, _ = Rs.shape
+    if L < 1 or L & (L - 1):
+        raise ValueError(
+            f"reduction_tree requires a power-of-two leaf count, got {L} "
+            "(pad the R stack or pick n_leaves/mesh-axis sizes of 2^k)"
+        )
+    level_qs = []
+    cur = Rs
+    c = L
+    while c > 1:
+        pairs = cur.reshape(c // 2, 2 * n, n)
+        if method == "cholqr2":
+            outs = [cholesky_qr2(p) for p in pairs]
+            Qp = torch.stack([q for q, _ in outs])
+            cur = torch.stack([r for _, r in outs])
+        else:
+            outs = [householder_panel(p) for p in pairs]
+            Qp = torch.stack([reduced_q_from_vt(V, T, n)
+                              for V, T, _ in outs])
+            cur = torch.triu(torch.stack([Rp[:n, :] for _, _, Rp in outs]))
+        level_qs.append(Qp)  # (c // 2, 2n, n)
+        c //= 2
+    R = cur[0]
+    # Top-down reconstruction of the per-leaf path factors.
+    F = torch.eye(n, dtype=Rs.dtype, device=Rs.device)[None]
+    for Qp in reversed(level_qs):
+        top = _mm(Qp[:, :n, :], F)
+        bot = _mm(Qp[:, n:, :], F)
+        F = torch.stack([top, bot], dim=1).reshape(-1, n, n)
+    return F, R
+
+
+def _check_leaf_height(m: int, L: int, n: int, ctx: str) -> None:
+    """Leaves must be at least n tall: a short leaf's QR has rank < n and
+    the tree would propagate the defect silently."""
+    h = -(-m // L)
+    if h < n:
+        raise ValueError(
+            f"{ctx}: leaf height ceil({m}/{L}) = {h} is shorter than the "
+            f"panel width n = {n}; use at most {max(m // n, 1)} leaves "
+            "(short leaves are rank-deficient and the reduction tree "
+            "propagates the defect silently)"
+        )
+
+
+def _pick_leaves(m: int, n: int, n_leaves: Optional[int]) -> int:
+    """The leaf count: ``n_leaves`` if given, else the largest power of
+    two up to 64 that keeps leaves at least ``max(4n, 32)`` tall."""
+    if n_leaves is not None:
+        return n_leaves
+    L = 1
+    while L * 2 <= 64 and (m + L * 2 - 1) // (L * 2) >= max(4 * n, 32):
+        L *= 2
+    return L
+
+
+def _tsqr_impl(A: torch.Tensor, n_leaves: int, method: str = "householder"):
+    """TSQR of A (m x n) over ``n_leaves`` leaves: ``(Q (m x n), R)``."""
+    m, n = A.shape
+    L = n_leaves
+    h = -(-m // L)
+    pad = L * h - m
+    Ap = torch.cat([A, A.new_zeros((pad, n))]) if pad else A
+    outs = [_leaf_qr(blk, method) for blk in Ap.reshape(L, h, n)]
+    Qs = torch.stack([q for q, _ in outs])
+    F, R = reduction_tree(torch.stack([r for _, r in outs]), method)
+    Q = _mm(Qs, F).reshape(L * h, n)
+    return Q[:m, :], R
+
+
+def tsqr(A, n_leaves: Optional[int] = None, method: str = "householder",
+         device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reduced QR of a tall-skinny fp32 matrix A (m x n, m >> n) by TSQR:
+    ``(Q (m x n), R (n x n))``.
+
+    ``method``: 'householder' (robust), 'cholqr2' (all products) or
+    'cholqr2s' (shifted CholeskyQR, safe to cond ~ 1/eps_f32).  With a
+    cholqr method and no explicit leaf count the whole matrix is one leaf
+    (no tree), as in the JAX package.  ``device`` as in
+    ``utils/device.py``.
+    """
+    A = as_device_tensor(A, device).float()
+    m, n = A.shape
+    if m < n:
+        raise ValueError(f"tsqr requires m >= n, got {tuple(A.shape)}")
+    if method not in LEAF_METHODS:
+        raise ValueError(
+            f"unknown tsqr method {method!r}; options: {LEAF_METHODS}")
+    if n_leaves is not None and (n_leaves < 1 or n_leaves & (n_leaves - 1)):
+        raise ValueError(
+            f"n_leaves must be a power of two, got {n_leaves} "
+            "(the binary reduction tree pairs leaves level by level)"
+        )
+    if n_leaves is None and method.startswith("cholqr"):
+        return _leaf_qr(A, method)
+    L = _pick_leaves(m, n, n_leaves)
+    if L == 1:
+        return _leaf_qr(A, method)
+    _check_leaf_height(m, L, n, "tsqr")
+    return _tsqr_impl(A, L, method)
+
+
+def tsqr_batched(A_batch, n_leaves: Optional[int] = None, device=None):
+    """TSQR (Householder leaves) of each matrix of a (batch, m, n) stack:
+    ``(Q (batch, m, n), R (batch, n, n))``.  ``device`` as in
+    ``utils/device.py``."""
+    A_batch = as_device_tensor(A_batch, device)
+    if n_leaves is not None and (n_leaves < 1 or n_leaves & (n_leaves - 1)):
+        raise ValueError(f"n_leaves must be a power of two, got {n_leaves}")
+    _, m, n = A_batch.shape
+    L = _pick_leaves(m, n, n_leaves)
+    if L == 1:
+        outs = [_leaf_qr(a) for a in A_batch]
+    else:
+        _check_leaf_height(m, L, n, "tsqr_batched")
+        outs = [_tsqr_impl(a, L) for a in A_batch]
+    return (torch.stack([q for q, _ in outs]),
+            torch.stack([r for _, r in outs]))

@@ -9,7 +9,7 @@ package's and return the same arrays for the same seeds.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -126,3 +126,13 @@ def gauge_deficient_system(
     J[:, -k:] = J[:, :k] @ C
     b = np.random.default_rng(2).standard_normal(m).astype(np.float32)
     return J, b
+
+
+def size_sweep(start: int = 64, stop: int = 2048,
+               factor: int = 2) -> Iterator[int]:
+    """Geometric size sweep (the reference sweeps sizes in its test
+    iterators, ``Cuda/qr.cu:1910-1959``)."""
+    s = start
+    while s <= stop:
+        yield s
+        s *= factor

@@ -25,8 +25,13 @@ them, ``robust`` (the Householder tier at 2048^2), ``householder_pallas``
 K4 launches, ``chip_smoke.py`` phase 11's), ``polar`` (the
 auto-dispatched complete Q of a 4096 x 2048 input, POLICY_MIXED_FAST),
 ``proj_entry`` (the headline's BGS driver with the inter-group projection
-inside K5), ``scan 16384^2`` (the headline call at 16384^2: bgs1 / scan)
-and ``bgs scan 4096^2`` (the all-robust scan tier under POLICY_FP32).
+inside K5), ``scan 16384^2`` (the headline call at 16384^2: bgs1 / scan),
+``bgs scan 4096^2`` (the all-robust scan tier under POLICY_FP32), and
+``chip_smoke.py`` phases 16-18: ``tsqr 100000x64`` (127 K6), ``lstsq
+refine`` (``refine_steps=2`` on the full-rank ``slam_jacobian(4096, 2048,
+seed=0)``: stored-factor CAQR), ``lstsq_batched`` (8 systems of 2048 x
+512) and ``autodiff`` (``qr_autodiff`` forward and backward on 2048 x
+1024, POLICY_FP32).  The inputs of the last four are made at first use.
 Without a CUDA device it exits 2.
 """
 
@@ -122,14 +127,18 @@ def main(only: Sequence[str] = ()) -> int:
         block_qr,
         block_qr_qtb,
         lstsq,
+        lstsq_batched,
         numerical_rank,
         pivoted_qr_qtb,
         qr,
+        qr_autodiff,
+        tsqr,
     )
     from mixedprecisionblockqr_tpu_torch.ops.blockqr import _block_qr_bgs
     from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
     from mixedprecisionblockqr_tpu_torch.utils.datagen import (
         gauge_deficient_system,
+        slam_jacobian,
     )
 
     dev = torch.device("cuda", 0)
@@ -172,6 +181,35 @@ def main(only: Sequence[str] = ()) -> int:
                 generator=torch.Generator(device=dev).manual_seed(0)) - 0.5)
         return big_input[0]
 
+    made = {}
+
+    def lazy(key, make):
+        """An input made on the card at first use."""
+        if key not in made:
+            made[key] = make()
+        return made[key]
+
+    def tall():
+        return torch.from_numpy(np.random.default_rng(0).random(
+            (100000, 64), dtype=np.float32) - 0.5).to(dev)
+
+    def slam():
+        return (torch.from_numpy(slam_jacobian(4096, 2048, seed=0)).to(dev),
+                torch.from_numpy(np.random.default_rng(2).standard_normal(
+                    4096).astype(np.float32)).to(dev))
+
+    def batch():
+        return (torch.from_numpy(np.stack(
+                    [slam_jacobian(2048, 512, seed=i) for i in range(8)])
+                ).to(dev),
+                torch.from_numpy(np.random.default_rng(2).standard_normal(
+                    (8, 2048)).astype(np.float32)).to(dev))
+
+    def autodiff_step():
+        X = A[:, :1024].clone().requires_grad_()
+        Q, R = qr_autodiff(X, 128, POLICY_FP32)
+        (Q.sum() + R.sum()).backward()
+
     cells = [
         ("headline", lambda: headline(A), 5),
         ("qr default", lambda: qr(A, policy=POLICY_MIXED), 5),
@@ -202,6 +240,11 @@ def main(only: Sequence[str] = ()) -> int:
         ("scan 16384^2", lambda: headline(big()), 1),
         ("bgs scan 4096^2", lambda: block_qr(
             A4, 128, POLICY_FP32, panel_method="bgs", loop_mode="scan"), 1),
+        ("tsqr 100000x64", lambda: tsqr(lazy("tall", tall)), 5),
+        ("lstsq refine", lambda: lstsq(*lazy("slam", slam),
+                                       refine_steps=2), 1),
+        ("lstsq_batched", lambda: lstsq_batched(*lazy("batch", batch)), 1),
+        ("autodiff", autodiff_step, 5),
     ]
     for name, fn, calls in cells:
         if only and not any(o in name for o in only):

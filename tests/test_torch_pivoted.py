@@ -205,10 +205,13 @@ def test_gauss_newton_step_matches_jax(gauge_deficient):
 def test_lstsq_unported_methods_name_the_roadmap():
     a = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (64, 16)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pt.lstsq(a, torch.ones(64), method="tsqr")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pt.lstsq(a, torch.ones(64), refine_steps=1)
+    # method='tsqr' and refine_steps are ported: they solve (fp32 against
+    # the float64 oracle, a well-conditioned 64 x 16 system: 1e-4).
+    want = np.linalg.lstsq(a.numpy().astype(np.float64), np.ones(64),
+                           rcond=None)[0]
+    for kw in ({"method": "tsqr"}, {"refine_steps": 1}):
+        x = pt.lstsq(a, torch.ones(64), **kw)
+        np.testing.assert_allclose(x.numpy(), want, atol=1e-4)
     with pytest.raises(NotImplementedError, match="item 12"):
         tslam.JacobianCase("f", 4, 4, path="A_000000100.txt").load()
     cases = tslam.enumerate_jacobians(synthetic_sizes=[(64, 32)])
