@@ -11,7 +11,12 @@ last line):
   3. kernels  -- all nine kernels (ns_chain, bgs_group_fused,
                  panel_qr_fused, ninv_chain, panel_factor_fused,
                  sketch_qrcp_ranks, bgs_group_fused_proj, tiled_matmul,
-                 chol_rinv) against their plain PyTorch versions on the
+                 chol_rinv) and the three Givens chains of the streaming
+                 family (givens_fold_rows, givens_chain, givens_hessenberg:
+                 G1 at n = 256 with 16 rows and with one, G2 and G3 at
+                 m = n = 512, each launched twice and compared bit for bit,
+                 and once more at phase 19's n = 2048) against their plain
+                 PyTorch versions on the
                  card at the main paths' shapes, with the stated tolerances;
                  ns_chain at r = 32, 64, 128 in every option combination
                  the QR tiers use, bitwise repeatable, NaN in -> NaN resid;
@@ -109,12 +114,29 @@ last line):
                  sign-canonicalized factors, NaN in A -> NaN in gA, forward
                  and backward time beside fp32 torch.linalg.qr + autograd;
                  lstsq_autodiff's x and gradients in A and b against a
-                 float64 oracle.
+                 float64 oracle;
+ 19. streaming -- experiments/r10_incremental.py's cell on the port: the
+                 complete factors of default_rng(0).random((n, n)) - 0.5;
+                 at n = 1024 qr_rank1_update, qr_delete_col(k=7) then
+                 qr_insert_col(k=7) (the script's order inserts into a
+                 square factor, which both packages refuse),
+                 qr_delete_row(k=0) (backward < 1e-5,
+                 orthogonality < 1e-4) and qr_append_row (Gram < 1e-5); at
+                 n = 1024 and 2048 each streaming call's time beside the
+                 block_qr refactorizations (POLICY_FP32, POLICY_MIXED_FAST);
+                 rls_init on phase 17's system, rls_update of 16 rows,
+                 rls_solve against float64 and beside lstsq of the stacked
+                 4112 x 2048 system; givens_qr at 512^2 (metric triple,
+                 beside torch.linalg.qr); one G1 per rls_update and
+                 qr_append_row, one G2 + one G3 per qr_rank1_update, one G2
+                 per qr_insert_col and qr_delete_row, one G3 per
+                 qr_delete_col, asserted call by call.
 Then a line with every kernel's launches on its main path (phases 4-6 for
 ns_chain and bgs_group_fused, phase 7 for panel_qr_fused,
 sketch_qrcp_ranks and panel_factor_fused, phase 9 for ninv_chain,
 phase 13 for bgs_group_fused_proj, phase 15 for
-tiled_matmul and chol_rinv; the counts are set to 0 just before each path
+tiled_matmul and chol_rinv, phase 19 for the Givens chains: each streaming
+call once at n = 2048; the counts are set to 0 just before each path
 and read just after; phases 16-18 assert their own counts the same way),
 error, times and bound, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2
@@ -199,9 +221,11 @@ def main() -> int:
         POLICY_FP64,
         POLICY_MIXED,
         POLICY_MIXED_FAST,
+        RLSState,
         back_substitution,
         block_qr,
         block_qr_resumable,
+        givens_qr,
         lstsq,
         lstsq_autodiff,
         lstsq_batched,
@@ -210,7 +234,15 @@ def main() -> int:
         pivoted_qr,
         pivoted_qr_qtb,
         qr,
+        qr_append_row,
         qr_autodiff,
+        qr_delete_col,
+        qr_delete_row,
+        qr_insert_col,
+        qr_rank1_update,
+        rls_init,
+        rls_solve,
+        rls_update,
         tsqr,
     )
     from mixedprecisionblockqr_tpu_torch.ops import pivoted
@@ -275,6 +307,7 @@ def main() -> int:
         gauge_deficient_system,
         slam_jacobian,
     )
+    from mixedprecisionblockqr_tpu_torch.utils import givens_probe
     from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
     from mixedprecisionblockqr_tpu_torch.utils.ninv_probe import (
         combine_row,
@@ -915,6 +948,36 @@ def main() -> int:
           "library_call": "torch.linalg.cholesky_ex(upper=True) + "
                           "solve_triangular against I",
           "sizes": k9_rows, "card": card})
+
+    # G1-G3, the rotation chains of the streaming family (no pallas_call
+    # behind them: the JAX package's lax.scan / fori_loop loops), through
+    # utils/givens_probe.py: at phase 3's shapes each launched twice, bit
+    # for bit, timed beside its plain version and a refactorization; at
+    # phase 19's main-path shapes (n = 2048) checked once, the plain
+    # version not timed.  A generator of their own keeps the later phases'
+    # draws.
+    gen_g = torch.Generator(device=dev).manual_seed(15)
+    g_rows = givens_probe.rows(givens_probe.PHASE3_SHAPES, gen_g)
+    g_main = givens_probe.rows(givens_probe.MAIN_SHAPES, gen_g,
+                               timed_plain=False)
+    for name, row in {**g_rows, **g_main}.items():
+        assert row["ok"], (name, row)
+    g_step = givens_probe.chain_step(gen_g)
+    assert g_step["step_ms"] > 0, g_step
+    emit({"phase": "kernels", "kernel": "givens_fold_rows, givens_chain, "
+          "givens_hessenberg",
+          "tolerance": "every output within 1e-5 * max|plain| (R's upper "
+                       "triangle for G1 and G3); two launches bitwise equal; "
+                       "times: CUDA events, median of 20 in place (plain: "
+                       "median of 3)",
+          "library_call": "G1: torch.linalg.qr(cat([Raug, rows]), "
+                          "mode='r'); G2, G3: torch.linalg.qr(A + u v^T), "
+                          "the refactorization",
+          "rows": g_rows, "main_path_shapes": g_main,
+          "chain_step": g_step,
+          "serial_floor_ms": {name: row["serial_steps"] * g_step["step_ms"]
+                              for name, row in {**g_rows, **g_main}.items()},
+          "card": card})
 
     # 4-6. the main path: one call each, launch counts from these calls only
     a = np.random.default_rng(0).random((2048, 2048), dtype=np.float32) - 0.5
@@ -1566,6 +1629,195 @@ def main() -> int:
           "card": card})
     del Q18, R18, X18, X64, Xn, Xa, Xa64
 
+    # 19. streaming: experiments/r10_incremental.py's cell on the port (its
+    # inputs rebuilt with numpy; the script itself imports JAX): the
+    # complete factors of default_rng(0).random((n, n)) - 0.5, the sanity
+    # checks at n = 1024 with the script's thresholds, the streaming calls
+    # beside the refactorizations at n = 1024 and 2048, the SLAM update
+    # (rls_init on phase 17's system, 16 rows, rls_solve) against float64
+    # and beside lstsq of the stacked system, givens_qr at 512^2.
+    G_KEYS = ("givens_fold_rows", "givens_chain", "givens_hessenberg")
+
+    def g_count(fn):
+        """fn() and the G1-G3 launches it made."""
+        torch.cuda.synchronize()
+        before = {k: LAUNCHES[k] for k in G_KEYS}
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: LAUNCHES[k] - before[k] for k in G_KEYS}
+
+    def g_expect(got, g1=0, g2=0, g3=0):
+        want = dict(zip(G_KEYS, (g1, g2, g3)))
+        assert got == want, (got, want)
+
+    def factors19(n):
+        a = np.random.default_rng(0).random((n, n), dtype=np.float32) - 0.5
+        q, r = np.linalg.qr(a, mode="complete")
+        return (a, torch.from_numpy(q.astype(np.float32)).to(dev),
+                torch.from_numpy(r.astype(np.float32)).to(dev))
+
+    def on_dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    def sanity_row(A2, Qp, Rp):
+        A2 = torch.from_numpy(A2).to(dev)
+        Qd, Rd = Qp.double(), Rp.double()
+        back = float(torch.linalg.norm(A2 - Qd @ Rd)
+                     / max(float(torch.linalg.norm(A2)), 1e-30))
+        orth = float(torch.linalg.norm(
+            Qd.T @ Qd - torch.eye(Qd.shape[1], dtype=torch.float64,
+                                  device=dev)))
+        assert back < 1e-5 and orth < 1e-4, (back, orth)
+        return {"backward": back, "orth": orth}
+
+    a19, Q19, R19 = factors19(1024)
+    a64 = a19.astype(np.float64)
+    rng19 = np.random.default_rng(1)
+    u19 = rng19.standard_normal(1024).astype(np.float32)
+    v19 = rng19.standard_normal(1024).astype(np.float32)
+    sanity = {}
+    (Qp, Rp), c = g_count(lambda: qr_rank1_update(Q19, R19, on_dev(u19),
+                                                   on_dev(v19)))
+    g_expect(c, g2=1, g3=1)
+    sanity["rank1_update"] = sanity_row(
+        a64 + np.outer(u19.astype(np.float64), v19), Qp, Rp)
+    # The script inserts into the square factor first, which qr_insert_col
+    # refuses (n >= m: no free row, in the JAX package too); the pair runs
+    # the other way round: delete column 7, then insert u there.
+    (Qp, Rp), c = g_count(lambda: qr_delete_col(Q19, R19, 7))
+    g_expect(c, g3=1)
+    a_del = np.delete(a64, 7, axis=1)
+    sanity["delete_col"] = sanity_row(a_del, Qp, Rp)
+    (Qp2, Rp2), c = g_count(lambda: qr_insert_col(Qp, Rp, 7, on_dev(u19)))
+    g_expect(c, g2=1)
+    sanity["insert_col"] = sanity_row(np.insert(a_del, 7, u19, axis=1), Qp2,
+                                      Rp2)
+    (Qp, Rp), c = g_count(lambda: qr_delete_row(Q19, R19, 0))
+    g_expect(c, g2=1)
+    sanity["delete_row"] = sanity_row(a64[1:], Qp, Rp)
+    Rp, c = g_count(lambda: qr_append_row(R19, on_dev(u19)))
+    g_expect(c, g1=1)
+    a_app = np.vstack([a64, u19[None, :].astype(np.float64)])
+    gram = a_app.T @ a_app
+    Rp64 = Rp.double().cpu().numpy()
+    sanity["append_row"] = {"gram_err": float(
+        np.linalg.norm(gram - Rp64.T @ Rp64) / np.linalg.norm(gram))}
+    assert sanity["append_row"]["gram_err"] < 1e-5, sanity
+    del Qp, Rp, Qp2, Rp2
+
+    K_RLS = 16
+    timing19 = {}
+    main19 = None
+    for n19 in (1024, 2048):
+        a19, Q19, R19 = factors19(n19)
+        rng19 = np.random.default_rng(2)
+        u = on_dev(rng19.standard_normal(n19).astype(np.float32) * 1e-3)
+        v = on_dev(rng19.standard_normal(n19).astype(np.float32) * 1e-3)
+        rows19 = on_dev(rng19.standard_normal((K_RLS, n19)).astype(
+            np.float32) * 1e-3)
+        betas19 = on_dev(rng19.standard_normal(K_RLS).astype(np.float32))
+        qtb19 = on_dev(rng19.standard_normal(n19).astype(np.float32))
+        A19 = torch.from_numpy(a19).to(dev)
+        calls = {
+            "rank1_update": lambda: qr_rank1_update(Q19, R19, u, v),
+            "append_row": lambda: qr_append_row(R19, u, qtb=qtb19,
+                                                beta=1.0),
+            "rls_update_k16": lambda: rls_update(RLSState(R19, qtb19),
+                                                 rows19, betas19),
+            "delete_plus_insert_col": lambda: qr_insert_col(
+                *qr_delete_col(Q19, R19, 5), 5, u),
+            "delete_row": lambda: qr_delete_row(Q19, R19, 0),
+        }
+        expect = {"rank1_update": (0, 1, 1), "append_row": (1, 0, 0),
+                  "rls_update_k16": (1, 0, 0),
+                  "delete_plus_insert_col": (0, 1, 1),
+                  "delete_row": (0, 1, 0)}
+        if n19 == 2048:
+            # The phase's main path: each streaming call once, the counts
+            # set to 0 just before and read just after.
+            torch.cuda.synchronize()
+            reset_launches()
+            for fn in calls.values():
+                fn()
+            torch.cuda.synchronize()
+            main19 = dict(LAUNCHES)
+            g_expect({k: main19[k] for k in G_KEYS}, 2, 3, 2)
+        row = {}
+        for name, fn in calls.items():
+            _, c = g_count(fn)
+            g_expect(c, *expect[name])
+            row[name + "_ms"] = cuda_time_ms(fn)
+        row["rls_update_per_row_ms"] = row["rls_update_k16_ms"] / K_RLS
+        for pname, pol in (("fp32", POLICY_FP32),
+                           ("mixed_fast", POLICY_MIXED_FAST)):
+            row[f"refactor_{pname}_ms"] = cuda_time_ms(
+                lambda pol=pol: block_qr(A19, 128, pol, mode="complete",
+                                         panel_method="auto",
+                                         check="defer"), warmup=2, iters=10)
+        timing19[n19] = row
+        del Q19, R19, A19
+
+    # The SLAM update: phase 17's full-rank system, 16 new rows.
+    J19, b19 = on_dev(Jn17), on_dev(bn17)
+    st19, c = g_count(lambda: rls_init(J19, b19))
+    g_expect(c)
+    rng4 = np.random.default_rng(4)
+    rows4 = rng4.standard_normal((K_RLS, 2048)).astype(np.float32)
+    betas4 = rng4.standard_normal(K_RLS).astype(np.float32)
+    rows4d, betas4d = on_dev(rows4), on_dev(betas4)
+    st19b, c = g_count(lambda: rls_update(st19, rows4d, betas4d))
+    g_expect(c, g1=1)
+    x19 = rls_solve(st19b)
+    Js = np.vstack([Jn17, rows4])
+    bs = np.concatenate([bn17, betas4])
+    slam19 = solve_errors(Js, bs, x19)
+    assert slam19["resid_rel"] <= 1e-5 and slam19["x_rel_err"] <= 1e-4, \
+        slam19
+    Jst, bst = on_dev(Js), on_dev(bs)
+    slam19.update({
+        "rls_init_ms": cuda_time_ms(lambda: rls_init(J19, b19), warmup=1,
+                                    iters=5),
+        "rls_update_k16_ms": cuda_time_ms(
+            lambda: rls_update(st19, rows4d, betas4d)),
+        "rls_solve_ms": cuda_time_ms(lambda: rls_solve(st19b)),
+        "lstsq_stacked_ms": cuda_time_ms(lambda: lstsq(Jst, bst), warmup=1,
+                                         iters=5)})
+    slam19["rls_update_per_row_ms"] = slam19["rls_update_k16_ms"] / K_RLS
+    del J19, b19, Jst, bst
+
+    a512 = np.random.default_rng(0).random((512, 512),
+                                           dtype=np.float32) - 0.5
+    A512 = torch.from_numpy(a512).to(dev)
+    (Qg, Rg), c = g_count(lambda: givens_qr(A512))
+    g_expect(c)
+    repg = metrics.evaluate(A512, Qg, Rg, 23)
+    assert repg.all_ok, str(repg)
+    gqr = {"backward": repg.backward, "orthogonality": repg.orthogonality,
+           "lower_trapezoid": repg.lower_trapezoid, "all_ok": repg.all_ok,
+           "ms": cuda_time_ms(lambda: givens_qr(A512), warmup=1, iters=3),
+           "library_qr_ms": cuda_time_ms(lambda: torch.linalg.qr(A512))}
+    emit({"phase": "streaming", "cell": "experiments/r10_incremental.py "
+          "(factors of default_rng(0).random((n, n)) - 0.5; u, v, 16 rows "
+          "x 1e-3, betas, qtb from default_rng(2))",
+          "main_path_launches": main19, "sanity_n1024": sanity,
+          "timing": timing19,
+          "slam": {"call": "rls_init(slam_jacobian(4096, 2048, seed=0), b "
+                           "default_rng(2)); rls_update of 16 rows from "
+                           "default_rng(4); rls_solve", **slam19},
+          "givens_qr_512": gqr,
+          "tolerance": "sanity: backward < 1e-5, Frobenius orthogonality "
+                       "< 1e-4, append_row Gram < 1e-5 (the script's); "
+                       "SLAM x 1e-4 and residual 1e-5 relative of float64 "
+                       "np.linalg.lstsq; givens_qr metric triple within "
+                       "2^-23 m; one G1 per rls_update and append_row, one "
+                       "G2 + one G3 per rank-1 update, one G2 per "
+                       "insert_col and delete_row, one G3 per delete_col; "
+                       "times: CUDA events, median of 20 (refactorizations "
+                       "10, rls_init and lstsq 5, givens_qr 3)",
+          "card": card})
+    for k in G_KEYS:
+        assert main19[k] > 0, f"{k} was not launched on the streaming path"
+
     emit({"kernels": [
         {"name": "ns_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ns_chain.cu",
@@ -1640,6 +1892,27 @@ def main() -> int:
          "plain_ms": k9_rows["r256"]["plain_ms"],
          **chol_rinv_bound(256),
          "library_ms": k9_rows["r256"]["library_ms"]},
+        *({"name": row["kernel"], "route": "cuda",
+           "source": "mixedprecisionblockqr_tpu_torch/csrc/givens.cu",
+           "replaces": replaces, "launches": main19[row["kernel"]],
+           "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+           "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+           "bound_by": row["bound_by"],
+           "library_ms": row["library_ms"], "shape": shape,
+           "main_shape_ms": g_main[main_key]["ms"]}
+          for row, replaces, shape, main_key in (
+              (g_rows["fold_n256_k16"],
+               "mixedprecisionblockqr_tpu/ops/givens.py:289 _fold_rows_run "
+               "(lax.scan, no pallas_call)", "256 x 257, 16 rows",
+               "fold_n2048_k16"),
+              (g_rows["chain_m512"],
+               "mixedprecisionblockqr_tpu/ops/givens.py:256 sweep_up "
+               "(lax.fori_loop, no pallas_call; also :473, :536)",
+               "R 512 x 512, Q^T 512 x 512", "chain_m2048"),
+              (g_rows["hessenberg_m512"],
+               "mixedprecisionblockqr_tpu/ops/givens.py:273 sweep_down "
+               "(lax.fori_loop, no pallas_call; also :412)",
+               "H 512 x 512, Q^T 512 x 512", "hessenberg_m2048"))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,14 @@ checkpointed driver ``block_qr_resumable``; the Householder tiers
 refinement (stored-factor CAQR) options and ``lstsq_batched``; the
 differentiable QR (``qr_autodiff``, ``make_differentiable_qr``,
 ``lstsq_autodiff``); single-device TSQR (``tsqr``, ``tsqr_batched``) and
-CAQR (``caqr``), whose panels run K6 on the card.  All nine kernels of
+CAQR (``caqr``), whose panels run K6 on the card; Givens QR and the
+streaming updates of complete-mode factors (``givens_qr``,
+``qr_rank1_update``, ``qr_append_row``, ``qr_insert_col``,
+``qr_delete_col``, ``qr_delete_row``) and recursive least squares
+(``RLSState``, ``rls_init``, ``rls_update``, ``rls_solve``), whose
+rotation chains run three CUDA kernels of their own (``csrc/givens.cu``:
+the row fold, the vector-driven chain and the Hessenberg chain; none
+replaces a ``pallas_call``).  All nine kernels of
 the JAX package are written in CUDA C++ for ``sm_90a`` under ``csrc/``:
 ``ns_chain`` (K1), ``bgs_group_fused`` (K2), ``panel_qr_fused`` (K3),
 ``ninv_chain`` (K4), ``bgs_group_fused_proj`` (K5), ``panel_factor_fused``
@@ -38,6 +45,9 @@ Public API:
     gauss_newton_step
     qr_autodiff, make_differentiable_qr, lstsq_autodiff
     tsqr, tsqr_batched, caqr
+    givens_qr, qr_rank1_update, qr_append_row, qr_insert_col,
+    qr_delete_col, qr_delete_row
+    RLSState, rls_init, rls_update, rls_solve
     DTypePolicy, POLICY_FP32, POLICY_MIXED, POLICY_MIXED_FAST, POLICY_BF16,
     POLICY_BF16_FAST, POLICY_FP64, policy_by_name
     metrics: backward_error, orthogonality_error, lower_trapezoid_error,
@@ -46,11 +56,15 @@ Public API:
 """
 
 from mixedprecisionblockqr_tpu_torch.models.lstsq import (
+    RLSState,
     back_substitution,
     lstsq,
     lstsq_autodiff,
     lstsq_batched,
     lstsq_pivoted,
+    rls_init,
+    rls_solve,
+    rls_update,
 )
 from mixedprecisionblockqr_tpu_torch.models.resumable import (
     block_qr_resumable,
@@ -70,6 +84,14 @@ from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
     qr,
 )
 from mixedprecisionblockqr_tpu_torch.ops.cholqr import cholesky_qr2
+from mixedprecisionblockqr_tpu_torch.ops.givens import (
+    givens_qr,
+    qr_append_row,
+    qr_delete_col,
+    qr_delete_row,
+    qr_insert_col,
+    qr_rank1_update,
+)
 from mixedprecisionblockqr_tpu_torch.ops.householder import (
     householder_qr,
     householder_reflector,
@@ -139,6 +161,16 @@ __all__ = [
     "tsqr",
     "tsqr_batched",
     "caqr",
+    "givens_qr",
+    "qr_rank1_update",
+    "qr_append_row",
+    "qr_insert_col",
+    "qr_delete_col",
+    "qr_delete_row",
+    "RLSState",
+    "rls_init",
+    "rls_update",
+    "rls_solve",
     "back_substitution",
     "gauss_newton_step",
     "block_qr_resumable",

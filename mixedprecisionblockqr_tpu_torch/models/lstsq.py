@@ -1,6 +1,5 @@
 """QR-based linear least squares (port of
-``mixedprecisionblockqr_tpu/models/lstsq.py``, less the recursive
-least-squares functions ``RLSState`` / ``rls_*``).
+``mixedprecisionblockqr_tpu/models/lstsq.py``).
 
 ``lstsq`` factors with ``block_qr_qtb`` (b rides through the panel
 updates, Q is never formed), checks R's diagonal for decay and, on a
@@ -9,12 +8,15 @@ solution through a pivoted QR (RQRCP at n >= 512) and a complete
 orthogonal decomposition.  ``method='tsqr'`` solves through TSQR's
 reduced Q; ``refine_steps > 0`` factors once by stored-factor CAQR and
 replays its Q^T per refinement sweep.  ``lstsq_batched`` solves a stack of
-systems, ``lstsq_autodiff`` is differentiable in A and b.
+systems, ``lstsq_autodiff`` is differentiable in A and b.  The recursive
+least-squares functions (``RLSState``, ``rls_init``, ``rls_update``,
+``rls_solve``) keep ``(R, Q^T b)`` of everything observed and fold new
+observation rows into it by the Givens row fold (G1 on the card).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,6 +27,11 @@ from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
     block_qr_qtb,
     qr,
 )
+from mixedprecisionblockqr_tpu_torch.ops.givens import (
+    abort_flag_for,
+    check_abort,
+)
+from mixedprecisionblockqr_tpu_torch.ops.kernels.givens import givens_fold_rows
 from mixedprecisionblockqr_tpu_torch.ops.pivoted import (
     numerical_rank,
     pivoted_qr_qtb,
@@ -205,6 +212,80 @@ def lstsq_batched(
         xs.append(back_substitution(R_full[:n, :], qtb[:n, :].float()))
     x = torch.stack(xs)
     return x[:, :, 0] if squeeze else x
+
+
+# -- Recursive least squares (incremental solve for streaming rows) --------
+
+class RLSState(NamedTuple):
+    """Recursive-least-squares state: the (n, n) upper triangular factor
+    and the rotated right-hand side ``Q^T b`` ((n,) or (n, k)) of everything
+    observed so far."""
+
+    R: torch.Tensor
+    qtb: torch.Tensor
+
+
+def rls_init(
+    A,
+    b,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    policy: DTypePolicy = POLICY_FP32,
+    panel_method: str = "householder",
+    device=None,
+) -> RLSState:
+    """Factor the initial system once (``block_qr_qtb``, b threaded, no Q
+    formed; ``'householder'`` panels of fp32 run K6 on the card) and
+    return the streaming state.  Each later observation row then costs
+    O(n^2) rotations instead of an O(m n^2) refactorization (the
+    square-root-information-filter form of incremental least squares).
+    ``device`` as in ``utils/device.py``."""
+    A = as_device_tensor(A, device).float()
+    n = A.shape[1]
+    if A.shape[0] < n:
+        raise ValueError(
+            f"rls_init needs an overdetermined initial system (m >= n), "
+            f"got {tuple(A.shape)}: a square information factor R does not "
+            "exist yet - accumulate at least n rows first (or pad with a "
+            "prior)"
+        )
+    R, qtb = block_qr_qtb(A, torch.as_tensor(b, device=A.device).float(),
+                          block_size=block_size, policy=policy,
+                          panel_method=panel_method, check="sync")
+    return RLSState(torch.triu(R[:n, :n]),
+                    qtb[:n] if qtb.dim() == 1 else qtb[:n, :])
+
+
+def rls_update(state: RLSState, rows, betas) -> RLSState:
+    """Fold new observation rows into the state: ``rows`` is (n,) or (k,
+    n); ``betas`` the matching rhs entries (scalar / (k,) for a vector rhs;
+    (k, nb) for a multi-rhs state).  One launch of the row fold (G1) on
+    the card for all k rows, n pivot rotations each: O(k n^2), no Q;
+    ``RuntimeError`` if one of its coefficient waits timed out."""
+    R = state.R.float()
+    n = R.shape[0]
+    rows = torch.as_tensor(rows, device=R.device).float()
+    if rows.dim() == 1:
+        rows = rows[None, :]
+    k = rows.shape[0]
+    qtb = torch.as_tensor(state.qtb, device=R.device).float()
+    squeeze = qtb.dim() == 1
+    qtb2 = qtb[:, None] if squeeze else qtb
+    betas = torch.as_tensor(betas, device=R.device).float().reshape(k, -1)
+    betas = torch.broadcast_to(betas, (k, qtb2.shape[1]))
+    Raug = torch.cat([R, qtb2], dim=1).contiguous()
+    flag = abort_flag_for(Raug)
+    givens_fold_rows(Raug, torch.cat([rows, betas], dim=1).contiguous(),
+                     flag)
+    qtb_p = Raug[:, n:]
+    out = RLSState(torch.triu(Raug[:, :n]),
+                   qtb_p[:, 0] if squeeze else qtb_p)
+    check_abort(flag, "rls_update")
+    return out
+
+
+def rls_solve(state: RLSState, block_size: int = 64) -> torch.Tensor:
+    """The least-squares solution of everything folded in so far."""
+    return back_substitution(state.R, state.qtb, block_size=block_size)
 
 
 def lstsq_autodiff(

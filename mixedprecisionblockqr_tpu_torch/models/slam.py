@@ -1,7 +1,7 @@
 """SLAM / bundle-adjustment least-squares workflow (port of
-``mixedprecisionblockqr_tpu/models/slam.py``): enumerate Jacobians, factor
-them, solve a Gauss-Newton step.  Only the synthetic Jacobians are ported;
-the Euroc-MAV file loader waits for ROADMAP Queue 1 item 12.
+``mixedprecisionblockqr_tpu/models/slam.py``): enumerate Jacobians (the
+Euroc-MAV files through ``utils/euroc.py``, or synthetic stand-ins),
+factor them, solve a Gauss-Newton step.
 """
 
 from __future__ import annotations
@@ -20,11 +20,9 @@ from mixedprecisionblockqr_tpu_torch.ops.policy import (
     DTypePolicy,
     POLICY_MIXED,
 )
+from mixedprecisionblockqr_tpu_torch.utils import euroc
 from mixedprecisionblockqr_tpu_torch.utils.datagen import slam_jacobian
 from mixedprecisionblockqr_tpu_torch.utils.device import as_device_tensor
-
-_EUROC = ("the Euroc-MAV Jacobian files are not ported to "
-          "mixedprecisionblockqr_tpu_torch yet (ROADMAP Queue 1 item 12)")
 
 
 @dataclasses.dataclass
@@ -37,7 +35,7 @@ class JacobianCase:
 
     def load(self) -> np.ndarray:
         if self.path is not None:
-            raise NotImplementedError(_EUROC)
+            return euroc.read_euroc_jacobian(self.path)[2]
         return slam_jacobian(self.m, self.n, seed=self.seed)
 
 
@@ -46,11 +44,21 @@ def enumerate_jacobians(
     max_matrices: int = 30,
     synthetic_sizes: Optional[List[Tuple[int, int]]] = None,
 ) -> List[JacobianCase]:
-    """Synthetic stand-ins for the Euroc-MAV Jacobian sweep, one seed per
-    size.  A ``data_dir`` that exists would select the dataset files,
-    which are not ported."""
+    """The dataset sweep of the original code
+    (``get_jacobians_test_matrixs``, ``Cuda/qr.cu:1721-1759``): files
+    ``A_%09d.txt`` for i in 100..22500 step 100 of an existing
+    ``data_dir``, sorted by row count, every second one, at most
+    ``max_matrices``.  Without the directory, synthetic stand-ins, one
+    seed per size."""
     if data_dir and os.path.isdir(data_dir):
-        raise NotImplementedError(_EUROC)
+        cases = []
+        for i in range(100, 22501, 100):
+            path = os.path.join(data_dir, f"A_{i:09d}.txt")
+            if os.path.exists(path):
+                m, n = euroc.read_dims(path)
+                cases.append(JacobianCase(os.path.basename(path), m, n, path))
+        cases.sort(key=lambda c: c.m)
+        return cases[::2][:max_matrices]
     sizes = synthetic_sizes or [
         (256, 128), (384, 192), (512, 256), (768, 384), (1024, 512),
         (1536, 768), (2000, 1000), (2048, 2048),

@@ -11,6 +11,14 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.gemm import (  # noqa: F401
     tiled_matmul,
     tiled_matmul_plain,
 )
+from mixedprecisionblockqr_tpu_torch.ops.kernels.givens import (  # noqa: F401
+    givens_chain,
+    givens_chain_plain,
+    givens_fold_rows,
+    givens_fold_rows_plain,
+    givens_hessenberg,
+    givens_hessenberg_plain,
+)
 from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (  # noqa: F401
     LAUNCHES,
     bgs_group_fused,

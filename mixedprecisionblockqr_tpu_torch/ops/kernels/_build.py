@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("ns_chain.cu", "bgs_group.cu", "panel_qr.cu", "sketch_qrcp.cu",
            "ninv_chain.cu", "panel_factor.cu", "tiled_matmul.cu",
-           "chol_rinv.cu")
+           "chol_rinv.cu", "givens.cu")
 HEADERS = ("ns_chain.cuh", "panel.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -99,6 +99,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_tiled_matmul.restype = ci
     lib.mpbqr_chol_rinv.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.mpbqr_chol_rinv.restype = ci
+    lib.mpbqr_givens_fold_rows.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
+    lib.mpbqr_givens_fold_rows.restype = ci
+    lib.mpbqr_givens_chain.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp, ci,
+                                       vp]
+    lib.mpbqr_givens_chain.restype = ci
+    lib.mpbqr_givens_hessenberg.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp]
+    lib.mpbqr_givens_hessenberg.restype = ci
     return lib
 
 

@@ -33,7 +33,8 @@ from mixedprecisionblockqr_tpu_torch.ops.policy import mm_bf16, mm_f32, mm_high
 LAUNCHES = {"ns_chain": 0, "bgs_group_fused": 0, "panel_qr_fused": 0,
             "ninv_chain": 0, "bgs_group_fused_proj": 0,
             "panel_factor_fused": 0, "sketch_qrcp_ranks": 0,
-            "tiled_matmul": 0, "chol_rinv": 0}
+            "tiled_matmul": 0, "chol_rinv": 0, "givens_fold_rows": 0,
+            "givens_chain": 0, "givens_hessenberg": 0}
 #: ``tiled_matmul``'s launches by route (ops/kernels/gemm.py); both count
 #: in ``LAUNCHES["tiled_matmul"]`` as well.
 ROUTE_LAUNCHES = {"tma": 0, "predicated": 0}

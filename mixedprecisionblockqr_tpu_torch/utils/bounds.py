@@ -2,8 +2,8 @@
 
     python3 -m mixedprecisionblockqr_tpu_torch.utils.bounds
 
-prints one JSON line per kernel of the repository (K1-K9) at the shapes
-``chip_smoke.py`` times it.  A bound is the larger of two times: the operations
+prints one JSON line per kernel of the repository (K1-K9, and the Givens
+chains G1-G3) at the shapes ``chip_smoke.py`` times it.  A bound is the larger of two times: the operations
 the kernel does on these inputs over the peak rate for their type, and the
 bytes it must move (each input read once, each output written once) over
 the memory rate.  The peaks are the H100 SXM data sheet's (dense, 700 W).
@@ -201,6 +201,55 @@ def chol_rinv_bound(r, cluster_sms=None):
                          cluster_sms)
 
 
+def rotation_bound(pairs, nbytes, steps):
+    """A Givens chain: 6 fp32 operations a rotated pair of entries and the
+    bytes, as ``bound``; beside it ``serial_steps``, the number of
+    coefficients that each wait for the one before."""
+    return {**bound(f32_ops=6.0 * pairs, nbytes=nbytes),
+            "serial_steps": steps}
+
+
+def givens_fold_bound(n, nb, k):
+    """G1: k rows of width W = n + nb folded into an n x W factor.  Pivot
+    i rotates the W - i entries of the upper trapezoid in each row; the
+    trapezoid read and written once, the rows read once.  The dependent
+    steps form a wavefront of n + k - 1 (pivot i of row t waits for pivot
+    i - 1 of row t and pivot i of row t - 1)."""
+    W = n + nb
+    trap = n * W - n * (n - 1) // 2
+    return rotation_bound(k * trap, (2 * trap + k * W) * 4, n + k - 1)
+
+
+def givens_chain_bound(m, n, start=0):
+    """G2 on an upper triangular R (m x n) and Q^T (m x m), as
+    ``qr_rank1_update`` runs it (``start`` = 0; ``qr_insert_col`` starts at
+    its column): rotation i, for i = m - 2 down to ``start``, meets the
+    n - i columns >= i of R (both rows are zero left of i) and every column
+    of Q^T.  Rows start.. of R's upper trapezoid are read, and written back
+    with the entry R[i + 1, i] that rotation i fills in; those rows of Q^T
+    are read and written once, the vector read once; m - 1 - start
+    dependent steps."""
+    steps = m - 1 - start
+    rot = range(start, m - 1)
+    trap = sum(max(n - i, 0) for i in range(start, m))
+    fill = sum(1 for i in rot if i < n)
+    pairs = sum(max(n - i, 0) for i in rot) + steps * m
+    return rotation_bound(
+        pairs, (2 * trap + fill + 2 * (m - start) * m + m - start) * 4, steps)
+
+
+def givens_hessenberg_bound(m, n):
+    """G3 as ``qr_rank1_update`` runs it: L = min(m - 1, n) rotations on an
+    upper Hessenberg H (m x n) and Q^T (m x m); rotation i meets the n - i
+    columns of H from column i on and every column of Q^T.  H's Hessenberg
+    part (column j down to row j + 1) and rows 0..L of Q^T read and written
+    once; L dependent steps."""
+    L = min(m - 1, n)
+    pairs = sum(n - i for i in range(L)) + L * m
+    hess = sum(min(j + 2, m) for j in range(n))
+    return rotation_bound(pairs, 2 * (hess + (L + 1) * m) * 4, L)
+
+
 def kernel_bounds():
     """Every kernel's bound at the shapes ``chip_smoke.py`` times."""
     head = (12, 6, 6, 6, 6, 6, 6, 10)
@@ -240,6 +289,16 @@ def kernel_bounds():
                                  **matmul_bound(2048, 2048, 2048, "int8")},
         **{f"K9 chol_rinv r={r}": {"shape": f"r={r}", **chol_rinv_bound(r)}
            for r in (32, 96, 128, 256, 320, 512, 1024)},
+        **{f"G1 givens_fold_rows n={n} k={k}": {
+            "shape": f"{n} x {n + 1}, {k} rows", **givens_fold_bound(n, 1, k)}
+           for n, k in ((256, 16), (256, 1), (1024, 16), (2048, 16),
+                        (2048, 1))},
+        **{f"G2 givens_chain m=n={m}": {
+            "shape": f"R {m} x {m}, Q^T {m} x {m}",
+            **givens_chain_bound(m, m)} for m in (512, 1024, 2048)},
+        **{f"G3 givens_hessenberg m=n={m}": {
+            "shape": f"H {m} x {m}, Q^T {m} x {m}",
+            **givens_hessenberg_bound(m, m)} for m in (512, 1024, 2048)},
     }
 
 

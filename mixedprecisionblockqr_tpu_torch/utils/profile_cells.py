@@ -31,7 +31,13 @@ inside K5), ``scan 16384^2`` (the headline call at 16384^2: bgs1 / scan),
 refine`` (``refine_steps=2`` on the full-rank ``slam_jacobian(4096, 2048,
 seed=0)``: stored-factor CAQR), ``lstsq_batched`` (8 systems of 2048 x
 512) and ``autodiff`` (``qr_autodiff`` forward and backward on 2048 x
-1024, POLICY_FP32).  The inputs of the last four are made at first use.
+1024, POLICY_FP32), and ``chip_smoke.py`` phase 19's streaming cells:
+``rls`` (``rls_update`` of 16 rows from ``default_rng(4)`` into the
+``rls_init`` state of the full-rank ``slam_jacobian(4096, 2048, seed=0)``:
+one G1 launch) and ``givens`` (``qr_rank1_update`` of the complete factors
+of ``default_rng(0).random((2048, 2048)) - 0.5``, u and v from
+``default_rng(2)`` x 1e-3: one G2 and one G3).  The inputs of the last six
+are made at first use.
 Without a CUDA device it exits 2.
 """
 
@@ -132,6 +138,9 @@ def main(only: Sequence[str] = ()) -> int:
         pivoted_qr_qtb,
         qr,
         qr_autodiff,
+        qr_rank1_update,
+        rls_init,
+        rls_update,
         tsqr,
     )
     from mixedprecisionblockqr_tpu_torch.ops.blockqr import _block_qr_bgs
@@ -205,6 +214,24 @@ def main(only: Sequence[str] = ()) -> int:
                 torch.from_numpy(np.random.default_rng(2).standard_normal(
                     (8, 2048)).astype(np.float32)).to(dev))
 
+    def rls_case():
+        st = rls_init(*lazy("slam", slam))
+        rng4 = np.random.default_rng(4)
+        rows = rng4.standard_normal((16, 2048)).astype(np.float32)
+        betas = rng4.standard_normal(16).astype(np.float32)
+        return (st, torch.from_numpy(rows).to(dev),
+                torch.from_numpy(betas).to(dev))
+
+    def rank1_case():
+        a = np.random.default_rng(0).random((2048, 2048),
+                                            dtype=np.float32) - 0.5
+        q, r = np.linalg.qr(a, mode="complete")
+        rng2 = np.random.default_rng(2)
+        u = rng2.standard_normal(2048).astype(np.float32) * 1e-3
+        v = rng2.standard_normal(2048).astype(np.float32) * 1e-3
+        return tuple(torch.from_numpy(x.astype(np.float32)).to(dev)
+                     for x in (q, r, u, v))
+
     def autodiff_step():
         X = A[:, :1024].clone().requires_grad_()
         Q, R = qr_autodiff(X, 128, POLICY_FP32)
@@ -245,6 +272,10 @@ def main(only: Sequence[str] = ()) -> int:
                                        refine_steps=2), 1),
         ("lstsq_batched", lambda: lstsq_batched(*lazy("batch", batch)), 1),
         ("autodiff", autodiff_step, 5),
+        ("rls update 16 rows n=2048",
+         lambda: rls_update(*lazy("rls", rls_case)), 5),
+        ("givens rank1_update 2048^2",
+         lambda: qr_rank1_update(*lazy("rank1", rank1_case)), 5),
     ]
     for name, fn, calls in cells:
         if only and not any(o in name for o in only):

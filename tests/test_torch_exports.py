@@ -1,10 +1,12 @@
-"""The port exports the Householder and WY building blocks at the top
-level, as the JAX package does."""
+"""The port exports the Householder and WY building blocks, and the
+Givens / recursive-least-squares functions, at the top level, as the JAX
+package does."""
 
 import pytest
 
 import mixedprecisionblockqr_tpu_torch as port
-from mixedprecisionblockqr_tpu_torch.ops import householder, wy
+from mixedprecisionblockqr_tpu_torch.models import lstsq
+from mixedprecisionblockqr_tpu_torch.ops import givens, householder, wy
 
 NAMES = {
     "householder_reflector": householder,
@@ -20,3 +22,21 @@ NAMES = {
 def test_building_block_is_exported(name):
     assert name in port.__all__
     assert getattr(port, name) is getattr(NAMES[name], name)
+
+
+STREAMING = {
+    **{name: givens for name in (
+        "givens_qr", "qr_rank1_update", "qr_append_row", "qr_insert_col",
+        "qr_delete_col", "qr_delete_row")},
+    **{name: lstsq for name in ("RLSState", "rls_init", "rls_update",
+                                "rls_solve")},
+}
+
+
+@pytest.mark.parametrize("name", sorted(STREAMING))
+def test_streaming_name_is_exported(name):
+    import mixedprecisionblockqr_tpu as reference
+
+    assert name in reference.__all__
+    assert name in port.__all__
+    assert getattr(port, name) is getattr(STREAMING[name], name)

@@ -133,7 +133,9 @@ def test_cpu_tensors_never_count_launches():
                             "panel_qr_fused": 0, "ninv_chain": 0,
                             "bgs_group_fused_proj": 0,
                             "panel_factor_fused": 0, "sketch_qrcp_ranks": 0,
-                            "tiled_matmul": 0, "chol_rinv": 0}
+                            "tiled_matmul": 0, "chol_rinv": 0,
+                            "givens_fold_rows": 0, "givens_chain": 0,
+                            "givens_hessenberg": 0}
 
 
 def test_wrappers_reject_other_devices():

@@ -4,6 +4,8 @@ QP3, RQRCP (with the JAX package's sketch matrices substituted), the
 the exact fallback, and the least-squares solvers on a gauge-deficient
 SLAM Jacobian."""
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -212,7 +214,13 @@ def test_lstsq_unported_methods_name_the_roadmap():
     for kw in ({"method": "tsqr"}, {"refine_steps": 1}):
         x = pt.lstsq(a, torch.ones(64), **kw)
         np.testing.assert_allclose(x.numpy(), want, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tslam.JacobianCase("f", 4, 4, path="A_000000100.txt").load()
+    # The Euroc-MAV file branch is ported: a case with a path loads the
+    # file as the JAX package parses it.
+    sample = os.path.join(os.path.dirname(__file__), "data",
+                          "A_000000100.txt")
+    a = tslam.JacobianCase("A_000000100.txt", 12, 9, path=sample).load()
+    want = jslam.JacobianCase("A_000000100.txt", 12, 9, path=sample).load()
+    assert a.dtype == np.float32
+    np.testing.assert_array_equal(a, want)
     cases = tslam.enumerate_jacobians(synthetic_sizes=[(64, 32)])
     assert cases[0].load().shape == (64, 32)
