@@ -130,14 +130,36 @@ last line):
                  beside torch.linalg.qr); one G1 per rls_update and
                  qr_append_row, one G2 + one G3 per qr_rank1_update, one G2
                  per qr_insert_col and qr_delete_row, one G3 per
-                 qr_delete_col, asserted call by call.
+                 qr_delete_col, asserted call by call;
+ 20. dist     -- the distributed layer on a world of one rank over NCCL
+                 (init_process_group with an in-process HashStore, no
+                 network; make_mesh() on cuda): (a) dist_block_qr(A, mesh,
+                 128, POLICY_MIXED_FAST, mode='reduced', quality='fast') on
+                 phase 4's input (bgs1: K1 launches asserted, metric
+                 triple), its time beside phase 4's block_qr, the NCCL
+                 kernels' count and device time and the collectives' host
+                 time (torch.profiler); (b) quality='balanced' at 16384^2
+                 (bgs2, switched to scan), beside block_qr of the same
+                 tier; (c) panel_method='householder', POLICY_FP32, on
+                 phase 9's input, reduced and mode='r' with b: 16 K6 and
+                 16 K4 each, R within 1e-4 of block_qr's 'householder' R
+                 (row signs made nonnegative), x from back_substitution
+                 within 1e-4 of float64 np.linalg.lstsq, and K4's LU
+                 fallback timed in both forms (a host read of the
+                 residual, kept; torch.where over both branches); (d)
+                 tsqr_sharded 65536 x 64 with 8 local leaves (15 K6)
+                 against tsqr; (e) block_qr_batched_sharded 8 x 1024 x 512
+                 on a batch mesh and tsqr_batched_sharded_2d 4 x 16384 x
+                 64 on a (1, 1) mesh, backward error per problem < 1e-5.
 Then a line with every kernel's launches on its main path (phases 4-6 for
 ns_chain and bgs_group_fused, phase 7 for panel_qr_fused,
 sketch_qrcp_ranks and panel_factor_fused, phase 9 for ninv_chain,
 phase 13 for bgs_group_fused_proj, phase 15 for
 tiled_matmul and chol_rinv, phase 19 for the Givens chains: each streaming
-call once at n = 2048; the counts are set to 0 just before each path
-and read just after; phases 16-18 assert their own counts the same way),
+call once at n = 2048; phase 20's cases (a)-(d) add their launches of
+ns_chain, ninv_chain and panel_factor_fused; the counts are set to 0 just
+before each path and read just after; phases 16-18 assert their own
+counts the same way),
 error, times and bound, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2
 and prints no result.
@@ -145,6 +167,7 @@ and prints no result.
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -152,6 +175,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # Quality of the same call in the JAX reference (BENCH_r05.json).
 REF_BACKWARD = 2.42e-3
@@ -209,6 +233,259 @@ def solve_errors(a, b, x):
             "resid_rel": abs(res_x - res_o) / res_o,
             "x_rel_err": float(np.linalg.norm(x64 - x_o)
                                / np.linalg.norm(x_o))}
+
+
+def phase_dist(A, ms_block_qr, dev, card):
+    """Phase 20: the distributed entry points on a one-rank NCCL mesh (the
+    process group is started by the caller).  Returns ``(row, launches)``:
+    the phase's line and the K1 / K4 / K6 launches of cases (a)-(d), each
+    counted from 0 just before its call."""
+    from unittest import mock
+
+    from mixedprecisionblockqr_tpu_torch import (
+        POLICY_FP32,
+        POLICY_MIXED_FAST,
+        back_substitution,
+        block_qr,
+        block_qr_batched_sharded,
+        dist_block_qr,
+        make_mesh,
+        metrics,
+        tsqr,
+        tsqr_batched_sharded_2d,
+        tsqr_sharded,
+    )
+    from mixedprecisionblockqr_tpu_torch.ops.cholqr import lu_inv
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+        LAUNCHES,
+        ninv_chain,
+        reset_launches,
+    )
+    from mixedprecisionblockqr_tpu_torch.parallel import dist_qr
+    from mixedprecisionblockqr_tpu_torch.utils.group_probe import (
+        device_breakdown,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    def host_collectives(fn):
+        """Host-side profiler events of the collectives in one call of
+        fn: name -> (count, CPU ms including children)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as p:
+            fn()
+            torch.cuda.synchronize()
+        return {e.key: (e.count, e.cpu_time_total / 1e3)
+                for e in p.key_averages()
+                if "nccl" in e.key.lower() or "c10d" in e.key.lower()}
+
+    keys = ("ns_chain", "ninv_chain", "panel_factor_fused")
+    total = dict.fromkeys(keys, 0)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        c = {k: v for k, v in LAUNCHES.items() if v}
+        for k in keys:
+            total[k] += LAUNCHES[k]
+        return out, c
+
+    def triple(rep):
+        return {"backward": rep.backward, "orthogonality": rep.orthogonality,
+                "lower_trapezoid": rep.lower_trapezoid,
+                "all_ok": rep.all_ok, "tight_ok": rep.tight_ok}
+
+    mesh = make_mesh()
+    row = {"world_size": dist.get_world_size(),
+           "backend": dist.get_backend()}
+
+    # (a) bgs1 at 2048^2 beside phase 4's block_qr.
+    def fast(x):
+        return dist_block_qr(x, mesh, 128, POLICY_MIXED_FAST,
+                             mode="reduced", quality="fast")
+
+    (Qa, Ra), ca = counted(lambda: fast(A))
+    rep = metrics.evaluate(A, Qa, Ra, POLICY_MIXED_FAST.precision_bits)
+    assert rep.all_ok, str(rep)
+    assert ca.get("ns_chain", 0) > 0, ca
+    prof = device_breakdown(lambda: fast(A), calls=1)
+    nccl = {k: v for k, v in prof["kernels"].items() if "nccl" in k.lower()}
+    host_coll = host_collectives(lambda: fast(A))
+    row["a"] = {
+        "call": "dist_block_qr(A, mesh, 128, POLICY_MIXED_FAST, "
+                "mode='reduced', quality='fast') 2048^2 (bgs1, unrolled)",
+        "launches": ca, **triple(rep),
+        "ms": cuda_time_ms(lambda: fast(A), warmup=2, iters=10),
+        "block_qr_ms": ms_block_qr, "block_qr_call": "phase 4",
+        "nccl_kernels": sum(v["count"] for v in nccl.values()),
+        "nccl_ms": sum(v["ms"] for v in nccl.values()),
+        "nccl_by_name": nccl, "host_collectives": host_coll,
+        "device_busy_ms": prof["busy_ms"],
+        "idle_share": prof["idle_share"],
+        "device_events": prof["device_events"]}
+    del Qa, Ra
+
+    # (b) bgs2 at 16384^2: the unrolled tier's 128 panels switch to scan.
+    a16 = np.random.default_rng(0).random((16384, 16384),
+                                          dtype=np.float32) - 0.5
+    A16 = torch.from_numpy(a16).to(dev)
+    del a16
+
+    def balanced(x):
+        return dist_block_qr(x, mesh, 128, POLICY_MIXED_FAST,
+                             mode="reduced", quality="balanced")
+
+    def balanced_one(x):
+        return block_qr(x, 128, POLICY_MIXED_FAST, mode="reduced",
+                        panel_method="auto", quality="balanced")
+
+    (Qb, Rb), cb = counted(lambda: balanced(A16))
+    rep = metrics.evaluate(A16, Qb, Rb, POLICY_MIXED_FAST.precision_bits)
+    assert rep.all_ok, str(rep)
+    assert cb.get("ns_chain", 0) > 0, cb
+    del Qb, Rb
+    row["b"] = {
+        "call": "dist_block_qr(A, mesh, 128, POLICY_MIXED_FAST, "
+                "mode='reduced', quality='balanced') 16384^2 (bgs2, scan, "
+                "g4)", "launches": cb, **triple(rep),
+        "ms": cuda_time_ms(lambda: balanced(A16), warmup=1, iters=3),
+        "block_qr_ms": cuda_time_ms(lambda: balanced_one(A16), warmup=1,
+                                    iters=3),
+        "block_qr_call": "block_qr(A, 128, POLICY_MIXED_FAST, "
+                         "mode='reduced', panel_method='auto', "
+                         "quality='balanced') (bgs2, scan, g4)",
+        "timing": "median of 3"}
+    del A16
+    torch.cuda.empty_cache()
+
+    # (c) the reflector tier, fp32, on phase 9's input: K6 and K4 once a
+    # panel; R against the single-device 'householder' R (row signs made
+    # nonnegative: the Yamamoto sign fix flips some), x against float64.
+    a9 = np.random.default_rng(0).random((4096, 2048), dtype=np.float32) - 0.5
+    b9 = np.random.default_rng(1).standard_normal(4096).astype(np.float32)
+    A9, B9 = torch.from_numpy(a9).to(dev), torch.from_numpy(b9).to(dev)
+
+    def refl(x):
+        return dist_block_qr(x, mesh, 128, POLICY_FP32, mode="reduced",
+                             panel_method="householder")
+
+    def refl_r(x, y):
+        return dist_block_qr(x, mesh, 128, POLICY_FP32, mode="r", b=y,
+                             panel_method="householder")
+
+    def canon(R):
+        return R * torch.where(torch.diagonal(R) < 0, -1.0, 1.0)[:, None]
+
+    (Qc, Rc), cc = counted(lambda: refl(A9))
+    (Rr, qtb), cr = counted(lambda: refl_r(A9, B9))
+    for c in (cc, cr):
+        assert c.get("panel_factor_fused") == 16, c
+        assert c.get("ninv_chain") == 16, c
+    rep = metrics.evaluate(A9, Qc, Rc, POLICY_FP32.precision_bits)
+    assert rep.all_ok, str(rep)
+    R1 = block_qr(A9, 128, POLICY_FP32, mode="r",
+                  panel_method="householder")
+    r_rel = rel_fro(canon(Rc), canon(R1))
+    assert r_rel <= 1e-4, r_rel
+    rr_rel = rel_fro(Rr, Rc)
+    assert rr_rel <= 1e-5, rr_rel
+    x9 = back_substitution(Rr, qtb[:2048, 0])
+    sol = solve_errors(a9, b9, x9)
+    assert sol["x_rel_err"] <= 1e-4, sol
+
+    def s_inverse_where(S):
+        Xn, nresid = ninv_chain(S.float().contiguous(), iters=12)
+        return torch.where(nresid < 1e-3, Xn, lu_inv(S.float()))
+
+    prof_c = device_breakdown(lambda: refl(A9), calls=1)
+    forms = {}
+    for form in ("sync", "where", "where", "sync"):
+        if form == "where":
+            with mock.patch.object(dist_qr, "_s_inverse", s_inverse_where):
+                ms = cuda_time_ms(lambda: refl(A9), warmup=1, iters=5)
+        else:
+            ms = cuda_time_ms(lambda: refl(A9), warmup=1, iters=5)
+        forms.setdefault(form + "_ms", []).append(ms)
+    row["c"] = {
+        "call": "dist_block_qr(A, mesh, 128, POLICY_FP32, mode='reduced' "
+                "and mode='r' with b, panel_method='householder') 4096 x "
+                "2048 (phase 9's input; b default_rng(1))",
+        "launches": cc, "launches_mode_r": cr, **triple(rep),
+        "r_rel_vs_block_qr_householder": r_rel,
+        "r_rel_mode_r_vs_reduced": rr_rel, **sol,
+        "ms": statistics.median(forms["sync_ms"]),
+        "block_qr_ms": cuda_time_ms(
+            lambda: block_qr(A9, 128, POLICY_FP32, mode="reduced",
+                             panel_method="householder"),
+            warmup=1, iters=5),
+        "k4_fallback_forms": forms,
+        "profile": {k: prof_c[k] for k in (
+            "busy_ms", "idle_share", "device_events")},
+        "largest": dict(list(prof_c["kernels"].items())[:5]),
+        "k4_fallback_note": "sync: a host read of the residual, the LU "
+                            "inverse only when needed (dist_qr._s_inverse); "
+                            "where: torch.where over K4's result and the "
+                            "LU inverse of every panel; alternating sync, "
+                            "where, where, sync, each a median of 5"}
+    del Qc, Rc, Rr, A9, B9
+
+    # (d) TSQR over the rows axis, 8 local leaves: 8 + 7 K6.
+    a_d = np.random.default_rng(0).random((65536, 64), dtype=np.float32) - 0.5
+    A_d = torch.from_numpy(a_d).to(dev)
+    (Qd, Rd), cd = counted(lambda: tsqr_sharded(A_d, mesh, local_leaves=8))
+    assert cd.get("panel_factor_fused") == 15, cd
+    Qt, Rt = tsqr(A_d, n_leaves=8)
+    d_rel = rel_fro(Rd, Rt)
+    assert d_rel <= 1e-4, d_rel
+    rep = metrics.evaluate(A_d, Qd, Rd, POLICY_FP32.precision_bits)
+    assert rep.all_ok, str(rep)
+    row["d"] = {"call": "tsqr_sharded(A, mesh, local_leaves=8) 65536 x 64",
+                "launches": cd, **triple(rep), "r_rel_vs_tsqr": d_rel,
+                "ms": cuda_time_ms(
+                    lambda: tsqr_sharded(A_d, mesh, local_leaves=8),
+                    warmup=1, iters=5),
+                "tsqr_ms": cuda_time_ms(lambda: tsqr(A_d, n_leaves=8),
+                                        warmup=1, iters=5)}
+    del Qd, Rd, Qt, Rt, A_d
+
+    # (e) batched problems: a batch mesh, and a (1, 1) batch x rows mesh.
+    def backward_each(A_, Q_, R_):
+        return max(float(metrics.backward_error(a_, q_, r_))
+                   for a_, q_, r_ in zip(A_, Q_, R_))
+
+    bmesh = make_mesh((1,), ("batch",))
+    A_e = torch.from_numpy(np.random.default_rng(0).random(
+        (8, 1024, 512), dtype=np.float32) - 0.5).to(dev)
+    (Qe, Re), ce = counted(lambda: block_qr_batched_sharded(A_e, bmesh))
+    be = backward_each(A_e, Qe, Re)
+    assert be < 1e-5, be
+    mesh2 = make_mesh((1, 1), ("batch", "rows"))
+    A_f = torch.from_numpy(np.random.default_rng(0).random(
+        (4, 16384, 64), dtype=np.float32) - 0.5).to(dev)
+    (Qf, Rf), cf = counted(lambda: tsqr_batched_sharded_2d(A_f, mesh2))
+    bf = backward_each(A_f, Qf, Rf)
+    assert bf < 1e-5, bf
+    row["e"] = {"call": "block_qr_batched_sharded 8 x 1024 x 512 (batch "
+                        "mesh); tsqr_batched_sharded_2d 4 x 16384 x 64 "
+                        "((1, 1) batch x rows mesh)",
+                "launches": ce, "launches_2d": cf,
+                "max_backward": be, "max_backward_2d": bf}
+    c20 = {k: total[k] for k in keys}
+    for k in keys:
+        assert c20[k] > 0, f"{k} was not launched on the dist path"
+    row["launches"] = c20
+    row["tolerance"] = ("(a), (b) metric triple within 2^-8 m; (c) triple "
+                        "within 2^-23 m, R 1e-4 relative of block_qr's "
+                        "'householder' R, x 1e-4 relative of float64 "
+                        "np.linalg.lstsq; (d) R 1e-4 of tsqr's, triple "
+                        "within 2^-23 m; (e) backward < 1e-5 per problem; "
+                        "times: CUDA events, median of 10 (a), 3 (b), "
+                        "5 (c, d)")
+    return row, c20
 
 
 def main() -> int:
@@ -1818,11 +2095,24 @@ def main() -> int:
     for k in G_KEYS:
         assert main19[k] > 0, f"{k} was not launched on the streaming path"
 
+    # 20. dist: the distributed layer on a world of one rank over NCCL
+    # (in-process store, no network); the multi-rank logic is proven on
+    # the CPU (tests/test_torch_dist*.py).
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        row20, c20 = phase_dist(A, ms4, dev, card)
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "dist", **row20, "card": card})
+
     emit({"kernels": [
         {"name": "ns_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ns_chain.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:335",
-         "launches": main_launches["ns_chain"], "max_abs_err": ns_err,
+         "launches": main_launches["ns_chain"] + c20["ns_chain"],
+         "max_abs_err": ns_err,
          "ms": ns_rows["chain_mid"]["ms"],
          "plain_ms": ns_rows["chain_mid"]["plain_ms"],
          **ns_chain_bound(128, 6, chain_mid=True),
@@ -1847,7 +2137,8 @@ def main() -> int:
         {"name": "ninv_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ninv_chain.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:384",
-         "launches": c9["ninv_chain"], "max_abs_err": k4_err,
+         "launches": c9["ninv_chain"] + c20["ninv_chain"],
+         "max_abs_err": k4_err,
          "ms": k4_rows["panel4096_it5"]["ms"],
          "plain_ms": k4_rows["panel4096_it5"]["plain_ms"],
          **ninv_chain_bound(128, 5),
@@ -1863,7 +2154,8 @@ def main() -> int:
         {"name": "panel_factor_fused", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_factor.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/panel.py:115",
-         "launches": c7["panel_factor_fused"], "max_abs_err": k6_err,
+         "launches": c7["panel_factor_fused"] + c20["panel_factor_fused"],
+         "max_abs_err": k6_err,
          "ms": k6_rows["4096x128"]["ms"],
          "plain_ms": k6_rows["4096x128"]["plain_ms"],
          **panel_factor_bound(4096, 128, k6_rows["4096x128"]["cluster"]),

@@ -13,7 +13,11 @@ checkpointed driver ``block_qr_resumable``; the Householder tiers
 refinement (stored-factor CAQR) options and ``lstsq_batched``; the
 differentiable QR (``qr_autodiff``, ``make_differentiable_qr``,
 ``lstsq_autodiff``); single-device TSQR (``tsqr``, ``tsqr_batched``) and
-CAQR (``caqr``), whose panels run K6 on the card; Givens QR and the
+CAQR (``caqr``), whose panels run K6 on the card; the distributed layer
+over ``torch.distributed`` (``make_mesh``, ``tsqr_sharded``,
+``dist_block_qr``, ``block_qr_batched_sharded``,
+``tsqr_batched_sharded_2d``: SPMD functions that every rank of a mesh
+calls with the global input); Givens QR and the
 streaming updates of complete-mode factors (``givens_qr``,
 ``qr_rank1_update``, ``qr_append_row``, ``qr_insert_col``,
 ``qr_delete_col``, ``qr_delete_row``) and recursive least squares
@@ -45,6 +49,8 @@ Public API:
     gauss_newton_step
     qr_autodiff, make_differentiable_qr, lstsq_autodiff
     tsqr, tsqr_batched, caqr
+    make_mesh, tsqr_sharded, dist_block_qr, block_qr_batched_sharded,
+    tsqr_batched_sharded_2d
     givens_qr, qr_rank1_update, qr_append_row, qr_insert_col,
     qr_delete_col, qr_delete_row
     RLSState, rls_init, rls_update, rls_solve
@@ -118,8 +124,18 @@ from mixedprecisionblockqr_tpu_torch.ops.wy import (
     build_t_matrix,
     wy_representation,
 )
+from mixedprecisionblockqr_tpu_torch.parallel.batched import (
+    block_qr_batched_sharded,
+    tsqr_batched_sharded_2d,
+)
 from mixedprecisionblockqr_tpu_torch.parallel.caqr import caqr
-from mixedprecisionblockqr_tpu_torch.parallel.tsqr import tsqr, tsqr_batched
+from mixedprecisionblockqr_tpu_torch.parallel.dist_qr import dist_block_qr
+from mixedprecisionblockqr_tpu_torch.parallel.mesh import make_mesh
+from mixedprecisionblockqr_tpu_torch.parallel.tsqr import (
+    tsqr,
+    tsqr_batched,
+    tsqr_sharded,
+)
 from mixedprecisionblockqr_tpu_torch.utils.checks import (
     NonFiniteError,
     checked_qr,
@@ -161,6 +177,11 @@ __all__ = [
     "tsqr",
     "tsqr_batched",
     "caqr",
+    "make_mesh",
+    "tsqr_sharded",
+    "dist_block_qr",
+    "block_qr_batched_sharded",
+    "tsqr_batched_sharded_2d",
     "givens_qr",
     "qr_rank1_update",
     "qr_append_row",

@@ -224,16 +224,23 @@ def _poison_if_unconverged(worst_resid, R_full, Q, B, tol: float = 1e-4):
     return R_full, Q, B
 
 
-def _rescrub_panel(Qpre, qk, t):
+def _rescrub_panel(Qpre, qk, t, reduce=None):
     """The corner-leak rescrub of the reorth tiers' robust tail (D9): one
     fp32 projection of the finished panel against all previous Q plus a
     4-iteration refactorization, folded so that ``qk t = q2 (s t) +
-    Qpre (W t)``.  Returns ``(q2, s @ t, W @ t, resid)``."""
+    Qpre (W t)``.  Returns ``(q2, s @ t, W @ t, resid)``.  The distributed
+    drivers pass ``reduce``, which sums a tensor over the ranks that hold
+    the row slabs of ``Qpre`` and ``qk`` (both W and the Gram of q2)."""
     qf = qk.float()
     Qp = Qpre.float()
     W = mm_f32(Qp.T, qf)
+    if reduce is not None:
+        W = reduce(W)
     q2 = qf - mm_f32(Qp, W)
-    X, s, rs = ns_chain(mm_f32(q2.T, q2), iters=4)
+    Gq = mm_f32(q2.T, q2)
+    if reduce is not None:
+        Gq = reduce(Gq)
+    X, s, rs = ns_chain(Gq, iters=4)
     q2 = mm_f32(q2, X)
     t32 = t.float()
     return q2, mm_f32(s, t32), mm_f32(W, t32), rs

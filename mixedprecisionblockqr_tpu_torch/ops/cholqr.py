@@ -21,7 +21,7 @@ so a float64 panel stays float64.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -111,13 +111,14 @@ def yamamoto_reflector(
     Q_red: torch.Tensor,
     R: torch.Tensor,
     inv_method: str = "lu",
+    newton_iters: Optional[int] = None,
     check: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Block reflector ``(Y, Sinv)`` with ``H = I - Y Sinv Y^T`` orthogonal
     and ``H[:, :r] = Q_red``, plus the sign-fixed R.  Columns flip so that
     diag(Q1) <= 0 (``_sign_fix``); R's rows flip with them.  Then ``H^T
-    panel = [R; 0]``.  ``inv_method='newton'`` runs
-    ``newton_iters_for_aspect(m / r)`` iterations."""
+    panel = [R; 0]``.  ``inv_method='newton'`` runs ``newton_iters``
+    iterations, by default ``newton_iters_for_aspect(m / r)``."""
     m, r = Q_red.shape
     D = _sign_fix(Q_red[:r, :])
     Qs = Q_red * D[None, :]
@@ -125,8 +126,9 @@ def yamamoto_reflector(
     Y = Qs - torch.eye(m, r, dtype=Qs.dtype, device=Qs.device)
     S = torch.eye(r, dtype=Qs.dtype, device=Qs.device) - Qs[:r, :].T
     if inv_method == "newton":
-        Sinv = newton_inv(S, iters=newton_iters_for_aspect(m / r),
-                          check=check)
+        iters = (newton_iters if newton_iters is not None
+                 else newton_iters_for_aspect(m / r))
+        Sinv = newton_inv(S, iters=iters, check=check)
     else:
         Sinv = lu_inv(S)
     return Y, Sinv, R

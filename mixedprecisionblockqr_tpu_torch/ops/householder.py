@@ -18,7 +18,7 @@ synchronization.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -130,18 +130,21 @@ def householder_qr(A, mode: str = "reduced",
 
 
 def panel_factor(
-    panel: torch.Tensor,
+    panel: torch.Tensor, num_cols: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Factor an (h x r) panel: ``(V, T, R_panel)`` with ``Q_panel = I -
     V T V^T`` (compact WY, forward product) and ``R_panel = Q_panel^T
     panel``, upper triangular in its top r rows (below the diagonal it
     holds rounding residue, which the callers' ``triu`` removes).
-    ``panel`` is not modified."""
+    ``num_cols`` masks trailing panel columns: only the first ``num_cols``
+    get a reflector (V and T stay zero beyond them); default the full
+    width.  ``panel`` is not modified."""
     h, r = panel.shape
+    ncols = r if num_cols is None else num_cols
     P = panel.clone()
     V = torch.zeros((h, r), dtype=P.dtype, device=P.device)
     T = torch.zeros((r, r), dtype=P.dtype, device=P.device)
-    for j in range(min(r, h)):
+    for j in range(min(ncols, h)):
         w, b, _ = _reflector(P[j:, j])
         blk = P[j:, j:]
         blk -= b * torch.outer(w, _mm(w, blk))

@@ -1,6 +1,6 @@
-"""TSQR: tall-skinny QR with a binary reduction tree, on one device (port
-of ``mixedprecisionblockqr_tpu/parallel/tsqr.py``, less the mesh-sharded
-``tsqr_sharded``).
+"""TSQR: tall-skinny QR with a binary reduction tree (port of
+``mixedprecisionblockqr_tpu/parallel/tsqr.py``), on one device and, as
+``tsqr_sharded``, over the ranks of a mesh axis.
 
 The rows split into a power-of-two number of leaves (zero-padded); each
 leaf is one Householder panel, and each tree level factors the stacked
@@ -30,6 +30,14 @@ from mixedprecisionblockqr_tpu_torch.ops.cholqr import cholesky_qr2
 from mixedprecisionblockqr_tpu_torch.ops.householder import _mm
 from mixedprecisionblockqr_tpu_torch.ops.policy import DTypePolicy, POLICY_FP32
 from mixedprecisionblockqr_tpu_torch.ops.wy import reduced_q_from_vt
+from mixedprecisionblockqr_tpu_torch.parallel.mesh import (
+    ROWS_AXIS,
+    all_gather,
+    axis_index,
+    axis_size,
+    mesh_device,
+    shard_rows,
+)
 from mixedprecisionblockqr_tpu_torch.utils.device import as_device_tensor
 
 LEAF_METHODS = ("householder", "cholqr2", "cholqr2s")
@@ -187,3 +195,39 @@ def tsqr_batched(A_batch, n_leaves: Optional[int] = None, device=None):
         outs = [_tsqr_impl(a, L) for a in A_batch]
     return (torch.stack([q for q, _ in outs]),
             torch.stack([r for _, r in outs]))
+
+
+def tsqr_sharded(A, mesh, axis: str = ROWS_AXIS, local_leaves: int = 1
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """TSQR of the global fp32 A (m x n, the same on every rank) with its
+    rows split over ``mesh[axis]``: returns ``(Q_loc, R)``, this rank's
+    (m/d x n) row slab of Q and the replicated R (n x n).
+
+    Each rank factors its own slab (``local_leaves`` Householder leaves,
+    K6 on the card), then ONE all-gather of the (n x n) leaf R factors;
+    every rank runs the small reduction tree itself (the same result on
+    each) and fixes up its slab of Q with its own path factor.  Guards as
+    in the JAX package: d divides m, d and ``local_leaves`` are powers of
+    two, and leaves are at least n tall.
+    """
+    A = as_device_tensor(A, mesh_device(mesh)).float()
+    m, n = A.shape
+    d = axis_size(mesh, axis)
+    if m % d != 0:
+        raise ValueError(f"rows {m} must divide over mesh axis {axis} ({d})")
+    if d & (d - 1):
+        raise ValueError(
+            f"tsqr_sharded needs a power-of-two mesh axis {axis!r}, got {d} "
+            "(the replicated binary reduction tree pairs device R factors)"
+        )
+    if local_leaves < 1 or local_leaves & (local_leaves - 1):
+        raise ValueError(
+            f"local_leaves must be a power of two, got {local_leaves}")
+    _check_leaf_height(m, d * local_leaves, n, "tsqr_sharded")
+    A_loc = shard_rows(A, mesh, axis)
+    if local_leaves > 1:
+        Q_loc, R_loc = _tsqr_impl(A_loc, local_leaves)
+    else:
+        Q_loc, R_loc = _leaf_qr(A_loc)
+    F, R = reduction_tree(all_gather(R_loc, mesh, axis))
+    return _mm(Q_loc, F[axis_index(mesh, axis)]), R

@@ -71,7 +71,7 @@ def _smi(query: str) -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def _profile_once(fn, attempts: int = 3):
+def _profile_once(fn, attempts: int = 8):
     """Device spans (name, stream, start us, end us) of one call of fn.
 
     The CUDA tracer can miss the first device activities of a profile (two
@@ -79,7 +79,7 @@ def _profile_once(fn, attempts: int = 3):
     to warm it, then a marker kernel (``torch.cuda._sleep``), then the call
     it keeps: the spans that start after the marker ends.  A profile that
     shows no marker or nothing after it is taken again, up to ``attempts``
-    times."""
+    times (three in a row came back empty for one K4 launch on an H100)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

@@ -135,6 +135,23 @@ def test_yamamoto_reflector_matches_jax(inv_method):
     np.testing.assert_allclose(HtP[16:], 0.0, atol=1e-4)
 
 
+@pytest.mark.parametrize("iters", [2, 9])
+def test_yamamoto_reflector_newton_iters_matches_jax(iters):
+    """An explicit ``newton_iters`` replaces the aspect rule (96 / 16 = 6:
+    8 iterations), in both packages."""
+    P = np.random.default_rng(3).random((96, 16)).astype(np.float32)
+    Qt, Rt = pt.cholesky_qr2(torch.from_numpy(P))
+    Qj, Rj = jcq.cholesky_qr2(jnp.asarray(P))
+    outs_t = tcq.yamamoto_reflector(Qt, Rt, inv_method="newton",
+                                    newton_iters=iters)
+    outs_j = jcq.yamamoto_reflector(Qj, Rj, inv_method="newton",
+                                    newton_iters=iters)
+    for t, j in zip(outs_t, outs_j):
+        _close(t.numpy(), j, atol=1e-4)
+    default = tcq.yamamoto_reflector(Qt, Rt, inv_method="newton")[1]
+    assert not torch.equal(outs_t[1], default)
+
+
 def test_newton_iters_for_aspect_matches_jax():
     for a in (1.0, 2.0, 3.99, 4.0, 7.5, 8.0, 32.0):
         assert tcq.newton_iters_for_aspect(a) == jcq.newton_iters_for_aspect(a)

@@ -1,6 +1,7 @@
-"""The port exports the Householder and WY building blocks, and the
-Givens / recursive-least-squares functions, at the top level, as the JAX
-package does."""
+"""The port exports the Householder and WY building blocks, the
+Givens / recursive-least-squares functions and the distributed layer at
+the top level, as the JAX package does, and a counterpart of every name
+of the JAX package's ``__all__``."""
 
 import pytest
 
@@ -40,3 +41,26 @@ def test_streaming_name_is_exported(name):
     assert name in reference.__all__
     assert name in port.__all__
     assert getattr(port, name) is getattr(STREAMING[name], name)
+
+
+def test_port_exports_every_reference_name():
+    import mixedprecisionblockqr_tpu as reference
+
+    missing = sorted(set(reference.__all__) - set(port.__all__))
+    assert not missing, missing
+
+
+DISTRIBUTED = {
+    "dist_block_qr": "dist_qr", "tsqr_sharded": "tsqr",
+    "make_mesh": "mesh", "block_qr_batched_sharded": "batched",
+    "tsqr_batched_sharded_2d": "batched",
+}
+
+
+@pytest.mark.parametrize("name", sorted(DISTRIBUTED))
+def test_distributed_name_is_exported(name):
+    from mixedprecisionblockqr_tpu_torch import parallel
+
+    assert name in port.__all__
+    module = getattr(parallel, DISTRIBUTED[name])
+    assert getattr(port, name) is getattr(module, name)

@@ -91,6 +91,19 @@ def test_panel_factor_matches_jax(shape):
     _close(np.triu(Rt.numpy()), np.triu(np.asarray(Rj)))
 
 
+@pytest.mark.parametrize("num_cols", [0, 5, 16])
+def test_panel_factor_num_cols_matches_jax(num_cols):
+    """``num_cols`` masks the trailing columns: reflectors for the first
+    ``num_cols`` only, V and T zero beyond them."""
+    P = _mat(80, 24, seed=7)
+    outs_t = thh.panel_factor(torch.from_numpy(P), num_cols=num_cols)
+    outs_j = jhh.panel_factor(jnp.asarray(P), num_cols=num_cols)
+    for t, j in zip(outs_t, outs_j):
+        _close(t.numpy(), j)
+    V, T, _ = outs_t
+    assert not V[:, num_cols:].any() and not T[:, num_cols:].any()
+
+
 def test_wy_functions_match_jax():
     p = _mat(96, 32, seed=3)
     c = _mat(96, 48, seed=4)
