@@ -18,6 +18,11 @@ last line):
                  and once more at phase 19's n = 2048) against their plain
                  PyTorch versions on the
                  card at the main paths' shapes, with the stated tolerances;
+                 K1, K4, the combine, K3, K2 and K5 at r = 48, 100, 125
+                 (the shared-memory route of the instantiation that holds
+                 r) and 192, 256 (the L2 route) with their r = 128 rows'
+                 tolerances, route, CTAs and a bitwise repeat
+                 (utils/width_probe.py);
                  ns_chain at r = 32, 64, 128 in every option combination
                  the QR tiers use, bitwise repeatable, NaN in -> NaN resid;
                  tiled_matmul on both routes (fed by TMA, predicated
@@ -150,14 +155,26 @@ last line):
                  tsqr_sharded 65536 x 64 with 8 local leaves (15 K6)
                  against tsqr; (e) block_qr_batched_sharded 8 x 1024 x 512
                  on a batch mesh and tsqr_batched_sharded_2d 4 x 16384 x
-                 64 on a (1, 1) mesh, backward error per problem < 1e-5.
+                 64 on a (1, 1) mesh, backward error per problem < 1e-5;
+ 21. widths   -- the calls that reach the kernels at other widths, each
+                 with its launches and its phase's quality gate: (a) phase
+                 4's call at block_size=256 (bgs1, g4: K2 at r = 256); (b)
+                 2000^2 (seed 0, uniform - 0.5) at blocks 100 and 125
+                 (bgs1: K2 at 100 / 125); (c) phase 9's polar call at
+                 r = 256 (8 K1 + 8 K4 at 256); (d) lstsq(J, -b,
+                 block_size=96) on phase 7's system (K6 at 96; the
+                 reroute's RQRCP keeps its block of 128); (d2)
+                 pivoted_qr_qtb(method='rqrcp', block_size=96) on a 4096 x
+                 1920 gauge-deficient system and the min-norm solve (20 K3
+                 and K7 at r = 96), against float64.
 Then a line with every kernel's launches on its main path (phases 4-6 for
 ns_chain and bgs_group_fused, phase 7 for panel_qr_fused,
 sketch_qrcp_ranks and panel_factor_fused, phase 9 for ninv_chain,
 phase 13 for bgs_group_fused_proj, phase 15 for
 tiled_matmul and chol_rinv, phase 19 for the Givens chains: each streaming
 call once at n = 2048; phase 20's cases (a)-(d) add their launches of
-ns_chain, ninv_chain and panel_factor_fused; the counts are set to 0 just
+ns_chain, ninv_chain and panel_factor_fused, phase 21's of the kernels its
+calls run; the widths each kernel was held at; the counts are set to 0 just
 before each path and read just after; phases 16-18 assert their own
 counts the same way),
 error, times and bound, and as the last line
@@ -488,6 +505,191 @@ def phase_dist(A, ms_block_qr, dev, card):
     return row, c20
 
 
+def phase_widths(A, A9, J, b, Jn, bn, head, polar, dev, card):
+    """Phase 21: the calls that reached a kernel at a width it refused
+    before every width ran, each with its launches (counts set to 0 just
+    before the call, read just after) and the quality gate of its phase.
+    ``head`` and ``polar`` are phase 4's and phase 9's ``(report, ms)`` on
+    ``A`` and ``A9``; ``J``, ``b`` (on the card), ``Jn``, ``bn`` (numpy)
+    phase 7's system.  Returns
+    ``(row, launches)``: the phase's line and the launches of all its
+    calls, by kernel."""
+    from mixedprecisionblockqr_tpu_torch import (
+        POLICY_MIXED_FAST,
+        back_substitution,
+        block_qr,
+        lstsq,
+        metrics,
+        numerical_rank,
+        pivoted_qr_qtb,
+        qr,
+    )
+    from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
+        resolve_panel_config,
+    )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+        LAUNCHES,
+        reset_launches,
+    )
+    from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
+    from mixedprecisionblockqr_tpu_torch.utils.datagen import (
+        gauge_deficient_system,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    bits = POLICY_MIXED_FAST.precision_bits
+    total = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        c = {k: v for k, v in LAUNCHES.items() if v}
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        return out, c
+
+    def fast(r):
+        def call(x):
+            return block_qr(x, r, POLICY_MIXED_FAST, mode="complete",
+                            panel_method="auto", quality="fast",
+                            check="defer")
+        return call
+
+    def triple(rep_):
+        return {"backward": rep_.backward,
+                "orthogonality": rep_.orthogonality,
+                "lower_trapezoid": rep_.lower_trapezoid,
+                "all_ok": rep_.all_ok, "tight_ok": rep_.tight_ok}
+
+    # (a) the headline call at block_size=256: bgs1 with g shrunk to 4
+    # (8 panels), so K2 runs at r = 256 (the L2 route's chains).
+    assert resolve_panel_config(
+        2048, 2048, 256, POLICY_MIXED_FAST, "auto", "unroll", 4,
+        mode="complete", on_gpu=True, quality="fast",
+    ) == ("bgs1", "unroll", 8)
+    (Qa, Ra), ca = counted(lambda: fast(256)(A))
+    rep_a = metrics.evaluate(A, Qa, Ra, bits)
+    assert ca.get("bgs_group_fused") == 2, ca
+    assert rep_a.all_ok and rep_a.tight_ok, str(rep_a)
+    assert rep_a.backward <= 2 * head[0].backward, (str(rep_a), head)
+    assert rep_a.orthogonality <= 2 * head[0].orthogonality, str(rep_a)
+    ms_a = cuda_time_ms(lambda: fast(256)(A), warmup=2, iters=20)
+    row = {"a": {"call": "block_qr(A, 256, POLICY_MIXED_FAST, "
+                         "mode='complete', panel_method='auto', "
+                         "quality='fast', check='defer') 2048^2 (phase 4's "
+                         "input)", "resolved": ["bgs1", "unroll", 8],
+                 "group_panels_run": 4, "launches": ca, **triple(rep_a),
+                 "ms": ms_a, "tflops": qr_flops(2048, 2048)
+                 / (ms_a * 1e-3) / 1e12, "block_size_128_ms": head[1],
+                 "block_size_128_backward": head[0].backward,
+                 "block_size_128_orthogonality": head[0].orthogonality}}
+
+    # (b) the reference's Euroc-MAV size, 2000^2, at blocks 100 and 125:
+    # 128 does not divide 2000 (cholqr1); 100 and 125 do, and resolve to
+    # bgs1 g8, so K2 runs at r = 100 and 125 (R = 128, zeros beyond r;
+    # 125-wide rows are not 16-byte aligned).
+    a2 = np.random.default_rng(0).random((2000, 2000), dtype=np.float32) - 0.5
+    A2 = torch.from_numpy(a2).to(dev)
+    row["b"] = {}
+    for r in (100, 125):
+        assert resolve_panel_config(
+            2000, 2000, r, POLICY_MIXED_FAST, "auto", "unroll", 4,
+            mode="complete", on_gpu=True, quality="fast",
+        ) == ("bgs1", "unroll", 8), r
+        (Qb, Rb), cb = counted(lambda: fast(r)(A2))
+        rep_b = metrics.evaluate(A2, Qb, Rb, bits)
+        assert cb.get("bgs_group_fused", 0) >= 2, (r, cb)
+        assert rep_b.all_ok and rep_b.tight_ok, (r, str(rep_b))
+        ms_b = cuda_time_ms(lambda: fast(r)(A2), warmup=2, iters=20)
+        row["b"][str(r)] = {"launches": cb, **triple(rep_b), "ms": ms_b,
+                            "tflops": qr_flops(2000, 2000)
+                            / (ms_b * 1e-3) / 1e12}
+    row["b"]["call"] = ("block_qr(A, r, POLICY_MIXED_FAST, "
+                        "mode='complete', panel_method='auto', "
+                        "quality='fast', check='defer') 2000^2, numpy "
+                        "seed 0 uniform - 0.5, r = 100 and 125 "
+                        "(bgs1, g8)")
+
+    # (c) polar on phase 9's 4096 x 2048 input at r = 256: K1 and K4 at
+    # 256, one each a panel.
+    assert resolve_panel_config(
+        4096, 2048, 256, POLICY_MIXED_FAST, "auto", "unroll", 4,
+        mode="complete", on_gpu=True, quality="fast",
+    ) == ("polar", "unroll", 8)
+    (Qc, Rc), cc = counted(lambda: fast(256)(A9))
+    rep_c = metrics.evaluate(A9, Qc, Rc, bits)
+    assert cc.get("ns_chain") == 8 and cc.get("ninv_chain") == 8, cc
+    assert rep_c.all_ok, str(rep_c)
+    assert rep_c.backward <= 2 * polar[0].backward, (str(rep_c), polar)
+    assert rep_c.orthogonality <= 2 * polar[0].orthogonality, str(rep_c)
+    ms_c = cuda_time_ms(lambda: fast(256)(A9), warmup=1, iters=10)
+    row["c"] = {"call": "block_qr(A9, 256, ...) as phase 9, 4096 x 2048",
+                "resolved": ["polar", "unroll", 8], "launches": cc,
+                **triple(rep_c), "ms": ms_c,
+                "tflops": qr_flops(4096, 2048) / (ms_c * 1e-3) / 1e12,
+                "block_size_128_ms": polar[1],
+                "block_size_128_backward": polar[0].backward,
+                "block_size_128_orthogonality": polar[0].orthogonality}
+
+    # (d) lstsq(J, -b, block_size=96) on phase 7's gauge-deficient
+    # Jacobian: block_qr_qtb's Householder panels at w = 96 (K6), then the
+    # tripwire's lstsq_pivoted, whose RQRCP keeps its own block of 128 in
+    # both packages (K3, K7).  Phase 7's gate.
+    x_d, cd = counted(lambda: lstsq(J, -b, block_size=96))
+    err_d = solve_errors(Jn, -bn, x_d)
+    assert err_d["rank_oracle"] == 1984, err_d
+    assert err_d["x_rel_err"] <= 1e-4 and err_d["resid_rel"] <= 1e-5, err_d
+    assert cd.get("panel_factor_fused", 0) > 0, cd
+    assert cd.get("panel_qr_fused", 0) > 0, cd
+    ms_d = cuda_time_ms(lambda: lstsq(J, -b, block_size=96),
+                        warmup=1, iters=5)
+    row["d"] = {"call": "lstsq(J, -b, block_size=96), J = phase 7's "
+                        "4096 x 2048 gauge-deficient Jacobian",
+                "launches": cd, **err_d, "ms": ms_d}
+
+    # (d2) RQRCP itself at block_size=96: a gauge-deficient system whose
+    # 1920 columns are 20 panels of 96, pivoted_qr_qtb(method='rqrcp',
+    # block_size=96) (K3, with its chains and combine, and K7 at r = 96),
+    # then lstsq_pivoted's min-norm solve on that factor.
+    Jn2, bn2 = gauge_deficient_system(4096, 1920, 64)
+    J2 = torch.from_numpy(Jn2).to(dev)
+    b2 = torch.from_numpy(bn2).to(dev)
+
+    def solve96():
+        R, qtb, perm = pivoted_qr_qtb(J2, -b2, method="rqrcp",
+                                      block_size=96)
+        k = numerical_rank(R, m=4096)
+        Z, T = qr(R[:k, :].T, mode="reduced", panel_method="householder")
+        y = mm_f32(Z, back_substitution(T.T, qtb[:k, None], lower=True))
+        x = torch.zeros_like(y)
+        x[perm] = y
+        return x[:, 0], k
+
+    (x_e, k_e), ce = counted(solve96)
+    err_e = solve_errors(Jn2, -bn2, x_e)
+    assert k_e == err_e["rank_oracle"] == 1856, (k_e, err_e)
+    assert err_e["x_rel_err"] <= 1e-4 and err_e["resid_rel"] <= 1e-5, err_e
+    assert ce.get("panel_qr_fused") == 20, ce
+    assert ce.get("sketch_qrcp_ranks", 0) > 0, ce
+    ms_e = cuda_time_ms(lambda: solve96(), warmup=1, iters=5)
+    row["d2"] = {"call": "pivoted_qr_qtb(J2, -b2, method='rqrcp', "
+                         "block_size=96) and lstsq_pivoted's min-norm solve, "
+                         "J2, b2 = gauge_deficient_system(4096, 1920, 64)",
+                 "launches": ce, "rank": k_e, **err_e, "ms": ms_e}
+    row["launches"] = total
+    row["tolerance"] = (
+        "(a) metric triple all_ok and tight_ok, backward and orthogonality "
+        "at most 2x phase 4's (block 128); (b) all_ok and tight_ok; (c) "
+        "all_ok, backward and orthogonality at most 2x phase 9's; (d), "
+        "(d2) rank equal to float64 np.linalg.lstsq's, residual 1e-5 and x "
+        "1e-4 relative; times: CUDA events, median of 20 (a, b), 10 (c), "
+        "5 (d)")
+    return row, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -585,6 +787,7 @@ def main() -> int:
         slam_jacobian,
     )
     from mixedprecisionblockqr_tpu_torch.utils import givens_probe
+    from mixedprecisionblockqr_tpu_torch.utils import width_probe
     from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
     from mixedprecisionblockqr_tpu_torch.utils.ninv_probe import (
         combine_row,
@@ -1255,6 +1458,26 @@ def main() -> int:
           "serial_floor_ms": {name: row["serial_steps"] * g_step["step_ms"]
                               for name, row in {**g_rows, **g_main}.items()},
           "card": card})
+
+    # K1, K4, the combine, K3, K2 and K5 at panel widths other than 32, 64
+    # and 128 (utils/width_probe.py): r = 48, 100, 125 on the shared-memory
+    # route of the instantiation that holds them, 192 and 256 on the L2
+    # route, each against its plain version with its r = 128 row's
+    # tolerance, launched twice and compared bit for bit, with its route,
+    # CTAs and time.  Each width draws from a generator of its own, so the
+    # later phases' inputs stay the draws they were.
+    wrows = width_probe.width_rows(dev)
+    for name, by_r in wrows.items():
+        for r_w, row in by_r.items():
+            assert row["ok"], (name, r_w, row)
+        emit({"phase": "kernels_widths", "kernel": name,
+              "tolerance": "as the kernel's r = 128 row: fp32 1e-4 of the "
+                           "plain version's scale, bf16 flags 5e-3 "
+                           "relative; the same canary / fallback class; "
+                           "two launches bitwise equal; plain ms: median "
+                           "of 5",
+              "widths": {str(r_w): row for r_w, row in by_r.items()},
+              "card": card})
 
     # 4-6. the main path: one call each, launch counts from these calls only
     a = np.random.default_rng(0).random((2048, 2048), dtype=np.float32) - 0.5
@@ -2107,12 +2330,20 @@ def main() -> int:
         dist.destroy_process_group()
     emit({"phase": "dist", **row20, "card": card})
 
+    # 21. widths: the calls that reach the kernels at r outside 32, 64, 128
+    row21, c21 = phase_widths(A, A9, J, b, Jn, bn, (rep, ms4), (rep9, ms9),
+                              dev, card)
+    emit({"phase": "widths", **row21, "card": card})
+
     emit({"kernels": [
         {"name": "ns_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ns_chain.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:335",
-         "launches": main_launches["ns_chain"] + c20["ns_chain"],
-         "max_abs_err": ns_err,
+         "launches": main_launches["ns_chain"] + c20["ns_chain"]
+         + c21.get("ns_chain", 0),
+         "max_abs_err": max(ns_err, *(row["max_abs_err"] for row in
+                                      wrows["ns_chain"].values())),
+         "widths": [32, 64, 128, *wrows["ns_chain"]],
          "ms": ns_rows["chain_mid"]["ms"],
          "plain_ms": ns_rows["chain_mid"]["plain_ms"],
          **ns_chain_bound(128, 6, chain_mid=True),
@@ -2120,8 +2351,11 @@ def main() -> int:
         {"name": "bgs_group_fused", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:900",
-         "launches": main_launches["bgs_group_fused"],
-         "max_abs_err": grp_err,
+         "launches": main_launches["bgs_group_fused"]
+         + c21.get("bgs_group_fused", 0),
+         "max_abs_err": max(grp_err, *(row["max_abs_err"] for row in
+                                       wrows["bgs_group_fused"].values())),
+         "widths": [128, *wrows["bgs_group_fused"]],
          "ms": grp_rows["bgs1_robust=True"]["ms"],
          "plain_ms": grp_rows["bgs1_robust=True"]["plain_ms"],
          **group_bound(2048, 128, iters, (False,) * 7 + (True,), True),
@@ -2129,7 +2363,11 @@ def main() -> int:
         {"name": "panel_qr_fused", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_qr.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:501",
-         "launches": c7["panel_qr_fused"], "max_abs_err": k3_err,
+         "launches": c7["panel_qr_fused"] + c21.get("panel_qr_fused", 0),
+         "max_abs_err": max(k3_err, *(row["max_abs_err"] for row in
+                                      wrows["panel_qr_fused"].values())),
+         "widths": [128, *wrows["panel_qr_fused"]],
+         "combine_widths": [128, *wrows["tri_combine"]],
          "ms": k3_rows["uniform_robust"]["ms"],
          "plain_ms": k3_rows["uniform_robust"]["plain_ms"],
          **panel_qr_bound(4096, 128),
@@ -2137,8 +2375,11 @@ def main() -> int:
         {"name": "ninv_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ninv_chain.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:384",
-         "launches": c9["ninv_chain"] + c20["ninv_chain"],
-         "max_abs_err": k4_err,
+         "launches": c9["ninv_chain"] + c20["ninv_chain"]
+         + c21.get("ninv_chain", 0),
+         "max_abs_err": max(k4_err, *(row["max_abs_err"] for row in
+                                      wrows["ninv_chain"].values())),
+         "widths": [128, *wrows["ninv_chain"]],
          "ms": k4_rows["panel4096_it5"]["ms"],
          "plain_ms": k4_rows["panel4096_it5"]["plain_ms"],
          **ninv_chain_bound(128, 5),
@@ -2146,7 +2387,11 @@ def main() -> int:
         {"name": "bgs_group_fused_proj", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:1023",
-         "launches": c13["bgs_group_fused_proj"], "max_abs_err": k5_err,
+         "launches": c13["bgs_group_fused_proj"],
+         "max_abs_err": max(k5_err, *(
+             row["max_abs_err"]
+             for row in wrows["bgs_group_fused_proj"].values())),
+         "widths": [128, *wrows["bgs_group_fused_proj"]],
          "ms": k5_rows["bf16"]["ms"],
          "plain_ms": k5_rows["bf16"]["plain_ms"],
          **group_bound(2048, 128, iters, robust_tail, True, proj_cols=1024),
@@ -2154,8 +2399,9 @@ def main() -> int:
         {"name": "panel_factor_fused", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_factor.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/panel.py:115",
-         "launches": c7["panel_factor_fused"] + c20["panel_factor_fused"],
-         "max_abs_err": k6_err,
+         "launches": c7["panel_factor_fused"] + c20["panel_factor_fused"]
+         + c21.get("panel_factor_fused", 0),
+         "max_abs_err": k6_err, "widths": [128, 80, 64],
          "ms": k6_rows["4096x128"]["ms"],
          "plain_ms": k6_rows["4096x128"]["plain_ms"],
          **panel_factor_bound(4096, 128, k6_rows["4096x128"]["cluster"]),
@@ -2163,7 +2409,9 @@ def main() -> int:
         {"name": "sketch_qrcp_ranks", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/sketch_qrcp.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/sketch.py:88",
-         "launches": c7["sketch_qrcp_ranks"], "max_abs_err": k7_err,
+         "launches": c7["sketch_qrcp_ranks"]
+         + c21.get("sketch_qrcp_ranks", 0),
+         "max_abs_err": k7_err, "widths": [128, 64],
          "ms": k7_rows["w2048"]["ms"],
          "plain_ms": k7_rows["w2048"]["plain_ms"],
          **sketch_bound(136, 2048, 128),
@@ -2180,6 +2428,7 @@ def main() -> int:
          "source": "mixedprecisionblockqr_tpu_torch/csrc/chol_rinv.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/chol.py:119",
          "launches": c15["chol_rinv"], "max_abs_err": k9_err,
+         "widths": [32, 96, 128, 256, 320, 512, 1024],
          "ms": k9_rows["r256"]["ms"],
          "plain_ms": k9_rows["r256"]["plain_ms"],
          **chol_rinv_bound(256),

@@ -53,6 +53,11 @@
 // K5's scrub adds two products over the m x p prefix of previous Q on the
 // critical stream before the group body (p grows to n - g r: at p = w =
 // 1024, m = 2048 they are 8.6 GFLOP).
+// Widths: any r from 1 to kMaxWidth.  The chain runs with the layout the
+// caller passes (ops/kernels/ns.py::ns_layout: shared memory up to 128, the
+// L2 route beyond, its operands in this entry's scratch), the combine with
+// its own rule; above 128 the in-place Q = P X first copies the panel to
+// scratch (panel.cuh, "Widths").
 #include "panel.cuh"
 
 namespace mpbqr {
@@ -67,7 +72,8 @@ __global__ void worst_resid(const float* resid, int g, float* worst) {
 }
 
 struct GroupScratch {
-  float *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *resid;
+  float *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *resid, *chain,
+      *comb;
 };
 
 static long long group_scratch_floats(int m, int r, int g, GroupScratch* s,
@@ -90,6 +96,8 @@ static long long group_scratch_floats(int m, int r, int g, GroupScratch* s,
   take(&d->tmpA, mr);
   take(&d->tmpB, mr);
   take(&d->resid, ((g + 31) / 32) * 32);
+  take(&d->chain, chain_inst(r) ? 0 : chain_l2_scratch_floats(r));
+  take(&d->comb, combine_scratch_floats(r));
   return off;
 }
 
@@ -200,7 +208,8 @@ struct Sched {
 static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
                       const GroupScratch& s, int m, int r, int g,
                       const int* iters, const int* robust, bool bd, bool bg,
-                      bool chain_mid, const ProductLayout& lay) {
+                      bool chain_mid, const ProductLayout& lay,
+                      const KernelLayout& cl) {
   const int w = g * r;
   const cudaStream_t st = sc.crit;
   auto mid = [&](int it) {
@@ -215,6 +224,12 @@ static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
                    int ldo) {
     return nt(st, bg, m, r, r, P, ldp, X, r, Qo, ldo, false, lay.bm_panel,
               lay.bn);
+  };
+  auto chain = [&](float* X, float* t, int ldt, float* res, int it,
+                   float shift, int refine, int mid_it, int omega,
+                   int triu_t, int mode) {
+    return launch_chain(r, cl, s.chain, st, s.G, X, t, ldt, res, it, shift,
+                        refine, mid_it, omega, 1, triu_t, mode);
   };
   // Panel k's wide part: G1 = Qk^T C and C -= Qk G1 over the columns
   // after panel k+1's, on the wide stream from the last mark().
@@ -244,32 +259,37 @@ static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
     // priority: its cluster is placed before the wide CTAs.
     if (pending >= 0) MPBQR_TRY(sc.mark());
     if (!robust[j]) {
-      MPBQR_TRY(launch_chain(r, st, s.G, s.X1, Rjj, w, s.resid + j, iters[j],
-                             0.f, 0, mid(iters[j]), 1, 1, 1, RESID_SQUARE));
+      MPBQR_TRY(chain(s.X1, Rjj, w, s.resid + j, iters[j], 0.f, 0,
+                      mid(iters[j]), 1, 1, RESID_SQUARE));
     } else {
       // Pass 1: shifted Gram (condition capped), t1 = X1^T Gs in full.
-      MPBQR_TRY(launch_chain(r, st, s.G, s.X1, s.T1, r, s.resid + j,
-                             kRobustIt1, 1e-3f, 0, mid(kRobustIt1), 0, 1, 0,
-                             RESID_RAW));
+      MPBQR_TRY(chain(s.X1, s.T1, r, s.resid + j, kRobustIt1, 1e-3f, 0,
+                      mid(kRobustIt1), 0, 0, RESID_RAW));
     }
     if (pending >= 0) MPBQR_TRY(wide(pending));
     pending = -1;
     if (!robust[j]) {
-      MPBQR_TRY(qprod(Pj, w, s.X1, Pj, w));
+      if (lay.bn >= r) {
+        MPBQR_TRY(qprod(Pj, w, s.X1, Pj, w));
+      } else {  // several column blocks: not in place
+        MPBQR_TRY(cudaMemcpy2DAsync(s.tmpA, sizeof(float) * r, Pj,
+                                    sizeof(float) * w, sizeof(float) * r, m,
+                                    cudaMemcpyDeviceToDevice, st));
+        MPBQR_TRY(qprod(s.tmpA, r, s.X1, Pj, w));
+      }
     } else {
       MPBQR_TRY(qprod(Pj, w, s.X1, s.tmpA, r));
       MPBQR_TRY(gram(s.tmpA, r, s.G));
       // Pass 2 on the fresh Gram of Q1, t2 = X2^T M1 in full.
-      MPBQR_TRY(launch_chain(r, st, s.G, s.X2, s.T2, r, s.resid + j,
-                             kRobustIt2, 0.f, 0, mid(kRobustIt2), 0, 1, 0,
-                             RESID_RAW));
+      MPBQR_TRY(chain(s.X2, s.T2, r, s.resid + j, kRobustIt2, 0.f, 0,
+                      mid(kRobustIt2), 0, 0, RESID_RAW));
       MPBQR_TRY(qprod(s.tmpA, r, s.X2, s.tmpB, r));
       MPBQR_TRY(gram(s.tmpB, r, s.G));
       // Pass 3: identity-seeded refine with the exact final residual.
-      MPBQR_TRY(launch_chain(r, st, s.G, s.X3, s.T3, r, s.resid + j,
-                             kRobustIt3, 0.f, 1, 0, 1, 1, 0, RESID_SCALE));
+      MPBQR_TRY(chain(s.X3, s.T3, r, s.resid + j, kRobustIt3, 0.f, 1, 0, 1,
+                      0, RESID_SCALE));
       MPBQR_TRY(qprod(s.tmpB, r, s.X3, Pj, w));
-      MPBQR_TRY(launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w));
+      MPBQR_TRY(launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w, s.comb));
     }
     if (j + 1 == g) break;
     // The narrow part, panel j+1's columns, after the wide part of panel
@@ -301,19 +321,23 @@ long long mpbqr_bgs_group_scratch_floats(int m, int r, int g) {
 // iters[j] / robust[j] are host arrays of g entries.  bf16_gram rounds the
 // Gram and Q = P X operands to bf16, bf16_dots the projection operands;
 // chain_mid runs the early chain iterations with bf16-split products.
-// split, chunk, bm_panel, bm_wide, bn: the layout of ops/kernels/ns.py::
-// group_layout(m, r).  The kernels run on the entry's own streams, joined
-// into `stream` before it returns.  Returns the first CUDA error met, or
-// cudaErrorInvalidValue for an r the chain kernel does not take or a
-// layout the products do not run.
+// split, chunk, bm_panel, bm_wide, bn and the chain's inst, route, ctas,
+// scratch_floats, smem_bytes: the layout of ops/kernels/ns.py::
+// group_layout(m, r, ...).  The kernels run on the entry's own streams,
+// joined into `stream` before it returns.  Returns the first CUDA error
+// met, or cudaErrorInvalidValue for an r outside 1 .. kMaxWidth or a
+// layout the products or the chain do not run.
 int mpbqr_bgs_group(const float* P, float* Q, float* Rg, float* worst,
                     float* scratch, int m, int r, int g, const int* iters,
                     const int* robust, int bf16_dots, int bf16_gram,
                     int chain_mid, int split, int chunk, int bm_panel,
-                    int bm_wide, int bn, void* stream) {
+                    int bm_wide, int bn, int inst, int route, int ctas,
+                    int chain_scratch, int chain_smem, void* stream) {
   using namespace mpbqr;
   const ProductLayout lay{split, chunk, bm_panel, bm_wide, bn};
-  if (!product_layout_ok(m, r, lay)) return (int)cudaErrorInvalidValue;
+  const KernelLayout cl{inst, route, ctas, chain_scratch, chain_smem};
+  if (!product_layout_ok(m, r, lay) || !chain_layout_ok(r, cl))
+    return (int)cudaErrorInvalidValue;
   const int w = g * r;
   GroupScratch s;
   group_scratch_floats(m, r, g, &s, scratch);
@@ -324,7 +348,7 @@ int mpbqr_bgs_group(const float* P, float* Q, float* Rg, float* worst,
                               cudaMemcpyDeviceToDevice, sc.crit));
   MPBQR_TRY(cudaMemsetAsync(Rg, 0, sizeof(float) * (size_t)w * w, sc.crit));
   return group_body(sc, Q, Rg, worst, s, m, r, g, iters, robust,
-                    bf16_dots != 0, bf16_gram != 0, chain_mid != 0, lay);
+                    bf16_dots != 0, bf16_gram != 0, chain_mid != 0, lay, cl);
 }
 
 // K5.  P (m x g*r, fp32, raw columns, read only) and Qprev (m x p, leading
@@ -343,11 +367,14 @@ int mpbqr_bgs_group_proj(const float* P, const void* Qprev, int ldq,
                          int r, int g, const int* iters, const int* robust,
                          int bf16_dots, int bf16_gram, int chain_mid,
                          int split, int chunk, int bm_panel, int bm_wide,
-                         int bn, int scrub_split, int scrub_chunk,
-                         void* stream) {
+                         int bn, int inst, int route, int ctas,
+                         int chain_scratch, int chain_smem, int scrub_split,
+                         int scrub_chunk, void* stream) {
   using namespace mpbqr;
   const ProductLayout lay{split, chunk, bm_panel, bm_wide, bn};
-  if (!product_layout_ok(m, r, lay)) return (int)cudaErrorInvalidValue;
+  const KernelLayout cl{inst, route, ctas, chain_scratch, chain_smem};
+  if (!product_layout_ok(m, r, lay) || !chain_layout_ok(r, cl))
+    return (int)cudaErrorInvalidValue;
   if (p < 1 || ldq < p) return (int)cudaErrorInvalidValue;
   if (scrub_split < 1 || scrub_split > kTnMaxSplit || scrub_chunk < 1 ||
       (long long)scrub_split * scrub_chunk < m ||
@@ -373,7 +400,7 @@ int mpbqr_bgs_group_proj(const float* P, const void* Qprev, int ldq,
   MPBQR_TRY(qprev_bf16 ? scrub(static_cast<const __nv_bfloat16*>(Qprev))
                        : scrub(static_cast<const float*>(Qprev)));
   return group_body(sc, Q, Rg, worst, s, m, r, g, iters, robust, bd,
-                    bf16_gram != 0, chain_mid != 0, lay);
+                    bf16_gram != 0, chain_mid != 0, lay, cl);
 }
 
 // One product of the group's kinds, alone on `stream`, for the probe

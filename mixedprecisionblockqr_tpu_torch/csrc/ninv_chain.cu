@@ -38,6 +38,12 @@
 // the cluster in rank order, so a NaN in S reaches it (the drivers' LU
 // fallback keys on resid < 1e-3 failing).  No atomics: two launches give
 // the same bits.  The layout rule is ops/kernels/ns.py::ninv_layout.
+//
+// Widths: the kernel is instantiated for R = 32, 64, 128 and runs any
+// r <= R on the smallest R >= r (ns_chain.cuh, "Widths"): S and X zero
+// beyond r, the identities of X0, E and the residual stop at r.  Beyond
+// 128 (S and two X: 3 x 4 r (r + 4) bytes a CTA, 790 KB at r = 256)
+// ninv_l2_kernel below runs the same iteration on ns_chain.cuh's L2 route.
 #include "ns_chain.cuh"
 
 namespace mpbqr {
@@ -75,10 +81,13 @@ __device__ long long g_ninv_prof[8][8];
 #define PROF_SAVE
 #endif
 
-template <int R>
+// S and X are nr x nr (leading dimension nr), nr = R unless PAD (nr =
+// n_arg <= R; ns_chain.cuh, "Widths").
+template <int R, bool PAD>
 __global__ void __launch_bounds__(kChainThreads, 1)
-ninv_kernel(const float* S, float* X, float* resid, int iters) {
+ninv_kernel(const float* S, int n_arg, float* X, float* resid, int iters) {
   using L = NinvLayout<R>;
+  const int nr = PAD ? n_arg : R;
   constexpr int LDF = L::LDF;
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -93,15 +102,15 @@ ninv_kernel(const float* S, float* X, float* resid, int iters) {
   float* cred = red + 32;
   PROF_INIT
 
-  load_full_async<R>(Ss, S, R);
+  load_full_async<R>(Ss, S, nr, nr);
   float* X0 = sm + L::OFF_X;
   for (int e = tid; e < R * R; e += kChainThreads) {
     const int i = e / R, j = e % R;
-    X0[i * LDF + j] = i == j ? 2.0f / 3.0f : 0.f;
+    X0[i * LDF + j] = i == j && i < nr ? 2.0f / 3.0f : 0.f;
   }
   for (int e = tid; e < kStripe * R; e += kChainThreads) {
     const int q = e / R, k = e % R;
-    Xt[q * LDF + k] = k == c0 + q ? 2.0f / 3.0f : 0.f;
+    Xt[q * LDF + k] = k == c0 + q && k < nr ? 2.0f / 3.0f : 0.f;
   }
   cp_async_wait<0>();
   // S and X0 are in place, and every CTA runs before the first DSMEM write.
@@ -112,7 +121,7 @@ ninv_kernel(const float* S, float* X, float* resid, int iters) {
     const float* Xc = sm + L::OFF_X + (it & 1) * L::FULL;
     // E[:, own] = 2I - S X[:, own]: D[p = k][q] = <S[k], X^T[own q]>.
     prod_gen<R>(Ss, Xt, part, [&](int p, int q, float v) {
-      Et[q * LDF + p] = (p == c0 + q ? 2.f : 0.f) - v;
+      Et[q * LDF + p] = (p == c0 + q && p < nr ? 2.f : 0.f) - v;
     });
     PROF(1)
     __syncthreads();
@@ -151,13 +160,20 @@ ninv_kernel(const float* S, float* X, float* resid, int iters) {
   // max|I - S X| on the own columns, and the own columns of X out.
   float m = 0.f;
   prod_gen<R>(Ss, Xt, part, [&](int p, int q, float v) {
-    m = nan_max(m, fabsf((p == c0 + q ? 1.f : 0.f) - v));
+    m = nan_max(m, fabsf((p == c0 + q && p < nr ? 1.f : 0.f) - v));
   });
-  for (int e = tid; e < 4 * R; e += kChainThreads) {
-    const int i = e % R, a = 4 * (e / R);
-    *reinterpret_cast<float4*>(X + (size_t)i * R + c0 + a) =
-        make_float4(Xt[a * LDF + i], Xt[(a + 1) * LDF + i],
-                    Xt[(a + 2) * LDF + i], Xt[(a + 3) * LDF + i]);
+  if (nr == R && reinterpret_cast<uintptr_t>(X) % 16 == 0) {
+    for (int e = tid; e < 4 * R; e += kChainThreads) {
+      const int i = e % R, a = 4 * (e / R);
+      *reinterpret_cast<float4*>(X + (size_t)i * R + c0 + a) =
+          make_float4(Xt[a * LDF + i], Xt[(a + 1) * LDF + i],
+                      Xt[(a + 2) * LDF + i], Xt[(a + 3) * LDF + i]);
+    }
+  } else {
+    for (int e = tid; e < kStripe * R; e += kChainThreads) {
+      const int i = e % R, q = e / R;
+      if (i < nr && c0 + q < nr) X[(size_t)i * nr + c0 + q] = Xt[q * LDF + i];
+    }
   }
   // max over the cluster, in rank order.
   m = blk_max(m, red);
@@ -174,13 +190,87 @@ ninv_kernel(const float* S, float* X, float* resid, int iters) {
 
 template <int R>
 static inline cudaError_t launch_ninv_r(cudaStream_t st, const float* S,
-                                        float* X, float* resid, int iters,
-                                        int ctas, int smem_bytes) {
+                                        int nr, float* X, float* resid,
+                                        int iters) {
   using L = NinvLayout<R>;
-  if (ctas != L::CS || smem_bytes != L::BYTES) return cudaErrorInvalidValue;
-  static bool fits = false;
-  return launch_cluster(ninv_kernel<R>, L::CS, L::BYTES, st, fits, S, X,
-                        resid, iters);
+  static bool fits[2] = {false, false};
+  return launch_cluster(nr == R ? &ninv_kernel<R, false>
+                                : &ninv_kernel<R, true>,
+                        L::CS, L::BYTES, st, fits[nr != R], S, nr, X, resid,
+                        iters);
+}
+
+// K4 on ns_chain.cuh's L2 route, any n <= kMaxWidth: X and the own columns
+// of E = 2I - S X in the global scratch (X twice), S read in place, CTA p
+// owning the columns [p cw, (p + 1) cw):
+//   E[:, own] = 2I - S X[:, own];  X'[:, own] = X E[:, own]
+// one cluster barrier an iteration (X' goes to the other buffer), then
+// max|I - S X| on the own columns and a rank-ordered max over the cluster.
+// Dynamic shared memory: kL2StageFloats + 64 floats.
+__global__ void __launch_bounds__(kChainThreads, 1)
+ninv_l2_kernel(const float* S, int n, float* X, float* resid, int iters,
+               float* scratch) {
+  extern __shared__ __align__(16) float sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  int c0, c1;
+  l2_own(n, (int)cluster.block_rank(), (int)gridDim.x, c0, c1);
+  const int ld = l2_ld(n), cw = c1 - c0;
+  const size_t mat = (size_t)n * ld;
+  float* Xb[2] = {scratch, scratch + mat};
+  float* Eb = scratch + 2 * mat;
+  float* stage = sm;
+  float* red = sm + kL2StageFloats;
+  float* cred = red + 32;
+  for (int e = tid; e < n * cw; e += kChainThreads) {
+    const int i = e / cw, c = c0 + e % cw;
+    Xb[0][i * ld + c] = i == c ? 2.0f / 3.0f : 0.f;
+  }
+  l2_barrier(cluster);
+  for (int it = 0; it < iters; ++it) {
+    const float* Xc = Xb[it & 1];
+    float* Xn = Xb[(it + 1) & 1];
+    l2_prod<false, false>(n, S, n, Xc, ld, c0, c1, 0, stage,
+                          [&](int i, int c, float v) {
+                            Eb[i * ld + c] = (i == c ? 2.f : 0.f) - v;
+                          });
+    __syncthreads();
+    l2_prod<false, false>(n, Xc, ld, Eb, ld, c0, c1, 0, stage,
+                          [&](int i, int c, float v) { Xn[i * ld + c] = v; });
+    l2_barrier(cluster);
+  }
+  const float* Xf = Xb[iters & 1];
+  float m = 0.f;
+  l2_prod<false, false>(n, S, n, Xf, ld, c0, c1, 0, stage,
+                        [&](int i, int c, float v) {
+                          m = nan_max(m, fabsf((i == c ? 1.f : 0.f) - v));
+                        });
+  for (int e = tid; e < n * cw; e += kChainThreads) {
+    const int i = e / cw, c = c0 + e % cw;
+    X[(size_t)i * n + c] = __ldcg(Xf + i * ld + c);
+  }
+  l2_cluster_max(cluster, m, red, cred, RESID_RAW, resid);
+}
+
+static inline int ninv_smem_bytes(int r) {
+  switch (chain_inst(r)) {
+    case 32: return NinvLayout<32>::BYTES;
+    case 64: return NinvLayout<64>::BYTES;
+    case 128: return NinvLayout<128>::BYTES;
+    default: return (kL2StageFloats + 64) * 4;
+  }
+}
+
+// Whether `lay` is K4's layout for width r (ns.py::ninv_layout).
+static inline bool ninv_layout_ok(int r, const KernelLayout& lay) {
+  if (r < 1 || r > kMaxWidth) return false;
+  const int inst = chain_inst(r);
+  if (lay.inst != inst || lay.route != (inst ? 0 : 1) ||
+      lay.smem_bytes != ninv_smem_bytes(r))
+    return false;
+  if (inst) return lay.ctas == inst / kStripe && lay.scratch_floats == 0;
+  return lay.ctas >= 1 && lay.ctas <= l2_max_ctas(r) &&
+         lay.scratch_floats == 3LL * r * l2_ld(r);
 }
 
 }  // namespace mpbqr
@@ -195,23 +285,31 @@ int mpbqr_ninv_prof(long long* prof) {
 }
 #endif
 
-// S (r x r, fp32, row-major, 16-byte aligned) -> X (r x r, 16-byte
-// aligned) and *resid (one float), device pointers, one cluster launch on
-// `stream`.  ctas and smem_bytes: ops/kernels/ns.py::ninv_layout(r), which
-// must match the kernel's own layout.  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for an r the kernel does not take, a
-// layout that differs from the kernel's or a negative iteration count.
-int mpbqr_ninv_chain(const float* S, float* X, float* resid, int r,
-                     int iters, int ctas, int smem_bytes, void* stream) {
+// S (r x r, fp32, row-major) -> X (r x r) and *resid (one float), device
+// pointers, one cluster launch on `stream`; `scratch` holds the layout's
+// scratch floats (the L2 route's X and E).  inst, route, ctas,
+// scratch_floats, smem_bytes: ops/kernels/ns.py::ninv_layout(r, ...),
+// which must match the kernel's own layout.  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for an r outside 1 ..
+// kMaxWidth, a layout that differs from the kernel's or a negative
+// iteration count.
+int mpbqr_ninv_chain(const float* S, float* X, float* resid, float* scratch,
+                     int r, int iters, int inst, int route, int ctas,
+                     int scratch_floats, int smem_bytes, void* stream) {
   using namespace mpbqr;
-  if (iters < 0) return (int)cudaErrorInvalidValue;
+  const KernelLayout lay{inst, route, ctas, scratch_floats, smem_bytes};
+  if (iters < 0 || !ninv_layout_ok(r, lay)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
-  switch (r) {
-    case 32: err = launch_ninv_r<32>(st, S, X, resid, iters, ctas, smem_bytes); break;
-    case 64: err = launch_ninv_r<64>(st, S, X, resid, iters, ctas, smem_bytes); break;
-    case 128: err = launch_ninv_r<128>(st, S, X, resid, iters, ctas, smem_bytes); break;
-    default: return (int)cudaErrorInvalidValue;
+  switch (inst) {
+    case 32: err = launch_ninv_r<32>(st, S, r, X, resid, iters); break;
+    case 64: err = launch_ninv_r<64>(st, S, r, X, resid, iters); break;
+    case 128: err = launch_ninv_r<128>(st, S, r, X, resid, iters); break;
+    default: {
+      static bool fits[kL2MaxCluster + 1] = {};
+      err = launch_cluster(ninv_l2_kernel, ctas, smem_bytes, st, fits[ctas],
+                           S, r, X, resid, iters, scratch);
+    }
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

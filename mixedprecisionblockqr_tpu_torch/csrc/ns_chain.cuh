@@ -51,7 +51,24 @@
 // The general (not triangular) fp32 product prod_gen, the cp.async loads
 // of a whole replicated operand and the cluster launch below also run
 // ninv_chain.cu (K4) and panel.cuh's combine.
+//
+// Widths.  The shared-memory route above is instantiated for R = 32, 64
+// and 128 and takes any r <= R at run time: the chain runs on the
+// smallest R >= r with every row and column beyond r zero.  Jacobi's d is
+// 0 there (not diag^-1/2 of a zero pad), and the identities of E = I -
+// X^T G X, of K4's E = 2I - S X and its residual stop at r, so X, W and E
+// stay exactly zero beyond r, the norm estimates and every max see only
+// the r x r problem, and only the r x r corner is read and written.  The
+// pairing of rows p and R - 1 - p and the gathers' skipped zeros still run
+// over R: they place work, not arithmetic.  A second instantiation (PAD)
+// carries the run-time r; at r = R the first one runs, in which r is the
+// constant R and every mask folds away, so nothing changes there.
+// Beyond 128 the replicated operands (Xt and Ct: 2 x 4 r (r + 8) bytes a
+// CTA, 540 KB at r = 256) no longer fit a CTA, so r > 128 takes the L2
+// route at the end of this file.
 #pragma once
+
+#include <algorithm>
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -444,33 +461,42 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Copy an R x R row-major matrix (leading dimension ld, rows 16-byte
-// aligned) into shared memory [R][LDF] as one cp.async group of this
-// thread's share.  The caller waits (cp_async_wait) and then syncs.
+// Copy an n x n row-major matrix (leading dimension ld) into the leading
+// corner of shared memory [R][LDF], zeros beyond n, as one cp.async group
+// of this thread's share: 16-byte copies when n = R and the rows are
+// 16-byte aligned, else plain loads (the group is then empty).  The caller
+// waits (cp_async_wait) and then syncs.
 template <int R>
 __device__ __forceinline__ void load_full_async(float* dst, const float* src,
-                                                int ld) {
-  constexpr int V = R / 4;  // 16-byte vectors a row
-  for (int e = threadIdx.x; e < R * V; e += kChainThreads) {
-    const int i = e / V, c = 4 * (e % V);
-    cp_async16(dst + i * ChainLayout<R>::LDF + c, src + (size_t)i * ld + c);
+                                                int n, int ld) {
+  if (n == R && ld % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    constexpr int V = R / 4;  // 16-byte vectors a row
+    for (int e = threadIdx.x; e < R * V; e += kChainThreads) {
+      const int i = e / V, c = 4 * (e % V);
+      cp_async16(dst + i * ChainLayout<R>::LDF + c,
+                 src + (size_t)i * ld + c);
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * R; e += kChainThreads) {
+      const int i = e / R, j = e % R;
+      dst[i * ChainLayout<R>::LDF + j] =
+          (i < n && j < n) ? src[(size_t)i * ld + j] : 0.f;
+    }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Upper estimate of ||M||_2: 1.05 x two power-iteration steps, computed
-// scale-normalized (ns.py::_norm2_est) so that ||M|| >~ 3e8 cannot overflow
-// the sum of squares.  M is [R][LDF] in shared memory; one warp sums one
-// row.
-template <int R>
-__device__ float chain_norm2_est(const float* M, float* v0, float* v1,
-                                 float* red) {
-  using L = ChainLayout<R>;
+// Upper estimate of ||M||_2 of the n x n matrix elem(i, j): 1.05 x two
+// power-iteration steps, computed scale-normalized (ns.py::_norm2_est) so
+// that ||M|| >~ 3e8 cannot overflow the sum of squares.  One warp sums one
+// row; v0, v1 hold n floats each.
+template <class Elem>
+__device__ float norm2_est(int n, Elem elem, float* v0, float* v1,
+                           float* red) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  auto elem = [&](int i, int j) { return M[i * L::LDF + j]; };
   float m = 0.f;
-  for (int e = threadIdx.x; e < R * R; e += kChainThreads)
-    m = nan_max(m, fabsf(elem(e / R, e % R)));
+  for (int e = threadIdx.x; e < n * n; e += kChainThreads)
+    m = nan_max(m, fabsf(elem(e / n, e % n)));
   m = blk_max(m, red);
   const float a = nan_max(m, FLT_MIN);
   const float inv = 1.0f / a;
@@ -479,9 +505,9 @@ __device__ float chain_norm2_est(const float* M, float* v0, float* v1,
   for (int pass = 0; pass < 3; ++pass) {
     const float sc = pass == 2 ? 1.0f / (n1 + 1e-30f) : 1.0f;
     float q = 0.f;
-    for (int i = warp; i < R; i += kChainThreads / 32) {
+    for (int i = warp; i < n; i += kChainThreads / 32) {
       float s = 0.f;
-      for (int j = lane; j < R; j += 32) {
+      for (int j = lane; j < n; j += 32) {
         const float x = pass == 0 ? 1.0f : (pass == 1 ? v0[j] : v1[j] * sc);
         s = fmaf(elem(i, j) * inv, x, s);
       }
@@ -499,6 +525,15 @@ __device__ float chain_norm2_est(const float* M, float* v0, float* v1,
   return 0.f;  // not reached
 }
 
+// norm2_est of the leading n x n corner of M, [R][LDF] in shared memory.
+template <int R>
+__device__ float chain_norm2_est(int n, const float* M, float* v0, float* v1,
+                                 float* red) {
+  return norm2_est(
+      n, [&](int i, int j) { return M[i * ChainLayout<R>::LDF + j]; }, v0,
+      v1, red);
+}
+
 // One whole chain (ns.py::_ns_kernel with _tri_ns) as one cluster of R / 16
 // CTAs of kChainThreads threads:
 //   G' = G + shift * ||G||_2-estimate * I   (when shift != 0)
@@ -512,12 +547,15 @@ __device__ float chain_norm2_est(const float* M, float* v0, float* v1,
 //                      only with triu_t (the robust passes keep the full
 //                      product and truncate once, after combining them)
 //   *resid = max|E| of the last E, reported per resid_mode.
-template <int R>
+// G and X are nr x nr (leading dimension nr), t nr x nr, nr = R unless PAD
+// (nr = n_arg <= R).
+template <int R, bool PAD>
 __global__ void __launch_bounds__(kChainThreads, 1)
-chain_kernel(const float* G, float* X, float* t, int ldt, float* resid,
-             int iters, float shift, int refine, int mid_iters, int omega,
-             int fuse_xw, int triu_t, int resid_mode) {
+chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
+             float* resid, int iters, float shift, int refine, int mid_iters,
+             int omega, int fuse_xw, int triu_t, int resid_mode) {
   using L = ChainLayout<R>;
+  const int nr = PAD ? n_arg : R;
   extern __shared__ __align__(16) char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -543,23 +581,27 @@ chain_kernel(const float* G, float* X, float* t, int ldt, float* resid,
 
   // Setup, redundantly in every CTA, on a copy of G in the C^T buffer.
   float* Gf = reinterpret_cast<float*>(smem + L::OFF_C);
-  for (int e = tid; e < R * R; e += kChainThreads)
-    Gf[(e / R) * L::LDF + e % R] = G[e];
+  for (int e = tid; e < R * R; e += kChainThreads) {
+    const int i = e / R, j = e % R;
+    Gf[i * L::LDF + j] = (i < nr && j < nr) ? G[i * nr + j] : 0.f;
+  }
   __syncthreads();
   float sh = 0.f;
   if (shift != 0.f) {
-    sh = shift * chain_norm2_est<R>(Gf, v0, v1, red);
-    if (tid < R) Gf[tid * L::LDF + tid] += sh;
+    sh = shift * chain_norm2_est<R>(nr, Gf, v0, v1, red);
+    if (tid < nr) Gf[tid * L::LDF + tid] += sh;
     __syncthreads();
   }
   if (refine) {
-    if (tid < R) dv[tid] = 1.0f;
+    if (tid < R) dv[tid] = tid < nr ? 1.0f : 0.f;
     __syncthreads();
   } else {
-    // Jacobi scaling d = diag(G')^-1/2 and the spectral guard on D G' D
-    // (held in the X^T buffer, which nothing uses yet).
+    // Jacobi scaling d = diag(G')^-1/2 (0 beyond nr) and the spectral guard
+    // on D G' D (held in the X^T buffer, which nothing uses yet).
     if (tid < R)
-      dv[tid] = 1.0f / sqrtf(nan_max(Gf[tid * L::LDF + tid], FLT_MIN));
+      dv[tid] = tid < nr
+                    ? 1.0f / sqrtf(nan_max(Gf[tid * L::LDF + tid], FLT_MIN))
+                    : 0.f;
     __syncthreads();
     float* M0 = reinterpret_cast<float*>(smem + L::OFF_X);
     for (int e = tid; e < R * R; e += kChainThreads) {
@@ -567,7 +609,8 @@ chain_kernel(const float* G, float* X, float* t, int ldt, float* resid,
       M0[i * L::LDF + j] = Gf[i * L::LDF + j] * dv[i] * dv[j];
     }
     __syncthreads();
-    const float scale = 1.0f / sqrtf(chain_norm2_est<R>(M0, v0, v1, red));
+    const float scale =
+        1.0f / sqrtf(chain_norm2_est<R>(nr, M0, v0, v1, red));
     if (tid < R) dv[tid] *= scale;
     __syncthreads();
   }
@@ -635,7 +678,7 @@ chain_kernel(const float* G, float* X, float* t, int ldt, float* resid,
     chain_prod<R>(split, smem + L::OFF_X, Qc, true,
                   [&](int p, int q, float v) {
                     const int j = own(q);
-                    const float e = (p == j ? 1.f : 0.f) - v;
+                    const float e = (p == j && p < nr ? 1.f : 0.f) - v;
                     em = nan_max(em, fabsf(e));
                     if (stage)
                       Qc[q * L::LDF + p] =
@@ -677,17 +720,21 @@ chain_kernel(const float* G, float* X, float* t, int ldt, float* resid,
   // X^{-1} = X^T G' at convergence: R recovered with no solve.  The own 16
   // columns: D[p = i][q = n] = <X^T[i], G'[:, own n]>.
   for (int e = tid; e < kStripe * R; e += kChainThreads) {
-    const int k = e / kStripe, n = e % kStripe;
-    Qc[n * L::LDF + k] = G[k * R + own(n)] + (k == own(n) ? sh : 0.f);
+    const int k = e / kStripe, q = e % kStripe, j = own(q);
+    Qc[q * L::LDF + k] =
+        (k < nr && j < nr) ? G[k * nr + j] + (k == j ? sh : 0.f) : 0.f;
   }
   __syncthreads();
   prod_f32<R>(reinterpret_cast<const float*>(smem + L::OFF_X), Qc, false,
               [&](int p, int q, float v) {
                 const int j = own(q);
-                t[p * ldt + j] = (j >= p || !triu_t) ? v : 0.f;
+                if (p < nr && j < nr)
+                  t[p * ldt + j] = (j >= p || !triu_t) ? v : 0.f;
               });
-  for (int e = tid; e < kStripe * R; e += kChainThreads)
-    X[own(e / R) * R + e % R] = Xs[(e / R) * L::LDF + e % R];
+  for (int e = tid; e < kStripe * R; e += kChainThreads) {
+    const int i = own(e / R), j = e % R;
+    if (i < nr && j < nr) X[i * nr + j] = Xs[(e / R) * L::LDF + j];
+  }
 
   // max|E| over the cluster, in rank order.
   em = blk_max(em, red);
@@ -704,8 +751,9 @@ chain_kernel(const float* G, float* X, float* t, int ldt, float* resid,
 
 // Launch `kern` as one thread-block cluster of `ctas` CTAs of kChainThreads
 // threads, with `smem` bytes of dynamic shared memory, on `st`.  `fits` is
-// a static of the caller's kernel instance: the first launch checks that
-// the card can place one such cluster.
+// a static of the caller's kernel instance (and cluster size): the first
+// launch checks that the card can place one such cluster.  Clusters above
+// the portable 8 CTAs are allowed.
 template <class... KArgs, class... Args>
 static inline cudaError_t launch_cluster(void (*kern)(KArgs...), int ctas,
                                          int smem, cudaStream_t st,
@@ -713,6 +761,11 @@ static inline cudaError_t launch_cluster(void (*kern)(KArgs...), int ctas,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  if (ctas > 8) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas, 1, 1);
   cfg.blockDim = dim3(kChainThreads, 1, 1);
@@ -735,40 +788,478 @@ static inline cudaError_t launch_cluster(void (*kern)(KArgs...), int ctas,
   return cudaLaunchKernelEx(&cfg, kern, args...);
 }
 
+// -- the L2 route (r > 128) -------------------------------------------------
+//
+// What changes beyond 128: the replicated operands no longer fit a CTA, so
+// every r x r operand lives whole in a global scratch, 4 r^2 bytes each
+// (256 KB at r = 256), which stays in the 50 MB L2 (each product reads it
+// through L2 with ld.global.cg, never a stale L1 line).  One thread-block
+// cluster of up to 16 CTAs (ops/kernels/ns.py::ns_layout: ceil(r / 16),
+// capped by the card's largest cluster) runs the chain; CTA p owns the
+// contiguous columns [p cw, (p + 1) cw), cw = ceil(r / CTAs), of every
+// matrix, and every product has the form
+//     D[:, own] = op(A) B[:, own]
+// with A whole (X, X^T, W, G' or S) and B the CTA's own columns, so a CTA
+// writes only its own columns and reads the others' only as A.  The
+// operands that change (X and W) are double-buffered, so one cluster
+// barrier an iteration separates the products that read them whole from
+// the ones that write them (a __threadfence() before each barrier makes
+// the global writes visible across the cluster).  Reading remote stripes
+// over DSMEM instead was the other choice: it would hold X and W in shared
+// memory only up to r = 512 at 16 CTAs and still need the whole operand
+// streamed through every CTA, so the L2 scratch, simpler and with no
+// upper limit but the vectors below, was taken.  A product streams A in
+// 128 x 32 tiles and B in 32 x 16 tiles through shared memory (the next
+// stage in registers while the current one is multiplied), 8 consecutive
+// rows of one column a thread (two 16-byte loads of A and one of B per 8
+// FMA), k ascending: every element has one fixed summation order, no
+// atomics, the same bits every launch.  The products of the triangular
+// X and C skip the k-stages of their zero triangles.  The split products
+// of the chain_mid iterations (hi*hi + hi*lo + lo*hi) run on the tensor
+// cores as the shared-memory route's do: both tiles staged k-contiguous in
+// fp32, split into bf16 hi / lo in registers, three mma.sync m16n8k16 into
+// one fp32 accumulator (each bf16 x bf16 product exact), a warp owning 16
+// rows x 16 columns.  What bounds it: the stages of its slowest CTA, the
+// last one, whose columns end the triangles (40 an iteration at r = 256:
+// ~1.4 us each, fp32 or split alike); a 64-deep stage measured slower
+// (utils/width_probe.py --sweep), so a stage is not bound by its loads'
+// latency but by its own work: the fp32 products' shared-memory
+// wavefronts (a warp's 16-byte load costs four, ~9 a k-step per warp for
+// 8 FMA a thread), the staging stores and the splits.
+constexpr int kMaxWidth = 1024;      // ns.py::MAX_WIDTH
+constexpr int kL2MaxCluster = 16;    // ns.py::L2_MAX_CLUSTER
+constexpr int kL2Rows = 128;         // output rows of a product tile
+constexpr int kL2Cols = 16;          // output columns of a product tile
+constexpr int kL2Depth = 32;         // k per stage (64 measured slower)
+constexpr int kL2PitchA = kL2Rows + 4;  // rows of A stay 16-byte aligned
+constexpr int kL2SplitPitch = kL2Depth + 4;  // split tiles: k-contiguous
+// The A and B tiles of a stage in the larger of l2_prod's two layouts
+// (split: 128 x 36 + 16 x 36; fp32: 32 x 132 + 32 x 16): ns.py::
+// L2_STAGE_FLOATS.
+constexpr int kL2StageFloats = (kL2Rows + kL2Cols) * kL2SplitPitch;
+enum { L2_A_LOWER = 1, L2_A_UPPER = 2, L2_B_UPPER = 4 };
+
+// Leading dimension of an n x n operand in the L2 scratch: rows padded to
+// 16 bytes.
+__host__ __device__ __forceinline__ int l2_ld(int n) {
+  return (n + 3) / 4 * 4;
+}
+
+// D[i][c] = sum_k op(A)[i][k] B[k][c] for i < n and c in [c0, c1), with
+// op(A)[i][k] = A[i lda + k] or, with TA, A[k lda + i]; epi(i, c, value)
+// once per element, after its tile's sum.  `tri` (L2_*) names the zero
+// triangles of op(A) (LOWER: k > i, UPPER: k < i) and B (k > c) whose
+// k-stages are skipped.  `stage` holds kL2StageFloats of shared memory.
+// Every thread of the block calls it (it syncs); the epilogue must not
+// write A or B.
+template <bool SPLIT, bool TA, class Epi>
+__device__ void l2_prod(int n, const float* A, int lda, const float* B,
+                        int ldb, int c0, int c1, int tri, float* stage,
+                        Epi epi) {
+  constexpr int QA = kL2Rows * kL2Depth / kChainThreads;  // A loads a thread
+  constexpr int QB = kL2Depth * kL2Cols / kChainThreads;  // B loads
+  constexpr int RT = kL2Rows * kL2Cols / kChainThreads;   // outputs
+  // fp32: A [Depth][PitchA] (k-major), B [Depth][Cols]; split: A
+  // [Rows][SP] and B [Cols][SP], k-contiguous for the mma fragments.
+  constexpr int SP = kL2SplitPitch;
+  float* sa = stage;
+  float* sb = stage + (SPLIT ? kL2Rows * SP : kL2Depth * kL2PitchA);
+  static_assert(kL2Rows * SP + kL2Cols * SP <= kL2StageFloats &&
+                    kL2Depth * kL2PitchA + kL2Depth * kL2Cols <=
+                        kL2StageFloats,
+                "both tile layouts fit the stage");
+  const int tid = threadIdx.x, tc = tid % kL2Cols;
+  const int r0 = RT * (tid / kL2Cols);                // fp32: first of RT rows
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t4 = tid & 3;  // split
+  static_assert(RT == 8 && kL2Rows == RT * (kChainThreads / kL2Cols) &&
+                    kL2Rows == 16 * (kChainThreads / 32) && kL2Cols == 16,
+                "fp32: a thread's rows are two float4 of a tile row; split: "
+                "a warp's 16 rows x 16 columns are two m16n8 tiles");
+  for (int cb = c0; cb < c1; cb += kL2Cols) {
+    for (int i0 = 0; i0 < n; i0 += kL2Rows) {
+      int kb = 0, ke = n;
+      if (tri & L2_A_LOWER) ke = min(ke, i0 + kL2Rows);
+      if (tri & L2_A_UPPER) kb = i0;
+      if (tri & L2_B_UPPER) ke = min(ke, cb + kL2Cols);
+      float acc[RT];  // split: two m16n8 accumulators, acc[4 nt + j]
+#pragma unroll
+      for (int q = 0; q < RT; ++q) acc[q] = 0.f;
+      float ra[QA], rb[QB];
+      auto a_at = [&](int u, int& ii, int& kk) {
+        const int e = tid + kChainThreads * u;
+        if constexpr (TA) {
+          kk = e / kL2Rows;
+          ii = e % kL2Rows;
+        } else {
+          ii = e / kL2Depth;
+          kk = e % kL2Depth;
+        }
+      };
+      auto load = [&](int k0) {
+#pragma unroll
+        for (int u = 0; u < QA; ++u) {
+          int ii, kk;
+          a_at(u, ii, kk);
+          const int i = i0 + ii, k = k0 + kk;
+          ra[u] = (i < n && k < ke)
+                      ? __ldcg(TA ? A + (size_t)k * lda + i
+                                  : A + (size_t)i * lda + k)
+                      : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < QB; ++u) {
+          const int e = tid + kChainThreads * u;
+          const int k = k0 + e / kL2Cols, c = cb + e % kL2Cols;
+          rb[u] = (k < ke && c < c1) ? __ldcg(B + (size_t)k * ldb + c) : 0.f;
+        }
+      };
+      auto store = [&]() {
+#pragma unroll
+        for (int u = 0; u < QA; ++u) {
+          int ii, kk;
+          a_at(u, ii, kk);
+          if constexpr (SPLIT)
+            sa[ii * SP + kk] = ra[u];
+          else
+            sa[kk * kL2PitchA + ii] = ra[u];
+        }
+#pragma unroll
+        for (int u = 0; u < QB; ++u) {
+          const int e = tid + kChainThreads * u;
+          if constexpr (SPLIT)
+            sb[(e % kL2Cols) * SP + e / kL2Cols] = rb[u];
+          else
+            sb[e] = rb[u];
+        }
+      };
+      if (kb < ke) load(kb);
+      for (int k0 = kb; k0 < ke; k0 += kL2Depth) {
+        __syncthreads();  // every thread is done with the previous tiles
+        store();
+        __syncthreads();
+        if (k0 + kL2Depth < ke) load(k0 + kL2Depth);
+        if constexpr (SPLIT) {
+          // Fragments of m16n8k16 (ns_chain.cuh::prod_split): A rows
+          // 16 warp + g (+8), k 2 t4 (+1) (+8); B column 8 nt + g.
+#pragma unroll
+          for (int ks = 0; ks < kL2Depth; ks += 16) {
+            const float* a0 = sa + (16 * warp + g) * SP + ks + 2 * t4;
+            const float* a1 = a0 + 8 * SP;
+            uint32_t ah[4], al[4];
+            const float2 x0 = *reinterpret_cast<const float2*>(a0);
+            const float2 x1 = *reinterpret_cast<const float2*>(a1);
+            const float2 x2 = *reinterpret_cast<const float2*>(a0 + 8);
+            const float2 x3 = *reinterpret_cast<const float2*>(a1 + 8);
+            split_pair(x0.x, x0.y, ah[0], al[0]);
+            split_pair(x1.x, x1.y, ah[1], al[1]);
+            split_pair(x2.x, x2.y, ah[2], al[2]);
+            split_pair(x3.x, x3.y, ah[3], al[3]);
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              const float* bp = sb + (8 * nt + g) * SP + ks + 2 * t4;
+              const float2 y0 = *reinterpret_cast<const float2*>(bp);
+              const float2 y1 = *reinterpret_cast<const float2*>(bp + 8);
+              uint32_t bh0, bl0, bh1, bl1;
+              split_pair(y0.x, y0.y, bh0, bl0);
+              split_pair(y1.x, y1.y, bh1, bl1);
+              float(&d)[4] = *reinterpret_cast<float(*)[4]>(acc + 4 * nt);
+              mma_bf16(d, ah, bh0, bh1);
+              mma_bf16(d, ah, bl0, bl1);
+              mma_bf16(d, al, bh0, bh1);
+            }
+          }
+        } else {
+#pragma unroll 4
+          for (int kk = 0; kk < kL2Depth; ++kk) {
+            const float bh = sb[kk * kL2Cols + tc];
+            const float4* ap =
+                reinterpret_cast<const float4*>(sa + kk * kL2PitchA + r0);
+            const float4 h0 = ap[0], h1 = ap[1];
+            const float ah[RT] = {h0.x, h0.y, h0.z, h0.w,
+                                  h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+            for (int q = 0; q < RT; ++q) acc[q] = fmaf(ah[q], bh, acc[q]);
+          }
+        }
+      }
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int q = 0; q < RT; ++q) {  // acc[4 nt + j]: m16n8's layout
+          const int i = i0 + 16 * warp + g + 8 * ((q >> 1) & 1);
+          const int c = cb + 8 * (q >> 2) + 2 * t4 + (q & 1);
+          if (i < n && c < c1) epi(i, c, acc[q]);
+        }
+      } else {
+        const int c = cb + tc;
+#pragma unroll
+        for (int q = 0; q < RT; ++q) {
+          const int i = i0 + r0 + q;
+          if (i < n && c < c1) epi(i, c, acc[q]);
+        }
+      }
+    }
+  }
+}
+
+template <bool TA, class Epi>
+__device__ __forceinline__ void l2_prod_any(bool split, int n, const float* A,
+                                            int lda, const float* B, int ldb,
+                                            int c0, int c1, int tri,
+                                            float* stage, Epi epi) {
+  if (split)
+    l2_prod<true, TA>(n, A, lda, B, ldb, c0, c1, tri, stage, epi);
+  else
+    l2_prod<false, TA>(n, A, lda, B, ldb, c0, c1, tri, stage, epi);
+}
+
+// This CTA's own columns [c0, c1) of an n-wide operand, cluster of cs.
+__device__ __forceinline__ void l2_own(int n, int rank, int cs, int& c0,
+                                       int& c1) {
+  const int cw = (n + cs - 1) / cs;
+  c0 = min(n, rank * cw);
+  c1 = min(n, c0 + cw);
+}
+
+// Publish this CTA's global writes to the cluster and wait for everyone's.
+__device__ __forceinline__ void l2_barrier(cg::cluster_group& cluster) {
+  __threadfence();
+  cluster.sync();
+}
+
+// max over the cluster of every CTA's `m`, in rank order, into *out by
+// rank 0 (after resid_mode); `red` and `cred` hold 32 floats each.
+__device__ __forceinline__ void l2_cluster_max(cg::cluster_group& cluster,
+                                               float m, float* red,
+                                               float* cred, int resid_mode,
+                                               float* out) {
+  const int rank = (int)cluster.block_rank(), cs = (int)gridDim.x;
+  m = blk_max(m, red);
+  if (threadIdx.x == 0) *cluster.map_shared_rank(cred + rank, 0) = m;
+  cluster.sync();  // also: no CTA leaves while another may write into it
+  if (rank == 0 && threadIdx.x == 0) {
+    float v = cred[0];
+    for (int p = 1; p < cs; ++p) v = nan_max(v, cred[p]);
+    if (resid_mode == RESID_SQUARE) v = v * v;
+    else if (resid_mode == RESID_SCALE) v = v * 0.01f;
+    *out = v;
+  }
+}
+
+// Floats of the L2 chain's global scratch: G', X and W twice, C.
+__host__ __device__ __forceinline__ long long chain_l2_scratch_floats(int n) {
+  return 6LL * n * l2_ld(n);
+}
+
+// The chain of chain_kernel on the L2 route: the same arithmetic, steps
+// and options, for any n <= kMaxWidth, as one cluster of the launch's
+// CTAs.  G (n x n, leading dimension n) -> X (n x n), t (ldt), *resid.
+// Dynamic shared memory: kL2StageFloats + 3 n + 64 floats.
+static __global__ void __launch_bounds__(kChainThreads, 1)
+chain_l2_kernel(const float* G, int n, float* X, float* t, int ldt,
+                float* resid, int iters, float shift, int refine,
+                int mid_iters, int omega, int fuse_xw, int triu_t,
+                int resid_mode, float* scratch) {
+  extern __shared__ __align__(16) float sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  int c0, c1;
+  l2_own(n, (int)cluster.block_rank(), (int)gridDim.x, c0, c1);
+  const int ld = l2_ld(n), cw = c1 - c0;
+  const size_t mat = (size_t)n * ld;
+  float* Gp = scratch;
+  float* Xb[2] = {scratch + mat, scratch + 2 * mat};
+  float* Wb[2] = {scratch + 3 * mat, scratch + 4 * mat};
+  float* Cb = scratch + 5 * mat;
+  float* stage = sm;
+  float* dv = sm + kL2StageFloats;
+  float* v0 = dv + n;
+  float* v1 = v0 + n;
+  float* red = v1 + n;
+  float* cred = red + 32;
+
+  // Setup, redundantly in every CTA (the same arithmetic in the same order
+  // as chain_kernel's, so the CTAs agree bitwise).
+  float sh = 0.f;
+  if (shift != 0.f)
+    sh = shift * norm2_est(
+                     n, [&](int i, int j) { return G[(size_t)i * n + j]; },
+                     v0, v1, red);
+  auto gs = [&](int i, int j) {  // G' = G + sh I
+    const float g = G[(size_t)i * n + j];
+    return (i == j && shift != 0.f) ? g + sh : g;
+  };
+  for (int i = tid; i < n; i += kChainThreads)
+    dv[i] = refine ? 1.0f : 1.0f / sqrtf(nan_max(gs(i, i), FLT_MIN));
+  __syncthreads();
+  if (!refine) {
+    const float scale = 1.0f / sqrtf(norm2_est(
+                                   n,
+                                   [&](int i, int j) {
+                                     return gs(i, j) * dv[i] * dv[j];
+                                   },
+                                   v0, v1, red));
+    for (int i = tid; i < n; i += kChainThreads) dv[i] *= scale;
+    __syncthreads();
+  }
+  for (int e = tid; e < n * cw; e += kChainThreads) {
+    const int i = e / cw, c = c0 + e % cw;
+    const float g = gs(i, c);
+    Gp[i * ld + c] = g;
+    Xb[0][i * ld + c] = i == c ? dv[c] : 0.f;
+    Wb[0][i * ld + c] = refine ? g : g * dv[c];
+  }
+  l2_barrier(cluster);
+
+  float em = 1.0f;  // E = I before the first iteration
+  const int n_om = (refine || !omega) ? 0 : min(4, max(0, iters - 4));
+  const int n_fused = fuse_xw ? max(0, iters - 2) : 0;
+  for (int it = 0; it < iters; ++it) {
+    const float om = it < n_om ? 1.5f : 1.0f;
+    const bool split = it < mid_iters;
+    const bool fused = it < n_fused;
+    const float* Xc = Xb[it & 1];
+    float* Xn = Xb[(it + 1) & 1];
+    float* Wc = Wb[it & 1];
+    float* Wn = Wb[(it + 1) & 1];
+    if (!fused) {  // W[:, own] = G' X[:, own], read by this CTA only
+      l2_prod_any<false>(split, n, Gp, ld, Xc, ld, c0, c1, L2_B_UPPER, stage,
+                         [&](int i, int c, float v) { Wc[i * ld + c] = v; });
+      __syncthreads();
+    }
+    // E[:, own] = I - X^T W[:, own]; C[:, own] = triu(E, 1) + diag(E) / 2.
+    em = 0.f;
+    l2_prod_any<true>(split, n, Xc, ld, Wc, ld, c0, c1, L2_A_LOWER, stage,
+                      [&](int i, int c, float v) {
+                        const float e = (i == c ? 1.f : 0.f) - v;
+                        em = nan_max(em, fabsf(e));
+                        Cb[i * ld + c] =
+                            c > i ? e : (c == i ? e * 0.5f : 0.f);
+                      });
+    __syncthreads();
+    // X[:, own] <- X[:, own] + om X C[:, own] (and W alike), into the other
+    // buffer: the others still read this one whole.
+    l2_prod_any<false>(split, n, Xc, ld, Cb, ld, c0, c1,
+                       L2_A_UPPER | L2_B_UPPER, stage,
+                       [&](int i, int c, float v) {
+                         Xn[i * ld + c] = __ldcg(Xc + i * ld + c) + om * v;
+                       });
+    if (fused)
+      l2_prod_any<false>(split, n, Wc, ld, Cb, ld, c0, c1, L2_B_UPPER, stage,
+                         [&](int i, int c, float v) {
+                           Wn[i * ld + c] = __ldcg(Wc + i * ld + c) + om * v;
+                         });
+    l2_barrier(cluster);
+  }
+
+  const float* Xf = Xb[iters & 1];
+  if (refine) {  // the exact final residual E = I - X^T G' X
+    float* Wf = Wb[iters & 1];
+    l2_prod_any<false>(false, n, Gp, ld, Xf, ld, c0, c1, L2_B_UPPER, stage,
+                       [&](int i, int c, float v) { Wf[i * ld + c] = v; });
+    __syncthreads();
+    em = 0.f;
+    l2_prod_any<true>(false, n, Xf, ld, Wf, ld, c0, c1, L2_A_LOWER, stage,
+                      [&](int i, int c, float v) {
+                        em = nan_max(em, fabsf((i == c ? 1.f : 0.f) - v));
+                      });
+  }
+  // t[:, own] = X^T G'[:, own].
+  l2_prod_any<true>(false, n, Xf, ld, Gp, ld, c0, c1, L2_A_LOWER, stage,
+                    [&](int i, int c, float v) {
+                      t[(size_t)i * ldt + c] = (c >= i || !triu_t) ? v : 0.f;
+                    });
+  for (int e = tid; e < n * cw; e += kChainThreads) {
+    const int i = e / cw, c = c0 + e % cw;
+    X[(size_t)i * n + c] = __ldcg(Xf + i * ld + c);
+  }
+  l2_cluster_max(cluster, em, red, cred, resid_mode, resid);
+}
+
+// Instantiation of the shared-memory route for width r (the smallest of
+// 32, 64, 128 that holds it), or 0: the L2 route (ns.py::_inst).
+static inline int chain_inst(int r) {
+  return r <= 32 ? 32 : r <= 64 ? 64 : r <= 128 ? 128 : 0;
+}
+
+// Most CTAs of an L2-route cluster for width r (ns.py::_l2_ctas).
+static inline int l2_max_ctas(int r) {
+  return std::min(kL2MaxCluster, (r + kStripe - 1) / kStripe);
+}
+
+// A chain kernel's launch layout, as ops/kernels/ns.py's layout rules give
+// it (NsLayout): instantiation (0 on the L2 route), route (0 shared
+// memory, 1 L2), CTAs, floats of global scratch, dynamic shared bytes.
+struct KernelLayout {
+  int inst, route, ctas, scratch_floats, smem_bytes;
+};
+
+static inline int chain_smem_bytes(int r) {
+  switch (chain_inst(r)) {
+    case 32: return ChainLayout<32>::BYTES;
+    case 64: return ChainLayout<64>::BYTES;
+    case 128: return ChainLayout<128>::BYTES;
+    default: return (kL2StageFloats + 3 * r + 64) * 4;
+  }
+}
+
+// Whether `lay` is the chain's layout for width r (ns.py::ns_layout): the
+// shared-memory route's fixed cluster of inst / 16 CTAs, or the L2 route
+// on 1 .. l2_max_ctas(r) CTAs.
+static inline bool chain_layout_ok(int r, const KernelLayout& lay) {
+  if (r < 1 || r > kMaxWidth) return false;
+  const int inst = chain_inst(r);
+  if (lay.inst != inst || lay.route != (inst ? 0 : 1) ||
+      lay.smem_bytes != chain_smem_bytes(r))
+    return false;
+  if (inst) return lay.ctas == inst / kStripe && lay.scratch_floats == 0;
+  return lay.ctas >= 1 && lay.ctas <= l2_max_ctas(r) &&
+         lay.scratch_floats == chain_l2_scratch_floats(r);
+}
+
 template <int R>
 static inline cudaError_t launch_chain_r(cudaStream_t st, const float* G,
-                                         float* X, float* t, int ldt,
+                                         int nr, float* X, float* t, int ldt,
                                          float* resid, int iters, float shift,
                                          int refine, int mid_iters, int omega,
                                          int fuse_xw, int triu_t,
                                          int resid_mode) {
   using L = ChainLayout<R>;
-  static bool fits = false;
-  return launch_cluster(chain_kernel<R>, L::CS, L::BYTES, st, fits, G, X, t,
-                        ldt, resid, iters, shift, refine, mid_iters, omega,
-                        fuse_xw, triu_t, resid_mode);
+  static bool fits[2] = {false, false};
+  return launch_cluster(nr == R ? &chain_kernel<R, false>
+                                : &chain_kernel<R, true>,
+                        L::CS, L::BYTES, st, fits[nr != R], G, nr, X, t, ldt,
+                        resid, iters, shift, refine, mid_iters, omega, fuse_xw,
+                        triu_t, resid_mode);
 }
 
-// Launch the chain for a runtime r in {32, 64, 128} on `st`: G (r x r,
-// fp32, row-major) -> X, t (leading dimension ldt) and *resid, all device
-// pointers.  Returns the launch's error, or cudaErrorInvalidValue for
-// another r.
-static inline cudaError_t launch_chain(int r, cudaStream_t st, const float* G,
-                                       float* X, float* t, int ldt,
-                                       float* resid, int iters, float shift,
-                                       int refine, int mid_iters, int omega,
-                                       int fuse_xw, int triu_t,
+// Launch the chain for width r (1 .. kMaxWidth) on `st` with the layout
+// `lay` (checked by the caller: chain_layout_ok): G (r x r, fp32,
+// row-major) -> X (r x r), t (leading dimension ldt) and *resid, all
+// device pointers; `scratch` holds lay.scratch_floats (the L2 route's
+// operands).  Returns the launch's error.
+static inline cudaError_t launch_chain(int r, const KernelLayout& lay,
+                                       float* scratch, cudaStream_t st,
+                                       const float* G, float* X, float* t,
+                                       int ldt, float* resid, int iters,
+                                       float shift, int refine, int mid_iters,
+                                       int omega, int fuse_xw, int triu_t,
                                        int resid_mode) {
-#define MPBQR_CHAIN(RR)                                                     \
-  return launch_chain_r<RR>(st, G, X, t, ldt, resid, iters, shift, refine,  \
-                            mid_iters, omega, fuse_xw, triu_t, resid_mode)
-  switch (r) {
+#define MPBQR_CHAIN(RR)                                                      \
+  return launch_chain_r<RR>(st, G, r, X, t, ldt, resid, iters, shift,        \
+                            refine, mid_iters, omega, fuse_xw, triu_t,       \
+                            resid_mode)
+  switch (lay.inst) {
     case 32: MPBQR_CHAIN(32);
     case 64: MPBQR_CHAIN(64);
     case 128: MPBQR_CHAIN(128);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
 #undef MPBQR_CHAIN
+  static bool fits[kL2MaxCluster + 1] = {};
+  return launch_cluster(chain_l2_kernel, lay.ctas, lay.smem_bytes, st,
+                        fits[lay.ctas], G, r, X, t, ldt, resid, iters, shift,
+                        refine, mid_iters, omega, fuse_xw, triu_t,
+                        resid_mode, scratch);
 }
 
 }  // namespace mpbqr

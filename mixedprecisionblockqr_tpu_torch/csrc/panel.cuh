@@ -36,6 +36,13 @@
 // What bounds them: at r <= 128 each product is tens to hundreds of MFLOP,
 // below a microsecond at the bf16 rate, so launch latency and fill set
 // their time; their ~128-CTA grids keep the card's SMs busy while they run.
+// Widths: both products take any M, N, K (ragged edges predicated, the
+// 16-byte loads only on aligned rows), so a panel of any r runs them.
+// gemm_nt's column tile is the chain's instantiation (32, 64, 128) for r
+// <= 128, and 128 beyond, where an r-wide product spans ceil(r / 128)
+// column blocks: Q = P X then no longer runs in place (a CTA would read
+// rows that another block of its columns has already written), so the
+// group stages the panel into scratch first (bgs_group.cu).
 #pragma once
 
 #include <algorithm>
@@ -537,9 +544,10 @@ static inline cudaError_t nt_launch(cudaStream_t st, bool bf, int M, int N,
                                  vc);
 }
 
-// The (bm, bn) tiles gemm_nt is built for: bn is the panel width r (at most
-// 128), bm the small tile of the r-wide products or the 64-row tile of the
-// wide ones (ops/kernels/ns.py::NT_SMALL_BM, NT_WIDE_BM).
+// The (bm, bn) tiles gemm_nt is built for: bn is the chain's instantiation
+// for the panel width (32, 64, 128; 128 above), bm the small tile of the
+// r-wide products or the 64-row tile of the wide ones (ops/kernels/ns.py::
+// NT_SMALL_BM, NT_WIDE_BM).
 static inline bool nt_tile_ok(int bm, int bn) {
   switch (bn) {
     case 128:
@@ -573,8 +581,9 @@ static inline cudaError_t nt(cudaStream_t st, bool bf, int M, int N, int K,
 // three-pass R block (ns.py:_tri_ns_panel, robust branch; the plain
 // version is ops/kernels/ns.py::tri_combine_plain).  T1..T3 are the full
 // r x r products X_k^T G_k, so the triangle is cut once, on write.
-// r / 16 CTAs; CTA p owns the 16 columns 16 p .. 16 p + 15 of T1, A = T2 T1
-// and the output.  Each holds T2 and T3 whole in shared memory (cp.async,
+// ceil(r / 16) CTAs (r <= R, on the instantiation R = 32, 64, 128 with
+// zeros beyond r); CTA p owns the 16 columns 16 p .. 16 p + 15 of T1,
+// A = T2 T1 and the output.  Each holds T2 and T3 whole in shared memory (cp.async,
 // T3 still arriving while the first product runs) and its columns of T1
 // and A transposed, so both products have the form of ns_chain.cuh's
 // general prod_gen and are local:
@@ -598,21 +607,23 @@ struct CombineLayout {
   static constexpr int BYTES = (OFF_PART + kGenPart<R>) * 4;
 };
 
-template <int R>
+template <int R, bool PAD>
 __global__ void __launch_bounds__(kChainThreads, 1)
-combine_kernel(const float* T1, const float* T2, const float* T3, float* out,
-               int ldo) {
+combine_kernel(const float* T1, const float* T2, const float* T3, int n_arg,
+               float* out, int ldo) {
   using L = CombineLayout<R>;
+  const int nr = PAD ? n_arg : R;  // ns_chain.cuh, "Widths"
   extern __shared__ __align__(16) float sm[];
   const int c0 = kStripe * blockIdx.x;
   float* T1t = sm + L::OFF_T1;
   float* At = sm + L::OFF_A;
   float* part = sm + L::OFF_PART;
-  load_full_async<R>(sm + L::OFF_T2, T2, R);
-  load_full_async<R>(sm + L::OFF_T3, T3, R);
+  load_full_async<R>(sm + L::OFF_T2, T2, nr, nr);
+  load_full_async<R>(sm + L::OFF_T3, T3, nr, nr);
   for (int e = threadIdx.x; e < kStripe * R; e += kChainThreads) {
     const int k = e / kStripe, q = e % kStripe;
-    T1t[q * L::LDF + k] = T1[(size_t)k * R + c0 + q];
+    T1t[q * L::LDF + k] =
+        (k < nr && c0 + q < nr) ? T1[(size_t)k * nr + c0 + q] : 0.f;
   }
   cp_async_wait<1>();  // T2
   __syncthreads();
@@ -628,59 +639,120 @@ combine_kernel(const float* T1, const float* T2, const float* T3, float* out,
   __syncthreads();
   for (int e = threadIdx.x; e < kStripe * R; e += kChainThreads) {
     const int p = e / kStripe, q = e % kStripe;
-    out[(size_t)p * ldo + c0 + q] = At[q * L::LDF + p];
+    if (p < nr && c0 + q < nr) out[(size_t)p * ldo + c0 + q] = At[q * L::LDF + p];
   }
+}
+
+// The combine on ns_chain.cuh's L2 route (r > 128, where T2 and T3 no
+// longer fit a CTA): min(16, ceil(r / 16)) CTAs owning ceil(r / CTAs)
+// columns each (l2_own), a plain grid (no exchange), T1..T3 read in place
+// through L2 and the own columns of A = T2 T1 in a global scratch
+// (r x l2_ld(r)):
+//   A[:, own] = T2 T1[:, own],   out[:, own] = triu(T3 A[:, own]).
+// Dynamic shared memory: kL2StageFloats floats.
+static __global__ void __launch_bounds__(kChainThreads, 1)
+combine_l2_kernel(const float* T1, const float* T2, const float* T3, int n,
+                  float* out, int ldo, float* scratch) {
+  extern __shared__ __align__(16) float sm[];
+  int c0, c1;
+  l2_own(n, (int)blockIdx.x, (int)gridDim.x, c0, c1);
+  const int ld = l2_ld(n);
+  l2_prod<false, false>(n, T2, n, T1, n, c0, c1, 0, sm,
+                        [&](int i, int c, float v) { scratch[i * ld + c] = v; });
+  __syncthreads();
+  l2_prod<false, false>(n, T3, n, scratch, ld, c0, c1, 0, sm,
+                        [&](int i, int c, float v) {
+                          out[(size_t)i * ldo + c] = c >= i ? v : 0.f;
+                        });
+}
+
+static inline int combine_smem_bytes(int r) {
+  switch (chain_inst(r)) {
+    case 32: return CombineLayout<32>::BYTES;
+    case 64: return CombineLayout<64>::BYTES;
+    case 128: return CombineLayout<128>::BYTES;
+    default: return kL2StageFloats * 4;
+  }
+}
+
+// Floats of the combine's global scratch for width r (the L2 route's A).
+static inline long long combine_scratch_floats(int r) {
+  return chain_inst(r) ? 0 : (long long)r * l2_ld(r);
+}
+
+// The combine's layout for width r (ns.py::combine_layout): no choice is
+// left to the caller, so the entries compute it.
+static inline KernelLayout combine_layout(int r) {
+  const int inst = chain_inst(r);
+  return KernelLayout{inst, inst ? 0 : 1,
+                      inst ? (r + kStripe - 1) / kStripe : l2_max_ctas(r),
+                      (int)combine_scratch_floats(r), combine_smem_bytes(r)};
 }
 
 template <int R>
-static inline cudaError_t launch_combine_r(cudaStream_t st, const float* T1,
-                                           const float* T2, const float* T3,
+static inline cudaError_t launch_combine_r(cudaStream_t st, int ctas,
+                                           const float* T1, const float* T2,
+                                           const float* T3, int nr,
                                            float* out, int ldo) {
   using L = CombineLayout<R>;
+  auto kern = nr == R ? &combine_kernel<R, false> : &combine_kernel<R, true>;
   cudaError_t err = cudaFuncSetAttribute(
-      combine_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::BYTES);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return err;
-  combine_kernel<R><<<L::CTAS, kChainThreads, L::BYTES, st>>>(T1, T2, T3,
-                                                              out, ldo);
+  kern<<<ctas, kChainThreads, L::BYTES, st>>>(T1, T2, T3, nr, out, ldo);
   return cudaGetLastError();
 }
 
-// The combine for a runtime r in {32, 64, 128} on `st`; T1..T3 r x r,
-// row-major and 16-byte aligned.  Returns the launch's error, or
-// cudaErrorInvalidValue for another r.
+// The combine for width r (1 .. kMaxWidth, checked by the caller) on
+// `st`; T1..T3 r x r, row-major; `scratch` holds
+// combine_scratch_floats(r).  Returns the launch's error.
 static inline cudaError_t launch_combine(int r, cudaStream_t st,
                                          const float* T1, const float* T2,
                                          const float* T3, float* out,
-                                         int ldo) {
-  switch (r) {
-    case 32: return launch_combine_r<32>(st, T1, T2, T3, out, ldo);
-    case 64: return launch_combine_r<64>(st, T1, T2, T3, out, ldo);
-    case 128: return launch_combine_r<128>(st, T1, T2, T3, out, ldo);
-    default: return cudaErrorInvalidValue;
+                                         int ldo, float* scratch) {
+  const KernelLayout lay = combine_layout(r);
+  switch (lay.inst) {
+    case 32: return launch_combine_r<32>(st, lay.ctas, T1, T2, T3, r, out, ldo);
+    case 64: return launch_combine_r<64>(st, lay.ctas, T1, T2, T3, r, out, ldo);
+    case 128:
+      return launch_combine_r<128>(st, lay.ctas, T1, T2, T3, r, out, ldo);
+    default: break;
   }
+  cudaError_t err = cudaFuncSetAttribute(
+      combine_l2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lay.smem_bytes);
+  if (err != cudaSuccess) return err;
+  combine_l2_kernel<<<lay.ctas, kChainThreads, lay.smem_bytes, st>>>(
+      T1, T2, T3, r, out, ldo, scratch);
+  return cudaGetLastError();
 }
 
 // The layout a panel product sequence runs with (ops/kernels/ns.py::
 // group_layout): the tall products' split and chunk, the small and wide
-// row tiles of gemm_nt and its column tile (r).
+// row tiles of gemm_nt and its column tile.
 struct ProductLayout {
   int split, chunk, bm_panel, bm_wide, bn;
 };
 
+// gemm_nt's column tile for panel width r (ns.py::_nt_bn).
+static inline int nt_bn(int r) {
+  const int inst = chain_inst(r);
+  return inst ? inst : 128;
+}
+
 // Whether `lay` is one the kernels run for an m x r panel: the split's
 // chunks cover m with none empty and a chunk a whole number of stages,
-// tiles that gemm_nt is built for with bn == r.
+// tiles that gemm_nt is built for with bn == nt_bn(r).
 static inline bool product_layout_ok(int m, int r, const ProductLayout& lay) {
-  if (r != 32 && r != 64 && r != 128) return false;
+  if (r < 1 || r > kMaxWidth) return false;
   if (lay.split < 1 || lay.split > kTnMaxSplit || lay.chunk < kTnStage ||
       lay.chunk % kTnStage != 0)
     return false;
   if ((long long)lay.split * lay.chunk < m ||
       (long long)(lay.split - 1) * lay.chunk >= m)
     return false;
-  return lay.bn == r && nt_tile_ok(lay.bm_panel, r) &&
-         nt_tile_ok(lay.bm_wide, r);
+  return lay.bn == nt_bn(r) && nt_tile_ok(lay.bm_panel, lay.bn) &&
+         nt_tile_ok(lay.bm_wide, lay.bn);
 }
 
 }  // namespace mpbqr

@@ -29,7 +29,7 @@
 namespace mpbqr {
 
 struct PanelScratch {
-  float *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB;
+  float *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *chain, *comb;
 };
 
 static long long panel_scratch_floats(int m, int r, PanelScratch* s,
@@ -51,6 +51,8 @@ static long long panel_scratch_floats(int m, int r, PanelScratch* s,
   take(&d->T3, rr);
   take(&d->tmpA, mr);
   take(&d->tmpB, mr);
+  take(&d->chain, chain_inst(r) ? 0 : chain_l2_scratch_floats(r));
+  take(&d->comb, combine_scratch_floats(r));
   return off;
 }
 
@@ -68,16 +70,21 @@ long long mpbqr_panel_qr_scratch_floats(int m, int r) {
 // Plain mode runs `iters` iterations; robust mode the fixed three-pass
 // schedule.  chain_mid runs all but the final kMidFinal iterations of each
 // non-refine chain with bf16-split products.  split, chunk, bm_panel,
-// bm_wide, bn: the layout of ops/kernels/ns.py::group_layout(m, r).
-// Returns the first CUDA error met, or cudaErrorInvalidValue for an r the
-// chain kernel does not take or a layout the products do not run.
+// bm_wide, bn and the chain's inst, route, ctas, scratch_floats,
+// smem_bytes: the layout of ops/kernels/ns.py::group_layout(m, r, ...).
+// Q = P X is never in place here, so any r runs gemm_nt's column blocks.
+// Returns the first CUDA error met, or cudaErrorInvalidValue for an r
+// outside 1 .. kMaxWidth or a layout the products or the chain do not run.
 int mpbqr_panel_qr(const float* P, float* Q, float* t, float* resid,
                    float* scratch, int m, int r, int iters, int robust,
                    int chain_mid, int split, int chunk, int bm_panel,
-                   int bm_wide, int bn, void* stream) {
+                   int bm_wide, int bn, int inst, int route, int ctas,
+                   int chain_scratch, int chain_smem, void* stream) {
   using namespace mpbqr;
   const ProductLayout lay{split, chunk, bm_panel, bm_wide, bn};
-  if (!product_layout_ok(m, r, lay)) return (int)cudaErrorInvalidValue;
+  const KernelLayout cl{inst, route, ctas, chain_scratch, chain_smem};
+  if (!product_layout_ok(m, r, lay) || !chain_layout_ok(r, cl))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   PanelScratch s;
   panel_scratch_floats(m, r, &s, scratch);
@@ -91,43 +98,54 @@ int mpbqr_panel_qr(const float* P, float* Q, float* t, float* resid,
     return nt(st, false, m, r, r, A, r, X, r, Qo, r, false, lay.bm_panel,
               lay.bn);
   };
+  auto chain = [&](float* X, float* tt, int it, float shift, int refine,
+                   int mid_it, int omega, int triu_t) {
+    return launch_chain(r, cl, s.chain, st, s.G, X, tt, r, resid, it, shift,
+                        refine, mid_it, omega, 1, triu_t, RESID_RAW);
+  };
   cudaError_t err = gram(P, s.G);
   if (err != cudaSuccess) return (int)err;
   if (!robust) {
-    err = launch_chain(r, st, s.G, s.X1, t, r, resid, iters, 0.f, 0,
-                       mid(iters), 1, 1, 1, RESID_RAW);
+    err = chain(s.X1, t, iters, 0.f, 0, mid(iters), 1, 1);
     if (err != cudaSuccess) return (int)err;
     return (int)qprod(P, s.X1, Q);
   }
   // Pass 1: shifted Gram (condition capped), t1 = X1^T Gs in full.
-  err = launch_chain(r, st, s.G, s.X1, s.T1, r, resid, kRobustIt1, 1e-3f,
-                     0, mid(kRobustIt1), 0, 1, 0, RESID_RAW);
+  err = chain(s.X1, s.T1, kRobustIt1, 1e-3f, 0, mid(kRobustIt1), 0, 0);
   if (err == cudaSuccess) err = qprod(P, s.X1, s.tmpA);
   if (err == cudaSuccess) err = gram(s.tmpA, s.G);
   // Pass 2 on the fresh Gram of Q1, t2 = X2^T M1 in full.
   if (err == cudaSuccess)
-    err = launch_chain(r, st, s.G, s.X2, s.T2, r, resid, kRobustIt2, 0.f, 0,
-                       mid(kRobustIt2), 0, 1, 0, RESID_RAW);
+    err = chain(s.X2, s.T2, kRobustIt2, 0.f, 0, mid(kRobustIt2), 0, 0);
   if (err == cudaSuccess) err = qprod(s.tmpA, s.X2, s.tmpB);
   if (err == cudaSuccess) err = gram(s.tmpB, s.G);
   // Pass 3: identity-seeded refine with the exact final residual.
-  if (err == cudaSuccess)
-    err = launch_chain(r, st, s.G, s.X3, s.T3, r, resid, kRobustIt3, 0.f, 1,
-                       0, 1, 1, 0, RESID_RAW);
+  if (err == cudaSuccess) err = chain(s.X3, s.T3, kRobustIt3, 0.f, 1, 0, 1, 0);
   if (err == cudaSuccess) err = qprod(s.tmpB, s.X3, Q);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_combine(r, st, s.T1, s.T2, s.T3, t, r);
+  return (int)launch_combine(r, st, s.T1, s.T2, s.T3, t, r, s.comb);
 }
 
-// out = triu(T3 @ (T2 @ T1)) (r x r each, fp32, row-major, 16-byte
-// aligned; out with leading dimension ldo), device pointers, launched on
-// `stream`: the combine that closes a robust panel of K2 and K3, on its
-// own.  Returns the launch's error, or cudaErrorInvalidValue for an r the
-// kernel does not take.
+// out = triu(T3 @ (T2 @ T1)) (r x r each, fp32, row-major; out with
+// leading dimension ldo), device pointers, launched on `stream`: the
+// combine that closes a robust panel of K2 and K3, on its own; `scratch`
+// holds the layout's scratch floats.  inst, route, ctas, scratch_floats,
+// smem_bytes: ops/kernels/ns.py::combine_layout(r).  Returns the launch's
+// error, or cudaErrorInvalidValue for an r outside 1 .. kMaxWidth or a
+// layout that differs from the kernel's.
 int mpbqr_tri_combine(const float* T1, const float* T2, const float* T3,
-                      float* out, int r, int ldo, void* stream) {
-  return (int)mpbqr::launch_combine(r, (cudaStream_t)stream, T1, T2, T3, out,
-                                    ldo);
+                      float* out, float* scratch, int r, int ldo, int inst,
+                      int route, int ctas, int scratch_floats,
+                      int smem_bytes, void* stream) {
+  using namespace mpbqr;
+  if (r < 1 || r > kMaxWidth) return (int)cudaErrorInvalidValue;
+  const KernelLayout want = combine_layout(r);
+  if (inst != want.inst || route != want.route || ctas != want.ctas ||
+      scratch_floats != want.scratch_floats ||
+      smem_bytes != want.smem_bytes)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_combine(r, (cudaStream_t)stream, T1, T2, T3, out, ldo,
+                             scratch);
 }
 
 }  // extern "C"

@@ -61,12 +61,13 @@ def _digest() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci, cf, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.mpbqr_ns_chain.argtypes = [vp, vp, vp, vp, ci, ci, cf, ci, ci, ci,
-                                   ci, vp]
+    chain = [ci] * 5  # ns.py::NsLayout (ns.py::_c_layout)
+    lib.mpbqr_ns_chain.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, ci, ci,
+                                   ci, ci, *chain, vp]
     lib.mpbqr_ns_chain.restype = ci
     lib.mpbqr_bgs_group_scratch_floats.argtypes = [ci, ci, ci]
     lib.mpbqr_bgs_group_scratch_floats.restype = ll
-    layout = [ci] * 5  # ns.py::GroupLayout
+    layout = [ci] * 10  # ns.py::GroupLayout.args(): products, then chain
     lib.mpbqr_bgs_group.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp,
                                     ci, ci, ci, *layout, vp]
     lib.mpbqr_bgs_group.restype = ci
@@ -85,9 +86,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_sketch_qrcp.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                       vp]
     lib.mpbqr_sketch_qrcp.restype = ci
-    lib.mpbqr_ninv_chain.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.mpbqr_ninv_chain.argtypes = [vp, vp, vp, vp, ci, ci, *chain, vp]
     lib.mpbqr_ninv_chain.restype = ci
-    lib.mpbqr_tri_combine.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    lib.mpbqr_tri_combine.argtypes = [vp, vp, vp, vp, vp, ci, ci, *chain, vp]
     lib.mpbqr_tri_combine.restype = ci
     lib.mpbqr_panel_factor.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                        ci, ci, vp]

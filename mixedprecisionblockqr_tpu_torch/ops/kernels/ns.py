@@ -41,8 +41,21 @@ ROUTE_LAUNCHES = {"tma": 0, "predicated": 0}
 #: Launches of a kernel piece through its own wrapper: the combine, which
 #: otherwise runs inside K2's and K3's entries (counted there).
 PIECE_LAUNCHES = {"tri_combine": 0}
-#: Panel widths the CUDA kernels are instantiated for.
+#: Panel widths the shared-memory route is instantiated for: a width r runs
+#: on the smallest of them that holds it, with zeros beyond r.
 KERNEL_WIDTHS = (32, 64, 128)
+#: Widest r the kernels take (the L2 route's chain keeps three vectors of r
+#: floats in shared memory; csrc/ns_chain.cuh::kMaxWidth).
+MAX_WIDTH = 1024
+#: Most CTAs of an L2-route cluster (a non-portable size, capped by the
+#: card's largest cluster: ops/kernels/panel.py::max_cluster).
+L2_MAX_CLUSTER = 16
+#: Shared-memory floats of an L2-route product's A and B tiles (128 x 36
+#: and 16 x 36, the larger of its two layouts; csrc/ns_chain.cuh::
+#: kL2StageFloats).
+L2_STAGE_FLOATS = (128 + 16) * 36
+#: Shared memory one CTA may use on an H100 (bytes).
+SMEM_LIMIT = 232448
 #: Columns of X (K4) and of the combine's T1 that one CTA owns.
 STRIPE = 16
 #: Chain schedule of a panel (the same constants as csrc/panel.cuh):
@@ -55,8 +68,9 @@ ROBUST_ITERS = (14, 12, 4)
 #: Grams and G1 = Q^T C, K = m) computes TN_TILE x TN_TILE output tiles,
 #: TN_STAGE rows of K at a time, its K split over the CTAs of one
 #: thread-block cluster of at most TN_MAX_SPLIT.  gemm_nt (Q = P X and the
-#: updates, K = r) takes r-wide column blocks of NT_SMALL_BM[r] rows per
-#: CTA (the r-wide products) or NT_WIDE_BM (the wide ones).
+#: updates, K = r) takes column blocks of bn (the instantiation of r, 128
+#: beyond) and NT_SMALL_BM[bn] rows per CTA (the r-wide products) or
+#: NT_WIDE_BM (the wide ones).
 TN_TILE = 32
 TN_STAGE = 64
 TN_MAX_SPLIT = 8
@@ -70,13 +84,29 @@ MAX_ROWS = 65535 * NT_WIDE_BM
 _TINY = torch.finfo(torch.float32).tiny
 
 
+class NsLayout(NamedTuple):
+    """How a chain kernel (K1, K4, the combine) runs an r x r problem."""
+    inst: int            # shared-memory route: R of the instantiation; 0
+    route: str           # 'smem' (one CTA set, operands in shared memory)
+    #                      or 'l2' (operands in an L2-resident scratch)
+    ctas: int            # CTAs (one cluster for K1 and K4)
+    scratch_floats: int  # floats of global scratch the wrapper allocates
+    smem_bytes: int      # dynamic shared memory per CTA
+
+
 class GroupLayout(NamedTuple):
-    """How the panel products of K2, K3 and K5 run on an m x r panel."""
+    """How the panel products of K2, K3 and K5 run on an m x r panel, and
+    the layout of the chain inside them."""
     split: int     # gemm_tn CTAs (one cluster) sharing a tile's K
     chunk: int     # rows of K each of them sums (whole TN_STAGEs)
     bm_panel: int  # gemm_nt rows per CTA: Q = P X, narrow projection
     bm_wide: int   # gemm_nt rows per CTA: wide projection, K5's scrub
-    bn: int        # gemm_nt columns per CTA (r)
+    bn: int        # gemm_nt columns per CTA (the instantiation; 128 above)
+    chain: NsLayout  # the chain's (ns_layout)
+
+    def args(self) -> tuple:
+        """The ten integers the group and panel entries take."""
+        return (*self[:5], *_c_layout(self.chain))
 
 
 def tn_split(M: int, N: int, K: int) -> Tuple[int, int]:
@@ -97,40 +127,128 @@ def tn_split(M: int, N: int, K: int) -> Tuple[int, int]:
     return -(-K // chunk), chunk
 
 
+def _inst(r: int) -> int:
+    """The instantiation of the shared-memory route that holds width r
+    (the smallest of ``KERNEL_WIDTHS``), or 0 beyond: the L2 route."""
+    return next((R for R in KERNEL_WIDTHS if r <= R), 0)
+
+
+def _check_width(r: int, what: str) -> None:
+    if not 1 <= r <= MAX_WIDTH:
+        raise ValueError(f"{what} takes 1 <= r <= MAX_WIDTH = {MAX_WIDTH}; "
+                         f"got r={r}")
+
+
+def _l2_ld(r: int) -> int:
+    """Leading dimension of an r x r operand in the L2 scratch."""
+    return -(-r // 4) * 4
+
+
+def _l2_ctas(r: int, max_cluster: int) -> int:
+    """CTAs of an L2-route cluster: one per STRIPE columns, at most
+    ``L2_MAX_CLUSTER`` and the card's ``max_cluster``."""
+    return max(1, min(L2_MAX_CLUSTER, max_cluster, -(-r // STRIPE)))
+
+
+def _c_layout(lay: NsLayout) -> tuple:
+    """The five integers a C entry takes for ``lay``."""
+    return (lay.inst, int(lay.route == "l2"), lay.ctas, lay.scratch_floats,
+            lay.smem_bytes)
+
+
 @functools.lru_cache(maxsize=None)
-def group_layout(m: int, r: int) -> GroupLayout:
+def ns_layout(r: int, max_cluster: int = L2_MAX_CLUSTER) -> NsLayout:
+    """K1's layout (csrc/ns_chain.cuh): up to 128 the cluster of R / STRIPE
+    CTAs of the instantiation R = :func:`_inst` (r), each with ChainLayout<R>
+    in shared memory (X^T and C^T replicated as fp32 or bf16 hi / lo with
+    rows of R + 8, four 16-row stripes of R + 4 floats, 3 R + 64 floats of
+    vectors) and no scratch; above, the L2 route: ``_l2_ctas`` CTAs, the
+    product tiles and 3 r + 64 floats of vectors in shared memory, G', X
+    and W twice and C (6 r x ceil(r / 4) 4 floats) in global scratch.  A
+    rule on shapes alone; ``max_cluster`` is the largest cluster the card
+    places.  Raises ``ValueError`` for r outside [1, MAX_WIDTH]."""
+    _check_width(r, "ns_chain")
+    R = _inst(r)
+    if R:
+        smem = 2 * 4 * R * (R + 8) + 4 * STRIPE * (R + 4) * 4 + (3 * R + 64) * 4
+        return NsLayout(R, "smem", R // STRIPE, 0, smem)
+    return NsLayout(0, "l2", _l2_ctas(r, max_cluster), 6 * r * _l2_ld(r),
+                    (L2_STAGE_FLOATS + 3 * r + 64) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def ninv_layout(r: int, max_cluster: int = L2_MAX_CLUSTER) -> NsLayout:
+    """K4's layout (csrc/ninv_chain.cu): up to 128 one cluster of R /
+    STRIPE CTAs (R = :func:`_inst` (r)), each holding S and two buffers of X
+    whole, its own columns of X and E transposed (rows padded to R + 4
+    floats), the product's 16 R partial sums and 64 floats of reductions;
+    above, the L2 route: ``_l2_ctas`` CTAs, X twice and E in global scratch
+    (3 r x ceil(r / 4) 4 floats), the product tiles in shared memory.
+    Raises ``ValueError`` for r outside [1, MAX_WIDTH]."""
+    _check_width(r, "ninv_chain")
+    R = _inst(r)
+    if R:
+        floats = (3 * R + 2 * STRIPE) * (R + 4) + 16 * R + 64
+        return NsLayout(R, "smem", R // STRIPE, 0, 4 * floats)
+    return NsLayout(0, "l2", _l2_ctas(r, max_cluster), 3 * r * _l2_ld(r),
+                    (L2_STAGE_FLOATS + 64) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def combine_layout(r: int) -> NsLayout:
+    """The R-block combine's layout (csrc/panel.cuh), a plain grid (no
+    exchange): up to 128 ceil(r / STRIPE) CTAs of STRIPE own columns, T2
+    and T3 whole in shared memory on the instantiation R (rows of R + 4
+    floats, the own columns of T1 and A, 16 R partial sums); above, the L2
+    route: ``_l2_ctas`` CTAs of ceil(r / CTAs) columns, A's own columns in
+    global scratch (r x ceil(r / 4) 4 floats), the product tiles in shared
+    memory.  Raises ``ValueError`` for r outside [1, MAX_WIDTH]."""
+    _check_width(r, "tri_combine")
+    R = _inst(r)
+    if R:
+        floats = 2 * R * (R + 4) + 2 * STRIPE * (R + 4) + 16 * R
+        return NsLayout(R, "smem", -(-r // STRIPE), 0, 4 * floats)
+    return NsLayout(0, "l2", _l2_ctas(r, L2_MAX_CLUSTER), r * _l2_ld(r),
+                    L2_STAGE_FLOATS * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def group_layout(m: int, r: int, max_cluster: int = L2_MAX_CLUSTER
+                 ) -> GroupLayout:
     """The layout of the panel products on an m x r panel: the r x r
-    products' :func:`tn_split`, and gemm_nt's small row tile unless even
-    NT_WIDE_BM rows per CTA give TARGET_CTAS row blocks.  A rule on shapes
-    alone: it needs no device.  Raises ``ValueError`` for r outside
-    ``KERNEL_WIDTHS`` or m outside [1, MAX_ROWS]."""
-    if r not in KERNEL_WIDTHS or not 1 <= m <= MAX_ROWS:
-        raise ValueError(f"the panel products take r in {KERNEL_WIDTHS} and "
-                         f"1 <= m <= {MAX_ROWS}; got m={m}, r={r}")
+    products' :func:`tn_split`; gemm_nt's column tile bn, the instantiation
+    of r (128 above, where an r-wide product spans several column blocks),
+    and its small row tile unless even NT_WIDE_BM rows per CTA give
+    TARGET_CTAS row blocks; and the chain's :func:`ns_layout`.  A rule on
+    shapes alone: it needs no device.  Raises ``ValueError`` for r outside
+    [1, MAX_WIDTH] or m outside [1, MAX_ROWS]."""
+    if not (1 <= r <= MAX_WIDTH and 1 <= m <= MAX_ROWS):
+        raise ValueError(f"the panel products take 1 <= r <= {MAX_WIDTH} "
+                         f"and 1 <= m <= {MAX_ROWS}; got m={m}, r={r}")
     split, chunk = tn_split(r, r, m)
     wide = NT_WIDE_BM
-    bm = wide if -(-m // wide) >= TARGET_CTAS else NT_SMALL_BM[r]
-    return GroupLayout(split, chunk, bm, wide, r)
+    bn = _inst(r) or KERNEL_WIDTHS[-1]
+    bm = wide if -(-m // wide) >= TARGET_CTAS else NT_SMALL_BM[bn]
+    return GroupLayout(split, chunk, bm, wide, bn,
+                       ns_layout(r, max_cluster))
 
 
-class NinvLayout(NamedTuple):
-    """How K4 runs an r x r S: one thread-block cluster."""
-    ctas: int        # CTAs of the cluster, STRIPE columns of X each
-    smem_bytes: int  # dynamic shared memory per CTA
+def _card_cluster(t: torch.Tensor, r: int) -> int:
+    """The largest cluster the card of ``t`` places, asked only for the
+    L2 route (r > 128); the shared-memory route's layout does not use
+    it."""
+    if _inst(r):
+        return L2_MAX_CLUSTER
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import max_cluster
+
+    return max_cluster(t.device)
 
 
-@functools.lru_cache(maxsize=None)
-def ninv_layout(r: int) -> NinvLayout:
-    """K4's layout (csrc/ninv_chain.cu, NinvLayout): r / STRIPE CTAs, each
-    holding S and two buffers of X whole, its own columns of X and E
-    transposed (rows padded to r + 4 floats), the product's 16 r partial
-    sums and 64 floats of reductions.  Raises ``ValueError`` for r outside
-    ``KERNEL_WIDTHS``."""
-    if r not in KERNEL_WIDTHS:
-        raise ValueError(f"ninv_chain kernel takes r in {KERNEL_WIDTHS}; "
-                         f"got r={r}")
-    floats = (3 * r + 2 * STRIPE) * (r + 4) + 16 * r + 64
-    return NinvLayout(r // STRIPE, 4 * floats)
+def _scratch(t: torch.Tensor, lay: NsLayout) -> torch.Tensor:
+    """The global scratch of a launch with layout ``lay`` (empty on the
+    shared-memory route)."""
+    return torch.empty(lay.scratch_floats, dtype=torch.float32,
+                       device=t.device)
 
 
 def reset_launches() -> None:
@@ -353,18 +471,20 @@ def ns_chain(
     reports the exact final residual; ``chain_mid`` runs all but the final
     two iterations with bf16-split products; ``omega`` over-relaxes the
     early iterations; ``fuse_xw=False`` forces the classic 3-product
-    iteration.  On CUDA, r must be one of ``KERNEL_WIDTHS``; the kernel runs
-    as one thread-block cluster with every operand in shared memory and
-    takes no global scratch: its only allocations are the three outputs.
+    iteration.  On CUDA, r may be any of 1 .. ``MAX_WIDTH``; the kernel runs
+    as one thread-block cluster laid out by :func:`ns_layout`: up to 128
+    with every operand in shared memory and no global scratch (its only
+    allocations are the three outputs), above on the L2 route with its
+    operands in a scratch of ``scratch_floats``.
     """
     if G.device.type == "cpu":
         return ns_chain_plain(G, iters, shift, refine, chain_mid, omega,
                               fuse_xw)
     _require_cuda_f32(G, "G")
     r = G.shape[0]
-    if G.shape != (r, r) or r not in KERNEL_WIDTHS:
-        raise ValueError(f"ns_chain kernel takes r x r, r in {KERNEL_WIDTHS};"
-                         f" got {tuple(G.shape)}")
+    if G.shape != (r, r):
+        raise ValueError(f"ns_chain kernel takes r x r; got {tuple(G.shape)}")
+    lay = ns_layout(r, _card_cluster(G, r))
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
         check, library,
     )
@@ -373,11 +493,12 @@ def ns_chain(
     X = torch.empty_like(G)
     t = torch.empty_like(G)
     resid = torch.empty((), dtype=torch.float32, device=G.device)
+    scratch = _scratch(G, lay)
     mid_iters = max(0, iters - 2) if chain_mid and not refine else 0
     code = lib.mpbqr_ns_chain(
-        G.data_ptr(), X.data_ptr(), t.data_ptr(), resid.data_ptr(), r, iters,
-        float(shift), int(refine), mid_iters, int(omega), int(fuse_xw),
-        _stream(G),
+        G.data_ptr(), X.data_ptr(), t.data_ptr(), resid.data_ptr(),
+        scratch.data_ptr(), r, iters, float(shift), int(refine), mid_iters,
+        int(omega), int(fuse_xw), *_c_layout(lay), _stream(G),
     )
     check(code, "ns_chain")
     LAUNCHES["ns_chain"] += 1
@@ -388,11 +509,11 @@ def _group_shape(Pg, r, iters, robust):
     """``(m, w, g)`` of a CUDA group buffer the group kernels take."""
     _require_cuda_f32(Pg, "Pg")
     m, w = Pg.shape
-    g = w // r
-    if (r not in KERNEL_WIDTHS or w != g * r or len(iters) != g
+    g = w // max(r, 1)
+    if (not 1 <= r <= MAX_WIDTH or w != g * r or len(iters) != g
             or len(robust) != g):
         raise ValueError(
-            f"the group kernels take r in {KERNEL_WIDTHS}, width g*r and "
+            f"the group kernels take 1 <= r <= {MAX_WIDTH}, width g*r and "
             f"g entries of iters/robust; got r={r}, shape {tuple(Pg.shape)}, "
             f"{len(iters)} iters, {len(robust)} robust"
         )
@@ -425,7 +546,8 @@ def _launch_group(lib, Pg, r, iters, robust, bf16_dots, bf16_gram,
     code = lib.mpbqr_bgs_group(
         Pg.data_ptr(), Q.data_ptr(), Rg.data_ptr(), worst.data_ptr(),
         scratch.data_ptr(), m, r, g, it_arr, rb_arr, int(bf16_dots),
-        int(bf16_gram), int(chain_mid), *group_layout(m, r), _stream(Pg),
+        int(bf16_gram), int(chain_mid),
+        *group_layout(m, r, _card_cluster(Pg, r)).args(), _stream(Pg),
     )
     check(code, "bgs_group_fused")
     return Q, Rg, worst
@@ -522,7 +644,8 @@ def bgs_group_fused_proj(
         int(Qprev.dtype == torch.bfloat16), p, Q.data_ptr(),
         Rprev.data_ptr(), Rg.data_ptr(), worst.data_ptr(),
         scratch.data_ptr(), m, r, g, it_arr, rb_arr, int(bf16_dots),
-        int(bf16_gram), int(chain_mid), *group_layout(m, r),
+        int(bf16_gram), int(chain_mid),
+        *group_layout(m, r, _card_cluster(Pg, r)).args(),
         *tn_split(p, w, m), _stream(Pg),
     )
     check(code, "bgs_group_fused_proj")
@@ -546,15 +669,14 @@ def panel_qr_fused(
     ``t_k = X_k^T G_k``, and ``resid`` is the raw exact residual of the
     final pass (callers scale it).  ``chain_mid`` runs all but the final
     ``MID_FINAL`` iterations of each non-refine chain with bf16-split
-    products.  On CUDA, r must be one of ``KERNEL_WIDTHS``.
+    products.  On CUDA, r may be any of 1 .. ``MAX_WIDTH``
+    (:func:`group_layout`).
     """
     if P.device.type == "cpu":
         return panel_qr_fused_plain(P, iters, robust, chain_mid)
     _require_cuda_f32(P, "P")
     m, r = P.shape
-    if r not in KERNEL_WIDTHS:
-        raise ValueError(f"panel_qr_fused kernel takes m x r, r in "
-                         f"{KERNEL_WIDTHS}; got {tuple(P.shape)}")
+    lay = group_layout(m, r, _card_cluster(P, r))
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
         check, library,
     )
@@ -568,17 +690,11 @@ def panel_qr_fused(
     code = lib.mpbqr_panel_qr(
         P.data_ptr(), Q.data_ptr(), t.data_ptr(), resid.data_ptr(),
         scratch.data_ptr(), m, r, iters, int(robust), int(chain_mid),
-        *group_layout(m, r), _stream(P),
+        *lay.args(), _stream(P),
     )
     check(code, "panel_qr_fused")
     LAUNCHES["panel_qr_fused"] += 1
     return Q, t, resid
-
-
-def _require_aligned(x: torch.Tensor, name: str) -> None:
-    """The kernels that load whole matrices with 16-byte copies need it."""
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def ninv_chain(S: torch.Tensor, iters: int = 6
@@ -587,19 +703,19 @@ def ninv_chain(S: torch.Tensor, iters: int = 6
     X0 = (2/3) I and ``iters`` steps of X <- X (2I - S X), in fp32.
     Returns ``(X, resid)`` with ``resid = max|I - S X|`` of the final
     iterate (NaN-propagating); callers arm their own LU fallback on it.
-    On CUDA, r must be one of ``KERNEL_WIDTHS`` and ``S`` 16-byte aligned;
-    the kernel runs as one thread-block cluster laid out by
-    :func:`ninv_layout`, takes no global scratch and does not synchronize
-    the host."""
+    On CUDA, r may be any of 1 .. ``MAX_WIDTH``; the kernel runs as one
+    thread-block cluster laid out by :func:`ninv_layout` (global scratch on
+    the L2 route only, above 128) and does not synchronize the host.  S is
+    read with 16-byte copies when r is an instantiation and S is 16-byte
+    aligned, else element by element."""
     if S.device.type == "cpu":
         return ninv_chain_plain(S, iters)
     _require_cuda_f32(S, "S")
     r = S.shape[0]
-    if S.shape != (r, r) or r not in KERNEL_WIDTHS or iters < 0:
-        raise ValueError(f"ninv_chain kernel takes r x r, r in "
-                         f"{KERNEL_WIDTHS}, iters >= 0; got "
+    if S.shape != (r, r) or iters < 0:
+        raise ValueError(f"ninv_chain kernel takes r x r, iters >= 0; got "
                          f"{tuple(S.shape)}, iters={iters}")
-    _require_aligned(S, "S")
+    _check_width(r, "ninv_chain")
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
 
     out = _launch_ninv(library(), S, iters)
@@ -615,10 +731,13 @@ def _launch_ninv(lib, S: torch.Tensor, iters: int
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
 
     r = S.shape[0]
+    lay = ninv_layout(r, _card_cluster(S, r))
     X = torch.empty_like(S)
     resid = torch.empty((), dtype=torch.float32, device=S.device)
+    scratch = _scratch(S, lay)
     code = lib.mpbqr_ninv_chain(S.data_ptr(), X.data_ptr(), resid.data_ptr(),
-                                r, iters, *ninv_layout(r), _stream(S))
+                                scratch.data_ptr(), r, iters,
+                                *_c_layout(lay), _stream(S))
     check(code, "ninv_chain")
     return X, resid
 
@@ -628,9 +747,10 @@ def tri_combine(T1: torch.Tensor, T2: torch.Tensor, T3: torch.Tensor
     """The R block of a robust panel, ``triu(T3 (T2 T1))``, from the three
     passes' full products ``T_k = X_k^T G_k`` (r x r each): the combine
     that closes K2's and K3's robust panels, launched on its own.  On CUDA
-    the three are contiguous fp32, 16-byte aligned, on one device, with r
-    in ``KERNEL_WIDTHS``; the kernel runs r / STRIPE CTAs, both products in
-    shared memory, in true fp32."""
+    the three are contiguous fp32 on one device, r any of 1 ..
+    ``MAX_WIDTH``; the kernel runs :func:`combine_layout`'s ceil(r / STRIPE)
+    CTAs in true fp32, both products in shared memory up to 128 and through
+    an L2-resident scratch above."""
     if T1.device.type == "cpu":
         return tri_combine_plain(T1, T2, T3)
     r = T1.shape[0]
@@ -640,18 +760,17 @@ def tri_combine(T1: torch.Tensor, T2: torch.Tensor, T3: torch.Tensor
             raise ValueError(f"tri_combine takes three r x r tensors on one "
                              f"device; got {name} {tuple(T.shape)} on "
                              f"{T.device}")
-        _require_aligned(T, name)
-    if r not in KERNEL_WIDTHS:
-        raise ValueError(f"tri_combine kernel takes r in {KERNEL_WIDTHS}; "
-                         f"got {r}")
+    lay = combine_layout(r)
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
         check, library,
     )
 
     out = torch.empty_like(T1)
+    scratch = _scratch(T1, lay)
     code = library().mpbqr_tri_combine(T1.data_ptr(), T2.data_ptr(),
-                                       T3.data_ptr(), out.data_ptr(), r, r,
-                                       _stream(T1))
+                                       T3.data_ptr(), out.data_ptr(),
+                                       scratch.data_ptr(), r, r,
+                                       *_c_layout(lay), _stream(T1))
     check(code, "tri_combine")
     PIECE_LAUNCHES["tri_combine"] += 1
     return out

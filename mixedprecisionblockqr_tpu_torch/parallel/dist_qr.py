@@ -452,8 +452,8 @@ def dist_block_qr(
     BGS projections.  A NaN canary in the BGS tiers' R (read on the host;
     R is the same on every rank, so all ranks take the same branch)
     reruns the factorization through 'householder', and raises
-    ``NonFiniteError`` if that fails too.  On the card the NS and panel
-    kernels take ``block_size`` in (32, 64, 128).
+    ``NonFiniteError`` if that fails too.  On the card the NS kernels take
+    any ``block_size`` up to ``ops/kernels/ns.py::MAX_WIDTH``.
     """
     if quality is not None:
         if quality not in QUALITY_LEVELS:

@@ -16,6 +16,11 @@ from __future__ import annotations
 import json
 
 from mixedprecisionblockqr_tpu_torch.ops.kernels.chol import chol_layout
+from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+    combine_layout,
+    ninv_layout,
+    ns_layout,
+)
 from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import panel_layout
 from mixedprecisionblockqr_tpu_torch.ops.kernels.sketch import sketch_layout
 
@@ -89,15 +94,17 @@ def robust_ops(r, chain_mid=False):
 def ns_chain_bound(r, iters, chain_mid=False, refine=False):
     """K1: G read, X and t written; the operations of ``chain_ops``.
     Beside the whole card's bound, ``cluster_bound_ms`` is the bound of
-    the r / 16 SMs that the one thread-block cluster of a chain can use:
-    the same operations at that share of the peak rates (the bytes still
-    at the card's memory rate)."""
+    the SMs that the one thread-block cluster of a chain can use (its
+    ``ns_layout`` CTAs: R / 16 on the instantiation R that holds r, up to
+    16 on the L2 route above 128): the same operations at that share of
+    the peak rates (the bytes still at the card's memory rate)."""
     f32, bf16 = chain_ops(r, iters, chain_mid, refine)
     nbytes = 3 * r * r * 4
     whole = bound(f32_ops=f32, bf16_ops=bf16, nbytes=nbytes)
-    share = SMS / (r // 16)
+    sms = ns_layout(r).ctas
+    share = SMS / sms
     one = bound(f32_ops=f32 * share, bf16_ops=bf16 * share, nbytes=nbytes)
-    return {**whole, "cluster_sms": r // 16,
+    return {**whole, "cluster_sms": sms,
             "cluster_bound_ms": one["bound_ms"]}
 
 
@@ -133,17 +140,19 @@ def panel_qr_bound(m, r):
 
 def ninv_chain_bound(r, iters):
     """K4: 2 iters + 1 general r x r products (2 r^3 operations each); S
-    read, X written.  Beside the whole card's bound, the bound of the r / 16
-    SMs of its one thread-block cluster (``cluster_bound``)."""
+    read, X written.  Beside the whole card's bound, the bound of the SMs
+    of its one thread-block cluster (``ninv_layout``'s CTAs,
+    ``cluster_bound``)."""
     return cluster_bound((2 * iters + 1) * 2 * r ** 3, 2 * r * r * 4,
-                         r // 16)
+                         ninv_layout(r).ctas)
 
 
 def tri_combine_bound(r):
     """The combine that closes K2's and K3's robust panels: ``combine_ops``;
     T1..T3 read, the r x r R block written.  Beside the whole card's bound,
-    the bound of the r / 16 SMs its CTAs run on (``cluster_bound``)."""
-    return cluster_bound(combine_ops(r), 4 * r * r * 4, r // 16)
+    the bound of the SMs its CTAs run on (``combine_layout``'s,
+    ``cluster_bound``)."""
+    return cluster_bound(combine_ops(r), 4 * r * r * 4, combine_layout(r).ctas)
 
 
 def householder_panel_ops(m, w):

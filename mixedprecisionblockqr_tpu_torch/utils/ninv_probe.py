@@ -109,9 +109,11 @@ def host_us(fn, calls: int = 50, batches: int = 5) -> float:
     return statistics.median(times)
 
 
-def k4_row(S: torch.Tensor, iters: int) -> dict:
+def k4_row(S: torch.Tensor, iters: int, profiled: bool = True) -> dict:
     """Two launches of K4 and the plain version on ``S``: agreement, the
-    fallback class, times, cluster and bound."""
+    fallback class, times, cluster and bound; with ``profiled``, the
+    device time from ``torch.profiler`` and the host time to issue a
+    launch as well."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels import ns
     from mixedprecisionblockqr_tpu_torch.utils.bounds import ninv_chain_bound
     from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
@@ -125,21 +127,25 @@ def k4_row(S: torch.Tensor, iters: int) -> dict:
     klass = (float(res) < FALLBACK) == (float(resp) < FALLBACK)
     layout = getattr(ns, "ninv_layout", None)
     r = S.shape[0]
-    return {"iters": iters, "max_abs_X": err, "lim_X": lim,
-            "resid": float(res), "resid_plain": float(resp),
-            "same_fallback_class": klass, "bitwise_repeatable": same,
-            "ok": err <= lim and klass and same,
-            "cluster": layout(r).ctas if layout else 1,
-            "ms": cuda_time_ms(lambda: ns.ninv_chain(S, iters)),
-            "device_ms": _device_ms(lambda: ns.ninv_chain(S, iters)),
-            "host_us": host_us(lambda: ns.ninv_chain(S, iters)),
+    row = {"iters": iters, "max_abs_X": err, "lim_X": lim,
+           "resid": float(res), "resid_plain": float(resp),
+           "same_fallback_class": klass, "bitwise_repeatable": same,
+           "ok": err <= lim and klass and same,
+           "cluster": layout(r).ctas if layout else 1,
+           "ms": cuda_time_ms(lambda: ns.ninv_chain(S, iters))}
+    if profiled:
+        row["device_ms"] = _device_ms(lambda: ns.ninv_chain(S, iters))
+        row["host_us"] = host_us(lambda: ns.ninv_chain(S, iters))
+    return {**row,
             "plain_ms": cuda_time_ms(lambda: ns.ninv_chain_plain(S, iters)),
             "library_ms": cuda_time_ms(lambda: torch.linalg.inv(S)),
             **ninv_chain_bound(r, iters)}
 
 
-def combine_row(T1, T2, T3) -> dict:
-    """Two launches of the combine and its plain version on T1..T3."""
+def combine_row(T1, T2, T3, profiled: bool = True) -> dict:
+    """Two launches of the combine and its plain version on T1..T3; with
+    ``profiled``, the device time from ``torch.profiler`` and the host time
+    to issue a launch as well."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels import ns
     from mixedprecisionblockqr_tpu_torch.utils.bounds import (
         tri_combine_bound,
@@ -152,12 +158,14 @@ def combine_row(T1, T2, T3) -> dict:
     torch.cuda.synchronize()
     err, lim = _max_abs(out, ref), TOL * float(ref.abs().max())
     same = bool(torch.equal(out, again))
-    return {"r": T1.shape[0], "max_abs": err, "lim": lim,
-            "bitwise_repeatable": same, "ok": err <= lim and same,
-            "ctas": T1.shape[0] // ns.STRIPE,
-            "ms": cuda_time_ms(lambda: ns.tri_combine(T1, T2, T3)),
-            "device_ms": _device_ms(lambda: ns.tri_combine(T1, T2, T3)),
-            "host_us": host_us(lambda: ns.tri_combine(T1, T2, T3)),
+    row = {"r": T1.shape[0], "max_abs": err, "lim": lim,
+           "bitwise_repeatable": same, "ok": err <= lim and same,
+           "ctas": ns.combine_layout(T1.shape[0]).ctas,
+           "ms": cuda_time_ms(lambda: ns.tri_combine(T1, T2, T3))}
+    if profiled:
+        row["device_ms"] = _device_ms(lambda: ns.tri_combine(T1, T2, T3))
+        row["host_us"] = host_us(lambda: ns.tri_combine(T1, T2, T3))
+    return {**row,
             "plain_ms": cuda_time_ms(
                 lambda: ns.tri_combine_plain(T1, T2, T3)),
             "library_call": "T3 @ (T2 @ T1)",

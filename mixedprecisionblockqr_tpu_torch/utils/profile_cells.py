@@ -36,8 +36,11 @@ seed=0)``: stored-factor CAQR), ``lstsq_batched`` (8 systems of 2048 x
 ``rls_init`` state of the full-rank ``slam_jacobian(4096, 2048, seed=0)``:
 one G1 launch) and ``givens`` (``qr_rank1_update`` of the complete factors
 of ``default_rng(0).random((2048, 2048)) - 0.5``, u and v from
-``default_rng(2)`` x 1e-3: one G2 and one G3).  The inputs of the last six
-are made at first use.
+``default_rng(2)`` x 1e-3: one G2 and one G3), and ``chip_smoke.py``
+phase 21's widths: ``headline r=256`` (the headline call at
+``block_size=256``: bgs1 g4, K2 at r = 256 on the chain's L2 route) and
+``polar 4096x2048 r=256`` (8 K1 + 8 K4 at 256).  The inputs of the last
+six of phases 16-19 are made at first use.
 Without a CUDA device it exits 2.
 """
 
@@ -176,8 +179,8 @@ def main(only: Sequence[str] = ()) -> int:
     RkT = R[:k, :].T.contiguous()
     _, T = qr(RkT, mode="reduced", panel_method="householder")
 
-    def headline(x):
-        return block_qr(x, 128, POLICY_MIXED_FAST, mode="complete",
+    def headline(x, r=128):
+        return block_qr(x, r, POLICY_MIXED_FAST, mode="complete",
                         panel_method="auto", quality="fast", check="defer")
 
     big_input = []
@@ -276,6 +279,8 @@ def main(only: Sequence[str] = ()) -> int:
          lambda: rls_update(*lazy("rls", rls_case)), 5),
         ("givens rank1_update 2048^2",
          lambda: qr_rank1_update(*lazy("rank1", rank1_case)), 5),
+        ("headline r=256", lambda: headline(A, 256), 5),
+        ("polar 4096x2048 r=256", lambda: headline(A42, 256), 5),
     ]
     for name, fn, calls in cells:
         if only and not any(o in name for o in only):

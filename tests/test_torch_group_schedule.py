@@ -57,6 +57,14 @@ def test_tn_split_covers_k_with_no_empty_chunk(M, N, K):
 @pytest.mark.parametrize("m,r", [(2048, 48), (2048, 256), (0, 128),
                                  (tns.MAX_ROWS + 1, 128)])
 def test_group_layout_refuses_what_the_kernels_do_not_take(m, r):
+    # Widths are no longer refused: 48 runs gemm_nt's 64-wide tile and the
+    # chain on R = 64, 256 two 128-wide column blocks and the chain on the
+    # L2 route.  Heights outside 1 .. MAX_ROWS still are.
+    if 1 <= m <= tns.MAX_ROWS:
+        lay = tns.group_layout(m, r)
+        assert lay.bn == (64 if r == 48 else 128)
+        assert lay.chain.route == ("smem" if r == 48 else "l2")
+        return
     with pytest.raises(ValueError, match="panel products take"):
         tns.group_layout(m, r)
 
@@ -67,9 +75,10 @@ def test_tn_split_refuses_an_empty_product():
 
 
 def test_group_entries_take_the_layout():
-    # K2, K3 and K5 take the layout's five numbers before the stream (K5
-    # its scrub's split and chunk after them); the probe's product entry
-    # takes one product with its layout.
+    # K2, K3 and K5 take the layout's ten numbers (the products' five, the
+    # chain's five) before the stream (K5 its scrub's split and chunk
+    # after them); the probe's product entry takes one product with its
+    # layout.
     from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
 
     class Lib:
@@ -80,10 +89,10 @@ def test_group_entries_take_the_layout():
 
     lib = _build._declare(Lib())
     ci, vp = ctypes.c_int, ctypes.c_void_p
-    assert lib.mpbqr_bgs_group.argtypes[-6:] == [ci] * 5 + [vp]
-    assert len(lib.mpbqr_bgs_group.argtypes) == 19
-    assert lib.mpbqr_bgs_group_proj.argtypes[-8:] == [ci] * 7 + [vp]
-    assert len(lib.mpbqr_panel_qr.argtypes) == 16
+    assert lib.mpbqr_bgs_group.argtypes[-11:] == [ci] * 10 + [vp]
+    assert len(lib.mpbqr_bgs_group.argtypes) == 24
+    assert lib.mpbqr_bgs_group_proj.argtypes[-13:] == [ci] * 12 + [vp]
+    assert len(lib.mpbqr_panel_qr.argtypes) == 21
     assert len(lib.mpbqr_group_product.argtypes) == 18
 
 

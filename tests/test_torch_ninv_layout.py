@@ -23,12 +23,22 @@ def test_ninv_layout_is_one_cluster_of_r_over_16_ctas(r):
     # padded to r + 4 floats, the product's partial sums and the reductions
     assert lay.smem_bytes == 4 * ((3 * r + 32) * (r + 4) + 16 * r + 64)
     assert lay.smem_bytes <= SMEM_LIMIT == 227 * 1024
+    assert (lay.inst, lay.route, lay.scratch_floats) == (r, "smem", 0)
 
 
-@pytest.mark.parametrize("r", [16, 96, 256])
-def test_ninv_layout_refuses_other_widths(r):
+@pytest.mark.parametrize("r,inst,route,ctas", [(16, 32, "smem", 2),
+                                               (96, 128, "smem", 8),
+                                               (256, 0, "l2", 16)])
+def test_ninv_layout_refuses_other_widths(r, inst, route, ctas):
+    # Every width runs: 16 and 96 on the smallest instantiation that holds
+    # them (zeros beyond r), 256 on the L2 route (X twice and E in global
+    # scratch, 16 CTAs); only widths outside 1 .. MAX_WIDTH are refused.
+    lay = tns.ninv_layout(r)
+    assert (lay.inst, lay.route, lay.ctas) == (inst, route, ctas)
+    assert lay.smem_bytes <= SMEM_LIMIT
+    assert lay.scratch_floats == (3 * r * r if route == "l2" else 0)
     with pytest.raises(ValueError, match="ninv_chain"):
-        tns.ninv_layout(r)
+        tns.ninv_layout(tns.MAX_WIDTH + r)
 
 
 def _ts(r, seed):
@@ -84,8 +94,10 @@ def test_cpu_wrappers_run_the_plain_versions_and_count_nothing():
 
 
 def test_ninv_chain_entry_takes_the_layout_and_no_scratch():
-    # The C entry takes S, X, resid, r, iters, the layout's two numbers and
-    # the stream: S and X live in shared memory, nothing in global scratch.
+    # The C entry takes S, X, resid, the scratch, r, iters, the layout's
+    # five numbers and the stream.  Up to 128 S and X live in shared memory
+    # and the layout asks for no global scratch; only the L2 route (above
+    # 128) keeps X and E in it.
     import ctypes
 
     from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
@@ -98,10 +110,12 @@ def test_ninv_chain_entry_takes_the_layout_and_no_scratch():
 
     lib = _build._declare(Lib())
     args = lib.mpbqr_ninv_chain.argtypes
-    assert args.count(ctypes.c_void_p) == 4     # S, X, resid, stream
-    assert len(args) == 4 + 2 + len(tns.ninv_layout(128))
+    assert args.count(ctypes.c_void_p) == 5  # S, X, resid, scratch, stream
+    assert len(args) == 5 + 2 + len(tns.ninv_layout(128))
     assert "mpbqr_ninv_chain_scratch_floats" not in vars(lib)
-    assert len(lib.mpbqr_tri_combine.argtypes) == 7  # T1..T3, out, r, ldo, stream
+    assert tns.ninv_layout(128).scratch_floats == 0
+    # T1..T3, out, scratch, r, ldo, the layout's five numbers, stream
+    assert len(lib.mpbqr_tri_combine.argtypes) == 13
 
 
 @pytest.mark.parametrize("iters", [5, 12])
@@ -111,7 +125,7 @@ def test_ninv_and_combine_bounds_count_general_products(iters):
     ops = (2 * iters + 1) * 2 * r ** 3
     assert k4["bound_ms"] == pytest.approx(ops / bounds.PEAK_F32 * 1e3,
                                            rel=1e-12)
-    assert k4["cluster_sms"] == r // 16
+    assert k4["cluster_sms"] == tns.ninv_layout(r).ctas == r // 16
     assert k4["cluster_bound_ms"] == pytest.approx(
         k4["bound_ms"] * bounds.SMS / (r // 16), rel=1e-12)
     cmb = bounds.tri_combine_bound(r)

@@ -274,9 +274,11 @@ def test_kernel_bounds_lists_the_chain_rows():
 
 
 def test_ns_chain_kernel_takes_no_global_scratch():
-    # The chain's C entry takes G, three outputs, eight scalars and the
-    # stream: every operand of the chain lives in shared memory, so the
-    # wrapper allocates the outputs and nothing else.
+    # The chain's C entry takes G, three outputs, a scratch, seven scalars,
+    # the layout's five numbers and the stream.  Up to 128 every operand
+    # of the chain lives in shared memory and the layout asks for no
+    # scratch, so the wrapper allocates the outputs and nothing else; only
+    # the L2 route (above 128) keeps its operands in global scratch.
     import ctypes
 
     from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
@@ -289,8 +291,10 @@ def test_ns_chain_kernel_takes_no_global_scratch():
 
     lib = _build._declare(Lib())
     args = lib.mpbqr_ns_chain.argtypes
-    assert args.count(ctypes.c_void_p) == 5     # G, X, t, resid, stream
+    # G, X, t, resid, the scratch, stream; the layout's five numbers
+    assert args.count(ctypes.c_void_p) == 6
     assert args.count(ctypes.c_float) == 1      # shift
-    assert len(args) == 12
+    assert len(args) == 18
     assert "mpbqr_ns_chain_scratch_floats" not in vars(lib)
+    assert tns.ns_layout(128).scratch_floats == 0
     assert len(lib.mpbqr_tiled_matmul.argtypes) == 12   # ..., tma, stream
