@@ -167,6 +167,25 @@ last line):
                  pivoted_qr_qtb(method='rqrcp', block_size=96) on a 4096 x
                  1920 gauge-deficient system and the min-norm solve (20 K3
                  and K7 at r = 96), against float64.
+ 22. dist2d   -- dist_block_qr_2d on a (1, 1) (rows, cols) mesh of phase
+                 20's one-rank NCCL group, each case timed (CUDA events,
+                 median of 5) beside the 1-D dist_block_qr on the same
+                 input, its K1 / K4 / K6 launches asserted: (a) bgs1
+                 POLICY_MIXED_FAST reduced on phase 4's input (20 K1: 14
+                 plain panels, 2 robust x 3 chains), backward and
+                 orthogonality at most 2x phase 20 (a)'s; (b) the
+                 reflector tier, fp32, mode='r' with b on phase 9's input
+                 (16 K6 + 16 K4), x within phase 20 (c)'s gate; (c)
+                 cholqr2s, loop_mode='scan', mode='complete' on 2048 x
+                 1024 fp32 (8 K4, 1 K6), backward and max|Q^T Q - I|
+                 below 1e-5.
+ 23. cli      -- the command-line interface: cli.main in-process (qr, bench,
+                 solve, dist with its own one-rank NCCL group, tsqr-bench,
+                 dataset then qr --file through the native parser,
+                 precision-study, plot) and one `python -m
+                 mixedprecisionblockqr_tpu_torch qr --n 1024`; every call
+                 exits 0, every printed JSON line parses, K1, K2 and K6
+                 are launched.
 Then a line with every kernel's launches on its main path (phases 4-6 for
 ns_chain and bgs_group_fused, phase 7 for panel_qr_fused,
 sketch_qrcp_ranks and panel_factor_fused, phase 9 for ninv_chain,
@@ -174,7 +193,7 @@ phase 13 for bgs_group_fused_proj, phase 15 for
 tiled_matmul and chol_rinv, phase 19 for the Givens chains: each streaming
 call once at n = 2048; phase 20's cases (a)-(d) add their launches of
 ns_chain, ninv_chain and panel_factor_fused, phase 21's of the kernels its
-calls run; the widths each kernel was held at; the counts are set to 0 just
+calls run, phases 22 and 23 theirs; the widths each kernel was held at; the counts are set to 0 just
 before each path and read just after; phases 16-18 assert their own
 counts the same way),
 error, times and bound, and as the last line
@@ -252,6 +271,37 @@ def solve_errors(a, b, x):
                                / np.linalg.norm(x_o))}
 
 
+def _counter():
+    """``(counted, total)``: ``counted(fn)`` runs fn with the launch counts
+    set to 0 just before it and read just after it, returns ``(out, the
+    nonzero counts)`` and adds those to ``total``."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+        LAUNCHES,
+        reset_launches,
+    )
+
+    total = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        c = {k: v for k, v in LAUNCHES.items() if v}
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        return out, c
+
+    return counted, total
+
+
+def triple(rep):
+    """The metric triple of a report, with its two gates."""
+    return {"backward": rep.backward, "orthogonality": rep.orthogonality,
+            "lower_trapezoid": rep.lower_trapezoid,
+            "all_ok": rep.all_ok, "tight_ok": rep.tight_ok}
+
+
 def phase_dist(A, ms_block_qr, dev, card):
     """Phase 20: the distributed entry points on a one-rank NCCL mesh (the
     process group is started by the caller).  Returns ``(row, launches)``:
@@ -273,11 +323,7 @@ def phase_dist(A, ms_block_qr, dev, card):
         tsqr_sharded,
     )
     from mixedprecisionblockqr_tpu_torch.ops.cholqr import lu_inv
-    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
-        LAUNCHES,
-        ninv_chain,
-        reset_launches,
-    )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import ninv_chain
     from mixedprecisionblockqr_tpu_torch.parallel import dist_qr
     from mixedprecisionblockqr_tpu_torch.utils.group_probe import (
         device_breakdown,
@@ -299,23 +345,7 @@ def phase_dist(A, ms_block_qr, dev, card):
                 if "nccl" in e.key.lower() or "c10d" in e.key.lower()}
 
     keys = ("ns_chain", "ninv_chain", "panel_factor_fused")
-    total = dict.fromkeys(keys, 0)
-
-    def counted(fn):
-        torch.cuda.synchronize()
-        reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        c = {k: v for k, v in LAUNCHES.items() if v}
-        for k in keys:
-            total[k] += LAUNCHES[k]
-        return out, c
-
-    def triple(rep):
-        return {"backward": rep.backward, "orthogonality": rep.orthogonality,
-                "lower_trapezoid": rep.lower_trapezoid,
-                "all_ok": rep.all_ok, "tight_ok": rep.tight_ok}
-
+    counted, total = _counter()
     mesh = make_mesh()
     row = {"world_size": dist.get_world_size(),
            "backend": dist.get_backend()}
@@ -491,7 +521,7 @@ def phase_dist(A, ms_block_qr, dev, card):
                         "((1, 1) batch x rows mesh)",
                 "launches": ce, "launches_2d": cf,
                 "max_backward": be, "max_backward_2d": bf}
-    c20 = {k: total[k] for k in keys}
+    c20 = {k: total.get(k, 0) for k in keys}
     for k in keys:
         assert c20[k] > 0, f"{k} was not launched on the dist path"
     row["launches"] = c20
@@ -527,10 +557,6 @@ def phase_widths(A, A9, J, b, Jn, bn, head, polar, dev, card):
     from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
         resolve_panel_config,
     )
-    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
-        LAUNCHES,
-        reset_launches,
-    )
     from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
     from mixedprecisionblockqr_tpu_torch.utils.datagen import (
         gauge_deficient_system,
@@ -539,17 +565,7 @@ def phase_widths(A, A9, J, b, Jn, bn, head, polar, dev, card):
     from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
 
     bits = POLICY_MIXED_FAST.precision_bits
-    total = {}
-
-    def counted(fn):
-        torch.cuda.synchronize()
-        reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        c = {k: v for k, v in LAUNCHES.items() if v}
-        for k, v in c.items():
-            total[k] = total.get(k, 0) + v
-        return out, c
+    counted, total = _counter()
 
     def fast(r):
         def call(x):
@@ -557,12 +573,6 @@ def phase_widths(A, A9, J, b, Jn, bn, head, polar, dev, card):
                             panel_method="auto", quality="fast",
                             check="defer")
         return call
-
-    def triple(rep_):
-        return {"backward": rep_.backward,
-                "orthogonality": rep_.orthogonality,
-                "lower_trapezoid": rep_.lower_trapezoid,
-                "all_ok": rep_.all_ok, "tight_ok": rep_.tight_ok}
 
     # (a) the headline call at block_size=256: bgs1 with g shrunk to 4
     # (8 panels), so K2 runs at r = 256 (the L2 route's chains).
@@ -688,6 +698,235 @@ def phase_widths(A, A9, J, b, Jn, bn, head, polar, dev, card):
         "1e-4 relative; times: CUDA events, median of 20 (a, b), 10 (c), "
         "5 (d)")
     return row, total
+
+
+def phase_dist2d(A, row20, dev):
+    """Phase 22: ``dist_block_qr_2d`` on a (1, 1) mesh of the one-rank NCCL
+    group phase 20 started, each case beside the 1-D ``dist_block_qr`` on
+    the same input.  Returns ``(row, launches)``: the phase's line and the
+    K1 / K4 / K6 launches of its three cases."""
+    from mixedprecisionblockqr_tpu_torch import (
+        POLICY_FP32,
+        POLICY_MIXED_FAST,
+        back_substitution,
+        dist_block_qr,
+        make_mesh,
+        metrics,
+    )
+    from mixedprecisionblockqr_tpu_torch.parallel import dist_block_qr_2d
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    keys = ("ns_chain", "ninv_chain", "panel_factor_fused")
+    counted, total = _counter()
+
+    def timed(fn):
+        return cuda_time_ms(fn, warmup=1, iters=5)
+
+    mesh2 = make_mesh((1, 1), ("rows", "cols"))
+    mesh1 = make_mesh()
+    row = {"mesh": dict(zip(mesh2.mesh_dim_names, mesh2.shape)),
+           "backend": dist.get_backend()}
+
+    # (a) bgs1 on phase 4's input: 14 plain panels (one K1 each) and the 2
+    # robust tail panels (three K1 each).
+    def bgs1_2d():
+        return dist_block_qr_2d(A, mesh2, 128, POLICY_MIXED_FAST,
+                                panel_method="bgs1", mode="reduced")
+
+    def bgs1_1d():
+        return dist_block_qr(A, mesh1, 128, POLICY_MIXED_FAST,
+                             mode="reduced", panel_method="bgs1")
+
+    (Qa, Ra), ca = counted(bgs1_2d)
+    assert ca == {"ns_chain": 20}, ca
+    rep = metrics.evaluate(A, Qa, Ra, POLICY_MIXED_FAST.precision_bits)
+    ref = row20["a"]
+    assert rep.all_ok, str(rep)
+    assert rep.backward <= 2 * ref["backward"], (rep.backward, ref)
+    assert rep.orthogonality <= 2 * ref["orthogonality"], (
+        rep.orthogonality, ref)
+    del Qa, Ra
+    row["a"] = {
+        "call": "dist_block_qr_2d(A, mesh (1, 1), 128, POLICY_MIXED_FAST, "
+                "panel_method='bgs1', mode='reduced') 2048^2 (phase 4's "
+                "input)", "launches": ca, **triple(rep),
+        "phase20_a": {"backward": ref["backward"],
+                      "orthogonality": ref["orthogonality"]},
+        "ms": timed(bgs1_2d), "dist_block_qr_ms": timed(bgs1_1d),
+        "dist_block_qr_call": "dist_block_qr(A, mesh, 128, "
+                              "POLICY_MIXED_FAST, mode='reduced', "
+                              "panel_method='bgs1')"}
+
+    # (b) the reflector tier on phase 9's input with b: K6 and K4 once a
+    # panel; x against float64.
+    a9 = np.random.default_rng(0).random((4096, 2048), dtype=np.float32) - 0.5
+    b9 = np.random.default_rng(1).standard_normal(4096).astype(np.float32)
+    A9, B9 = torch.from_numpy(a9).to(dev), torch.from_numpy(b9).to(dev)
+
+    def refl_2d():
+        return dist_block_qr_2d(A9, mesh2, 128, POLICY_FP32, b=B9)
+
+    def refl_1d():
+        return dist_block_qr(A9, mesh1, 128, POLICY_FP32, mode="r", b=B9,
+                             panel_method="householder")
+
+    (Rb, qtb), cb = counted(refl_2d)
+    assert cb == {"panel_factor_fused": 16, "ninv_chain": 16}, cb
+    sol = solve_errors(a9, b9, back_substitution(Rb, qtb[:2048, 0]))
+    assert sol["x_rel_err"] <= 1e-4, sol
+    r_rel = rel_fro(Rb, refl_1d()[0])
+    assert r_rel <= 1e-4, r_rel
+    row["b"] = {
+        "call": "dist_block_qr_2d(A, mesh (1, 1), 128, POLICY_FP32, b=b) "
+                "(householder, mode='r') 4096 x 2048 (phase 9's input; b "
+                "default_rng(1))", "launches": cb, **sol,
+        "r_rel_vs_dist_block_qr": r_rel,
+        "ms": timed(refl_2d), "dist_block_qr_ms": timed(refl_1d),
+        "dist_block_qr_call": "dist_block_qr(A, mesh, 128, POLICY_FP32, "
+                              "mode='r', b=b, panel_method='householder')"}
+    del Rb, qtb, A9, B9
+
+    # (c) shifted CholeskyQR2 leaves, the full-width scan loop and the
+    # complete Q^T: one K4 a panel, one K6 for the last (Householder) panel.
+    a_c = np.random.default_rng(0).random((2048, 1024), dtype=np.float32) - 0.5
+    A_c = torch.from_numpy(a_c).to(dev)
+
+    def scan_2d():
+        return dist_block_qr_2d(A_c, mesh2, 128, POLICY_FP32,
+                                panel_method="cholqr2s", loop_mode="scan",
+                                mode="complete")
+
+    def scan_1d():
+        return dist_block_qr(A_c, mesh1, 128, POLICY_FP32, mode="complete",
+                             panel_method="cholqr2s", loop_mode="scan")
+
+    (Qt, Rc), cc = counted(scan_2d)
+    assert cc == {"ninv_chain": 8, "panel_factor_fused": 1}, cc
+    Q = Qt.T
+    back = float(metrics.backward_error(A_c, Q[:, :1024], Rc))
+    orth = float(metrics.orthogonality_error(Q))
+    assert back < 1e-5 and orth < 1e-5, (back, orth)
+    del Qt, Q, Rc
+    row["c"] = {
+        "call": "dist_block_qr_2d(A, mesh (1, 1), 128, POLICY_FP32, "
+                "panel_method='cholqr2s', loop_mode='scan', "
+                "mode='complete') 2048 x 1024 (default_rng(0) uniform - "
+                "0.5)", "launches": cc, "backward": back,
+        "orthogonality_max_QtQ_minus_I": orth,
+        "ms": timed(scan_2d), "dist_block_qr_ms": timed(scan_1d),
+        "dist_block_qr_call": "dist_block_qr(A, mesh, 128, POLICY_FP32, "
+                              "mode='complete', panel_method='cholqr2s', "
+                              "loop_mode='scan')"}
+    del A_c
+    c22 = {k: total.get(k, 0) for k in keys}
+    for k in keys:
+        assert c22[k] > 0, f"{k} was not launched on the 2-D path"
+    row["launches"] = c22
+    row["tolerance"] = (
+        "(a) all_ok, backward and orthogonality at most 2x phase 20 (a)'s; "
+        "(b) x 1e-4 relative of float64 np.linalg.lstsq (phase 20 (c)'s "
+        "gate), R 1e-4 relative of dist_block_qr's; (c) backward and "
+        "max|Q^T Q - I| below 1e-5; times: CUDA events, median of 5")
+    return row, c22
+
+
+def phase_cli(ms_headline):
+    """Phase 23: the command-line interface, in-process through
+    ``cli.main`` and once through ``python -m``.  Returns ``(row,
+    launches)``: the phase's line and the kernel launches of its calls."""
+    from mixedprecisionblockqr_tpu_torch import cli
+    from mixedprecisionblockqr_tpu_torch.native import euroc_native
+    from mixedprecisionblockqr_tpu_torch.native.build import build
+
+    counted, total = _counter()
+    with tempfile.TemporaryDirectory(prefix="mpbqr_cli_") as tmp:
+        row = _cli_calls(tmp, counted, ms_headline, cli, euroc_native, build)
+    c23 = dict(total)
+    for k in ("ns_chain", "bgs_group_fused", "panel_factor_fused"):
+        assert c23.get(k, 0) > 0, f"{k} was not launched through the CLI"
+    row["launches"] = c23
+    row["tolerance"] = ("every call exits 0 and its JSON lines parse; bench "
+                        "criteria_ok; tsqr-bench backward < 1e-5; the "
+                        "Euroc file read by the native parser")
+    return row, c23
+
+
+def _cli_calls(tmp, counted, ms_headline, cli, euroc_native, build):
+    """Phase 23's calls, their files under ``tmp``."""
+    import contextlib
+    import io
+
+    log = os.path.join(tmp, "log")
+    row = {"calls": []}
+
+    def call(*argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc, c = counted(lambda: cli.main(list(argv)))
+        out = buf.getvalue()
+        assert rc == 0, (argv, rc, out[-2000:])
+        js = [json.loads(line) for line in out.splitlines()
+              if line.startswith("{")]
+        row["calls"].append({"argv": list(argv), "rc": rc, "launches": c,
+                             "json": js, "wall_s": time.perf_counter() - t0,
+                             "stdout_tail": out.splitlines()[-4:]})
+        return js, c
+
+    _, c = call("qr", "--n", "2048", "--policy", "mixed_fast", "--quality",
+                "fast", "--log-dir", log)
+    assert c.get("bgs_group_fused") == 2, c
+    (bench,), c = call("bench", "--sizes", "2048", "--policy", "mixed_fast",
+                       "--quality", "fast", "--log-dir", log)
+    assert bench["criteria_ok"] and c.get("bgs_group_fused", 0) > 0, (
+        bench, c)
+    row["bench_vs_phase4"] = {"seconds": bench["seconds"],
+                              "tflops": bench["tflops"],
+                              "phase4_ms": ms_headline}
+    (solve,), c = call("solve", "--m", "4096", "--n", "2048")
+    assert c.get("panel_factor_fused", 0) > 0, c
+    row["solve"] = solve
+    _, c = call("dist", "--n", "2048", "--log-dir", log)
+    assert c.get("ns_chain", 0) > 0, c
+    assert not dist.is_initialized()
+    (tsq,), _ = call("tsqr-bench", "--m", "65536", "--n", "64")
+    assert tsq["backward_error"] < 1e-5, tsq
+    jac = os.path.join(tmp, "jac")
+    call("dataset", "--out", jac)
+    assert build() is not None, "the native Euroc parser did not build"
+    parsed = []
+    parse = euroc_native.parse_file
+
+    def recording_parse(path):
+        out = parse(path)
+        parsed.append(path)  # only once the native parser has succeeded
+        return out
+
+    euroc_native.parse_file = recording_parse
+    try:
+        call("qr", "--file", os.path.join(jac, "A_000000100.txt"),
+             "--log-dir", log)
+    finally:
+        euroc_native.parse_file = parse
+    assert len(parsed) == 1, parsed
+    row["native_parser"] = {"files": parsed, "library": build()}
+    call("precision-study", "--sizes", "128", "--out",
+         os.path.join(tmp, "study"))
+    logs = sorted(os.path.join(log, f) for f in os.listdir(log))
+    call("plot", *logs, "--out", os.path.join(tmp, "plots"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "mixedprecisionblockqr_tpu_torch", "qr",
+         "--n", "1024", "--log-dir", log],
+        capture_output=True, text=True, env=env, cwd=here, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    row["python_m"] = {"argv": "python -m mixedprecisionblockqr_tpu_torch "
+                               "qr --n 1024", "rc": run.returncode,
+                       "wall_s": time.perf_counter() - t0,
+                       "stdout_tail": run.stdout.splitlines()[-4:]}
+    return row
 
 
 def main() -> int:
@@ -2326,21 +2565,32 @@ def main() -> int:
                             world_size=1)
     try:
         row20, c20 = phase_dist(A, ms4, dev, card)
+        emit({"phase": "dist", **row20, "card": card})
+
+        # 21. widths: the calls that reach the kernels at r outside 32, 64,
+        # 128 (no collective; the group stays up for phase 22)
+        row21, c21 = phase_widths(A, A9, J, b, Jn, bn, (rep, ms4),
+                                  (rep9, ms9), dev, card)
+        emit({"phase": "widths", **row21, "card": card})
+
+        # 22. dist2d: dist_block_qr_2d on a (1, 1) mesh of the same group
+        row22, c22 = phase_dist2d(A, row20, dev)
+        emit({"phase": "dist2d", **row22, "card": card})
     finally:
         dist.destroy_process_group()
-    emit({"phase": "dist", **row20, "card": card})
 
-    # 21. widths: the calls that reach the kernels at r outside 32, 64, 128
-    row21, c21 = phase_widths(A, A9, J, b, Jn, bn, (rep, ms4), (rep9, ms9),
-                              dev, card)
-    emit({"phase": "widths", **row21, "card": card})
+    # 23. cli: the command-line interface (its dist call starts and ends a
+    # one-rank NCCL group of its own)
+    row23, c23 = phase_cli(ms4)
+    emit({"phase": "cli", **row23, "card": card})
 
     emit({"kernels": [
         {"name": "ns_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ns_chain.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:335",
          "launches": main_launches["ns_chain"] + c20["ns_chain"]
-         + c21.get("ns_chain", 0),
+         + c21.get("ns_chain", 0) + c22["ns_chain"]
+         + c23.get("ns_chain", 0),
          "max_abs_err": max(ns_err, *(row["max_abs_err"] for row in
                                       wrows["ns_chain"].values())),
          "widths": [32, 64, 128, *wrows["ns_chain"]],
@@ -2352,7 +2602,7 @@ def main() -> int:
          "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:900",
          "launches": main_launches["bgs_group_fused"]
-         + c21.get("bgs_group_fused", 0),
+         + c21.get("bgs_group_fused", 0) + c23.get("bgs_group_fused", 0),
          "max_abs_err": max(grp_err, *(row["max_abs_err"] for row in
                                        wrows["bgs_group_fused"].values())),
          "widths": [128, *wrows["bgs_group_fused"]],
@@ -2363,7 +2613,8 @@ def main() -> int:
         {"name": "panel_qr_fused", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_qr.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:501",
-         "launches": c7["panel_qr_fused"] + c21.get("panel_qr_fused", 0),
+         "launches": c7["panel_qr_fused"] + c21.get("panel_qr_fused", 0)
+         + c23.get("panel_qr_fused", 0),
          "max_abs_err": max(k3_err, *(row["max_abs_err"] for row in
                                       wrows["panel_qr_fused"].values())),
          "widths": [128, *wrows["panel_qr_fused"]],
@@ -2376,7 +2627,8 @@ def main() -> int:
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ninv_chain.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:384",
          "launches": c9["ninv_chain"] + c20["ninv_chain"]
-         + c21.get("ninv_chain", 0),
+         + c21.get("ninv_chain", 0) + c22["ninv_chain"]
+         + c23.get("ninv_chain", 0),
          "max_abs_err": max(k4_err, *(row["max_abs_err"] for row in
                                       wrows["ninv_chain"].values())),
          "widths": [128, *wrows["ninv_chain"]],
@@ -2387,7 +2639,8 @@ def main() -> int:
         {"name": "bgs_group_fused_proj", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:1023",
-         "launches": c13["bgs_group_fused_proj"],
+         "launches": c13["bgs_group_fused_proj"]
+         + c23.get("bgs_group_fused_proj", 0),
          "max_abs_err": max(k5_err, *(
              row["max_abs_err"]
              for row in wrows["bgs_group_fused_proj"].values())),
@@ -2400,7 +2653,8 @@ def main() -> int:
          "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_factor.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/panel.py:115",
          "launches": c7["panel_factor_fused"] + c20["panel_factor_fused"]
-         + c21.get("panel_factor_fused", 0),
+         + c21.get("panel_factor_fused", 0) + c22["panel_factor_fused"]
+         + c23.get("panel_factor_fused", 0),
          "max_abs_err": k6_err, "widths": [128, 80, 64],
          "ms": k6_rows["4096x128"]["ms"],
          "plain_ms": k6_rows["4096x128"]["plain_ms"],
@@ -2410,7 +2664,8 @@ def main() -> int:
          "source": "mixedprecisionblockqr_tpu_torch/csrc/sketch_qrcp.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/sketch.py:88",
          "launches": c7["sketch_qrcp_ranks"]
-         + c21.get("sketch_qrcp_ranks", 0),
+         + c21.get("sketch_qrcp_ranks", 0)
+         + c23.get("sketch_qrcp_ranks", 0),
          "max_abs_err": k7_err, "widths": [128, 64],
          "ms": k7_rows["w2048"]["ms"],
          "plain_ms": k7_rows["w2048"]["plain_ms"],
@@ -2419,7 +2674,8 @@ def main() -> int:
         {"name": "tiled_matmul", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/tiled_matmul.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/gemm.py:103",
-         "launches": c15["tiled_matmul"], "max_abs_err": k8_err,
+         "launches": c15["tiled_matmul"] + c23.get("tiled_matmul", 0),
+         "max_abs_err": k8_err,
          "ms": k8_rows["2048x2048x2048_bf16_f32"]["ms"],
          "plain_ms": k8_rows["2048x2048x2048_bf16_f32"]["plain_ms"],
          **matmul_bound(2048, 2048, 2048, "bf16"),
@@ -2427,7 +2683,8 @@ def main() -> int:
         {"name": "chol_rinv", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/chol_rinv.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/chol.py:119",
-         "launches": c15["chol_rinv"], "max_abs_err": k9_err,
+         "launches": c15["chol_rinv"] + c23.get("chol_rinv", 0),
+         "max_abs_err": k9_err,
          "widths": [32, 96, 128, 256, 320, 512, 1024],
          "ms": k9_rows["r256"]["ms"],
          "plain_ms": k9_rows["r256"]["plain_ms"],

@@ -6,9 +6,10 @@ File format (``read_euroc_jacobian``; the original CUDA code's
 triplet ``"<row> <col> <value>"`` a line; entries not mentioned are zero.
 The original dataset is a git-LFS archive that this checkout holds only as
 a pointer, so ``write_euroc_jacobian`` / ``synthesize_dataset`` write files
-of the same format from the synthetic SLAM-Jacobian generator.  The parser
-is numpy's (the reference's always-correct path); it needs no native
-library.
+of the same format from the synthetic SLAM-Jacobian generator.  The port's
+own native C++ parser (``native/euroc_parser.cpp``, built with ``g++`` at
+first use into ``_build/native/``) reads the files when it builds, as in
+the JAX package; the numpy parser, always correct, takes over otherwise.
 """
 
 from __future__ import annotations
@@ -20,6 +21,25 @@ import numpy as np
 
 from mixedprecisionblockqr_tpu_torch.utils.datagen import slam_jacobian
 
+_native = None
+_native_checked = False
+
+
+def _load_native():
+    """The native parser's module, or None when it cannot be imported
+    (checked once)."""
+    global _native, _native_checked
+    if _native_checked:
+        return _native
+    _native_checked = True
+    try:
+        from mixedprecisionblockqr_tpu_torch.native import euroc_native
+
+        _native = euroc_native
+    except Exception:
+        _native = None
+    return _native
+
 
 def read_dims(path: str) -> Tuple[int, int]:
     """``(rows, cols)`` from a file's first line."""
@@ -30,9 +50,16 @@ def read_dims(path: str) -> Tuple[int, int]:
 
 def read_euroc_jacobian(path: str) -> Tuple[int, int, np.ndarray]:
     """Parse one Jacobian file into a dense fp32 array: ``(rows, cols,
-    matrix)``; values are read in float64 and rounded to fp32 once."""
+    matrix)``; values are read in float64 and rounded to fp32 once, by
+    the native parser when it builds and by numpy otherwise."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
+    native = _load_native()
+    if native is not None:
+        try:
+            return native.parse_file(path)
+        except Exception:
+            pass  # the numpy parser below
     with open(path) as f:
         first = f.readline().split()
         rows, cols = int(first[0]), int(first[1])

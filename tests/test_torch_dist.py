@@ -3,13 +3,16 @@
 
 World size 2: every case of ``torch_dist_cases`` on two ranks spawned
 once for the file, held against the JAX package on 2 virtual CPU devices
-(tolerances in ``torch_dist_reference``), the guards and the NaN canary.
-World size 4 is ``test_torch_dist4.py``.  Without spawning: at world size
-1 (an in-process gloo group) ``dist_block_qr`` equals the port's own
+(tolerances in ``torch_dist_reference``), the guards and the NaN canary;
+``dist_block_qr_2d`` on the (1, 2) and (2, 1) meshes.  World size 4 is
+``test_torch_dist4.py``.  Without spawning: at world size 1 (an
+in-process gloo group) ``dist_block_qr`` equals the port's own
 ``block_qr`` of the same tier and ``tsqr_sharded`` its ``tsqr``, within
-1e-5 relative Frobenius; ``make_mesh`` without CUDA and without
-``device_type`` raises."""
+1e-5 relative Frobenius; ``dist_block_qr_2d`` on a (1, 1) mesh against
+the reference on one virtual device, and its NaN poisoning (no retry);
+``make_mesh`` without CUDA and without ``device_type`` raises."""
 
+import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
@@ -49,6 +52,33 @@ def mesh1():
         yield pt.make_mesh(device_type="cpu")
     finally:
         dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh11(mesh1):
+    return pt.make_mesh((1, 1), ("rows", "cols"), device_type="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(C.dist2d_cases(1)))
+def test_dist2d_parity_world1(mesh11, name):
+    case = C.dist2d_cases(1)[name]
+    res, coords = C.record(name, case, C.run_port(case, mesh11), mesh11)
+    ref.check_parity([{"results": {name: res}, "coords": {name: coords}}],
+                     name, 1)
+
+
+def test_dist2d_nan_poisons_world1(mesh11):
+    """A NaN input leaves NaN in R[0, 0] and Q[0, 0] of the 2-D BGS tier,
+    with no retry and no exception, in both packages."""
+    from mixedprecisionblockqr_tpu_torch.parallel import dist_block_qr_2d
+
+    a = C.nan_input()
+    Q, R = dist_block_qr_2d(torch.from_numpy(a), mesh11, **C.NAN_KW)
+    assert torch.isnan(R[0, 0]) and torch.isnan(Q[0, 0])
+    mesh = ref.make_mesh((1, 1), ("rows", "cols"),
+                         devices=ref.jax.devices()[:1])
+    Qr, Rr = ref.dist_block_qr_2d(a, mesh, **C.NAN_KW)
+    assert np.isnan(np.asarray(Rr)[0, 0]) and np.isnan(np.asarray(Qr)[0, 0])
 
 
 def _rel(x, y):

@@ -1,6 +1,7 @@
 """The port's distributed layer at world size 4 against the JAX package on
-4 virtual CPU devices: every case of ``torch_dist_cases`` (and the
-(batch x rows) = (2 x 2) mesh of ``tsqr_batched_sharded_2d``) on four
+4 virtual CPU devices: every case of ``torch_dist_cases`` (with the
+(batch x rows) = (2 x 2) mesh of ``tsqr_batched_sharded_2d`` and the
+(rows x cols) = (2 x 2) mesh of ``dist_block_qr_2d``) on four
 gloo ranks spawned once for the file, the guards and the NaN canary.
 Tolerances in ``torch_dist_reference``; world size 2 and the checks that
 need no spawn are in ``test_torch_dist.py``."""
@@ -15,8 +16,7 @@ WORLD = 4
 
 @pytest.fixture(scope="module")
 def per_rank(tmp_path_factory):
-    return C.run_world(WORLD, str(tmp_path_factory.mktemp("dist4")),
-                       with_2d=True)
+    return C.run_world(WORLD, str(tmp_path_factory.mktemp("dist4")))
 
 
 @pytest.mark.parametrize("name", sorted(ref.cases(WORLD)))

@@ -19,6 +19,7 @@ import torch
 
 ROWS = ((0, "rows"),)
 COLS = ((1, "rows"),)
+BLOCK2D = ((0, "rows"), (1, "cols"))
 REP = ()
 BATCH = ((0, "batch"),)
 BATCH_ROWS = ((0, "batch"), (1, "rows"))
@@ -81,6 +82,53 @@ DIST_CASES = {
                             quality="robust"),
 }
 
+
+def _dist2d(seed, shape, centered=False, b_seed=None, **kw):
+    return {"kind": "dist2d", "a": (seed, shape, centered), "b_seed": b_seed,
+            "kw": kw}
+
+
+#: dist_block_qr_2d cases, after the 2-D tests of
+#: tests/test_distributed.py cut to 128 x 64 at block 16; each runs on
+#: every 2-D mesh of its world (``dist2d_meshes``).
+DIST2D_CASES = {
+    "refl_r_b": _dist2d(11, (128, 64), b_seed=111, block_size=16),
+    "cholqr2_r": _dist2d(12, (128, 64), block_size=16,
+                         panel_method="cholqr2"),
+    "refl_complete": _dist2d(13, (128, 64), block_size=16,
+                             mode="complete"),
+    "scan_cholqr2_b": _dist2d(14, (128, 64), b_seed=114, block_size=16,
+                              panel_method="cholqr2", loop_mode="scan"),
+    "scan_complete": _dist2d(15, (128, 64), block_size=16,
+                             mode="complete", loop_mode="scan"),
+    "bgs_reduced": _dist2d(40, (128, 64), True, block_size=16,
+                           panel_method="bgs", mode="reduced"),
+    "bgs2_reduced": _dist2d(40, (128, 64), True, block_size=16,
+                            panel_method="bgs2", mode="reduced"),
+    "bgs1_reduced": _dist2d(40, (128, 64), True, block_size=16,
+                            panel_method="bgs1", mode="reduced"),
+    "bgs_mixed_b": _dist2d(41, (128, 64), True, b_seed=141, block_size=16,
+                           policy="mixed", panel_method="bgs",
+                           mode="reduced"),
+}
+
+
+def dist2d_meshes(world):
+    """The (rows, cols) mesh shapes the 2-D cases run on at ``world``."""
+    return {1: [(1, 1)], 2: [(1, 2), (2, 1)], 4: [(2, 2)]}[world]
+
+
+def dist2d_cases(world):
+    """Every 2-D case on every mesh of ``world``, named
+    ``2d_<case>_<dr>x<dc>``."""
+    out = {}
+    for dr, dc in dist2d_meshes(world):
+        for name, case in DIST2D_CASES.items():
+            out[f"2d_{name}_{dr}x{dc}"] = dict(
+                case, mesh=((dr, dc), ("rows", "cols")))
+    return out
+
+
 #: The other SPMD entry points.  ``mesh`` is the mesh's (shape, names)
 #: as a function of the world size d.
 OTHER_CASES = {
@@ -95,6 +143,18 @@ OTHER_CASES = {
 TSQR_2D_CASE = {"kind": "tsqr2d", "a": (8, (4, 256, 16), False), "kw": {}}
 
 
+def all_cases(world):
+    """Every case the ranks of a ``world``-rank group run (world 1: the 2-D
+    cases on the (1, 1) mesh only)."""
+    if world == 1:
+        return dist2d_cases(1)
+    out = dict(DIST_CASES, **OTHER_CASES)
+    if world == 4:
+        out["tsqr_2d"] = TSQR_2D_CASE
+    out.update(dist2d_cases(world))
+    return out
+
+
 def outputs_of(case):
     """``(names, splits)`` of a case's outputs, in the order its call
     returns them."""
@@ -106,12 +166,25 @@ def outputs_of(case):
     if kind == "tsqr2d":
         return ("Q", "R"), (BATCH_ROWS, BATCH)
     kw = case["kw"]
+    with_b = case.get("b_seed") is not None
+    if kind == "dist2d":
+        mode = kw.get("mode", "r")
+        if kw.get("panel_method", "householder").startswith("bgs"):
+            names, splits = ("R",), (REP,)
+            if mode != "r":
+                names, splits = ("Q",) + names, (BLOCK2D,) + splits
+        elif mode == "complete":
+            names, splits = ("Qt", "R"), (BLOCK2D, REP)
+        else:
+            names, splits = ("R",), (REP,)
+        if with_b:
+            names, splits = names + ("QtB",), splits + (REP,)
+        return names, splits
     mode = kw.get("mode", "reduced")
     method = kw.get("panel_method", "householder")
     if kw.get("quality") is not None:
         method = {"fast": "bgs1", "balanced": "bgs2",
                   "high": "bgs"}.get(kw["quality"], "householder")
-    with_b = case.get("b_seed") is not None
     if mode == "r":
         return (("R", "QtB"), (REP, REP)) if with_b else (("R",), (REP,))
     q_split = ROWS if method.startswith("bgs") else COLS
@@ -133,6 +206,8 @@ def inputs_of(case):
 
 
 def mesh_spec(case, d):
+    if "mesh" in case:
+        return case["mesh"]
     if case["kind"] == "batched":
         return (d,), ("batch",)
     if case["kind"] == "tsqr2d":
@@ -149,6 +224,7 @@ def run_port(case, mesh):
         tsqr_batched_sharded_2d,
         tsqr_sharded,
     )
+    from mixedprecisionblockqr_tpu_torch.parallel import dist_block_qr_2d
 
     a, b = inputs_of(case)
     kw = dict(case["kw"])
@@ -161,11 +237,24 @@ def run_port(case, mesh):
         return tsqr_batched_sharded_2d(torch.from_numpy(a), mesh, **kw)
     if "policy" in kw:
         kw["policy"] = policy_by_name(kw["policy"])
+    if kind == "dist2d":
+        return dist_block_qr_2d(torch.from_numpy(a), mesh, b=b, **kw)
     return dist_block_qr(torch.from_numpy(a), mesh, b=b, **kw)
 
 
+def record(name, case, out, mesh):
+    """One rank's saved outputs of a case (its slabs as numpy) and its
+    mesh coordinates: ``(results, coords)`` entries for ``name``."""
+    out = out if isinstance(out, tuple) else (out,)
+    keys, _ = outputs_of(case)
+    assert len(out) == len(keys), (name, len(out), keys)
+    return ({k: v.detach().float().numpy().copy() for k, v in zip(keys, out)},
+            {ax: mesh.get_local_rank(ax) for ax in mesh.mesh_dim_names})
+
+
 #: Calls that must raise: ``(name, exception class, message fragment)``;
-#: ``guard_calls()[name](mesh, d)`` makes the call on every rank.
+#: ``guard_calls()[name](mesh, d)`` makes the call on every rank, on the
+#: mesh ``guard_mesh(name, d)`` describes.
 GUARD_SPECS = (
     ("block_size", "ValueError", "block_size"),
     ("bgs_width", "ValueError", "block_size"),
@@ -175,11 +264,46 @@ GUARD_SPECS = (
     ("tsqr_rows_divide", "ValueError", "divide"),
     ("tsqr_short_leaf", "ValueError", "leaf height"),
     ("tsqr_local_leaves", "ValueError", "power of two"),
+    ("2d_mesh_divide", "ValueError", "must divide over mesh"),
+    ("2d_row_straddle", "ValueError", "straddle row shards"),
+    ("2d_complete_cols", "ValueError", "must divide over cols"),
+    ("2d_aspect", "ValueError", "aspect"),
+    ("2d_bgs_tall", "ValueError", "m >= n"),
+    ("2d_bgs_block_n", "ValueError", "block_size | n"),
+    ("2d_bgs_straddle", "ValueError", "straddle column shards"),
+    ("2d_bgs_complete", "ValueError", "complete"),
 )
+
+#: The 2-D guards' calls: ``(seed, shape, keyword arguments)``, each on the
+#: (1, d) mesh of ``guard_mesh``.
+GUARDS_2D = {
+    "2d_mesh_divide": (4, (128, 65), {"block_size": 16}),
+    "2d_row_straddle": (4, (100, 64), {"block_size": 64}),
+    "2d_complete_cols": (4, (75, 52), {"block_size": 25,
+                                       "mode": "complete"}),
+    "2d_aspect": (8, (64, 64), {"block_size": 64,
+                                "panel_method": "cholqr2"}),
+    "2d_bgs_tall": (4, (64, 128), {"block_size": 16, "panel_method": "bgs"}),
+    "2d_bgs_block_n": (4, (128, 120), {"block_size": 16,
+                                       "panel_method": "bgs"}),
+    "2d_bgs_straddle": (42, (256, 128), {"block_size": 128,
+                                         "panel_method": "bgs"}),
+    "2d_bgs_complete": (42, (256, 128), {"block_size": 32,
+                                         "panel_method": "bgs",
+                                         "mode": "complete"}),
+}
+
+
+def guard_mesh(name, d):
+    """``(shape, names)`` of the mesh guard ``name`` runs on."""
+    if name in GUARDS_2D:
+        return (1, d), ("rows", "cols")
+    return (d,), ("rows",)
 
 
 def guard_calls():
     from mixedprecisionblockqr_tpu_torch import dist_block_qr, tsqr_sharded
+    from mixedprecisionblockqr_tpu_torch.parallel import dist_block_qr_2d
 
     def dist(shape, seed=4, **kw):
         return lambda mesh, d: dist_block_qr(
@@ -205,6 +329,10 @@ def guard_calls():
         # 2d leaves of 16 rows for 64 columns.
         "tsqr_short_leaf": tsqr(lambda d: (32 * d, 64), local_leaves=2),
         "tsqr_local_leaves": tsqr(lambda d: (256, 16), local_leaves=3),
+        **{name: (lambda mesh, d, seed=seed, shape=shape, kw=kw:
+                  dist_block_qr_2d(torch.from_numpy(uniform(seed, shape)),
+                                   mesh, **kw))
+           for name, (seed, shape, kw) in GUARDS_2D.items()},
     }
 
 
@@ -217,7 +345,7 @@ def nan_input():
 NAN_KW = {"block_size": 16, "mode": "reduced", "panel_method": "bgs1"}
 
 
-def worker(rank, world, store_path, out_dir, with_2d):
+def worker(rank, world, store_path, out_dir):
     """One spawned rank: every case on a gloo group of ``world`` ranks,
     the outputs (this rank's slabs), each case's mesh coordinates and
     the guards' exceptions saved to ``out_dir/rank<rank>.pt``."""
@@ -235,29 +363,24 @@ def worker(rank, world, store_path, out_dir, with_2d):
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=300))
     try:
-        cases = dict(DIST_CASES, **OTHER_CASES)
-        if with_2d:
-            cases["tsqr_2d"] = TSQR_2D_CASE
         meshes = {}
-        results, coords = {}, {}
-        for name, case in cases.items():
-            shape, names = mesh_spec(case, world)
+
+        def mesh_for(shape, names):
             if (shape, names) not in meshes:
                 meshes[shape, names] = make_mesh(shape, names,
                                                  device_type="cpu")
-            mesh = meshes[shape, names]
-            out = run_port(case, mesh)
-            out = out if isinstance(out, tuple) else (out,)
-            keys, _ = outputs_of(case)
-            assert len(out) == len(keys), (name, len(out), keys)
-            results[name] = {k: v.detach().float().numpy().copy()
-                             for k, v in zip(keys, out)}
-            coords[name] = {ax: mesh.get_local_rank(ax) for ax in names}
-        rows_mesh = meshes[(world,), ("rows",)]
+            return meshes[shape, names]
+
+        results, coords = {}, {}
+        for name, case in all_cases(world).items():
+            mesh = mesh_for(*mesh_spec(case, world))
+            results[name], coords[name] = record(name, case,
+                                                 run_port(case, mesh), mesh)
+        rows_mesh = mesh_for((world,), ("rows",))
         guards = {}
         for gname, call in guard_calls().items():
             try:
-                call(rows_mesh, world)
+                call(mesh_for(*guard_mesh(gname, world)), world)
                 guards[gname] = None
             except (ValueError, RuntimeError) as e:
                 guards[gname] = (type(e).__name__, str(e))
@@ -273,13 +396,13 @@ def worker(rank, world, store_path, out_dir, with_2d):
         dist.destroy_process_group()
 
 
-def run_world(world, tmp_dir, with_2d=False):
+def run_world(world, tmp_dir):
     """Spawn ``world`` ranks over gloo (a FileStore under ``tmp_dir``) and
     return each rank's saved dict, in rank order."""
     import torch.multiprocessing as mp
 
     store = os.path.join(tmp_dir, "store")
-    mp.spawn(worker, args=(world, store, tmp_dir, with_2d), nprocs=world,
+    mp.spawn(worker, args=(world, store, tmp_dir), nprocs=world,
              join=True)
     return [torch.load(os.path.join(tmp_dir, f"rank{r}.pt"),
                        weights_only=False) for r in range(world)]

@@ -10,8 +10,8 @@ Tolerances:
   * POLICY_MIXED cases: every criterion of ``metrics.evaluate`` (8 bits)
     true, and the backward and orthogonality errors within 2x of the
     reference's on the same call;
-  * ``mode='r'`` with ``b``: x from ``back_substitution`` within 5e-3 of
-    the x that made b (the reference tests' bound).
+  * with ``b``: x from ``back_substitution`` of R and Q^T b within 5e-3
+    of the x that made b (the reference tests' bound).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from mixedprecisionblockqr_tpu.parallel.batched import (
     tsqr_batched_sharded_2d,
 )
 from mixedprecisionblockqr_tpu.parallel.dist_qr import dist_block_qr
+from mixedprecisionblockqr_tpu.parallel.dist_qr2d import dist_block_qr_2d
 from mixedprecisionblockqr_tpu.parallel.mesh import make_mesh
 from mixedprecisionblockqr_tpu.parallel.tsqr import tsqr_sharded
 from mixedprecisionblockqr_tpu.utils.checks import NonFiniteError
@@ -41,10 +42,7 @@ SOLVE_ATOL = 5e-3
 
 
 def cases(d):
-    out = dict(C.DIST_CASES, **C.OTHER_CASES)
-    if d == 4:
-        out["tsqr_2d"] = C.TSQR_2D_CASE
-    return out
+    return C.all_cases(d)
 
 
 def _mesh(case, d):
@@ -62,6 +60,8 @@ def reference(case, d):
     kind = case["kind"]
     if kind == "dist":
         out = dist_block_qr(a, mesh, b=b, **kw)
+    elif kind == "dist2d":
+        out = dist_block_qr_2d(a, mesh, b=b, **kw)
     elif kind == "tsqr":
         out = tsqr_sharded(a, mesh, **kw)
     elif kind == "batched":
@@ -112,8 +112,12 @@ def check_parity(per_rank, name, d):
 
 def _reference_guard(name, d):
     """The reference's call of guard ``name`` (``C.guard_calls``)."""
-    mesh = make_mesh(devices=jax.devices()[:d])
+    shape, names = C.guard_mesh(name, d)
+    mesh = make_mesh(shape, names, devices=jax.devices()[:d])
     u = C.uniform
+    if name in C.GUARDS_2D:
+        seed, a_shape, kw = C.GUARDS_2D[name]
+        return lambda: dist_block_qr_2d(u(seed, a_shape), mesh, **kw)
     calls = {
         "block_size": lambda: dist_block_qr(u(4, (128, 64)), mesh,
                                             block_size=24, mode="r"),
