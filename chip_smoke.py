@@ -186,6 +186,21 @@ last line):
                  mixedprecisionblockqr_tpu_torch qr --n 1024`; every call
                  exits 0, every printed JSON line parses, K1, K2 and K6
                  are launched.
+ 24. k6_widths -- K6 above 128 columns, through its wide route (sub-panels
+                 of 128 by K6, joined by true-fp32 products; csrc/
+                 panel_factor.cu): (k) 2048 x 256, 2000 x 200, 4096 x 512,
+                 8192 x 256 (in-place sub-panels), 4096 x 2048, 1024 x 256
+                 and 256 x 256 against the plain
+                 version at phase 3's tolerance, bitwise repeatable, beside
+                 torch.geqrf and the bound, with each sub-panel's layout;
+                 (a) block_qr(A, 256, POLICY_FP32, 'householder_pallas')
+                 and (b) 'householder' on phase 4's input: 16 K6 each, R
+                 within 1e-4 relative of phase 8's POLICY_FP64 R; (c)
+                 'cholqr1' at 256: all_ok, its last panel wide; (d)
+                 lstsq(J, b, method='tsqr') on phase 17's system (one
+                 4096 x 2048 leaf) against float64, beside phase 17's
+                 times; (e) tsqr on 65536 x 256: 127 wide calls, metric
+                 triple within 2^-23 m.
 Then a line with every kernel's launches on its main path (phases 4-6 for
 ns_chain and bgs_group_fused, phase 7 for panel_qr_fused,
 sketch_qrcp_ranks and panel_factor_fused, phase 9 for ninv_chain,
@@ -193,7 +208,8 @@ phase 13 for bgs_group_fused_proj, phase 15 for
 tiled_matmul and chol_rinv, phase 19 for the Givens chains: each streaming
 call once at n = 2048; phase 20's cases (a)-(d) add their launches of
 ns_chain, ninv_chain and panel_factor_fused, phase 21's of the kernels its
-calls run, phases 22 and 23 theirs; the widths each kernel was held at; the counts are set to 0 just
+calls run, phases 22, 23 and 24 theirs, K6's with its wide route's calls
+and products; the widths each kernel was held at; the counts are set to 0 just
 before each path and read just after; phases 16-18 assert their own
 counts the same way),
 error, times and bound, and as the last line
@@ -927,6 +943,147 @@ def _cli_calls(tmp, counted, ms_headline, cli, euroc_native, build):
                        "wall_s": time.perf_counter() - t0,
                        "stdout_tail": run.stdout.splitlines()[-4:]}
     return row
+
+
+def phase_k6_widths(A, R64, Jn17, bn17, row17, dev):
+    """Phase 24: K6 above 128 columns.  (k) the wide route alone on seven
+    panels against the plain version; then the calls that reach it, each
+    with the counts set to 0 just before it and read just after: (a)
+    'householder_pallas' and (b) 'householder' at block 256 on phase 4's
+    input ``A`` (R against phase 8's POLICY_FP64 ``R64``), (c) 'cholqr1'
+    at block 256 (its square last panel), (d) lstsq(J, b, method='tsqr') on
+    phase 17's full-rank system (one 4096 x 2048 leaf), (e) tsqr on
+    65536 x 256 (64 leaves and 63 tree nodes, all 256 wide).  Returns
+    ``(row, launches, wide)``: the phase's line, the kernel launches of
+    (a)-(e) and their wide-route counts."""
+    from mixedprecisionblockqr_tpu_torch import (
+        POLICY_FP32,
+        POLICY_MIXED,
+        block_qr,
+        lstsq,
+        metrics,
+        tsqr,
+    )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import WIDE_LAUNCHES
+    from mixedprecisionblockqr_tpu_torch.parallel import tsqr as tsqr_mod
+    from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
+    from mixedprecisionblockqr_tpu_torch.utils.panel_probe import k6_row
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    counted_all, launches = _counter()
+    wide = {"calls": 0, "products": 0}
+
+    def counted(fn):
+        """``(out, K6 launches, wide-route counts)`` of one call of fn."""
+        out, c = counted_all(fn)
+        w = dict(WIDE_LAUNCHES)
+        for k in wide:
+            wide[k] += w[k]
+        return out, c.get("panel_factor_fused", 0), w
+
+    # (k) the wide route on its own: two sub-panels in shared memory
+    # (2048 x 256, and 2000 x 200 with a 72-wide last one), four (4096 x
+    # 512), sub-panels taller than 16 CTAs hold (8192 x 256, in place),
+    # (d)'s one leaf (4096 x 2048: 16 sub-panels, T merges up to 1920
+    # columns), (e)'s leaves (1024 x 256) and (c)'s square last panel
+    # (256 x 256, whose last sub-panel is 128 x 128)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    krows = {}
+    for m, w in ((2048, 256), (2000, 200), (4096, 512), (8192, 256),
+                 (4096, 2048), (1024, 256), (256, 256)):
+        P = torch.rand((m, w), generator=gen, device=dev) - 0.5
+        krows[f"{m}x{w}"] = row = k6_row(P)
+        assert row["ok"] and row["route"] == "wide", (m, w, row)
+    assert all(s.endswith("in_place")
+               for s in krows["8192x256"]["sub_panels"]), krows["8192x256"]
+    out = {"k": krows}
+
+    # (a), (b): the reflector tiers at block 256, every panel through the
+    # wide route (two K6 sub-panels each)
+    for key, pm in (("a", "householder_pallas"), ("b", "householder")):
+        def call(pm=pm):
+            return block_qr(A, 256, POLICY_FP32, panel_method=pm)
+
+        (Q, R), c, w = counted(call)
+        rep = metrics.evaluate(A, Q, R, POLICY_FP32.precision_bits)
+        rel = float(torch.linalg.norm(R.double() - R64)
+                    / torch.linalg.norm(R64))
+        assert c == 16 and w["calls"] == 8, (pm, c, w)
+        assert rel <= 1e-4, (pm, rel)
+        assert rep.all_ok and rep.tight_ok, (pm, str(rep))
+        ms = cuda_time_ms(call, warmup=1, iters=5)
+        out[key] = {"call": f"block_qr(A, 256, POLICY_FP32, panel_method="
+                            f"'{pm}') 2048^2 (phase 4's input)",
+                    "k6_launches": c, "wide": w, "rel_R_vs_fp64_loop": rel,
+                    "backward": rep.backward,
+                    "orthogonality": rep.orthogonality,
+                    "all_ok": rep.all_ok, "tight_ok": rep.tight_ok,
+                    "ms": ms,
+                    "tflops": qr_flops(2048, 2048) / (ms * 1e-3) / 1e12}
+        del Q, R
+
+    # (c) cholqr1 at block 256: its square last panel (256 x 256) takes the
+    # Householder panel under the hybrid rule, K6's wide route
+    def chol_call():
+        return block_qr(A, 256, POLICY_MIXED, mode="complete",
+                        panel_method="cholqr1")
+
+    (Q, R), c, w = counted(chol_call)
+    rep = metrics.evaluate(A, Q, R, POLICY_MIXED.precision_bits)
+    assert c == 2 and w["calls"] == 1, (c, w)
+    assert rep.all_ok, str(rep)
+    out["c"] = {"call": "block_qr(A, 256, POLICY_MIXED, mode='complete', "
+                        "panel_method='cholqr1') 2048^2",
+                "k6_launches": c, "wide": w, "backward": rep.backward,
+                "orthogonality": rep.orthogonality, "all_ok": rep.all_ok,
+                "ms": cuda_time_ms(chol_call, warmup=1, iters=5)}
+    del Q, R
+
+    # (d) lstsq(J, b, method='tsqr') on phase 17's full-rank system: one
+    # leaf (4096 x 2048), factored by the wide route's 16 sub-panels
+    J, b = torch.from_numpy(Jn17).to(dev), torch.from_numpy(bn17).to(dev)
+    assert tsqr_mod._pick_leaves(4096, 2048, None) == 1
+    x, c, w = counted(lambda: lstsq(J, b, method="tsqr"))
+    err = solve_errors(Jn17, bn17, x)
+    assert c == 16 and w["calls"] == 1, (c, w)
+    assert err["resid_rel"] <= 1e-5 and err["x_rel_err"] <= 1e-4, err
+    out["d"] = {"call": "lstsq(J, b, method='tsqr'), J = slam_jacobian("
+                        "4096, 2048, seed=0) (phase 17's)",
+                "k6_launches": c, "wide": w, **err,
+                "ms": cuda_time_ms(lambda: lstsq(J, b, method="tsqr"),
+                                   warmup=1, iters=3),
+                "phase17_refine_ms": row17["ms"],
+                "phase17_blocked_ms": row17["blocked_ms"]}
+    del J, b
+
+    # (e) tsqr on 65536 x 256: 64 leaves of 1024 x 256 and 63 tree nodes
+    # of 512 x 256, each one wide call
+    a = np.random.default_rng(0).random((65536, 256), dtype=np.float32) - 0.5
+    At = torch.from_numpy(a).to(dev)
+    leaves = tsqr_mod._pick_leaves(65536, 256, None)
+    assert leaves == 64, leaves
+    (Q, R), c, w = counted(lambda: tsqr(At))
+    rep = metrics.evaluate(At, Q, R, POLICY_FP32.precision_bits)
+    assert w["calls"] == 2 * leaves - 1 and c == 2 * w["calls"], (c, w)
+    assert rep.all_ok, str(rep)
+    out["e"] = {"call": "tsqr(A) 65536 x 256 fp32 (seed 0 uniform - 0.5)",
+                "leaves": leaves, "k6_launches": c, "wide": w,
+                "backward": rep.backward, "orthogonality": rep.orthogonality,
+                "lower_trapezoid": rep.lower_trapezoid,
+                "all_ok": rep.all_ok, "tight_ok": rep.tight_ok,
+                "ms": cuda_time_ms(lambda: tsqr(At), warmup=1, iters=5),
+                "library_qr_ms": cuda_time_ms(lambda: torch.linalg.qr(At),
+                                              warmup=1, iters=5)}
+    del Q, R, At
+    out["tolerance"] = (
+        "(k) V, T and R's upper triangle within 1e-4 * max|plain| of "
+        "panel_factor_fused_plain, two calls bitwise equal (phase 3's); "
+        "(a), (b) 16 K6 launches, R within 1e-4 relative (Frobenius) of "
+        "phase 8's POLICY_FP64 loop, all_ok and tight_ok; (c) 2 K6, all_ok; "
+        "(d) residual 1e-5 and x 1e-4 relative of float64 np.linalg.lstsq; "
+        "(e) 127 wide calls, metric triple within 2^-23 m; times: CUDA "
+        "events, median of 5 ((d) 3)")
+    return out, launches, wide
 
 
 def main() -> int:
@@ -1878,6 +2035,7 @@ def main() -> int:
     rel8 = float(torch.linalg.norm(R8.double() - R64)
                  / torch.linalg.norm(R64))
     assert rel8 <= 1e-4, rel8
+    R64_8 = R64  # phase 24 holds its block-256 R against it
     ms8 = cuda_time_ms(
         lambda: block_qr(A, 128, POLICY_FP32, panel_method="householder"),
         warmup=1, iters=5)
@@ -2584,13 +2742,22 @@ def main() -> int:
     row23, c23 = phase_cli(ms4)
     emit({"phase": "cli", **row23, "card": card})
 
+    # 24. k6_widths: K6 above 128 columns, alone and on the calls that
+    # reach its wide route
+    t24 = time.perf_counter()
+    row24, c24, wide24 = phase_k6_widths(A, R64_8, Jn17, bn17, row17, dev)
+    emit({"phase": "k6_widths", **row24, "launches": c24,
+          "wide_launches": wide24,
+          "seconds": time.perf_counter() - t24, "card": card})
+
     emit({"kernels": [
         {"name": "ns_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ns_chain.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:335",
          "launches": main_launches["ns_chain"] + c20["ns_chain"]
          + c21.get("ns_chain", 0) + c22["ns_chain"]
-         + c23.get("ns_chain", 0),
+         + c23.get("ns_chain", 0)
+         + c24.get("ns_chain", 0),
          "max_abs_err": max(ns_err, *(row["max_abs_err"] for row in
                                       wrows["ns_chain"].values())),
          "widths": [32, 64, 128, *wrows["ns_chain"]],
@@ -2602,7 +2769,8 @@ def main() -> int:
          "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:900",
          "launches": main_launches["bgs_group_fused"]
-         + c21.get("bgs_group_fused", 0) + c23.get("bgs_group_fused", 0),
+         + c21.get("bgs_group_fused", 0) + c23.get("bgs_group_fused", 0)
+         + c24.get("bgs_group_fused", 0),
          "max_abs_err": max(grp_err, *(row["max_abs_err"] for row in
                                        wrows["bgs_group_fused"].values())),
          "widths": [128, *wrows["bgs_group_fused"]],
@@ -2614,7 +2782,8 @@ def main() -> int:
          "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_qr.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:501",
          "launches": c7["panel_qr_fused"] + c21.get("panel_qr_fused", 0)
-         + c23.get("panel_qr_fused", 0),
+         + c23.get("panel_qr_fused", 0)
+         + c24.get("panel_qr_fused", 0),
          "max_abs_err": max(k3_err, *(row["max_abs_err"] for row in
                                       wrows["panel_qr_fused"].values())),
          "widths": [128, *wrows["panel_qr_fused"]],
@@ -2628,7 +2797,8 @@ def main() -> int:
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:384",
          "launches": c9["ninv_chain"] + c20["ninv_chain"]
          + c21.get("ninv_chain", 0) + c22["ninv_chain"]
-         + c23.get("ninv_chain", 0),
+         + c23.get("ninv_chain", 0)
+         + c24.get("ninv_chain", 0),
          "max_abs_err": max(k4_err, *(row["max_abs_err"] for row in
                                       wrows["ninv_chain"].values())),
          "widths": [128, *wrows["ninv_chain"]],
@@ -2640,7 +2810,8 @@ def main() -> int:
          "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:1023",
          "launches": c13["bgs_group_fused_proj"]
-         + c23.get("bgs_group_fused_proj", 0),
+         + c23.get("bgs_group_fused_proj", 0)
+         + c24.get("bgs_group_fused_proj", 0),
          "max_abs_err": max(k5_err, *(
              row["max_abs_err"]
              for row in wrows["bgs_group_fused_proj"].values())),
@@ -2654,18 +2825,26 @@ def main() -> int:
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/panel.py:115",
          "launches": c7["panel_factor_fused"] + c20["panel_factor_fused"]
          + c21.get("panel_factor_fused", 0) + c22["panel_factor_fused"]
-         + c23.get("panel_factor_fused", 0),
-         "max_abs_err": k6_err, "widths": [128, 80, 64],
+         + c23.get("panel_factor_fused", 0)
+         + c24.get("panel_factor_fused", 0),
+         "max_abs_err": max(k6_err, *(row[f"max_abs_{x}"] for row in
+                                      row24["k"].values() for x in "VTR")),
+         "widths": [128, 80, 64, 200, 256, 512, 2048],
          "ms": k6_rows["4096x128"]["ms"],
          "plain_ms": k6_rows["4096x128"]["plain_ms"],
          **panel_factor_bound(4096, 128, k6_rows["4096x128"]["cluster"]),
-         "library_ms": k6_rows["4096x128"]["library_ms"]},
+         "library_ms": k6_rows["4096x128"]["library_ms"],
+         "wide_route": {"launches": wide24, **{
+             name: {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}
+             for name, row in row24["k"].items()}}},
         {"name": "sketch_qrcp_ranks", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/sketch_qrcp.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/sketch.py:88",
          "launches": c7["sketch_qrcp_ranks"]
          + c21.get("sketch_qrcp_ranks", 0)
-         + c23.get("sketch_qrcp_ranks", 0),
+         + c23.get("sketch_qrcp_ranks", 0)
+         + c24.get("sketch_qrcp_ranks", 0),
          "max_abs_err": k7_err, "widths": [128, 64],
          "ms": k7_rows["w2048"]["ms"],
          "plain_ms": k7_rows["w2048"]["plain_ms"],
@@ -2674,7 +2853,8 @@ def main() -> int:
         {"name": "tiled_matmul", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/tiled_matmul.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/gemm.py:103",
-         "launches": c15["tiled_matmul"] + c23.get("tiled_matmul", 0),
+         "launches": c15["tiled_matmul"] + c23.get("tiled_matmul", 0)
+         + c24.get("tiled_matmul", 0),
          "max_abs_err": k8_err,
          "ms": k8_rows["2048x2048x2048_bf16_f32"]["ms"],
          "plain_ms": k8_rows["2048x2048x2048_bf16_f32"]["plain_ms"],
@@ -2683,7 +2863,8 @@ def main() -> int:
         {"name": "chol_rinv", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/chol_rinv.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/chol.py:119",
-         "launches": c15["chol_rinv"] + c23.get("chol_rinv", 0),
+         "launches": c15["chol_rinv"] + c23.get("chol_rinv", 0)
+         + c24.get("chol_rinv", 0),
          "max_abs_err": k9_err,
          "widths": [32, 96, 128, 256, 320, 512, 1024],
          "ms": k9_rows["r256"]["ms"],

@@ -47,17 +47,43 @@
 // 2048 x 128 on 16 CTAs a column takes about 5 us, more than half of it in
 // the two cluster barriers.  utils/panel_probe.py --phases reads the
 // phases' times from the kernel's own clock.
+//
+// Wider panels (w > 128; the TPU kernel holds any width in VMEM) take the
+// wide route, mpbqr_panel_factor_wide: one C entry that issues the blocked
+// schedule on the caller's stream.  For each sub-panel [c, e) of `sub`
+// (128) columns, the last one narrower when w is not a multiple:
+//   a. the sub-panel R[c:, c:e] (R is the working copy of P, row stride w)
+//      is staged into a contiguous scratch and factored by one K6 launch
+//      above (its own panel_layout), and V, R and T's diagonal block are
+//      copied back: Vk ((m - c) x b), Tk (b x b);
+//   b. the trailing columns take the sub-panel's block reflector,
+//      C = R[c:, e:] -= Vk (Tk^T (Vk^T C));
+//   c. T's block column is merged, T[:c, c:e] = -T[:c, :c] (V[c:, :c]^T
+//      Vk) Tk, into the zeroed T (gemm_nt's C -= A B on zeros).
+// The products are panel.cuh's gemm_tn (split-K over a cluster, fixed
+// order) and gemm_nt, both true fp32 FMA: the rank-1 updates of the TPU
+// kernel's body, blocked.  No library product and no TF32.  The layouts
+// (K6's per sub-panel, the products' splits and tiles) come from ops/
+// kernels/panel.py::wide_layout.  The copies are cudaMemcpy2DAsync: the
+// staging costs three copies of an (m - c) x b block a sub-panel, which
+// utils/panel_probe.py times beside the whole route.  The semantics stay
+// K6's: beta = 0 columns leave zero rows and columns in T (Tk's are zero,
+// so the merged block column is too), R is exact zeros below its diagonal
+// (each sub-panel's K6 writes them), and a NaN reaches R through the
+// updates and the later sub-panels.  What bounds it: the sub-panels' column
+// loops (w / 128 K6 launches, each latency-bound as above); the products
+// add 2 m w^2 operations at most, spread over the card.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace cg = cooperative_groups;
+#include "panel.cuh"
 
 namespace mpbqr {
 
 constexpr int kPfThreads = 512;
 constexpr int kPfWarps = kPfThreads / 32;
-constexpr int kPfCols = 128;                      // widest panel taken
+constexpr int kPfCols = 128;                      // widest one-launch panel
 constexpr int kPfGroups = kPfThreads / kPfCols;   // row groups per column
 constexpr int kPfMaxCluster = 16;                 // non-portable cluster
 constexpr long long kPfSmemLimit = 232448;        // bytes a block may use
@@ -98,12 +124,14 @@ template <bool kInSmem>
 __global__ void __launch_bounds__(kPfThreads, 1)
 panel_factor_kernel(const float* __restrict__ P, float* V, float* Tout,
                     float* G, float* R, int m, int w, int rows) {
-  extern __shared__ __align__(16) float smem[];
+  // Named apart from ns_chain.cuh's `smem` (a char array), which panel.cuh
+  // brings into this file: dynamic shared arrays share one symbol.
+  extern __shared__ __align__(16) float pf_smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int csize = (int)cluster.num_blocks();
 
-  float* rdots = smem;                              // [16][128] pushed dots
+  float* rdots = pf_smem;                           // [16][128] pushed dots
   float* rnorm = rdots + kPfMaxCluster * kPfCols;   // [16][4] (tail^2, alpha)
   float* grp = rnorm + 2 * kPfMaxCluster * kPfGroups;  // [4][128] group dots
   float* betas = grp + kPfGroups * kPfCols;         // beta of each column
@@ -363,7 +391,52 @@ static cudaError_t pf_config(cudaLaunchConfig_t* cfg,
   return cudaSuccess;
 }
 
+// One K6 launch of a checked layout on `stream`; the error of the check
+// (cudaErrorInvalidValue), the configuration or the launch.
+static cudaError_t pf_launch(const float* P, float* V, float* T, float* G,
+                             float* R, int m, int w, int cluster, int rows,
+                             int in_smem, int smem_bytes, void* stream) {
+  if (!pf_layout_ok(m, w, cluster, rows, in_smem, smem_bytes))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err =
+      in_smem ? pf_config<true>(&cfg, attr, cluster, smem_bytes, stream)
+              : pf_config<false>(&cfg, attr, cluster, smem_bytes, stream);
+  if (err != cudaSuccess) return err;
+  err = in_smem ? cudaLaunchKernelEx(&cfg, panel_factor_kernel<true>, P, V, T,
+                                     G, R, m, w, rows)
+                : cudaLaunchKernelEx(&cfg, panel_factor_kernel<false>, P, V,
+                                     T, G, R, m, w, rows);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Integers of one sub-panel in the wide route's plan (ops/kernels/panel.py::
+// WideStep.args): K6's layout (cluster, rows, in_smem, smem_bytes); the
+// trailing update's Y = Vk^T C and Z = Tk^T Y (split, chunk each) and
+// C -= Vk Z (bm, bn); the T merge's X = V^T Vk (split, chunk), Y2 = T X and
+// T[:c, c:e] -= Y2 Tk (bm, bn each).
+constexpr int kPfWideStep = 16;
+
+static inline long long pf_pad4(long long n) { return (n + 3) & ~3LL; }
+
+// Floats of the wide route's scratch: the staged sub-panel, its V and R
+// (m x sub each),
+// its T and K6's G (sub x sub each), Y and Z (sub x w each), X and Y2
+// (w x sub each), every piece padded to 4 floats.
+static inline long long pf_wide_scratch_floats(int m, int w, int sub) {
+  return 3 * pf_pad4((long long)m * sub) + 2 * pf_pad4((long long)sub * sub) +
+         4 * pf_pad4((long long)sub * w);
+}
+
 }  // namespace mpbqr
+
+#define MPBQR_PF_TRY(x)                     \
+  do {                                      \
+    const cudaError_t e_ = (x);             \
+    if (e_ != cudaSuccess) return (int)e_;  \
+  } while (0)
 
 extern "C" {
 
@@ -408,20 +481,81 @@ int mpbqr_panel_factor_max_cluster(int smem_bytes, int* out) {
 int mpbqr_panel_factor(const float* P, float* V, float* T, float* G,
                        float* R, int m, int w, int cluster, int rows,
                        int in_smem, int smem_bytes, void* stream) {
+  return (int)mpbqr::pf_launch(P, V, T, G, R, m, w, cluster, rows, in_smem,
+                               smem_bytes, stream);
+}
+
+// Floats of scratch mpbqr_panel_factor_wide takes for an m x w panel in
+// sub-panels of `sub` columns.
+long long mpbqr_panel_factor_wide_scratch_floats(int m, int w, int sub) {
+  return mpbqr::pf_wide_scratch_floats(m, w, sub);
+}
+
+// The wide route (see the top of this file): P (m x w, fp32, row-major,
+// read only) -> V (m x w), T (w x w) and R (m x w, upper triangle), as
+// mpbqr_panel_factor gives them, for any 1 <= w <= m.  `scratch` holds
+// mpbqr_panel_factor_wide_scratch_floats(m, w, sub) floats; `plan` (host
+// memory) holds kPfWideStep integers for each of the nsteps = ceil(w / sub)
+// sub-panels (ops/kernels/panel.py::wide_layout).  The package passes
+// sub = WIDE_SUB (128); only utils/panel_probe.py passes another width, to
+// time it.  Everything is issued on
+// `stream`.  Returns cudaErrorInvalidValue for a shape or a plan the
+// kernels do not run, else the first error of a copy or launch.
+int mpbqr_panel_factor_wide(const float* P, float* V, float* T, float* R,
+                            float* scratch, int m, int w, int sub,
+                            const int* plan, int nsteps, void* stream) {
   using namespace mpbqr;
-  if (!pf_layout_ok(m, w, cluster, rows, in_smem, smem_bytes))
+  if (w < 1 || m < w || sub < 1 || sub > kPfCols ||
+      nsteps != (w + sub - 1) / sub)
     return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  cudaError_t err =
-      in_smem ? pf_config<true>(&cfg, attr, cluster, smem_bytes, stream)
-              : pf_config<false>(&cfg, attr, cluster, smem_bytes, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = in_smem ? cudaLaunchKernelEx(&cfg, panel_factor_kernel<true>, P, V, T,
-                                     G, R, m, w, rows)
-                : cudaLaunchKernelEx(&cfg, panel_factor_kernel<false>, P, V,
-                                     T, G, R, m, w, rows);
-  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t f = sizeof(float);
+  float* Ps = scratch;
+  float* Vk = Ps + pf_pad4((long long)m * sub);
+  float* Rk = Vk + pf_pad4((long long)m * sub);
+  float* Tk = Rk + pf_pad4((long long)m * sub);
+  float* G = Tk + pf_pad4((long long)sub * sub);
+  float* Y = G + pf_pad4((long long)sub * sub);
+  float* Z = Y + pf_pad4((long long)sub * w);
+  float* X = Z + pf_pad4((long long)sub * w);
+  float* Y2 = X + pf_pad4((long long)sub * w);
+  const auto d2d = cudaMemcpyDeviceToDevice;
+  MPBQR_PF_TRY(cudaMemcpyAsync(R, P, f * m * w, d2d, st));
+  MPBQR_PF_TRY(cudaMemsetAsync(V, 0, f * m * w, st));
+  MPBQR_PF_TRY(cudaMemsetAsync(T, 0, f * w * w, st));
+  for (int s = 0; s < nsteps; ++s) {
+    const int* p = plan + kPfWideStep * s;
+    const int c = s * sub, e = c + sub < w ? c + sub : w;
+    const int b = e - c, mk = m - c, n2 = w - e;
+    float* Rc = R + (size_t)c * w + c;  // the sub-panel's top left
+    // a. K6 on the staged sub-panel; V, R and Tk back into place.
+    MPBQR_PF_TRY(cudaMemcpy2DAsync(Ps, f * b, Rc, f * w, f * b, mk, d2d, st));
+    MPBQR_PF_TRY(pf_launch(Ps, Vk, Tk, G, Rk, mk, b, p[0], p[1], p[2], p[3],
+                           stream));
+    MPBQR_PF_TRY(cudaMemcpy2DAsync(Rc, f * w, Rk, f * b, f * b, mk, d2d, st));
+    MPBQR_PF_TRY(cudaMemcpy2DAsync(V + (size_t)c * w + c, f * w, Vk, f * b,
+                                   f * b, mk, d2d, st));
+    MPBQR_PF_TRY(cudaMemcpy2DAsync(T + (size_t)c * w + c, f * w, Tk, f * b,
+                                   f * b, b, d2d, st));
+    // b. C = R[c:, e:] -= Vk (Tk^T (Vk^T C)).
+    if (n2 > 0) {
+      float* C = Rc + b;
+      MPBQR_PF_TRY(tn(st, false, b, n2, mk, Vk, b, C, w, Y, n2, p[4], p[5]));
+      MPBQR_PF_TRY(tn(st, false, b, n2, b, Tk, b, Y, n2, Z, n2, p[6], p[7]));
+      MPBQR_PF_TRY(nt(st, false, mk, n2, b, Vk, b, Z, n2, C, w, true, p[8],
+                      p[9]));
+    }
+    // c. T[:c, c:e] = -T[:c, :c] (V[c:, :c]^T Vk) Tk (V's rows above c are
+    // zero in columns c:e, so the sum runs over rows c..m).
+    if (c > 0) {
+      MPBQR_PF_TRY(tn(st, false, c, b, mk, V + (size_t)c * w, w, Vk, b, X, b,
+                      p[10], p[11]));
+      MPBQR_PF_TRY(nt(st, false, c, b, c, T, w, X, b, Y2, b, false, p[12],
+                      p[13]));
+      MPBQR_PF_TRY(nt(st, false, c, b, b, Y2, b, Tk, b, T + c, w, true,
+                      p[14], p[15]));
+    }
+  }
   return (int)cudaGetLastError();
 }
 

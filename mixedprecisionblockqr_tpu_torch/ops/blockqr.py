@@ -9,8 +9,8 @@
     S-inverses through ``ninv_chain`` (K4) and group-merged W-form
     reflectors: ``_block_qr_grouped``;
   * the reflector tiers of ``_block_qr_traced``: ``householder``
-    (``panel_factor``'s column loop; on CUDA, fp32 panels at most 128
-    wide through K6), ``householder_pallas`` (every panel
+    (``panel_factor``'s column loop; on CUDA, fp32 panels of any width
+    through K6), ``householder_pallas`` (every panel
     through ``panel_factor_fused``, K6), ``cholqr1``/``cholqr2``/
     ``cholqr2s`` (CholeskyQR panels applied through the Yamamoto
     reflector, with K6 for panels of aspect < 2 on the GPU) and the paired
@@ -65,7 +65,6 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
     tri_cholqr_robust_fused,
 )
 from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
-    MAX_WIDTH as PANEL_MAX_WIDTH,
     panel_factor_fused,
 )
 from mixedprecisionblockqr_tpu_torch.ops.polar import (
@@ -583,22 +582,23 @@ def _block_qr_bgs_scan(
 
 
 
-def _householder_fused(device_type: str, dtype: torch.dtype, w: int) -> bool:
+def _householder_fused(device_type: str, dtype: torch.dtype) -> bool:
     """Whether a ``'householder'`` panel runs K6 (``panel_factor_fused``):
-    on a CUDA device, for an fp32 panel at most ``MAX_WIDTH`` (128) wide.
-    On the CPU, and for float64 or wider panels, ``panel_factor``'s loop
-    runs, as the reference's XLA loop does on the TPU; K6's results agree
-    with that loop to fp32 summation order."""
-    return (device_type == "cuda" and dtype == torch.float32
-            and w <= PANEL_MAX_WIDTH)
+    on a CUDA device, for every fp32 panel, whatever its width (one launch
+    up to 128 columns, K6's wide route beyond).  On the CPU, and for
+    float64 panels, ``panel_factor``'s loop runs, as the reference's XLA
+    loop does on the TPU; K6's results agree with that loop to fp32
+    summation order."""
+    return device_type == "cuda" and dtype == torch.float32
 
 
 def _householder_panel(panel: torch.Tensor, policy: DTypePolicy,
                        fused: bool):
-    """``(V, T, Rp)`` of one Householder panel: ``panel_factor_fused`` (K6,
-    fp32) when ``fused``, else ``panel_factor``.  A float64 panel always
-    takes ``panel_factor``: K6 is fp32, as the TPU kernel is, and a
-    POLICY_FP64 factorization must stay float64."""
+    """``(V, T, Rp)`` of one Householder panel of any width:
+    ``panel_factor_fused`` (K6, fp32; its wide route above 128 columns)
+    when ``fused``, else ``panel_factor``.  A float64 panel always takes
+    ``panel_factor``: K6 is fp32, as the TPU kernel is, and a POLICY_FP64
+    factorization must stay float64."""
     if fused and panel.dtype != torch.float64:
         V, T, Rp = panel_factor_fused(panel.float().contiguous())
         return (V.to(policy.panel), T.to(policy.panel), Rp.to(policy.panel))
@@ -618,8 +618,8 @@ def _block_qr_traced(
 
     * ``'householder'``: each r-wide panel (the last may be narrower) by
       ``panel_factor``'s column loop, or by K6 where ``_householder_fused``
-      says (fp32 panels at most 128 wide on CUDA); ``'householder_pallas'``:
-      by K6.
+      says (every fp32 panel on CUDA; above 128 columns K6's wide route);
+      ``'householder_pallas'``: by K6.
       Trailing columns, ``B`` and Q take its compact-WY block reflector.
     * ``'cholqr1'``/``'cholqr2'``/``'cholqr2s'``: a (1-pass / 2-pass /
       shifted) CholeskyQR panel applied through the Yamamoto reflector
@@ -696,7 +696,7 @@ def _block_qr_traced(
             pm = "householder_pallas" if on_gpu else "householder"
         if pm in ("householder", "householder_pallas"):
             fused = pm == "householder_pallas" or _householder_fused(
-                panel.device.type, panel.dtype, w)
+                panel.device.type, panel.dtype)
             V, T, Rp = _householder_panel(panel, policy, fused)
             A[lam:, lam:lam + w] = Rp
             # Rp, not only T: an input NaN may leave V and T finite.

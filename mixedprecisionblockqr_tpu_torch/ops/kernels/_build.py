@@ -93,6 +93,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_panel_factor.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
                                        ci, ci, vp]
     lib.mpbqr_panel_factor.restype = ci
+    lib.mpbqr_panel_factor_wide_scratch_floats.argtypes = [ci, ci, ci]
+    lib.mpbqr_panel_factor_wide_scratch_floats.restype = ll
+    lib.mpbqr_panel_factor_wide.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                            vp, ci, vp]
+    lib.mpbqr_panel_factor_wide.restype = ci
     lib.mpbqr_panel_factor_max_cluster.argtypes = [ci, ctypes.POINTER(ci)]
     lib.mpbqr_panel_factor_max_cluster.restype = ci
     lib.mpbqr_tiled_matmul.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,

@@ -41,6 +41,10 @@ ROUTE_LAUNCHES = {"tma": 0, "predicated": 0}
 #: Launches of a kernel piece through its own wrapper: the combine, which
 #: otherwise runs inside K2's and K3's entries (counted there).
 PIECE_LAUNCHES = {"tri_combine": 0}
+#: K6's wide route (ops/kernels/panel.py, panels wider than 128): its calls
+#: and the product launches between its sub-panels, whose K6 launches
+#: count in ``LAUNCHES["panel_factor_fused"]``.
+WIDE_LAUNCHES = {"calls": 0, "products": 0}
 #: Panel widths the shared-memory route is instantiated for: a width r runs
 #: on the smallest of them that holds it, with zeros beyond r.
 KERNEL_WIDTHS = (32, 64, 128)
@@ -252,7 +256,7 @@ def _scratch(t: torch.Tensor, lay: NsLayout) -> torch.Tensor:
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTE_LAUNCHES, PIECE_LAUNCHES):
+    for counts in (LAUNCHES, ROUTE_LAUNCHES, PIECE_LAUNCHES, WIDE_LAUNCHES):
         for k in counts:
             counts[k] = 0
 

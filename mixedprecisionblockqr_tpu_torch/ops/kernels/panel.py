@@ -8,8 +8,17 @@ panel_factor``: unit-norm reflectors with beta = 2, sign +1 when
 ``alpha >= 0``, beta = 0 for a column whose live norm is at most 1e-30.
 Below its diagonal R holds rounding residue (plain version) or exact zeros
 (the CUDA kernel); callers keep the upper triangle.  A NaN in the panel
-survives into R, which the blocked drivers' NaN canary reads.  The CUDA
-kernel runs one thread-block cluster laid out by :func:`panel_layout`.
+survives into R, which the blocked QR tiers' NaN canary reads.
+
+On the card any fp32 panel with ``1 <= w <= m`` is taken.  Up to
+``MAX_WIDTH`` (128) columns the kernel runs as one launch of one
+thread-block cluster laid out by :func:`panel_layout`.  Wider panels take
+the wide route (``csrc/panel_factor.cu::mpbqr_panel_factor_wide``): one C
+entry that factors sub-panels of ``WIDE_SUB`` columns by that same launch
+and joins them with the true-fp32 products of ``csrc/panel.cuh`` (the
+trailing update ``C -= Vk (Tk^T (Vk^T C))`` and T's merge ``T[:c, c:e] =
+-T[:c, :c] (V[:, :c]^T Vk) Tk``), laid out by :func:`wide_layout`;
+:func:`panel_factor_wide_plain` is the schedule's plain mirror.
 """
 
 from __future__ import annotations
@@ -22,14 +31,24 @@ import torch
 
 from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
     LAUNCHES,
+    NT_SMALL_BM,
+    NT_WIDE_BM,
+    TARGET_CTAS,
+    WIDE_LAUNCHES,
     _require_cuda_f32,
     _stream,
+    tn_split,
 )
 from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
 
 _TINY = 1e-30
-#: Widest panel the CUDA kernel takes.
+#: Widest panel one launch of the CUDA kernel takes; wider panels take the
+#: wide route.
 MAX_WIDTH = 128
+#: Columns of a sub-panel of the wide route.  The main path always uses
+#: it; only utils/panel_probe.py passes another width (64, to time beside
+#: it).
+WIDE_SUB = 128
 #: Most CTAs of the kernel's thread-block cluster (a non-portable size).
 MAX_CLUSTER = 16
 #: Rows per CTA the layout aims at (utils/panel_probe.py compares others).
@@ -84,6 +103,79 @@ def panel_layout(m: int, w: int, max_cluster: int = MAX_CLUSTER,
     return PanelLayout(cluster, rows, in_smem, _smem_bytes(w, rows, in_smem))
 
 
+class WideStep(NamedTuple):
+    """One sub-panel ``[c, e)`` of the wide route and its launches' layouts
+    (zeros where a product does not run: no trailing columns when
+    ``e == w``, no T merge when ``c == 0``)."""
+    cols: Tuple[int, int]    # the sub-panel's columns [c, e)
+    panel: PanelLayout       # K6 on the (m - c) x (e - c) sub-panel
+    update: Tuple[int, ...]  # Y = Vk^T C, Z = Tk^T Y: (split, chunk) each;
+    #                          C -= Vk Z: (bm, bn)
+    merge: Tuple[int, ...]   # X = V^T Vk: (split, chunk); Y2 = T X and
+    #                          T[:c, c:e] -= Y2 Tk: (bm, bn) each
+
+    def args(self) -> tuple:
+        """The 16 integers of the step in the C entry's plan."""
+        p = self.panel
+        return (p.cluster, p.rows, int(p.in_smem), p.smem_bytes,
+                *self.update, *self.merge)
+
+    def products(self) -> int:
+        """Product launches of the step."""
+        return 3 * bool(self.update[0]) + 3 * bool(self.merge[0])
+
+
+class WideLayout(NamedTuple):
+    """How the wide route runs an m x w panel."""
+    sub: int                      # columns of a sub-panel (the last fewer)
+    steps: Tuple[WideStep, ...]
+
+    def products(self) -> int:
+        """Product launches of the whole route."""
+        return sum(step.products() for step in self.steps)
+
+
+def _nt_tiles(M: int, N: int) -> Tuple[int, int]:
+    """gemm_nt's ``(bm, bn)`` for an M x N output in the wide route: the
+    column tile of the smallest of 32, 64, 128 that holds N (128 above),
+    and NT_WIDE_BM rows per CTA when that still gives TARGET_CTAS tiles,
+    else the small row tile of that bn."""
+    bn = 32 if N <= 32 else 64 if N <= 64 else 128
+    tiles = -(-M // NT_WIDE_BM) * -(-N // bn)
+    return (NT_WIDE_BM if tiles >= TARGET_CTAS else NT_SMALL_BM[bn]), bn
+
+
+@functools.lru_cache(maxsize=None)
+def wide_layout(m: int, w: int, max_cluster: int = MAX_CLUSTER,
+                sub: int = WIDE_SUB) -> WideLayout:
+    """The wide route's layout for an m x w panel: sub-panels ``[c, e)`` of
+    ``sub`` columns covering w (the last narrower when ``sub`` does not
+    divide w), each factored by K6 with :func:`panel_layout` of its
+    ``(m - c) x (e - c)`` shape; the trailing update's two gemm_tn products
+    with :func:`~ns.tn_split` of their shapes (``b x (w - e)`` over
+    ``m - c`` rows, then over ``b``) and its gemm_nt with :func:`_nt_tiles`
+    of ``(m - c) x (w - e)``; T's merge with the split of ``c x b`` over
+    ``m - c`` rows and the tiles of its two ``c x b`` products.  A rule on
+    shapes alone: it needs no device.  ``sub`` is a probe's argument:
+    :func:`panel_factor_fused` always lays out at ``WIDE_SUB``.  Raises
+    ``ValueError`` unless ``1 <= w <= m`` and ``1 <= sub <= MAX_WIDTH``."""
+    if not (1 <= w <= m and 1 <= sub <= MAX_WIDTH):
+        raise ValueError(
+            f"wide_layout takes m x w with 1 <= w <= m and 1 <= sub <= "
+            f"{MAX_WIDTH}; got {m} x {w}, sub={sub}")
+    steps = []
+    for c in range(0, w, sub):
+        e = min(w, c + sub)
+        b, mk, n2 = e - c, m - c, w - e
+        update = ((*tn_split(b, n2, mk), *tn_split(b, n2, b),
+                   *_nt_tiles(mk, n2)) if n2 else (0,) * 6)
+        merge = ((*tn_split(c, b, mk), *_nt_tiles(c, b), *_nt_tiles(c, b))
+                 if c else (0,) * 6)
+        steps.append(WideStep((c, e), panel_layout(mk, b, max_cluster),
+                              update, merge))
+    return WideLayout(sub, tuple(steps))
+
+
 def panel_factor_fused_plain(panel: torch.Tensor):
     """Plain version of :func:`panel_factor_fused` (``_panel_kernel``
     transcription: masked full-height column steps, the rank-1 update on
@@ -114,24 +206,63 @@ def panel_factor_fused_plain(panel: torch.Tensor):
     return V, T, P
 
 
+def panel_factor_wide_plain(panel: torch.Tensor, sub: int = WIDE_SUB):
+    """Plain mirror of the wide route's schedule: sub-panels of ``sub``
+    columns by :func:`panel_factor_fused_plain`, each followed by the
+    trailing update ``C -= Vk (Tk^T (Vk^T C))`` and T's merge ``T[:c, c:e]
+    = -T[:c, :c] (V[c:, :c]^T Vk) Tk``, in fp32.  R is exact zeros below
+    its diagonal, as the CUDA route writes it.  The tests hold the blocked
+    algebra against the JAX kernel with it; no path of the package calls
+    it."""
+    R = panel.float().clone()
+    m, w = R.shape
+    V = torch.zeros_like(R)
+    T = torch.zeros((w, w), dtype=torch.float32, device=R.device)
+    for c in range(0, w, sub):
+        e = min(w, c + sub)
+        Vk, Tk, Rk = panel_factor_fused_plain(R[c:, c:e])
+        R[c:, c:e] = torch.triu(Rk)
+        V[c:, c:e] = Vk
+        T[c:e, c:e] = Tk
+        if e < w:
+            C = R[c:, e:]
+            R[c:, e:] = C - mm_f32(Vk, mm_f32(Tk.T, mm_f32(Vk.T, C)))
+        if c:
+            T[:c, c:e] = -mm_f32(mm_f32(T[:c, :c], mm_f32(V[c:, :c].T, Vk)),
+                                 Tk)
+    return V, T, R
+
+
 def panel_factor_fused(panel: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The Householder column loop of one m x w panel in one launch.
+    """The Householder column loop of one m x w panel.
 
     Returns ``(V, T, R)`` as in the module docstring.  On CUDA the panel
-    must be a contiguous fp32 tensor with ``1 <= w <= MAX_WIDTH`` and
-    ``m >= w``; any height the device's memory holds is taken (rows beyond
-    what the cluster's shared memory holds are worked on in place in R).
-    The layout is :func:`panel_layout`'s for the largest cluster the card
-    places (:func:`max_cluster`), chosen before the launch.
+    must be a contiguous fp32 tensor with ``1 <= w <= m``; any height the
+    device's memory holds is taken (rows beyond what the cluster's shared
+    memory holds are worked on in place in R).  Up to ``MAX_WIDTH`` columns
+    it is one launch with :func:`panel_layout`'s layout, wider panels the
+    wide route with :func:`wide_layout`'s, both for the largest cluster the
+    card places (:func:`max_cluster`) and chosen before the launch.  Each
+    K6 launch counts in ``LAUNCHES["panel_factor_fused"]``; a wide call
+    counts in ``WIDE_LAUNCHES`` too (the call and its product launches).
     """
     if panel.device.type == "cpu":
         return panel_factor_fused_plain(panel)
     _require_cuda_f32(panel, "panel")
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
 
+    m, w = panel.shape
+    if w > MAX_WIDTH:
+        # wide_layout raises ValueError for a shape the route does not take.
+        lay = wide_layout(m, w, max_cluster(panel.device))
+        out = _launch_wide(library(), panel, lay)
+        LAUNCHES["panel_factor_fused"] += len(lay.steps)
+        WIDE_LAUNCHES["calls"] += 1
+        WIDE_LAUNCHES["products"] += lay.products()
+        return out
     # panel_layout raises ValueError for a shape the kernel does not take.
-    lay = panel_layout(*panel.shape, max_cluster(panel.device))
+    lay = panel_layout(m, w, max_cluster(panel.device))
     out = _launch(library(), panel, lay)
     LAUNCHES["panel_factor_fused"] += 1
     return out
@@ -172,4 +303,27 @@ def _launch(lib, panel: torch.Tensor, lay: PanelLayout):
         R.data_ptr(), m, w, lay.cluster, lay.rows, int(lay.in_smem),
         lay.smem_bytes, _stream(panel))
     check(code, "panel_factor_fused")
+    return V, T, R
+
+
+def _launch_wide(lib, panel: torch.Tensor, lay: WideLayout):
+    """One call of ``mpbqr_panel_factor_wide`` from the kernel library
+    ``lib`` with the layout ``lay``; counts nothing.  Returns ``(V, T,
+    R)``."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
+
+    m, w = panel.shape
+    V = torch.empty_like(panel)
+    T = torch.empty((w, w), dtype=torch.float32, device=panel.device)
+    R = torch.empty_like(panel)
+    scratch = torch.empty(
+        lib.mpbqr_panel_factor_wide_scratch_floats(m, w, lay.sub),
+        dtype=torch.float32, device=panel.device)
+    ints = [x for step in lay.steps for x in step.args()]
+    plan = (ctypes.c_int * len(ints))(*ints)
+    code = lib.mpbqr_panel_factor_wide(
+        panel.data_ptr(), V.data_ptr(), T.data_ptr(), R.data_ptr(),
+        scratch.data_ptr(), m, w, lay.sub, plan, len(lay.steps),
+        _stream(panel))
+    check(code, "panel_factor_fused (wide route)")
     return V, T, R

@@ -7,7 +7,7 @@ the distributed blocked QR over the rows of a mesh
 (``dist_qr.dist_block_qr``) and over a 2-D (rows x cols) mesh
 (``dist_qr2d.dist_block_qr_2d``, whose column axis is ``COLS_AXIS``).
 Every leaf, tree node and reflector-tier panel is a Householder panel, K6
-(``panel_factor_fused``) on the card for fp32 panels at most 128 wide."""
+(``panel_factor_fused``) on the card for fp32 panels of any width."""
 
 from mixedprecisionblockqr_tpu_torch.parallel import (
     batched,

@@ -6,7 +6,7 @@ a power-of-two number of row blocks (zero-padded), factored as a TSQR:
 one Householder panel per leaf, then one per stacked pair of each tree
 level, every one routed as the ``'householder'`` tier routes its panels
 (``parallel/tsqr.py::householder_panel``: K6 on the card for fp32 panels
-at most 128 wide).  The trailing columns take the same reflectors
+of any width).  The trailing columns take the same reflectors
 (``ops/wy.py::apply_block_reflector_left_t``): the leaves' on whole row
 blocks, each tree level's on the top r rows of the paired blocks.  The
 factors are kept (``CAQRFactors``), so ``apply_qt`` / ``apply_q`` replay

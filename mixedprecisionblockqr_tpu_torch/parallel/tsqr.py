@@ -7,10 +7,10 @@ leaf is one Householder panel, and each tree level factors the stacked
 pairs of the level below: (2n x n) panels.  Q is rebuilt top-down from
 (n x n) path factors.  Every leaf and tree node goes through the routing
 of the ``'householder'`` tier (``ops/blockqr.py::_householder_panel``):
-K6 (``panel_factor_fused``) on the card for an fp32 panel at most 128
-wide, ``panel_factor``'s column loop otherwise (the CPU, float64, wider
-panels).  The JAX package ``vmap``s the leaves and the pairs of a level;
-here they are a loop, one panel launch each.
+K6 (``panel_factor_fused``) on the card for an fp32 panel of any width
+(its wide route above 128 columns), ``panel_factor``'s column loop
+otherwise (the CPU, float64).  The JAX package ``vmap``s the leaves and
+the pairs of a level; here they are a loop, one panel call each.
 
 Rank caveat (the reference's): Q assumes nonsingular leaf R factors;
 rank-deficient inputs still give a valid R and residual A = QR.
@@ -46,12 +46,11 @@ LEAF_METHODS = ("householder", "cholqr2", "cholqr2s")
 def householder_panel(block: torch.Tensor,
                       policy: DTypePolicy = POLICY_FP32):
     """``(V, T, Rp)`` of one Householder panel, routed as the
-    ``'householder'`` tier routes its panels: K6 on CUDA for fp32 at most
-    128 wide, else ``panel_factor``."""
+    ``'householder'`` tier routes its panels: K6 on CUDA for fp32 of any
+    width, else ``panel_factor``."""
     return _householder_panel(
         block, policy,
-        fused=_householder_fused(block.device.type, block.dtype,
-                                 block.shape[1]))
+        fused=_householder_fused(block.device.type, block.dtype))
 
 
 def _leaf_qr(block: torch.Tensor, method: str = "householder"

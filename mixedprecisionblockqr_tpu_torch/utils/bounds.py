@@ -21,7 +21,12 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
     ninv_layout,
     ns_layout,
 )
-from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import panel_layout
+from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+    MAX_CLUSTER as PANEL_MAX_CLUSTER,
+    MAX_WIDTH as PANEL_MAX_WIDTH,
+    panel_layout,
+    wide_layout,
+)
 from mixedprecisionblockqr_tpu_torch.ops.kernels.sketch import sketch_layout
 
 PEAK_F32 = 67e12       # fp32 outside the tensor cores
@@ -162,17 +167,44 @@ def householder_panel_ops(m, w):
                for j in range(w))
 
 
+def wide_loop_ops(m, w, max_cluster=None):
+    """The column loops of K6's wide route: ``(ops, cluster)`` of each
+    sub-panel ``[c, e)`` of ``wide_layout(m, w, max_cluster)``,
+    ``householder_panel_ops(m - c, e - c)`` on that sub-panel's one
+    thread-block cluster.  The rest of ``householder_panel_ops(m, w)`` (the
+    dots and T products across sub-panels) is what the route's trailing
+    updates and T merges must do at least."""
+    lay = wide_layout(m, w, max_cluster or PANEL_MAX_CLUSTER)
+    return [(householder_panel_ops(m - c, e - c), step.panel.cluster)
+            for step in lay.steps for c, e in (step.cols,)]
+
+
 def panel_factor_bound(m, w, cluster_sms=None):
-    """K6: the operations of ``householder_panel_ops``; P read, V, R and T
-    written.  Beside the whole card's bound, ``cluster_bound_ms`` is the
+    """K6: the operations of ``householder_panel_ops`` (what the function
+    needs, on either route); P read, V, R and T written.  Beside the whole
+    card's bound, ``cluster_bound_ms``: up to ``MAX_WIDTH`` columns the
     bound of the ``cluster_sms`` SMs of the kernel's one thread-block
-    cluster (by default the cluster that ``panel_layout`` gives (m, w) on
-    a card that places 16): the same operations at that share of the fp32
-    peak, the bytes still at the card's memory rate."""
-    if cluster_sms is None:
-        cluster_sms = panel_layout(m, w).cluster
-    return cluster_bound(householder_panel_ops(m, w),
-                         (3 * m * w + w * w) * 4, cluster_sms)
+    cluster (by default the cluster that ``panel_layout`` gives (m, w) on a
+    card that places 16), the same operations at that share of the fp32
+    peak; above it the wide route's floor, each sub-panel's column loop
+    (``wide_loop_ops``, laid out on a card that places ``cluster_sms``,
+    by default 16) at its own cluster's share and the remaining operations,
+    run as card-wide products, at the whole card's peak; ``cluster_sms``
+    is then the sub-panels' largest cluster.  The bytes are at the card's
+    memory rate."""
+    ops = householder_panel_ops(m, w)
+    nbytes = (3 * m * w + w * w) * 4
+    if w <= PANEL_MAX_WIDTH:
+        if cluster_sms is None:
+            cluster_sms = panel_layout(m, w).cluster
+        return cluster_bound(ops, nbytes, cluster_sms)
+    loops = wide_loop_ops(m, w, cluster_sms)
+    t_ops = (sum(o * SMS / cl for o, cl in loops)
+             + ops - sum(o for o, _ in loops)) / PEAK_F32
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {**bound(f32_ops=ops, nbytes=nbytes),
+            "cluster_sms": max(cl for _, cl in loops),
+            "cluster_bound_ms": max(t_ops, t_bytes) * 1e3}
 
 
 def sketch_bound(d, w, r, cluster_sms=None):
@@ -288,6 +320,10 @@ def kernel_bounds():
         **{f"K6 panel_factor_fused {m}x128": {
             "shape": f"{m} x 128", **panel_factor_bound(m, 128)}
            for m in (2048, 2176, 3072, 4096, 8192)},
+        **{f"K6 panel_factor_fused {m}x{w} (wide route)": {
+            "shape": f"{m} x {w}", **panel_factor_bound(m, w)}
+           for m, w in ((2048, 256), (2000, 200), (4096, 512), (8192, 256),
+                        (4096, 2048), (1024, 256), (512, 256))},
         "K7 sketch_qrcp_ranks": {"shape": "136 x 2048, 128 pivots",
                                  **sketch_bound(136, 2048, 128)},
         "K8 tiled_matmul": {"shape": "2048^3 bf16 -> f32",

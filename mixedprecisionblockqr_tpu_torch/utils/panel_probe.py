@@ -2,6 +2,7 @@
 and ``torch.geqrf``.
 
     python3 -m mixedprecisionblockqr_tpu_torch.utils.panel_probe [--phases]
+        [--wide-only]
 
 Builds (or loads) the kernel library, then for each panel of
 :data:`PROBE_SHAPES` (uniform in [-0.5, 0.5), seeded) prints one JSON line
@@ -11,8 +12,14 @@ kernel's, the plain version's and ``torch.geqrf``'s times (CUDA events,
 median of 20; the plain version's median of 3), and the bounds.  A second
 line per panel times the kernel at the other candidate layouts
 (``rows_target`` of :data:`ROWS_TARGETS`, launched through the same C entry).
+The panels of :data:`WIDE_SHAPES` (w > 128) take the wide route: their
+:func:`k6_row` names each sub-panel's layout, and a second line
+(:func:`wide_times`) times the route at sub-panels of each width in
+:data:`WIDE_SUBS` and the staging copies of ``WIDE_SUB`` alone (what
+giving K6 a row stride instead could save at most).  ``--wide-only``
+skips the 128-wide panels.
 The first line is the card's name and power limit (nvidia-smi).
-``chip_smoke.py`` phase 3 runs the same rows through :func:`k6_row`.
+``chip_smoke.py`` phases 3 and 24 run the same rows through :func:`k6_row`.
 
 With ``--phases``, the kernel library is built a second time with
 ``-DMPBQR_PANEL_PROF`` (``_build.instrumented_library``); one more launch
@@ -40,6 +47,13 @@ PROBE_SHAPES = ((2048, 128), (4096, 128), (3072, 128), (2176, 128),
 #: Rows per CTA the layout may aim at: 128 and 256 (16 x 128 and 8 x 256 at
 #: 2048 rows), 342 (12 x 342 at 4096) and 428 (the most a CTA holds).
 ROWS_TARGETS = (128, 256, 342, 428)
+#: Wide-route panels: the 'householder' tiers at block 256 and 2000^2 at
+#: 200, 512 columns, in-place sub-panels (8192 rows), lstsq(method='tsqr')'s
+#: one 4096 x 2048 leaf.
+WIDE_SHAPES = ((2048, 256), (2000, 200), (4096, 512), (8192, 256),
+               (4096, 2048))
+#: Sub-panel widths the wide route is timed at.
+WIDE_SUBS = (64, 128)
 TOL = 1e-4  # fp32 summation order only
 
 
@@ -59,10 +73,8 @@ def k6_row(P: torch.Tensor, nan_input: bool = False) -> dict:
     output is finite or (``nan_input``) the NaN reaches R in the plain
     version's places."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
-        max_cluster,
         panel_factor_fused,
         panel_factor_fused_plain,
-        panel_layout,
     )
     from mixedprecisionblockqr_tpu_torch.utils.bounds import (
         panel_factor_bound,
@@ -70,14 +82,12 @@ def k6_row(P: torch.Tensor, nan_input: bool = False) -> dict:
     from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
 
     m, w = P.shape
-    lay = panel_layout(m, w, max_cluster(P.device))
+    row = {"shape": [m, w], **layout_fields(m, w, P.device)}
     V, T, R = panel_factor_fused(P)
     V2, T2, R2 = panel_factor_fused(P)
     Vp, Tp, Rp = panel_factor_fused_plain(P)
     torch.cuda.synchronize()
     Rp = torch.triu(Rp)
-    row = {"shape": [m, w], "cluster": lay.cluster, "rows": lay.rows,
-           "route": "smem" if lay.in_smem else "in_place"}
     ok = all(bool(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
              for a, b in ((V, V2), (T, T2), (R, R2)))
     row["bitwise_repeatable"] = ok
@@ -96,8 +106,76 @@ def k6_row(P: torch.Tensor, nan_input: bool = False) -> dict:
     row["plain_ms"] = cuda_time_ms(lambda: panel_factor_fused_plain(P),
                                    warmup=1, iters=3)
     row["library_ms"] = cuda_time_ms(lambda: torch.geqrf(P))
-    row.update(panel_factor_bound(m, w, lay.cluster))
+    row.update(panel_factor_bound(m, w, row["cluster"]))
     return row
+
+
+def _route(lay) -> str:
+    return "smem" if lay.in_smem else "in_place"
+
+
+def layout_fields(m: int, w: int, device: torch.device) -> dict:
+    """K6's layout of an m x w panel on the card of ``device``: up to 128
+    columns its cluster, rows per CTA and route; wider, ``route`` 'wide',
+    the sub-panel width, each sub-panel's ``"c:e clusterxrows route"``,
+    the product launches and (as ``cluster``) the largest sub-panel
+    cluster."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        MAX_WIDTH,
+        max_cluster,
+        panel_layout,
+        wide_layout,
+    )
+
+    mc = max_cluster(device)
+    if w <= MAX_WIDTH:
+        lay = panel_layout(m, w, mc)
+        return {"cluster": lay.cluster, "rows": lay.rows,
+                "route": _route(lay)}
+    lay = wide_layout(m, w, mc)
+    return {"route": "wide", "sub": lay.sub,
+            "cluster": max(st.panel.cluster for st in lay.steps),
+            "sub_panels": [f"{c}:{e} {st.panel.cluster}x{st.panel.rows} "
+                           f"{_route(st.panel)}"
+                           for st in lay.steps for c, e in (st.cols,)],
+            "products": lay.products()}
+
+
+def wide_times(P: torch.Tensor) -> dict:
+    """The wide route on ``P`` (CUDA events, median of 20) at sub-panels of
+    each width in :data:`WIDE_SUBS`, keyed ``"sub<width>_ms"`` (launched
+    through the same C entry, uncounted), and ``staging_ms``: the copies
+    the route makes at ``WIDE_SUB`` alone (each sub-panel staged into a
+    contiguous buffer, its V and R copied back, its T block), as strided
+    ``copy_`` on the same shapes."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        WIDE_SUB,
+        _launch_wide,
+        max_cluster,
+        wide_layout,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    lib, (m, w) = library(), P.shape
+    out = {f"sub{sub}_ms": cuda_time_ms(lambda sub=sub: _launch_wide(
+        lib, P, wide_layout(m, w, max_cluster(P.device), sub)))
+        for sub in WIDE_SUBS}
+    R, V, T = P.clone(), torch.zeros_like(P), P.new_zeros((w, w))
+    bufs = [torch.empty((m - c) * min(WIDE_SUB, w - c), device=P.device)
+            for c in range(0, w, WIDE_SUB)]
+
+    def staging():
+        for c, buf in zip(range(0, w, WIDE_SUB), bufs):
+            e = min(w, c + WIDE_SUB)
+            Ps = buf.view(m - c, e - c)
+            Ps.copy_(R[c:, c:e])
+            R[c:, c:e].copy_(Ps)
+            V[c:, c:e].copy_(Ps)
+            T[c:e, c:e].copy_(Ps[:e - c])
+
+    out["staging_ms"] = cuda_time_ms(staging)
+    return out
 
 
 def layout_times(P: torch.Tensor) -> dict:
@@ -164,6 +242,7 @@ def _sm_mhz() -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--wide-only", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("panel_probe: no CUDA device", file=sys.stderr)
@@ -179,12 +258,22 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     panels = {f"{m}x{w}": torch.rand((m, w), generator=gen, device=dev) - 0.5
               for m, w in PROBE_SHAPES}
+    if args.wide_only:
+        panels = {}
     ok = True
     for name, P in panels.items():
         row = k6_row(P)
         ok = ok and row["ok"]
         print(json.dumps({"panel": name, **row}), flush=True)
         print(json.dumps({"panel": name, "layouts_ms": layout_times(P)}),
+              flush=True)
+    gen_w = torch.Generator(device=dev).manual_seed(24)
+    for m, w in WIDE_SHAPES:
+        P = torch.rand((m, w), generator=gen_w, device=dev) - 0.5
+        row = k6_row(P)
+        ok = ok and row["ok"]
+        print(json.dumps({"panel": f"{m}x{w}", **row}), flush=True)
+        print(json.dumps({"panel": f"{m}x{w}", **wide_times(P)}),
               flush=True)
     if args.phases:
         with _build.instrumented_library("-DMPBQR_PANEL_PROF",

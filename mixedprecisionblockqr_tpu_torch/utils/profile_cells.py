@@ -39,8 +39,12 @@ of ``default_rng(0).random((2048, 2048)) - 0.5``, u and v from
 ``default_rng(2)`` x 1e-3: one G2 and one G3), and ``chip_smoke.py``
 phase 21's widths: ``headline r=256`` (the headline call at
 ``block_size=256``: bgs1 g4, K2 at r = 256 on the chain's L2 route) and
-``polar 4096x2048 r=256`` (8 K1 + 8 K4 at 256).  The inputs of the last
-six of phases 16-19 are made at first use.
+``polar 4096x2048 r=256`` (8 K1 + 8 K4 at 256), and ``chip_smoke.py``
+phase 24's calls through K6's wide route: ``householder r=256`` (the
+Householder tier at 2048^2, block 256), ``lstsq tsqr 4096x2048``
+(``method='tsqr'`` on the full-rank SLAM Jacobian: one 2048-wide leaf)
+and ``tsqr 65536x256`` (127 wide calls).  The inputs of phases 16-19 and
+24 are made at first use.
 Without a CUDA device it exits 2.
 """
 
@@ -205,6 +209,10 @@ def main(only: Sequence[str] = ()) -> int:
         return torch.from_numpy(np.random.default_rng(0).random(
             (100000, 64), dtype=np.float32) - 0.5).to(dev)
 
+    def tall256():
+        return torch.from_numpy(np.random.default_rng(0).random(
+            (65536, 256), dtype=np.float32) - 0.5).to(dev)
+
     def slam():
         return (torch.from_numpy(slam_jacobian(4096, 2048, seed=0)).to(dev),
                 torch.from_numpy(np.random.default_rng(2).standard_normal(
@@ -281,6 +289,11 @@ def main(only: Sequence[str] = ()) -> int:
          lambda: qr_rank1_update(*lazy("rank1", rank1_case)), 5),
         ("headline r=256", lambda: headline(A, 256), 5),
         ("polar 4096x2048 r=256", lambda: headline(A42, 256), 5),
+        ("householder r=256", lambda: block_qr(
+            A, 256, POLICY_FP32, panel_method="householder"), 5),
+        ("lstsq tsqr 4096x2048", lambda: lstsq(*lazy("slam", slam),
+                                               method="tsqr"), 3),
+        ("tsqr 65536x256", lambda: tsqr(lazy("tall256", tall256)), 3),
     ]
     for name, fn, calls in cells:
         if only and not any(o in name for o in only):

@@ -132,13 +132,15 @@ def test_panel_layout_rejects_what_the_kernel_does_not_take():
     ("cuda", torch.float32, 64, True),
     ("cpu", torch.float32, 128, False),
     ("cuda", torch.float64, 128, False),
-    ("cuda", torch.float32, 129, False),
+    ("cuda", torch.float32, 129, True),
     ("cuda", torch.bfloat16, 128, False),
 ])
 def test_householder_routes_to_k6_only_for_cuda_fp32_up_to_128(
         device_type, dtype, w, fused):
+    # The width w no longer decides: K6 takes every fp32 panel on the card,
+    # those wider than 128 by its wide route.
     from mixedprecisionblockqr_tpu_torch.ops import blockqr as tbq
-    assert tbq._householder_fused(device_type, dtype, w) is fused
+    assert tbq._householder_fused(device_type, dtype) is fused
 
 
 def test_householder_tier_on_cpu_runs_the_plain_loop(monkeypatch):
