@@ -13,9 +13,12 @@ last line):
                  sketch_qrcp_ranks, bgs_group_fused_proj, tiled_matmul,
                  chol_rinv) and the three Givens chains of the streaming
                  family (givens_fold_rows, givens_chain, givens_hessenberg:
-                 G1 at n = 256 with 16 rows and with one, G2 and G3 at
-                 m = n = 512, each launched twice and compared bit for bit,
-                 and once more at phase 19's n = 2048) against their plain
+                 G1 at n = 256 with 16, 8, 4, 2 and one rows and at 1100
+                 with 4 and 2, G2 and G3 at m = n = 512, G3 at 1100, each
+                 launched twice and compared bit for bit, G1 and G3 also
+                 bit for bit with their plain versions, and once more at
+                 phase 19's n = 2048; G1's and G3's clock build run once,
+                 utils/givens_probe.py --phases) against their plain
                  PyTorch versions on the
                  card at the main paths' shapes, with the stated tolerances;
                  K1, K4, the combine, K3, K2 and K5 at r = 48, 100, 125
@@ -1827,11 +1830,12 @@ def main() -> int:
 
     # G1-G3, the rotation chains of the streaming family (no pallas_call
     # behind them: the JAX package's lax.scan / fori_loop loops), through
-    # utils/givens_probe.py: at phase 3's shapes each launched twice, bit
-    # for bit, timed beside its plain version and a refactorization; at
-    # phase 19's main-path shapes (n = 2048) checked once, the plain
-    # version not timed.  A generator of their own keeps the later phases'
-    # draws.
+    # utils/givens_probe.py: at phase 3's shapes (every G1 row-slot layout,
+    # G3 with H on one CTA and on several) each launched twice, bit for
+    # bit, G1 and G3 also bit for bit with their plain versions, timed
+    # beside the plain version and a refactorization; at phase 19's
+    # main-path shapes (n = 2048) checked once, the plain version not
+    # timed.  A generator of their own keeps the later phases' draws.
     gen_g = torch.Generator(device=dev).manual_seed(15)
     g_rows = givens_probe.rows(givens_probe.PHASE3_SHAPES, gen_g)
     g_main = givens_probe.rows(givens_probe.MAIN_SHAPES, gen_g,
@@ -1840,17 +1844,29 @@ def main() -> int:
         assert row["ok"], (name, row)
     g_step = givens_probe.chain_step(gen_g)
     assert g_step["step_ms"] > 0, g_step
+    # G1's and G3's clock build (-DMPBQR_GIVENS_PROF, givens.cu alone) at
+    # the main shapes, fresh and in place: every launch finishes, the
+    # fresh one's outputs equal the library's bit for bit, and each summary
+    # names its step phases (utils/givens_probe.py --phases).
+    with _build.instrumented_library(*givens_probe.PROF_BUILD) as prof:
+        g_phases = givens_probe.phase_rows(prof, gen_g,
+                                           givens_probe._sm_mhz())
+    for name, row in g_phases.items():
+        assert row["kernel_us"] > 0 and row["front"]["warp_steps"] > 0, (
+            name, row)
+        assert row.get("same_as_library", True), (name, row)
     emit({"phase": "kernels", "kernel": "givens_fold_rows, givens_chain, "
           "givens_hessenberg",
           "tolerance": "every output within 1e-5 * max|plain| (R's upper "
                        "triangle for G1 and G3); two launches bitwise equal; "
-                       "times: CUDA events, median of 20 in place (plain: "
-                       "median of 3)",
+                       "G1 and G3 bitwise equal to their plain versions; "
+                       "times: CUDA events, median of 20 in place and on "
+                       "fresh inputs (plain: median of 3)",
           "library_call": "G1: torch.linalg.qr(cat([Raug, rows]), "
                           "mode='r'); G2, G3: torch.linalg.qr(A + u v^T), "
                           "the refactorization",
           "rows": g_rows, "main_path_shapes": g_main,
-          "chain_step": g_step,
+          "chain_step": g_step, "phases": g_phases,
           "serial_floor_ms": {name: row["serial_steps"] * g_step["step_ms"]
                               for name, row in {**g_rows, **g_main}.items()},
           "card": card})

@@ -47,14 +47,18 @@
 //     loading kChainBlock rows ahead, so each entry is read and written
 //     once and the walk runs as fast as the chain produces.  No exchange
 //     between CTAs.
-//   * G3: coefficient i needs column i after rotations 0..i-1.  One warp
-//     owns 32 consecutive columns of [H | Q^T] and steps i, each lane
-//     carrying its column's running row i and loading rows kPf ahead; the
-//     lane of H column i makes coefficient i and the warp shares it by a
-//     shuffle, the warps on the right read it from global memory, 32 at a
-//     time when they are behind.  Column j of H is finished after step j
-//     (zero below row j + 1): the rotations of its entries below the
-//     diagonal are not done (the callers' triu drops them).
+//   * G3: coefficient i needs column i after rotations 0..i-1.  A warp owns
+//     32 consecutive columns of [H | Q^T] and steps i, each lane carrying
+//     its column's running row i and loading rows kPf ahead.  While
+//     coefficient i is made in the warp every lane computes it, from column
+//     i's last inputs that its lane shuffled to the warp one step before:
+//     nothing passes between lanes between two coefficients of one warp.
+//     The other warps of the CTA read it from a table of self-flagging
+//     words in shared memory, later CTAs from the same words in global
+//     memory (ops/kernels/givens.py::hessenberg_layout: `warps` a CTA).
+//     Column j of H is finished after step j (zero below row j + 1): the
+//     rotations of its entries below the diagonal are not done (the
+//     callers' triu drops them).
 //   G1 and G3 launch cooperatively, so all their CTAs are resident while
 //   they wait on each other.
 #include <cuda_runtime.h>
@@ -79,6 +83,22 @@ __device__ __forceinline__ void rotation(float a, float b, float& c,
   }
 }
 
+// The same values as rotation(), with the r > 0 test a selection, so that
+// a warp whose lanes compute it together does not branch on it.  A zero
+// dividend would send __fdiv_rn down its slow path (an already triangular
+// input has zeros below its diagonal); its quotient is the dividend itself
+// (r > 0), so it is selected, not divided.
+__device__ __forceinline__ void rotation_sel(float a, float b, float& c,
+                                             float& s) {
+  const float r = hypotf(a, b);
+  const bool ok = r > 0.f;
+  const float rs = ok ? r : 1.f;
+  const float cq = __fdiv_rn(a == 0.f ? 1.f : a, rs);
+  const float sq = __fdiv_rn(b == 0.f ? 1.f : -b, rs);
+  c = ok ? (a == 0.f ? a : cq) : 1.f;
+  s = ok ? (b == 0.f ? -b : sq) : 0.f;
+}
+
 // The new lo row, c lo - s hi, and the new hi row, s lo + c hi.
 __device__ __forceinline__ float rot_lo(float c, float s, float lo,
                                         float hi) {
@@ -90,19 +110,72 @@ __device__ __forceinline__ float rot_hi(float c, float s, float lo,
 }
 
 // ------------------------------------------------------ coefficients ----
-// G1 and G3 pass coefficients between warps through global memory as one
+// G1 and G3 pass coefficients between CTAs through global memory as one
 // 64-bit word (c in the low half, s in the high half), written once; a word
 // still holding the sentinel (all ones, which no canonical float pair
 // gives) has not been written yet.  So a word is its own flag: no fence, no
 // counter.  A wait that outlasts kSpinLimit polls (a fault: every producer
 // runs, the launch is cooperative) sets *abort, and every warp then takes
 // NaN for what it waits on and runs to its end; the wrapper reads *abort
-// after the launch and raises.
+// after the launch and raises.  Inside a G3 CTA the same words sit in
+// shared memory, set to the sentinel at the start.
 constexpr unsigned long long kSent = ~0ull;
 constexpr int kSpinLimit = 1 << 22;
 constexpr int kPf = 8;     // rows a lane loads ahead
 constexpr int kExtQ = kPf; // diagonals of G1 coefficients a lane loads ahead
 constexpr int kSlots = 16; // rows of G1 in one block (registers)
+constexpr int kHessMaxWarps = 8;  // warps of a G3 CTA at most
+
+// Per-warp clock64 sums of a launch's step phases, compiled in only with
+// -DMPBQR_GIVENS_PROF; read by utils/givens_probe.py --phases, which names
+// the slots.  Each step of a warp is a front step when the warp makes a
+// coefficient in it, else a follower step (slots + kGpFollow).
+constexpr int kGpMake = 0;     // making the coefficient
+constexpr int kGpHand = 1;     // handing it on inside the warp or CTA
+constexpr int kGpWaitCta = 2;  // waiting on another CTA
+constexpr int kGpApply = 3;    // applying it
+constexpr int kGpBarrier = 4;  // the CTA barrier
+constexpr int kGpWaitWarp = 5; // waiting on another warp of the CTA
+constexpr int kGpSteps = 6;    // steps counted
+constexpr int kGpFollow = 8;
+constexpr int kGpTotal = 15;   // the warp's whole clock
+constexpr int kGpFirst = 16;   // %globaltimer (ns) at its first front step
+constexpr int kGpLast = 17;    // %globaltimer (ns) at its last front step
+constexpr int kGpSlots = 18;
+constexpr int kGpWarps = 2048;
+#ifdef MPBQR_GIVENS_PROF
+__device__ long long g_gv_prof[kGpWarps][kGpSlots];
+#define GP_INIT                                                  \
+  long long gp_t = clock64(), gp_t0 = gp_t, gp_acc[kGpSlots];    \
+  for (int gp_k = 0; gp_k < kGpSlots; ++gp_k) gp_acc[gp_k] = 0;  \
+  int gp_off = 0;
+#define GP_STEP(front)                                           \
+  gp_off = __any_sync(0xffffffffu, (front)) ? 0 : kGpFollow;     \
+  gp_acc[kGpSteps + gp_off] += 1;                                \
+  if (gp_off == 0) {                                             \
+    long long gp_g;                                              \
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gp_g));     \
+    if (gp_acc[kGpFirst] == 0) gp_acc[kGpFirst] = gp_g;          \
+    gp_acc[kGpLast] = gp_g;                                      \
+  }
+#define GP(k)                                                    \
+  {                                                              \
+    const long long gp_n = clock64();                            \
+    gp_acc[(k) + gp_off] += gp_n - gp_t;                         \
+    gp_t = gp_n;                                                 \
+  }
+#define GP_SAVE(w)                                               \
+  if ((threadIdx.x & 31) == 0 && (int)(w) < kGpWarps) {          \
+    gp_acc[kGpTotal] = clock64() - gp_t0;                        \
+    for (int gp_k = 0; gp_k < kGpSlots; ++gp_k)                  \
+      g_gv_prof[w][gp_k] = gp_acc[gp_k];                         \
+  }
+#else
+#define GP_INIT
+#define GP_STEP(front)
+#define GP(k)
+#define GP_SAVE(w)
+#endif
 
 __device__ __forceinline__ unsigned long long pack(float c, float s) {
   if (c != c) c = __int_as_float(0x7fffffff);  // never the sentinel
@@ -127,25 +200,71 @@ __device__ __forceinline__ void st_word(unsigned long long* p,
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
                : "memory");
 }
+// st_word where `on`, as one predicated store (no branch in the warp).
+__device__ __forceinline__ void st_word_if(bool on, unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t"
+      "@q st.relaxed.gpu.global.u64 [%0], %1;\n\t}" ::"l"(p),
+      "l"(v), "r"((unsigned)on)
+      : "memory");
+}
+__device__ __forceinline__ unsigned long long nan_word() {
+  return pack(__int_as_float(0x7fffffff), __int_as_float(0x7fffffff));
+}
+// True (and *abort set) once a wait has polled `spins` times past the
+// limit, or another wait has aborted; checks the flag every 256 polls.
+__device__ __forceinline__ bool give_up(int spins, int* abort) {
+  if (spins >= kSpinLimit || (spins % 256 == 255 && *(volatile int*)abort)) {
+    *(volatile int*)abort = 1;
+    return true;
+  }
+  return false;
+}
 // The word at p once written (see above).
-__device__ unsigned long long wait_word(const unsigned long long* p,
-                                        int* abort) {
+__device__ unsigned long long wait_word(
+    const unsigned long long* p, int* abort) {
   unsigned long long v = ld_word(p);
-  if (v != kSent) return v;
   for (int spins = 0; v == kSent; ++spins) {
-    if (spins >= kSpinLimit || (spins % 256 == 255 && *(volatile int*)abort)) {
-      *(volatile int*)abort = 1;
-      return pack(__int_as_float(0x7fffffff), __int_as_float(0x7fffffff));
-    }
+    if (give_up(spins, abort)) return nan_word();
     __nanosleep(64);
     v = ld_word(p);
   }
   return v;
 }
 
+// A word of the CTA's table in shared memory (self-flagging like the
+// global ones), once written: read, and polled with a short sleep between
+// reads (out of line, so that the hot loops stay small) only while it
+// holds the sentinel.
+__device__ __forceinline__ unsigned long long ld_shared(
+    const unsigned long long* p) {
+  return *(const volatile unsigned long long*)p;
+}
+__device__ __forceinline__ void st_shared(unsigned long long* p,
+                                          unsigned long long v) {
+  *(volatile unsigned long long*)p = v;
+}
+__device__ __noinline__ unsigned long long wait_shared(
+    const unsigned long long* p, int* abort) {
+  unsigned long long v = ld_shared(p);
+  for (int spins = 0; v == kSent; ++spins) {
+    if (give_up(spins, abort)) return nan_word();
+    __nanosleep(32);
+    v = ld_shared(p);
+  }
+  return v;
+}
+__device__ __forceinline__ unsigned long long get_shared(
+    const unsigned long long* p, int* abort) {
+  const unsigned long long v = ld_shared(p);
+  return v != kSent ? v : wait_shared(p, abort);
+}
+
 // ---------------------------------------------------------------- G1 ----
 // R (n x W, row stride W) <- R with the k rows of `rows` (k x W) folded in.
-// One CTA per 32 consecutive columns; the rows in blocks of NS <= kSlots.
+// One CTA per 32 consecutive columns; the rows in blocks of NS <= kSlots
+// (ops/kernels/givens.py::fold_layout).
 // In slot t lane j keeps row t's entry of column j (rw) and the running
 // R[p, j] of the pivot p = d - t that row t meets at diagonal d (cr).
 // Coefficient (p, t) (pivot p against row t) is made at diagonal p + t by
@@ -189,6 +308,7 @@ fold_rows_kernel(float* __restrict__ R, const float* __restrict__ rows,
   const int jmax = min(j, n - 1);            // the pivots of column j
   const int wlast = min(g0 + 31, W - 1);     // the CTA's last column
   const int ndiag = n + kSlots;              // diagonals a block stores
+  GP_INIT
   for (int b0 = 0, blk = 0; b0 < k; b0 += NS, ++blk) {
     const int nbk = min(NS, k - b0);
     unsigned long long* cb = coef + (size_t)blk * ndiag * kSlots;
@@ -220,6 +340,8 @@ fold_rows_kernel(float* __restrict__ R, const float* __restrict__ rows,
         const int d = d0 + u;
         if (d > dend) break;
         const int par = d & 1;
+        const int tp = d - j;
+        GP_STEP(live && j < n && tp >= t0 && tp < t0 + SPW && tp < nbk)
         // Pivot d enters slot 0; the others move one slot on.
 #pragma unroll
         for (int s = SPW - 1; s > 0; --s) cr[s] = cr[s - 1];
@@ -230,8 +352,8 @@ fold_rows_kernel(float* __restrict__ R, const float* __restrict__ rows,
         } else {
           cr[0] = crx[par][q][lane];
         }
+        GP(kGpHand)
         // Column j makes coefficient (j, d - j) if row d - j is here.
-        const int tp = d - j;
         if (live && j < n && tp >= t0 && tp < t0 + SPW && tp < nbk) {
           const float x = tp == 0 ? cr[0] : tp == t0 ? xdx[par][q][lane]
                                                      : xd;
@@ -244,6 +366,7 @@ fold_rows_kernel(float* __restrict__ R, const float* __restrict__ rows,
           cf[par][tp] = v;
           st_word(cb + (size_t)d * kSlots + tp, v);
         }
+        GP(kGpMake)
         // Earlier CTAs' coefficients: the loader of row t.
         if (loader) {
           const int t = t0 + lane, p = d - t;
@@ -256,7 +379,9 @@ fold_rows_kernel(float* __restrict__ R, const float* __restrict__ rows,
           eq[u] = d + kExtQ < ndiag
                       ? ld_word(cb + (size_t)(d + kExtQ) * kSlots + t) : kSent;
         }
+        GP(kGpWaitCta)
         __syncwarp();
+        GP(kGpHand)
         // Pivot p = d - t against row t, for the columns > p.
 #pragma unroll
         for (int s = 0; s < SPW; ++s) {
@@ -272,16 +397,21 @@ fold_rows_kernel(float* __restrict__ R, const float* __restrict__ rows,
           if (on && live && t == nbk - 1 && p <= j)
             R[(size_t)p * W + j] = p == j ? xd : cr[s];
         }
+        GP(kGpApply)
         if (NW > 1) {
           if (q < NW - 1) crx[par ^ 1][q + 1][lane] = cr[SPW - 1];
           __syncthreads();
         }
+        GP(kGpBarrier)
       }
     }
     __syncthreads();
   }
+  GP_SAVE(blockIdx.x * NW + q)
 }
 
+// ---------------------------------------------------------------- G2 ----
+// ---------------------------------------------------------------- G2 ----
 // ---------------------------------------------------------------- G2 ----
 // For i = m-2 down to `start`: (c, s) = rotation(v[i], v[i+1]) of the
 // running vector (v[i] <- c v[i] - s v[i+1]), applied to rows (i, i+1) of
@@ -353,23 +483,41 @@ chain_kernel(const float* __restrict__ v, float* __restrict__ X1, int n1,
   X[(size_t)start * ld + j] = carry;
 }
 
+
 // ---------------------------------------------------------------- G3 ----
 // For i = 0 .. L-1, L = min(m - 1, nH): (c, s) = rotation(H[i, i],
 // H[i+1, i]) of the current H, applied to rows (i, i+1) of H (m x nH) and
-// Qt (m x nQ), row strides nH and nQ.  One warp (CTA) per 32 consecutive
-// columns of [H | Qt], all stepping i in order; each lane carries its
-// column's running row i and loads rows kPf ahead.  Coefficient i is made
-// at step i by the lane of H column i (its running H[i, i] and H[i+1, i]),
-// shared in the warp by a shuffle and with later warps through coef[i];
-// a warp behind the front reads 32 coefficients with one load.
-__global__ void __launch_bounds__(32)
+// Qt (m x nQ), row strides nH and nQ.  A CTA of `warps` warps (blockDim.x /
+// 32) per 32 warps consecutive columns of [H | Qt], each warp on 32 of
+// them, all stepping i in order; each lane carries its column's running
+// row i and holds rows i + 1 .. i + kPf in registers (loaded kPf steps
+// ahead).  With carry_j(i) the running H[i+1, j] after step i and P_j(i) =
+// H[i+1, j] as it was (the hi row of step i):
+//   coefficient i = rotation(rot_hi(c_{i-1}, s_{i-1}, carry_i(i-2),
+//                                   P_i(i-1)), P_i(i)),
+// so the warp of H column i makes it with every lane, from c_{i-1} (which
+// every lane holds) and the three inputs that column i's lane shuffled to
+// the warp at step i - 1, before its own rotation: nothing passes between
+// lanes between two coefficients made here.  A warp steps in three loops,
+// each with one source of coefficients and no branch between them: those
+// of earlier CTAs (global memory, 32 words a load), those of earlier warps
+// of its CTA (the CTA's table of self-flagging words), and its own.  No
+// lane branches on whether its column still changes: the rotation is
+// computed in every lane and kept, or stored, where it does.
+__global__ void __launch_bounds__(32 * kHessMaxWarps)
 hessenberg_kernel(float* __restrict__ H, int nH, float* __restrict__ Qt,
                   int nQ, int m, unsigned long long* __restrict__ coef,
                   int* abort) {
+  __shared__ unsigned long long tab[32 * kHessMaxWarps];  // step i - cg0
   const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x;
-  const int g0 = blockIdx.x * 32;
-  const int g = g0 + lane;
+  const int nw = blockDim.x / 32;
+  const int w = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int e = threadIdx.x; e < 32 * nw; e += blockDim.x) tab[e] = kSent;
+  __syncthreads();
+  const int cg0 = blockIdx.x * 32 * nw;  // the CTA's first column
+  const int wg0 = cg0 + 32 * w;          // this warp's first column
+  const int g = wg0 + lane;
   const int L = min(m - 1, nH);
   const bool live = g < nH + nQ;
   float* X = g < nH ? H + g : Qt + (g - nH);
@@ -381,77 +529,180 @@ hessenberg_kernel(float* __restrict__ H, int nH, float* __restrict__ Qt,
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     wlast = max(wlast, __shfl_xor_sync(full, wlast, o));
-  float carry = (live && last >= 0) ? X[0] : 0.f;
-  float pf[kPf];
+  // Xr: column g, or a column that exists, for the unconditional loads;
+  // rlast: the last row they read (row last + 1, at least 0).
+  const float* Xr = live ? X : (nH > 0 ? H : Qt);
+  const int rlast = min(max(last + 1, 0), m - 1);
+  float carry = Xr[0];
+  float pf[kPf];  // at step i, pf[i % kPf] holds row i + 1
 #pragma unroll
-  for (int q = 0; q < kPf; ++q)
-    pf[q] = (live && q + 1 < m && q <= last) ? X[(q + 1) * ld] : 0.f;
-  unsigned long long batch = kSent;
-  int bstart = 0;
-  // kPf steps an iteration, unrolled: pf[u] is reloaded in place (see G1).
-  for (int i0 = 0; i0 <= wlast; i0 += kPf) {
+  for (int q = 0; q < kPf; ++q) pf[q] = Xr[min(q + 1, rlast) * ld];
+  // Step i with (c, s), in slot u = i % kPf of the ring: the rotated rows
+  // kept and stored where this column still changes, row i + 1 + kPf
+  // loaded into the slot.
+#define G3_APPLY(i, u, c, s)                                         \
+  {                                                                  \
+    const float hi = pf[u];                                          \
+    const float lo2 = rot_lo(c, s, carry, hi);                       \
+    const float hi2 = rot_hi(c, s, carry, hi);                       \
+    const bool on = (i) <= last;                                     \
+    if (on) X[(i) * ld] = lo2;                                       \
+    if ((i) == last) X[((i) + 1) * ld] = hi2;                        \
+    carry = on ? hi2 : carry;                                        \
+    pf[u] = Xr[min((i) + 1 + kPf, rlast) * ld];                      \
+  }
+  GP_INIT
+  // 1. Coefficients of earlier CTAs: 32 words a load, polled while the
+  // next word is unwritten.
+  const int enda = min(cg0, wlast + 1);
+  unsigned long long batch = kSent;  // words bstart + lane
+  int bstart = 0, bvalid = 0;
+  for (int i0 = 0; i0 < enda; i0 += kPf) {
 #pragma unroll
     for (int u = 0; u < kPf; ++u) {
       const int i = i0 + u;
-      if (i > wlast) break;
-      unsigned long long v;
-      if (i >= g0) {  // made here, by the lane of H column i
-        v = 0;
-        if (lane == i - g0) {
-          float c, s;
-          rotation(carry, pf[u], c, s);
-          v = pack(c, s);
-          st_word(coef + i, v);
-        }
-        v = __shfl_sync(full, v, i - g0);
-      } else {  // made by an earlier warp
-        v = __shfl_sync(full, batch, (i - bstart) & 31);
-        if (i - bstart >= 32 || v == kSent) {
-          bstart = i;
-          batch = i + lane < L ? ld_word(coef + i + lane) : kSent;
-          v = __shfl_sync(full, batch, 0);
-          if (v == kSent) {
-            if (lane == 0) batch = wait_word(coef + i, abort);
-            v = __shfl_sync(full, batch, 0);
+      if (i >= enda) break;
+      GP_STEP(false)
+      if (i >= bstart + bvalid) {
+        bstart = i;
+        for (int spins = 0;; ++spins) {
+          batch = i + lane < enda ? ld_word(coef + i + lane) : kSent;
+          const unsigned ok = __ballot_sync(full, batch != kSent);
+          bvalid = ok == full ? 32 : __ffs(~ok) - 1;
+          if (bvalid > 0) break;
+          const bool stop = lane == 0 && give_up(spins, abort);
+          if (__shfl_sync(full, stop, 0)) {  // lane 0 decides
+            batch = nan_word();
+            bvalid = 32;
+            break;
           }
+          __nanosleep(64);
         }
       }
-      const float c = coef_c(v), s = coef_s(v);
-      if (i <= last) {
-        const float lo = carry, hi = pf[u];
-        X[i * ld] = rot_lo(c, s, lo, hi);
-        carry = rot_hi(c, s, lo, hi);
-        if (i == last) X[(i + 1) * ld] = carry;
-      }
-      pf[u] = (live && i + 1 + kPf < m && i + kPf <= last)
-                  ? X[(i + 1 + kPf) * ld] : 0.f;
+      const unsigned long long v = __shfl_sync(full, batch, i - bstart);
+      GP(kGpWaitCta)
+      G3_APPLY(i, u, coef_c(v), coef_s(v))
+      GP(kGpApply)
     }
   }
+  // 2. Coefficients of earlier warps of this CTA.
+  const int endb = min(wg0, wlast + 1);
+  for (int i0 = cg0; i0 < endb; i0 += kPf) {
+#pragma unroll
+    for (int u = 0; u < kPf; ++u) {
+      const int i = i0 + u;
+      if (i >= endb) break;
+      GP_STEP(false)
+      const unsigned long long v = get_shared(&tab[i - cg0], abort);
+      GP(kGpWaitWarp)
+      G3_APPLY(i, u, coef_c(v), coef_s(v))
+      GP(kGpApply)
+    }
+  }
+  // 3. This warp's own: every step of it up to wlast (a warp that holds
+  // columns of Qt holds H's last column, so L - 1 < wg0 + 32).  The first
+  // coefficient's inputs come from lane 0 (column wg0 after step wg0 - 1,
+  // its row wg0 + 1); each step shuffles the next one's from its lane.
+  if (wg0 <= wlast) {
+    const float t0 = __shfl_sync(full, carry, 0);
+    float ca = 0.f, cb = 0.f, cc = __shfl_sync(full, pf[0], 0);
+    float pc = 1.f, ps = 0.f;
+    for (int i0 = wg0; i0 <= wlast; i0 += kPf) {
+#pragma unroll
+      for (int u = 0; u < kPf; ++u) {
+        const int i = i0 + u;
+        if (i > wlast) break;
+        GP_STEP(true)
+        const int src = min(i + 1 - wg0, 31);
+        const float na = __shfl_sync(full, carry, src);
+        const float nb = __shfl_sync(full, pf[u], src);
+        const float nc = __shfl_sync(full, pf[(u + 1) % kPf], src);
+        GP(kGpHand)
+        const float t = i == wg0 ? t0 : rot_hi(pc, ps, ca, cb);
+        float c, s;
+        rotation_sel(t, cc, c, s);
+        GP(kGpMake)
+        const unsigned long long v = pack(c, s);
+        if (lane == 0) st_shared(&tab[i - cg0], v);
+        st_word_if(lane == 0, coef + i, v);
+        GP(kGpHand)
+        G3_APPLY(i, u, c, s)
+        ca = na;
+        cb = nb;
+        cc = nc;
+        pc = c;
+        ps = s;
+        GP(kGpApply)
+      }
+    }
+  }
+#undef G3_APPLY
+  GP_SAVE(blockIdx.x * nw + w)
+}
+
+// The most CTAs of `threads` threads and `smem` bytes of dynamic shared
+// memory that the card keeps resident at once (a cooperative launch needs
+// every CTA resident), asked of the runtime once for each kernel and size.
+int max_resident(const void* kern, int threads, int smem) {
+  struct Entry {
+    const void* kern;
+    int threads, smem, ctas;
+  };
+  static Entry cache[64];
+  static int cached = 0;
+  for (int e = 0; e < cached; ++e)
+    if (cache[e].kern == kern && cache[e].threads == threads &&
+        cache[e].smem == smem)
+      return cache[e].ctas;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem) != cudaSuccess)
+    return 0;
+  if (cached < 64) cache[cached++] = {kern, threads, smem, sms * per_sm};
+  return sms * per_sm;
 }
 
 }  // namespace
 
 extern "C" {
 
+#ifdef MPBQR_GIVENS_PROF
+// Copy the phase clocks (kGpWarps x kGpSlots signed 64-bit) to the host.
+int mpbqr_givens_prof(long long* prof) {
+  return (int)cudaMemcpyFromSymbol(prof, g_gv_prof, sizeof(g_gv_prof));
+}
+#endif
+
 // G1: R (n x W, fp32, row-major, in place) with the k rows of `rows` (k x W)
-// folded in: ceil(W / 32) CTAs of 32 columns, launched cooperatively
-// (every CTA resident: they wait on each other), with the fewest slots that
-// hold min(k, 16) rows, four a warp.  coef: ceil(k / 16) x (n + 16) x 16 words set to all
-// ones by the caller (blocks of fewer rows use a part of theirs); *abort
-// zero.
+// folded in, in blocks of `slots` rows (1, 2, 4, 8 or 16, at least min(k,
+// 16); ops/kernels/givens.py::fold_layout): ceil(W / 32) CTAs of
+// FoldShape<slots>::NW warps, launched cooperatively (every CTA resident:
+// they wait on each other).  coef: ceil(k / 16) x (n + 16) x 16 words set
+// to all ones by the caller (blocks of fewer rows use a part of theirs);
+// *abort zero.  A layout the kernel does not take returns
+// cudaErrorInvalidValue, one whose CTAs cannot all be resident
+// cudaErrorCooperativeLaunchTooLarge, before any launch.
 int mpbqr_givens_fold_rows(float* R, const float* rows, int n, int W, int k,
-                           unsigned long long* coef, int* abort,
+                           unsigned long long* coef, int* abort, int slots,
                            void* stream) {
+  const void* kern = slots == 16  ? (const void*)fold_rows_kernel<16>
+                     : slots == 8 ? (const void*)fold_rows_kernel<8>
+                     : slots == 4 ? (const void*)fold_rows_kernel<4>
+                     : slots == 2 ? (const void*)fold_rows_kernel<2>
+                     : slots == 1 ? (const void*)fold_rows_kernel<1>
+                                  : nullptr;
+  if (kern == nullptr || slots < (k < kSlots ? k : kSlots))
+    return (int)cudaErrorInvalidValue;
+  const int warps = slots > 4 ? slots / 4 : 1;  // FoldShape<slots>::NW
+  const int ctas = (W + 31) / 32;
+  if (ctas > max_resident(kern, 32 * warps, 0))
+    return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&R, &rows, &n, &W, &k, &coef, &abort};
-  const void* kern = k > 8   ? (const void*)fold_rows_kernel<16>
-                     : k > 4 ? (const void*)fold_rows_kernel<8>
-                     : k > 2 ? (const void*)fold_rows_kernel<4>
-                     : k > 1 ? (const void*)fold_rows_kernel<2>
-                             : (const void*)fold_rows_kernel<1>;
-  const int warps = k > 8 ? FoldShape<16>::NW : k > 4 ? FoldShape<8>::NW : 1;
   cudaError_t err = cudaLaunchCooperativeKernel(
-      kern, dim3((W + 31) / 32), dim3(32 * warps), args, 0,
-      (cudaStream_t)stream);
+      kern, dim3(ctas), dim3(32 * warps), args, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -473,16 +724,22 @@ int mpbqr_givens_chain(const float* v, float* X1, int n1, float* X2, int n2,
 }
 
 // G3: H (m x nH) re-triangularized and Qt (m x nQ) rotated with it, in
-// place: ceil((nH + nQ) / 32) CTAs of one warp, launched cooperatively.
-// coef: max(min(m - 1, nH), 1) words set to all ones by the caller; *abort
-// zero.
+// place: ceil(ceil((nH + nQ) / 32) / warps) CTAs of `warps` <= 8 warps,
+// each warp on 32 columns of [H | Qt], launched cooperatively
+// (ops/kernels/givens.py::hessenberg_layout gives warps).  coef:
+// max(min(m - 1, nH), 1) words set to all ones by the caller; *abort zero.
+// Errors as for G1.
 int mpbqr_givens_hessenberg(float* H, int nH, float* Qt, int nQ, int m,
-                            unsigned long long* coef, int* abort,
+                            unsigned long long* coef, int* abort, int warps,
                             void* stream) {
+  if (warps < 1 || warps > kHessMaxWarps) return (int)cudaErrorInvalidValue;
+  const void* kern = (const void*)hessenberg_kernel;
+  const int ctas = ((nH + nQ + 31) / 32 + warps - 1) / warps;
+  if (ctas > max_resident(kern, 32 * warps, 0))
+    return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&H, &nH, &Qt, &nQ, &m, &coef, &abort};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)hessenberg_kernel, dim3((nH + nQ + 31) / 32), dim3(32),
-      args, 0, (cudaStream_t)stream);
+      kern, dim3(ctas), dim3(32 * warps), args, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

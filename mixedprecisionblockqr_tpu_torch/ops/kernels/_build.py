@@ -105,12 +105,20 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_tiled_matmul.restype = ci
     lib.mpbqr_chol_rinv.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
     lib.mpbqr_chol_rinv.restype = ci
-    lib.mpbqr_givens_fold_rows.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp]
+    return _declare_givens(lib)
+
+
+def _declare_givens(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C entries of ``givens.cu``."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.mpbqr_givens_fold_rows.argtypes = [vp, vp, ci, ci, ci, vp, vp, ci,
+                                           vp]
     lib.mpbqr_givens_fold_rows.restype = ci
     lib.mpbqr_givens_chain.argtypes = [vp, vp, ci, vp, ci, ci, ci, vp, ci,
                                        vp]
     lib.mpbqr_givens_chain.restype = ci
-    lib.mpbqr_givens_hessenberg.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp]
+    lib.mpbqr_givens_hessenberg.argtypes = [vp, ci, vp, ci, ci, vp, vp, ci,
+                                            vp]
     lib.mpbqr_givens_hessenberg.restype = ci
     return lib
 
@@ -128,15 +136,20 @@ def _run_all(cmds) -> None:
                                f"{' '.join(cmd)}\n{out}")
 
 
-def build(so: Path, flags=()) -> None:
-    """Compile every source with ``NVCC_FLAGS`` and ``flags``, in parallel,
+#: Libraries of one source that :func:`instrumented_library` may build,
+#: with the function that declares their C entries.
+PARTIAL = {("givens.cu",): _declare_givens}
+
+
+def build(so: Path, flags=(), sources=SOURCES) -> None:
+    """Compile ``sources`` with ``NVCC_FLAGS`` and ``flags``, in parallel,
     and link them into the shared library ``so``."""
     so.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
-        objs = [os.path.join(tmp, Path(src).stem + ".o") for src in SOURCES]
+        objs = [os.path.join(tmp, Path(src).stem + ".o") for src in sources]
         _run_all([[nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj,
-                   str(CSRC / src)] for src, obj in zip(SOURCES, objs)])
+                   str(CSRC / src)] for src, obj in zip(sources, objs)])
         lib_tmp = os.path.join(tmp, so.name)
         # -ldl: tiled_matmul.cu looks cuTensorMapEncodeTiled up in
         # libcuda at run time with dlsym (no link against it).
@@ -146,18 +159,21 @@ def build(so: Path, flags=()) -> None:
 
 @contextlib.contextmanager
 def instrumented_library(flag: str, entry: Optional[str] = None,
-                         nargs: int = 0):
+                         nargs: int = 0, sources=SOURCES):
     """A second kernel library, built with the macro ``flag`` (``-D...``)
-    into a temporary directory under ``_build/`` that is removed on exit,
-    with every C entry declared and the instrumented build's extra entry
-    ``entry``, if it has one (``nargs`` pointers -> CUDA error), too.  For
-    the developer's probes; the library that :func:`library` loads is not
+    from ``sources`` (all, or a key of ``PARTIAL``) into a temporary
+    directory under ``_build/`` that is removed on exit, with their C
+    entries declared and the instrumented build's extra entry ``entry``,
+    if it has one (``nargs`` pointers -> CUDA error), too.  For the
+    developer's probes; the library that :func:`library` loads is not
     touched."""
+    sources = tuple(sources)
+    declare = _declare if sources == SOURCES else PARTIAL[sources]
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
         so = Path(tmp) / "libmpbqr_kernels.so"
-        build(so, (flag,))
-        lib = _declare(ctypes.CDLL(str(so)))
+        build(so, (flag,), sources)
+        lib = declare(ctypes.CDLL(str(so)))
         if entry is not None:
             fn = getattr(lib, entry)
             fn.argtypes = [ctypes.c_void_p] * nargs

@@ -26,6 +26,8 @@ same operations, each rounded on its own, so they give the same values.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
@@ -39,10 +41,19 @@ SMEM_LIMIT = 232448
 #: Rows G1 folds in one pass of its wavefront (csrc/givens.cu kSlots).
 FOLD_SLOTS = 16
 #: Columns of [X1 | X2] one G2 CTA walks (csrc/givens.cu kChainCols); G1
-#: and G3 run one warp per 32 columns.
+#: and G3 run one warp per 32 columns, several warps a CTA.
 CHAIN_COLS = 96
+#: G1's row-slot layouts (csrc/givens.cu fold_rows_kernel<NS>), each with
+#: its warps a CTA, four slots a warp (FoldShape<NS>::NW).
+FOLD_WARPS = {1: 1, 2: 1, 4: 1, 8: 2, 16: 4}
+#: G3's warps a CTA, and at most (csrc/givens.cu kHessMaxWarps).
+HESS_WARPS = 4
+HESS_MAX_WARPS = 8
 #: The word that marks a coefficient G1 or G3 has not written yet.
 SENTINEL = -1
+#: cudaErrorCooperativeLaunchTooLarge: G1's / G3's C entry returns it,
+#: before launching, when the layout's CTAs cannot all be resident.
+CUDA_COOPERATIVE_TOO_LARGE = 720
 
 
 def givens_rotation(a: torch.Tensor, b: torch.Tensor):
@@ -69,6 +80,42 @@ def fold_words(n: int, k: int) -> int:
     """G1's coefficient words: (n + 16) diagonals of 16 rows for each block
     of 16 rows."""
     return -(-k // FOLD_SLOTS) * (n + FOLD_SLOTS) * FOLD_SLOTS
+
+
+class GivensLayout(NamedTuple):
+    """A G1 or G3 launch: ``ctas`` CTAs of ``warps`` warps, a lane per
+    column; G3's warps on 32 consecutive columns each, G1's CTA on 32
+    columns with its rows in blocks of ``slots`` spread over its warps."""
+
+    ctas: int
+    warps: int
+    slots: int = 1
+
+    @property
+    def total_warps(self) -> int:
+        return self.ctas * self.warps
+
+
+def fold_layout(n: int, W: int, k: int) -> GivensLayout:
+    """G1's launch for k rows of width W: the fewest slots (1, 2, 4, 8, 16)
+    that hold min(k, 16) rows, a CTA per 32 columns, ``FOLD_WARPS[slots]``
+    warps each (all on the same 32 columns, four slots a warp)."""
+    slots = next(s for s in FOLD_WARPS if s >= min(k, FOLD_SLOTS))
+    return GivensLayout(-(-W // 32), FOLD_WARPS[slots], slots)
+
+
+def hessenberg_layout(m: int, nH: int, nQ: int,
+                      warps: int | None = None) -> GivensLayout:
+    """G3's launch on [H | Q^T]: ``HESS_WARPS`` warps a CTA (fewer when
+    there are fewer groups of 32 columns), or ``warps`` (a developer's
+    comparison, at most ``HESS_MAX_WARPS``)."""
+    want = HESS_WARPS if warps is None else warps
+    if not 1 <= want <= HESS_MAX_WARPS:
+        raise ValueError(f"G3 takes 1 to {HESS_MAX_WARPS} warps a CTA, "
+                         f"got {want}")
+    groups = -(-(nH + nQ) // 32)
+    want = min(want, groups)
+    return GivensLayout(-(-groups // want), want)
 
 
 def chain_smem(m: int, start: int) -> int:
@@ -142,6 +189,45 @@ def raise_on_abort(abort: torch.Tensor, name: str) -> None:
                            "CTA timed out; the outputs hold NaN")
 
 
+def launch_fold_rows(lib, Raug: torch.Tensor, rows: torch.Tensor,
+                     flag: torch.Tensor) -> int:
+    """One G1 launch from the kernel library ``lib`` on checked CUDA
+    tensors (k >= 1 rows), with :func:`fold_layout`'s slots; returns the C
+    entry's CUDA error."""
+    n, W = Raug.shape
+    k = rows.shape[0]
+    coef = _scratch(fold_words(n, k), Raug.device)
+    return lib.mpbqr_givens_fold_rows(
+        Raug.data_ptr(), rows.data_ptr(), n, W, k, coef.data_ptr(),
+        flag.data_ptr(), fold_layout(n, W, k).slots, _stream(Raug))
+
+
+def launch_hessenberg(lib, H: torch.Tensor, Qt: torch.Tensor,
+                      flag: torch.Tensor,
+                      layout: GivensLayout | None = None) -> int:
+    """One G3 launch from the kernel library ``lib`` on checked CUDA
+    tensors, with :func:`hessenberg_layout`'s layout unless one is given;
+    returns the C entry's CUDA error."""
+    m, nH = H.shape
+    nQ = Qt.shape[1]
+    lay = hessenberg_layout(m, nH, nQ) if layout is None else layout
+    coef = _scratch(max(min(m - 1, nH), 1), H.device)
+    return lib.mpbqr_givens_hessenberg(
+        H.data_ptr(), nH, Qt.data_ptr(), nQ, m, coef.data_ptr(),
+        flag.data_ptr(), lay.warps, _stream(H))
+
+
+def check_launch(code: int, name: str) -> None:
+    """Raise if a G1 / G3 C entry returned a CUDA error; a layout whose
+    CTAs the card cannot keep resident together is named as such."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
+
+    if code == CUDA_COOPERATIVE_TOO_LARGE:
+        raise RuntimeError(f"{name}: the layout's CTAs cannot all be "
+                           "resident on this card (a cooperative launch)")
+    check(code, name)
+
+
 def givens_fold_rows(Raug: torch.Tensor, rows: torch.Tensor,
                      abort: torch.Tensor | None = None) -> torch.Tensor:
     """Fold the k rows of ``rows`` (k x W) into the n x W augmented upper
@@ -161,19 +247,13 @@ def givens_fold_rows(Raug: torch.Tensor, rows: torch.Tensor,
         return Raug
     _require_cuda_f32(Raug, "Raug")
     _require_cuda_f32(rows, "rows")
-    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
-        check,
-        library,
-    )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
 
-    k = rows.shape[0]
-    if k == 0:
+    if rows.shape[0] == 0:
         return Raug
-    coef = _scratch(fold_words(n, k), Raug.device)
     flag = abort_flag(Raug.device) if abort is None else abort
-    check(library().mpbqr_givens_fold_rows(
-        Raug.data_ptr(), rows.data_ptr(), n, W, k, coef.data_ptr(),
-        flag.data_ptr(), _stream(Raug)), "givens_fold_rows")
+    check_launch(launch_fold_rows(library(), Raug, rows, flag),
+                 "givens_fold_rows")
     LAUNCHES["givens_fold_rows"] += 1
     if abort is None:
         raise_on_abort(flag, "givens_fold_rows")
@@ -238,16 +318,11 @@ def givens_hessenberg(H: torch.Tensor, Qt: torch.Tensor,
     _require_cuda_f32(Qt, "Qt")
     if H.shape[1] + Qt.shape[1] < 1:
         raise ValueError("givens_hessenberg needs at least one column")
-    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
-        check,
-        library,
-    )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
 
-    coef = _scratch(max(min(m - 1, H.shape[1]), 1), H.device)
     flag = abort_flag(H.device) if abort is None else abort
-    check(library().mpbqr_givens_hessenberg(
-        H.data_ptr(), H.shape[1], Qt.data_ptr(), Qt.shape[1], m,
-        coef.data_ptr(), flag.data_ptr(), _stream(H)), "givens_hessenberg")
+    check_launch(launch_hessenberg(library(), H, Qt, flag),
+                 "givens_hessenberg")
     LAUNCHES["givens_hessenberg"] += 1
     if abort is None:
         raise_on_abort(flag, "givens_hessenberg")

@@ -255,15 +255,15 @@ def test_c_entries_argtypes():
 
     lib = _build._declare(Lib())
     ci, vp = ctypes.c_int, ctypes.c_void_p
-    # Raug, rows, n, W, k, coefficient words, abort flag, stream
+    # Raug, rows, n, W, k, coefficient words, abort flag, slots, stream
     assert lib.mpbqr_givens_fold_rows.argtypes == [vp, vp] + [ci] * 3 + [
-        vp] * 3
+        vp] * 2 + [ci, vp]
     # v, X1, n1, X2, n2, m, start, vout, smem, stream
     assert lib.mpbqr_givens_chain.argtypes == [vp, vp, ci, vp, ci, ci, ci,
                                                vp, ci, vp]
-    # H, nH, Qt, nQ, m, coefficient words, abort flag, stream
+    # H, nH, Qt, nQ, m, coefficient words, abort flag, warps, stream
     assert lib.mpbqr_givens_hessenberg.argtypes == [vp, ci, vp, ci, ci, vp,
-                                                    vp, vp]
+                                                    vp, ci, vp]
     assert "givens.cu" in _build.SOURCES
 
 
@@ -316,6 +316,24 @@ def test_kernel_constants_match_the_source():
 
     assert const("kSlots") == kg.FOLD_SLOTS
     assert const("kChainThreads") - 32 == kg.CHAIN_COLS
+    assert const("kHessMaxWarps") == kg.HESS_MAX_WARPS
+    # FoldShape<NS>: SPW = NS < a ? NS : a slots a warp, NW = NS / SPW
+    # warps; the C entry's warps the same.
+    spw = int(re.search(r"SPW = NS < (\d+) \? NS : \1;", src).group(1))
+    assert kg.FOLD_WARPS == {ns: max(ns // spw, 1) for ns in kg.FOLD_WARPS}
+    assert "const int warps = slots > 4 ? slots / 4 : 1;" in src
+    # The clock build's slots, as utils/givens_probe.py names them.
+    from mixedprecisionblockqr_tpu_torch.utils import givens_probe as gp
+
+    names = {"make": "kGpMake", "hand_on": "kGpHand",
+             "wait_cta": "kGpWaitCta", "apply": "kGpApply",
+             "barrier": "kGpBarrier", "wait_warp": "kGpWaitWarp"}
+    assert {k: const(v) for k, v in names.items()} == gp.PHASE_SLOTS
+    assert (const("kGpSteps"), const("kGpFollow"), const("kGpTotal"),
+            const("kGpWarps"), const("kGpSlots"), const("kGpFirst"),
+            const("kGpLast")) == (
+        gp.STEPS_SLOT, gp.FOLLOW, gp.TOTAL_SLOT, gp.PROF_WARPS,
+        gp.PROF_SLOTS, gp.FIRST_SLOT, gp.LAST_SLOT)
 
 
 def test_phase3_folds_reach_every_row_slot_layout():
@@ -328,16 +346,98 @@ def test_phase3_folds_reach_every_row_slot_layout():
            "givens.cu").read_text()
     layouts = sorted({int(x) for x in
                       re.findall(r"fold_rows_kernel<(\d+)>", src)})
-    assert layouts == [1, 2, 4, 8, 16]
-    # The C entry takes the fewest slots that hold min(k, 16) rows.
-    used = {min(ns for ns in layouts if ns >= min(k, kg.FOLD_SLOTS))
-            for _, _, k in givens_probe.PHASE3_SHAPES["fold"]}
-    assert used == set(layouts)
+    assert layouts == [1, 2, 4, 8, 16] == sorted(kg.FOLD_WARPS)
+    # The rule takes the fewest slots that hold min(k, 16) rows.
+    shapes = (givens_probe.PHASE3_SHAPES["fold"]
+              + givens_probe.MAIN_SHAPES["fold"])
+    lays = [kg.fold_layout(n, n + nb, k) for n, nb, k in shapes]
+    assert [lay.slots for lay in lays] == [
+        min(ns for ns in layouts if ns >= min(k, kg.FOLD_SLOTS))
+        for _, _, k in shapes]
+    assert {lay.slots for lay in lays} == set(layouts)
+    # Each layout also runs on more than one CTA, where a CTA waits on
+    # coefficients of an earlier CTA; 20 rows run two blocks.
+    assert {lay.slots for lay in lays if lay.ctas > 1} == set(layouts)
+    assert any(k > kg.FOLD_SLOTS for _, _, k in shapes)
 
 
-def test_probe_needs_a_device(monkeypatch, capsys):
+@pytest.mark.parametrize("argv", [["--main"], ["--phases"],
+                                  ["--main", "--layouts", "--phases"]])
+def test_probe_needs_a_device(monkeypatch, capsys, argv):
     from mixedprecisionblockqr_tpu_torch.utils import givens_probe
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert givens_probe.main(["--main"]) == 2
+    assert givens_probe.main(argv) == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_phase3_hessenberg_shapes_reach_every_g3_case():
+    from mixedprecisionblockqr_tpu_torch.utils import givens_probe
+
+    shapes = (givens_probe.PHASE3_SHAPES["hessenberg"]
+              + givens_probe.MAIN_SHAPES["hessenberg"])
+    cases = set()
+    for m, n in shapes:
+        lay = kg.hessenberg_layout(m, n, m)
+        per_cta = 32 * lay.warps
+        assert lay.ctas * per_cta >= n + m > (lay.ctas - 1) * per_cta
+        cases.add("tall" if m - 1 > n else "square")
+        # H's columns on more than one CTA: the front crosses a CTA
+        # boundary through global memory; a CTA holding both H and Q^T.
+        if n > per_cta:
+            cases.add("h_crosses_ctas")
+        if n % per_cta:
+            cases.add("h_and_qt_in_one_cta")
+    assert cases == {"tall", "square", "h_crosses_ctas",
+                     "h_and_qt_in_one_cta"}
+
+
+@pytest.mark.parametrize("slots", [1, 2, 4, 8, 16])
+def test_fold_layout_rule(slots):
+    # k rows that take `slots` slots, on widths from one group of 32
+    # columns to rls_update's 2049: a CTA per 32 columns, four slots a warp.
+    k = slots if slots < 16 else 19
+    for W in (5, 32, 257, 1101, 2049):
+        lay = kg.fold_layout(W - 1, W, k)
+        assert lay == kg.GivensLayout(-(-W // 32), max(slots // 4, 1), slots)
+        assert lay.total_warps == lay.ctas * lay.warps
+
+
+def test_hessenberg_layout_rule():
+    assert kg.hessenberg_layout(2048, 2048, 2048) == kg.GivensLayout(
+        128 // kg.HESS_WARPS, kg.HESS_WARPS)
+    assert kg.hessenberg_layout(300, 120, 300) == kg.GivensLayout(
+        -(-14 // kg.HESS_WARPS), kg.HESS_WARPS)
+    assert kg.hessenberg_layout(2048, 2048, 2048, 8) == kg.GivensLayout(
+        16, 8)
+    assert kg.hessenberg_layout(2, 1, 2) == kg.GivensLayout(1, 1)
+    with pytest.raises(ValueError, match="warps a CTA"):
+        kg.hessenberg_layout(64, 64, 64, kg.HESS_MAX_WARPS + 1)
+
+
+def test_phase_summary_reads_the_clocks():
+    import numpy as np
+
+    from mixedprecisionblockqr_tpu_torch.utils import givens_probe as gp
+
+    prof = np.zeros((gp.PROF_WARPS, gp.PROF_SLOTS), np.int64)
+    # Warp 0 made 4 coefficients (make 400, apply 200 cycles); warp 1
+    # followed 4 steps (waits 300, apply 100); warp 2 is not in the launch.
+    prof[0, [gp.PHASE_SLOTS["make"], gp.PHASE_SLOTS["apply"],
+             gp.STEPS_SLOT, gp.TOTAL_SLOT]] = [400, 200, 4, 700]
+    prof[1, [gp.FOLLOW + gp.PHASE_SLOTS["wait_warp"],
+             gp.FOLLOW + gp.PHASE_SLOTS["apply"],
+             gp.FOLLOW + gp.STEPS_SLOT, gp.TOTAL_SLOT]] = [300, 100, 4, 500]
+    prof[2, gp.TOTAL_SLOT] = 10 ** 9
+    prof[0, [gp.FIRST_SLOT, gp.LAST_SLOT]] = [5000, 9000]
+    out = gp.phase_summary(prof, 2, 1000.0)
+    assert out["kernel_us"] == 0.7
+    assert out["front"]["warp_steps"] == 4
+    assert out["front"]["cycles_per_step"]["make"] == 100
+    assert out["front"]["shares"]["make"] == pytest.approx(2 / 3)
+    assert out["follower"]["shares"]["wait_warp"] == 0.75
+    assert out["follower"]["cycles_per_step"]["apply"] == 25
+    # One front warp, from 5 to 9 us of the global timer.
+    assert out["front_timeline_us"] == {
+        "front_warps": 1, "first_to_last": 4.0, "in_front_warps": 4.0,
+        "between_front_warps": 0.0, "largest_gap": 0.0}
