@@ -37,7 +37,11 @@ last line):
                  (lstsq's panels, in shared memory), 8192 x 128 (in
                  place), 128 x 128, 208 x 128 and 80 x 80, a zero column
                  and a NaN, with its cluster, rows per CTA and route,
-                 bitwise repeatable;
+                 bitwise repeatable; its batched entry on 64 x 1563 x 64,
+                 8 x 512 x 128 and (wide) 4 x 1024 x 256 stacks against
+                 the batched plain version, each member bit for bit a
+                 single launch at the batch's layout, beside the loop of
+                 single calls and torch.geqrf of the stack;
                  sketch_qrcp_ranks on 136 x 2048, 1920, 200 and 8192 (in
                  place), 72 x 1024 (r = 64), 138 x 2048, 73 x 300, 700 x 256
                  and 700 x 1024 (in place), zero / duplicate, NaN and inf
@@ -103,16 +107,19 @@ last line):
                  beside the same panel with cholesky_ex + solve_triangular
                  in chol_rinv's place, and matmul_bf16_accum_f32 at 2048^3;
  16. tsqr     -- tsqr(A) on a 100000 x 64 input (numpy seed 0, uniform -
-                 0.5): 64 leaves, 127 panel_factor_fused launches (64
-                 leaves + 63 tree nodes), the metric triple; its time beside
+                 0.5): 64 leaves, 7 batched panel_factor_fused launches
+                 (the 64 leaves, then one a tree level) for 127 panels, the
+                 metric triple; its time and K6 device time beside
                  torch.linalg.qr and one panel_factor_fused call on the
                  whole panel (in place); lstsq(A, b, method='tsqr') against
                  float64 np.linalg.lstsq;
  17. refine   -- lstsq(J, b, refine_steps=2) on the full-rank
                  slam_jacobian(4096, 2048, seed=0): stored-factor CAQR (only
-                 panel_factor_fused launches, as many as its leaves and tree
+                 batched panel_factor_fused launches, one for each panel's
+                 leaves and one a tree level, over all its leaves and
                  nodes: no reroute), x against float64 np.linalg.lstsq with
-                 and without the sweeps, its time beside method='blocked';
+                 and without the sweeps, its time and K6 device time beside
+                 method='blocked';
                  lstsq_batched on 8 systems slam_jacobian(2048, 512, seed=i)
                  (8 x 4 panel_factor_fused launches), each against float64;
  18. autodiff -- qr_autodiff on the first 1024 columns of phase 4's input,
@@ -155,10 +162,12 @@ last line):
                  within 1e-4 of float64 np.linalg.lstsq, and K4's LU
                  fallback timed in both forms (a host read of the
                  residual, kept; torch.where over both branches); (d)
-                 tsqr_sharded 65536 x 64 with 8 local leaves (15 K6)
-                 against tsqr; (e) block_qr_batched_sharded 8 x 1024 x 512
-                 on a batch mesh and tsqr_batched_sharded_2d 4 x 16384 x
-                 64 on a (1, 1) mesh, backward error per problem < 1e-5;
+                 tsqr_sharded 65536 x 64 with 8 local leaves (4 batched K6
+                 for 15 panels) against tsqr; (e) block_qr_batched_sharded
+                 8 x 1024 x 512 on a batch mesh and tsqr_batched_sharded_2d
+                 4 x 16384 x 64 on a (1, 1) mesh, with CholeskyQR2 leaves
+                 (no K6) and Householder leaves (one batched K6 for 4),
+                 backward error per problem < 1e-5;
  21. widths   -- the calls that reach the kernels at other widths, each
                  with its launches and its phase's quality gate: (a) phase
                  4's call at block_size=256 (bgs1, g4: K2 at r = 256); (b)
@@ -202,8 +211,9 @@ last line):
                  'cholqr1' at 256: all_ok, its last panel wide; (d)
                  lstsq(J, b, method='tsqr') on phase 17's system (one
                  4096 x 2048 leaf) against float64, beside phase 17's
-                 times; (e) tsqr on 65536 x 256: 127 wide calls, metric
-                 triple within 2^-23 m.
+                 times; (e) tsqr on 65536 x 256: 7 wide batched calls (14
+                 K6 launches) for 127 panels, metric triple within 2^-23 m,
+                 K6 device time.
 Then a line with every kernel's launches on its main path (phases 4-6 for
 ns_chain and bgs_group_fused, phase 7 for panel_qr_fused,
 sketch_qrcp_ranks and panel_factor_fused, phase 9 for ninv_chain,
@@ -212,7 +222,8 @@ tiled_matmul and chol_rinv, phase 19 for the Givens chains: each streaming
 call once at n = 2048; phase 20's cases (a)-(d) add their launches of
 ns_chain, ninv_chain and panel_factor_fused, phase 21's of the kernels its
 calls run, phases 22, 23 and 24 theirs, K6's with its wide route's calls
-and products; the widths each kernel was held at; the counts are set to 0 just
+and products; K6's batched entry with its launches and panels on phases 16,
+17, 20, 23 and 24; the widths each kernel was held at; the counts are set to 0 just
 before each path and read just after; phases 16-18 assert their own
 counts the same way),
 error, times and bound, and as the last line
@@ -269,6 +280,22 @@ def device_kernels(fn):
             "device_events": row["device_events"], "streams": row["streams"]}
 
 
+def k6_device_ms(fn):
+    """Device ms of the K6 kernels (single and batched launches alike) in
+    one call of fn (``torch.profiler``, the last of two profiled calls);
+    None when the profiles saw no device activity."""
+    from mixedprecisionblockqr_tpu_torch.utils.group_probe import (
+        device_breakdown,
+    )
+
+    try:
+        row = device_breakdown(fn, calls=2)
+    except RuntimeError:
+        return None
+    return sum(v["ms"] for k, v in row["kernels"].items()
+               if "panel_factor_kernel" in k)
+
+
 def max_abs(a, b):
     return float((a - b).abs().max())
 
@@ -290,10 +317,35 @@ def solve_errors(a, b, x):
                                / np.linalg.norm(x_o))}
 
 
+#: K6's batched entry on the main paths (phases 16, 17, 20, 23 and 24):
+#: its launches and the panels they factored, summed over the counted calls.
+BATCHED = {"launches": 0, "members": 0}
+
+
+def batched_counts(main_path=False):
+    """The batched K6 entry's launches and panels since the counts were
+    last set to 0 (``ns.BATCH_LAUNCHES`` / ``BATCH_MEMBERS``); added to
+    ``BATCHED`` when they are a main path's."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+        BATCH_LAUNCHES,
+        BATCH_MEMBERS,
+    )
+
+    c = {"launches": BATCH_LAUNCHES["panel_factor_fused"],
+         "members": BATCH_MEMBERS["panel_factor_fused"]}
+    if main_path:
+        for k, v in c.items():
+            BATCHED[k] += v
+    return c
+
+
 def _counter():
     """``(counted, total)``: ``counted(fn)`` runs fn with the launch counts
     set to 0 just before it and read just after it, returns ``(out, the
-    nonzero counts)`` and adds those to ``total``."""
+    nonzero counts)`` and adds those to ``total``.  The batched K6 entry's
+    launches and panels, where nonzero, are among the counts as
+    ``panel_factor_fused_batched`` and ``panel_factor_fused_members`` (its
+    launches count in ``panel_factor_fused`` too)."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
         LAUNCHES,
         reset_launches,
@@ -307,6 +359,10 @@ def _counter():
         out = fn()
         torch.cuda.synchronize()
         c = {k: v for k, v in LAUNCHES.items() if v}
+        b = batched_counts(main_path=True)
+        if b["launches"]:
+            c["panel_factor_fused_batched"] = b["launches"]
+            c["panel_factor_fused_members"] = b["members"]
         for k, v in c.items():
             total[k] = total.get(k, 0) + v
         return out, c
@@ -324,7 +380,7 @@ def triple(rep):
 def phase_dist(A, ms_block_qr, dev, card):
     """Phase 20: the distributed entry points on a one-rank NCCL mesh (the
     process group is started by the caller).  Returns ``(row, launches)``:
-    the phase's line and the K1 / K4 / K6 launches of cases (a)-(d), each
+    the phase's line and the K1 / K4 / K6 launches of cases (a)-(e), each
     counted from 0 just before its call."""
     from unittest import mock
 
@@ -499,11 +555,14 @@ def phase_dist(A, ms_block_qr, dev, card):
                             "where, where, sync, each a median of 5"}
     del Qc, Rc, Rr, A9, B9
 
-    # (d) TSQR over the rows axis, 8 local leaves: 8 + 7 K6.
+    # (d) TSQR over the rows axis, 8 local leaves: one batched K6 for the
+    # 8 leaves and one for each of the 3 tree levels' 4 + 2 + 1 pairs.
     a_d = np.random.default_rng(0).random((65536, 64), dtype=np.float32) - 0.5
     A_d = torch.from_numpy(a_d).to(dev)
     (Qd, Rd), cd = counted(lambda: tsqr_sharded(A_d, mesh, local_leaves=8))
-    assert cd.get("panel_factor_fused") == 15, cd
+    assert (cd.get("panel_factor_fused") == 4
+            and cd.get("panel_factor_fused_batched") == 4
+            and cd.get("panel_factor_fused_members") == 15), cd
     Qt, Rt = tsqr(A_d, n_leaves=8)
     d_rel = rel_fro(Rd, Rt)
     assert d_rel <= 1e-4, d_rel
@@ -532,14 +591,31 @@ def phase_dist(A, ms_block_qr, dev, card):
     mesh2 = make_mesh((1, 1), ("batch", "rows"))
     A_f = torch.from_numpy(np.random.default_rng(0).random(
         (4, 16384, 64), dtype=np.float32) - 0.5).to(dev)
+    # its default CholeskyQR2 leaves run no K6; Householder leaves run one
+    # batched K6 for the rank's 4 leaves
     (Qf, Rf), cf = counted(lambda: tsqr_batched_sharded_2d(A_f, mesh2))
+    assert "panel_factor_fused" not in cf, cf
     bf = backward_each(A_f, Qf, Rf)
     assert bf < 1e-5, bf
+    (Qh, Rh), ch = counted(lambda: tsqr_batched_sharded_2d(
+        A_f, mesh2, leaf_method="householder"))
+    assert (ch.get("panel_factor_fused") == 1
+            and ch.get("panel_factor_fused_members") == 4), ch
+    bh = backward_each(A_f, Qh, Rh)
+    assert bh < 1e-5, bh
     row["e"] = {"call": "block_qr_batched_sharded 8 x 1024 x 512 (batch "
                         "mesh); tsqr_batched_sharded_2d 4 x 16384 x 64 "
-                        "((1, 1) batch x rows mesh)",
+                        "((1, 1) batch x rows mesh), CholeskyQR2 leaves "
+                        "(the default) and Householder leaves",
                 "launches": ce, "launches_2d": cf,
-                "max_backward": be, "max_backward_2d": bf}
+                "launches_2d_householder": ch,
+                "max_backward": be, "max_backward_2d": bf,
+                "max_backward_2d_householder": bh,
+                "ms_2d_householder": cuda_time_ms(
+                    lambda: tsqr_batched_sharded_2d(
+                        A_f, mesh2, leaf_method="householder"),
+                    warmup=1, iters=5)}
+    del Qh, Rh
     c20 = {k: total.get(k, 0) for k in keys}
     for k in keys:
         assert c20[k] > 0, f"{k} was not launched on the dist path"
@@ -1059,22 +1135,28 @@ def phase_k6_widths(A, R64, Jn17, bn17, row17, dev):
                 "phase17_blocked_ms": row17["blocked_ms"]}
     del J, b
 
-    # (e) tsqr on 65536 x 256: 64 leaves of 1024 x 256 and 63 tree nodes
-    # of 512 x 256, each one wide call
+    # (e) tsqr on 65536 x 256: the 64 leaves of 1024 x 256 in one wide
+    # batched call, then one for each of the 6 tree levels' nodes of 512 x
+    # 256 (127 panels), each call two batched K6 launches
     a = np.random.default_rng(0).random((65536, 256), dtype=np.float32) - 0.5
     At = torch.from_numpy(a).to(dev)
     leaves = tsqr_mod._pick_leaves(65536, 256, None)
     assert leaves == 64, leaves
     (Q, R), c, w = counted(lambda: tsqr(At))
+    be = batched_counts()
     rep = metrics.evaluate(At, Q, R, POLICY_FP32.precision_bits)
-    assert w["calls"] == 2 * leaves - 1 and c == 2 * w["calls"], (c, w)
+    levels = leaves.bit_length()
+    assert w["calls"] == levels == 7 and c == 2 * w["calls"] == 14, (c, w)
+    assert be == {"launches": c, "members": 2 * leaves - 1}, be
     assert rep.all_ok, str(rep)
     out["e"] = {"call": "tsqr(A) 65536 x 256 fp32 (seed 0 uniform - 0.5)",
                 "leaves": leaves, "k6_launches": c, "wide": w,
+                "k6_batched": be,
                 "backward": rep.backward, "orthogonality": rep.orthogonality,
                 "lower_trapezoid": rep.lower_trapezoid,
                 "all_ok": rep.all_ok, "tight_ok": rep.tight_ok,
                 "ms": cuda_time_ms(lambda: tsqr(At), warmup=1, iters=5),
+                "k6_device_ms": k6_device_ms(lambda: tsqr(At)),
                 "library_qr_ms": cuda_time_ms(lambda: torch.linalg.qr(At),
                                               warmup=1, iters=5)}
     del Q, R, At
@@ -1084,8 +1166,9 @@ def phase_k6_widths(A, R64, Jn17, bn17, row17, dev):
         "(a), (b) 16 K6 launches, R within 1e-4 relative (Frobenius) of "
         "phase 8's POLICY_FP64 loop, all_ok and tight_ok; (c) 2 K6, all_ok; "
         "(d) residual 1e-5 and x 1e-4 relative of float64 np.linalg.lstsq; "
-        "(e) 127 wide calls, metric triple within 2^-23 m; times: CUDA "
-        "events, median of 5 ((d) 3)")
+        "(e) 7 wide batched calls, 14 K6 launches, 127 panels, metric "
+        "triple within 2^-23 m; times: CUDA events, median of 5 ((d) 3); "
+        "K6 device ms: torch.profiler")
     return out, launches, wide
 
 
@@ -1193,7 +1276,10 @@ def main() -> int:
         k4_inputs,
         k4_row,
     )
-    from mixedprecisionblockqr_tpu_torch.utils.panel_probe import k6_row
+    from mixedprecisionblockqr_tpu_torch.utils.panel_probe import (
+        k6_batched_row,
+        k6_row,
+    )
     from mixedprecisionblockqr_tpu_torch.utils.sketch_probe import (
         k7_row,
         k7_sketches,
@@ -1468,6 +1554,31 @@ def main() -> int:
                        "ms: median of 3",
           "library_call": "torch.geqrf(P)", "inputs": k6_rows,
           "card": card})
+
+    # K6's batched entry (utils/panel_probe.py::k6_batched_row): tsqr
+    # 100000 x 64's 64 leaves, the refine lstsq's 8 leaves of 512 x 128, and
+    # a wide batch (tsqr 65536 x 256's leaf shape), each against the batched
+    # plain version at K6's tolerance, each member bit for bit a single
+    # launch at the batch's layout, beside the loop of single calls and
+    # torch.geqrf of the stack.  A generator of its own keeps the later
+    # kernels' inputs the draws they were.
+    gen21 = torch.Generator(device=dev).manual_seed(21)
+    k6b_rows = {}
+    for B, m, w in ((64, 1563, 64), (8, 512, 128), (4, 1024, 256)):
+        Pb = torch.rand((B, m, w), generator=gen21, device=dev) - 0.5
+        k6b_rows[f"{B}x{m}x{w}"] = row = k6_batched_row(Pb)
+        assert row["ok"], (B, m, w, row)
+    assert k6b_rows["4x1024x256"]["route"] == "wide", k6b_rows
+    k6b_err = max(max(row[f"max_abs_{x}"] for x in "VTR")
+                  for row in k6b_rows.values())
+    emit({"phase": "kernels", "kernel": "panel_factor_fused_batched",
+          "tolerance": "V, T and R's upper triangle each within 1e-4 * "
+                       "max|plain| of panel_factor_fused_batched_plain; two "
+                       "batched calls bitwise equal; each member bit for "
+                       "bit a single launch at the batch's layout; plain "
+                       "ms: median of 3, the loop of single calls: of 5",
+          "library_call": "torch.geqrf(P) on the (B, m, w) stack",
+          "inputs": k6b_rows, "card": card})
 
     # K7 on the sketches of utils/sketch_probe.py::k7_sketches: d = 128 + 8
     # at the RQRCP panels' widths (2048, 1920, 200), a zero and a
@@ -2352,18 +2463,22 @@ def main() -> int:
           "card": card})
 
     # 16. tsqr: the tall-skinny cell, 100000 x 64 (seed 0, uniform - 0.5):
-    # 64 leaves of 1563 rows and 63 tree nodes of 128 x 64, one K6 each.
+    # 64 leaves of 1563 rows in one batched K6 launch, then one for each of
+    # the 6 tree levels' 32, 16, ..., 1 nodes of 128 x 64 (127 panels).
     a16 = np.random.default_rng(0).random((100000, 64),
                                           dtype=np.float32) - 0.5
     A16 = torch.from_numpy(a16).to(dev)
     leaves16 = tsqr_mod._pick_leaves(100000, 64, None)
     assert leaves16 == 64, leaves16
+    levels16 = 1 + leaves16.bit_length() - 1
     torch.cuda.synchronize()
     reset_launches()
     Q16, R16 = tsqr(A16)
     torch.cuda.synchronize()
     c16 = dict(LAUNCHES)
-    assert c16["panel_factor_fused"] == 2 * leaves16 - 1, c16
+    b16c = batched_counts(main_path=True)
+    assert c16["panel_factor_fused"] == levels16 == 7, c16
+    assert b16c == {"launches": levels16, "members": 2 * leaves16 - 1}, b16c
     rep16 = metrics.evaluate(A16, Q16, R16, POLICY_FP32.precision_bits)
     assert rep16.all_ok, str(rep16)
     b16n = np.random.default_rng(1).standard_normal(100000).astype(
@@ -2373,11 +2488,15 @@ def main() -> int:
     x16 = lstsq(A16, b16, method="tsqr")
     torch.cuda.synchronize()
     c16_lstsq = dict(LAUNCHES)
-    assert c16_lstsq["panel_factor_fused"] == 2 * leaves16 - 1, c16_lstsq
+    b16c_lstsq = batched_counts(main_path=True)
+    assert c16_lstsq["panel_factor_fused"] == levels16, c16_lstsq
+    assert b16c_lstsq == b16c, b16c_lstsq
     row16 = solve_errors(a16, b16n, x16)
     assert row16["resid_rel"] <= 1e-5 and row16["x_rel_err"] <= 1e-4, row16
     row16.update({
+        "k6_batched": b16c,
         "ms": cuda_time_ms(lambda: tsqr(A16), warmup=1, iters=5),
+        "k6_device_ms": k6_device_ms(lambda: tsqr(A16)),
         "library_qr_ms": cuda_time_ms(lambda: torch.linalg.qr(A16),
                                       warmup=1, iters=5),
         "one_k6_whole_panel_ms": cuda_time_ms(
@@ -2405,18 +2524,25 @@ def main() -> int:
     J17 = torch.from_numpy(Jn17).to(dev)
     b17 = torch.from_numpy(bn17).to(dev)
     w17 = min(128, max(2048 // 2, 1))
-    k6_17 = sum(2 * caqr_mod._pick_row_blocks(4096 - lam, w17, None) - 1
-                for lam in range(0, 2048, w17))
+    blocks17 = [caqr_mod._pick_row_blocks(4096 - lam, w17, None)
+                for lam in range(0, 2048, w17)]
+    # one batched K6 for a panel's leaves and one for each tree level
+    k6_17 = sum(L.bit_length() for L in blocks17)
+    members17 = sum(2 * L - 1 for L in blocks17)
     torch.cuda.synchronize()
     reset_launches()
     x17 = lstsq(J17, b17, refine_steps=2)
     torch.cuda.synchronize()
     c17 = dict(LAUNCHES)
-    # the CAQR path ran: K6 only, as many as its panels' leaves and tree
-    # nodes; a reroute to lstsq_pivoted would launch K3 and K7
+    b17c = batched_counts(main_path=True)
+    # the CAQR path ran: K6 only, one launch a level of each panel's tree,
+    # over all its leaves and nodes; a reroute to lstsq_pivoted would
+    # launch K3 and K7
     assert (c17["panel_factor_fused"] == k6_17
             and c17["panel_qr_fused"] == 0
             and c17["sketch_qrcp_ranks"] == 0), (c17, k6_17)
+    assert b17c == {"launches": k6_17, "members": members17}, (b17c,
+                                                                members17)
     row17 = solve_errors(Jn17, bn17, x17)
     assert row17["rank_oracle"] == 2048, row17
     assert row17["resid_rel"] <= 1e-5 and row17["x_rel_err"] <= 1e-4, row17
@@ -2427,8 +2553,11 @@ def main() -> int:
         Jn17, bn17, x17_caqr)["x_rel_err"]
     row17["x_rel_err_blocked"] = solve_errors(
         Jn17, bn17, lstsq(J17, b17))["x_rel_err"]
+    row17["k6_batched"] = b17c
     row17["ms"] = cuda_time_ms(lambda: lstsq(J17, b17, refine_steps=2),
                                warmup=1, iters=3)
+    row17["k6_device_ms"] = k6_device_ms(
+        lambda: lstsq(J17, b17, refine_steps=2))
     row17["blocked_ms"] = cuda_time_ms(lambda: lstsq(J17, b17), warmup=1,
                                        iters=3)
     del factors17, Rc17
@@ -2766,6 +2895,8 @@ def main() -> int:
           "wide_launches": wide24,
           "seconds": time.perf_counter() - t24, "card": card})
 
+    assert BATCHED["launches"] > 0 and BATCHED["members"] > BATCHED[
+        "launches"], BATCHED
     emit({"kernels": [
         {"name": "ns_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ns_chain.cu",
@@ -2854,6 +2985,24 @@ def main() -> int:
              name: {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")}
              for name, row in row24["k"].items()}}},
+        {"name": "panel_factor_fused_batched", "route": "cuda",
+         "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_factor.cu",
+         "replaces": "mixedprecisionblockqr_tpu/ops/pallas/panel.py:115 "
+                     "under jax.vmap (parallel/tsqr.py:91, :141, "
+                     ":190-193; parallel/caqr.py:178, :199)",
+         "launches": BATCHED["launches"], "members": BATCHED["members"],
+         "max_abs_err": k6b_err,
+         "shape": "64 x 1563 x 64",
+         "ms": k6b_rows["64x1563x64"]["ms"],
+         "plain_ms": k6b_rows["64x1563x64"]["plain_ms"],
+         "single_loop_ms": k6b_rows["64x1563x64"]["single_loop_ms"],
+         **{k: k6b_rows["64x1563x64"][k] for k in (
+             "bound_ms", "bound_by", "member_floor_ms")},
+         "library_ms": k6b_rows["64x1563x64"]["library_ms"],
+         "stacks": {name: {k: row[k] for k in (
+             "ms", "single_loop_ms", "plain_ms", "bound_ms", "bound_by",
+             "member_floor_ms", "library_ms", "cluster", "waves")}
+             for name, row in k6b_rows.items()}},
         {"name": "sketch_qrcp_ranks", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/sketch_qrcp.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/sketch.py:88",

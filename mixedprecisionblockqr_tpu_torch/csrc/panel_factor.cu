@@ -48,24 +48,39 @@
 // the two cluster barriers.  utils/panel_probe.py --phases reads the
 // phases' times from the kernel's own clock.
 //
+// A batch of B panels of one shape (the TSQR / CAQR leaves and tree levels,
+// which the TPU reference factors under jax.vmap) is one launch,
+// mpbqr_panel_factor_batched: a grid of (cluster, B) CTAs in clusters of
+// (cluster, 1, 1), blockIdx.y picking the member, whose P, V, T, G and R
+// lie B-strided in contiguous (B, m, w) / (B, w, w) arrays.  Each cluster
+// still runs one panel as above, so a member's result is bit for bit that
+// of a single launch at the same layout.  The batch's layout (fewer CTAs a
+// member, so that the B clusters fill the card in few waves) is ops/
+// kernels/panel.py::batched_layout; mpbqr_panel_factor_resident says how
+// many clusters of a layout the card keeps resident at once.
+//
 // Wider panels (w > 128; the TPU kernel holds any width in VMEM) take the
 // wide route, mpbqr_panel_factor_wide: one C entry that issues the blocked
-// schedule on the caller's stream.  For each sub-panel [c, e) of `sub`
-// (128) columns, the last one narrower when w is not a multiple:
-//   a. the sub-panel R[c:, c:e] (R is the working copy of P, row stride w)
-//      is staged into a contiguous scratch and factored by one K6 launch
-//      above (its own panel_layout), and V, R and T's diagonal block are
-//      copied back: Vk ((m - c) x b), Tk (b x b);
+// schedule on the caller's stream, for one panel or a batch of B
+// (mpbqr_panel_factor_wide_batched; the single entry is its B = 1).  For
+// each sub-panel [c, e) of `sub` (128) columns, the last one narrower when
+// w is not a multiple:
+//   a. every member's sub-panel R[c:, c:e] (R is the working copy of P,
+//      row stride w) is staged into a contiguous (B, m - c, b) scratch by
+//      one cudaMemcpy3DAsync and factored by ONE K6 launch over the batch
+//      (its layout in the plan), and V, R and T's diagonal blocks are
+//      copied back, one 3-D copy each: Vk ((m - c) x b), Tk (b x b);
 //   b. the trailing columns take the sub-panel's block reflector,
 //      C = R[c:, e:] -= Vk (Tk^T (Vk^T C));
 //   c. T's block column is merged, T[:c, c:e] = -T[:c, :c] (V[c:, :c]^T
 //      Vk) Tk, into the zeroed T (gemm_nt's C -= A B on zeros).
+// Steps b and c run member by member (3 products each).
 // The products are panel.cuh's gemm_tn (split-K over a cluster, fixed
 // order) and gemm_nt, both true fp32 FMA: the rank-1 updates of the TPU
 // kernel's body, blocked.  No library product and no TF32.  The layouts
 // (K6's per sub-panel, the products' splits and tiles) come from ops/
-// kernels/panel.py::wide_layout.  The copies are cudaMemcpy2DAsync: the
-// staging costs three copies of an (m - c) x b block a sub-panel, which
+// kernels/panel.py::wide_layout / wide_batched_layout.  The staging costs
+// three copies of an (m - c) x b block a sub-panel and member, which
 // utils/panel_probe.py times beside the whole route.  The semantics stay
 // K6's: beta = 0 columns leave zero rows and columns in T (Tk's are zero,
 // so the merged block column is too), R is exact zeros below its diagonal
@@ -127,6 +142,13 @@ panel_factor_kernel(const float* __restrict__ P, float* V, float* Tout,
   // Named apart from ns_chain.cuh's `smem` (a char array), which panel.cuh
   // brings into this file: dynamic shared arrays share one symbol.
   extern __shared__ __align__(16) float pf_smem[];
+  // The batch member of this cluster (0 for a single panel).
+  const long long member = blockIdx.y;
+  P += member * m * w;
+  V += member * m * w;
+  R += member * m * w;
+  Tout += member * w * w;
+  G += member * w * w;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int csize = (int)cluster.num_blocks();
@@ -363,13 +385,13 @@ static bool pf_layout_ok(int m, int w, int cluster, int rows, int in_smem,
   return bytes == smem_bytes && bytes <= kPfSmemLimit;
 }
 
-// The launch configuration of one cluster of `cluster` CTAs, after the
-// kernel's attributes (non-portable cluster size, `smem_bytes` of dynamic
-// shared memory) are set.
+// The launch configuration of `batch` clusters of `cluster` CTAs, after
+// the kernel's attributes (non-portable cluster size, `smem_bytes` of
+// dynamic shared memory) are set.
 template <bool kInSmem>
 static cudaError_t pf_config(cudaLaunchConfig_t* cfg,
                              cudaLaunchAttribute* attr, int cluster,
-                             int smem_bytes, void* stream) {
+                             int smem_bytes, void* stream, int batch = 1) {
   auto kern = panel_factor_kernel<kInSmem>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -378,7 +400,7 @@ static cudaError_t pf_config(cudaLaunchConfig_t* cfg,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
   *cfg = {};
-  cfg->gridDim = dim3(cluster, 1, 1);
+  cfg->gridDim = dim3(cluster, batch, 1);
   cfg->blockDim = dim3(kPfThreads, 1, 1);
   cfg->dynamicSmemBytes = (size_t)smem_bytes;
   cfg->stream = (cudaStream_t)stream;
@@ -391,18 +413,25 @@ static cudaError_t pf_config(cudaLaunchConfig_t* cfg,
   return cudaSuccess;
 }
 
-// One K6 launch of a checked layout on `stream`; the error of the check
-// (cudaErrorInvalidValue), the configuration or the launch.
+// Most members of one batched launch (the grid's y dimension).
+constexpr int kPfMaxBatch = 65535;
+
+// One K6 launch of a checked layout over `batch` B-strided panels on
+// `stream`; the error of the check (cudaErrorInvalidValue), the
+// configuration or the launch.
 static cudaError_t pf_launch(const float* P, float* V, float* T, float* G,
                              float* R, int m, int w, int cluster, int rows,
-                             int in_smem, int smem_bytes, void* stream) {
-  if (!pf_layout_ok(m, w, cluster, rows, in_smem, smem_bytes))
+                             int in_smem, int smem_bytes, void* stream,
+                             int batch = 1) {
+  if (!pf_layout_ok(m, w, cluster, rows, in_smem, smem_bytes) || batch < 1 ||
+      batch > kPfMaxBatch)
     return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   cudaError_t err =
-      in_smem ? pf_config<true>(&cfg, attr, cluster, smem_bytes, stream)
-              : pf_config<false>(&cfg, attr, cluster, smem_bytes, stream);
+      in_smem
+          ? pf_config<true>(&cfg, attr, cluster, smem_bytes, stream, batch)
+          : pf_config<false>(&cfg, attr, cluster, smem_bytes, stream, batch);
   if (err != cudaSuccess) return err;
   err = in_smem ? cudaLaunchKernelEx(&cfg, panel_factor_kernel<true>, P, V, T,
                                      G, R, m, w, rows)
@@ -421,13 +450,32 @@ constexpr int kPfWideStep = 16;
 
 static inline long long pf_pad4(long long n) { return (n + 3) & ~3LL; }
 
-// Floats of the wide route's scratch: the staged sub-panel, its V and R
-// (m x sub each),
-// its T and K6's G (sub x sub each), Y and Z (sub x w each), X and Y2
-// (w x sub each), every piece padded to 4 floats.
-static inline long long pf_wide_scratch_floats(int m, int w, int sub) {
-  return 3 * pf_pad4((long long)m * sub) + 2 * pf_pad4((long long)sub * sub) +
-         4 * pf_pad4((long long)sub * w);
+// Floats of the wide route's scratch for B members: the staged sub-panels,
+// their V and R (B x m x sub each), their T and K6's G (B x sub x sub
+// each), Y and Z (B x sub x w each), X and Y2 (B x w x sub each), every
+// piece padded to 4 floats.
+static inline long long pf_wide_scratch_floats(int B, int m, int w,
+                                               int sub) {
+  return 3 * pf_pad4((long long)B * m * sub) +
+         2 * pf_pad4((long long)B * sub * sub) +
+         4 * pf_pad4((long long)B * sub * w);
+}
+
+// cudaMemcpy3DAsync of `depth` blocks of `height` rows of `width` floats
+// between device arrays of row pitch `*pitch` floats and `*rows` rows a
+// block (so the blocks lie pitch * rows floats apart).
+static cudaError_t pf_copy3d(float* dst, int dpitch, int drows,
+                             const float* src, int spitch, int srows,
+                             int width, int height, int depth,
+                             cudaStream_t st) {
+  const size_t f = sizeof(float);
+  cudaMemcpy3DParms p = {};
+  p.srcPtr = make_cudaPitchedPtr(const_cast<float*>(src), f * spitch,
+                                 f * spitch, srows);
+  p.dstPtr = make_cudaPitchedPtr(dst, f * dpitch, f * dpitch, drows);
+  p.extent = make_cudaExtent(f * width, height, depth);
+  p.kind = cudaMemcpyDeviceToDevice;
+  return cudaMemcpy3DAsync(&p, st);
 }
 
 }  // namespace mpbqr
@@ -471,6 +519,26 @@ int mpbqr_panel_factor_max_cluster(int smem_bytes, int* out) {
   return 0;
 }
 
+// How many clusters of `cluster` CTAs with `smem_bytes` of dynamic shared
+// memory (in shared memory when `in_smem`) the card keeps resident at once,
+// in *out (cudaOccupancyMaxActiveClusters): a batch of B such clusters runs
+// in ceil(B / *out) waves.  Returns the CUDA error of the query.
+int mpbqr_panel_factor_resident(int cluster, int in_smem, int smem_bytes,
+                                int* out) {
+  using namespace mpbqr;
+  *out = 0;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err =
+      in_smem ? pf_config<true>(&cfg, attr, cluster, smem_bytes, nullptr)
+              : pf_config<false>(&cfg, attr, cluster, smem_bytes, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  return in_smem ? (int)cudaOccupancyMaxActiveClusters(
+                       out, panel_factor_kernel<true>, &cfg)
+                 : (int)cudaOccupancyMaxActiveClusters(
+                       out, panel_factor_kernel<false>, &cfg);
+}
+
 // P (m x w, fp32, row-major, read only) -> V (m x w), T (w x w) and R
 // (m x w, upper triangle); G (w x w) is scratch.  All device pointers; one
 // cluster launch on `stream` with the layout that ops/kernels/panel.py::
@@ -485,11 +553,38 @@ int mpbqr_panel_factor(const float* P, float* V, float* T, float* G,
                                smem_bytes, stream);
 }
 
+// The batched K6: B panels of one shape in ONE launch.  P, V, R (B x m x w)
+// and T, G (B x w x w) contiguous, member b at offset b m w (b w w); the
+// layout, one for every member (ops/kernels/panel.py::batched_layout), as
+// mpbqr_panel_factor takes it.  Member b's outputs are bit for bit those of
+// mpbqr_panel_factor on its panel at the same layout.  Returns
+// cudaErrorInvalidValue for a shape, layout or B (1..65535) the kernel
+// does not run, else the launch's error.
+int mpbqr_panel_factor_batched(const float* P, float* V, float* T, float* G,
+                               float* R, int B, int m, int w, int cluster,
+                               int rows, int in_smem, int smem_bytes,
+                               void* stream) {
+  return (int)mpbqr::pf_launch(P, V, T, G, R, m, w, cluster, rows, in_smem,
+                               smem_bytes, stream, B);
+}
+
+// Floats of scratch mpbqr_panel_factor_wide_batched takes for B m x w
+// panels in sub-panels of `sub` columns.
+long long mpbqr_panel_factor_wide_batched_scratch_floats(int B, int m, int w,
+                                                         int sub) {
+  return mpbqr::pf_wide_scratch_floats(B, m, w, sub);
+}
+
 // Floats of scratch mpbqr_panel_factor_wide takes for an m x w panel in
 // sub-panels of `sub` columns.
 long long mpbqr_panel_factor_wide_scratch_floats(int m, int w, int sub) {
-  return mpbqr::pf_wide_scratch_floats(m, w, sub);
+  return mpbqr::pf_wide_scratch_floats(1, m, w, sub);
 }
+
+int mpbqr_panel_factor_wide_batched(const float* P, float* V, float* T,
+                                    float* R, float* scratch, int B, int m,
+                                    int w, int sub, const int* plan,
+                                    int nsteps, void* stream);
 
 // The wide route (see the top of this file): P (m x w, fp32, row-major,
 // read only) -> V (m x w), T (w x w) and R (m x w, upper triangle), as
@@ -504,56 +599,90 @@ long long mpbqr_panel_factor_wide_scratch_floats(int m, int w, int sub) {
 int mpbqr_panel_factor_wide(const float* P, float* V, float* T, float* R,
                             float* scratch, int m, int w, int sub,
                             const int* plan, int nsteps, void* stream) {
+  return mpbqr_panel_factor_wide_batched(P, V, T, R, scratch, 1, m, w, sub,
+                                         plan, nsteps, stream);
+}
+
+// The wide route over a batch: B m x w panels, P, V, R (B x m x w) and T
+// (B x w x w) contiguous, as mpbqr_panel_factor_wide gives each of them.
+// `scratch` holds mpbqr_panel_factor_wide_batched_scratch_floats(B, m, w,
+// sub) floats; `plan` is one member's (ops/kernels/panel.py::
+// wide_batched_layout: each step's K6 layout for the batch).  Each step
+// stages, factors (one K6 launch over the B sub-panels) and copies back by
+// one 3-D copy each; the products run member by member.  Returns
+// cudaErrorInvalidValue for a shape, B or plan the kernels do not run,
+// else the first error of a copy or launch.
+int mpbqr_panel_factor_wide_batched(const float* P, float* V, float* T,
+                                    float* R, float* scratch, int B, int m,
+                                    int w, int sub, const int* plan,
+                                    int nsteps, void* stream) {
   using namespace mpbqr;
-  if (w < 1 || m < w || sub < 1 || sub > kPfCols ||
-      nsteps != (w + sub - 1) / sub)
+  if (w < 1 || m < w || sub < 1 || sub > kPfCols || B < 1 ||
+      B > kPfMaxBatch || nsteps != (w + sub - 1) / sub)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const size_t f = sizeof(float);
+  const long long mw = (long long)m * w, ww = (long long)w * w;
+  const long long big = pf_pad4((long long)B * m * sub);
+  const long long tri = pf_pad4((long long)B * sub * sub);
+  const long long row = pf_pad4((long long)B * sub * w);
   float* Ps = scratch;
-  float* Vk = Ps + pf_pad4((long long)m * sub);
-  float* Rk = Vk + pf_pad4((long long)m * sub);
-  float* Tk = Rk + pf_pad4((long long)m * sub);
-  float* G = Tk + pf_pad4((long long)sub * sub);
-  float* Y = G + pf_pad4((long long)sub * sub);
-  float* Z = Y + pf_pad4((long long)sub * w);
-  float* X = Z + pf_pad4((long long)sub * w);
-  float* Y2 = X + pf_pad4((long long)sub * w);
+  float* Vk = Ps + big;
+  float* Rk = Vk + big;
+  float* Tk = Rk + big;
+  float* G = Tk + tri;
+  float* Y = G + tri;
+  float* Z = Y + row;
+  float* X = Z + row;
+  float* Y2 = X + row;
   const auto d2d = cudaMemcpyDeviceToDevice;
-  MPBQR_PF_TRY(cudaMemcpyAsync(R, P, f * m * w, d2d, st));
-  MPBQR_PF_TRY(cudaMemsetAsync(V, 0, f * m * w, st));
-  MPBQR_PF_TRY(cudaMemsetAsync(T, 0, f * w * w, st));
+  MPBQR_PF_TRY(cudaMemcpyAsync(R, P, f * B * mw, d2d, st));
+  MPBQR_PF_TRY(cudaMemsetAsync(V, 0, f * B * mw, st));
+  MPBQR_PF_TRY(cudaMemsetAsync(T, 0, f * B * ww, st));
   for (int s = 0; s < nsteps; ++s) {
     const int* p = plan + kPfWideStep * s;
     const int c = s * sub, e = c + sub < w ? c + sub : w;
     const int b = e - c, mk = m - c, n2 = w - e;
-    float* Rc = R + (size_t)c * w + c;  // the sub-panel's top left
-    // a. K6 on the staged sub-panel; V, R and Tk back into place.
-    MPBQR_PF_TRY(cudaMemcpy2DAsync(Ps, f * b, Rc, f * w, f * b, mk, d2d, st));
+    const long long kb = (long long)mk * b, bb = (long long)b * b;
+    float* Rc = R + (size_t)c * w + c;  // member 0's sub-panel, top left
+    // a. K6 on the staged sub-panels; V, R and Tk back into place.
+    MPBQR_PF_TRY(pf_copy3d(Ps, b, mk, Rc, w, m, b, mk, B, st));
     MPBQR_PF_TRY(pf_launch(Ps, Vk, Tk, G, Rk, mk, b, p[0], p[1], p[2], p[3],
-                           stream));
-    MPBQR_PF_TRY(cudaMemcpy2DAsync(Rc, f * w, Rk, f * b, f * b, mk, d2d, st));
-    MPBQR_PF_TRY(cudaMemcpy2DAsync(V + (size_t)c * w + c, f * w, Vk, f * b,
-                                   f * b, mk, d2d, st));
-    MPBQR_PF_TRY(cudaMemcpy2DAsync(T + (size_t)c * w + c, f * w, Tk, f * b,
-                                   f * b, b, d2d, st));
-    // b. C = R[c:, e:] -= Vk (Tk^T (Vk^T C)).
-    if (n2 > 0) {
-      float* C = Rc + b;
-      MPBQR_PF_TRY(tn(st, false, b, n2, mk, Vk, b, C, w, Y, n2, p[4], p[5]));
-      MPBQR_PF_TRY(tn(st, false, b, n2, b, Tk, b, Y, n2, Z, n2, p[6], p[7]));
-      MPBQR_PF_TRY(nt(st, false, mk, n2, b, Vk, b, Z, n2, C, w, true, p[8],
-                      p[9]));
-    }
-    // c. T[:c, c:e] = -T[:c, :c] (V[c:, :c]^T Vk) Tk (V's rows above c are
-    // zero in columns c:e, so the sum runs over rows c..m).
-    if (c > 0) {
-      MPBQR_PF_TRY(tn(st, false, c, b, mk, V + (size_t)c * w, w, Vk, b, X, b,
-                      p[10], p[11]));
-      MPBQR_PF_TRY(nt(st, false, c, b, c, T, w, X, b, Y2, b, false, p[12],
-                      p[13]));
-      MPBQR_PF_TRY(nt(st, false, c, b, b, Y2, b, Tk, b, T + c, w, true,
-                      p[14], p[15]));
+                           stream, B));
+    MPBQR_PF_TRY(pf_copy3d(Rc, w, m, Rk, b, mk, b, mk, B, st));
+    MPBQR_PF_TRY(pf_copy3d(V + (size_t)c * w + c, w, m, Vk, b, mk, b, mk, B,
+                           st));
+    MPBQR_PF_TRY(pf_copy3d(T + (size_t)c * w + c, w, w, Tk, b, b, b, b, B,
+                           st));
+    for (int i = 0; i < B; ++i) {
+      const float* Vi = Vk + i * kb;
+      const float* Ti = Tk + i * bb;
+      float* Ri = Rc + i * mw;
+      float* Yi = Y + (long long)i * sub * w;
+      float* Zi = Z + (long long)i * sub * w;
+      // b. C = R[c:, e:] -= Vk (Tk^T (Vk^T C)).
+      if (n2 > 0) {
+        float* C = Ri + b;
+        MPBQR_PF_TRY(tn(st, false, b, n2, mk, Vi, b, C, w, Yi, n2, p[4],
+                        p[5]));
+        MPBQR_PF_TRY(tn(st, false, b, n2, b, Ti, b, Yi, n2, Zi, n2, p[6],
+                        p[7]));
+        MPBQR_PF_TRY(nt(st, false, mk, n2, b, Vi, b, Zi, n2, C, w, true,
+                        p[8], p[9]));
+      }
+      // c. T[:c, c:e] = -T[:c, :c] (V[c:, :c]^T Vk) Tk (V's rows above c
+      // are zero in columns c:e, so the sum runs over rows c..m).
+      if (c > 0) {
+        float* Tm = T + i * ww;
+        float* Xi = X + (long long)i * sub * w;
+        float* Y2i = Y2 + (long long)i * sub * w;
+        MPBQR_PF_TRY(tn(st, false, c, b, mk, V + i * mw + (size_t)c * w, w,
+                        Vi, b, Xi, b, p[10], p[11]));
+        MPBQR_PF_TRY(nt(st, false, c, b, c, Tm, w, Xi, b, Y2i, b, false,
+                        p[12], p[13]));
+        MPBQR_PF_TRY(nt(st, false, c, b, b, Y2i, b, Ti, b, Tm + c, w, true,
+                        p[14], p[15]));
+      }
     }
   }
   return (int)cudaGetLastError();

@@ -66,6 +66,7 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
 )
 from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
     panel_factor_fused,
+    panel_factor_fused_batched,
 )
 from mixedprecisionblockqr_tpu_torch.ops.polar import (
     tri_head_iters,
@@ -603,6 +604,20 @@ def _householder_panel(panel: torch.Tensor, policy: DTypePolicy,
         V, T, Rp = panel_factor_fused(panel.float().contiguous())
         return (V.to(policy.panel), T.to(policy.panel), Rp.to(policy.panel))
     return panel_factor(panel)
+
+
+def _householder_panels(blocks: torch.Tensor, policy: DTypePolicy,
+                        fused: bool):
+    """``(V, T, Rp)`` of each panel of a (B, m, w) stack, stacked (the
+    JAX package's ``jax.vmap(panel_factor)``): ONE
+    ``panel_factor_fused_batched`` call (K6 over the batch) when ``fused``
+    and not float64, else ``panel_factor`` member by member, as
+    :func:`_householder_panel` routes one panel."""
+    if fused and blocks.dtype != torch.float64:
+        V, T, Rp = panel_factor_fused_batched(blocks.float().contiguous())
+        return (V.to(policy.panel), T.to(policy.panel), Rp.to(policy.panel))
+    outs = [panel_factor(b) for b in blocks]
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def _block_qr_traced(

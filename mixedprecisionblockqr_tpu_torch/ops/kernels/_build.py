@@ -100,6 +100,18 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_panel_factor_wide.restype = ci
     lib.mpbqr_panel_factor_max_cluster.argtypes = [ci, ctypes.POINTER(ci)]
     lib.mpbqr_panel_factor_max_cluster.restype = ci
+    lib.mpbqr_panel_factor_resident.argtypes = [ci, ci, ci,
+                                                ctypes.POINTER(ci)]
+    lib.mpbqr_panel_factor_resident.restype = ci
+    lib.mpbqr_panel_factor_batched.argtypes = [vp, vp, vp, vp, vp, ci, ci,
+                                               ci, ci, ci, ci, ci, vp]
+    lib.mpbqr_panel_factor_batched.restype = ci
+    lib.mpbqr_panel_factor_wide_batched_scratch_floats.argtypes = [ci, ci, ci,
+                                                                   ci]
+    lib.mpbqr_panel_factor_wide_batched_scratch_floats.restype = ll
+    lib.mpbqr_panel_factor_wide_batched.argtypes = [vp, vp, vp, vp, vp, ci,
+                                                    ci, ci, ci, vp, ci, vp]
+    lib.mpbqr_panel_factor_wide_batched.restype = ci
     lib.mpbqr_tiled_matmul.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                        ci, vp]
     lib.mpbqr_tiled_matmul.restype = ci

@@ -41,6 +41,12 @@ ROUTE_LAUNCHES = {"tma": 0, "predicated": 0}
 #: Launches of a kernel piece through its own wrapper: the combine, which
 #: otherwise runs inside K2's and K3's entries (counted there).
 PIECE_LAUNCHES = {"tri_combine": 0}
+#: K6's batched entry (ops/kernels/panel.py::panel_factor_fused_batched):
+#: its launches (one a call, one a sub-panel above 128 columns), which
+#: count in ``LAUNCHES["panel_factor_fused"]`` as well, and the panels it
+#: factored (B a call).
+BATCH_LAUNCHES = {"panel_factor_fused": 0}
+BATCH_MEMBERS = {"panel_factor_fused": 0}
 #: K6's wide route (ops/kernels/panel.py, panels wider than 128): its calls
 #: and the product launches between its sub-panels, whose K6 launches
 #: count in ``LAUNCHES["panel_factor_fused"]``.
@@ -256,7 +262,8 @@ def _scratch(t: torch.Tensor, lay: NsLayout) -> torch.Tensor:
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTE_LAUNCHES, PIECE_LAUNCHES, WIDE_LAUNCHES):
+    for counts in (LAUNCHES, ROUTE_LAUNCHES, PIECE_LAUNCHES, WIDE_LAUNCHES,
+                   BATCH_LAUNCHES, BATCH_MEMBERS):
         for k in counts:
             counts[k] = 0
 

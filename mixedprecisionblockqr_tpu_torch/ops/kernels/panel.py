@@ -19,6 +19,14 @@ and joins them with the true-fp32 products of ``csrc/panel.cuh`` (the
 trailing update ``C -= Vk (Tk^T (Vk^T C))`` and T's merge ``T[:c, c:e] =
 -T[:c, :c] (V[:, :c]^T Vk) Tk``), laid out by :func:`wide_layout`;
 :func:`panel_factor_wide_plain` is the schedule's plain mirror.
+
+A batch of B panels of one shape (the TSQR / CAQR leaves and tree levels,
+which the JAX package factors under ``jax.vmap``) is
+:func:`panel_factor_fused_batched`: ONE launch of the same kernel over a
+grid of B clusters laid out by :func:`batched_layout` (above 128 columns
+the wide route over the batch, one K6 launch a sub-panel,
+:func:`wide_batched_layout`); :func:`panel_factor_fused_batched_plain` is
+its plain version.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+    BATCH_LAUNCHES,
+    BATCH_MEMBERS,
     LAUNCHES,
     NT_SMALL_BM,
     NT_WIDE_BM,
@@ -55,6 +65,9 @@ MAX_CLUSTER = 16
 ROWS_TARGET = 128
 #: Shared memory one CTA may use on an H100 (bytes).
 SMEM_LIMIT = 232448
+#: Streaming multiprocessors of an H100 SXM: the CTAs a batch's clusters
+#: fill at one CTA an SM.
+CARD_SMS = 132
 #: Floats of shared memory before the reflector entries and the rows, as
 #: csrc/panel_factor.cu carves them (kPfFixedFloats): the pushed dots
 #: [16][128] and norm partials [16][4][2], the row groups' dots [4][128],
@@ -103,6 +116,47 @@ def panel_layout(m: int, w: int, max_cluster: int = MAX_CLUSTER,
     return PanelLayout(cluster, rows, in_smem, _smem_bytes(w, rows, in_smem))
 
 
+def fewest_layout(m: int, w: int, max_cluster: int = MAX_CLUSTER
+                  ) -> PanelLayout:
+    """The fewest CTAs (up to ``max_cluster``) whose ``ceil(m / cluster)``
+    rows each fit ``SMEM_LIMIT``, in shared memory; :func:`panel_layout`'s
+    in-place layout when not even ``max_cluster`` CTAs hold the rows.  The
+    other candidate of :func:`batched_layout`."""
+    lay = panel_layout(m, w, max_cluster)
+    for cluster in range(1, lay.cluster + 1):
+        rows = -(-m // cluster)
+        if _smem_bytes(w, rows, True) <= SMEM_LIMIT:
+            return PanelLayout(cluster, rows, True,
+                               _smem_bytes(w, rows, True))
+    return lay
+
+
+@functools.lru_cache(maxsize=None)
+def batched_layout(B: int, m: int, w: int, max_cluster: int = MAX_CLUSTER
+                   ) -> PanelLayout:
+    """One layout for every member of a batch of B m x w panels (one
+    cluster a member): :func:`panel_layout`'s (128 rows a CTA) while its B
+    clusters fit ``CARD_SMS`` CTAs, one wave at one CTA an SM; beyond that
+    as few CTAs a member as fill the card (``CARD_SMS // B``), but never
+    fewer than
+    :func:`fewest_layout`'s (the rows must fit shared memory) nor more than
+    ``panel_layout``'s.  Reasons: a member's column loop is serial, so
+    more CTAs only shorten its passes over the rows while adding to its two
+    cluster barriers a column, and a layout whose B clusters do not fit
+    the card at once runs in waves, one after another.  At B = 1 it is
+    ``panel_layout``.  A rule on shapes alone: it needs no device.  Raises
+    ``ValueError`` for B < 1 or a shape ``panel_layout`` refuses."""
+    if B < 1:
+        raise ValueError(f"batched_layout takes B >= 1 panels, got {B}")
+    lay = panel_layout(m, w, max_cluster)
+    if B * lay.cluster <= CARD_SMS or not lay.in_smem:
+        return lay
+    cluster = min(lay.cluster, max(fewest_layout(m, w, max_cluster).cluster,
+                                   CARD_SMS // B))
+    rows = -(-m // cluster)
+    return PanelLayout(cluster, rows, True, _smem_bytes(w, rows, True))
+
+
 class WideStep(NamedTuple):
     """One sub-panel ``[c, e)`` of the wide route and its launches' layouts
     (zeros where a product does not run: no trailing columns when
@@ -145,24 +199,35 @@ def _nt_tiles(M: int, N: int) -> Tuple[int, int]:
     return (NT_WIDE_BM if tiles >= TARGET_CTAS else NT_SMALL_BM[bn]), bn
 
 
-@functools.lru_cache(maxsize=None)
 def wide_layout(m: int, w: int, max_cluster: int = MAX_CLUSTER,
                 sub: int = WIDE_SUB) -> WideLayout:
-    """The wide route's layout for an m x w panel: sub-panels ``[c, e)`` of
+    """The wide route's layout for one m x w panel:
+    :func:`wide_batched_layout` at B = 1."""
+    return wide_batched_layout(1, m, w, max_cluster, sub)
+
+
+@functools.lru_cache(maxsize=None)
+def wide_batched_layout(B: int, m: int, w: int,
+                        max_cluster: int = MAX_CLUSTER,
+                        sub: int = WIDE_SUB) -> WideLayout:
+    """The wide route's layout for B m x w panels: sub-panels ``[c, e)`` of
     ``sub`` columns covering w (the last narrower when ``sub`` does not
-    divide w), each factored by K6 with :func:`panel_layout` of its
-    ``(m - c) x (e - c)`` shape; the trailing update's two gemm_tn products
+    divide w), each factored by one K6 launch over the batch with
+    :func:`batched_layout` of B and its ``(m - c) x (e - c)`` shape
+    (:func:`panel_layout`'s at B = 1); each member's trailing update's two
+    gemm_tn products
     with :func:`~ns.tn_split` of their shapes (``b x (w - e)`` over
     ``m - c`` rows, then over ``b``) and its gemm_nt with :func:`_nt_tiles`
     of ``(m - c) x (w - e)``; T's merge with the split of ``c x b`` over
     ``m - c`` rows and the tiles of its two ``c x b`` products.  A rule on
-    shapes alone: it needs no device.  ``sub`` is a probe's argument:
-    :func:`panel_factor_fused` always lays out at ``WIDE_SUB``.  Raises
-    ``ValueError`` unless ``1 <= w <= m`` and ``1 <= sub <= MAX_WIDTH``."""
-    if not (1 <= w <= m and 1 <= sub <= MAX_WIDTH):
+    shapes alone: it needs no device.  ``sub`` is a probe's argument: the
+    wrappers always lay out at ``WIDE_SUB``.  Raises ``ValueError`` unless
+    ``B >= 1``, ``1 <= w <= m`` and ``1 <= sub <= MAX_WIDTH``."""
+    if not (B >= 1 and 1 <= w <= m and 1 <= sub <= MAX_WIDTH):
         raise ValueError(
-            f"wide_layout takes m x w with 1 <= w <= m and 1 <= sub <= "
-            f"{MAX_WIDTH}; got {m} x {w}, sub={sub}")
+            f"wide_layout / wide_batched_layout takes B >= 1 panels of m x "
+            f"w with 1 <= w <= m and 1 <= sub <= {MAX_WIDTH}; got B={B}, "
+            f"{m} x {w}, sub={sub}")
     steps = []
     for c in range(0, w, sub):
         e = min(w, c + sub)
@@ -171,7 +236,7 @@ def wide_layout(m: int, w: int, max_cluster: int = MAX_CLUSTER,
                    *_nt_tiles(mk, n2)) if n2 else (0,) * 6)
         merge = ((*tn_split(c, b, mk), *_nt_tiles(c, b), *_nt_tiles(c, b))
                  if c else (0,) * 6)
-        steps.append(WideStep((c, e), panel_layout(mk, b, max_cluster),
+        steps.append(WideStep((c, e), batched_layout(B, mk, b, max_cluster),
                               update, merge))
     return WideLayout(sub, tuple(steps))
 
@@ -204,6 +269,14 @@ def panel_factor_fused_plain(panel: torch.Tensor):
         T[:, j:j + 1] = torch.where(cols_r == j, beta, tcol)
         V[:, j:j + 1] = w
     return V, T, P
+
+
+def panel_factor_fused_batched_plain(panels: torch.Tensor):
+    """Plain version of :func:`panel_factor_fused_batched`:
+    :func:`panel_factor_fused_plain` of each member of the (B, m, w)
+    stack, stacked: ``(V (B, m, w), T (B, w, w), R (B, m, w))``."""
+    outs = [panel_factor_fused_plain(p) for p in panels]
+    return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def panel_factor_wide_plain(panel: torch.Tensor, sub: int = WIDE_SUB):
@@ -268,6 +341,56 @@ def panel_factor_fused(panel: torch.Tensor
     return out
 
 
+def panel_factor_fused_batched(panels: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """The Householder column loop of each of B m x w panels.
+
+    ``panels`` is (B, m, w); returns ``V (B, m, w)``, ``T (B, w, w)`` and
+    ``R (B, m, w)``, member by member as :func:`panel_factor_fused` gives
+    them.  On the CPU it runs :func:`panel_factor_fused_batched_plain`.  On
+    CUDA the stack must be a contiguous fp32 tensor with ``1 <= w <= m``
+    and B >= 1: up to ``MAX_WIDTH`` columns it is ONE launch over the batch
+    with :func:`batched_layout`'s layout, wider panels the wide route over
+    the batch (one K6 launch a sub-panel) with :func:`wide_batched_layout`'s;
+    a shape the entries refuse raises, with no loop of single launches in
+    its place.  Each K6 launch counts in ``LAUNCHES["panel_factor_fused"]``
+    and ``BATCH_LAUNCHES``, the B panels in ``BATCH_MEMBERS``; a wide call
+    counts once in ``WIDE_LAUNCHES["calls"]`` and its members' products in
+    ``WIDE_LAUNCHES["products"]``.
+    """
+    if panels.device.type == "cpu":
+        return panel_factor_fused_batched_plain(panels)
+    if not panels.is_cuda:
+        raise ValueError(
+            f"panels must be a CPU or CUDA tensor, got {panels.device}")
+    if (panels.dtype != torch.float32 or panels.dim() != 3
+            or not panels.is_contiguous()):
+        raise ValueError(
+            "panels must be a contiguous 3-D (B, m, w) float32 tensor, got "
+            f"{panels.dtype} {tuple(panels.shape)} "
+            f"contiguous={panels.is_contiguous()}")
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
+
+    B, m, w = panels.shape
+    if w > MAX_WIDTH:
+        # wide_batched_layout raises ValueError for a shape it does not take.
+        lay = wide_batched_layout(B, m, w, max_cluster(panels.device))
+        out = _launch_wide(library(), panels, lay)
+        launches = len(lay.steps)
+        WIDE_LAUNCHES["calls"] += 1
+        WIDE_LAUNCHES["products"] += B * lay.products()
+    else:
+        # batched_layout raises ValueError for a shape it does not take.
+        lay = batched_layout(B, m, w, max_cluster(panels.device))
+        out = _launch(library(), panels, lay)
+        launches = 1
+    LAUNCHES["panel_factor_fused"] += launches
+    BATCH_LAUNCHES["panel_factor_fused"] += launches
+    BATCH_MEMBERS["panel_factor_fused"] += B
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def max_cluster(device: torch.device) -> int:
     """The largest cluster (at most ``MAX_CLUSTER`` CTAs) of which the card
@@ -288,42 +411,70 @@ def max_cluster(device: torch.device) -> int:
     return out.value
 
 
+def resident_clusters(device: torch.device, lay: PanelLayout) -> int:
+    """How many clusters of the layout ``lay`` the card of ``device`` keeps
+    resident at once (``cudaOccupancyMaxActiveClusters``): a batch of B
+    runs in ``ceil(B / resident_clusters)`` waves."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
+        check, library,
+    )
+
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        check(library().mpbqr_panel_factor_resident(
+            lay.cluster, int(lay.in_smem), lay.smem_bytes,
+            ctypes.byref(out)), "panel_factor_fused resident clusters")
+    return out.value
+
+
 def _launch(lib, panel: torch.Tensor, lay: PanelLayout):
-    """One launch of ``mpbqr_panel_factor`` from the kernel library ``lib``
-    with the layout ``lay``; counts nothing.  Returns ``(V, T, R)``."""
+    """One launch from the kernel library ``lib`` with the layout ``lay``:
+    ``mpbqr_panel_factor`` for one (m, w) panel, ``mpbqr_panel_factor_
+    batched`` for a (B, m, w) stack; counts nothing.  Returns ``(V, T,
+    R)``, with the stack's leading B for a stack."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
 
-    m, w = panel.shape
+    *batch, m, w = panel.shape
     V = torch.empty_like(panel)
-    T = torch.empty((w, w), dtype=torch.float32, device=panel.device)
-    G = torch.empty((w, w), dtype=torch.float32, device=panel.device)
+    T = torch.empty((*batch, w, w), dtype=torch.float32, device=panel.device)
+    G = torch.empty((*batch, w, w), dtype=torch.float32, device=panel.device)
     R = torch.empty_like(panel)
-    code = lib.mpbqr_panel_factor(
-        panel.data_ptr(), V.data_ptr(), T.data_ptr(), G.data_ptr(),
-        R.data_ptr(), m, w, lay.cluster, lay.rows, int(lay.in_smem),
-        lay.smem_bytes, _stream(panel))
+    ptrs = (panel.data_ptr(), V.data_ptr(), T.data_ptr(), G.data_ptr(),
+            R.data_ptr())
+    args = (m, w, lay.cluster, lay.rows, int(lay.in_smem), lay.smem_bytes,
+            _stream(panel))
+    if batch:
+        code = lib.mpbqr_panel_factor_batched(*ptrs, batch[0], *args)
+    else:
+        code = lib.mpbqr_panel_factor(*ptrs, *args)
     check(code, "panel_factor_fused")
     return V, T, R
 
 
 def _launch_wide(lib, panel: torch.Tensor, lay: WideLayout):
-    """One call of ``mpbqr_panel_factor_wide`` from the kernel library
-    ``lib`` with the layout ``lay``; counts nothing.  Returns ``(V, T,
-    R)``."""
+    """One call of the wide route from the kernel library ``lib`` with the
+    layout ``lay``: ``mpbqr_panel_factor_wide`` for one (m, w) panel,
+    ``mpbqr_panel_factor_wide_batched`` for a (B, m, w) stack; counts
+    nothing.  Returns ``(V, T, R)``, with the stack's leading B for a
+    stack."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
 
-    m, w = panel.shape
+    *batch, m, w = panel.shape
     V = torch.empty_like(panel)
-    T = torch.empty((w, w), dtype=torch.float32, device=panel.device)
+    T = torch.empty((*batch, w, w), dtype=torch.float32, device=panel.device)
     R = torch.empty_like(panel)
-    scratch = torch.empty(
-        lib.mpbqr_panel_factor_wide_scratch_floats(m, w, lay.sub),
-        dtype=torch.float32, device=panel.device)
+    floats = (lib.mpbqr_panel_factor_wide_batched_scratch_floats(
+        batch[0], m, w, lay.sub) if batch
+        else lib.mpbqr_panel_factor_wide_scratch_floats(m, w, lay.sub))
+    scratch = torch.empty(floats, dtype=torch.float32, device=panel.device)
     ints = [x for step in lay.steps for x in step.args()]
     plan = (ctypes.c_int * len(ints))(*ints)
-    code = lib.mpbqr_panel_factor_wide(
-        panel.data_ptr(), V.data_ptr(), T.data_ptr(), R.data_ptr(),
-        scratch.data_ptr(), m, w, lay.sub, plan, len(lay.steps),
-        _stream(panel))
+    ptrs = (panel.data_ptr(), V.data_ptr(), T.data_ptr(), R.data_ptr(),
+            scratch.data_ptr())
+    tail = (m, w, lay.sub, plan, len(lay.steps), _stream(panel))
+    if batch:
+        code = lib.mpbqr_panel_factor_wide_batched(*ptrs, batch[0], *tail)
+    else:
+        code = lib.mpbqr_panel_factor_wide(*ptrs, *tail)
     check(code, "panel_factor_fused (wide route)")
     return V, T, R

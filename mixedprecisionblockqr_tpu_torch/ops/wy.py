@@ -1,7 +1,10 @@
 """Compact-WY (T-matrix) block reflectors (port of
 ``mixedprecisionblockqr_tpu/ops/wy.py``).
 
-``Q = I - V T V^T`` with T (r x r) upper triangular.  The tall products run
+``Q = I - V T V^T`` with T (r x r) upper triangular.  ``apply_block_
+reflector_left_t`` and ``reduced_q_from_vt`` also take stacks (B, ., .) of
+reflectors and operands, member by member (the JAX package ``vmap``s
+them).  The tall products run
 under the policy's dtypes through ``ops/policy.py::matmul``; the r x r T
 products run at full precision in the accumulation dtype (fp32 with TF32
 off under every policy but POLICY_FP64).
@@ -49,9 +52,10 @@ def apply_block_reflector_left_t(
     T: torch.Tensor,
     policy: DTypePolicy = POLICY_FP32,
 ) -> torch.Tensor:
-    """``Q^T C = C - V (T^T (V^T C))``: the trailing-matrix update."""
+    """``Q^T C = C - V (T^T (V^T C))``: the trailing-matrix update (of
+    each member, for stacks)."""
     mm = trailing_matmul(policy)
-    return C - mm(V, accum_matmul(policy)(T.T, mm(V.T, C)))
+    return C - mm(V, accum_matmul(policy)(T.mT, mm(V.mT, C)))
 
 
 def apply_block_reflector_right(
@@ -68,8 +72,8 @@ def apply_block_reflector_right(
 def reduced_q_from_vt(V: torch.Tensor, T: torch.Tensor,
                       n: Optional[int] = None) -> torch.Tensor:
     """First n columns of ``I - V T V^T`` without the h x h identity:
-    ``I[:, :n] - V (T V[:n, :]^T)``."""
-    h, r = V.shape
+    ``I[:, :n] - V (T V[:n, :]^T)`` (of each member, for stacks)."""
+    h, r = V.shape[-2:]
     n = r if n is None else n
-    Q = -_mm(V, _mm(T, V[:n, :].T))
+    Q = -_mm(V, _mm(T, V[..., :n, :].mT))
     return Q + torch.eye(h, n, dtype=Q.dtype, device=Q.device)

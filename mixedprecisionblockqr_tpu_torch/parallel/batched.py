@@ -31,7 +31,7 @@ from mixedprecisionblockqr_tpu_torch.parallel.mesh import (
     mesh_device,
 )
 from mixedprecisionblockqr_tpu_torch.parallel.tsqr import (
-    _leaf_qr,
+    _leaf_qrs,
     reduction_tree,
 )
 from mixedprecisionblockqr_tpu_torch.utils.device import as_device_tensor
@@ -82,7 +82,9 @@ def tsqr_batched_sharded_2d(
     ``rows`` (one all-gather of the (n x n) leaf R factors per problem).
     A_batch (b, m, n) fp32 with b divisible by mesh[batch] and m by
     mesh[rows].  Returns this rank's ``(Q (b/db, m/dr, n), R (b/db, n,
-    n))``: Q's slab over both axes, R's over ``batch`` only."""
+    n))``: Q's slab over both axes, R's over ``batch`` only.  The rank's
+    leaves are factored in one call (Householder leaves: one batched K6
+    launch on the card; CholeskyQR2 leaves one by one)."""
     A_batch = as_device_tensor(A_batch, mesh_device(mesh)).float()
     b, m, n = A_batch.shape
     db = axis_size(mesh, batch_axis)
@@ -94,9 +96,10 @@ def tsqr_batched_sharded_2d(
         )
     kb, h = b // db, m // dr
     ib, ir = axis_index(mesh, batch_axis), axis_index(mesh, rows_axis)
+    Q_locs, R_locs = _leaf_qrs(
+        A_batch[ib * kb:(ib + 1) * kb, ir * h:(ir + 1) * h], leaf_method)
     Qs, Rs = [], []
-    for A in A_batch[ib * kb:(ib + 1) * kb, ir * h:(ir + 1) * h]:
-        Q_loc, R_loc = _leaf_qr(A, leaf_method)
+    for Q_loc, R_loc in zip(Q_locs, R_locs):
         F, R = reduction_tree(all_gather(R_loc, mesh, rows_axis))
         Qs.append(_mm(Q_loc, F[ir]))
         Rs.append(R)

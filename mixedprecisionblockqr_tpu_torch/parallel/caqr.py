@@ -3,15 +3,16 @@ device (port of ``mixedprecisionblockqr_tpu/parallel/caqr.py``).
 
 Column panels of width r; each panel's rows below the diagonal split into
 a power-of-two number of row blocks (zero-padded), factored as a TSQR:
-one Householder panel per leaf, then one per stacked pair of each tree
-level, every one routed as the ``'householder'`` tier routes its panels
-(``parallel/tsqr.py::householder_panel``: K6 on the card for fp32 panels
-of any width).  The trailing columns take the same reflectors
-(``ops/wy.py::apply_block_reflector_left_t``): the leaves' on whole row
-blocks, each tree level's on the top r rows of the paired blocks.  The
-factors are kept (``CAQRFactors``), so ``apply_qt`` / ``apply_q`` replay
-them as linear operators and ``caqr`` rebuilds Q.  The JAX package
-``vmap``s the leaves and pairs; here they are loops.
+the leaves in one batched Householder call, then the stacked pairs of
+each tree level in one, routed as the ``'householder'`` tier routes its
+panels (``parallel/tsqr.py::householder_panels``: on the card ONE K6
+launch over the batch for fp32 panels of any width, as the JAX package
+``vmap``s them).  The trailing columns take the same reflectors, a level
+at a time (``ops/wy.py::apply_block_reflector_left_t`` on the stacks): the
+leaves' on whole row blocks, each tree level's on the top r rows of the
+paired blocks.  The factors are kept (``CAQRFactors``), so ``apply_qt`` /
+``apply_q`` replay them as linear operators and ``caqr`` rebuilds Q; the
+replays run a loop over the blocks and pairs.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from mixedprecisionblockqr_tpu_torch.ops.householder import _mm
 from mixedprecisionblockqr_tpu_torch.ops.policy import DTypePolicy, POLICY_FP32
 from mixedprecisionblockqr_tpu_torch.ops.wy import apply_block_reflector_left_t
-from mixedprecisionblockqr_tpu_torch.parallel.tsqr import householder_panel
+from mixedprecisionblockqr_tpu_torch.parallel.tsqr import householder_panels
 from mixedprecisionblockqr_tpu_torch.utils.device import as_device_tensor
 
 
@@ -99,14 +100,15 @@ def _padded_blocks(X: torch.Tensor, L: int, h: int) -> torch.Tensor:
     return Xp.reshape(L, h, X.shape[1])
 
 
-def _factor_node(x: torch.Tensor, r: int, policy: DTypePolicy):
-    """Householder-factor the first r columns of ``x`` and apply the
-    reflector to the rest: ``(V, T, x updated)``."""
-    V, T, Rp = householder_panel(x[:, :r], policy)
-    if x.shape[1] == r:
+def _factor_nodes(x: torch.Tensor, r: int, policy: DTypePolicy):
+    """Householder-factor the first r columns of each member of ``x`` (B,
+    h, k) in one batched call and apply each member's reflector to its
+    other columns: ``(V, T, x updated)``, stacked."""
+    V, T, Rp = householder_panels(x[..., :r], policy)
+    if x.shape[-1] == r:
         return V, T, Rp
-    rest = apply_block_reflector_left_t(x[:, r:], V, T, policy)
-    return V, T, torch.cat([Rp, rest], dim=1)
+    rest = apply_block_reflector_left_t(x[..., r:], V, T, policy)
+    return V, T, torch.cat([Rp, rest], dim=-1)
 
 
 def _factor_panel(Asub: torch.Tensor, r: int, row_blocks: Optional[int],
@@ -126,31 +128,22 @@ def _factor_panel(Asub: torch.Tensor, r: int, row_blocks: Optional[int],
             f"row blocks of height {h} shorter than panel width {r}; "
             f"reduce row_blocks or block_size"
         )
-    blocks = _padded_blocks(Asub, L, h)
-    leaf_v, leaf_t = [], []
-    for i in range(L):
-        V, T, upd = _factor_node(blocks[i], r, policy)
-        blocks[i] = upd
-        leaf_v.append(V)
-        leaf_t.append(T)
+    leaf_v, leaf_t, blocks = _factor_nodes(_padded_blocks(Asub, L, h), r,
+                                           policy)
     tree_v, tree_t = [], []
     s = 1
     while s < L:
-        Vs, Ts = [], []
-        for i0 in range(0, L, 2 * s):
-            i1 = i0 + s
-            st = torch.cat([blocks[i0, :r], blocks[i1, :r]])
-            V, T, st = _factor_node(st, r, policy)
-            blocks[i0, :r] = st[:r]
-            blocks[i1, :r] = st[r:]
-            Vs.append(V)
-            Ts.append(T)
-        tree_v.append(torch.stack(Vs))
-        tree_t.append(torch.stack(Ts))
+        i0 = torch.arange(0, L, 2 * s, device=blocks.device)
+        i1 = i0 + s
+        st = torch.cat([blocks[i0, :r], blocks[i1, :r]], dim=1)
+        V, T, st = _factor_nodes(st, r, policy)
+        blocks[i0, :r] = st[:, :r]
+        blocks[i1, :r] = st[:, r:]
+        tree_v.append(V)
+        tree_t.append(T)
         s *= 2
     out = blocks.reshape(L * h, ncols)[:height]
-    factors = PanelFactors(0, 0, r, torch.stack(leaf_v), torch.stack(leaf_t),
-                           tree_v, tree_t)
+    factors = PanelFactors(0, 0, r, leaf_v, leaf_t, tree_v, tree_t)
     return factors, out
 
 

@@ -5,12 +5,15 @@
 The rows split into a power-of-two number of leaves (zero-padded); each
 leaf is one Householder panel, and each tree level factors the stacked
 pairs of the level below: (2n x n) panels.  Q is rebuilt top-down from
-(n x n) path factors.  Every leaf and tree node goes through the routing
-of the ``'householder'`` tier (``ops/blockqr.py::_householder_panel``):
-K6 (``panel_factor_fused``) on the card for an fp32 panel of any width
-(its wide route above 128 columns), ``panel_factor``'s column loop
-otherwise (the CPU, float64).  The JAX package ``vmap``s the leaves and
-the pairs of a level; here they are a loop, one panel call each.
+(n x n) path factors.  The leaves, and the pairs of each tree level, are
+factored together, as the JAX package's ``vmap`` factors them: one
+``householder_panels`` call a level (``ops/blockqr.py::
+_householder_panels``), on the card ONE K6 launch over the batch for fp32
+panels (``panel_factor_fused_batched``; its wide route above 128 columns,
+one launch a sub-panel), ``panel_factor``'s column loop member by member
+otherwise (the CPU, float64).  ``tsqr_batched`` factors the leaves of all
+its members in one call and each tree level across members in one call.
+CholeskyQR2 leaves and trees ('cholqr2', 'cholqr2s') stay a loop.
 
 Rank caveat (the reference's): Q assumes nonsingular leaf R factors;
 rank-deficient inputs still give a valid R and residual A = QR.
@@ -25,6 +28,7 @@ import torch
 from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
     _householder_fused,
     _householder_panel,
+    _householder_panels,
 )
 from mixedprecisionblockqr_tpu_torch.ops.cholqr import cholesky_qr2
 from mixedprecisionblockqr_tpu_torch.ops.householder import _mm
@@ -53,16 +57,39 @@ def householder_panel(block: torch.Tensor,
         fused=_householder_fused(block.device.type, block.dtype))
 
 
+def householder_panels(blocks: torch.Tensor,
+                       policy: DTypePolicy = POLICY_FP32):
+    """``(V, T, Rp)`` of each panel of a (B, m, w) stack, stacked, routed
+    as :func:`householder_panel` routes one: on CUDA for fp32 ONE batched
+    K6 call (``panel_factor_fused_batched``), else ``panel_factor`` member
+    by member."""
+    return _householder_panels(
+        blocks, policy,
+        fused=_householder_fused(blocks.device.type, blocks.dtype))
+
+
 def _leaf_qr(block: torch.Tensor, method: str = "householder"
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reduced QR of one (h x n) leaf: ``(Q (h x n), R (n x n))``.
     'cholqr2' / 'cholqr2s' run (shifted) CholeskyQR2; 'householder' is
     the unconditionally robust default."""
-    n = block.shape[1]
+    Q, R = _leaf_qrs(block[None], method)
+    return Q[0], R[0]
+
+
+def _leaf_qrs(blocks: torch.Tensor, method: str = "householder"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reduced QR of each (h x n) leaf of a (B, h, n) stack: ``(Q (B, h,
+    n), R (B, n, n))``; Householder leaves in one ``householder_panels``
+    call, CholeskyQR2 leaves one by one."""
+    n = blocks.shape[-1]
     if method in ("cholqr2", "cholqr2s"):
-        return cholesky_qr2(block, shifted=method == "cholqr2s")
-    V, T, Rf = householder_panel(block)
-    return reduced_q_from_vt(V, T, n), torch.triu(Rf[:n, :])
+        outs = [cholesky_qr2(b, shifted=method == "cholqr2s")
+                for b in blocks]
+        return (torch.stack([q for q, _ in outs]),
+                torch.stack([r for _, r in outs]))
+    V, T, Rf = householder_panels(blocks)
+    return reduced_q_from_vt(V, T, n), torch.triu(Rf[:, :n, :])
 
 
 def reduction_tree(Rs: torch.Tensor, method: str = "householder"
@@ -73,10 +100,20 @@ def reduction_tree(Rs: torch.Tensor, method: str = "householder"
     with R the (n x n) triangular factor of the (L*n x n) stack and F the
     (L, n, n) path factors: ``vstack(Rs) = vstack(F) @ R`` with
     ``vstack(F)`` orthonormal.  Pairs factor by CholeskyQR2 when
-    ``method == 'cholqr2'``, else as Householder panels (as in the JAX
-    package, 'cholqr2s' trees are Householder).
+    ``method == 'cholqr2'``, else as Householder panels, one
+    ``householder_panels`` call a level (as in the JAX package,
+    'cholqr2s' trees are Householder).
     """
-    L, n, _ = Rs.shape
+    F, R = _reduction_trees(Rs[None], method)
+    return F[0], R[0]
+
+
+def _reduction_trees(Rs: torch.Tensor, method: str = "householder"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`reduction_tree` of each of B stacks at once: ``Rs`` (B, L,
+    n, n) -> ``(F (B, L, n, n), R (B, n, n))``, the Householder pairs of a
+    level across all B trees in one ``householder_panels`` call."""
+    B, L, n, _ = Rs.shape
     if L < 1 or L & (L - 1):
         raise ValueError(
             f"reduction_tree requires a power-of-two leaf count, got {L} "
@@ -86,25 +123,25 @@ def reduction_tree(Rs: torch.Tensor, method: str = "householder"
     cur = Rs
     c = L
     while c > 1:
-        pairs = cur.reshape(c // 2, 2 * n, n)
+        pairs = cur.reshape(B * (c // 2), 2 * n, n)
         if method == "cholqr2":
             outs = [cholesky_qr2(p) for p in pairs]
             Qp = torch.stack([q for q, _ in outs])
             cur = torch.stack([r for _, r in outs])
         else:
-            outs = [householder_panel(p) for p in pairs]
-            Qp = torch.stack([reduced_q_from_vt(V, T, n)
-                              for V, T, _ in outs])
-            cur = torch.triu(torch.stack([Rp[:n, :] for _, _, Rp in outs]))
-        level_qs.append(Qp)  # (c // 2, 2n, n)
+            V, T, Rp = householder_panels(pairs)
+            Qp = reduced_q_from_vt(V, T, n)
+            cur = torch.triu(Rp[:, :n, :])
+        level_qs.append(Qp.reshape(B, c // 2, 2 * n, n))
+        cur = cur.reshape(B, c // 2, n, n)
         c //= 2
-    R = cur[0]
+    R = cur[:, 0]
     # Top-down reconstruction of the per-leaf path factors.
-    F = torch.eye(n, dtype=Rs.dtype, device=Rs.device)[None]
+    F = torch.eye(n, dtype=Rs.dtype, device=Rs.device).repeat(B, 1, 1, 1)
     for Qp in reversed(level_qs):
-        top = _mm(Qp[:, :n, :], F)
-        bot = _mm(Qp[:, n:, :], F)
-        F = torch.stack([top, bot], dim=1).reshape(-1, n, n)
+        top = _mm(Qp[..., :n, :], F)
+        bot = _mm(Qp[..., n:, :], F)
+        F = torch.stack([top, bot], dim=2).reshape(B, -1, n, n)
     return F, R
 
 
@@ -134,16 +171,24 @@ def _pick_leaves(m: int, n: int, n_leaves: Optional[int]) -> int:
 
 def _tsqr_impl(A: torch.Tensor, n_leaves: int, method: str = "householder"):
     """TSQR of A (m x n) over ``n_leaves`` leaves: ``(Q (m x n), R)``."""
-    m, n = A.shape
+    Q, R = _tsqr_batched_impl(A[None], n_leaves, method)
+    return Q[0], R[0]
+
+
+def _tsqr_batched_impl(A: torch.Tensor, n_leaves: int,
+                       method: str = "householder"):
+    """TSQR of each matrix of A (B, m, n) over ``n_leaves`` leaves: ``(Q
+    (B, m, n), R (B, n, n))``, the B L leaves in one ``_leaf_qrs`` call and
+    each tree level across the B trees in one call."""
+    B, m, n = A.shape
     L = n_leaves
     h = -(-m // L)
     pad = L * h - m
-    Ap = torch.cat([A, A.new_zeros((pad, n))]) if pad else A
-    outs = [_leaf_qr(blk, method) for blk in Ap.reshape(L, h, n)]
-    Qs = torch.stack([q for q, _ in outs])
-    F, R = reduction_tree(torch.stack([r for _, r in outs]), method)
-    Q = _mm(Qs, F).reshape(L * h, n)
-    return Q[:m, :], R
+    Ap = torch.cat([A, A.new_zeros((B, pad, n))], dim=1) if pad else A
+    Qs, Rs = _leaf_qrs(Ap.reshape(B * L, h, n), method)
+    F, R = _reduction_trees(Rs.reshape(B, L, n, n), method)
+    Q = _mm(Qs.reshape(B, L, h, n), F).reshape(B, L * h, n)
+    return Q[:, :m, :], R
 
 
 def tsqr(A, n_leaves: Optional[int] = None, method: str = "householder",
@@ -180,7 +225,9 @@ def tsqr(A, n_leaves: Optional[int] = None, method: str = "householder",
 
 def tsqr_batched(A_batch, n_leaves: Optional[int] = None, device=None):
     """TSQR (Householder leaves) of each matrix of a (batch, m, n) stack:
-    ``(Q (batch, m, n), R (batch, n, n))``.  ``device`` as in
+    ``(Q (batch, m, n), R (batch, n, n))``.  The leaves of all members are
+    factored in one call (on the card one batched K6 launch), then each
+    tree level across members in one call.  ``device`` as in
     ``utils/device.py``."""
     A_batch = as_device_tensor(A_batch, device)
     if n_leaves is not None and (n_leaves < 1 or n_leaves & (n_leaves - 1)):
@@ -188,12 +235,9 @@ def tsqr_batched(A_batch, n_leaves: Optional[int] = None, device=None):
     _, m, n = A_batch.shape
     L = _pick_leaves(m, n, n_leaves)
     if L == 1:
-        outs = [_leaf_qr(a) for a in A_batch]
-    else:
-        _check_leaf_height(m, L, n, "tsqr_batched")
-        outs = [_tsqr_impl(a, L) for a in A_batch]
-    return (torch.stack([q for q, _ in outs]),
-            torch.stack([r for _, r in outs]))
+        return _leaf_qrs(A_batch)
+    _check_leaf_height(m, L, n, "tsqr_batched")
+    return _tsqr_batched_impl(A_batch, L)
 
 
 def tsqr_sharded(A, mesh, axis: str = ROWS_AXIS, local_leaves: int = 1

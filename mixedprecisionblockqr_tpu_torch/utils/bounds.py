@@ -24,8 +24,9 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
 from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
     MAX_CLUSTER as PANEL_MAX_CLUSTER,
     MAX_WIDTH as PANEL_MAX_WIDTH,
+    batched_layout,
     panel_layout,
-    wide_layout,
+    wide_batched_layout,
 )
 from mixedprecisionblockqr_tpu_torch.ops.kernels.sketch import sketch_layout
 
@@ -167,14 +168,15 @@ def householder_panel_ops(m, w):
                for j in range(w))
 
 
-def wide_loop_ops(m, w, max_cluster=None):
+def wide_loop_ops(m, w, max_cluster=None, B=1):
     """The column loops of K6's wide route: ``(ops, cluster)`` of each
-    sub-panel ``[c, e)`` of ``wide_layout(m, w, max_cluster)``,
-    ``householder_panel_ops(m - c, e - c)`` on that sub-panel's one
-    thread-block cluster.  The rest of ``householder_panel_ops(m, w)`` (the
-    dots and T products across sub-panels) is what the route's trailing
-    updates and T merges must do at least."""
-    lay = wide_layout(m, w, max_cluster or PANEL_MAX_CLUSTER)
+    sub-panel ``[c, e)`` of ``wide_batched_layout(B, m, w, max_cluster)``
+    (one panel's at B = 1), ``householder_panel_ops(m - c, e - c)`` on that
+    sub-panel's one thread-block cluster.  The rest of
+    ``householder_panel_ops(m, w)`` (the dots and T products across
+    sub-panels) is what the route's trailing updates and T merges must do
+    at least."""
+    lay = wide_batched_layout(B, m, w, max_cluster or PANEL_MAX_CLUSTER)
     return [(householder_panel_ops(m - c, e - c), step.panel.cluster)
             for step in lay.steps for c, e in (step.cols,)]
 
@@ -205,6 +207,30 @@ def panel_factor_bound(m, w, cluster_sms=None):
     return {**bound(f32_ops=ops, nbytes=nbytes),
             "cluster_sms": max(cl for _, cl in loops),
             "cluster_bound_ms": max(t_ops, t_bytes) * 1e3}
+
+
+def panel_factor_batched_bound(B, m, w):
+    """K6 over a batch of B m x w panels (``panel_factor_fused_batched``):
+    B times one panel's operations and bytes (``panel_factor_bound``'s) at
+    the whole card's rates; beside it ``member_floor_ms``, what no batch
+    can overlap: one member's w dependent column steps, its operations on
+    the SMs of its own cluster (``batched_layout``'s; above 128 columns
+    each sub-panel's loop on its cluster and the rest card-wide, as
+    ``panel_factor_bound`` counts the wide route), and ``cluster_sms``,
+    that cluster."""
+    ops = householder_panel_ops(m, w)
+    nbytes = (3 * m * w + w * w) * 4
+    if w <= PANEL_MAX_WIDTH:
+        sms = batched_layout(B, m, w).cluster
+        floor = cluster_bound(ops, nbytes, sms)["cluster_bound_ms"]
+    else:
+        loops = wide_loop_ops(m, w, None, B)
+        sms = max(cl for _, cl in loops)
+        t_ops = (sum(o * SMS / cl for o, cl in loops)
+                 + ops - sum(o for o, _ in loops)) / PEAK_F32
+        floor = max(t_ops, nbytes / HBM_BYTES_PER_S) * 1e3
+    return {**bound(f32_ops=B * ops, nbytes=B * nbytes), "cluster_sms": sms,
+            "member_floor_ms": floor}
 
 
 def sketch_bound(d, w, r, cluster_sms=None):
@@ -324,6 +350,10 @@ def kernel_bounds():
             "shape": f"{m} x {w}", **panel_factor_bound(m, w)}
            for m, w in ((2048, 256), (2000, 200), (4096, 512), (8192, 256),
                         (4096, 2048), (1024, 256), (512, 256))},
+        **{f"K6 panel_factor_fused_batched {B}x{m}x{w}": {
+            "shape": f"{B} x {m} x {w}", **panel_factor_batched_bound(B, m, w)}
+           for B, m, w in ((64, 1563, 64), (8, 512, 128), (4, 1024, 256),
+                           (32, 128, 64), (64, 1024, 256), (32, 512, 256))},
         "K7 sketch_qrcp_ranks": {"shape": "136 x 2048, 128 pivots",
                                  **sketch_bound(136, 2048, 128)},
         "K8 tiled_matmul": {"shape": "2048^3 bf16 -> f32",

@@ -2,7 +2,7 @@
 and ``torch.geqrf``.
 
     python3 -m mixedprecisionblockqr_tpu_torch.utils.panel_probe [--phases]
-        [--wide-only]
+        [--wide-only] [--batched]
 
 Builds (or loads) the kernel library, then for each panel of
 :data:`PROBE_SHAPES` (uniform in [-0.5, 0.5), seeded) prints one JSON line
@@ -18,8 +18,18 @@ The panels of :data:`WIDE_SHAPES` (w > 128) take the wide route: their
 :data:`WIDE_SUBS` and the staging copies of ``WIDE_SUB`` alone (what
 giving K6 a row stride instead could save at most).  ``--wide-only``
 skips the 128-wide panels.
+With ``--batched`` it times K6's batched entry alone instead, on the
+stacks of :data:`BATCH_SHAPES` (:func:`k6_batched_row`: against the
+batched plain version, each member bit for bit against a single launch
+at the batch's layout, beside the loop of single calls and
+``torch.geqrf`` of the stack), and for each stack of at most 128 columns
+the batched launch under both candidate layouts of ``batched_layout``
+(``panel_layout``'s 128 rows a CTA, ``fewest_layout``'s fewest CTAs in
+shared memory) and the rule's, each with its waves: the batch's clusters
+over the clusters the card keeps resident at once.
 The first line is the card's name and power limit (nvidia-smi).
-``chip_smoke.py`` phases 3 and 24 run the same rows through :func:`k6_row`.
+``chip_smoke.py`` phases 3 and 24 run the same rows through :func:`k6_row`,
+phase 3 the stacks through :func:`k6_batched_row`.
 
 With ``--phases``, the kernel library is built a second time with
 ``-DMPBQR_PANEL_PROF`` (``_build.instrumented_library``); one more launch
@@ -52,6 +62,11 @@ ROWS_TARGETS = (128, 256, 342, 428)
 #: one 4096 x 2048 leaf.
 WIDE_SHAPES = ((2048, 256), (2000, 200), (4096, 512), (8192, 256),
                (4096, 2048))
+#: Batched stacks (B, m, w): tsqr 100000 x 64's leaves and its first tree
+#: level, the refine lstsq's first CAQR panel's leaves (8 of 512 x 128),
+#: tsqr 65536 x 256's leaves (wide route) and a smaller wide batch.
+BATCH_SHAPES = ((64, 1563, 64), (32, 128, 64), (8, 512, 128),
+                (64, 1024, 256), (4, 1024, 256))
 #: Sub-panel widths the wide route is timed at.
 WIDE_SUBS = (64, 128)
 TOL = 1e-4  # fp32 summation order only
@@ -108,6 +123,115 @@ def k6_row(P: torch.Tensor, nan_input: bool = False) -> dict:
     row["library_ms"] = cuda_time_ms(lambda: torch.geqrf(P))
     row.update(panel_factor_bound(m, w, row["cluster"]))
     return row
+
+
+def k6_batched_row(P: torch.Tensor) -> dict:
+    """K6's batched entry on the (B, m, w) stack ``P`` against
+    ``panel_factor_fused_batched_plain``: layout and waves, per-output
+    error and limit (V, T and R's upper triangle within ``TOL`` *
+    max|plain|), two batched calls bitwise equal, each member bit for bit
+    a single launch at the batch's layout (the single entry,
+    ``mpbqr_panel_factor`` or ``mpbqr_panel_factor_wide``, with the same
+    plan), and times (CUDA events, median of 20; the plain version's of
+    3): the batched call, the loop of single ``panel_factor_fused`` calls,
+    ``torch.geqrf`` of the stack; the bounds.  Counts
+    nothing on the main paths' counters that a caller keeps: they are set
+    to 0 before each path."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        MAX_WIDTH,
+        _launch,
+        _launch_wide,
+        batched_layout,
+        max_cluster,
+        panel_factor_fused,
+        panel_factor_fused_batched,
+        panel_factor_fused_batched_plain,
+        resident_clusters,
+        wide_batched_layout,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.bounds import (
+        panel_factor_batched_bound,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    B, m, w = P.shape
+    lib, mc = library(), max_cluster(P.device)
+    if w <= MAX_WIDTH:
+        lay = batched_layout(B, m, w, mc)
+        steps = [lay]
+        row = {"shape": [B, m, w], "cluster": lay.cluster, "rows": lay.rows,
+               "route": _route(lay)}
+
+        def single(x):
+            return _launch(lib, x, lay)
+    else:
+        wl = wide_batched_layout(B, m, w, mc)
+        steps = [st.panel for st in wl.steps]
+        row = {"shape": [B, m, w], "route": "wide", "sub": wl.sub,
+               "cluster": max(st.cluster for st in steps),
+               "sub_panels": [f"{c}:{e} {st.panel.cluster}x{st.panel.rows} "
+                              f"{_route(st.panel)}"
+                              for st in wl.steps for c, e in (st.cols,)]}
+
+        def single(x):
+            return _launch_wide(lib, x, wl)
+    row["waves"] = [-(-B // max(1, resident_clusters(P.device, st)))
+                    for st in steps]
+    V, T, R = panel_factor_fused_batched(P)
+    V2, T2, R2 = panel_factor_fused_batched(P)
+    Vp, Tp, Rp = panel_factor_fused_batched_plain(P)
+    torch.cuda.synchronize()
+    Rp = torch.triu(Rp)
+    ok = all(bool(torch.equal(a, b)) for a, b in ((V, V2), (T, T2), (R, R2)))
+    row["bitwise_repeatable"] = ok
+    same = all(bool(torch.equal(a[i], b))
+               for i in range(B)
+               for a, b in zip((V, T, R), single(P[i].contiguous())))
+    row["members_bitwise_single_launch"] = same
+    ok = ok and same
+    for key, a, b in (("V", V, Vp), ("T", T, Tp), ("R", R, Rp)):
+        e, mx = _finite_err(a, b)
+        row[f"max_abs_{key}"], row[f"lim_{key}"] = e, TOL * mx
+        ok = ok and e <= TOL * mx
+    row["ok"] = ok and all(bool(torch.isfinite(x).all()) for x in (V, T, R))
+    row["ms"] = cuda_time_ms(lambda: panel_factor_fused_batched(P))
+    row["single_loop_ms"] = cuda_time_ms(
+        lambda: [panel_factor_fused(p) for p in P], warmup=1, iters=5)
+    row["plain_ms"] = cuda_time_ms(
+        lambda: panel_factor_fused_batched_plain(P), warmup=1, iters=3)
+    row["library_ms"] = cuda_time_ms(lambda: torch.geqrf(P))
+    row.update(panel_factor_batched_bound(B, m, w))
+    return row
+
+
+def batched_layout_times(P: torch.Tensor) -> dict:
+    """The batched launch on the (B, m, w) stack ``P`` (at most 128
+    columns; CUDA events, median of 20) under ``batched_layout``'s two
+    candidates and the rule's, keyed ``"<candidate> <cluster>x<rows>_
+    <route>"``, each with its waves."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        _launch,
+        batched_layout,
+        fewest_layout,
+        max_cluster,
+        panel_layout,
+        resident_clusters,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    B, m, w = P.shape
+    lib, mc = library(), max_cluster(P.device)
+    out = {}
+    for name, lay in (("panel_layout", panel_layout(m, w, mc)),
+                      ("fewest", fewest_layout(m, w, mc)),
+                      ("rule", batched_layout(B, m, w, mc))):
+        res = resident_clusters(P.device, lay)
+        out[f"{name} {lay.cluster}x{lay.rows}_{_route(lay)}"] = {
+            "ms": cuda_time_ms(lambda lay=lay: _launch(lib, P, lay)),
+            "resident_clusters": res, "waves": -(-B // max(1, res))}
+    return out
 
 
 def _route(lay) -> str:
@@ -243,6 +367,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--wide-only", action="store_true")
+    ap.add_argument("--batched", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("panel_probe: no CUDA device", file=sys.stderr)
@@ -255,6 +380,8 @@ def main(argv=None) -> int:
         check=True).stdout.strip(), flush=True)
     _build.library()
     dev = torch.device("cuda", 0)
+    if args.batched:
+        return _main_batched(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     panels = {f"{m}x{w}": torch.rand((m, w), generator=gen, device=dev) - 0.5
               for m, w in PROBE_SHAPES}
@@ -282,6 +409,27 @@ def main(argv=None) -> int:
                 mhz = _sm_mhz()
                 print(json.dumps({"panel": name, "sm_mhz": mhz,
                                   **_phases(prof, P, mhz)}), flush=True)
+    return 0 if ok else 1
+
+
+def _main_batched(dev: torch.device) -> int:
+    """``--batched``: a :func:`k6_batched_row` line per stack of
+    :data:`BATCH_SHAPES` and, up to 128 columns, a line of
+    :func:`batched_layout_times`."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import MAX_WIDTH
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    ok = True
+    for B, m, w in BATCH_SHAPES:
+        P = torch.rand((B, m, w), generator=gen, device=dev) - 0.5
+        name = f"{B}x{m}x{w}"
+        row = k6_batched_row(P)
+        ok = ok and row["ok"]
+        print(json.dumps({"stack": name, **row}), flush=True)
+        if w <= MAX_WIDTH:
+            print(json.dumps({"stack": name,
+                              "layouts": batched_layout_times(P)}),
+                  flush=True)
     return 0 if ok else 1
 
 

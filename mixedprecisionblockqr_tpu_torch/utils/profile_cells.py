@@ -27,9 +27,11 @@ auto-dispatched complete Q of a 4096 x 2048 input, POLICY_MIXED_FAST),
 ``proj_entry`` (the headline's BGS driver with the inter-group projection
 inside K5), ``scan 16384^2`` (the headline call at 16384^2: bgs1 / scan),
 ``bgs scan 4096^2`` (the all-robust scan tier under POLICY_FP32), and
-``chip_smoke.py`` phases 16-18: ``tsqr 100000x64`` (127 K6), ``lstsq
-refine`` (``refine_steps=2`` on the full-rank ``slam_jacobian(4096, 2048,
-seed=0)``: stored-factor CAQR), ``lstsq_batched`` (8 systems of 2048 x
+``chip_smoke.py`` phases 16-18: ``tsqr 100000x64`` (7 batched K6
+launches for 127 panels), ``lstsq refine`` (``refine_steps=2`` on the
+full-rank ``slam_jacobian(4096, 2048, seed=0)``: stored-factor CAQR, one
+batched K6 a panel's leaves and one a tree level), ``lstsq_batched`` (8
+systems of 2048 x
 512) and ``autodiff`` (``qr_autodiff`` forward and backward on 2048 x
 1024, POLICY_FP32), and ``chip_smoke.py`` phase 19's streaming cells:
 ``rls`` (``rls_update`` of 16 rows from ``default_rng(4)`` into the
@@ -43,7 +45,8 @@ phase 21's widths: ``headline r=256`` (the headline call at
 phase 24's calls through K6's wide route: ``householder r=256`` (the
 Householder tier at 2048^2, block 256), ``lstsq tsqr 4096x2048``
 (``method='tsqr'`` on the full-rank SLAM Jacobian: one 2048-wide leaf)
-and ``tsqr 65536x256`` (127 wide calls).  The inputs of phases 16-19 and
+and ``tsqr 65536x256`` (7 wide batched calls for 127 panels).  The inputs
+of phases 16-19 and
 24 are made at first use.
 Without a CUDA device it exits 2.
 """
