@@ -119,9 +119,22 @@ last line):
                  leaves and one a tree level, over all its leaves and
                  nodes: no reroute), x against float64 np.linalg.lstsq with
                  and without the sweeps, its time and K6 device time beside
-                 method='blocked';
+                 method='blocked', the device events of the call and of
+                 one apply_qt replay (one stacked application a panel's
+                 leaves and one a tree level; torch.profiler);
                  lstsq_batched on 8 systems slam_jacobian(2048, 512, seed=i)
-                 (8 x 4 panel_factor_fused launches), each against float64;
+                 (the Householder driver on the whole stack: 4 batched
+                 panel_factor_fused launches for 32 panels), each against
+                 float64, its time beside the member loop of the same
+                 driver and torch.linalg.lstsq on the stack;
+                 block_qr_batched on the same stack (block 128, POLICY_FP32,
+                 'householder', reduced): 4 batched launches for 32
+                 panels, each member all_ok and its R within 1e-5
+                 relative of its single block_qr, a NaN in member 3
+                 poisons R[3, 0, 0] and no other member, its time beside
+                 the loop of 8 block_qr calls and torch.linalg.qr on the
+                 stack; 3-D bf16 products (torch.bmm, fp32 output) against
+                 each member's 2-D product;
  18. autodiff -- qr_autodiff on the first 1024 columns of phase 4's input,
                  POLICY_FP32 (resolves to bgs: bgs_group_fused in the
                  forward, no kernel in the backward): gA of a seeded weighted
@@ -164,7 +177,9 @@ last line):
                  residual, kept; torch.where over both branches); (d)
                  tsqr_sharded 65536 x 64 with 8 local leaves (4 batched K6
                  for 15 panels) against tsqr; (e) block_qr_batched_sharded
-                 8 x 1024 x 512 on a batch mesh and tsqr_batched_sharded_2d
+                 8 x 1024 x 512 on a batch mesh (cholqr2 on the whole
+                 stack; timed beside 8 block_qr calls) and
+                 tsqr_batched_sharded_2d
                  4 x 16384 x 64 on a (1, 1) mesh, with CholeskyQR2 leaves
                  (no K6) and Householder leaves (one batched K6 for 4),
                  backward error per problem < 1e-5;
@@ -223,9 +238,9 @@ call once at n = 2048; phase 20's cases (a)-(d) add their launches of
 ns_chain, ninv_chain and panel_factor_fused, phase 21's of the kernels its
 calls run, phases 22, 23 and 24 theirs, K6's with its wide route's calls
 and products; K6's batched entry with its launches and panels on phases 16,
-17, 20, 23 and 24; the widths each kernel was held at; the counts are set to 0 just
-before each path and read just after; phases 16-18 assert their own
-counts the same way),
+17 (refine, lstsq_batched, block_qr_batched), 20, 23 and 24; the widths
+each kernel was held at; the counts are set to 0 just before each path
+and read just after; phases 16-18 assert their own counts the same way),
 error, times and bound, and as the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits 2
 and prints no result.
@@ -588,6 +603,11 @@ def phase_dist(A, ms_block_qr, dev, card):
     (Qe, Re), ce = counted(lambda: block_qr_batched_sharded(A_e, bmesh))
     be = backward_each(A_e, Qe, Re)
     assert be < 1e-5, be
+    ms_e = cuda_time_ms(lambda: block_qr_batched_sharded(A_e, bmesh),
+                        warmup=1, iters=5)
+    ms_e_loop = cuda_time_ms(
+        lambda: [block_qr(a_, 128, POLICY_FP32, panel_method="cholqr2")
+                 for a_ in A_e], warmup=1, iters=5)
     mesh2 = make_mesh((1, 1), ("batch", "rows"))
     A_f = torch.from_numpy(np.random.default_rng(0).random(
         (4, 16384, 64), dtype=np.float32) - 0.5).to(dev)
@@ -608,6 +628,8 @@ def phase_dist(A, ms_block_qr, dev, card):
                         "((1, 1) batch x rows mesh), CholeskyQR2 leaves "
                         "(the default) and Householder leaves",
                 "launches": ce, "launches_2d": cf,
+                "ms_batched_sharded": ms_e,
+                "ms_member_loop_block_qr": ms_e_loop,
                 "launches_2d_householder": ch,
                 "max_backward": be, "max_backward_2d": bf,
                 "max_backward_2d_householder": bh,
@@ -626,7 +648,7 @@ def phase_dist(A, ms_block_qr, dev, card):
                         "np.linalg.lstsq; (d) R 1e-4 of tsqr's, triple "
                         "within 2^-23 m; (e) backward < 1e-5 per problem; "
                         "times: CUDA events, median of 10 (a), 3 (b), "
-                        "5 (c, d)")
+                        "5 (c, d, e)")
     return row, c20
 
 
@@ -1247,7 +1269,7 @@ def main() -> int:
         panel_factor_fused,
         panel_layout,
     )
-    from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
+    from mixedprecisionblockqr_tpu_torch.ops.policy import mm_bf16, mm_f32
     from mixedprecisionblockqr_tpu_torch.utils.bounds import (
         chol_rinv_bound,
         group_bound,
@@ -2560,6 +2582,10 @@ def main() -> int:
         lambda: lstsq(J17, b17, refine_steps=2))
     row17["blocked_ms"] = cuda_time_ms(lambda: lstsq(J17, b17), warmup=1,
                                        iters=3)
+    row17["device_events"] = device_kernels(
+        lambda: lstsq(J17, b17, refine_steps=2))["device_events"]
+    row17["replay_device_events"] = device_kernels(
+        lambda: apply_qt(factors17, b17[:, None]))["device_events"]
     del factors17, Rc17
     Abn = np.stack([slam_jacobian(2048, 512, seed=i) for i in range(8)])
     bbn = np.random.default_rng(2).standard_normal((8, 2048)).astype(
@@ -2571,22 +2597,106 @@ def main() -> int:
     xb = lstsq_batched(Ab, bb)
     torch.cuda.synchronize()
     cb = dict(LAUNCHES)
-    assert cb["panel_factor_fused"] == 8 * 4, cb
+    bcb = batched_counts(main_path=True)
+    # the Householder driver on the whole stack: one batched K6 a panel
+    # step for the 8 systems, 4 launches for 32 panels
+    assert (cb["panel_factor_fused"] == 4
+            and bcb == {"launches": 4, "members": 32}), (cb, bcb)
     errs_b = [solve_errors(Abn[i], bbn[i], xb[i]) for i in range(8)]
     assert all(e["resid_rel"] <= 1e-5 and e["x_rel_err"] <= 1e-4
                for e in errs_b), errs_b
+
+    def lstsq_loop():  # each system through the same driver, one by one
+        out = []
+        for i in range(8):
+            R_i, _, qtb_i = bq._driver(Ab[i], 128, POLICY_FP32, False,
+                                       bb[i][:, None], "householder",
+                                       "unroll")
+            out.append(back_substitution(R_i[:512], qtb_i[:512]))
+        return out
+
+    row_lb = {"call": "lstsq_batched on slam_jacobian(2048, 512, seed=i), "
+                      "i < 8", "launches": cb, "k6_batched": bcb,
+              "x_rel_err_max": max(e["x_rel_err"] for e in errs_b),
+              "resid_rel_max": max(e["resid_rel"] for e in errs_b),
+              "ms": cuda_time_ms(lambda: lstsq_batched(Ab, bb), warmup=1,
+                                 iters=5),
+              "member_loop_ms": cuda_time_ms(lstsq_loop, warmup=1, iters=5),
+              "library_ms": cuda_time_ms(
+                  lambda: torch.linalg.lstsq(Ab, bb[..., None]), warmup=1,
+                  iters=5),
+              "library_call": "torch.linalg.lstsq(Ab, bb[..., None])",
+              "k6_device_ms": k6_device_ms(lambda: lstsq_batched(Ab, bb))}
+
+    # block_qr_batched on the same stack: the Householder tier on the
+    # whole stack, one batched K6 a panel step; each member against its
+    # single block_qr call; a NaN in member 3 poisons member 3 only.
+    def qr_batched(x):
+        return bq.block_qr_batched(x, 128, POLICY_FP32,
+                                   panel_method="householder")
+
+    def qr_single(x):
+        return block_qr(x, 128, POLICY_FP32, panel_method="householder")
+
+    torch.cuda.synchronize()
+    reset_launches()
+    Qbb, Rbb = qr_batched(Ab)
+    torch.cuda.synchronize()
+    cbq = dict(LAUNCHES)
+    bbq = batched_counts(main_path=True)
+    assert (cbq["panel_factor_fused"] == 4
+            and bbq == {"launches": 4, "members": 32}), (cbq, bbq)
+    reps_b = [metrics.evaluate(Ab[i], Qbb[i], Rbb[i],
+                               POLICY_FP32.precision_bits) for i in range(8)]
+    assert all(r.all_ok for r in reps_b), [str(r) for r in reps_b]
+    rel_r = [rel_fro(Rbb[i], qr_single(Ab[i])[1]) for i in range(8)]
+    assert max(rel_r) <= 1e-5, rel_r
+    An = Ab.clone()
+    An[3, 100, 200] = float("nan")
+    Qn, Rn = qr_batched(An)
+    assert bool(torch.isnan(Rn[3, 0, 0])), "member 3 not poisoned"
+    others = [i for i in range(8) if i != 3]
+    assert bool(torch.isfinite(Rn[others]).all()
+                and torch.isfinite(Qn[others]).all()), "poison spread"
+    del Qn, Rn, An
+    # 3-D bf16 products (the batched drivers' under mixed policies): one
+    # torch.bmm with fp32 output against each member's torch.mm
+    gen17 = torch.Generator(device=dev).manual_seed(17)
+    Xs = torch.randn((8, 2048, 128), generator=gen17, device=dev)
+    Ys = torch.randn((8, 128, 384), generator=gen17, device=dev)
+    each = torch.stack([mm_bf16(Xs[i], Ys[i]) for i in range(8)])
+    bf16_err = max_abs(mm_bf16(Xs, Ys), each) / float(each.abs().max())
+    assert bf16_err <= 1e-6, bf16_err
+    del Xs, Ys, each
+    row_qb = {"call": "block_qr_batched(A, 128, POLICY_FP32, "
+                      "panel_method='householder') reduced, A the 8 x 2048 "
+                      "x 512 stack above", "launches": cbq,
+              "k6_batched": bbq,
+              "backward_max": max(r.backward for r in reps_b),
+              "orthogonality_max": max(r.orthogonality for r in reps_b),
+              "all_ok": True, "rel_R_vs_single_max": max(rel_r),
+              "nan_member_3": "R[3, 0, 0] NaN, the other 7 finite",
+              "mm_bf16_3d_rel_err": bf16_err,
+              "ms": cuda_time_ms(lambda: qr_batched(Ab), warmup=1, iters=5),
+              "member_loop_ms": cuda_time_ms(
+                  lambda: [qr_single(Ab[i]) for i in range(8)], warmup=1,
+                  iters=5),
+              "library_ms": cuda_time_ms(lambda: torch.linalg.qr(Ab),
+                                         warmup=1, iters=5),
+              "library_call": "torch.linalg.qr(A) on the stack",
+              "k6_device_ms": k6_device_ms(lambda: qr_batched(Ab))}
+    del Qbb, Rbb
     emit({"phase": "refine", "call": "lstsq(J, b, refine_steps=2), J = "
           "slam_jacobian(4096, 2048, seed=0), b from default_rng(2)",
           "caqr_panel_width": w17, "launches": c17, **row17,
-          "batched": {"call": "lstsq_batched on slam_jacobian(2048, 512, "
-                      "seed=i), i < 8", "launches": cb,
-                      "x_rel_err_max": max(e["x_rel_err"] for e in errs_b),
-                      "resid_rel_max": max(e["resid_rel"] for e in errs_b),
-                      "ms": cuda_time_ms(lambda: lstsq_batched(Ab, bb),
-                                         warmup=1, iters=5)},
+          "batched": row_lb, "block_qr_batched": row_qb,
           "tolerance": "residual 1e-5 and x 1e-4 relative of float64 "
-                       "np.linalg.lstsq (rcond = eps_f32 * m); times: CUDA "
-                       "events, median of 3 (batched: 5)", "card": card})
+                       "np.linalg.lstsq (rcond = eps_f32 * m); "
+                       "block_qr_batched: each member all_ok at 2^-23, R "
+                       "1e-5 relative of its single block_qr; 3-D bf16 "
+                       "products 1e-6 of each member's; times: CUDA "
+                       "events, median of 3 (batched: 5); device events: "
+                       "torch.profiler, one call", "card": card})
     del J17, b17, Ab, bb
 
     # 18. autodiff: qr_autodiff forward and backward on the first 1024
@@ -2989,7 +3099,9 @@ def main() -> int:
          "source": "mixedprecisionblockqr_tpu_torch/csrc/panel_factor.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/panel.py:115 "
                      "under jax.vmap (parallel/tsqr.py:91, :141, "
-                     ":190-193; parallel/caqr.py:178, :199)",
+                     ":190-193; parallel/caqr.py:178, :199; "
+                     "ops/blockqr.py:1988; models/lstsq.py:130; "
+                     "parallel/batched.py:56)",
          "launches": BATCHED["launches"], "members": BATCHED["members"],
          "max_abs_err": k6b_err,
          "shape": "64 x 1563 x 64",

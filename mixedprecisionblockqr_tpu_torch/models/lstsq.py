@@ -23,7 +23,7 @@ import torch
 from mixedprecisionblockqr_tpu_torch.ops.autodiff import qr_autodiff
 from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
     DEFAULT_BLOCK_SIZE,
-    _driver,
+    _driver_batched,
     block_qr_qtb,
     qr,
 )
@@ -63,22 +63,25 @@ def back_substitution(R, b, lower: bool = False, block_size: int = 64,
 
 
 def _back_substitution(R: torch.Tensor, b: torch.Tensor, block_size: int):
-    n = R.shape[0]
-    squeeze = b.dim() == 1
+    """Upper ``R x = b`` by blocks of ``block_size`` rows.  R (n, n) with b
+    (n,) or (n, k), or a stack R (B, n, n) with b (B, n) or (B, n, k): one
+    triangular solve and one product a block for all members."""
+    n = R.shape[-1]
+    squeeze = b.dim() == R.dim() - 1
     if squeeze:
-        b = b[:, None]
+        b = b[..., None]
     R = R.float()
     b = b.float()
     r = min(block_size, n)
     x = torch.zeros_like(b)
     for lo in reversed(range(0, n, r)):
         hi = min(lo + r, n)
-        rhs = b[lo:hi]
+        rhs = b[..., lo:hi, :]
         if hi < n:
-            rhs = rhs - mm_f32(R[lo:hi, hi:], x[hi:])
-        x[lo:hi] = torch.linalg.solve_triangular(R[lo:hi, lo:hi], rhs,
-                                                 upper=True)
-    return x[:, 0] if squeeze else x
+            rhs = rhs - mm_f32(R[..., lo:hi, hi:], x[..., hi:, :])
+        x[..., lo:hi, :] = torch.linalg.solve_triangular(
+            R[..., lo:hi, lo:hi], rhs, upper=True)
+    return x[..., 0] if squeeze else x
 
 
 def lstsq_pivoted(A, b, rcond: Optional[float] = None, device=None):
@@ -196,7 +199,9 @@ def lstsq_batched(
 ):
     """Least squares of each system of a (batch, m, n) stack: the
     Householder driver with b threaded through, then back substitution
-    (the JAX package ``vmap``s the same).  ``b_batch`` (batch, m) gives x
+    (the JAX package ``vmap``s the same), both on the whole stack: one K6
+    launch over the batch a panel step on the card, one triangular solve
+    a block of rows for all systems.  ``b_batch`` (batch, m) gives x
     (batch, n); (batch, m, k) gives (batch, n, k).  ``device`` as in
     ``utils/device.py``."""
     A_batch = as_device_tensor(A_batch, device).float()
@@ -205,12 +210,9 @@ def lstsq_batched(
     if squeeze:
         b_batch = b_batch[:, :, None]
     n = A_batch.shape[2]
-    xs = []
-    for A, B in zip(A_batch, b_batch):
-        R_full, _, qtb = _driver(A, block_size, policy, False,
-                                 B.to(policy.panel), "householder", "unroll")
-        xs.append(back_substitution(R_full[:n, :], qtb[:n, :].float()))
-    x = torch.stack(xs)
+    R_full, _, qtb = _driver_batched(A_batch, block_size, policy, False,
+                                     b_batch.to(policy.panel), "householder")
+    x = _back_substitution(R_full[:, :n, :], qtb[:, :n, :].float(), 64)
     return x[:, :, 0] if squeeze else x
 
 

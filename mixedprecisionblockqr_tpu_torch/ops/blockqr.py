@@ -95,6 +95,10 @@ DEFAULT_GROUP_PANELS = 4
 _NS_TIERS = ("bgs", "bgs1", "bgs2", "polar")
 _BGS_TIERS = ("bgs", "bgs1", "bgs2")
 _CHOLQR_TIERS = ("cholqr1", "cholqr2", "cholqr2s")
+#: The tiers ``_block_qr_traced`` runs when unrolled: a batch of them is one
+#: stacked driver call (``_driver_batched``).
+_REFLECTOR_TIERS = ("householder", "householder_pallas", *_CHOLQR_TIERS,
+                    "cholqr1x2")
 QUALITY_LEVELS = ("fast", "balanced", "high", "robust")
 _QUALITY_BGS = {"fast": "bgs1", "balanced": "bgs2", "high": "bgs"}
 
@@ -214,13 +218,15 @@ def _sync_retry_method(panel_method, loop_mode, policy, mode, m, n):
 
 def _poison_if_unconverged(worst_resid, R_full, Q, B, tol: float = 1e-4):
     """Write a NaN canary into R[0, 0] (and Q[0, 0], B[0, 0]) when the
-    worst normalized NS residual is not below ``tol`` -- or is NaN.  Stays
-    on the device: no host synchronization."""
-    bad = torch.where(worst_resid < tol, worst_resid.new_zeros(()),
-                      worst_resid.new_full((), float("nan")))
+    worst normalized NS residual is not below ``tol`` -- or is NaN.  For
+    stacks ``worst_resid`` holds one residual a member, and only the
+    members whose residual fails are poisoned (the JAX package's ``vmap``
+    of the canary).  Stays on the device: no host synchronization."""
+    bad = torch.where(worst_resid < tol, torch.zeros_like(worst_resid),
+                      torch.full_like(worst_resid, float("nan")))
     for X in (R_full, Q, B):
         if X is not None:
-            X[0, 0] += bad.to(X.dtype)
+            X[..., 0, 0] += bad.to(X.dtype)
     return R_full, Q, B
 
 
@@ -647,24 +653,44 @@ def _block_qr_traced(
     Non-finite panel output is funneled into the NaN canary as
     ``sum(X * 0)`` (0 for finite X, NaN otherwise), so a mid-matrix
     breakdown still reaches R[0, 0].  ``A`` and ``B`` are not modified.
+
+    ``A`` may also be a stack (B, m, n), with ``B`` (B, m, k): the JAX
+    package's ``vmap`` of this driver.  Every member takes the same steps;
+    a step's Householder panels of all members are ONE
+    ``_householder_panels`` call (one K6 launch over the batch on the
+    card), the CholeskyQR helpers and the products run on the stacks
+    (batched products), and each member keeps its own canary.  A stack of
+    one runs as one matrix, with the same kernel calls and results.
     """
-    m, n = A.shape
+    if A.dim() == 3 and A.shape[0] == 1:
+        outs = _block_qr_traced(A[0], block_size, policy, want_q,
+                                None if B is None else B[0], panel_method)
+        return tuple(None if x is None else x[None] for x in outs)
+    *batch, m, n = A.shape
     r = min(block_size, n)
     dev = A.device
     on_gpu = A.is_cuda
     A = A.to(policy.panel, copy=True)
     q_dtype = policy.q_store or policy.accum
-    Q = torch.eye(m, dtype=q_dtype, device=dev) if want_q else None
+    Q = None
+    if want_q:
+        Q = torch.eye(m, dtype=q_dtype, device=dev)
+        if batch:
+            Q = Q.repeat(*batch, 1, 1)
     if B is not None:
         B = B.clone()
     mm_t, mm_q, hi = (trailing_matmul(policy), q_matmul(policy),
                       accum_matmul(policy))
+    factor = _householder_panels if batch else _householder_panel
 
     def sub_reflector(cols):
         Q_red, Rp = cholesky_qr2(cols, passes=1)
         return yamamoto_reflector(Q_red, Rp, inv_method="newton")
 
-    worst = torch.zeros((), dtype=torch.float32, device=dev)
+    def nan_sum(*Xs):  # each member's 0, or NaN where one X is not finite
+        return sum((X * 0).sum(dim=(-2, -1)) for X in Xs)
+
+    worst = torch.zeros(batch, dtype=torch.float32, device=dev)
     pair_mode = panel_method == "cholqr1x2"
     base_method = "cholqr1" if pair_mode else panel_method
     lam = 0
@@ -673,49 +699,50 @@ def _block_qr_traced(
         if (pair_mode and w == r and lam + 2 * r <= n
                 and (m - lam - r) >= 2 * r):
             # H1 H2 = I - Yc Sc Yc^T, Sc = [[S1, -S1 (Y1^T Y2) S2], [0, S2]]
-            Y1, S1, R1 = sub_reflector(A[lam:, lam:lam + r])
-            A[lam:, lam:lam + r] = 0
-            A[lam:lam + r, lam:lam + r] = R1.to(A.dtype)
-            C = A[lam:, lam + r:lam + 2 * r]
-            C = C - mm_t(Y1, hi(S1.T, mm_t(Y1.T, C)))
-            Y2b, S2, R2 = sub_reflector(C[r:, :])
-            A[lam:, lam + r:lam + 2 * r] = 0
-            A[lam:lam + r, lam + r:lam + 2 * r] = C[:r, :].to(A.dtype)
-            A[lam + r:lam + 2 * r, lam + r:lam + 2 * r] = R2.to(A.dtype)
-            Y2 = torch.cat([Y2b.new_zeros((r, r)), Y2b], dim=0)
-            cross = hi(hi(S1, mm_t(Y1.T, Y2)), S2)
-            Yc = torch.cat([Y1, Y2], dim=1)
-            Sc = torch.cat([torch.cat([S1, -cross.to(S1.dtype)], dim=1),
-                            torch.cat([S2.new_zeros((r, r)), S2], dim=1)],
-                           dim=0)
-            worst = torch.maximum(
-                worst, (Sc * 0).sum() + (R1 * 0).sum() + (R2 * 0).sum())
+            Y1, S1, R1 = sub_reflector(A[..., lam:, lam:lam + r])
+            A[..., lam:, lam:lam + r] = 0
+            A[..., lam:lam + r, lam:lam + r] = R1.to(A.dtype)
+            C = A[..., lam:, lam + r:lam + 2 * r]
+            C = C - mm_t(Y1, hi(S1.mT, mm_t(Y1.mT, C)))
+            Y2b, S2, R2 = sub_reflector(C[..., r:, :])
+            A[..., lam:, lam + r:lam + 2 * r] = 0
+            A[..., lam:lam + r, lam + r:lam + 2 * r] = C[..., :r, :].to(
+                A.dtype)
+            A[..., lam + r:lam + 2 * r, lam + r:lam + 2 * r] = R2.to(A.dtype)
+            zeros = Y2b.new_zeros((*batch, r, r))
+            Y2 = torch.cat([zeros, Y2b], dim=-2)
+            cross = hi(hi(S1, mm_t(Y1.mT, Y2)), S2)
+            Yc = torch.cat([Y1, Y2], dim=-1)
+            Sc = torch.cat([torch.cat([S1, -cross.to(S1.dtype)], dim=-1),
+                            torch.cat([zeros.to(S2.dtype), S2], dim=-1)],
+                           dim=-2)
+            worst = torch.maximum(worst, nan_sum(Sc, R1, R2))
             if lam + 2 * r < n:
-                C2 = A[lam:, lam + 2 * r:]
-                A[lam:, lam + 2 * r:] = (
-                    C2 - mm_t(Yc, hi(Sc.T, mm_t(Yc.T, C2)))).to(A.dtype)
+                C2 = A[..., lam:, lam + 2 * r:]
+                A[..., lam:, lam + 2 * r:] = (
+                    C2 - mm_t(Yc, hi(Sc.mT, mm_t(Yc.mT, C2)))).to(A.dtype)
             if B is not None:
-                Bl = B[lam:]
-                B[lam:] = (Bl - mm_t(Yc, hi(Sc.T, mm_t(Yc.T, Bl)))).to(
-                    B.dtype)
+                Bl = B[..., lam:, :]
+                B[..., lam:, :] = (
+                    Bl - mm_t(Yc, hi(Sc.mT, mm_t(Yc.mT, Bl)))).to(B.dtype)
             if want_q:
-                Qc = Q[:, lam:]
-                Q[:, lam:] = (Qc - mm_q(hi(mm_q(Qc, Yc), Sc), Yc.T)).to(
+                Qc = Q[..., lam:]
+                Q[..., lam:] = (Qc - mm_q(hi(mm_q(Qc, Yc), Sc), Yc.mT)).to(
                     q_dtype)
             lam += 2 * r
             continue
 
-        panel = A[lam:, lam:lam + w]
+        panel = A[..., lam:, lam:lam + w]
         pm = base_method
         if pm in _CHOLQR_TIERS and (m - lam) < 2 * w:
             pm = "householder_pallas" if on_gpu else "householder"
         if pm in ("householder", "householder_pallas"):
             fused = pm == "householder_pallas" or _householder_fused(
                 panel.device.type, panel.dtype)
-            V, T, Rp = _householder_panel(panel, policy, fused)
-            A[lam:, lam:lam + w] = Rp
+            V, T, Rp = factor(panel, policy, fused)
+            A[..., lam:, lam:lam + w] = Rp
             # Rp, not only T: an input NaN may leave V and T finite.
-            worst = torch.maximum(worst, (Rp * 0).sum() + (T * 0).sum())
+            worst = torch.maximum(worst, nan_sum(Rp, T))
 
             def left(X, V=V, T=T):
                 return apply_block_reflector_left_t(X, V, T, policy)
@@ -727,23 +754,23 @@ def _block_qr_traced(
                                      passes=1 if pm == "cholqr1" else 2)
             Y, Sinv, Rp = yamamoto_reflector(Q_red, Rp, inv_method="newton",
                                              check=(m - lam) < 4 * w)
-            A[lam:, lam:lam + w] = 0
-            A[lam:lam + w, lam:lam + w] = Rp.to(A.dtype)
-            worst = torch.maximum(worst, (Sinv * 0).sum() + (Rp * 0).sum())
+            A[..., lam:, lam:lam + w] = 0
+            A[..., lam:lam + w, lam:lam + w] = Rp.to(A.dtype)
+            worst = torch.maximum(worst, nan_sum(Sinv, Rp))
 
             def left(X, Y=Y, Sinv=Sinv):  # H^T X = X - Y Sinv^T (Y^T X)
-                return X - mm_t(Y, hi(Sinv.T, mm_t(Y.T, X)))
+                return X - mm_t(Y, hi(Sinv.mT, mm_t(Y.mT, X)))
 
             def right(X, Y=Y, Sinv=Sinv):  # X H = X - ((X Y) Sinv) Y^T
-                return X - mm_q(hi(mm_q(X, Y), Sinv), Y.T)
+                return X - mm_q(hi(mm_q(X, Y), Sinv), Y.mT)
         else:
             raise ValueError(f"unknown panel_method {pm!r}")
         if lam + w < n:
-            A[lam:, lam + w:] = left(A[lam:, lam + w:]).to(A.dtype)
+            A[..., lam:, lam + w:] = left(A[..., lam:, lam + w:]).to(A.dtype)
         if B is not None:
-            B[lam:] = left(B[lam:]).to(B.dtype)
+            B[..., lam:, :] = left(B[..., lam:, :]).to(B.dtype)
         if want_q:
-            Q[:, lam:] = right(Q[:, lam:]).to(q_dtype)
+            Q[..., lam:] = right(Q[..., lam:]).to(q_dtype)
         lam += w
     R_full = torch.triu(A.to(policy.accum))
     return _poison_if_unconverged(worst, R_full, Q, B)
@@ -1082,6 +1109,26 @@ def block_recursive_qr(A, mode: str = "reduced", min_block: int = 64,
     return rec(A)
 
 
+def _driver_batched(A, block_size, policy, want_q, B, panel_method,
+                    group_panels=DEFAULT_GROUP_PANELS):
+    """The unrolled tier ``panel_method`` over a stack A (B, m, n), with
+    ``B`` (B, m, k) or None: ``(R_full, Q, QtB)`` stacked (the JAX
+    package's ``vmap`` of ``_jitted_driver``).  The reflector tiers run
+    ``_block_qr_traced`` once on the whole stack (one K6 launch over the
+    batch a panel step on the card).  The ``bgs*`` and ``polar`` tiers run
+    ``_driver`` member by member: their kernels K1 / K2 / K4 have no
+    batched entry yet (ROADMAP.md Queue 2 item 3 (vii)); on the card each
+    member still launches them."""
+    if panel_method in _REFLECTOR_TIERS:
+        return _block_qr_traced(A, block_size, policy, want_q, B,
+                                panel_method)
+    Bs = [None] * A.shape[0] if B is None else B
+    outs = [_driver(a, block_size, policy, want_q, b, panel_method,
+                    "unroll", group_panels) for a, b in zip(A, Bs)]
+    return tuple(None if xs[0] is None else torch.stack(xs)
+                 for xs in zip(*outs))
+
+
 def block_qr_batched(
     A_batch,
     block_size: int = DEFAULT_BLOCK_SIZE,
@@ -1090,20 +1137,21 @@ def block_qr_batched(
     panel_method: str = "householder",
     device=None,
 ):
-    """Blocked QR over a leading batch axis: each (m, n) matrix of the
-    batch runs the same unrolled driver (the JAX package ``vmap``s it).
-    ``panel_method`` is taken as given, as there."""
+    """Blocked QR over a leading batch axis: the unrolled driver of
+    ``panel_method`` on the whole (batch, m, n) stack (the JAX package
+    ``vmap``s it; ``_driver_batched``): the reflector tiers in one stacked
+    call, one K6 launch over the batch a panel step on the card.
+    ``panel_method`` is taken as given, as there; a NaN in one member
+    poisons that member's canary only."""
     A_batch = as_device_tensor(A_batch, device)
     if A_batch.dim() != 3:
         raise ValueError(f"expected (batch, m, n), got {tuple(A_batch.shape)}")
     want_q = mode in ("reduced", "complete")
-    outs = [_driver(A, block_size, policy, want_q, None, panel_method,
-                    "unroll") for A in A_batch]
-    R_full = torch.stack([o[0] for o in outs])
+    R_full, Q, _ = _driver_batched(A_batch, block_size, policy, want_q, None,
+                                   panel_method)
     n = A_batch.shape[2]
     if mode == "r":
         return R_full[:, :n, :]
-    Q = torch.stack([o[1] for o in outs])
     if mode == "reduced":
         return Q[:, :, :n], R_full[:, :n, :]
     return Q, R_full

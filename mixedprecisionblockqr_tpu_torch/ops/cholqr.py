@@ -16,7 +16,11 @@ JAX package's semantics without a host synchronization:
   * ``newton_inv(check=True)`` is a ``lax.cond`` in JAX; here it is a
     device-side ``torch.where`` on the residual (both branches computed).
 Every product is full precision in the input's dtype (fp32 with TF32 off),
-so a float64 panel stays float64.
+so a float64 panel stays float64.  Every function also takes a stack
+(B, ., .) with a leading batch axis, as ``torch.linalg`` does, and computes
+each member as it computes one matrix (the JAX package ``vmap``s them):
+the NaN of a failed factorization, the shift's trace and ``newton_inv``'s
+LU fallback are each member's own.
 """
 
 from __future__ import annotations
@@ -29,19 +33,22 @@ from mixedprecisionblockqr_tpu_torch.ops.householder import _mm
 
 
 def _nan_where(info: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """X, or all NaN where the factorization's ``info`` is nonzero."""
-    return torch.where(info != 0, torch.full_like(X, float("nan")), X)
+    """X, or all NaN in each member whose factorization's ``info`` is
+    nonzero."""
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(X, float("nan")), X)
 
 
 def _chol_and_inv(G: torch.Tensor, shift=None):
     """``(R, R^-1)`` with ``R^T R = G (+ shift * I)``; NaN (never a raise)
-    when the matrix is not positive definite."""
-    r = G.shape[0]
+    when the matrix is not positive definite.  ``shift`` is a tensor of one
+    value a member (0-d for one matrix)."""
+    r = G.shape[-1]
     eye = torch.eye(r, dtype=G.dtype, device=G.device)
     if shift is not None:
-        G = G + shift * eye
+        G = G + shift[..., None, None] * eye
     L, info = torch.linalg.cholesky_ex(G)
-    R = _nan_where(info, L).T
+    R = _nan_where(info, L).mT
     Rinv = torch.linalg.solve_triangular(R, eye, upper=True)
     return R, Rinv
 
@@ -52,14 +59,17 @@ def cholesky_qr2(P: torch.Tensor, shifted: bool = False, passes: int = 2
 
     ``passes=2`` (CholeskyQR2) reaches machine orthogonality, ``passes=1``
     gives ~ cond(P)^2 eps.  ``shifted`` adds ``1e-3 trace(G)`` to the first
-    Gram and one extra pass.  Returns (Q (m x r), R (r x r) upper)."""
-    G = _mm(P.T, P)
-    shift = 1e-3 * torch.trace(G) if shifted else None
+    Gram and one extra pass.  Returns (Q (m x r), R (r x r) upper), of
+    each member for a stack."""
+    G = _mm(P.mT, P)
+    # 1e-3 of each member's trace (its diagonal's sum)
+    shift = (1e-3 * torch.diagonal(G, dim1=-2, dim2=-1).sum(-1)
+             if shifted else None)
     R1, R1inv = _chol_and_inv(G, shift)
     Q = _mm(P, R1inv)
     R = R1
     for _ in range((1 if shifted else 0) + max(passes - 1, 0)):
-        R2, R2inv = _chol_and_inv(_mm(Q.T, Q))
+        R2, R2inv = _chol_and_inv(_mm(Q.mT, Q))
         Q = _mm(Q, R2inv)
         R = _mm(R2, R)
     return Q, R
@@ -77,14 +87,14 @@ def newton_inv(S: torch.Tensor, iters: int = 6, check: bool = False
     sign convention pins S's spectrum to the disk |z - 1| <= 1, where
     4 iterations reach ~2e-8 and 5 fp32 roundoff.  ``check`` falls back
     to the LU inverse when ``max|I - S X| < 1e-3`` fails (or is NaN),
-    on the device."""
-    eye = torch.eye(S.shape[0], dtype=S.dtype, device=S.device)
+    on the device, for each member of a stack on its own residual."""
+    eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
     X = (2.0 / 3.0) * eye
     for _ in range(iters):
         X = _mm(X, 2.0 * eye - _mm(S, X))
     if check:
-        resid = (eye - _mm(S, X)).abs().max()
-        X = torch.where(resid < 1e-3, X, lu_inv(S))
+        resid = (eye - _mm(S, X)).abs().amax(dim=(-2, -1))
+        X = torch.where((resid < 1e-3)[..., None, None], X, lu_inv(S))
     return X
 
 
@@ -104,7 +114,8 @@ def _sign_fix(Q1: torch.Tensor) -> torch.Tensor:
     """The Yamamoto column convention for the top r x r block Q1 of a
     panel's Q: D = -1 where diag(Q1) > 0, else 1 (in Q1's dtype).  Columns
     scaled by D give diag(Q1 D) <= 0, so cond(S) ~ 2."""
-    return torch.where(torch.diagonal(Q1) > 0, -1.0, 1.0).to(Q1.dtype)
+    diag = torch.diagonal(Q1, dim1=-2, dim2=-1)
+    return torch.where(diag > 0, -1.0, 1.0).to(Q1.dtype)
 
 
 def yamamoto_reflector(
@@ -119,12 +130,12 @@ def yamamoto_reflector(
     diag(Q1) <= 0 (``_sign_fix``); R's rows flip with them.  Then ``H^T
     panel = [R; 0]``.  ``inv_method='newton'`` runs ``newton_iters``
     iterations, by default ``newton_iters_for_aspect(m / r)``."""
-    m, r = Q_red.shape
-    D = _sign_fix(Q_red[:r, :])
-    Qs = Q_red * D[None, :]
-    R = R * D[:, None]
+    m, r = Q_red.shape[-2:]
+    D = _sign_fix(Q_red[..., :r, :])
+    Qs = Q_red * D[..., None, :]
+    R = R * D[..., :, None]
     Y = Qs - torch.eye(m, r, dtype=Qs.dtype, device=Qs.device)
-    S = torch.eye(r, dtype=Qs.dtype, device=Qs.device) - Qs[:r, :].T
+    S = torch.eye(r, dtype=Qs.dtype, device=Qs.device) - Qs[..., :r, :].mT
     if inv_method == "newton":
         iters = (newton_iters if newton_iters is not None
                  else newton_iters_for_aspect(m / r))

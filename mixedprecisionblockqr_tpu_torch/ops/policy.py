@@ -11,8 +11,10 @@ Precision contract of every product (``Precision`` below):
     the caller's setting restored after it.
   * ``DEFAULT`` with bf16 inputs -- operands rounded to bf16, exact
     products, fp32 accumulation.  On CUDA that is ``torch.mm(...,
-    out_dtype=torch.float32)``; on the CPU (which refuses that form for
-    bf16) the rounded operands are multiplied in fp32, the same contract.
+    out_dtype=torch.float32)`` (``torch.bmm`` for two stacks of one batch
+    size, as the batched drivers give); on the CPU (which refuses that
+    form for bf16), and for operands that broadcast, the rounded operands
+    are multiplied in fp32, the same contract.
   * ``HIGH`` -- emulated as the 3-pass bf16 Dekker split
     ``hi*hi + hi*lo + lo*hi`` with fp32 accumulation (cuBLAS has no such
     mode; the split is the one of ``ops/pallas/ns.py::_split_bf16``).
@@ -124,6 +126,9 @@ def mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
     if a16.is_cuda and a16.dim() == 2 and b16.dim() == 2:
         return torch.mm(a16, b16, out_dtype=torch.float32)
+    if (a16.is_cuda and a16.dim() == 3 and b16.dim() == 3
+            and a16.shape[0] == b16.shape[0]):
+        return torch.bmm(a16, b16, out_dtype=torch.float32)
     return mm_f32(a16.float(), b16.float())
 
 

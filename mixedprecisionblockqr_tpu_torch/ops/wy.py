@@ -2,10 +2,11 @@
 ``mixedprecisionblockqr_tpu/ops/wy.py``).
 
 ``Q = I - V T V^T`` with T (r x r) upper triangular.  ``apply_block_
-reflector_left_t`` and ``reduced_q_from_vt`` also take stacks (B, ., .) of
-reflectors and operands, member by member (the JAX package ``vmap``s
-them).  The tall products run
-under the policy's dtypes through ``ops/policy.py::matmul``; the r x r T
+reflector_left_t``, ``apply_block_reflector_right`` and
+``reduced_q_from_vt`` also take stacks (B, ., .) of reflectors and
+operands, member by member (the JAX package ``vmap``s them).  The tall
+products run under the policy's dtypes through
+``ops/policy.py::matmul``; the r x r T
 products run at full precision in the accumulation dtype (fp32 with TF32
 off under every policy but POLICY_FP64).
 """
@@ -64,9 +65,10 @@ def apply_block_reflector_right(
     T: torch.Tensor,
     policy: DTypePolicy = POLICY_FP32,
 ) -> torch.Tensor:
-    """``Q (I - V T V^T) = Q - ((Q V) T) V^T``: the Q-accumulation update."""
+    """``Q (I - V T V^T) = Q - ((Q V) T) V^T``: the Q-accumulation update
+    (of each member, for stacks)."""
     mm = q_matmul(policy)
-    return Q - mm(accum_matmul(policy)(mm(Q, V), T), V.T)
+    return Q - mm(accum_matmul(policy)(mm(Q, V), T), V.mT)
 
 
 def reduced_q_from_vt(V: torch.Tensor, T: torch.Tensor,

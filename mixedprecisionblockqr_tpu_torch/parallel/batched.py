@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from mixedprecisionblockqr_tpu_torch.ops.blockqr import (
-    _driver,
+    _driver_batched,
     resolve_panel_config,
 )
 from mixedprecisionblockqr_tpu_torch.ops.householder import _mm
@@ -32,7 +32,7 @@ from mixedprecisionblockqr_tpu_torch.parallel.mesh import (
 )
 from mixedprecisionblockqr_tpu_torch.parallel.tsqr import (
     _leaf_qrs,
-    reduction_tree,
+    _reduction_trees,
 )
 from mixedprecisionblockqr_tpu_torch.utils.device import as_device_tensor
 
@@ -47,9 +47,11 @@ def block_qr_batched_sharded(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Independent QRs of a (b, m, n) batch split over ``mesh[axis]``, with
     no communication: returns this rank's ``(Q (b/d, m, n), R (b/d, n,
-    n))``.  Each problem runs the unrolled driver of ``block_qr`` after
-    ``resolve_panel_config``'s shape fallbacks and policy checks, as in
-    the JAX package."""
+    n))``.  The rank's problems run the unrolled driver of ``block_qr``
+    after ``resolve_panel_config``'s shape fallbacks and policy checks, as
+    in the JAX package, as one stack (``ops/blockqr.py::_driver_batched``:
+    the reflector tiers in one stacked call, one K6 launch over the batch a
+    panel step on the card; ``bgs*`` / ``polar`` member by member)."""
     A_batch = as_device_tensor(A_batch, mesh_device(mesh)).to(policy.panel)
     b, m, n = A_batch.shape
     d = axis_size(mesh, axis)
@@ -61,13 +63,10 @@ def block_qr_batched_sharded(
     )
     k = b // d
     i = axis_index(mesh, axis)
-    Qs, Rs = [], []
-    for A in A_batch[i * k:(i + 1) * k]:
-        R_full, Q, _ = _driver(A, block_size, policy, True, None,
-                               panel_method, "unroll", group_panels)
-        Qs.append(Q[:, :n])
-        Rs.append(torch.triu(R_full[:n, :]))
-    return torch.stack(Qs), torch.stack(Rs)
+    R_full, Q, _ = _driver_batched(A_batch[i * k:(i + 1) * k], block_size,
+                                   policy, True, None, panel_method,
+                                   group_panels)
+    return Q[:, :, :n], torch.triu(R_full[:, :n, :])
 
 
 def tsqr_batched_sharded_2d(
@@ -84,7 +83,10 @@ def tsqr_batched_sharded_2d(
     mesh[rows].  Returns this rank's ``(Q (b/db, m/dr, n), R (b/db, n,
     n))``: Q's slab over both axes, R's over ``batch`` only.  The rank's
     leaves are factored in one call (Householder leaves: one batched K6
-    launch on the card; CholeskyQR2 leaves one by one)."""
+    launch on the card; CholeskyQR2 leaves one stacked ``cholesky_qr2``),
+    then ONE all-gather of the rank's (b/db, n, n) R stack and one
+    ``_reduction_trees`` call for all its problems, as the JAX package's
+    ``vmap(one)`` runs them."""
     A_batch = as_device_tensor(A_batch, mesh_device(mesh)).float()
     b, m, n = A_batch.shape
     db = axis_size(mesh, batch_axis)
@@ -98,9 +100,7 @@ def tsqr_batched_sharded_2d(
     ib, ir = axis_index(mesh, batch_axis), axis_index(mesh, rows_axis)
     Q_locs, R_locs = _leaf_qrs(
         A_batch[ib * kb:(ib + 1) * kb, ir * h:(ir + 1) * h], leaf_method)
-    Qs, Rs = [], []
-    for Q_loc, R_loc in zip(Q_locs, R_locs):
-        F, R = reduction_tree(all_gather(R_loc, mesh, rows_axis))
-        Qs.append(_mm(Q_loc, F[ir]))
-        Rs.append(R)
-    return torch.stack(Qs), torch.stack(Rs)
+    # (dr, kb, n, n) -> each problem's dr leaf R factors: (kb, dr, n, n)
+    R_all = all_gather(R_locs, mesh, rows_axis).transpose(0, 1)
+    F, R = _reduction_trees(R_all.contiguous())
+    return _mm(Q_locs, F[:, ir]), R

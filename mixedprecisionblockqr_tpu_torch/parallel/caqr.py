@@ -11,8 +11,9 @@ launch over the batch for fp32 panels of any width, as the JAX package
 at a time (``ops/wy.py::apply_block_reflector_left_t`` on the stacks): the
 leaves' on whole row blocks, each tree level's on the top r rows of the
 paired blocks.  The factors are kept (``CAQRFactors``), so ``apply_qt`` /
-``apply_q`` replay them as linear operators and ``caqr`` rebuilds Q; the
-replays run a loop over the blocks and pairs.
+``apply_q`` replay them as linear operators and ``caqr`` rebuilds Q; a
+replay runs as the JAX package's: ONE stacked application over a panel's
+leaves and one over each tree level's pairs.
 """
 
 from __future__ import annotations
@@ -68,28 +69,33 @@ def _pick_row_blocks(height: int, r: int, requested: Optional[int]) -> int:
 
 
 def _apply_q_left(X: torch.Tensor, V: torch.Tensor, T: torch.Tensor):
-    """``Q X = X - V (T (V^T X))`` at full precision."""
-    return X - _mm(V, _mm(T, _mm(V.T, X)))
+    """``Q X = X - V (T (V^T X))`` at full precision (of each member, for
+    stacks)."""
+    return X - _mm(V, _mm(T, _mm(V.mT, X)))
 
 
 def _tree_apply_left(blocks: torch.Tensor, tree_v, tree_t, r: int,
                      transpose: bool, policy: DTypePolicy) -> torch.Tensor:
     """Apply the tree's block reflectors in place to the top-r row strips
     of ``blocks`` (L, h, k): leaf to root with Q_l^T when ``transpose``,
-    root to leaf with Q_l otherwise."""
+    root to leaf with Q_l otherwise.  A level's pairs (blocks i0 and i1 =
+    i0 + 2^l) are gathered, stacked and scattered back as
+    ``_factor_panel`` gathers them: ONE stacked application a level."""
     nlev = len(tree_v)
     order = range(nlev) if transpose else reversed(range(nlev))
     for lev in order:
         s = 1 << lev
-        for j, (V, T) in enumerate(zip(tree_v[lev], tree_t[lev])):
-            i0, i1 = 2 * s * j, 2 * s * j + s
-            st = torch.cat([blocks[i0, :r], blocks[i1, :r]])
-            if transpose:
-                st = apply_block_reflector_left_t(st, V, T, policy)
-            else:
-                st = _apply_q_left(st, V, T)
-            blocks[i0, :r] = st[:r]
-            blocks[i1, :r] = st[r:]
+        V, T = tree_v[lev], tree_t[lev]
+        i0 = torch.arange(0, 2 * s * V.shape[0], 2 * s,
+                          device=blocks.device)
+        i1 = i0 + s
+        st = torch.cat([blocks[i0, :r], blocks[i1, :r]], dim=1)
+        if transpose:
+            st = apply_block_reflector_left_t(st, V, T, policy)
+        else:
+            st = _apply_q_left(st, V, T)
+        blocks[i0, :r] = st[:, :r]
+        blocks[i1, :r] = st[:, r:]
     return blocks
 
 
@@ -175,20 +181,20 @@ def caqr_factor(
 def _apply_panel(X: torch.Tensor, pf: PanelFactors, transpose: bool,
                  policy: DTypePolicy) -> torch.Tensor:
     """Apply one panel's Q (or Q^T) in place to the rows >= row_offset of
-    X; the zero rows of the stored V keep the padding out of the data."""
+    X; the zero rows of the stored V keep the padding out of the data.
+    The L leaves' reflectors are ONE stacked application over the (L, h,
+    k) row blocks, the tree's one a level."""
     lam, r = pf.row_offset, pf.width
     L, h, _ = pf.leaf_v.shape
     height = X.shape[0] - lam
     blocks = _padded_blocks(X[lam:], L, h)
     if transpose:
-        for i in range(L):
-            blocks[i] = apply_block_reflector_left_t(
-                blocks[i], pf.leaf_v[i], pf.leaf_t[i], policy)
+        blocks = apply_block_reflector_left_t(blocks, pf.leaf_v, pf.leaf_t,
+                                              policy)
         _tree_apply_left(blocks, pf.tree_v, pf.tree_t, r, True, policy)
     else:
         _tree_apply_left(blocks, pf.tree_v, pf.tree_t, r, False, policy)
-        for i in range(L):
-            blocks[i] = _apply_q_left(blocks[i], pf.leaf_v[i], pf.leaf_t[i])
+        blocks = _apply_q_left(blocks, pf.leaf_v, pf.leaf_t)
     X[lam:] = blocks.reshape(L * h, -1)[:height]
     return X
 

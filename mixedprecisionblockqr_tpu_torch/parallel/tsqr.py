@@ -13,7 +13,8 @@ panels (``panel_factor_fused_batched``; its wide route above 128 columns,
 one launch a sub-panel), ``panel_factor``'s column loop member by member
 otherwise (the CPU, float64).  ``tsqr_batched`` factors the leaves of all
 its members in one call and each tree level across members in one call.
-CholeskyQR2 leaves and trees ('cholqr2', 'cholqr2s') stay a loop.
+CholeskyQR2 leaves and tree levels ('cholqr2', 'cholqr2s') are one
+stacked ``cholesky_qr2`` call each.
 
 Rank caveat (the reference's): Q assumes nonsingular leaf R factors;
 rank-deficient inputs still give a valid R and residual A = QR.
@@ -81,13 +82,10 @@ def _leaf_qrs(blocks: torch.Tensor, method: str = "householder"
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reduced QR of each (h x n) leaf of a (B, h, n) stack: ``(Q (B, h,
     n), R (B, n, n))``; Householder leaves in one ``householder_panels``
-    call, CholeskyQR2 leaves one by one."""
+    call, CholeskyQR2 leaves in one stacked ``cholesky_qr2`` call."""
     n = blocks.shape[-1]
     if method in ("cholqr2", "cholqr2s"):
-        outs = [cholesky_qr2(b, shifted=method == "cholqr2s")
-                for b in blocks]
-        return (torch.stack([q for q, _ in outs]),
-                torch.stack([r for _, r in outs]))
+        return cholesky_qr2(blocks, shifted=method == "cholqr2s")
     V, T, Rf = householder_panels(blocks)
     return reduced_q_from_vt(V, T, n), torch.triu(Rf[:, :n, :])
 
@@ -100,8 +98,9 @@ def reduction_tree(Rs: torch.Tensor, method: str = "householder"
     with R the (n x n) triangular factor of the (L*n x n) stack and F the
     (L, n, n) path factors: ``vstack(Rs) = vstack(F) @ R`` with
     ``vstack(F)`` orthonormal.  Pairs factor by CholeskyQR2 when
-    ``method == 'cholqr2'``, else as Householder panels, one
-    ``householder_panels`` call a level (as in the JAX package,
+    ``method == 'cholqr2'`` (one stacked call a level), else as
+    Householder panels, one ``householder_panels`` call a level (as in
+    the JAX package,
     'cholqr2s' trees are Householder).
     """
     F, R = _reduction_trees(Rs[None], method)
@@ -125,9 +124,7 @@ def _reduction_trees(Rs: torch.Tensor, method: str = "householder"
     while c > 1:
         pairs = cur.reshape(B * (c // 2), 2 * n, n)
         if method == "cholqr2":
-            outs = [cholesky_qr2(p) for p in pairs]
-            Qp = torch.stack([q for q, _ in outs])
-            cur = torch.stack([r for _, r in outs])
+            Qp, cur = cholesky_qr2(pairs)
         else:
             V, T, Rp = householder_panels(pairs)
             Qp = reduced_q_from_vt(V, T, n)

@@ -25,8 +25,9 @@ at the batch's layout, beside the loop of single calls and
 ``torch.geqrf`` of the stack), and for each stack of at most 128 columns
 the batched launch under both candidate layouts of ``batched_layout``
 (``panel_layout``'s 128 rows a CTA, ``fewest_layout``'s fewest CTAs in
-shared memory) and the rule's, each with its waves: the batch's clusters
-over the clusters the card keeps resident at once.
+shared memory), the rule's and the most CTAs a member whose B clusters
+the card keeps resident at once (one wave), each with its waves: the
+batch's clusters over the clusters the card keeps resident at once.
 The first line is the card's name and power limit (nvidia-smi).
 ``chip_smoke.py`` phases 3 and 24 run the same rows through :func:`k6_row`,
 phase 3 the stacks through :func:`k6_batched_row`.
@@ -66,7 +67,10 @@ WIDE_SHAPES = ((2048, 256), (2000, 200), (4096, 512), (8192, 256),
 #: level, the refine lstsq's first CAQR panel's leaves (8 of 512 x 128),
 #: tsqr 65536 x 256's leaves (wide route) and a smaller wide batch.
 BATCH_SHAPES = ((64, 1563, 64), (32, 128, 64), (8, 512, 128),
-                (64, 1024, 256), (4, 1024, 256))
+                (64, 1024, 256), (4, 1024, 256),
+                # the first and last panel steps of the batched drivers on
+                # 8 x 2048 x 512 (lstsq_batched, block_qr_batched)
+                (8, 2048, 128), (8, 1664, 128))
 #: Sub-panel widths the wide route is timed at.
 WIDE_SUBS = (64, 128)
 TOL = 1e-4  # fp32 summation order only
@@ -208,11 +212,15 @@ def k6_batched_row(P: torch.Tensor) -> dict:
 def batched_layout_times(P: torch.Tensor) -> dict:
     """The batched launch on the (B, m, w) stack ``P`` (at most 128
     columns; CUDA events, median of 20) under ``batched_layout``'s two
-    candidates and the rule's, keyed ``"<candidate> <cluster>x<rows>_
-    <route>"``, each with its waves."""
+    candidates, the rule's and ``one_wave`` (the most CTAs a member, from
+    the rule's down to the fewest, at which the card keeps all B clusters
+    resident at once; absent when none does), keyed ``"<candidate>
+    <cluster>x<rows>_<route>"``, each with its waves."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
     from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        PanelLayout,
         _launch,
+        _smem_bytes,
         batched_layout,
         fewest_layout,
         max_cluster,
@@ -223,10 +231,18 @@ def batched_layout_times(P: torch.Tensor) -> dict:
 
     B, m, w = P.shape
     lib, mc = library(), max_cluster(P.device)
+    rule, fewest = batched_layout(B, m, w, mc), fewest_layout(m, w, mc)
+    candidates = [("panel_layout", panel_layout(m, w, mc)),
+                  ("fewest", fewest), ("rule", rule)]
+    if rule.in_smem:
+        for cluster in range(rule.cluster, fewest.cluster - 1, -1):
+            rows = -(-m // cluster)
+            lay = PanelLayout(cluster, rows, True, _smem_bytes(w, rows, True))
+            if resident_clusters(P.device, lay) >= B:
+                candidates.append(("one_wave", lay))
+                break
     out = {}
-    for name, lay in (("panel_layout", panel_layout(m, w, mc)),
-                      ("fewest", fewest_layout(m, w, mc)),
-                      ("rule", batched_layout(B, m, w, mc))):
+    for name, lay in candidates:
         res = resident_clusters(P.device, lay)
         out[f"{name} {lay.cluster}x{lay.rows}_{_route(lay)}"] = {
             "ms": cuda_time_ms(lambda lay=lay: _launch(lib, P, lay)),

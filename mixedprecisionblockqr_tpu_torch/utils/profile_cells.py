@@ -31,9 +31,11 @@ inside K5), ``scan 16384^2`` (the headline call at 16384^2: bgs1 / scan),
 launches for 127 panels), ``lstsq refine`` (``refine_steps=2`` on the
 full-rank ``slam_jacobian(4096, 2048, seed=0)``: stored-factor CAQR, one
 batched K6 a panel's leaves and one a tree level), ``lstsq_batched`` (8
-systems of 2048 x
-512) and ``autodiff`` (``qr_autodiff`` forward and backward on 2048 x
-1024, POLICY_FP32), and ``chip_smoke.py`` phase 19's streaming cells:
+systems of 2048 x 512: the Householder driver on the stack, one batched
+K6 a panel step), ``block_qr_batched`` (the same 8 x 2048 x 512 stack,
+POLICY_FP32, ``'householder'``, reduced) and ``autodiff``
+(``qr_autodiff`` forward and backward on 2048 x 1024, POLICY_FP32), and
+``chip_smoke.py`` phase 19's streaming cells:
 ``rls`` (``rls_update`` of 16 rows from ``default_rng(4)`` into the
 ``rls_init`` state of the full-rank ``slam_jacobian(4096, 2048, seed=0)``:
 one G1 launch) and ``givens`` (``qr_rank1_update`` of the complete factors
@@ -141,6 +143,7 @@ def main(only: Sequence[str] = ()) -> int:
         POLICY_MIXED_FAST,
         back_substitution,
         block_qr,
+        block_qr_batched,
         block_qr_qtb,
         lstsq,
         lstsq_batched,
@@ -285,6 +288,9 @@ def main(only: Sequence[str] = ()) -> int:
         ("lstsq refine", lambda: lstsq(*lazy("slam", slam),
                                        refine_steps=2), 1),
         ("lstsq_batched", lambda: lstsq_batched(*lazy("batch", batch)), 1),
+        ("block_qr_batched 8x2048x512", lambda: block_qr_batched(
+            lazy("batch", batch)[0], 128, POLICY_FP32,
+            panel_method="householder"), 1),
         ("autodiff", autodiff_step, 5),
         ("rls update 16 rows n=2048",
          lambda: rls_update(*lazy("rls", rls_case)), 5),
