@@ -41,7 +41,16 @@ last line):
                  8 x 512 x 128 and (wide) 4 x 1024 x 256 stacks against
                  the batched plain version, each member bit for bit a
                  single launch at the batch's layout, beside the loop of
-                 single calls and torch.geqrf of the stack;
+                 single calls and torch.geqrf of the stack; the batched
+                 entries of ns_chain (8 x 128 x 128 plain, shift, refine,
+                 chain_mid; 4 x 256 x 256 on the L2 route, with resident
+                 clusters and waves) and bgs_group_fused (8 x 2048 x 512
+                 g4 with a robust last panel, bf16 flags on and off; 2 x
+                 2048 x 1024 at r = 256) against their plain versions on
+                 the stack, each member bit for bit its single call,
+                 beside the loop of single calls, torch.linalg.cholesky /
+                 torch.linalg.qr of the stack and the bound
+                 (utils/batched_probe.py);
                  sketch_qrcp_ranks on 136 x 2048, 1920, 200 and 8192 (in
                  place), 72 x 1024 (r = 64), 138 x 2048, 73 x 300, 700 x 256
                  and 700 x 1024 (in place), zero / duplicate, NaN and inf
@@ -228,7 +237,20 @@ last line):
                  4096 x 2048 leaf) against float64, beside phase 17's
                  times; (e) tsqr on 65536 x 256: 7 wide batched calls (14
                  K6 launches) for 127 panels, metric triple within 2^-23 m,
-                 K6 device time.
+                 K6 device time;
+ 25. bgs_batched -- the BGS tiers on the whole stack, only batched K1 /
+                 K2 launches (counted): (a) block_qr_batched 8 x 2048^2
+                 (member i from default_rng(i)) POLICY_MIXED_FAST bgs1, 4
+                 batched K2 for 32 groups, every member all_ok and within
+                 2x of its single block_qr, a NaN in member 3 poisons
+                 member 3 only, beside the member loop and
+                 torch.linalg.qr; (b) 8 x slam_jacobian(2048, 512, seed=i)
+                 POLICY_FP32 bgs (R 1e-4 of each single call) and
+                 POLICY_MIXED bgs2 (quality within 2x): 2 batched K2 + the
+                 rescrub's batched K1; (c) 3 x 6144 x 512 bgs1 (m > 5120,
+                 per-panel route): 6 batched K1, no K2; (d)
+                 block_qr_batched_sharded 8 x 1024 x 512 'auto' under
+                 POLICY_MIXED_FAST on one NCCL rank: 2 batched K2.
 Then a line with every kernel's launches on its main path (phases 4-6 for
 ns_chain and bgs_group_fused, phase 7 for panel_qr_fused,
 sketch_qrcp_ranks and panel_factor_fused, phase 9 for ninv_chain,
@@ -237,8 +259,9 @@ tiled_matmul and chol_rinv, phase 19 for the Givens chains: each streaming
 call once at n = 2048; phase 20's cases (a)-(d) add their launches of
 ns_chain, ninv_chain and panel_factor_fused, phase 21's of the kernels its
 calls run, phases 22, 23 and 24 theirs, K6's with its wide route's calls
-and products; K6's batched entry with its launches and panels on phases 16,
-17 (refine, lstsq_batched, block_qr_batched), 20, 23 and 24; the widths
+and products, phase 25's; K6's batched entry with its launches and panels
+on phases 16, 17 (refine, lstsq_batched, block_qr_batched), 20, 23 and 24,
+K1's and K2's with their launches and members on phase 25; the widths
 each kernel was held at; the counts are set to 0 just before each path
 and read just after; phases 16-18 assert their own counts the same way),
 error, times and bound, and as the last line
@@ -332,36 +355,41 @@ def solve_errors(a, b, x):
                                / np.linalg.norm(x_o))}
 
 
-#: K6's batched entry on the main paths (phases 16, 17, 20, 23 and 24):
-#: its launches and the panels they factored, summed over the counted calls.
-BATCHED = {"launches": 0, "members": 0}
+#: The batched entries on the main paths: K6's (phases 16, 17, 20, 23 and
+#: 24), K1's and K2's (phase 25): their launches and the panels, chains or
+#: groups they ran, summed over the counted calls.
+BATCHED = {k: {"launches": 0, "members": 0}
+           for k in ("panel_factor_fused", "ns_chain", "bgs_group_fused")}
 
 
-def batched_counts(main_path=False):
-    """The batched K6 entry's launches and panels since the counts were
-    last set to 0 (``ns.BATCH_LAUNCHES`` / ``BATCH_MEMBERS``); added to
-    ``BATCHED`` when they are a main path's."""
+def batched_counts(main_path=False, kernel="panel_factor_fused"):
+    """The batched entry of ``kernel``: its launches and members since the
+    counts were last set to 0 (``ns.BATCH_LAUNCHES`` / ``BATCH_MEMBERS``).
+    With ``main_path`` every batched entry's counts are added to
+    ``BATCHED`` (call it once a path)."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
         BATCH_LAUNCHES,
         BATCH_MEMBERS,
     )
 
-    c = {"launches": BATCH_LAUNCHES["panel_factor_fused"],
-         "members": BATCH_MEMBERS["panel_factor_fused"]}
     if main_path:
-        for k, v in c.items():
-            BATCHED[k] += v
-    return c
+        for k, tot in BATCHED.items():
+            tot["launches"] += BATCH_LAUNCHES[k]
+            tot["members"] += BATCH_MEMBERS[k]
+    return {"launches": BATCH_LAUNCHES[kernel],
+            "members": BATCH_MEMBERS[kernel]}
 
 
 def _counter():
     """``(counted, total)``: ``counted(fn)`` runs fn with the launch counts
     set to 0 just before it and read just after it, returns ``(out, the
-    nonzero counts)`` and adds those to ``total``.  The batched K6 entry's
-    launches and panels, where nonzero, are among the counts as
-    ``panel_factor_fused_batched`` and ``panel_factor_fused_members`` (its
-    launches count in ``panel_factor_fused`` too)."""
+    nonzero counts)`` and adds those to ``total``.  A batched entry's
+    launches and members (K6, K1, K2), where nonzero, are among the counts
+    as ``<kernel>_batched`` and ``<kernel>_members`` (its launches count
+    under ``<kernel>`` too)."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+        BATCH_LAUNCHES,
+        BATCH_MEMBERS,
         LAUNCHES,
         reset_launches,
     )
@@ -374,10 +402,11 @@ def _counter():
         out = fn()
         torch.cuda.synchronize()
         c = {k: v for k, v in LAUNCHES.items() if v}
-        b = batched_counts(main_path=True)
-        if b["launches"]:
-            c["panel_factor_fused_batched"] = b["launches"]
-            c["panel_factor_fused_members"] = b["members"]
+        batched_counts(main_path=True)
+        for k, v in BATCH_LAUNCHES.items():
+            if v:
+                c[f"{k}_batched"] = v
+                c[f"{k}_members"] = BATCH_MEMBERS[k]
         for k, v in c.items():
             total[k] = total.get(k, 0) + v
         return out, c
@@ -1194,6 +1223,194 @@ def phase_k6_widths(A, R64, Jn17, bn17, row17, dev):
     return out, launches, wide
 
 
+def phase_bgs_batched(dev):
+    """Phase 25: the BGS tiers on the whole stack, as the JAX package vmaps
+    them (``block_qr_batched`` / ``block_qr_batched_sharded``): one batched
+    K2 entry a group and one batched K1 launch a chain, no single K1 / K2.
+    Each case counts from 0 just before its call.  Returns ``(row,
+    launches)``: the phase's line and the launches of (a)-(d), summed."""
+    from mixedprecisionblockqr_tpu_torch import (
+        POLICY_FP32,
+        POLICY_MIXED,
+        POLICY_MIXED_FAST,
+        block_qr,
+        block_qr_batched,
+        block_qr_batched_sharded,
+        make_mesh,
+        metrics,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.datagen import slam_jacobian
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    counted, total = _counter()
+    row = {}
+
+    def quality(A_, Q_, R_, bits):
+        return [metrics.evaluate(a_, q_, r_, bits)
+                for a_, q_, r_ in zip(A_, Q_, R_)]
+
+    def only_batched(c, k2, k1):
+        """Exactly k2 batched K2 entries and k1 batched K1 launches, and no
+        single launch of either."""
+        return (c.get("bgs_group_fused", 0) == c.get(
+                    "bgs_group_fused_batched", 0) == k2
+                and c.get("ns_chain", 0) == c.get("ns_chain_batched", 0)
+                == k1)
+
+    def stack_of(make, n):
+        return torch.from_numpy(np.stack([make(i) for i in range(n)])).to(dev)
+
+    # (a) the headline's tier on 8 members (member 0 the headline's input),
+    # reduced: 2 groups of 4 panels a member, 4 batched K2 for 32 groups.
+    A8 = stack_of(lambda i: np.random.default_rng(i).random(
+        (2048, 2048), dtype=np.float32) - 0.5, 8)
+
+    def fast(x):
+        return block_qr_batched(x, 128, POLICY_MIXED_FAST,
+                                panel_method="bgs1")
+
+    def fast_single(x):
+        return block_qr(x, 128, POLICY_MIXED_FAST, panel_method="bgs1")
+
+    (Qa, Ra), ca = counted(lambda: fast(A8))
+    assert only_batched(ca, 4, 0) and ca["bgs_group_fused_members"] == 32, ca
+    reps = quality(A8, Qa, Ra, 8)
+    singles = [metrics.evaluate(A8[i], *fast_single(A8[i]), 8)
+               for i in range(8)]
+    assert all(r.all_ok for r in reps), [str(r) for r in reps]
+    for r_b, r_s in zip(reps, singles):
+        assert r_b.backward <= 2 * r_s.backward, (r_b.backward, r_s.backward)
+        assert r_b.orthogonality <= 2 * r_s.orthogonality, (
+            r_b.orthogonality, r_s.orthogonality)
+    del Qa, Ra
+    An = A8.clone()
+    An[3, 100, 200] = float("nan")
+    Qn, Rn = fast(An)
+    assert bool(torch.isnan(Rn[3, 0, 0])), "member 3 not poisoned"
+    others = [i for i in range(8) if i != 3]
+    assert bool(torch.isfinite(Rn[others]).all()
+                and torch.isfinite(Qn[others]).all()), "poison spread"
+    del Qn, Rn, An
+    row["a"] = {"call": "block_qr_batched(A, 128, POLICY_MIXED_FAST, "
+                        "panel_method='bgs1') reduced, A 8 x 2048 x 2048, "
+                        "member i default_rng(i) - 0.5",
+                "launches": ca,
+                "backward": [r.backward for r in reps],
+                "orthogonality": [r.orthogonality for r in reps],
+                "backward_single": [r.backward for r in singles],
+                "orthogonality_single": [r.orthogonality for r in singles],
+                "all_ok": True,
+                "nan_member_3": "R[3, 0, 0] NaN, the other 7 finite",
+                "ms": cuda_time_ms(lambda: fast(A8), warmup=2, iters=10),
+                "member_loop_ms": cuda_time_ms(
+                    lambda: [fast_single(a_) for a_ in A8], warmup=1,
+                    iters=5),
+                "library_ms": cuda_time_ms(lambda: torch.linalg.qr(A8),
+                                           warmup=1, iters=3),
+                "library_call": "torch.linalg.qr(A) on the stack"}
+    del A8
+
+    # (b) phase 17's 8 SLAM Jacobians under the reorth tiers: 2 batched K2
+    # (groups of 2 panels) and the robust tail's rescrub, 1 batched K1.
+    J8 = stack_of(lambda i: slam_jacobian(2048, 512, seed=i), 8)
+    row["b"] = {"call": "block_qr_batched(J, 128, policy, panel_method) "
+                        "reduced, J 8 x slam_jacobian(2048, 512, seed=i)"}
+    for name, pol, pm in (("fp32_bgs", POLICY_FP32, "bgs"),
+                          ("mixed_bgs2", POLICY_MIXED, "bgs2")):
+        def call(pol=pol, pm=pm):
+            return block_qr_batched(J8, 128, pol, panel_method=pm)
+
+        def single(x, pol=pol, pm=pm):
+            return block_qr(x, 128, pol, panel_method=pm)
+
+        (Qb, Rb), cb = counted(call)
+        assert only_batched(cb, 2, 1) and cb["ns_chain_members"] == 8, cb
+        outs = [single(J8[i]) for i in range(8)]
+        reps = quality(J8, Qb, Rb, pol.precision_bits)
+        reps1 = [metrics.evaluate(J8[i], *outs[i], pol.precision_bits)
+                 for i in range(8)]
+        assert all(r.all_ok for r in reps), [str(r) for r in reps]
+        rel = [rel_fro(Rb[i], outs[i][1]) for i in range(8)]
+        if pol is POLICY_FP32:
+            assert max(rel) <= 1e-4, rel
+        else:
+            for r_b, r_s in zip(reps, reps1):
+                assert r_b.backward <= 2 * r_s.backward, (r_b, r_s)
+                assert r_b.orthogonality <= 2 * r_s.orthogonality, (r_b, r_s)
+        row["b"][name] = {
+            "launches": cb, "rel_R_vs_single_max": max(rel),
+            "backward_max": max(r.backward for r in reps),
+            "orthogonality_max": max(r.orthogonality for r in reps),
+            "backward_single_max": max(r.backward for r in reps1),
+            "orthogonality_single_max": max(r.orthogonality for r in reps1),
+            "ms": cuda_time_ms(call, warmup=1, iters=5),
+            "member_loop_ms": cuda_time_ms(
+                lambda: [single(j_) for j_ in J8], warmup=1, iters=5)}
+        del Qb, Rb, outs
+    del J8
+
+    # (c) m > 5120: the per-panel route, one batched K1 a chain (3 plain
+    # panels, then the robust tail's three passes), no K2.
+    A3 = stack_of(lambda i: np.random.default_rng(i).random(
+        (6144, 512), dtype=np.float32) - 0.5, 3)
+    (Qc, Rc), cc = counted(lambda: fast(A3))
+    assert only_batched(cc, 0, 6) and cc["ns_chain_members"] == 18, cc
+    reps = quality(A3, Qc, Rc, 8)
+    assert all(r.all_ok for r in reps), [str(r) for r in reps]
+    del Qc, Rc
+    row["c"] = {"call": "block_qr_batched(A, 128, POLICY_MIXED_FAST, "
+                        "panel_method='bgs1') reduced, A 3 x 6144 x 512 "
+                        "(m > 5120: per-panel chains)",
+                "launches": cc,
+                "backward_max": max(r.backward for r in reps),
+                "orthogonality_max": max(r.orthogonality for r in reps),
+                "ms": cuda_time_ms(lambda: fast(A3), warmup=1, iters=5),
+                "member_loop_ms": cuda_time_ms(
+                    lambda: [fast_single(a_) for a_ in A3], warmup=1,
+                    iters=5)}
+    del A3
+
+    # (d) the sharded entry on one NCCL rank, 'auto' under the mixed policy
+    # (resolves to bgs1; 4 panels: 2 groups of 2, 2 batched K2).
+    A_d = torch.from_numpy(np.random.default_rng(0).random(
+        (8, 1024, 512), dtype=np.float32) - 0.5).to(dev)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        bmesh = make_mesh((1,), ("batch",))
+
+        def sharded():
+            return block_qr_batched_sharded(A_d, bmesh, panel_method="auto",
+                                            policy=POLICY_MIXED_FAST)
+
+        (Qd, Rd), cd = counted(sharded)
+        assert only_batched(cd, 2, 0) and cd[
+            "bgs_group_fused_members"] == 16, cd
+        reps = quality(A_d, Qd, Rd, 8)
+        assert all(r.all_ok for r in reps), [str(r) for r in reps]
+        del Qd, Rd
+        row["d"] = {"call": "block_qr_batched_sharded(A, batch mesh, "
+                            "panel_method='auto', policy=POLICY_MIXED_FAST)"
+                            ", A 8 x 1024 x 512, one NCCL rank",
+                    "launches": cd,
+                    "backward_max": max(r.backward for r in reps),
+                    "orthogonality_max": max(r.orthogonality for r in reps),
+                    "ms": cuda_time_ms(sharded, warmup=1, iters=5),
+                    "member_loop_ms": cuda_time_ms(
+                        lambda: [fast_single(a_) for a_ in A_d], warmup=1,
+                        iters=5)}
+    finally:
+        dist.destroy_process_group()
+    row["tolerance"] = ("(a) every member all_ok at 2^-8, backward and "
+                        "orthogonality at most 2x its single block_qr; (b) "
+                        "fp32 R 1e-4 relative of each single call, mixed "
+                        "quality at most 2x; (c), (d) all_ok; each case "
+                        "only batched K1 / K2 launches, counted; times: "
+                        "CUDA events, median of 10 ((a)) or 5")
+    return row, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -1259,6 +1476,7 @@ def main() -> int:
         ninv_layout,
         ns_chain,
         ns_chain_plain,
+        ns_resident_clusters,
         panel_qr_fused,
         panel_qr_fused_plain,
         reset_launches,
@@ -1301,6 +1519,14 @@ def main() -> int:
     from mixedprecisionblockqr_tpu_torch.utils.panel_probe import (
         k6_batched_row,
         k6_row,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.batched_probe import (
+        K1_CASES,
+        K2_CASES,
+        k1_batched_row,
+        k1_stack,
+        k2_batched_row,
+        k2_stack,
     )
     from mixedprecisionblockqr_tpu_torch.utils.sketch_probe import (
         k7_row,
@@ -1601,6 +1827,51 @@ def main() -> int:
                        "ms: median of 3, the loop of single calls: of 5",
           "library_call": "torch.geqrf(P) on the (B, m, w) stack",
           "inputs": k6b_rows, "card": card})
+
+    # K1's and K2's batched entries (utils/batched_probe.py): K1 on 8 Grams
+    # of r = 128 (plain, shift, refine, chain_mid) and on 4 of r = 256 (the
+    # L2 route); K2 on 8 groups of 2048 x 512 (g4, r = 128, a robust last
+    # panel) under the bf16 and the fp32 flags and on 2 of 2048 x 1024 at
+    # r = 256; each against the batched plain version at this phase's
+    # tolerances, two batched calls bit for bit, each member bit for bit
+    # its single call, beside the loop of single calls, the library call on
+    # the stack and the bound, with K1's resident clusters and waves.  A
+    # generator of its own keeps the later kernels' inputs as they were.
+    gen23 = torch.Generator(device=dev).manual_seed(23)
+    k1b_rows = {}
+    for name, B, r1, kind, kw in K1_CASES:
+        k1b_rows[f"{name}_{B}x{r1}"] = row = k1_batched_row(
+            k1_stack(kind, B, r1, gen23, dev), kw)
+        assert row["ok"], (name, row)
+    k1b_err = max(row["max_abs_err"] for row in k1b_rows.values())
+    k1b_res = {r1: ns_resident_clusters(dev, r1) for r1 in (128, 256)}
+    emit({"phase": "kernels", "kernel": "ns_chain_batched",
+          "tolerance": "X and t within 1e-4 * max|plain| of ns_chain_plain "
+                       "on the stack; the same canary class a member; two "
+                       "batched calls bitwise equal; each member bit for "
+                       "bit its single launch; plain ms: median of 3, the "
+                       "loop of single launches: of 10",
+          "library_call": "torch.linalg.cholesky(G) on the (B, r, r) stack",
+          "resident_clusters": k1b_res,
+          "waves_B8_B16": {r1: [-(-B // max(1, n)) for B in (8, 16)]
+                           for r1, n in k1b_res.items()},
+          "inputs": k1b_rows, "card": card})
+    k2b_rows = {}
+    for name, B, m, r1, g, bf in K2_CASES:
+        k2b_rows[name] = row = k2_batched_row(
+            k2_stack(B, m, g * r1, gen23, dev), r1, bf)
+        assert row["ok"], (name, row)
+    k2b_err = max(row["max_abs_err"] for row in k2b_rows.values())
+    emit({"phase": "kernels", "kernel": "bgs_group_fused_batched",
+          "tolerance": "fp32 flags: max|dQ| <= 1e-4, ||dR||/||R|| <= 1e-4 "
+                       "(and the robust tail block's); bf16 flags: "
+                       "||dQ||/||Q||, ||dR||/||R|| <= 5e-3, a member each, "
+                       "against bgs_group_fused_plain on the stack; two "
+                       "batched calls bitwise equal; each member bit for "
+                       "bit its single call; plain ms: median of 3, the "
+                       "loop of single calls: of 10",
+          "library_call": "torch.linalg.qr(Pg) on the (B, m, g r) stack",
+          "inputs": k2b_rows, "card": card})
 
     # K7 on the sketches of utils/sketch_probe.py::k7_sketches: d = 128 + 8
     # at the RQRCP panels' widths (2048, 1920, 200), a zero and a
@@ -3005,8 +3276,14 @@ def main() -> int:
           "wide_launches": wide24,
           "seconds": time.perf_counter() - t24, "card": card})
 
-    assert BATCHED["launches"] > 0 and BATCHED["members"] > BATCHED[
-        "launches"], BATCHED
+    # 25. bgs_batched: the BGS tiers on the whole stack (batched K1 / K2)
+    t25 = time.perf_counter()
+    row25, c25 = phase_bgs_batched(dev)
+    emit({"phase": "bgs_batched", **row25, "launches": c25,
+          "seconds": time.perf_counter() - t25, "card": card})
+
+    for k, tot in BATCHED.items():
+        assert 0 < tot["launches"] < tot["members"], (k, BATCHED)
     emit({"kernels": [
         {"name": "ns_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ns_chain.cu",
@@ -3014,7 +3291,7 @@ def main() -> int:
          "launches": main_launches["ns_chain"] + c20["ns_chain"]
          + c21.get("ns_chain", 0) + c22["ns_chain"]
          + c23.get("ns_chain", 0)
-         + c24.get("ns_chain", 0),
+         + c24.get("ns_chain", 0) + c25.get("ns_chain", 0),
          "max_abs_err": max(ns_err, *(row["max_abs_err"] for row in
                                       wrows["ns_chain"].values())),
          "widths": [32, 64, 128, *wrows["ns_chain"]],
@@ -3027,7 +3304,7 @@ def main() -> int:
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:900",
          "launches": main_launches["bgs_group_fused"]
          + c21.get("bgs_group_fused", 0) + c23.get("bgs_group_fused", 0)
-         + c24.get("bgs_group_fused", 0),
+         + c24.get("bgs_group_fused", 0) + c25.get("bgs_group_fused", 0),
          "max_abs_err": max(grp_err, *(row["max_abs_err"] for row in
                                        wrows["bgs_group_fused"].values())),
          "widths": [128, *wrows["bgs_group_fused"]],
@@ -3102,7 +3379,8 @@ def main() -> int:
                      ":190-193; parallel/caqr.py:178, :199; "
                      "ops/blockqr.py:1988; models/lstsq.py:130; "
                      "parallel/batched.py:56)",
-         "launches": BATCHED["launches"], "members": BATCHED["members"],
+         "launches": BATCHED["panel_factor_fused"]["launches"],
+         "members": BATCHED["panel_factor_fused"]["members"],
          "max_abs_err": k6b_err,
          "shape": "64 x 1563 x 64",
          "ms": k6b_rows["64x1563x64"]["ms"],
@@ -3115,6 +3393,37 @@ def main() -> int:
              "ms", "single_loop_ms", "plain_ms", "bound_ms", "bound_by",
              "member_floor_ms", "library_ms", "cluster", "waves")}
              for name, row in k6b_rows.items()}},
+        {"name": "ns_chain_batched", "route": "cuda",
+         "source": "mixedprecisionblockqr_tpu_torch/csrc/ns_chain.cu",
+         "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:335 under "
+                     "jax.vmap (ops/blockqr.py:1988 -> _block_qr_bgs: "
+                     ":1347, :1320, :895, :934)",
+         "launches": BATCHED["ns_chain"]["launches"],
+         "members": BATCHED["ns_chain"]["members"],
+         "max_abs_err": k1b_err, "shape": "8 x 128 x 128, chain_mid 6 it",
+         **{k: k1b_rows["chain_mid_8x128"][k] for k in (
+             "ms", "plain_ms", "single_loop_ms", "bound_ms", "bound_by",
+             "member_floor_ms", "library_ms", "waves")},
+         "stacks": {name: {k: row[k] for k in (
+             "ms", "single_loop_ms", "plain_ms", "bound_ms", "bound_by",
+             "member_floor_ms", "library_ms", "route", "ctas", "waves")}
+             for name, row in k1b_rows.items()}},
+        {"name": "bgs_group_fused_batched", "route": "cuda",
+         "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
+         "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:900 under "
+                     "jax.vmap (ops/blockqr.py:1988 -> _block_qr_bgs: "
+                     ":1258; parallel/batched.py:56)",
+         "launches": BATCHED["bgs_group_fused"]["launches"],
+         "members": BATCHED["bgs_group_fused"]["members"],
+         "max_abs_err": k2b_err,
+         "shape": "8 x 2048 x 512, g4, r 128, bf16, robust last panel",
+         **{k: k2b_rows["bgs1_8x2048x512"][k] for k in (
+             "ms", "plain_ms", "single_loop_ms", "bound_ms", "bound_by",
+             "member_floor_ms", "library_ms")},
+         "stacks": {name: {k: row[k] for k in (
+             "ms", "single_loop_ms", "plain_ms", "bound_ms", "bound_by",
+             "member_floor_ms", "library_ms")}
+             for name, row in k2b_rows.items()}},
         {"name": "sketch_qrcp_ranks", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/sketch_qrcp.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/sketch.py:88",

@@ -58,46 +58,69 @@
 // L2 route beyond, its operands in this entry's scratch), the combine with
 // its own rule; above 128 the in-place Q = P X first copies the panel to
 // scratch (panel.cuh, "Widths").
+// Batches (mpbqr_bgs_group_batched; the TPU kernel under jax.vmap, its
+// grid gaining the batch axis): B groups of one shape run the same
+// sequence of launches as one group, each launch over the B members
+// (products: the member folded into the grid's x; the chain and the
+// combine: one cluster or CTA set a member, blockIdx.y; the worst
+// residual: one CTA a member), with one scratch a member.  The streams
+// and events order whole batched launches.  The layout is the single
+// group's, so every member gets the bits of its own single entry.
 #include "panel.cuh"
 
 namespace mpbqr {
 
-// worst = max(0, resid[0], ..., resid[g-1]), NaN-propagating.
-__global__ void worst_resid(const float* resid, int g, float* worst) {
-  if (threadIdx.x == 0 && blockIdx.x == 0) {
+// Member blockIdx.x's worst = max(0, resid[0], ..., resid[g-1]) (its
+// residuals `stride` floats past member 0's), NaN-propagating.
+__global__ void worst_resid(const float* resid, int g, float* worst,
+                            long long stride) {
+  if (threadIdx.x == 0) {
+    resid += blockIdx.x * stride;
     float w = 0.f;
     for (int j = 0; j < g; ++j) w = nan_max(w, resid[j]);
-    *worst = w;
+    worst[blockIdx.x] = w;
   }
 }
 
+// The scratch of an entry for B members, piece by piece: each piece holds
+// the B members' copies one after another, member b at b times the
+// piece's stride (rr: r x r; mr: m x r; rp: g residuals rounded up to 32;
+// ch: the L2 chain's operands; cb: the L2 combine's), so that one batched
+// launch reads every member's at one stride, and the staging copy of
+// several column blocks (Q = P X above r = 128) is one 2-D copy of B m
+// rows.
 struct GroupScratch {
   float *G, *X1, *X2, *X3, *T1, *T2, *T3, *tmpA, *tmpB, *resid, *chain,
       *comb;
+  long long rr, mr, rp, ch, cb;
 };
 
 static long long group_scratch_floats(int m, int r, int g, GroupScratch* s,
-                                      float* base) {
-  const long long rr = (long long)r * r, mr = (long long)m * r;
+                                      float* base, int B = 1) {
+  GroupScratch dummy;
+  GroupScratch* d = s ? s : &dummy;
+  d->rr = (long long)r * r;
+  d->mr = (long long)m * r;
+  d->rp = ((g + 31) / 32) * 32;
+  d->ch = chain_inst(r) ? 0 : chain_l2_scratch_floats(r);
+  d->cb = combine_scratch_floats(r);
   long long off = 0;
   auto take = [&](float** p, long long n) {
     if (s) *p = base + off;
-    off += n;
+    off += n * B;
   };
-  GroupScratch dummy;
-  GroupScratch* d = s ? s : &dummy;
-  take(&d->G, rr);
-  take(&d->X1, rr);
-  take(&d->X2, rr);
-  take(&d->X3, rr);
-  take(&d->T1, rr);
-  take(&d->T2, rr);
-  take(&d->T3, rr);
-  take(&d->tmpA, mr);
-  take(&d->tmpB, mr);
-  take(&d->resid, ((g + 31) / 32) * 32);
-  take(&d->chain, chain_inst(r) ? 0 : chain_l2_scratch_floats(r));
-  take(&d->comb, combine_scratch_floats(r));
+  take(&d->G, d->rr);
+  take(&d->X1, d->rr);
+  take(&d->X2, d->rr);
+  take(&d->X3, d->rr);
+  take(&d->T1, d->rr);
+  take(&d->T2, d->rr);
+  take(&d->T3, d->rr);
+  take(&d->tmpA, d->mr);
+  take(&d->tmpB, d->mr);
+  take(&d->resid, d->rp);
+  take(&d->chain, d->ch);
+  take(&d->comb, d->cb);
   return off;
 }
 
@@ -200,36 +223,45 @@ struct Sched {
     if (e_ != cudaSuccess) return (int)e_;  \
   } while (0)
 
-// The group body on Q (m x g*r, already scrubbed against previous groups,
-// factored in place): per panel the Gram, the chain(s), Q = P X, t into
-// Rg's diagonal block and the projection of the later columns, narrow on
-// the critical stream and wide beside it; then the worst residual.  Rg must
-// be zeroed first (on sc.crit).  Returns the first CUDA error met.
+// The group body on Q (B members of m x g*r, already scrubbed against
+// previous groups, factored in place; member b's Q and Rg b m w and b w w
+// floats past member 0's, its worst at worst[b]): per panel the Gram, the
+// chain(s), Q = P X, t into Rg's diagonal block and the projection of the
+// later columns, narrow on the critical stream and wide beside it; then
+// the worst residual.  Every kernel is one launch for the B members, in
+// the same sequence as for one.  Rg must be zeroed first (on sc.crit).
+// Returns the first CUDA error met.
 static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
                       const GroupScratch& s, int m, int r, int g,
                       const int* iters, const int* robust, bool bd, bool bg,
                       bool chain_mid, const ProductLayout& lay,
-                      const KernelLayout& cl) {
+                      const KernelLayout& cl, int B = 1) {
   const int w = g * r;
+  const long long sq = (long long)m * w, srg = (long long)w * w;
   const cudaStream_t st = sc.crit;
   auto mid = [&](int it) {
     return chain_mid ? std::max(0, it - kMidFinal) : 0;
   };
-  auto gram = [&](const float* P, int ld, float* G) {
-    return tn(st, bg, r, r, m, P, ld, P, ld, G, r, lay.split, lay.chunk);
+  // P's Gram into s.G (P with leading dimension ld, member stride sp).
+  auto gram = [&](const float* P, int ld, long long sp) {
+    return tn(st, bg, r, r, m, P, ld, P, ld, s.G, r, lay.split, lay.chunk,
+              Members{B, sp, sp, s.rr});
   };
-  // Q = P X (P with leading dimension ldp, into Qo with ldo; in place when
-  // Qo == P).
-  auto qprod = [&](const float* P, int ldp, const float* X, float* Qo,
-                   int ldo) {
+  // Q = P X (P with leading dimension ldp and member stride sp, into Qo
+  // with ldo and so; in place when Qo == P).
+  auto qprod = [&](const float* P, int ldp, long long sp, const float* X,
+                   float* Qo, int ldo, long long so) {
     return nt(st, bg, m, r, r, P, ldp, X, r, Qo, ldo, false, lay.bm_panel,
-              lay.bn);
+              lay.bn, Members{B, sp, s.rr, so});
   };
-  auto chain = [&](float* X, float* t, int ldt, float* res, int it,
-                   float shift, int refine, int mid_it, int omega,
+  // The chain on s.G into X and t (leading dimension ldt, member stride
+  // stt), its residual into res.
+  auto chain = [&](float* X, float* t, int ldt, long long stt, float* res,
+                   int it, float shift, int refine, int mid_it, int omega,
                    int triu_t, int mode) {
     return launch_chain(r, cl, s.chain, st, s.G, X, t, ldt, res, it, shift,
-                        refine, mid_it, omega, 1, triu_t, mode);
+                        refine, mid_it, omega, 1, triu_t, mode, B,
+                        ChainBatch{s.rr, s.rr, stt, s.rp, s.ch});
   };
   // Panel k's wide part: G1 = Qk^T C and C -= Qk G1 over the columns
   // after panel k+1's, on the wide stream from the last mark().
@@ -241,10 +273,10 @@ static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
     cudaError_t err = sc.fork();
     if (err == cudaSuccess)
       err = tn(sc.wide, bd, r, cw, m, Pk, w, C, w, G1, w, lay.split,
-               lay.chunk);
+               lay.chunk, Members{B, sq, sq, srg});
     if (err == cudaSuccess)
       err = nt(sc.wide, bd, m, cw, r, Pk, w, G1, w, C, w, true, lay.bm_wide,
-               lay.bn);
+               lay.bn, Members{B, sq, srg, sq});
     if (err == cudaSuccess) err = sc.wide_done();
     return err;
   };
@@ -253,43 +285,46 @@ static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
     const int c0 = j * r;
     float* Pj = Q + c0;
     float* Rjj = Rg + (size_t)c0 * w + c0;
-    MPBQR_TRY(gram(Pj, w, s.G));
+    MPBQR_TRY(gram(Pj, w, sq));
     // The previous panel's wide part runs from this Gram on, under this
     // panel's chain, which is issued first and has the critical stream's
     // priority: its cluster is placed before the wide CTAs.
     if (pending >= 0) MPBQR_TRY(sc.mark());
     if (!robust[j]) {
-      MPBQR_TRY(chain(s.X1, Rjj, w, s.resid + j, iters[j], 0.f, 0,
+      MPBQR_TRY(chain(s.X1, Rjj, w, srg, s.resid + j, iters[j], 0.f, 0,
                       mid(iters[j]), 1, 1, RESID_SQUARE));
     } else {
       // Pass 1: shifted Gram (condition capped), t1 = X1^T Gs in full.
-      MPBQR_TRY(chain(s.X1, s.T1, r, s.resid + j, kRobustIt1, 1e-3f, 0,
+      MPBQR_TRY(chain(s.X1, s.T1, r, s.rr, s.resid + j, kRobustIt1, 1e-3f, 0,
                       mid(kRobustIt1), 0, 0, RESID_RAW));
     }
     if (pending >= 0) MPBQR_TRY(wide(pending));
     pending = -1;
     if (!robust[j]) {
       if (lay.bn >= r) {
-        MPBQR_TRY(qprod(Pj, w, s.X1, Pj, w));
+        MPBQR_TRY(qprod(Pj, w, sq, s.X1, Pj, w, sq));
       } else {  // several column blocks: not in place
+        // The B members' m rows are B m rows of pitch w (and r in tmpA).
         MPBQR_TRY(cudaMemcpy2DAsync(s.tmpA, sizeof(float) * r, Pj,
-                                    sizeof(float) * w, sizeof(float) * r, m,
-                                    cudaMemcpyDeviceToDevice, st));
-        MPBQR_TRY(qprod(s.tmpA, r, s.X1, Pj, w));
+                                    sizeof(float) * w, sizeof(float) * r,
+                                    (size_t)m * B, cudaMemcpyDeviceToDevice,
+                                    st));
+        MPBQR_TRY(qprod(s.tmpA, r, s.mr, s.X1, Pj, w, sq));
       }
     } else {
-      MPBQR_TRY(qprod(Pj, w, s.X1, s.tmpA, r));
-      MPBQR_TRY(gram(s.tmpA, r, s.G));
+      MPBQR_TRY(qprod(Pj, w, sq, s.X1, s.tmpA, r, s.mr));
+      MPBQR_TRY(gram(s.tmpA, r, s.mr));
       // Pass 2 on the fresh Gram of Q1, t2 = X2^T M1 in full.
-      MPBQR_TRY(chain(s.X2, s.T2, r, s.resid + j, kRobustIt2, 0.f, 0,
+      MPBQR_TRY(chain(s.X2, s.T2, r, s.rr, s.resid + j, kRobustIt2, 0.f, 0,
                       mid(kRobustIt2), 0, 0, RESID_RAW));
-      MPBQR_TRY(qprod(s.tmpA, r, s.X2, s.tmpB, r));
-      MPBQR_TRY(gram(s.tmpB, r, s.G));
+      MPBQR_TRY(qprod(s.tmpA, r, s.mr, s.X2, s.tmpB, r, s.mr));
+      MPBQR_TRY(gram(s.tmpB, r, s.mr));
       // Pass 3: identity-seeded refine with the exact final residual.
-      MPBQR_TRY(chain(s.X3, s.T3, r, s.resid + j, kRobustIt3, 0.f, 1, 0, 1,
-                      0, RESID_SCALE));
-      MPBQR_TRY(qprod(s.tmpB, r, s.X3, Pj, w));
-      MPBQR_TRY(launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w, s.comb));
+      MPBQR_TRY(chain(s.X3, s.T3, r, s.rr, s.resid + j, kRobustIt3, 0.f, 1, 0,
+                      1, 0, RESID_SCALE));
+      MPBQR_TRY(qprod(s.tmpB, r, s.mr, s.X3, Pj, w, sq));
+      MPBQR_TRY(launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w, s.comb, B,
+                               CombineBatch{s.rr, srg, s.cb}));
     }
     if (j + 1 == g) break;
     // The narrow part, panel j+1's columns, after the wide part of panel
@@ -297,12 +332,13 @@ static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
     float* Cn = Pj + r;
     float* G1 = Rjj + r;
     MPBQR_TRY(sc.wait_wide());
-    MPBQR_TRY(tn(st, bd, r, r, m, Pj, w, Cn, w, G1, w, lay.split, lay.chunk));
+    MPBQR_TRY(tn(st, bd, r, r, m, Pj, w, Cn, w, G1, w, lay.split, lay.chunk,
+                 Members{B, sq, sq, srg}));
     MPBQR_TRY(nt(st, bd, m, r, r, Pj, w, G1, w, Cn, w, true, lay.bm_panel,
-                 lay.bn));
+                 lay.bn, Members{B, sq, srg, sq}));
     if (w - c0 - 2 * r > 0) pending = j;
   }
-  worst_resid<<<1, 32, 0, st>>>(s.resid, g, worst);
+  worst_resid<<<B, 32, 0, st>>>(s.resid, g, worst, s.rp);
   MPBQR_TRY(cudaGetLastError());
   return (int)sc.end();
 }
@@ -316,6 +352,49 @@ long long mpbqr_bgs_group_scratch_floats(int m, int r, int g) {
   return mpbqr::group_scratch_floats(m, r, g, nullptr, nullptr);
 }
 
+// Floats of global scratch that mpbqr_bgs_group_batched needs for B
+// members (B times one member's).
+long long mpbqr_bgs_group_batched_scratch_floats(int B, int m, int r, int g) {
+  return mpbqr::group_scratch_floats(m, r, g, nullptr, nullptr, B);
+}
+
+// The batched K2: B groups of one shape, the same iters / robust / flags,
+// as ONE sequence of launches (the single group's sequence, each launch
+// over the B members; the two streams order whole batched launches).  P
+// and Q (B x m x g*r, Q may equal P), Rg (B x g*r x g*r) contiguous,
+// member b at b m g r (b (g r)^2) floats; worst B floats; `scratch` holds
+// mpbqr_bgs_group_batched_scratch_floats(B, m, r, g).  The layout as
+// mpbqr_bgs_group takes it (group_layout(m, r, ...), the same for every
+// B), so member b's outputs are bit for bit those of mpbqr_bgs_group on
+// its group.  Returns cudaErrorInvalidValue for a B outside 1 .. 65535,
+// else as mpbqr_bgs_group.
+int mpbqr_bgs_group_batched(const float* P, float* Q, float* Rg, float* worst,
+                            float* scratch, int B, int m, int r, int g,
+                            const int* iters, const int* robust,
+                            int bf16_dots, int bf16_gram, int chain_mid,
+                            int split, int chunk, int bm_panel, int bm_wide,
+                            int bn, int inst, int route, int ctas,
+                            int chain_scratch, int chain_smem, void* stream) {
+  using namespace mpbqr;
+  const ProductLayout lay{split, chunk, bm_panel, bm_wide, bn};
+  const KernelLayout cl{inst, route, ctas, chain_scratch, chain_smem};
+  if (!product_layout_ok(m, r, lay) || !chain_layout_ok(r, cl) || B < 1 ||
+      B > kMaxBatch)
+    return (int)cudaErrorInvalidValue;
+  const size_t w = (size_t)g * r;
+  GroupScratch s;
+  group_scratch_floats(m, r, g, &s, scratch, B);
+  Sched sc;
+  MPBQR_TRY(sc.begin((cudaStream_t)stream));
+  if (Q != P)
+    MPBQR_TRY(cudaMemcpyAsync(Q, P, sizeof(float) * B * m * w,
+                              cudaMemcpyDeviceToDevice, sc.crit));
+  MPBQR_TRY(cudaMemsetAsync(Rg, 0, sizeof(float) * B * w * w, sc.crit));
+  return group_body(sc, Q, Rg, worst, s, m, r, g, iters, robust,
+                    bf16_dots != 0, bf16_gram != 0, chain_mid != 0, lay, cl,
+                    B);
+}
+
 // P (m x g*r, fp32, row-major, read only) -> Q (m x g*r, may equal P),
 // Rg (g*r x g*r, block upper) and *worst (one float), all device pointers.
 // iters[j] / robust[j] are host arrays of g entries.  bf16_gram rounds the
@@ -326,29 +405,18 @@ long long mpbqr_bgs_group_scratch_floats(int m, int r, int g) {
 // group_layout(m, r, ...).  The kernels run on the entry's own streams,
 // joined into `stream` before it returns.  Returns the first CUDA error
 // met, or cudaErrorInvalidValue for an r outside 1 .. kMaxWidth or a
-// layout the products or the chain do not run.
+// layout the products or the chain do not run.  The batched entry's B = 1.
 int mpbqr_bgs_group(const float* P, float* Q, float* Rg, float* worst,
                     float* scratch, int m, int r, int g, const int* iters,
                     const int* robust, int bf16_dots, int bf16_gram,
                     int chain_mid, int split, int chunk, int bm_panel,
                     int bm_wide, int bn, int inst, int route, int ctas,
                     int chain_scratch, int chain_smem, void* stream) {
-  using namespace mpbqr;
-  const ProductLayout lay{split, chunk, bm_panel, bm_wide, bn};
-  const KernelLayout cl{inst, route, ctas, chain_scratch, chain_smem};
-  if (!product_layout_ok(m, r, lay) || !chain_layout_ok(r, cl))
-    return (int)cudaErrorInvalidValue;
-  const int w = g * r;
-  GroupScratch s;
-  group_scratch_floats(m, r, g, &s, scratch);
-  Sched sc;
-  MPBQR_TRY(sc.begin((cudaStream_t)stream));
-  if (Q != P)
-    MPBQR_TRY(cudaMemcpyAsync(Q, P, sizeof(float) * (size_t)m * w,
-                              cudaMemcpyDeviceToDevice, sc.crit));
-  MPBQR_TRY(cudaMemsetAsync(Rg, 0, sizeof(float) * (size_t)w * w, sc.crit));
-  return group_body(sc, Q, Rg, worst, s, m, r, g, iters, robust,
-                    bf16_dots != 0, bf16_gram != 0, chain_mid != 0, lay, cl);
+  return mpbqr_bgs_group_batched(P, Q, Rg, worst, scratch, 1, m, r, g, iters,
+                                 robust, bf16_dots, bf16_gram, chain_mid,
+                                 split, chunk, bm_panel, bm_wide, bn, inst,
+                                 route, ctas, chain_scratch, chain_smem,
+                                 stream);
 }
 
 // K5.  P (m x g*r, fp32, raw columns, read only) and Qprev (m x p, leading

@@ -88,6 +88,18 @@ constexpr int kStripe = 16;  // rows of every chain matrix that one CTA owns
 // raw, squared (plain chains, one step behind) or x 1e-2 (robust chains).
 enum { RESID_RAW = 0, RESID_SQUARE = 1, RESID_SCALE = 2 };
 
+// Batches.  A batched chain launch runs B chains of one width and one set
+// of options: one cluster a member, the member blockIdx.y of a (cluster,
+// B) grid.  Each pointer of member b lies b strides (floats) past member
+// 0's; the kernel body only offsets its pointers, so every member gets
+// the bits of a single launch on its operands.  One member: all zero.
+struct ChainBatch {
+  long long g, x, t, resid, scratch;
+};
+
+// Most members of one batched launch (the grid's y dimension).
+constexpr int kMaxBatch = 65535;
+
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -548,14 +560,22 @@ __device__ float chain_norm2_est(int n, const float* M, float* v0, float* v1,
 //                      product and truncate once, after combining them)
 //   *resid = max|E| of the last E, reported per resid_mode.
 // G and X are nr x nr (leading dimension nr), t nr x nr, nr = R unless PAD
-// (nr = n_arg <= R).
+// (nr = n_arg <= R); member blockIdx.y's at the strides of `bt`.
 template <int R, bool PAD>
 __global__ void __launch_bounds__(kChainThreads, 1)
 chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
              float* resid, int iters, float shift, int refine, int mid_iters,
-             int omega, int fuse_xw, int triu_t, int resid_mode) {
+             int omega, int fuse_xw, int triu_t, int resid_mode,
+             ChainBatch bt) {
   using L = ChainLayout<R>;
   const int nr = PAD ? n_arg : R;
+  {
+    const long long b = blockIdx.y;
+    G += b * bt.g;
+    X += b * bt.x;
+    t += b * bt.t;
+    resid += b * bt.resid;
+  }
   extern __shared__ __align__(16) char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -749,15 +769,16 @@ chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
   }
 }
 
-// Launch `kern` as one thread-block cluster of `ctas` CTAs of kChainThreads
-// threads, with `smem` bytes of dynamic shared memory, on `st`.  `fits` is
-// a static of the caller's kernel instance (and cluster size): the first
-// launch checks that the card can place one such cluster.  Clusters above
-// the portable 8 CTAs are allowed.
-template <class... KArgs, class... Args>
-static inline cudaError_t launch_cluster(void (*kern)(KArgs...), int ctas,
-                                         int smem, cudaStream_t st,
-                                         bool& fits, Args... args) {
+// The launch configuration of `batch` thread-block clusters of `ctas` CTAs
+// of kChainThreads threads (grid (ctas, batch), clusters (ctas, 1, 1)),
+// with `smem` bytes of dynamic shared memory, on `st`; `attr` holds its
+// one attribute.  Sets the kernel's shared-memory and cluster-size
+// attributes (clusters above the portable 8 CTAs are allowed).
+template <class... KArgs>
+static inline cudaError_t cluster_config(void (*kern)(KArgs...), int ctas,
+                                         int batch, int smem, cudaStream_t st,
+                                         cudaLaunchConfig_t* cfg,
+                                         cudaLaunchAttribute* attr) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -766,18 +787,32 @@ static inline cudaError_t launch_cluster(void (*kern)(KArgs...), int ctas,
         kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas, 1, 1);
-  cfg.blockDim = dim3(kChainThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(ctas, batch, 1);
+  cfg->blockDim = dim3(kChainThreads, 1, 1);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = ctas;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Launch `kern` as `batch` thread-block clusters (cluster_config) on `st`.
+// `fits` is a static of the caller's kernel instance (and cluster size):
+// the first launch checks that the card can place one such cluster.
+template <class... KArgs, class... Args>
+static inline cudaError_t launch_cluster_batch(void (*kern)(KArgs...),
+                                               int ctas, int batch, int smem,
+                                               cudaStream_t st, bool& fits,
+                                               Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = cluster_config(kern, ctas, batch, smem, st, &cfg, attr);
+  if (err != cudaSuccess) return err;
   if (!fits) {
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
@@ -786,6 +821,28 @@ static inline cudaError_t launch_cluster(void (*kern)(KArgs...), int ctas,
     fits = true;
   }
   return cudaLaunchKernelEx(&cfg, kern, args...);
+}
+
+// One cluster of launch_cluster_batch.
+template <class... KArgs, class... Args>
+static inline cudaError_t launch_cluster(void (*kern)(KArgs...), int ctas,
+                                         int smem, cudaStream_t st,
+                                         bool& fits, Args... args) {
+  return launch_cluster_batch(kern, ctas, 1, smem, st, fits, args...);
+}
+
+// How many clusters of `kern` on `ctas` CTAs with `smem` bytes the card
+// keeps resident at once, in *out (cudaOccupancyMaxActiveClusters): a
+// batch of B runs in ceil(B / *out) waves.
+template <class... KArgs>
+static inline cudaError_t cluster_resident(void (*kern)(KArgs...), int ctas,
+                                           int smem, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  *out = 0;
+  cudaError_t err = cluster_config(kern, ctas, 1, smem, nullptr, &cfg, attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(out, kern, &cfg);
 }
 
 // -- the L2 route (r > 128) -------------------------------------------------
@@ -1052,13 +1109,22 @@ __host__ __device__ __forceinline__ long long chain_l2_scratch_floats(int n) {
 
 // The chain of chain_kernel on the L2 route: the same arithmetic, steps
 // and options, for any n <= kMaxWidth, as one cluster of the launch's
-// CTAs.  G (n x n, leading dimension n) -> X (n x n), t (ldt), *resid.
+// CTAs.  G (n x n, leading dimension n) -> X (n x n), t (ldt), *resid;
+// member blockIdx.y's, and its own scratch, at the strides of `bt`.
 // Dynamic shared memory: kL2StageFloats + 3 n + 64 floats.
 static __global__ void __launch_bounds__(kChainThreads, 1)
 chain_l2_kernel(const float* G, int n, float* X, float* t, int ldt,
                 float* resid, int iters, float shift, int refine,
                 int mid_iters, int omega, int fuse_xw, int triu_t,
-                int resid_mode, float* scratch) {
+                int resid_mode, float* scratch, ChainBatch bt) {
+  {
+    const long long b = blockIdx.y;
+    G += b * bt.g;
+    X += b * bt.x;
+    t += b * bt.t;
+    resid += b * bt.resid;
+    scratch += b * bt.scratch;
+  }
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
@@ -1222,32 +1288,34 @@ static inline cudaError_t launch_chain_r(cudaStream_t st, const float* G,
                                          float* resid, int iters, float shift,
                                          int refine, int mid_iters, int omega,
                                          int fuse_xw, int triu_t,
-                                         int resid_mode) {
+                                         int resid_mode, int batch,
+                                         const ChainBatch& bt) {
   using L = ChainLayout<R>;
   static bool fits[2] = {false, false};
-  return launch_cluster(nr == R ? &chain_kernel<R, false>
-                                : &chain_kernel<R, true>,
-                        L::CS, L::BYTES, st, fits[nr != R], G, nr, X, t, ldt,
-                        resid, iters, shift, refine, mid_iters, omega, fuse_xw,
-                        triu_t, resid_mode);
+  return launch_cluster_batch(
+      nr == R ? &chain_kernel<R, false> : &chain_kernel<R, true>, L::CS,
+      batch, L::BYTES, st, fits[nr != R], G, nr, X, t, ldt, resid, iters,
+      shift, refine, mid_iters, omega, fuse_xw, triu_t, resid_mode, bt);
 }
 
 // Launch the chain for width r (1 .. kMaxWidth) on `st` with the layout
 // `lay` (checked by the caller: chain_layout_ok): G (r x r, fp32,
 // row-major) -> X (r x r), t (leading dimension ldt) and *resid, all
 // device pointers; `scratch` holds lay.scratch_floats (the L2 route's
-// operands).  Returns the launch's error.
+// operands).  With `batch` > 1 one launch runs that many members, at the
+// strides of `bt` (the scratch's included).  Returns the launch's error.
 static inline cudaError_t launch_chain(int r, const KernelLayout& lay,
                                        float* scratch, cudaStream_t st,
                                        const float* G, float* X, float* t,
                                        int ldt, float* resid, int iters,
                                        float shift, int refine, int mid_iters,
                                        int omega, int fuse_xw, int triu_t,
-                                       int resid_mode) {
+                                       int resid_mode, int batch = 1,
+                                       const ChainBatch& bt = ChainBatch{}) {
 #define MPBQR_CHAIN(RR)                                                      \
   return launch_chain_r<RR>(st, G, r, X, t, ldt, resid, iters, shift,        \
                             refine, mid_iters, omega, fuse_xw, triu_t,       \
-                            resid_mode)
+                            resid_mode, batch, bt)
   switch (lay.inst) {
     case 32: MPBQR_CHAIN(32);
     case 64: MPBQR_CHAIN(64);
@@ -1256,10 +1324,30 @@ static inline cudaError_t launch_chain(int r, const KernelLayout& lay,
   }
 #undef MPBQR_CHAIN
   static bool fits[kL2MaxCluster + 1] = {};
-  return launch_cluster(chain_l2_kernel, lay.ctas, lay.smem_bytes, st,
-                        fits[lay.ctas], G, r, X, t, ldt, resid, iters, shift,
-                        refine, mid_iters, omega, fuse_xw, triu_t,
-                        resid_mode, scratch);
+  return launch_cluster_batch(chain_l2_kernel, lay.ctas, batch,
+                              lay.smem_bytes, st, fits[lay.ctas], G, r, X, t,
+                              ldt, resid, iters, shift, refine, mid_iters,
+                              omega, fuse_xw, triu_t, resid_mode, scratch,
+                              bt);
+}
+
+// How many of the chain's clusters for width r with the layout `lay`
+// (checked by the caller) the card keeps resident at once, in *out.
+static inline cudaError_t chain_resident(int r, const KernelLayout& lay,
+                                         int* out) {
+  switch (lay.inst) {
+#define MPBQR_RES(RR)                                                        \
+  case RR:                                                                   \
+    return cluster_resident(r == RR ? &chain_kernel<RR, false>               \
+                                    : &chain_kernel<RR, true>,               \
+                            ChainLayout<RR>::CS, ChainLayout<RR>::BYTES, out)
+    MPBQR_RES(32);
+    MPBQR_RES(64);
+    MPBQR_RES(128);
+#undef MPBQR_RES
+    default: break;
+  }
+  return cluster_resident(chain_l2_kernel, lay.ctas, lay.smem_bytes, out);
 }
 
 }  // namespace mpbqr

@@ -145,7 +145,8 @@ struct TnStage {
 template <bool BF, typename AT>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_tn(int M, int N, int K, const AT* A, int lda, const float* B, int ldb,
-        float* C, int ldc, int chunk, int vec_a, int vec_b) {
+        float* C, int ldc, int chunk, int vec_a, int vec_b, int xt,
+        long long sa, long long sb, long long sc) {
   constexpr int kRedP = kTnTile + 1;
   constexpr int kStageBytes = (int)sizeof(TnStage<BF>);
   constexpr int kRedBytes = 4 * kTnTile * kRedP * 4;
@@ -154,7 +155,12 @@ gemm_tn(int M, int N, int K, const AT* A, int lda, const float* B, int ldb,
   __shared__ float tile[kTnTile * kTnTile];
   TnStage<BF>& s = *reinterpret_cast<TnStage<BF>*>(raw);
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int i0 = blockIdx.y * kTnTile, j0 = blockIdx.x * kTnTile;
+  // Member mb of a batched launch: x holds xt column tiles a member.
+  const int mb = (int)blockIdx.x / xt;
+  A += mb * sa;
+  B += mb * sb;
+  C += mb * sc;
+  const int i0 = blockIdx.y * kTnTile, j0 = (blockIdx.x - mb * xt) * kTnTile;
   const int kb = blockIdx.z * chunk;
   const int ke = min(K, kb + chunk);
 
@@ -333,11 +339,17 @@ struct NtStage<BM, BN, false> {
 template <int BM, int BN, bool BF, typename AT>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_nt(int M, int N, int K, const AT* A, int lda, const float* B, int ldb,
-        float* C, int ldc, int sub, int vec_a, int vec_b, int vec_c) {
+        float* C, int ldc, int sub, int vec_a, int vec_b, int vec_c, int xt,
+        long long sa, long long sb, long long sc) {
   using Sh = NtShape<BM, BN>;
   __shared__ __align__(16) NtStage<BM, BN, BF> s;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
+  // Member mb of a batched launch: x holds xt column blocks a member.
+  const int mb = (int)blockIdx.x / xt;
+  A += mb * sa;
+  B += mb * sb;
+  C += mb * sc;
+  const int i0 = blockIdx.y * BM, j0 = (blockIdx.x - mb * xt) * BN;
 
   float ra[Sh::QA][4], rb[Sh::QB][4];
   auto load = [&](int k0) {
@@ -491,25 +503,40 @@ gemm_nt(int M, int N, int K, const AT* A, int lda, const float* B, int ldb,
 
 // -- launch helpers ------------------------------------------------------
 
+// Whether every row of every member starts on `elems` elements' bytes:
+// the pointer, the leading dimension and the member stride.
 template <typename T>
-static inline bool aligned_rows(const T* p, int ld, int elems) {
-  return ld % elems == 0 &&
+static inline bool aligned_rows(const T* p, int ld, int elems,
+                                long long stride = 0) {
+  return ld % elems == 0 && stride % elems == 0 &&
          reinterpret_cast<uintptr_t>(p) % (sizeof(T) * elems) == 0;
 }
 
+// The members of a batched product: n products of one shape, member b's
+// A, B and C at b strides (elements) past member 0's.  The member is
+// folded into the grid's x (gemm_tn keeps z for its split); every element
+// of every member has the sum of a single launch.  One member: n = 1.
+struct Members {
+  int n;
+  long long a, b, c;
+};
+constexpr Members kOneMember{1, 0, 0, 0};
+
 // C = A^T B (gemm_tn): `split` CTAs of one cluster share each 32 x 32
-// tile's K, in chunks of `chunk` rows (ops/kernels/ns.py::tn_split).
+// tile's K, in chunks of `chunk` rows (ops/kernels/ns.py::tn_split); with
+// `mb`, one launch for its members.
 template <typename AT>
 static inline cudaError_t tn(cudaStream_t st, bool bf, int M, int N, int K,
                              const AT* A, int lda, const float* B, int ldb,
-                             float* C, int ldc, int split, int chunk) {
+                             float* C, int ldc, int split, int chunk,
+                             const Members& mb = kOneMember) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   if (split < 1 || split > kTnMaxSplit || chunk < 1 ||
-      (long long)split * chunk < K)
+      (long long)split * chunk < K || mb.n < 1 || mb.n > kMaxBatch)
     return cudaErrorInvalidValue;
+  const int xt = (N + kTnTile - 1) / kTnTile;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + kTnTile - 1) / kTnTile, (M + kTnTile - 1) / kTnTile,
-                     split);
+  cfg.gridDim = dim3(xt * mb.n, (M + kTnTile - 1) / kTnTile, split);
   cfg.blockDim = dim3(kGemmThreads, 1, 1);
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
@@ -519,29 +546,35 @@ static inline cudaError_t tn(cudaStream_t st, bool bf, int M, int N, int K,
   attr[0].val.clusterDim.z = split;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const int va = aligned_rows(A, lda, 4), vb = aligned_rows(B, ldb, 4);
+  const int va = aligned_rows(A, lda, 4, mb.a);
+  const int vb = aligned_rows(B, ldb, 4, mb.b);
   return bf ? cudaLaunchKernelEx(&cfg, gemm_tn<true, AT>, M, N, K, A, lda, B,
-                                 ldb, C, ldc, chunk, va, vb)
+                                 ldb, C, ldc, chunk, va, vb, xt, mb.a, mb.b,
+                                 mb.c)
             : cudaLaunchKernelEx(&cfg, gemm_tn<false, AT>, M, N, K, A, lda, B,
-                                 ldb, C, ldc, chunk, va, vb);
+                                 ldb, C, ldc, chunk, va, vb, xt, mb.a, mb.b,
+                                 mb.c);
 }
 
 template <int BM, int BN, typename AT>
 static inline cudaError_t nt_launch(cudaStream_t st, bool bf, int M, int N,
                                     int K, const AT* A, int lda,
                                     const float* B, int ldb, float* C,
-                                    int ldc, bool sub) {
+                                    int ldc, bool sub, const Members& mb) {
+  const int xt = (N + BN - 1) / BN;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, 1);
+  cfg.gridDim = dim3(xt * mb.n, (M + BM - 1) / BM, 1);
   cfg.blockDim = dim3(kGemmThreads, 1, 1);
   cfg.stream = st;
-  const int va = aligned_rows(A, lda, 4), vb = aligned_rows(B, ldb, 4);
-  const int vc = aligned_rows(C, ldc, 2);
+  const int va = aligned_rows(A, lda, 4, mb.a);
+  const int vb = aligned_rows(B, ldb, 4, mb.b);
+  const int vc = aligned_rows(C, ldc, 2, mb.c);
   return bf ? cudaLaunchKernelEx(&cfg, gemm_nt<BM, BN, true, AT>, M, N, K, A,
-                                 lda, B, ldb, C, ldc, (int)sub, va, vb, vc)
+                                 lda, B, ldb, C, ldc, (int)sub, va, vb, vc,
+                                 xt, mb.a, mb.b, mb.c)
             : cudaLaunchKernelEx(&cfg, gemm_nt<BM, BN, false, AT>, M, N, K,
                                  A, lda, B, ldb, C, ldc, (int)sub, va, vb,
-                                 vc);
+                                 vc, xt, mb.a, mb.b, mb.c);
 }
 
 // The (bm, bn) tiles gemm_nt is built for: bn is the chain's instantiation
@@ -557,16 +590,20 @@ static inline bool nt_tile_ok(int bm, int bn) {
   }
 }
 
-// C = A B (sub == false) or C -= A B with the (bm, bn) tile.  A in place of
-// C (Q = P X) needs bn >= N: every CTA then reads only the rows it writes.
+// C = A B (sub == false) or C -= A B with the (bm, bn) tile; with `mb`, one
+// launch for its members.  A in place of C (Q = P X) needs bn >= N: every
+// CTA then reads only the rows it writes.
 template <typename AT>
 static inline cudaError_t nt(cudaStream_t st, bool bf, int M, int N, int K,
                              const AT* A, int lda, const float* B, int ldb,
-                             float* C, int ldc, bool sub, int bm, int bn) {
+                             float* C, int ldc, bool sub, int bm, int bn,
+                             const Members& mb = kOneMember) {
   if (M <= 0 || N <= 0) return cudaSuccess;
+  if (mb.n < 1 || mb.n > kMaxBatch) return cudaErrorInvalidValue;
 #define MPBQR_NT(BM, BN)                                                     \
   if (bm == BM && bn == BN)                                                  \
-    return nt_launch<BM, BN, AT>(st, bf, M, N, K, A, lda, B, ldb, C, ldc, sub)
+    return nt_launch<BM, BN, AT>(st, bf, M, N, K, A, lda, B, ldb, C, ldc,     \
+                                 sub, mb)
   MPBQR_NT(16, 128);
   MPBQR_NT(64, 128);
   MPBQR_NT(16, 64);
@@ -607,12 +644,25 @@ struct CombineLayout {
   static constexpr int BYTES = (OFF_PART + kGenPart<R>) * 4;
 };
 
+// The combine's members: member blockIdx.y's T1..T3 lie b * t floats past
+// member 0's, its output b * out, its L2-route scratch b * scratch.
+struct CombineBatch {
+  long long t, out, scratch;
+};
+
 template <int R, bool PAD>
 __global__ void __launch_bounds__(kChainThreads, 1)
 combine_kernel(const float* T1, const float* T2, const float* T3, int n_arg,
-               float* out, int ldo) {
+               float* out, int ldo, CombineBatch bt) {
   using L = CombineLayout<R>;
   const int nr = PAD ? n_arg : R;  // ns_chain.cuh, "Widths"
+  {
+    const long long b = blockIdx.y;
+    T1 += b * bt.t;
+    T2 += b * bt.t;
+    T3 += b * bt.t;
+    out += b * bt.out;
+  }
   extern __shared__ __align__(16) float sm[];
   const int c0 = kStripe * blockIdx.x;
   float* T1t = sm + L::OFF_T1;
@@ -652,7 +702,15 @@ combine_kernel(const float* T1, const float* T2, const float* T3, int n_arg,
 // Dynamic shared memory: kL2StageFloats floats.
 static __global__ void __launch_bounds__(kChainThreads, 1)
 combine_l2_kernel(const float* T1, const float* T2, const float* T3, int n,
-                  float* out, int ldo, float* scratch) {
+                  float* out, int ldo, float* scratch, CombineBatch bt) {
+  {
+    const long long b = blockIdx.y;
+    T1 += b * bt.t;
+    T2 += b * bt.t;
+    T3 += b * bt.t;
+    out += b * bt.out;
+    scratch += b * bt.scratch;
+  }
   extern __shared__ __align__(16) float sm[];
   int c0, c1;
   l2_own(n, (int)blockIdx.x, (int)gridDim.x, c0, c1);
@@ -690,40 +748,51 @@ static inline KernelLayout combine_layout(int r) {
 }
 
 template <int R>
-static inline cudaError_t launch_combine_r(cudaStream_t st, int ctas,
+static inline cudaError_t launch_combine_r(cudaStream_t st, dim3 grid,
                                            const float* T1, const float* T2,
                                            const float* T3, int nr,
-                                           float* out, int ldo) {
+                                           float* out, int ldo,
+                                           const CombineBatch& bt) {
   using L = CombineLayout<R>;
   auto kern = nr == R ? &combine_kernel<R, false> : &combine_kernel<R, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
   if (err != cudaSuccess) return err;
-  kern<<<ctas, kChainThreads, L::BYTES, st>>>(T1, T2, T3, nr, out, ldo);
+  kern<<<grid, kChainThreads, L::BYTES, st>>>(T1, T2, T3, nr, out, ldo, bt);
   return cudaGetLastError();
 }
 
 // The combine for width r (1 .. kMaxWidth, checked by the caller) on
 // `st`; T1..T3 r x r, row-major; `scratch` holds
-// combine_scratch_floats(r).  Returns the launch's error.
+// combine_scratch_floats(r).  With `batch` > 1 one launch (grid (CTAs,
+// batch)) runs that many members at the strides of `bt`.  Returns the
+// launch's error.
 static inline cudaError_t launch_combine(int r, cudaStream_t st,
                                          const float* T1, const float* T2,
                                          const float* T3, float* out,
-                                         int ldo, float* scratch) {
+                                         int ldo, float* scratch,
+                                         int batch = 1,
+                                         const CombineBatch& bt =
+                                             CombineBatch{}) {
   const KernelLayout lay = combine_layout(r);
+  if (batch < 1 || batch > kMaxBatch) return cudaErrorInvalidValue;
+  const dim3 grid(lay.ctas, batch, 1);
   switch (lay.inst) {
-    case 32: return launch_combine_r<32>(st, lay.ctas, T1, T2, T3, r, out, ldo);
-    case 64: return launch_combine_r<64>(st, lay.ctas, T1, T2, T3, r, out, ldo);
-    case 128:
-      return launch_combine_r<128>(st, lay.ctas, T1, T2, T3, r, out, ldo);
+#define MPBQR_COMBINE(RR)                                                    \
+  case RR:                                                                   \
+    return launch_combine_r<RR>(st, grid, T1, T2, T3, r, out, ldo, bt)
+    MPBQR_COMBINE(32);
+    MPBQR_COMBINE(64);
+    MPBQR_COMBINE(128);
+#undef MPBQR_COMBINE
     default: break;
   }
   cudaError_t err = cudaFuncSetAttribute(
       combine_l2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       lay.smem_bytes);
   if (err != cudaSuccess) return err;
-  combine_l2_kernel<<<lay.ctas, kChainThreads, lay.smem_bytes, st>>>(
-      T1, T2, T3, r, out, ldo, scratch);
+  combine_l2_kernel<<<grid, kChainThreads, lay.smem_bytes, st>>>(
+      T1, T2, T3, r, out, ldo, scratch, bt);
   return cudaGetLastError();
 }
 

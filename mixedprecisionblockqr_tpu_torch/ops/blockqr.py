@@ -32,7 +32,9 @@ Each BGS group of panels runs through ``bgs_group_fused`` (kernel K2) when
 the group buffer passes the same size gate as the JAX package (with
 ``proj_entry``, every group after the first through
 ``bgs_group_fused_proj``, K5); otherwise
-each panel runs ``ns_chain`` (kernel K1) between plain products.  A
+each panel runs ``ns_chain`` (kernel K1) between plain products.  On a
+(B, m, n) stack (``block_qr_batched``) the same steps run once for all
+members, through the batched entries of K2 and K1.  A
 float64 panel always takes ``panel_factor``: K6 is fp32, as the TPU kernel
 is, and a POLICY_FP64 factorization stays float64.
 """
@@ -57,9 +59,11 @@ from mixedprecisionblockqr_tpu_torch.ops.householder import (
 )
 from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
     bgs_group_fused,
+    bgs_group_fused_batched,
     bgs_group_fused_proj,
     ninv_chain,
     ns_chain,
+    ns_chain_batched,
     panel_qr_fused,
     tri_cholqr_fused,
     tri_cholqr_robust_fused,
@@ -99,6 +103,9 @@ _CHOLQR_TIERS = ("cholqr1", "cholqr2", "cholqr2s")
 #: stacked driver call (``_driver_batched``).
 _REFLECTOR_TIERS = ("householder", "householder_pallas", *_CHOLQR_TIERS,
                     "cholqr1x2")
+#: The tiers whose unrolled driver takes a (B, m, n) stack: a batch of them
+#: is one stacked driver call (``_driver_batched``); ``polar`` is not.
+_STACKED_TIERS = (*_REFLECTOR_TIERS, *_BGS_TIERS)
 QUALITY_LEVELS = ("fast", "balanced", "high", "robust")
 _QUALITY_BGS = {"fast": "bgs1", "balanced": "bgs2", "high": "bgs"}
 
@@ -236,17 +243,20 @@ def _rescrub_panel(Qpre, qk, t, reduce=None):
     4-iteration refactorization, folded so that ``qk t = q2 (s t) +
     Qpre (W t)``.  Returns ``(q2, s @ t, W @ t, resid)``.  The distributed
     drivers pass ``reduce``, which sums a tensor over the ranks that hold
-    the row slabs of ``Qpre`` and ``qk`` (both W and the Gram of q2)."""
+    the row slabs of ``Qpre`` and ``qk`` (both W and the Gram of q2).  On
+    stacks (B, m, p) / (B, m, r) every member is rescrubbed, its chain one
+    member of one ``ns_chain_batched`` call, and ``resid`` is one a
+    member."""
     qf = qk.float()
     Qp = Qpre.float()
-    W = mm_f32(Qp.T, qf)
+    W = mm_f32(Qp.mT, qf)
     if reduce is not None:
         W = reduce(W)
     q2 = qf - mm_f32(Qp, W)
-    Gq = mm_f32(q2.T, q2)
+    Gq = mm_f32(q2.mT, q2)
     if reduce is not None:
         Gq = reduce(Gq)
-    X, s, rs = ns_chain(Gq, iters=4)
+    X, s, rs = (ns_chain_batched if Gq.dim() == 3 else ns_chain)(Gq, iters=4)
     q2 = mm_f32(q2, X)
     t32 = t.float()
     return q2, mm_f32(s, t32), mm_f32(W, t32), rs
@@ -283,13 +293,32 @@ def _block_qr_bgs(
     trailing projection between groups: every group after the first goes
     raw into ``bgs_group_fused_proj``, which scrubs it against the Q
     written so far.  ``A`` is not modified.
+
+    ``A`` may also be a stack (B, m, n), with ``B`` (B, m, k): the JAX
+    package's ``vmap`` of this driver.  Every member takes the same steps:
+    a group of all members is one ``bgs_group_fused_batched`` call, the
+    per-panel route's and the robust tail's chains one ``ns_chain_batched``
+    launch each, the products run on the stacks (batched products), and
+    each member keeps its own canary.  A stack of one runs as one matrix,
+    with the same kernel calls and results.  ``proj_entry`` takes one
+    matrix (K5 has no batched entry).
     """
     if ns_impl not in ("group", "panel"):
         raise ValueError(f"ns_impl must be 'group' or 'panel', got {ns_impl!r}")
-    m, n = A.shape
+    if A.dim() == 3 and A.shape[0] == 1:
+        outs = _block_qr_bgs(A[0], block_size, policy, want_q,
+                             None if B is None else B[0], group_panels,
+                             reorth, ns_impl, mid_tier, chain_mid,
+                             proj_entry)
+        return tuple(None if x is None else x[None] for x in outs)
+    *batch, m, n = A.shape
     r = block_size
     if n % r != 0 or m < n or n < r:
-        raise ValueError(f"BGS needs r | n and m >= n; got {A.shape}, r={r}")
+        raise ValueError(f"BGS needs r | n and m >= n; got "
+                         f"{tuple(A.shape)}, r={r}")
+    if batch and proj_entry:
+        raise ValueError("proj_entry takes one matrix: "
+                         "bgs_group_fused_proj (K5) has no batched entry")
     nb = n // r
     # Min-two-groups shrink first, then the size gate on the effective width.
     if ns_impl == "group" and nb <= group_panels:
@@ -308,7 +337,7 @@ def _block_qr_bgs(
 
     dev = A.device
     T = A.to(policy.panel)
-    worst = torch.zeros((), dtype=torch.float32, device=dev)
+    worst = torch.zeros(batch, dtype=torch.float32, device=dev)
     mm_t = trailing_matmul(policy)
     mm_e = mm_f32 if reorth else mm_t
     gram_prec = (
@@ -316,16 +345,18 @@ def _block_qr_bgs(
         if policy.trailing == torch.float32 or mid_tier or reorth
         else Precision.HIGH
     )
-    R = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    R = torch.zeros((*batch, n, n), dtype=torch.float32, device=dev)
     qcols = []
     qtb = []
     q_dtype = policy.accum if reorth else (policy.q_store or policy.accum)
     cast_early = (not reorth and q_dtype != policy.accum
                   and policy.trailing == q_dtype)
     # With proj_entry the buffer is K5's Qprev source, wanted or not.
-    Qacc = (torch.zeros((m, n), dtype=q_dtype, device=dev)
+    Qacc = (torch.zeros((*batch, m, n), dtype=q_dtype, device=dev)
             if (want_q or proj_entry) and not reorth else None)
     is_bf16 = policy.trailing == torch.bfloat16
+    group_fused = bgs_group_fused_batched if batch else bgs_group_fused
+    chain = ns_chain_batched if batch else ns_chain
 
     i = 0
     while i < nb:
@@ -333,14 +364,14 @@ def _block_qr_bgs(
         js = list(range(i, min(i + group_panels, nb)))
         g_end = (js[-1] + 1) * r
         gw = g_end - lam_g
-        Pbuf, T = T[:, :gw], T[:, gw:]
+        Pbuf, T = T[..., :gw], T[..., gw:]
         if reorth and lam_g > 0:
-            Qprev = torch.cat(qcols, dim=1)
+            Qprev = torch.cat(qcols, dim=-1)
             Cg = Pbuf.float()
             rp = Precision.HIGH if mid_tier else Precision.HIGHEST
-            C2 = matmul(Qprev.T, Cg, precision=rp)
+            C2 = matmul(Qprev.mT, Cg, precision=rp)
             Pbuf = (Cg - matmul(Qprev, C2, precision=rp)).to(Pbuf.dtype)
-            R[:lam_g, lam_g:g_end] += C2
+            R[..., :lam_g, lam_g:g_end] += C2
         robust_js = tuple(j >= nb - n_robust for j in js)
         if use_group:
             iters_js = tuple(_plain_iters(j) for j in js)
@@ -352,38 +383,39 @@ def _block_qr_bgs(
                 )
                 R[:lam_g, lam_g:g_end] = Rprev
             else:
-                Qg, Rg, resid = bgs_group_fused(
+                Qg, Rg, resid = group_fused(
                     Pbuf.float().contiguous(), r, iters_js, robust_js,
                     bf16_dots=is_bf16 and not reorth,
                     bf16_gram=is_bf16 and not reorth,
                     chain_mid=chain_mid,
                 )
             worst = torch.maximum(worst, resid)
-            R[lam_g:g_end, lam_g:g_end] = Rg
+            R[..., lam_g:g_end, lam_g:g_end] = Rg
             if reorth and any(robust_js):
                 k0 = robust_js.index(True) * r
                 rob0 = lam_g + k0
                 if rob0 > 0:
-                    pre = ([torch.cat(qcols, dim=1)] if qcols else []) + (
-                        [Qg[:, :k0]] if k0 else [])
+                    pre = ([torch.cat(qcols, dim=-1)] if qcols else []) + (
+                        [Qg[..., :k0]] if k0 else [])
                     q2, t2, dW, rs = _rescrub_panel(
-                        torch.cat(pre, dim=1), Qg[:, k0:], Rg[k0:, k0:])
+                        torch.cat(pre, dim=-1), Qg[..., k0:],
+                        Rg[..., k0:, k0:])
                     worst = torch.maximum(worst, rs * rs)
-                    R[:rob0, rob0:g_end] += dW
-                    R[rob0:g_end, rob0:g_end] = t2
-                    Qg = torch.cat([Qg[:, :k0], q2], dim=1) if k0 else q2
+                    R[..., :rob0, rob0:g_end] += dW
+                    R[..., rob0:g_end, rob0:g_end] = t2
+                    Qg = torch.cat([Qg[..., :k0], q2], dim=-1) if k0 else q2
             if cast_early:
                 Qg = Qg.to(q_dtype)
             if B is not None:
-                qtb.append(mm_t(Qg.T, B))
+                qtb.append(mm_t(Qg.mT, B))
             if Qacc is not None:
-                Qacc[:, lam_g:g_end] = Qg.to(q_dtype)
+                Qacc[..., lam_g:g_end] = Qg.to(q_dtype)
             qcols.append(Qg)
             # proj_entry: the next group's kernel scrubs its own columns.
             if g_end < n and not proj_entry:
-                G1 = mm_t(Qg.T, T)
+                G1 = mm_t(Qg.mT, T)
                 T = (T - mm_t(Qg, G1)).to(T.dtype)
-                R[lam_g:g_end, g_end:] = G1
+                R[..., lam_g:g_end, g_end:] = G1
             i = js[-1] + 1
             continue
         q_start = len(qcols)
@@ -391,49 +423,49 @@ def _block_qr_bgs(
         for j in js:
             lam = j * r
             c0 = lam - lam_g
-            P = Pbuf[:, c0:c0 + r]
+            P = Pbuf[..., c0:c0 + r]
             if j >= nb - n_robust:
                 Qk, t, _, rresid = tri_cholqr_robust_fused(
                     P, chain_mid=chain_mid)
                 worst = torch.maximum(worst, 0.01 * rresid)
                 if reorth and qcols:
                     Qk, t, dW, rs = _rescrub_panel(
-                        torch.cat(qcols, dim=1), Qk, t)
+                        torch.cat(qcols, dim=-1), Qk, t)
                     worst = torch.maximum(worst, rs * rs)
-                    R[:lam, lam:lam + r] += dW
+                    R[..., :lam, lam:lam + r] += dW
             else:
-                G = matmul(P.T, P, precision=gram_prec)
-                X, t, resid = ns_chain(G.contiguous(), iters=_plain_iters(j),
-                                       chain_mid=chain_mid)
+                G = matmul(P.mT, P, precision=gram_prec)
+                X, t, resid = chain(G.contiguous(), iters=_plain_iters(j),
+                                    chain_mid=chain_mid)
                 Qk = matmul(P, X, precision=gram_prec)
                 worst = torch.maximum(worst, resid * resid)
-            R[lam:lam + r, lam:lam + r] = t
+            R[..., lam:lam + r, lam:lam + r] = t
             if lam + r < g_end:
-                C = Pbuf[:, c0 + r:]
-                G1 = mm_e(Qk.T, C)
-                Pbuf[:, c0 + r:] = (C - mm_e(Qk, G1)).to(Pbuf.dtype)
-                R[lam:lam + r, lam + r:g_end] = G1
+                C = Pbuf[..., c0 + r:]
+                G1 = mm_e(Qk.mT, C)
+                Pbuf[..., c0 + r:] = (C - mm_e(Qk, G1)).to(Pbuf.dtype)
+                R[..., lam:lam + r, lam + r:g_end] = G1
             if cast_early:
                 Qk = Qk.to(q_dtype)
             if B is not None:
-                qtb.append(mm_t(Qk.T, B))
+                qtb.append(mm_t(Qk.mT, B))
             if Qacc is not None:
-                Qacc[:, lam:lam + r] = Qk.to(q_dtype)
+                Qacc[..., lam:lam + r] = Qk.to(q_dtype)
             qcols.append(Qk)
         if g_end < n:
-            Qg = torch.cat(qcols[q_start:], dim=1)
-            G1 = mm_t(Qg.T, T)
+            Qg = torch.cat(qcols[q_start:], dim=-1)
+            G1 = mm_t(Qg.mT, T)
             T = (T - mm_t(Qg, G1)).to(T.dtype)
-            R[lam_g:g_end, g_end:] = G1
+            R[..., lam_g:g_end, g_end:] = G1
         i = js[-1] + 1
 
-    R_full = (torch.cat([R, R.new_zeros((m - n, n))], dim=0)
+    R_full = (torch.cat([R, R.new_zeros((*batch, m - n, n))], dim=-2)
               if m > n else R).to(policy.accum)
     if Qacc is not None:
         Q = Qacc if want_q else None
     else:
-        Q = torch.cat(qcols, dim=1).to(q_dtype) if want_q else None
-    QtB = torch.cat(qtb, dim=0) if B is not None else None
+        Q = torch.cat(qcols, dim=-1).to(q_dtype) if want_q else None
+    QtB = torch.cat(qtb, dim=-2) if B is not None else None
     return _poison_if_unconverged(worst, R_full, Q, QtB)
 
 
@@ -1115,13 +1147,15 @@ def _driver_batched(A, block_size, policy, want_q, B, panel_method,
     ``B`` (B, m, k) or None: ``(R_full, Q, QtB)`` stacked (the JAX
     package's ``vmap`` of ``_jitted_driver``).  The reflector tiers run
     ``_block_qr_traced`` once on the whole stack (one K6 launch over the
-    batch a panel step on the card).  The ``bgs*`` and ``polar`` tiers run
-    ``_driver`` member by member: their kernels K1 / K2 / K4 have no
-    batched entry yet (ROADMAP.md Queue 2 item 3 (vii)); on the card each
-    member still launches them."""
-    if panel_method in _REFLECTOR_TIERS:
-        return _block_qr_traced(A, block_size, policy, want_q, B,
-                                panel_method)
+    batch a panel step on the card), the BGS tiers ``bgs`` / ``bgs1`` /
+    ``bgs2`` ``_block_qr_bgs`` once (one batched K2 entry a group, one
+    batched K1 launch a chain of the per-panel route, the robust tail and
+    the rescrub).  ``polar`` runs ``_driver`` member by member: its K4 has
+    no batched entry yet (ROADMAP.md Queue 2 item 3 (vii)); on the card
+    each member still launches K1 and K4."""
+    if panel_method in _STACKED_TIERS:
+        return _driver(A, block_size, policy, want_q, B, panel_method,
+                       "unroll", group_panels)
     Bs = [None] * A.shape[0] if B is None else B
     outs = [_driver(a, block_size, policy, want_q, b, panel_method,
                     "unroll", group_panels) for a, b in zip(A, Bs)]
@@ -1140,7 +1174,9 @@ def block_qr_batched(
     """Blocked QR over a leading batch axis: the unrolled driver of
     ``panel_method`` on the whole (batch, m, n) stack (the JAX package
     ``vmap``s it; ``_driver_batched``): the reflector tiers in one stacked
-    call, one K6 launch over the batch a panel step on the card.
+    call, one K6 launch over the batch a panel step on the card; the BGS
+    tiers in one stacked call, one batched K2 entry a group (or one batched
+    K1 launch a chain) on the card; ``polar`` member by member.
     ``panel_method`` is taken as given, as there; a NaN in one member
     poisons that member's canary only."""
     A_batch = as_device_tensor(A_batch, device)

@@ -22,6 +22,7 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.givens import (  # noqa: F401
 from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (  # noqa: F401
     LAUNCHES,
     bgs_group_fused,
+    bgs_group_fused_batched,
     bgs_group_fused_plain,
     bgs_group_fused_proj,
     bgs_group_fused_proj_plain,
@@ -29,6 +30,7 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (  # noqa: F401
     ninv_chain_plain,
     ninv_layout,
     ns_chain,
+    ns_chain_batched,
     ns_chain_plain,
     panel_qr_fused,
     panel_qr_fused_plain,

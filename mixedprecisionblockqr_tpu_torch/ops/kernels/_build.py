@@ -65,12 +65,23 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_ns_chain.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, ci, ci,
                                    ci, ci, *chain, vp]
     lib.mpbqr_ns_chain.restype = ci
+    lib.mpbqr_ns_chain_batched.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                           cf, ci, ci, ci, ci, *chain, vp]
+    lib.mpbqr_ns_chain_batched.restype = ci
+    lib.mpbqr_ns_chain_resident.argtypes = [ci, *chain, ctypes.POINTER(ci)]
+    lib.mpbqr_ns_chain_resident.restype = ci
     lib.mpbqr_bgs_group_scratch_floats.argtypes = [ci, ci, ci]
     lib.mpbqr_bgs_group_scratch_floats.restype = ll
+    lib.mpbqr_bgs_group_batched_scratch_floats.argtypes = [ci, ci, ci, ci]
+    lib.mpbqr_bgs_group_batched_scratch_floats.restype = ll
     layout = [ci] * 10  # ns.py::GroupLayout.args(): products, then chain
     lib.mpbqr_bgs_group.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp,
                                     ci, ci, ci, *layout, vp]
     lib.mpbqr_bgs_group.restype = ci
+    lib.mpbqr_bgs_group_batched.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                            ci, vp, vp, ci, ci, ci, *layout,
+                                            vp]
+    lib.mpbqr_bgs_group_batched.restype = ci
     lib.mpbqr_bgs_group_proj.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp,
                                          vp, ci, ci, ci, vp, vp, ci, ci, ci,
                                          *layout, ci, ci, vp]

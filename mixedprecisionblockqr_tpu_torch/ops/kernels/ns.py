@@ -3,6 +3,9 @@
 (K5), each beside its plain PyTorch version, the R-block combine
 ``tri_combine`` that closes K2's and K3's robust panels, on its own, and the
 compositions ``tri_cholqr_fused`` and ``tri_cholqr_robust_fused`` over K1.
+K1 and K2 also take a stack of problems in one call (``ns_chain_batched``,
+``bgs_group_fused_batched``: the TPU kernels under ``jax.vmap``), and their
+plain versions take the same stacks.
 
 Port of ``mixedprecisionblockqr_tpu/ops/pallas/ns.py``.  The wrappers
 launch the hand-written CUDA kernels of ``csrc/`` for CUDA tensors and
@@ -41,12 +44,16 @@ ROUTE_LAUNCHES = {"tma": 0, "predicated": 0}
 #: Launches of a kernel piece through its own wrapper: the combine, which
 #: otherwise runs inside K2's and K3's entries (counted there).
 PIECE_LAUNCHES = {"tri_combine": 0}
-#: K6's batched entry (ops/kernels/panel.py::panel_factor_fused_batched):
-#: its launches (one a call, one a sub-panel above 128 columns), which
-#: count in ``LAUNCHES["panel_factor_fused"]`` as well, and the panels it
-#: factored (B a call).
-BATCH_LAUNCHES = {"panel_factor_fused": 0}
-BATCH_MEMBERS = {"panel_factor_fused": 0}
+#: The batched entries: K6's (ops/kernels/panel.py::
+#: panel_factor_fused_batched: one launch a call, one a sub-panel above 128
+#: columns), K1's (:func:`ns_chain_batched`, one launch a call) and K2's
+#: (:func:`bgs_group_fused_batched`, one C entry a call).  Their launches
+#: count in ``LAUNCHES`` under the same key as well; ``BATCH_MEMBERS``
+#: counts the panels, chains or groups they ran (B a call).
+BATCH_LAUNCHES = {"panel_factor_fused": 0, "ns_chain": 0,
+                  "bgs_group_fused": 0}
+BATCH_MEMBERS = {"panel_factor_fused": 0, "ns_chain": 0,
+                 "bgs_group_fused": 0}
 #: K6's wide route (ops/kernels/panel.py, panels wider than 128): its calls
 #: and the product launches between its sub-panels, whose K6 launches
 #: count in ``LAUNCHES["panel_factor_fused"]``.
@@ -90,6 +97,9 @@ NT_WIDE_BM = 64
 TARGET_CTAS = 128
 #: Most rows gemm_nt's grid covers (65,535 row blocks of NT_WIDE_BM).
 MAX_ROWS = 65535 * NT_WIDE_BM
+#: Most members of one batched launch (csrc/ns_chain.cuh::kMaxBatch: the
+#: chain's grid y).
+MAX_BATCH = 65535
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -273,18 +283,29 @@ def reset_launches() -> None:
 
 def _norm2_est(M: torch.Tensor) -> torch.Tensor:
     """Upper estimate of ||M||_2: 1.05 x two power-iteration steps, computed
-    scale-normalized so that ||M|| >~ 3e8 cannot overflow fp32."""
-    a = torch.maximum(M.abs().max(), M.new_tensor(_TINY))
+    scale-normalized so that ||M|| >~ 3e8 cannot overflow fp32.  For a
+    stack (..., r, r), one estimate a member (shape (...))."""
+    def total(x):
+        return x.sum(dim=(-2, -1), keepdim=True)
+
+    a = torch.maximum(M.abs().amax(dim=(-2, -1), keepdim=True),
+                      M.new_tensor(_TINY))
     Ms = M * (1.0 / a)
-    v0 = Ms.sum(dim=1, keepdim=True)
+    v0 = Ms.sum(dim=-1, keepdim=True)
     v1 = mm_f32(Ms, v0)
-    n1 = torch.sqrt((v1 * v1).sum())
+    n1 = torch.sqrt(total(v1 * v1))
     v2 = mm_f32(Ms, v1 * (1.0 / (n1 + 1e-30)))
-    return (1.05 * a) * torch.sqrt((v2 * v2).sum())
+    return ((1.05 * a) * torch.sqrt(total(v2 * v2)))[..., 0, 0]
 
 
 def _correction(E: torch.Tensor) -> torch.Tensor:
-    return torch.triu(E, 1) + torch.diag_embed(torch.diagonal(E)) * 0.5
+    return torch.triu(E, 1) + torch.diag_embed(
+        torch.diagonal(E, dim1=-2, dim2=-1)) * 0.5
+
+
+def _max_abs(E: torch.Tensor) -> torch.Tensor:
+    """max|E| of a matrix, or of each member of a stack."""
+    return E.abs().amax(dim=(-2, -1))
 
 
 def _tri_ns(G, iters, refine=False, mid_iters=0, omega=True, fuse_xw=True):
@@ -293,68 +314,72 @@ def _tri_ns(G, iters, refine=False, mid_iters=0, omega=True, fuse_xw=True):
     ``I - X^T G X``.
     The first ``mid_iters`` iterations use the bf16-split products; with
     ``fuse_xw`` all but the final two iterations carry W = G X by the
-    stacked right-multiplication."""
-    r = G.shape[0]
+    stacked right-multiplication.  G may be a stack (..., r, r): every
+    member runs its own chain."""
+    r = G.shape[-1]
     eye = torch.eye(r, dtype=torch.float32, device=G.device)
     if refine:
-        X, W = eye, G
+        X, W = eye.expand_as(G), G
     else:
-        d = torch.rsqrt(torch.maximum(torch.diagonal(G), G.new_tensor(_TINY)))
-        M0 = G * d[:, None] * d[None, :]
-        dr = d * torch.rsqrt(_norm2_est(M0))
-        X = torch.diag(dr)
-        W = G * dr[None, :]
+        d = torch.rsqrt(torch.maximum(torch.diagonal(G, dim1=-2, dim2=-1),
+                                      G.new_tensor(_TINY)))
+        M0 = G * d[..., :, None] * d[..., None, :]
+        dr = d * torch.rsqrt(_norm2_est(M0))[..., None]
+        X = torch.diag_embed(dr)
+        W = G * dr[..., None, :]
     n_om = 0 if (refine or not omega) else min(4, max(0, iters - 4))
     n_fused = max(0, iters - 2) if fuse_xw else 0
-    E = eye
+    E = eye.expand_as(G)
     for it in range(iters):
         om = 1.5 if it < n_om else 1.0
         mm = mm_high if it < mid_iters else mm_f32
         if it < n_fused:
-            E = eye - mm(X.T, W)
+            E = eye - mm(X.mT, W)
             C = _correction(E)
             X, W = X + om * mm(X, C), W + om * mm(W, C)
         else:
             W = mm(G, X)
-            E = eye - mm(X.T, W)
+            E = eye - mm(X.mT, W)
             C = _correction(E)
             X = X + om * mm(X, C)
     if refine:
-        E = eye - mm_f32(X.T, mm_f32(G, X))
+        E = eye - mm_f32(X.mT, mm_f32(G, X))
     return X, E
 
 
 def ns_chain_plain(G, iters=10, shift=0.0, refine=False, chain_mid=False,
                    omega=True, fuse_xw=True):
-    """Plain version of :func:`ns_chain` (``_ns_kernel`` transcription)."""
+    """Plain version of :func:`ns_chain` (``_ns_kernel`` transcription), and
+    of :func:`ns_chain_batched` on a stack (..., r, r): one chain a member,
+    one residual a member."""
     G = G.float()
     if shift:
-        eye = torch.eye(G.shape[0], dtype=torch.float32, device=G.device)
-        G = G + (shift * _norm2_est(G)) * eye
+        eye = torch.eye(G.shape[-1], dtype=torch.float32, device=G.device)
+        G = G + (shift * _norm2_est(G))[..., None, None] * eye
     X, E = _tri_ns(G, iters, refine=refine,
                    mid_iters=max(0, iters - 2)
                    if chain_mid and not refine else 0,
                    omega=omega, fuse_xw=fuse_xw)
-    t = torch.triu(mm_f32(X.T, G))
-    return X, t, E.abs().max()
+    t = torch.triu(mm_f32(X.mT, G))
+    return X, t, _max_abs(E)
 
 
 def _robust_passes(P, G, tall, mid):
     """The shifted three-pass chain of a robust panel with Gram ``G``:
     ``(Qk, (t1, t2, t3), E)``, the t's the full products X_k^T G_k."""
     i1, i2, i3 = ROBUST_ITERS
-    eye = torch.eye(G.shape[0], dtype=torch.float32, device=G.device)
-    Gs = G + (1e-3 * _norm2_est(G)) * eye
+    eye = torch.eye(G.shape[-1], dtype=torch.float32, device=G.device)
+    Gs = G + (1e-3 * _norm2_est(G))[..., None, None] * eye
     X1, _ = _tri_ns(Gs, i1, mid_iters=mid(i1), omega=False)
-    t1 = mm_f32(X1.T, Gs)
+    t1 = mm_f32(X1.mT, Gs)
     Q1 = tall(P, X1)
-    M1 = tall(Q1.T, Q1)
+    M1 = tall(Q1.mT, Q1)
     X2, _ = _tri_ns(M1, i2, mid_iters=mid(i2), omega=False)
-    t2 = mm_f32(X2.T, M1)
+    t2 = mm_f32(X2.mT, M1)
     Q2 = tall(Q1, X2)
-    M2 = tall(Q2.T, Q2)
+    M2 = tall(Q2.mT, Q2)
     X3, E = _tri_ns(M2, i3, refine=True)
-    t3 = mm_f32(X3.T, M2)
+    t3 = mm_f32(X3.mT, M2)
     return tall(Q2, X3), (t1, t2, t3), E
 
 
@@ -363,26 +388,27 @@ def robust_products(P):
     ``P`` (fp32 throughout): the combine's inputs, for checking and timing
     :func:`tri_combine` at a robust panel's values."""
     P = P.float()
-    return _robust_passes(P, mm_f32(P.T, P), mm_f32, lambda it: 0)[1]
+    return _robust_passes(P, mm_f32(P.mT, P), mm_f32, lambda it: 0)[1]
 
 
 def _tri_ns_panel(P, iters, robust, bf16_gram, chain_mid):
-    """One panel's factorization (``_tri_ns_panel``): (Qk, t, resid)."""
+    """One panel's factorization (``_tri_ns_panel``): (Qk, t, resid); on a
+    stack (..., m, r) one of each a member."""
     tall = mm_bf16 if bf16_gram else mm_f32
-    G = tall(P.T, P)
+    G = tall(P.mT, P)
     mid = (lambda it: max(0, it - MID_FINAL)) if chain_mid else (lambda it: 0)
     if robust:
         Qk, ts, E = _robust_passes(P, G, tall, mid)
-        return Qk, tri_combine_plain(*ts), E.abs().max()
+        return Qk, tri_combine_plain(*ts), _max_abs(E)
     X, E = _tri_ns(G, iters, mid_iters=mid(iters))
     Qk = tall(P, X)
-    t = torch.triu(mm_f32(X.T, G))
-    return Qk, t, E.abs().max()
+    t = torch.triu(mm_f32(X.mT, G))
+    return Qk, t, _max_abs(E)
 
 
 def tri_combine_plain(T1, T2, T3):
     """Plain version of :func:`tri_combine`: ``triu(T3 (T2 T1))`` in fp32,
-    the robust R block of ``_tri_ns_panel``."""
+    the robust R block of ``_tri_ns_panel`` (each member's, for stacks)."""
     return torch.triu(mm_f32(T3, mm_f32(T2, T1)))
 
 
@@ -395,32 +421,34 @@ def panel_qr_fused_plain(P, iters=10, robust=False, chain_mid=False):
 def bgs_group_fused_plain(Pg, r, iters, robust, bf16_dots=True,
                           bf16_gram=None, chain_mid=False):
     """Plain version of :func:`bgs_group_fused` (``_group_loop``
-    transcription).  Works on a copy of ``Pg``."""
+    transcription), and of :func:`bgs_group_fused_batched` on a stack
+    (..., m, g*r): every member the same steps, one worst residual a
+    member.  Works on a copy of ``Pg``."""
     if bf16_gram is None:
         bf16_gram = bf16_dots
     Q = Pg.float().clone()
-    m, w = Q.shape
+    *batch, m, w = Q.shape
     g = w // r
-    Rg = torch.zeros((w, w), dtype=torch.float32, device=Q.device)
-    worst = torch.zeros((), dtype=torch.float32, device=Q.device)
+    Rg = torch.zeros((*batch, w, w), dtype=torch.float32, device=Q.device)
+    worst = torch.zeros(batch, dtype=torch.float32, device=Q.device)
     proj = mm_bf16 if bf16_dots else mm_f32
     for j in range(g):
         c0 = j * r
         Qk, t, resid = _tri_ns_panel(
-            Q[:, c0:c0 + r], iters[j], robust[j], bf16_gram, chain_mid,
+            Q[..., c0:c0 + r], iters[j], robust[j], bf16_gram, chain_mid,
         )
         # Robust chains report the exact final residual (healthy up to
         # ~1e-2, so pre-scaled by 1e-2); plain chains the one-behind
         # correction, whose square estimates the true residual.
         worst = torch.maximum(worst,
                               resid * 0.01 if robust[j] else resid * resid)
-        Q[:, c0:c0 + r] = Qk
-        Rg[c0:c0 + r, c0:c0 + r] = t
+        Q[..., c0:c0 + r] = Qk
+        Rg[..., c0:c0 + r, c0:c0 + r] = t
         if j + 1 < g:
-            C = Q[:, c0 + r:]
-            G1 = proj(Qk.T, C)
-            Q[:, c0 + r:] = C - proj(Qk, G1)
-            Rg[c0:c0 + r, c0 + r:] = G1
+            C = Q[..., c0 + r:]
+            G1 = proj(Qk.mT, C)
+            Q[..., c0 + r:] = C - proj(Qk, G1)
+            Rg[..., c0:c0 + r, c0 + r:] = G1
     return Q, Rg, worst
 
 
@@ -454,14 +482,19 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _require_cuda_f32(x: torch.Tensor, name: str) -> None:
+def _require_cuda_f32(x: torch.Tensor, name: str, dims: int = 2) -> None:
+    """Refuse anything but a contiguous float32 CUDA tensor of ``dims``
+    dimensions (3: a stack whose batch is 1 .. ``MAX_BATCH``)."""
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CPU or CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+    if x.dtype != torch.float32 or x.dim() != dims or not x.is_contiguous():
         raise ValueError(
-            f"{name} must be a contiguous 2-D float32 tensor, got "
+            f"{name} must be a contiguous {dims}-D float32 tensor, got "
             f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}"
         )
+    if dims == 3 and not 1 <= x.shape[0] <= MAX_BATCH:
+        raise ValueError(f"{name} must hold 1 .. {MAX_BATCH} members, got "
+                         f"{x.shape[0]}")
 
 
 def ns_chain(
@@ -495,31 +528,101 @@ def ns_chain(
     r = G.shape[0]
     if G.shape != (r, r):
         raise ValueError(f"ns_chain kernel takes r x r; got {tuple(G.shape)}")
-    lay = ns_layout(r, _card_cluster(G, r))
+    out = _launch_chain(G, iters, shift, refine, chain_mid, omega, fuse_xw)
+    LAUNCHES["ns_chain"] += 1
+    return out
+
+
+def _launch_chain(G, iters, shift, refine, chain_mid, omega, fuse_xw):
+    """One launch of ``mpbqr_ns_chain`` (an (r, r) Gram) or
+    ``mpbqr_ns_chain_batched`` (a (B, r, r) stack, one L2-route scratch a
+    member) with :func:`ns_layout`'s layout on a checked CUDA tensor;
+    counts nothing.  Returns ``(X, t, resid)``."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
         check, library,
     )
 
-    lib = library()
+    *batch, r, _ = G.shape
+    lay = ns_layout(r, _card_cluster(G, r))
     X = torch.empty_like(G)
     t = torch.empty_like(G)
-    resid = torch.empty((), dtype=torch.float32, device=G.device)
-    scratch = _scratch(G, lay)
+    resid = torch.empty(batch, dtype=torch.float32, device=G.device)
+    scratch = torch.empty((batch[0] if batch else 1) * lay.scratch_floats,
+                          dtype=torch.float32, device=G.device)
     mid_iters = max(0, iters - 2) if chain_mid and not refine else 0
-    code = lib.mpbqr_ns_chain(
-        G.data_ptr(), X.data_ptr(), t.data_ptr(), resid.data_ptr(),
-        scratch.data_ptr(), r, iters, float(shift), int(refine), mid_iters,
-        int(omega), int(fuse_xw), *_c_layout(lay), _stream(G),
-    )
+    ptrs = (G.data_ptr(), X.data_ptr(), t.data_ptr(), resid.data_ptr(),
+            scratch.data_ptr())
+    tail = (r, iters, float(shift), int(refine), mid_iters, int(omega),
+            int(fuse_xw), *_c_layout(lay), _stream(G))
+    if batch:
+        code = library().mpbqr_ns_chain_batched(*ptrs, batch[0], *tail)
+    else:
+        code = library().mpbqr_ns_chain(*ptrs, *tail)
     check(code, "ns_chain")
-    LAUNCHES["ns_chain"] += 1
     return X, t, resid
 
 
-def _group_shape(Pg, r, iters, robust):
-    """``(m, w, g)`` of a CUDA group buffer the group kernels take."""
-    _require_cuda_f32(Pg, "Pg")
-    m, w = Pg.shape
+def ns_chain_batched(
+    G: torch.Tensor,
+    iters: int = 10,
+    shift: float = 0.0,
+    refine: bool = False,
+    chain_mid: bool = False,
+    omega: bool = True,
+    fuse_xw: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`ns_chain` of each member of a stack ``G`` (B, r, r), the same
+    options for all: the TPU kernel under ``jax.vmap``.
+
+    Returns ``X (B, r, r)``, ``t (B, r, r)`` and ``resid (B,)``, member by
+    member as :func:`ns_chain` gives them.  On the CPU it runs
+    :func:`ns_chain_plain` on the stack.  On CUDA it is ONE launch of B
+    clusters laid out by :func:`ns_layout` (the member the grid's y), with
+    one L2-route scratch a member above 128; each member gets the bits of
+    its single launch.  A stack that is not contiguous fp32, an r outside
+    1 .. ``MAX_WIDTH`` or a B outside 1 .. ``MAX_BATCH`` raises
+    ``ValueError``, with no loop of single launches in its place.  Counts
+    in ``LAUNCHES`` and ``BATCH_LAUNCHES`` (one) and ``BATCH_MEMBERS``
+    (B)."""
+    if G.device.type == "cpu":
+        return ns_chain_plain(G, iters, shift, refine, chain_mid, omega,
+                              fuse_xw)
+    _require_cuda_f32(G, "G", dims=3)
+    B, r = G.shape[:2]
+    if G.shape != (B, r, r):
+        raise ValueError(f"ns_chain_batched takes (B, r, r); got "
+                         f"{tuple(G.shape)}")
+    out = _launch_chain(G, iters, shift, refine, chain_mid, omega, fuse_xw)
+    LAUNCHES["ns_chain"] += 1
+    BATCH_LAUNCHES["ns_chain"] += 1
+    BATCH_MEMBERS["ns_chain"] += B
+    return out
+
+
+def ns_resident_clusters(device: torch.device, r: int) -> int:
+    """How many K1 clusters of :func:`ns_layout` (r) the card of ``device``
+    keeps resident at once (``cudaOccupancyMaxActiveClusters``): a batch of
+    B chains runs in ``ceil(B / ns_resident_clusters)`` waves."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
+        check, library,
+    )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import max_cluster
+
+    lay = ns_layout(r, max_cluster(device) if not _inst(r)
+                    else L2_MAX_CLUSTER)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        check(library().mpbqr_ns_chain_resident(
+            r, *_c_layout(lay), ctypes.byref(out)),
+            "ns_chain resident clusters")
+    return out.value
+
+
+def _group_shape(Pg, r, iters, robust, dims=2):
+    """``(m, w, g)`` of a CUDA group buffer the group kernels take: one
+    (m, w) group, or with ``dims=3`` a (B, m, w) stack of them."""
+    _require_cuda_f32(Pg, "Pg", dims)
+    m, w = Pg.shape[-2:]
     g = w // max(r, 1)
     if (not 1 <= r <= MAX_WIDTH or w != g * r or len(iters) != g
             or len(robust) != g):
@@ -533,33 +636,38 @@ def _group_shape(Pg, r, iters, robust):
 
 def _group_buffers(lib, Pg, r, g, iters, robust):
     """Outputs ``Q``, ``Rg``, ``worst``, the scratch and the host arrays of
-    one group-kernel launch."""
-    m, w = Pg.shape
+    one group-kernel launch (on a (B, m, w) stack: B of each output)."""
+    *batch, m, w = Pg.shape
     f32 = dict(dtype=torch.float32, device=Pg.device)
-    return (torch.empty_like(Pg), torch.empty((w, w), **f32),
-            torch.empty((), **f32),
-            torch.empty(lib.mpbqr_bgs_group_scratch_floats(m, r, g), **f32),
+    floats = (lib.mpbqr_bgs_group_batched_scratch_floats(batch[0], m, r, g)
+              if batch else lib.mpbqr_bgs_group_scratch_floats(m, r, g))
+    return (torch.empty_like(Pg), torch.empty((*batch, w, w), **f32),
+            torch.empty(batch, **f32), torch.empty(floats, **f32),
             (ctypes.c_int * g)(*[int(i) for i in iters]),
             (ctypes.c_int * g)(*[int(bool(b)) for b in robust]))
 
 
 def _launch_group(lib, Pg, r, iters, robust, bf16_dots, bf16_gram,
                   chain_mid):
-    """One launch of ``mpbqr_bgs_group`` from the kernel library ``lib``
-    on a checked group buffer; counts nothing.  Returns ``(Q, Rg,
-    worst)``."""
+    """One call of ``mpbqr_bgs_group`` (an (m, w) group) or
+    ``mpbqr_bgs_group_batched`` (a (B, m, w) stack) from the kernel library
+    ``lib`` on a checked group buffer, with :func:`group_layout`'s layout
+    (the same for a stack); counts nothing.  Returns ``(Q, Rg, worst)``."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
 
-    m, w = Pg.shape
+    *batch, m, w = Pg.shape
     g = w // r
     Q, Rg, worst, scratch, it_arr, rb_arr = _group_buffers(
         lib, Pg, r, g, iters, robust)
-    code = lib.mpbqr_bgs_group(
-        Pg.data_ptr(), Q.data_ptr(), Rg.data_ptr(), worst.data_ptr(),
-        scratch.data_ptr(), m, r, g, it_arr, rb_arr, int(bf16_dots),
-        int(bf16_gram), int(chain_mid),
-        *group_layout(m, r, _card_cluster(Pg, r)).args(), _stream(Pg),
-    )
+    ptrs = (Pg.data_ptr(), Q.data_ptr(), Rg.data_ptr(), worst.data_ptr(),
+            scratch.data_ptr())
+    tail = (m, r, g, it_arr, rb_arr, int(bf16_dots), int(bf16_gram),
+            int(chain_mid), *group_layout(m, r, _card_cluster(Pg, r)).args(),
+            _stream(Pg))
+    if batch:
+        code = lib.mpbqr_bgs_group_batched(*ptrs, batch[0], *tail)
+    else:
+        code = lib.mpbqr_bgs_group(*ptrs, *tail)
     check(code, "bgs_group_fused")
     return Q, Rg, worst
 
@@ -601,6 +709,45 @@ def bgs_group_fused(
     out = _launch_group(library(), Pg, r, iters, robust, bf16_dots,
                         bf16_gram, chain_mid)
     LAUNCHES["bgs_group_fused"] += 1
+    return out
+
+
+def bgs_group_fused_batched(
+    Pg: torch.Tensor,
+    r: int,
+    iters: Sequence[int],
+    robust: Sequence[bool],
+    bf16_dots: bool = True,
+    bf16_gram=None,
+    chain_mid: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`bgs_group_fused` of each member of a stack ``Pg`` (B, m,
+    g*r), the same ``iters`` / ``robust`` / flags for all: the TPU kernel
+    under ``jax.vmap``.
+
+    Returns ``Qg (B, m, g*r)``, ``Rg (B, g*r, g*r)`` and ``worst (B,)``,
+    member by member as :func:`bgs_group_fused` gives them.  On the CPU it
+    runs :func:`bgs_group_fused_plain` on the stack.  On CUDA it is ONE C
+    entry that issues the single group's sequence of launches, each over
+    the B members, with :func:`group_layout`'s layout (the single group's,
+    so each member gets the bits of its single call) on the same two
+    streams; a stack that is not contiguous fp32, a width the kernels do
+    not take or a B outside 1 .. ``MAX_BATCH`` raises ``ValueError``, with
+    no loop of single calls in its place.  Counts in ``LAUNCHES`` and
+    ``BATCH_LAUNCHES`` (one) and ``BATCH_MEMBERS`` (B)."""
+    if bf16_gram is None:
+        bf16_gram = bf16_dots
+    if Pg.device.type == "cpu":
+        return bgs_group_fused_plain(Pg, r, iters, robust, bf16_dots,
+                                     bf16_gram, chain_mid)
+    _group_shape(Pg, r, iters, robust, dims=3)
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
+
+    out = _launch_group(library(), Pg, r, iters, robust, bf16_dots,
+                        bf16_gram, chain_mid)
+    LAUNCHES["bgs_group_fused"] += 1
+    BATCH_LAUNCHES["bgs_group_fused"] += 1
+    BATCH_MEMBERS["bgs_group_fused"] += Pg.shape[0]
     return out
 
 
@@ -807,21 +954,24 @@ def tri_cholqr_robust_fused(P: torch.Tensor, chain_mid: bool = False,
     """Shifted three-pass panel factorization over :func:`ns_chain` for
     ill-conditioned tail panels (a composition, not a kernel).  Returns
     ``(Q, t, X, resid)`` with ``resid`` the final pass's exact residual;
-    ``sign_fix`` applies the Yamamoto column convention at the end."""
+    ``sign_fix`` applies the Yamamoto column convention at the end.  On a
+    stack (B, m, r) every member runs its own passes, each pass one
+    :func:`ns_chain_batched` call, and ``resid`` is one a member."""
     P = P.float()
-    X1, t1, _ = ns_chain(mm_f32(P.T, P), iters=14, shift=1e-3,
-                         chain_mid=chain_mid, omega=False)
+    chain = ns_chain_batched if P.dim() == 3 else ns_chain
+    X1, t1, _ = chain(mm_f32(P.mT, P), iters=14, shift=1e-3,
+                      chain_mid=chain_mid, omega=False)
     Q1 = mm_f32(P, X1)
-    X2, t2, _ = ns_chain(mm_f32(Q1.T, Q1), iters=12, chain_mid=chain_mid,
-                         omega=False)
+    X2, t2, _ = chain(mm_f32(Q1.mT, Q1), iters=12, chain_mid=chain_mid,
+                      omega=False)
     Q1f = mm_f32(Q1, X2)
-    X3, t3, resid = ns_chain(mm_f32(Q1f.T, Q1f), iters=4, refine=True)
+    X3, t3, resid = chain(mm_f32(Q1f.mT, Q1f), iters=4, refine=True)
     Qs = mm_f32(Q1f, X3)
     t = torch.triu(mm_f32(t3, mm_f32(t2, t1)))
     X = mm_f32(mm_f32(X1, X2), X3)
     if sign_fix:
-        D = _sign_fix(Qs[:P.shape[1], :])
-        Qs = Qs * D[None, :]
-        t = D[:, None] * t
-        X = X * D[None, :]
+        D = _sign_fix(Qs[..., :P.shape[-1], :])
+        Qs = Qs * D[..., None, :]
+        t = D[..., :, None] * t
+        X = X * D[..., None, :]
     return Qs, t, X, resid

@@ -8,7 +8,14 @@ reference's FP16 TensorCore path; the mixed-precision acceptance bound is
 
 Precision contract of every product (``Precision`` below):
   * ``HIGHEST`` -- true fp32.  TF32 is switched off for every call and
-    the caller's setting restored after it.
+    the caller's setting restored after it.  Two stacks of one batch size
+    with a long summed index K (above ``STACK_CHUNK_K``) sum it in chunks
+    of at most ``STACK_CHUNK_K``, one batched product a chunk accumulated
+    in order (``torch.baddbmm``): cuBLAS's batched fp32 GEMM sums a long K
+    in one pass, with 7x the error of its single GEMM's split K at K =
+    2048 (measured on the H100), and the stacked drivers' Gram-Schmidt
+    products (K = m) would lose that much orthogonality against the
+    member-by-member calls.
   * ``DEFAULT`` with bf16 inputs -- operands rounded to bf16, exact
     products, fp32 accumulation.  On CUDA that is ``torch.mm(...,
     out_dtype=torch.float32)`` (``torch.bmm`` for two stacks of one batch
@@ -109,14 +116,42 @@ def policy_by_name(name: str) -> DTypePolicy:
     return _POLICIES[name]
 
 
+#: Longest summed index a stacked fp32 product sums in one pass (see the
+#: precision contract above).
+STACK_CHUNK_K = 256
+#: Most chunks a stacked fp32 product splits its summed index into.
+STACK_MAX_CHUNKS = 8
+
+
+def _bmm_chunked(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for two 3-D stacks of one batch size, the summed index in
+    ceil(K / STACK_CHUNK_K) chunks (at most STACK_MAX_CHUNKS), each a
+    batched product added to the running sum in order."""
+    K = a.shape[-1]
+    bounds = torch.linspace(0, K, min(STACK_MAX_CHUNKS,
+                                      -(-K // STACK_CHUNK_K)) + 1).long()
+    out = None
+    for k0, k1 in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        ak, bk = a[..., k0:k1], b[..., k0:k1, :]
+        out = (torch.bmm(ak, bk) if out is None
+               else torch.baddbmm(out, ak, bk))
+    return out
+
+
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """True fp32 product (Precision.HIGHEST): TF32 is off for this call and
-    the caller's setting is restored afterwards."""
+    the caller's setting is restored afterwards.  Two 3-D stacks of one
+    batch size whose summed index exceeds ``STACK_CHUNK_K`` are summed in
+    chunks (the module's precision contract)."""
     flags = torch.backends.cuda.matmul
     prev = flags.allow_tf32
     flags.allow_tf32 = False
     try:
-        return torch.matmul(a.float(), b.float())
+        a, b = a.float(), b.float()
+        if (a.dim() == 3 and b.dim() == 3 and a.shape[0] == b.shape[0]
+                and a.shape[-1] > STACK_CHUNK_K):
+            return _bmm_chunked(a, b)
+        return torch.matmul(a, b)
     finally:
         flags.allow_tf32 = prev
 

@@ -51,7 +51,10 @@ def block_qr_batched_sharded(
     after ``resolve_panel_config``'s shape fallbacks and policy checks, as
     in the JAX package, as one stack (``ops/blockqr.py::_driver_batched``:
     the reflector tiers in one stacked call, one K6 launch over the batch a
-    panel step on the card; ``bgs*`` / ``polar`` member by member)."""
+    panel step on the card; the ``bgs*`` tiers, where ``'auto'`` sends
+    every m >= n, r | n, n >= 2r stack under a mixed policy, in one
+    stacked call, one batched K2 entry a group; ``polar`` member by
+    member)."""
     A_batch = as_device_tensor(A_batch, mesh_device(mesh)).to(policy.panel)
     b, m, n = A_batch.shape
     d = axis_size(mesh, axis)

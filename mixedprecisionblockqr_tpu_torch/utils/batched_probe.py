@@ -1,0 +1,300 @@
+"""K1 ``ns_chain`` and K2 ``bgs_group_fused`` over a batch on the card: their
+batched entries (``ns_chain_batched``, ``bgs_group_fused_batched``) against
+the batched plain versions, beside the loop of single calls, one PyTorch
+call on the stack and the bound.
+
+    python3 -m mixedprecisionblockqr_tpu_torch.utils.batched_probe [--serial]
+
+Builds (or loads) the kernel library and prints JSON lines: first the
+card's name and power limit (nvidia-smi), then one line per K1 case of
+:data:`K1_CASES` and one per K2 case of :data:`K2_CASES` (the cases
+``chip_smoke.py`` phase 3 holds), each with:
+
+* the layout (K1: ``ns_layout``'s CTAs and route; K2: ``group_layout``,
+  the single group's) and, for K1, the clusters the card keeps resident
+  (``ns_resident_clusters``) and the waves of the batch;
+* the error against the plain version on the stack at phase 3's
+  tolerances (K1: X and t within 1e-4 x max|plain|, the same canary class;
+  K2: R and its robust tail block 1e-4 relative under fp32 flags, 5e-3
+  under the bf16 flags, Q 1e-4 absolute or 5e-3 relative), two batched
+  calls bit for bit equal, and every member bit for bit its single call;
+* CUDA-event times (median of 20; the plain version's of 3): the batched
+  call, the loop of single calls, the plain version, the library call
+  (``torch.linalg.cholesky`` of the Gram stack for K1, ``torch.linalg.qr``
+  of the group stack for K2); and the bound (``utils/bounds.py``: the
+  whole card's for B members, and one member's floor on its cluster);
+* for K2, the device kernels, streams and idle share of one call
+  (``torch.profiler``).
+
+``--serial`` builds the library a second time with ``-DMPBQR_GROUP_SERIAL``
+(the group entries' kernels in program order on the caller's stream) and
+times each K2 stack on both builds in one process, asserting bitwise-equal
+outputs: whether the two streams still help when every launch holds B
+members.
+
+It needs a CUDA device and ``nvcc``; without a device it exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+#: Phase 3's TOL_F32 / TOL_BF16: summation order only; a bf16 rounding may
+#: flip.
+TOL_F32 = 1e-4
+TOL_BF16 = 5e-3
+#: K1 stacks: (name, B, r, Gram kind, options).  The Gram of a uniform
+#: 2048 x r panel ("well"), of the same panel graded over three decades
+#: ("ill", the shifted robust pass) and of its orthonormalized panel
+#: ("near_identity", refine).
+K1_CASES = (
+    ("plain", 8, 128, "well", dict(iters=10)),
+    ("shift", 8, 128, "ill", dict(iters=14, shift=1e-3, omega=False,
+                                  chain_mid=True)),
+    ("refine", 8, 128, "near_identity", dict(iters=4, refine=True)),
+    ("chain_mid", 8, 128, "well", dict(iters=6, chain_mid=True)),
+    ("l2_chain_mid", 4, 256, "well", dict(iters=6, chain_mid=True)),
+)
+#: K2 stacks: (name, B, m, r, g, bf16 flags and chain_mid); the chains of
+#: a headline-shaped group of four panels, the last one robust.
+K2_CASES = (
+    ("bgs1_8x2048x512", 8, 2048, 128, 4, True),
+    ("bgs2_8x2048x512", 8, 2048, 128, 4, False),
+    ("bgs1_2x2048x1024_r256", 2, 2048, 256, 4, True),
+)
+K2_ITERS = (12, 6, 6, 10)
+
+
+def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max())
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def k1_stack(kind: str, B: int, r: int, gen: torch.Generator,
+             dev: torch.device) -> torch.Tensor:
+    """A (B, r, r) stack of Grams of ``kind`` (see :data:`K1_CASES`)."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import ns_chain_plain
+    from mixedprecisionblockqr_tpu_torch.ops.policy import mm_f32
+
+    P = torch.rand((B, 2048, r), generator=gen, device=dev) - 0.5
+    if kind == "ill":
+        P = P * torch.logspace(0, -3, r, device=dev)
+    elif kind == "near_identity":
+        X, _, _ = ns_chain_plain(mm_f32(P.mT, P), iters=10)
+        P = mm_f32(P, X)
+    return mm_f32(P.mT, P).contiguous()
+
+
+def k1_batched_row(G: torch.Tensor, kw: dict) -> dict:
+    """K1's batched entry on the Gram stack ``G`` (B, r, r) with the options
+    ``kw``: layout, resident clusters and waves; error against
+    ``ns_chain_plain`` on the stack; bitwise repeat; each member bit for
+    bit its single launch; times; bounds.  Counts on the launch counters
+    like any call: callers set them to 0 before a main path."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+        _card_cluster,
+        ns_chain,
+        ns_chain_batched,
+        ns_chain_plain,
+        ns_layout,
+        ns_resident_clusters,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.bounds import (
+        ns_chain_batched_bound,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    B, r = G.shape[:2]
+    lay = ns_layout(r, _card_cluster(G, r))
+    resident = ns_resident_clusters(G.device, r)
+    row = {"shape": [B, r, r], "options": kw, "route": lay.route,
+           "ctas": lay.ctas, "resident_clusters": resident,
+           "waves": -(-B // max(1, resident))}
+    X, t, res = ns_chain_batched(G, **kw)
+    again = ns_chain_batched(G, **kw)
+    Xp, tp, resp = ns_chain_plain(G, **kw)
+    singles = [ns_chain(G[i], **kw) for i in range(B)]
+    torch.cuda.synchronize()
+    row["bitwise_repeatable"] = all(
+        bool(torch.equal(a, b)) for a, b in zip((X, t, res), again))
+    row["members_bitwise_single_launch"] = all(
+        bool(torch.equal(X[i], s[0]) and torch.equal(t[i], s[1])
+             and torch.equal(res[i], s[2])) for i, s in enumerate(singles))
+    row["err_X"], row["lim_X"] = _max_abs(X, Xp), TOL_F32 * float(
+        Xp.abs().max())
+    row["err_t"], row["lim_t"] = _max_abs(t, tp), TOL_F32 * float(
+        tp.abs().max())
+    row["max_abs_err"] = max(row["err_X"], row["err_t"])
+    row["resid"] = res.tolist()
+    row["resid_plain"] = resp.tolist()
+    same_class = bool(((res < 1e-4) == (resp < 1e-4)).all())
+    row["ok"] = (row["err_X"] <= row["lim_X"] and row["err_t"] <= row["lim_t"]
+                 and same_class and row["bitwise_repeatable"]
+                 and row["members_bitwise_single_launch"])
+    row["ms"] = cuda_time_ms(lambda: ns_chain_batched(G, **kw))
+    row["single_loop_ms"] = cuda_time_ms(
+        lambda: [ns_chain(g, **kw) for g in G], warmup=1, iters=10)
+    row["plain_ms"] = cuda_time_ms(lambda: ns_chain_plain(G, **kw),
+                                   warmup=1, iters=3)
+    row["library_ms"] = cuda_time_ms(lambda: torch.linalg.cholesky(G))
+    row.update(ns_chain_batched_bound(
+        B, r, kw["iters"], chain_mid=kw.get("chain_mid", False),
+        refine=kw.get("refine", False)))
+    return row
+
+
+def k2_batched_row(Pg: torch.Tensor, r: int, bf16: bool,
+                   iters=K2_ITERS) -> dict:
+    """K2's batched entry on the group stack ``Pg`` (B, m, g r), its last
+    panel robust, the bf16 flags and ``chain_mid`` as ``bf16``: layout;
+    error against ``bgs_group_fused_plain`` on the stack; bitwise repeat;
+    each member bit for bit its single call; times; device kernels,
+    streams and idle share of one call; bounds.  Counts on the launch
+    counters like any call."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+        _card_cluster,
+        bgs_group_fused,
+        bgs_group_fused_batched,
+        bgs_group_fused_plain,
+        group_layout,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.bounds import (
+        group_batched_bound,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.group_probe import (
+        device_breakdown,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    B, m, w = Pg.shape
+    robust = (False,) * (len(iters) - 1) + (True,)
+    kw = dict(bf16_dots=bf16, chain_mid=bf16)
+
+    def batched():
+        return bgs_group_fused_batched(Pg, r, iters, robust, **kw)
+
+    row = {"shape": [B, m, w], "r": r, "g": len(iters), "bf16": bf16,
+           "layout": group_layout(m, r, _card_cluster(Pg, r))._asdict()}
+    Q, R, worst = batched()
+    again = batched()
+    Qp, Rp, wp = bgs_group_fused_plain(Pg, r, iters, robust, **kw)
+    singles = [bgs_group_fused(Pg[i], r, iters, robust, **kw)
+               for i in range(B)]
+    torch.cuda.synchronize()
+    row["bitwise_repeatable"] = all(
+        bool(torch.equal(a, b)) for a, b in zip((Q, R, worst), again))
+    row["members_bitwise_single_launch"] = all(
+        bool(torch.equal(Q[i], s[0]) and torch.equal(R[i], s[1])
+             and torch.equal(worst[i], s[2])) for i, s in enumerate(singles))
+    row["max_abs_Q"] = _max_abs(Q, Qp)
+    row["rel_Q"] = max(_rel(Q[i], Qp[i]) for i in range(B))
+    row["rel_R"] = max(_rel(R[i], Rp[i]) for i in range(B))
+    row["rel_R_tail"] = max(_rel(R[i, -r:, -r:], Rp[i, -r:, -r:])
+                            for i in range(B))
+    row["max_abs_err"] = row["max_abs_Q"]
+    row["resid"] = worst.tolist()
+    row["resid_plain"] = wp.tolist()
+    tol = TOL_BF16 if bf16 else TOL_F32
+    ok = (row["rel_R"] <= tol and row["rel_R_tail"] <= tol
+          and (row["rel_Q"] <= TOL_BF16 if bf16
+               else row["max_abs_Q"] <= TOL_F32))
+    row["ok"] = (ok and bool(((worst < 1e-4) == (wp < 1e-4)).all())
+                 and row["bitwise_repeatable"]
+                 and row["members_bitwise_single_launch"])
+    row["ms"] = cuda_time_ms(batched)
+    row["single_loop_ms"] = cuda_time_ms(
+        lambda: [bgs_group_fused(p, r, iters, robust, **kw) for p in Pg],
+        warmup=1, iters=10)
+    row["plain_ms"] = cuda_time_ms(
+        lambda: bgs_group_fused_plain(Pg, r, iters, robust, **kw),
+        warmup=1, iters=3)
+    row["library_ms"] = cuda_time_ms(lambda: torch.linalg.qr(Pg))
+    try:
+        prof = device_breakdown(batched, calls=1)
+    except RuntimeError:  # the profile saw no device activity
+        prof = None
+    if prof is not None:
+        row["device_events"] = prof["device_events"]
+        row["streams"] = prof["streams"]
+        row["idle_share"] = prof.get("idle_share")
+        row["largest"] = dict(list(prof["kernels"].items())[:5])
+    row.update(group_batched_bound(B, m, r, iters, robust, bf16))
+    return row
+
+
+def k2_stack(B: int, m: int, w: int, gen: torch.Generator,
+             dev: torch.device) -> torch.Tensor:
+    return torch.rand((B, m, w), generator=gen, device=dev) - 0.5
+
+
+def serial_rows(stacks: dict) -> dict:
+    """Each K2 stack (name -> (Pg, r, bf16)) on the default build and on
+    the serial build (``-DMPBQR_GROUP_SERIAL``) in one process: both times
+    (CUDA events, median of 20) and whether the outputs agree bit for
+    bit."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import _launch_group
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    out = {}
+    with _build.instrumented_library("-DMPBQR_GROUP_SERIAL") as serial:
+        for name, (Pg, r, bf) in stacks.items():
+            robust = (False,) * (len(K2_ITERS) - 1) + (True,)
+            args = (Pg, r, K2_ITERS, robust, bf, bf, bf)
+            a = _launch_group(_build.library(), *args)
+            c = _launch_group(serial, *args)
+            torch.cuda.synchronize()
+            out[name] = {
+                "serial_equal": all(bool(torch.equal(x, y))
+                                    for x, y in zip(a, c)),
+                "streams_ms": cuda_time_ms(
+                    lambda: _launch_group(_build.library(), *args)),
+                "serial_ms": cuda_time_ms(lambda: _launch_group(serial,
+                                                                *args))}
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--serial", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("batched_probe: no CUDA device", file=sys.stderr)
+        return 2
+    from mixedprecisionblockqr_tpu_torch.ops.kernels import _build
+    from mixedprecisionblockqr_tpu_torch.utils.group_probe import _smi
+
+    print(_smi("name,power.limit"), flush=True)
+    _build.library()
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(23)
+    ok = True
+    for name, B, r, kind, kw in K1_CASES:
+        row = k1_batched_row(k1_stack(kind, B, r, gen, dev), kw)
+        ok = ok and row["ok"]
+        print(json.dumps({"k1": name, **row}), flush=True)
+    stacks = {}
+    for name, B, m, r, g, bf in K2_CASES:
+        Pg = k2_stack(B, m, g * r, gen, dev)
+        stacks[name] = (Pg, r, bf)
+        row = k2_batched_row(Pg, r, bf)
+        ok = ok and row["ok"]
+        print(json.dumps({"k2": name, **row}), flush=True)
+    if args.serial:
+        rows = serial_rows(stacks)
+        ok = ok and all(row["serial_equal"] for row in rows.values())
+        print(json.dumps({"serial": rows}), flush=True)
+    print(json.dumps({"ok": ok}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -114,13 +114,24 @@ def ns_chain_bound(r, iters, chain_mid=False, refine=False):
             "cluster_bound_ms": one["bound_ms"]}
 
 
-def group_bound(m, r, iters, robust, bf16, proj_cols=0):
-    """K2 (and K5 with ``proj_cols`` previous columns projected out on
-    entry) on an m x (g r) group: per panel the Gram(s), the chain(s),
-    Q = P X and the projection of the group's later columns.  With
-    ``bf16`` the tall products and K5's scrub count at the bf16 rate,
-    K5's previous Q is read as bf16, and the chains run ``chain_mid``
-    (the drivers set the two together)."""
+def ns_chain_batched_bound(B, r, iters, chain_mid=False, refine=False):
+    """K1 over a batch of B chains (``ns_chain_batched``): B times one
+    chain's operations and bytes (``ns_chain_bound``'s) at the whole card's
+    rates; beside it ``member_floor_ms``, what no batch can overlap: one
+    member's chain on the SMs of its own cluster (``cluster_bound_ms`` of
+    ``ns_chain_bound``), and ``cluster_sms``, that cluster."""
+    f32, bf16 = chain_ops(r, iters, chain_mid, refine)
+    one = ns_chain_bound(r, iters, chain_mid, refine)
+    return {**bound(f32_ops=B * f32, bf16_ops=B * bf16,
+                    nbytes=B * 3 * r * r * 4),
+            "cluster_sms": one["cluster_sms"],
+            "member_floor_ms": one["cluster_bound_ms"]}
+
+
+def group_work(m, r, iters, robust, bf16, proj_cols=0):
+    """``(chain_f32, chain_bf16, tall, nbytes)`` of K2 / K5 on one m x (g r)
+    group (``group_bound``): the chains' operations by type, the tall
+    products' operations and the bytes moved."""
     chain_f32 = chain_bf16 = tall = 0
     w = len(iters) * r
     for j, (it, rb) in enumerate(zip(iters, robust)):
@@ -132,10 +143,43 @@ def group_bound(m, r, iters, robust, bf16, proj_cols=0):
     tall += 2 * 2 * m * proj_cols * w
     nbytes = ((2 * m * w + w * w + proj_cols * w) * 4
               + m * proj_cols * (2 if bf16 else 4))
+    return chain_f32, chain_bf16, tall, nbytes
+
+
+def group_bound(m, r, iters, robust, bf16, proj_cols=0):
+    """K2 (and K5 with ``proj_cols`` previous columns projected out on
+    entry) on an m x (g r) group: per panel the Gram(s), the chain(s),
+    Q = P X and the projection of the group's later columns.  With
+    ``bf16`` the tall products and K5's scrub count at the bf16 rate,
+    K5's previous Q is read as bf16, and the chains run ``chain_mid``
+    (the drivers set the two together)."""
+    chain_f32, chain_bf16, tall, nbytes = group_work(m, r, iters, robust,
+                                                     bf16, proj_cols)
     if bf16:
         return bound(f32_ops=chain_f32, bf16_ops=chain_bf16 + tall,
                      nbytes=nbytes)
     return bound(f32_ops=chain_f32 + tall, nbytes=nbytes)
+
+
+def group_batched_bound(B, m, r, iters, robust, bf16):
+    """K2 over a batch of B groups (``bgs_group_fused_batched``): B times
+    one group's operations and bytes (``group_bound``'s) at the whole
+    card's rates; beside it ``member_floor_ms``, what no batch can overlap:
+    one member's chains one after another on the SMs of the chain's
+    cluster (``ns_layout``'s CTAs) and its tall products at the whole
+    card's rate."""
+    chain_f32, chain_bf16, tall, nbytes = group_work(m, r, iters, robust,
+                                                     bf16)
+    share = SMS / ns_layout(r).ctas
+    t_floor = (share * (chain_f32 / PEAK_F32 + chain_bf16 / PEAK_BF16)
+               + tall / (PEAK_BF16 if bf16 else PEAK_F32))
+    if bf16:
+        whole = bound(f32_ops=B * chain_f32,
+                      bf16_ops=B * (chain_bf16 + tall), nbytes=B * nbytes)
+    else:
+        whole = bound(f32_ops=B * (chain_f32 + tall), nbytes=B * nbytes)
+    return {**whole, "cluster_sms": ns_layout(r).ctas,
+            "member_floor_ms": max(t_floor, nbytes / HBM_BYTES_PER_S) * 1e3}
 
 
 def panel_qr_bound(m, r):
@@ -331,6 +375,21 @@ def kernel_bounds():
         "K2 bgs_group_fused": {
             "shape": "2048 x 1024, g=8, bf16, robust last panel",
             **group_bound(2048, 128, head, (False,) * 7 + (True,), True)},
+        **{f"K1 ns_chain_batched {B}x{r}x{r} {name}": {
+            "shape": f"{B} x {r} x {r}, {it} iterations ({name})",
+            **ns_chain_batched_bound(B, r, it, **kw)}
+           for B, r, name, it, kw in (
+               (8, 128, "plain", 10, {}), (8, 128, "shift", 14, {}),
+               (8, 128, "refine", 4, {"refine": True}),
+               (8, 128, "chain_mid", 6, {"chain_mid": True}),
+               (4, 256, "chain_mid", 6, {"chain_mid": True}))},
+        **{f"K2 bgs_group_fused_batched {B}x2048x{4 * r} {kind}": {
+            "shape": f"{B} x 2048 x {4 * r}, g=4, r={r}, {kind}, robust "
+                     "last panel",
+            **group_batched_bound(B, 2048, r, (12, 6, 6, 10),
+                                  (False,) * 3 + (True,), kind == "bf16")}
+           for B, r, kind in ((8, 128, "bf16"), (8, 128, "fp32"),
+                              (2, 256, "bf16"))},
         "K3 panel_qr_fused": {"shape": "4096 x 128, robust",
                               **panel_qr_bound(4096, 128)},
         "K3 tri_combine": {"shape": "r=128 (robust R block)",

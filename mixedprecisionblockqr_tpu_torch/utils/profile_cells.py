@@ -33,7 +33,10 @@ full-rank ``slam_jacobian(4096, 2048, seed=0)``: stored-factor CAQR, one
 batched K6 a panel's leaves and one a tree level), ``lstsq_batched`` (8
 systems of 2048 x 512: the Householder driver on the stack, one batched
 K6 a panel step), ``block_qr_batched`` (the same 8 x 2048 x 512 stack,
-POLICY_FP32, ``'householder'``, reduced) and ``autodiff``
+POLICY_FP32, ``'householder'``, reduced), ``block_qr_batched_bgs1``
+(``chip_smoke.py`` phase 25 (a): 8 x 2048 x 2048, member i from
+``default_rng(i)``, POLICY_MIXED_FAST, ``'bgs1'``, reduced: 4 batched K2
+entries for 32 groups) and ``autodiff``
 (``qr_autodiff`` forward and backward on 2048 x 1024, POLICY_FP32), and
 ``chip_smoke.py`` phase 19's streaming cells:
 ``rls`` (``rls_update`` of 16 rows from ``default_rng(4)`` into the
@@ -231,6 +234,13 @@ def main(only: Sequence[str] = ()) -> int:
                 torch.from_numpy(np.random.default_rng(2).standard_normal(
                     (8, 2048)).astype(np.float32)).to(dev))
 
+    def headline_stack():
+        """chip_smoke.py phase 25 (a)'s stack: member i the uniform draw of
+        ``default_rng(i)`` - 0.5, so member 0 is the headline's input."""
+        return torch.from_numpy(np.stack(
+            [np.random.default_rng(i).random((2048, 2048), dtype=np.float32)
+             - 0.5 for i in range(8)])).to(dev)
+
     def rls_case():
         st = rls_init(*lazy("slam", slam))
         rng4 = np.random.default_rng(4)
@@ -291,6 +301,9 @@ def main(only: Sequence[str] = ()) -> int:
         ("block_qr_batched 8x2048x512", lambda: block_qr_batched(
             lazy("batch", batch)[0], 128, POLICY_FP32,
             panel_method="householder"), 1),
+        ("block_qr_batched_bgs1 8x2048x2048", lambda: block_qr_batched(
+            lazy("headline_stack", headline_stack), 128, POLICY_MIXED_FAST,
+            panel_method="bgs1"), 3),
         ("autodiff", autodiff_step, 5),
         ("rls update 16 rows n=2048",
          lambda: rls_update(*lazy("rls", rls_case)), 5),

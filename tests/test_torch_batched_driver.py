@@ -107,13 +107,13 @@ def test_block_qr_batched_nan_poisons_its_member_only(pm):
 
 
 def test_block_qr_batched_member_loop_tiers_stack():
-    """bgs1 / polar keep the member loop: each member is the 2-D call."""
+    """polar keeps the member loop: each member is the 2-D call.  (The BGS
+    tiers run on the whole stack: tests/test_torch_bgs_batched.py.)"""
     a = torch.from_numpy(_stack((128, 64), 24))
-    for pm in ("bgs1", "polar"):
-        Qb, Rb = pt.block_qr_batched(a, 16, pt.POLICY_FP32, panel_method=pm)
-        for i in range(3):
-            Q, R = pt.block_qr(a[i], 16, pt.POLICY_FP32, panel_method=pm)
-            assert torch.equal(Qb[i], Q) and torch.equal(Rb[i], R)
+    Qb, Rb = pt.block_qr_batched(a, 16, pt.POLICY_FP32, panel_method="polar")
+    for i in range(3):
+        Q, R = pt.block_qr(a[i], 16, pt.POLICY_FP32, panel_method="polar")
+        assert torch.equal(Qb[i], Q) and torch.equal(Rb[i], R)
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
