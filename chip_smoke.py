@@ -50,7 +50,14 @@ last line):
                  the stack, each member bit for bit its single call,
                  beside the loop of single calls, torch.linalg.cholesky /
                  torch.linalg.qr of the stack and the bound
-                 (utils/batched_probe.py);
+                 (utils/batched_probe.py); the batched entry of
+                 ninv_chain (Yamamoto S stacks 8 x 128 at 5 and 12
+                 iterations, 16 x 128, 3 x 100, 4 x 256 on the L2 route,
+                 with resident clusters and waves) against its plain
+                 version on the stack, each member bit for bit its single
+                 launch, a NaN in member 2's S -> a NaN resid for member 2
+                 only, beside the loop of single launches and
+                 torch.linalg.inv of the stack;
                  sketch_qrcp_ranks on 136 x 2048, 1920, 200 and 8192 (in
                  place), 72 x 1024 (r = 64), 138 x 2048, 73 x 300, 700 x 256
                  and 700 x 1024 (in place), zero / duplicate, NaN and inf
@@ -250,7 +257,19 @@ last line):
                  rescrub's batched K1; (c) 3 x 6144 x 512 bgs1 (m > 5120,
                  per-panel route): 6 batched K1, no K2; (d)
                  block_qr_batched_sharded 8 x 1024 x 512 'auto' under
-                 POLICY_MIXED_FAST on one NCCL rank: 2 batched K2.
+                 POLICY_MIXED_FAST on one NCCL rank: 2 batched K2;
+ 26. polar_batched -- the polar tier on the whole stack, only batched K1
+                 / K4 launches (counted): (a) block_qr_batched 8 x 4096 x
+                 2048 (member i from default_rng(i), member 0 phase 9's
+                 input) POLICY_MIXED_FAST complete: 16 batched K1 + 16
+                 batched K4, every member all_ok and within 2x of its
+                 single block_qr, a NaN in member 3 poisons member 3 only,
+                 beside the member loop and torch.linalg.qr; (b) 8 x
+                 1024^2 POLICY_FP32 complete (the robust tail panel, the
+                 square final panel, the LU fallback): 10 batched K1 + 7
+                 batched K4, R 1e-4 of each single call; (c)
+                 block_qr_batched_sharded 'polar' 8 x 1024 x 512
+                 POLICY_MIXED_FAST on one NCCL rank: 4 batched K1 + 4 K4.
 Then a line with every kernel's launches on its main path (phases 4-6 for
 ns_chain and bgs_group_fused, phase 7 for panel_qr_fused,
 sketch_qrcp_ranks and panel_factor_fused, phase 9 for ninv_chain,
@@ -259,9 +278,10 @@ tiled_matmul and chol_rinv, phase 19 for the Givens chains: each streaming
 call once at n = 2048; phase 20's cases (a)-(d) add their launches of
 ns_chain, ninv_chain and panel_factor_fused, phase 21's of the kernels its
 calls run, phases 22, 23 and 24 theirs, K6's with its wide route's calls
-and products, phase 25's; K6's batched entry with its launches and panels
-on phases 16, 17 (refine, lstsq_batched, block_qr_batched), 20, 23 and 24,
-K1's and K2's with their launches and members on phase 25; the widths
+and products, phases 25's and 26's; K6's batched entry with its launches
+and panels on phases 16, 17 (refine, lstsq_batched, block_qr_batched),
+20, 23 and 24, K1's with its launches and members on phases 25 and 26,
+K2's on phase 25, K4's on phase 26; the widths
 each kernel was held at; the counts are set to 0 just before each path
 and read just after; phases 16-18 assert their own counts the same way),
 error, times and bound, and as the last line
@@ -356,10 +376,12 @@ def solve_errors(a, b, x):
 
 
 #: The batched entries on the main paths: K6's (phases 16, 17, 20, 23 and
-#: 24), K1's and K2's (phase 25): their launches and the panels, chains or
-#: groups they ran, summed over the counted calls.
+#: 24), K1's (phases 25 and 26), K2's (phase 25) and K4's (phase 26): their
+#: launches and the panels, chains, groups or inverses they ran, summed
+#: over the counted calls.
 BATCHED = {k: {"launches": 0, "members": 0}
-           for k in ("panel_factor_fused", "ns_chain", "bgs_group_fused")}
+           for k in ("panel_factor_fused", "ns_chain", "bgs_group_fused",
+                     "ninv_chain")}
 
 
 def batched_counts(main_path=False, kernel="panel_factor_fused"):
@@ -384,7 +406,7 @@ def _counter():
     """``(counted, total)``: ``counted(fn)`` runs fn with the launch counts
     set to 0 just before it and read just after it, returns ``(out, the
     nonzero counts)`` and adds those to ``total``.  A batched entry's
-    launches and members (K6, K1, K2), where nonzero, are among the counts
+    launches and members (K6, K1, K2, K4), where nonzero, are among the counts
     as ``<kernel>_batched`` and ``<kernel>_members`` (its launches count
     under ``<kernel>`` too)."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
@@ -1411,6 +1433,177 @@ def phase_bgs_batched(dev):
     return row, total
 
 
+def phase_polar_batched(dev):
+    """Phase 26: the ``polar`` tier on the whole stack, as the JAX package
+    vmaps it (``block_qr_batched`` / ``block_qr_batched_sharded``): one
+    batched K1 launch a panel (three on a robust tail panel) and one
+    batched K4 launch a panel, no single K1 / K4.  Each case counts from 0
+    just before its call.  Returns ``(row, launches)``: the phase's line
+    and the launches of (a)-(c), summed."""
+    from mixedprecisionblockqr_tpu_torch import (
+        POLICY_FP32,
+        POLICY_MIXED_FAST,
+        block_qr,
+        block_qr_batched,
+        block_qr_batched_sharded,
+        make_mesh,
+        metrics,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    counted, total = _counter()
+    row = {}
+
+    def quality(A_, Q_, R_, bits):
+        return [metrics.evaluate(a_, q_, r_, bits)
+                for a_, q_, r_ in zip(A_, Q_, R_)]
+
+    def only_batched(c, k1, k4):
+        """Exactly k1 batched K1 and k4 batched K4 launches, no single
+        launch of either, and no other kernel."""
+        return (c.get("ns_chain", 0) == c.get("ns_chain_batched", 0) == k1
+                and c.get("ninv_chain", 0) == c.get("ninv_chain_batched", 0)
+                == k4 and set(c) <= {"ns_chain", "ns_chain_batched",
+                                     "ns_chain_members", "ninv_chain",
+                                     "ninv_chain_batched",
+                                     "ninv_chain_members"})
+
+    def stack_of(shape, n):
+        return torch.from_numpy(np.stack([
+            np.random.default_rng(i).random(shape, dtype=np.float32) - 0.5
+            for i in range(n)])).to(dev)
+
+    # (a) phase 9's tier on 8 members (member 0 phase 9's input), complete:
+    # 16 tall panels a member, 16 batched K1 and 16 batched K4 launches.
+    A8 = stack_of((4096, 2048), 8)
+
+    def fast(x):
+        return block_qr_batched(x, 128, POLICY_MIXED_FAST, mode="complete",
+                                panel_method="polar")
+
+    def fast_single(x):
+        return block_qr(x, 128, POLICY_MIXED_FAST, mode="complete",
+                        panel_method="polar")
+
+    (Qa, Ra), ca = counted(lambda: fast(A8))
+    assert only_batched(ca, 16, 16), ca
+    assert ca["ns_chain_members"] == ca["ninv_chain_members"] == 128, ca
+    reps = quality(A8, Qa, Ra, 8)
+    del Qa, Ra
+    singles = [metrics.evaluate(A8[i], *fast_single(A8[i]), 8)
+               for i in range(8)]
+    assert all(r.all_ok for r in reps), [str(r) for r in reps]
+    for r_b, r_s in zip(reps, singles):
+        assert r_b.backward <= 2 * r_s.backward, (r_b.backward, r_s.backward)
+        assert r_b.orthogonality <= 2 * r_s.orthogonality, (
+            r_b.orthogonality, r_s.orthogonality)
+    An = A8.clone()
+    An[3, 100, 200] = float("nan")
+    Qn, Rn = fast(An)
+    assert bool(torch.isnan(Rn[3, 0, 0])), "member 3 not poisoned"
+    others = [i for i in range(8) if i != 3]
+    assert bool(torch.isfinite(Rn[others]).all()
+                and torch.isfinite(Qn[others]).all()), "poison spread"
+    del Qn, Rn, An
+    row["a"] = {"call": "block_qr_batched(A, 128, POLICY_MIXED_FAST, "
+                        "mode='complete', panel_method='polar'), A 8 x 4096 "
+                        "x 2048, member i default_rng(i) - 0.5",
+                "launches": ca,
+                "backward": [r.backward for r in reps],
+                "orthogonality": [r.orthogonality for r in reps],
+                "backward_single": [r.backward for r in singles],
+                "orthogonality_single": [r.orthogonality for r in singles],
+                "all_ok": True,
+                "nan_member_3": "R[3, 0, 0] NaN, the other 7 finite",
+                "ms": cuda_time_ms(lambda: fast(A8), warmup=1, iters=5),
+                "member_loop_ms": cuda_time_ms(
+                    lambda: [fast_single(a_) for a_ in A8], warmup=1,
+                    iters=3),
+                "library_ms": cuda_time_ms(
+                    lambda: torch.linalg.qr(A8, mode="complete"), warmup=1,
+                    iters=3),
+                "library_call": "torch.linalg.qr(A, mode='complete') on "
+                                "the stack"}
+    del A8
+
+    # (b) fp32 on 8 x 1024^2: 6 tall panels (the last two of aspect < 4,
+    # the LU fallback armed), the robust tail panel (three chains) and the
+    # square final panel (no K4): 10 batched K1 and 7 batched K4.
+    A1 = stack_of((1024, 1024), 8)
+
+    def fp32(x):
+        return block_qr_batched(x, 128, POLICY_FP32, mode="complete",
+                                panel_method="polar")
+
+    def fp32_single(x):
+        return block_qr(x, 128, POLICY_FP32, mode="complete",
+                        panel_method="polar")
+
+    (Qb, Rb), cb = counted(lambda: fp32(A1))
+    assert only_batched(cb, 10, 7), cb
+    assert cb["ns_chain_members"] == 80 and cb[
+        "ninv_chain_members"] == 56, cb
+    outs = [fp32_single(A1[i]) for i in range(8)]
+    reps = quality(A1, Qb, Rb, POLICY_FP32.precision_bits)
+    reps1 = [metrics.evaluate(A1[i], *outs[i], POLICY_FP32.precision_bits)
+             for i in range(8)]
+    rel = [rel_fro(Rb[i], outs[i][1]) for i in range(8)]
+    assert all(r.all_ok for r in reps), [str(r) for r in reps]
+    assert max(rel) <= 1e-4, rel
+    for r_b, r_s in zip(reps, reps1):
+        assert r_b.orthogonality <= 2 * r_s.orthogonality, (r_b, r_s)
+    del Qb, Rb, outs
+    row["b"] = {"call": "block_qr_batched(A, 128, POLICY_FP32, "
+                        "mode='complete', panel_method='polar'), A 8 x 1024 "
+                        "x 1024, member i default_rng(i) - 0.5",
+                "launches": cb, "rel_R_vs_single_max": max(rel),
+                "backward_max": max(r.backward for r in reps),
+                "orthogonality_max": max(r.orthogonality for r in reps),
+                "orthogonality_single_max": max(r.orthogonality
+                                                for r in reps1),
+                "ms": cuda_time_ms(lambda: fp32(A1), warmup=1, iters=5),
+                "member_loop_ms": cuda_time_ms(
+                    lambda: [fp32_single(a_) for a_ in A1], warmup=1,
+                    iters=3)}
+    del A1
+
+    # (c) the sharded entry on one NCCL rank, 'polar' under the mixed
+    # policy on phase 25 (d)'s stack: 4 tall panels, 4 batched K1 + 4 K4.
+    A_d = torch.from_numpy(np.random.default_rng(0).random(
+        (8, 1024, 512), dtype=np.float32) - 0.5).to(dev)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        bmesh = make_mesh((1,), ("batch",))
+
+        def sharded():
+            return block_qr_batched_sharded(A_d, bmesh, panel_method="polar",
+                                            policy=POLICY_MIXED_FAST)
+
+        (Qd, Rd), cd = counted(sharded)
+        assert only_batched(cd, 4, 4), cd
+        reps = quality(A_d, Qd, Rd, 8)
+        assert all(r.all_ok for r in reps), [str(r) for r in reps]
+        del Qd, Rd
+        row["c"] = {"call": "block_qr_batched_sharded(A, batch mesh, "
+                            "panel_method='polar', policy=POLICY_MIXED_FAST)"
+                            ", A 8 x 1024 x 512, one NCCL rank",
+                    "launches": cd,
+                    "backward_max": max(r.backward for r in reps),
+                    "orthogonality_max": max(r.orthogonality for r in reps),
+                    "ms": cuda_time_ms(sharded, warmup=1, iters=5)}
+    finally:
+        dist.destroy_process_group()
+    row["tolerance"] = ("(a) every member all_ok at 2^-8, backward and "
+                        "orthogonality at most 2x its single block_qr; (b) "
+                        "fp32 R 1e-4 relative of each single call, "
+                        "orthogonality at most 2x; (c) all_ok; each case "
+                        "only batched K1 / K4 launches, counted; times: "
+                        "CUDA events, median of 5 (the loops: of 3)")
+    return row, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -1473,7 +1666,9 @@ def main() -> int:
         bgs_group_fused_proj_plain,
         group_layout,
         ninv_chain,
+        ninv_chain_batched,
         ninv_layout,
+        ninv_resident_clusters,
         ns_chain,
         ns_chain_plain,
         ns_resident_clusters,
@@ -1523,10 +1718,13 @@ def main() -> int:
     from mixedprecisionblockqr_tpu_torch.utils.batched_probe import (
         K1_CASES,
         K2_CASES,
+        K4_CASES,
         k1_batched_row,
         k1_stack,
         k2_batched_row,
         k2_stack,
+        k4_batched_row,
+        k4_stack,
     )
     from mixedprecisionblockqr_tpu_torch.utils.sketch_probe import (
         k7_row,
@@ -1872,6 +2070,47 @@ def main() -> int:
                        "loop of single calls: of 10",
           "library_call": "torch.linalg.qr(Pg) on the (B, m, g r) stack",
           "inputs": k2b_rows, "card": card})
+
+    # K4's batched entry (utils/batched_probe.py::K4_CASES): Yamamoto S
+    # stacks built as the K4 row's (utils/ninv_probe.py::yamamoto_s): 8 x
+    # 128 at 5 and at 12 iterations, 16 x 128 (two waves if 15 clusters are
+    # resident), 3 x 100 (the padded instantiation) and 4 x 256 (the L2
+    # route); each against ninv_chain_plain on the stack at K4's tolerance,
+    # two batched calls bit for bit, each member bit for bit its single
+    # launch, beside the loop of single launches, torch.linalg.inv on the
+    # stack and the bound, with resident clusters and waves.  A NaN in
+    # member 2's S gives member 2 a NaN resid and leaves the others' bits.
+    # A generator of its own keeps the later kernels' inputs as they were.
+    gen24 = torch.Generator(device=dev).manual_seed(24)
+    k4b_rows, k4b_stacks = {}, {}
+    for name, B, m, r1, it in K4_CASES:
+        k4b_stacks[name] = S_b = k4_stack(B, m, r1, gen24, dev)
+        k4b_rows[f"{name}_{B}x{r1}"] = row = k4_batched_row(S_b, it)
+        assert row["ok"], (name, row)
+    k4b_err = max(row["max_abs_err"] for row in k4b_rows.values())
+    S_b = k4b_stacks["panel4096_it5"]
+    S_bn = S_b.clone()
+    S_bn[2, 4, 9] = float("nan")
+    X_b, res_b = ninv_chain_batched(S_b, 5)
+    X_bn, res_bn = ninv_chain_batched(S_bn, 5)
+    keep = [i for i in range(S_b.shape[0]) if i != 2]
+    assert bool(torch.isnan(res_bn[2])), res_bn
+    assert bool(torch.equal(res_bn[keep], res_b[keep])
+                and torch.equal(X_bn[keep], X_b[keep])), res_bn
+    k4b_res = {r1: ninv_resident_clusters(dev, r1) for r1 in (128, 256)}
+    emit({"phase": "kernels", "kernel": "ninv_chain_batched",
+          "tolerance": "X within 1e-4 * max|plain| of ninv_chain_plain on "
+                       "the stack; the same fallback class (resid < 1e-3) a "
+                       "member; two batched calls bitwise equal; each member "
+                       "bit for bit its single launch; plain ms: median of "
+                       "3, the loop of single launches: of 10",
+          "library_call": "torch.linalg.inv(S) on the (B, r, r) stack",
+          "resident_clusters": k4b_res,
+          "waves_B8_B16": {r1: [-(-B // max(1, n)) for B in (8, 16)]
+                           for r1, n in k4b_res.items()},
+          "nan_in_member_2": {"resid": res_bn.tolist(),
+                              "others_bitwise_unchanged": True},
+          "inputs": k4b_rows, "card": card})
 
     # K7 on the sketches of utils/sketch_probe.py::k7_sketches: d = 128 + 8
     # at the RQRCP panels' widths (2048, 1920, 200), a zero and a
@@ -3282,6 +3521,12 @@ def main() -> int:
     emit({"phase": "bgs_batched", **row25, "launches": c25,
           "seconds": time.perf_counter() - t25, "card": card})
 
+    # 26. polar_batched: the polar tier on the whole stack (batched K1 / K4)
+    t26 = time.perf_counter()
+    row26, c26 = phase_polar_batched(dev)
+    emit({"phase": "polar_batched", **row26, "launches": c26,
+          "seconds": time.perf_counter() - t26, "card": card})
+
     for k, tot in BATCHED.items():
         assert 0 < tot["launches"] < tot["members"], (k, BATCHED)
     emit({"kernels": [
@@ -3291,7 +3536,8 @@ def main() -> int:
          "launches": main_launches["ns_chain"] + c20["ns_chain"]
          + c21.get("ns_chain", 0) + c22["ns_chain"]
          + c23.get("ns_chain", 0)
-         + c24.get("ns_chain", 0) + c25.get("ns_chain", 0),
+         + c24.get("ns_chain", 0) + c25.get("ns_chain", 0)
+         + c26.get("ns_chain", 0),
          "max_abs_err": max(ns_err, *(row["max_abs_err"] for row in
                                       wrows["ns_chain"].values())),
          "widths": [32, 64, 128, *wrows["ns_chain"]],
@@ -3332,7 +3578,7 @@ def main() -> int:
          "launches": c9["ninv_chain"] + c20["ninv_chain"]
          + c21.get("ninv_chain", 0) + c22["ninv_chain"]
          + c23.get("ninv_chain", 0)
-         + c24.get("ninv_chain", 0),
+         + c24.get("ninv_chain", 0) + c26.get("ninv_chain", 0),
          "max_abs_err": max(k4_err, *(row["max_abs_err"] for row in
                                       wrows["ninv_chain"].values())),
          "widths": [128, *wrows["ninv_chain"]],
@@ -3408,6 +3654,21 @@ def main() -> int:
              "ms", "single_loop_ms", "plain_ms", "bound_ms", "bound_by",
              "member_floor_ms", "library_ms", "route", "ctas", "waves")}
              for name, row in k1b_rows.items()}},
+        {"name": "ninv_chain_batched", "route": "cuda",
+         "source": "mixedprecisionblockqr_tpu_torch/csrc/ninv_chain.cu",
+         "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:384 under "
+                     "jax.vmap (ops/blockqr.py:1988 -> _block_qr_grouped: "
+                     ":741; parallel/batched.py:56)",
+         "launches": BATCHED["ninv_chain"]["launches"],
+         "members": BATCHED["ninv_chain"]["members"],
+         "max_abs_err": k4b_err, "shape": "8 x 128 x 128, 5 it",
+         **{k: k4b_rows["panel4096_it5_8x128"][k] for k in (
+             "ms", "plain_ms", "single_loop_ms", "bound_ms", "bound_by",
+             "member_floor_ms", "library_ms", "waves")},
+         "stacks": {name: {k: row[k] for k in (
+             "ms", "single_loop_ms", "plain_ms", "bound_ms", "bound_by",
+             "member_floor_ms", "library_ms", "route", "ctas", "waves")}
+             for name, row in k4b_rows.items()}},
         {"name": "bgs_group_fused_batched", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:900 under "

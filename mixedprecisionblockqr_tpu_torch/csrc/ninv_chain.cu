@@ -44,6 +44,13 @@
 // beyond r, the identities of X0, E and the residual stop at r.  Beyond
 // 128 (S and two X: 3 x 4 r (r + 4) bytes a CTA, 790 KB at r = 256)
 // ninv_l2_kernel below runs the same iteration on ns_chain.cuh's L2 route.
+//
+// Batches: under jax.vmap the TPU kernel takes the batch as a grid axis;
+// here one launch runs B clusters, grid (cluster, B), the member
+// blockIdx.y (ns_chain.cuh, "Batches").  Both kernels only offset their
+// pointers by the member (S and X by b r^2 floats, resid by b, the L2
+// route's scratch by b scratch_floats), so every member gets the bits of
+// a single launch on its S.
 #include "ns_chain.cuh"
 
 namespace mpbqr {
@@ -69,12 +76,13 @@ struct NinvLayout {
 // slots: 0 setup (S's load, X0, the first cluster barrier), 1 S X, 2 the
 // block barrier after it, 3 the wait at the cluster barrier, 4 X E and the
 // block barrier after it, 5 the all-gather's stores, 6 the arrival at the
-// cluster barrier, 7 the residual and X out.
+// cluster barrier, 7 the residual and X out.  A batched launch writes them
+// from member 0 only.
 #ifdef MPBQR_NINV_PROF
 __device__ long long g_ninv_prof[8][8];
 #define PROF_INIT long long pt = clock64(), pacc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
 #define PROF(k) if (tid == 0) { const long long t = clock64(); pacc[k] += t - pt; pt = t; }
-#define PROF_SAVE if (tid == 0) for (int k = 0; k < 8; ++k) g_ninv_prof[rank][k] = pacc[k];
+#define PROF_SAVE if (tid == 0 && blockIdx.y == 0) for (int k = 0; k < 8; ++k) g_ninv_prof[rank][k] = pacc[k];
 #else
 #define PROF_INIT
 #define PROF(k)
@@ -82,12 +90,20 @@ __device__ long long g_ninv_prof[8][8];
 #endif
 
 // S and X are nr x nr (leading dimension nr), nr = R unless PAD (nr =
-// n_arg <= R; ns_chain.cuh, "Widths").
+// n_arg <= R; ns_chain.cuh, "Widths"); member blockIdx.y's at the strides
+// of `bt` (bt.g for S, bt.x for X, bt.resid).
 template <int R, bool PAD>
 __global__ void __launch_bounds__(kChainThreads, 1)
-ninv_kernel(const float* S, int n_arg, float* X, float* resid, int iters) {
+ninv_kernel(const float* S, int n_arg, float* X, float* resid, int iters,
+            ChainBatch bt) {
   using L = NinvLayout<R>;
   const int nr = PAD ? n_arg : R;
+  {
+    const long long b = blockIdx.y;
+    S += b * bt.g;
+    X += b * bt.x;
+    resid += b * bt.resid;
+  }
   constexpr int LDF = L::LDF;
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -191,13 +207,14 @@ ninv_kernel(const float* S, int n_arg, float* X, float* resid, int iters) {
 template <int R>
 static inline cudaError_t launch_ninv_r(cudaStream_t st, const float* S,
                                         int nr, float* X, float* resid,
-                                        int iters) {
+                                        int iters, int batch,
+                                        const ChainBatch& bt) {
   using L = NinvLayout<R>;
   static bool fits[2] = {false, false};
-  return launch_cluster(nr == R ? &ninv_kernel<R, false>
-                                : &ninv_kernel<R, true>,
-                        L::CS, L::BYTES, st, fits[nr != R], S, nr, X, resid,
-                        iters);
+  return launch_cluster_batch(nr == R ? &ninv_kernel<R, false>
+                                      : &ninv_kernel<R, true>,
+                              L::CS, batch, L::BYTES, st, fits[nr != R], S,
+                              nr, X, resid, iters, bt);
 }
 
 // K4 on ns_chain.cuh's L2 route, any n <= kMaxWidth: X and the own columns
@@ -206,10 +223,18 @@ static inline cudaError_t launch_ninv_r(cudaStream_t st, const float* S,
 //   E[:, own] = 2I - S X[:, own];  X'[:, own] = X E[:, own]
 // one cluster barrier an iteration (X' goes to the other buffer), then
 // max|I - S X| on the own columns and a rank-ordered max over the cluster.
+// Member blockIdx.y's S, X, resid and scratch at the strides of `bt`.
 // Dynamic shared memory: kL2StageFloats + 64 floats.
 __global__ void __launch_bounds__(kChainThreads, 1)
 ninv_l2_kernel(const float* S, int n, float* X, float* resid, int iters,
-               float* scratch) {
+               float* scratch, ChainBatch bt) {
+  {
+    const long long b = blockIdx.y;
+    S += b * bt.g;
+    X += b * bt.x;
+    resid += b * bt.resid;
+    scratch += b * bt.scratch;
+  }
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
@@ -273,6 +298,25 @@ static inline bool ninv_layout_ok(int r, const KernelLayout& lay) {
          lay.scratch_floats == 3LL * r * l2_ld(r);
 }
 
+// How many K4 clusters of the layout `lay` (checked by the caller) the card
+// keeps resident at once, in *out.
+static inline cudaError_t ninv_resident(int r, const KernelLayout& lay,
+                                        int* out) {
+  switch (lay.inst) {
+#define MPBQR_RES(RR)                                                        \
+  case RR:                                                                   \
+    return cluster_resident(r == RR ? &ninv_kernel<RR, false>                \
+                                    : &ninv_kernel<RR, true>,                \
+                            NinvLayout<RR>::CS, NinvLayout<RR>::BYTES, out)
+    MPBQR_RES(32);
+    MPBQR_RES(64);
+    MPBQR_RES(128);
+#undef MPBQR_RES
+    default: break;
+  }
+  return cluster_resident(ninv_l2_kernel, lay.ctas, lay.smem_bytes, out);
+}
+
 }  // namespace mpbqr
 
 extern "C" {
@@ -285,6 +329,44 @@ int mpbqr_ninv_prof(long long* prof) {
 }
 #endif
 
+// The batched K4: B Newton inverses of one width and iteration count in
+// ONE launch of B clusters (grid (ctas, B), blockIdx.y the member).  S and
+// X are B x r x r contiguous (member b at b r^2 floats), resid B floats,
+// and `scratch` holds B x scratch_floats (one L2-route scratch a member;
+// none on the shared-memory route).  Member b's X and resid are bit for
+// bit those of mpbqr_ninv_chain on its S.  The other arguments as
+// mpbqr_ninv_chain takes them.  Returns cudaErrorInvalidValue for a B
+// outside 1 .. 65535, else as mpbqr_ninv_chain.
+int mpbqr_ninv_chain_batched(const float* S, float* X, float* resid,
+                             float* scratch, int B, int r, int iters,
+                             int inst, int route, int ctas,
+                             int scratch_floats, int smem_bytes,
+                             void* stream) {
+  using namespace mpbqr;
+  const KernelLayout lay{inst, route, ctas, scratch_floats, smem_bytes};
+  if (iters < 0 || !ninv_layout_ok(r, lay) || B < 1 || B > kMaxBatch)
+    return (int)cudaErrorInvalidValue;
+  const long long rr = (long long)r * r;
+  const ChainBatch bt{rr, rr, 0, 1, scratch_floats};
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  switch (inst) {
+    case 32: err = launch_ninv_r<32>(st, S, r, X, resid, iters, B, bt); break;
+    case 64: err = launch_ninv_r<64>(st, S, r, X, resid, iters, B, bt); break;
+    case 128:
+      err = launch_ninv_r<128>(st, S, r, X, resid, iters, B, bt);
+      break;
+    default: {
+      static bool fits[kL2MaxCluster + 1] = {};
+      err = launch_cluster_batch(ninv_l2_kernel, ctas, B, smem_bytes, st,
+                                 fits[ctas], S, r, X, resid, iters, scratch,
+                                 bt);
+    }
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // S (r x r, fp32, row-major) -> X (r x r) and *resid (one float), device
 // pointers, one cluster launch on `stream`; `scratch` holds the layout's
 // scratch floats (the L2 route's X and E).  inst, route, ctas,
@@ -292,27 +374,26 @@ int mpbqr_ninv_prof(long long* prof) {
 // which must match the kernel's own layout.  Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for an r outside 1 ..
 // kMaxWidth, a layout that differs from the kernel's or a negative
-// iteration count.
+// iteration count.  The batched entry's B = 1.
 int mpbqr_ninv_chain(const float* S, float* X, float* resid, float* scratch,
                      int r, int iters, int inst, int route, int ctas,
                      int scratch_floats, int smem_bytes, void* stream) {
+  return mpbqr_ninv_chain_batched(S, X, resid, scratch, 1, r, iters, inst,
+                                  route, ctas, scratch_floats, smem_bytes,
+                                  stream);
+}
+
+// How many K4 clusters of the layout (ns.py::ninv_layout(r, ...)) the card
+// keeps resident at once, in *out: a batch of B runs in ceil(B / *out)
+// waves.  Returns cudaErrorInvalidValue for a layout the kernel does not
+// run, else the CUDA error of the query.
+int mpbqr_ninv_chain_resident(int r, int inst, int route, int ctas,
+                              int scratch_floats, int smem_bytes, int* out) {
   using namespace mpbqr;
   const KernelLayout lay{inst, route, ctas, scratch_floats, smem_bytes};
-  if (iters < 0 || !ninv_layout_ok(r, lay)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  switch (inst) {
-    case 32: err = launch_ninv_r<32>(st, S, r, X, resid, iters); break;
-    case 64: err = launch_ninv_r<64>(st, S, r, X, resid, iters); break;
-    case 128: err = launch_ninv_r<128>(st, S, r, X, resid, iters); break;
-    default: {
-      static bool fits[kL2MaxCluster + 1] = {};
-      err = launch_cluster(ninv_l2_kernel, ctas, smem_bytes, st, fits[ctas],
-                           S, r, X, resid, iters, scratch);
-    }
-  }
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  *out = 0;
+  if (!ninv_layout_ok(r, lay)) return (int)cudaErrorInvalidValue;
+  return (int)ninv_resident(r, lay, out);
 }
 
 }  // extern "C"

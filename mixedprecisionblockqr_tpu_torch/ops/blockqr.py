@@ -34,7 +34,8 @@ the group buffer passes the same size gate as the JAX package (with
 ``bgs_group_fused_proj``, K5); otherwise
 each panel runs ``ns_chain`` (kernel K1) between plain products.  On a
 (B, m, n) stack (``block_qr_batched``) the same steps run once for all
-members, through the batched entries of K2 and K1.  A
+members, through the batched entries of K2 and K1 (and, for ``polar``, of
+K1 and K4).  A
 float64 panel always takes ``panel_factor``: K6 is fp32, as the TPU kernel
 is, and a POLICY_FP64 factorization stays float64.
 """
@@ -62,6 +63,7 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
     bgs_group_fused_batched,
     bgs_group_fused_proj,
     ninv_chain,
+    ninv_chain_batched,
     ns_chain,
     ns_chain_batched,
     panel_qr_fused,
@@ -99,13 +101,6 @@ DEFAULT_GROUP_PANELS = 4
 _NS_TIERS = ("bgs", "bgs1", "bgs2", "polar")
 _BGS_TIERS = ("bgs", "bgs1", "bgs2")
 _CHOLQR_TIERS = ("cholqr1", "cholqr2", "cholqr2s")
-#: The tiers ``_block_qr_traced`` runs when unrolled: a batch of them is one
-#: stacked driver call (``_driver_batched``).
-_REFLECTOR_TIERS = ("householder", "householder_pallas", *_CHOLQR_TIERS,
-                    "cholqr1x2")
-#: The tiers whose unrolled driver takes a (B, m, n) stack: a batch of them
-#: is one stacked driver call (``_driver_batched``); ``polar`` is not.
-_STACKED_TIERS = (*_REFLECTOR_TIERS, *_BGS_TIERS)
 QUALITY_LEVELS = ("fast", "balanced", "high", "robust")
 _QUALITY_BGS = {"fast": "bgs1", "balanced": "bgs2", "high": "bgs"}
 
@@ -894,22 +889,36 @@ def _block_qr_grouped(
     B and Q are each updated once per group by the merged
     ``H_g H_j = I - [Wg, Wj - Wg (Yg^T Wj)] [Yg, Yj]^T``.  Residuals enter
     the canary as the robust residual x 0.01 and the plain one squared.
-    Requires r | n and m >= n."""
-    m, n = A.shape
+    Requires r | n and m >= n.
+
+    ``A`` may also be a stack (B, m, n), with ``B`` (B, m, k): the JAX
+    package's ``vmap`` of this driver.  Every member takes the same steps:
+    a panel of all members is one ``tri_cholqr_fused`` call (one batched K1
+    launch; three on a robust tail panel) and one ``ninv_chain_batched``
+    launch, the LU fallback is each member's own select, the products run
+    on the stacks, and each member keeps its own canary.  A stack of one
+    runs as one matrix, with the same kernel calls and results."""
+    if A.dim() == 3 and A.shape[0] == 1:
+        outs = _block_qr_grouped(A[0], block_size, policy, want_q,
+                                 None if B is None else B[0], group_panels)
+        return tuple(None if x is None else x[None] for x in outs)
+    *batch, m, n = A.shape
     r = block_size
     if n % r != 0 or m < n:
-        raise ValueError(f"polar needs r | n and m >= n; got {A.shape}, "
-                         f"r={r}")
+        raise ValueError(f"polar needs r | n and m >= n; got "
+                         f"{tuple(A.shape)}, r={r}")
     nb = n // r
     dev = A.device
     A = A.to(policy.panel, copy=True)
     q_dtype = policy.q_store or policy.accum
-    Q = torch.eye(m, dtype=q_dtype, device=dev) if want_q else None
+    Q = (torch.eye(m, dtype=q_dtype, device=dev).repeat(*batch, 1, 1)
+         if want_q else None)
     if B is not None:
         B = B.clone()
     mm_t, mm_q = trailing_matmul(policy), q_matmul(policy)
-    worst = torch.zeros((), dtype=torch.float32, device=dev)
+    worst = torch.zeros(batch, dtype=torch.float32, device=dev)
     eye_r = torch.eye(r, dtype=torch.float32, device=dev)
+    ninv = ninv_chain_batched if batch else ninv_chain
     i = 0
     while i < nb:
         lam_g = i * r
@@ -918,7 +927,7 @@ def _block_qr_grouped(
         Yg = Wg = None
         for j in js:
             lam = j * r
-            P = A[lam:, lam:lam + r]
+            P = A[..., lam:, lam:lam + r]
             if (m - lam) < 2 * r:
                 Qs, t, _, rresid = tri_cholqr_robust_fused(P, sign_fix=True)
                 worst = torch.maximum(worst, 0.01 * rresid)
@@ -929,41 +938,47 @@ def _block_qr_grouped(
                 Qs, t, _, resid = tri_cholqr_fused(P, iters=iters)
                 worst = torch.maximum(worst, resid * resid)
             if m - lam == r:  # square final panel: H = Qs, no inversion
-                Y = eye_r
+                Y = eye_r.expand_as(Qs)
                 W = eye_r - Qs
             else:
                 Y = Qs - torch.eye(m - lam, r, dtype=Qs.dtype, device=dev)
-                S = eye_r - Qs[:r, :].T
+                S = eye_r - Qs[..., :r, :].mT
                 aspect = (m - lam) / r
-                Xn, nresid = ninv_chain(S.contiguous(),
-                                        iters=newton_iters_for_aspect(aspect))
-                Sinv = (torch.where(nresid < 1e-3, Xn, lu_inv(S))
+                Xn, nresid = ninv(S.contiguous(),
+                                  iters=newton_iters_for_aspect(aspect))
+                Sinv = (torch.where((nresid < 1e-3)[..., None, None], Xn,
+                                    lu_inv(S))
                         if aspect < 4 else Xn)
                 W = mm_f32(Y, Sinv)
-            A[lam:, lam:lam + r] = 0
-            A[lam:lam + r, lam:lam + r] = t.to(A.dtype)
+            A[..., lam:, lam:lam + r] = 0
+            A[..., lam:lam + r, lam:lam + r] = t.to(A.dtype)
             if lam + r < g_end:  # eager update of the group's own columns
-                C = A[lam:, lam + r:g_end]
-                A[lam:, lam + r:g_end] = (C - mm_t(Y, mm_t(W.T, C))).to(
-                    A.dtype)
+                C = A[..., lam:, lam + r:g_end]
+                A[..., lam:, lam + r:g_end] = (
+                    C - mm_t(Y, mm_t(W.mT, C))).to(A.dtype)
             pad = lam - lam_g
-            Yj = torch.cat([Y.new_zeros((pad, r)), Y]) if pad else Y
-            Wj = torch.cat([W.new_zeros((pad, r)), W]) if pad else W
+            if pad:
+                z = W.new_zeros((*batch, pad, r))
+                Yj = torch.cat([z, Y], dim=-2)
+                Wj = torch.cat([z, W], dim=-2)
+            else:
+                Yj, Wj = Y, W
             if Yg is None:
                 Yg, Wg = Yj, Wj
             else:
-                Wj = Wj - mm_t(Wg, mm_t(Yg.T, Wj))
-                Yg = torch.cat([Yg, Yj], dim=1)
-                Wg = torch.cat([Wg, Wj], dim=1)
+                Wj = Wj - mm_t(Wg, mm_t(Yg.mT, Wj))
+                Yg = torch.cat([Yg, Yj], dim=-1)
+                Wg = torch.cat([Wg, Wj], dim=-1)
         if g_end < n:
-            C = A[lam_g:, g_end:]
-            A[lam_g:, g_end:] = (C - mm_t(Yg, mm_t(Wg.T, C))).to(A.dtype)
+            C = A[..., lam_g:, g_end:]
+            A[..., lam_g:, g_end:] = (
+                C - mm_t(Yg, mm_t(Wg.mT, C))).to(A.dtype)
         if B is not None:
-            Bl = B[lam_g:]
-            B[lam_g:] = (Bl - mm_t(Yg, mm_t(Wg.T, Bl))).to(B.dtype)
+            Bl = B[..., lam_g:, :]
+            B[..., lam_g:, :] = (Bl - mm_t(Yg, mm_t(Wg.mT, Bl))).to(B.dtype)
         if want_q:
-            Qc = Q[:, lam_g:]
-            Q[:, lam_g:] = (Qc - mm_q(mm_q(Qc, Wg), Yg.T)).to(q_dtype)
+            Qc = Q[..., lam_g:]
+            Q[..., lam_g:] = (Qc - mm_q(mm_q(Qc, Wg), Yg.mT)).to(q_dtype)
         i = js[-1] + 1
     R_full = torch.triu(A.to(policy.accum))
     return _poison_if_unconverged(worst, R_full, Q, B)
@@ -1145,22 +1160,16 @@ def _driver_batched(A, block_size, policy, want_q, B, panel_method,
                     group_panels=DEFAULT_GROUP_PANELS):
     """The unrolled tier ``panel_method`` over a stack A (B, m, n), with
     ``B`` (B, m, k) or None: ``(R_full, Q, QtB)`` stacked (the JAX
-    package's ``vmap`` of ``_jitted_driver``).  The reflector tiers run
-    ``_block_qr_traced`` once on the whole stack (one K6 launch over the
-    batch a panel step on the card), the BGS tiers ``bgs`` / ``bgs1`` /
-    ``bgs2`` ``_block_qr_bgs`` once (one batched K2 entry a group, one
-    batched K1 launch a chain of the per-panel route, the robust tail and
-    the rescrub).  ``polar`` runs ``_driver`` member by member: its K4 has
-    no batched entry yet (ROADMAP.md Queue 2 item 3 (vii)); on the card
-    each member still launches K1 and K4."""
-    if panel_method in _STACKED_TIERS:
-        return _driver(A, block_size, policy, want_q, B, panel_method,
-                       "unroll", group_panels)
-    Bs = [None] * A.shape[0] if B is None else B
-    outs = [_driver(a, block_size, policy, want_q, b, panel_method,
-                    "unroll", group_panels) for a, b in zip(A, Bs)]
-    return tuple(None if xs[0] is None else torch.stack(xs)
-                 for xs in zip(*outs))
+    package's ``vmap`` of ``_jitted_driver``).  Every tier runs its driver
+    once on the whole stack: the reflector tiers ``_block_qr_traced`` (one
+    K6 launch over the batch a panel step on the card), the BGS tiers
+    ``bgs`` / ``bgs1`` / ``bgs2`` ``_block_qr_bgs`` (one batched K2 entry a
+    group, one batched K1 launch a chain of the per-panel route, the
+    robust tail and the rescrub), ``polar`` ``_block_qr_grouped`` (one
+    batched K1 launch a panel, three on a robust tail panel, and one
+    batched K4 launch a panel)."""
+    return _driver(A, block_size, policy, want_q, B, panel_method, "unroll",
+                   group_panels)
 
 
 def block_qr_batched(
@@ -1173,10 +1182,11 @@ def block_qr_batched(
 ):
     """Blocked QR over a leading batch axis: the unrolled driver of
     ``panel_method`` on the whole (batch, m, n) stack (the JAX package
-    ``vmap``s it; ``_driver_batched``): the reflector tiers in one stacked
-    call, one K6 launch over the batch a panel step on the card; the BGS
-    tiers in one stacked call, one batched K2 entry a group (or one batched
-    K1 launch a chain) on the card; ``polar`` member by member.
+    ``vmap``s it; ``_driver_batched``): every tier in one stacked call; on
+    the card the reflector tiers launch K6 once over the batch a panel
+    step, the BGS tiers one batched K2 entry a group (or one batched K1
+    launch a chain), ``polar`` one batched K1 and one batched K4 launch a
+    panel.
     ``panel_method`` is taken as given, as there; a NaN in one member
     poisons that member's canary only."""
     A_batch = as_device_tensor(A_batch, device)

@@ -27,6 +27,7 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (  # noqa: F401
     bgs_group_fused_proj,
     bgs_group_fused_proj_plain,
     ninv_chain,
+    ninv_chain_batched,
     ninv_chain_plain,
     ninv_layout,
     ns_chain,

@@ -99,6 +99,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_sketch_qrcp.restype = ci
     lib.mpbqr_ninv_chain.argtypes = [vp, vp, vp, vp, ci, ci, *chain, vp]
     lib.mpbqr_ninv_chain.restype = ci
+    lib.mpbqr_ninv_chain_batched.argtypes = [vp, vp, vp, vp, ci, ci, ci,
+                                             *chain, vp]
+    lib.mpbqr_ninv_chain_batched.restype = ci
+    lib.mpbqr_ninv_chain_resident.argtypes = [ci, *chain,
+                                              ctypes.POINTER(ci)]
+    lib.mpbqr_ninv_chain_resident.restype = ci
     lib.mpbqr_tri_combine.argtypes = [vp, vp, vp, vp, vp, ci, ci, *chain, vp]
     lib.mpbqr_tri_combine.restype = ci
     lib.mpbqr_panel_factor.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,

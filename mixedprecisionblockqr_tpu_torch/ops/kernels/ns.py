@@ -3,9 +3,10 @@
 (K5), each beside its plain PyTorch version, the R-block combine
 ``tri_combine`` that closes K2's and K3's robust panels, on its own, and the
 compositions ``tri_cholqr_fused`` and ``tri_cholqr_robust_fused`` over K1.
-K1 and K2 also take a stack of problems in one call (``ns_chain_batched``,
-``bgs_group_fused_batched``: the TPU kernels under ``jax.vmap``), and their
-plain versions take the same stacks.
+K1, K2 and K4 also take a stack of problems in one call
+(``ns_chain_batched``, ``bgs_group_fused_batched``, ``ninv_chain_batched``:
+the TPU kernels under ``jax.vmap``), and their plain versions and the two
+compositions take the same stacks.
 
 Port of ``mixedprecisionblockqr_tpu/ops/pallas/ns.py``.  The wrappers
 launch the hand-written CUDA kernels of ``csrc/`` for CUDA tensors and
@@ -46,14 +47,15 @@ ROUTE_LAUNCHES = {"tma": 0, "predicated": 0}
 PIECE_LAUNCHES = {"tri_combine": 0}
 #: The batched entries: K6's (ops/kernels/panel.py::
 #: panel_factor_fused_batched: one launch a call, one a sub-panel above 128
-#: columns), K1's (:func:`ns_chain_batched`, one launch a call) and K2's
-#: (:func:`bgs_group_fused_batched`, one C entry a call).  Their launches
-#: count in ``LAUNCHES`` under the same key as well; ``BATCH_MEMBERS``
-#: counts the panels, chains or groups they ran (B a call).
+#: columns), K1's (:func:`ns_chain_batched`, one launch a call), K2's
+#: (:func:`bgs_group_fused_batched`, one C entry a call) and K4's
+#: (:func:`ninv_chain_batched`, one launch a call).  Their launches count
+#: in ``LAUNCHES`` under the same key as well; ``BATCH_MEMBERS`` counts the
+#: panels, chains, groups or inverses they ran (B a call).
 BATCH_LAUNCHES = {"panel_factor_fused": 0, "ns_chain": 0,
-                  "bgs_group_fused": 0}
+                  "bgs_group_fused": 0, "ninv_chain": 0}
 BATCH_MEMBERS = {"panel_factor_fused": 0, "ns_chain": 0,
-                 "bgs_group_fused": 0}
+                 "bgs_group_fused": 0, "ninv_chain": 0}
 #: K6's wide route (ops/kernels/panel.py, panels wider than 128): its calls
 #: and the product launches between its sub-panels, whose K6 launches
 #: count in ``LAUNCHES["panel_factor_fused"]``.
@@ -468,11 +470,14 @@ def bgs_group_fused_proj_plain(Pg, Qprev, r, iters, robust, bf16_dots=True,
 
 def ninv_chain_plain(S, iters=6):
     """Plain version of :func:`ninv_chain` (``_ninv_kernel`` transcription:
-    ``newton_inv`` in fp32 and the final residual)."""
+    ``newton_inv`` in fp32 and the final residual), and of
+    :func:`ninv_chain_batched` on a stack (..., r, r): one inverse and one
+    residual a member, so that one member's residual arms only its own
+    fallback."""
     S = S.float()
     X = newton_inv(S, iters=iters)
-    eye = torch.eye(S.shape[0], dtype=torch.float32, device=S.device)
-    return X, (eye - mm_f32(S, X)).abs().max()
+    eye = torch.eye(S.shape[-1], dtype=torch.float32, device=S.device)
+    return X, _max_abs(eye - mm_f32(S, X))
 
 
 # -- kernel wrappers -------------------------------------------------------
@@ -883,21 +888,78 @@ def ninv_chain(S: torch.Tensor, iters: int = 6
 
 def _launch_ninv(lib, S: torch.Tensor, iters: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of ``mpbqr_ninv_chain`` from the kernel library ``lib``
-    on a checked S, with the layout of :func:`ninv_layout`; counts
-    nothing."""
+    """One launch of ``mpbqr_ninv_chain`` (an (r, r) S) or
+    ``mpbqr_ninv_chain_batched`` (a (B, r, r) stack, one L2-route scratch a
+    member) from the kernel library ``lib`` on a checked S, with the
+    layout of :func:`ninv_layout`; counts nothing."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
 
-    r = S.shape[0]
+    *batch, r, _ = S.shape
     lay = ninv_layout(r, _card_cluster(S, r))
     X = torch.empty_like(S)
-    resid = torch.empty((), dtype=torch.float32, device=S.device)
-    scratch = _scratch(S, lay)
-    code = lib.mpbqr_ninv_chain(S.data_ptr(), X.data_ptr(), resid.data_ptr(),
-                                scratch.data_ptr(), r, iters,
-                                *_c_layout(lay), _stream(S))
+    resid = torch.empty(batch, dtype=torch.float32, device=S.device)
+    scratch = torch.empty((batch[0] if batch else 1) * lay.scratch_floats,
+                          dtype=torch.float32, device=S.device)
+    ptrs = (S.data_ptr(), X.data_ptr(), resid.data_ptr(), scratch.data_ptr())
+    tail = (r, iters, *_c_layout(lay), _stream(S))
+    if batch:
+        code = lib.mpbqr_ninv_chain_batched(*ptrs, batch[0], *tail)
+    else:
+        code = lib.mpbqr_ninv_chain(*ptrs, *tail)
     check(code, "ninv_chain")
     return X, resid
+
+
+def ninv_chain_batched(S: torch.Tensor, iters: int = 6
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ninv_chain` of each member of a stack ``S`` (B, r, r), the
+    same iteration count for all: the TPU kernel under ``jax.vmap``.
+
+    Returns ``X (B, r, r)`` and ``resid (B,)``, member by member as
+    :func:`ninv_chain` gives them.  On the CPU it runs
+    :func:`ninv_chain_plain` on the stack.  On CUDA it is ONE launch of B
+    clusters laid out by :func:`ninv_layout` (the member the grid's y),
+    with one L2-route scratch a member above 128; each member gets the
+    bits of its single launch.  A stack that is not contiguous fp32, an r
+    outside 1 .. ``MAX_WIDTH``, a B outside 1 .. ``MAX_BATCH`` or negative
+    ``iters`` raises ``ValueError``, with no loop of single launches in its
+    place.  Counts in ``LAUNCHES`` and ``BATCH_LAUNCHES`` (one) and
+    ``BATCH_MEMBERS`` (B)."""
+    if S.device.type == "cpu":
+        return ninv_chain_plain(S, iters)
+    _require_cuda_f32(S, "S", dims=3)
+    B, r = S.shape[:2]
+    if S.shape != (B, r, r) or iters < 0:
+        raise ValueError(f"ninv_chain_batched takes (B, r, r), iters >= 0; "
+                         f"got {tuple(S.shape)}, iters={iters}")
+    _check_width(r, "ninv_chain")
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
+
+    out = _launch_ninv(library(), S, iters)
+    LAUNCHES["ninv_chain"] += 1
+    BATCH_LAUNCHES["ninv_chain"] += 1
+    BATCH_MEMBERS["ninv_chain"] += B
+    return out
+
+
+def ninv_resident_clusters(device: torch.device, r: int) -> int:
+    """How many K4 clusters of :func:`ninv_layout` (r) the card of
+    ``device`` keeps resident at once (``cudaOccupancyMaxActiveClusters``):
+    a batch of B inverses runs in ``ceil(B / ninv_resident_clusters)``
+    waves."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
+        check, library,
+    )
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import max_cluster
+
+    lay = ninv_layout(r, max_cluster(device) if not _inst(r)
+                      else L2_MAX_CLUSTER)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        check(library().mpbqr_ninv_chain_resident(
+            r, *_c_layout(lay), ctypes.byref(out)),
+            "ninv_chain resident clusters")
+    return out.value
 
 
 def tri_combine(T1: torch.Tensor, T2: torch.Tensor, T3: torch.Tensor
@@ -940,13 +1002,15 @@ def tri_cholqr_fused(P: torch.Tensor, iters: int = 10):
     convention (diag of Q's top r x r block <= 0) that the reflector
     drivers need: the JAX package's ``tri_cholqr_fused(sign_fix=True)``.
     Returns ``(Q, t, X, resid)`` with ``resid`` the chain's one-behind
-    residual."""
+    residual.  On a stack (B, m, r) every member runs its own chain, all
+    in one :func:`ns_chain_batched` call, and ``resid`` is one a member."""
     P = P.float()
-    r = P.shape[1]
-    X, t, resid = ns_chain(mm_f32(P.T, P).contiguous(), iters=iters)
-    D = _sign_fix(mm_f32(P[:r, :], X))
-    X = X * D[None, :]
-    return mm_f32(P, X), D[:, None] * t, X, resid
+    r = P.shape[-1]
+    chain = ns_chain_batched if P.dim() == 3 else ns_chain
+    X, t, resid = chain(mm_f32(P.mT, P).contiguous(), iters=iters)
+    D = _sign_fix(mm_f32(P[..., :r, :], X))
+    X = X * D[..., None, :]
+    return mm_f32(P, X), D[..., :, None] * t, X, resid
 
 
 def tri_cholqr_robust_fused(P: torch.Tensor, chain_mid: bool = False,

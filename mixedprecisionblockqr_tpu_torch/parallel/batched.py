@@ -53,8 +53,8 @@ def block_qr_batched_sharded(
     the reflector tiers in one stacked call, one K6 launch over the batch a
     panel step on the card; the ``bgs*`` tiers, where ``'auto'`` sends
     every m >= n, r | n, n >= 2r stack under a mixed policy, in one
-    stacked call, one batched K2 entry a group; ``polar`` member by
-    member)."""
+    stacked call, one batched K2 entry a group; ``polar`` in one stacked
+    call, one batched K1 and one batched K4 launch a panel)."""
     A_batch = as_device_tensor(A_batch, mesh_device(mesh)).to(policy.panel)
     b, m, n = A_batch.shape
     d = axis_size(mesh, axis)

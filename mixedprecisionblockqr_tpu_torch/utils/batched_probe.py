@@ -1,28 +1,34 @@
-"""K1 ``ns_chain`` and K2 ``bgs_group_fused`` over a batch on the card: their
-batched entries (``ns_chain_batched``, ``bgs_group_fused_batched``) against
-the batched plain versions, beside the loop of single calls, one PyTorch
-call on the stack and the bound.
+"""K1 ``ns_chain``, K2 ``bgs_group_fused`` and K4 ``ninv_chain`` over a batch
+on the card: their batched entries (``ns_chain_batched``,
+``bgs_group_fused_batched``, ``ninv_chain_batched``) against the batched
+plain versions, beside the loop of single calls, one PyTorch call on the
+stack and the bound.
 
     python3 -m mixedprecisionblockqr_tpu_torch.utils.batched_probe [--serial]
 
 Builds (or loads) the kernel library and prints JSON lines: first the
 card's name and power limit (nvidia-smi), then one line per K1 case of
-:data:`K1_CASES` and one per K2 case of :data:`K2_CASES` (the cases
-``chip_smoke.py`` phase 3 holds), each with:
+:data:`K1_CASES`, one per K2 case of :data:`K2_CASES` and one per K4 case
+of :data:`K4_CASES` (the cases ``chip_smoke.py`` phase 3 holds), each
+with:
 
 * the layout (K1: ``ns_layout``'s CTAs and route; K2: ``group_layout``,
-  the single group's) and, for K1, the clusters the card keeps resident
-  (``ns_resident_clusters``) and the waves of the batch;
+  the single group's; K4: ``ninv_layout``'s) and, for K1 and K4, the
+  clusters the card keeps resident (``ns_resident_clusters``,
+  ``ninv_resident_clusters``) and the waves of the batch;
 * the error against the plain version on the stack at phase 3's
   tolerances (K1: X and t within 1e-4 x max|plain|, the same canary class;
   K2: R and its robust tail block 1e-4 relative under fp32 flags, 5e-3
-  under the bf16 flags, Q 1e-4 absolute or 5e-3 relative), two batched
-  calls bit for bit equal, and every member bit for bit its single call;
+  under the bf16 flags, Q 1e-4 absolute or 5e-3 relative; K4: X within
+  1e-4 x max|plain|, the same fallback class (resid < 1e-3) a member),
+  two batched calls bit for bit equal, and every member bit for bit its
+  single call;
 * CUDA-event times (median of 20; the plain version's of 3): the batched
   call, the loop of single calls, the plain version, the library call
   (``torch.linalg.cholesky`` of the Gram stack for K1, ``torch.linalg.qr``
-  of the group stack for K2); and the bound (``utils/bounds.py``: the
-  whole card's for B members, and one member's floor on its cluster);
+  of the group stack for K2, ``torch.linalg.inv`` of the S stack for K4);
+  and the bound (``utils/bounds.py``: the whole card's for B members, and
+  one member's floor on its cluster);
 * for K2, the device kernels, streams and idle share of one call
   (``torch.profiler``).
 
@@ -67,6 +73,20 @@ K2_CASES = (
     ("bgs1_2x2048x1024_r256", 2, 2048, 256, 4, True),
 )
 K2_ITERS = (12, 6, 6, 10)
+#: K4 stacks: (name, B, m, r, iterations): Yamamoto S matrices of uniform
+#: m x r panels (``ninv_probe.yamamoto_s``): the polar driver's tall panel
+#: (aspect 32, 5 iterations) and its aspect-2 panel (12, the LU fallback
+#: armed), 16 of them (two waves if 15 clusters are resident), the padded
+#: instantiation (r = 100 on R = 128) and the L2 route (r = 256).
+K4_CASES = (
+    ("panel4096_it5", 8, 4096, 128, 5),
+    ("panel256_it12", 8, 256, 128, 12),
+    ("panel256_it12_B16", 16, 256, 128, 12),
+    ("padded_r100_it5", 3, 3200, 100, 5),
+    ("l2_r256_it5", 4, 8192, 256, 5),
+)
+#: The drivers' LU fallback threshold on K4's residual (ops/blockqr.py).
+K4_FALLBACK = 1e-3
 
 
 def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -229,6 +249,68 @@ def k2_batched_row(Pg: torch.Tensor, r: int, bf16: bool,
     return row
 
 
+def k4_stack(B: int, m: int, r: int, gen: torch.Generator,
+             dev: torch.device) -> torch.Tensor:
+    """A (B, r, r) stack of Yamamoto S matrices of uniform m x r panels
+    (see :data:`K4_CASES`)."""
+    from mixedprecisionblockqr_tpu_torch.utils.ninv_probe import yamamoto_s
+
+    return yamamoto_s(m, gen, dev, r=r, batch=(B,))
+
+
+def k4_batched_row(S: torch.Tensor, iters: int) -> dict:
+    """K4's batched entry on the S stack ``S`` (B, r, r): layout, resident
+    clusters and waves; error against ``ninv_chain_plain`` on the stack;
+    the fallback class a member; bitwise repeat; each member bit for bit
+    its single launch; times; bounds.  Counts on the launch counters like
+    any call: callers set them to 0 before a main path."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+        _card_cluster,
+        ninv_chain,
+        ninv_chain_batched,
+        ninv_chain_plain,
+        ninv_layout,
+        ninv_resident_clusters,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.bounds import (
+        ninv_chain_batched_bound,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    B, r = S.shape[:2]
+    lay = ninv_layout(r, _card_cluster(S, r))
+    resident = ninv_resident_clusters(S.device, r)
+    row = {"shape": [B, r, r], "iters": iters, "route": lay.route,
+           "ctas": lay.ctas, "resident_clusters": resident,
+           "waves": -(-B // max(1, resident))}
+    X, res = ninv_chain_batched(S, iters)
+    again = ninv_chain_batched(S, iters)
+    Xp, resp = ninv_chain_plain(S, iters)
+    singles = [ninv_chain(S[i], iters) for i in range(B)]
+    torch.cuda.synchronize()
+    row["bitwise_repeatable"] = all(
+        bool(torch.equal(a, b)) for a, b in zip((X, res), again))
+    row["members_bitwise_single_launch"] = all(
+        bool(torch.equal(X[i], s[0]) and torch.equal(res[i], s[1]))
+        for i, s in enumerate(singles))
+    row["max_abs_err"] = _max_abs(X, Xp)
+    row["lim_X"] = TOL_F32 * float(Xp.abs().max())
+    row["resid"] = res.tolist()
+    row["resid_plain"] = resp.tolist()
+    same_class = bool(((res < K4_FALLBACK) == (resp < K4_FALLBACK)).all())
+    row["ok"] = (row["max_abs_err"] <= row["lim_X"] and same_class
+                 and row["bitwise_repeatable"]
+                 and row["members_bitwise_single_launch"])
+    row["ms"] = cuda_time_ms(lambda: ninv_chain_batched(S, iters))
+    row["single_loop_ms"] = cuda_time_ms(
+        lambda: [ninv_chain(s, iters) for s in S], warmup=1, iters=10)
+    row["plain_ms"] = cuda_time_ms(lambda: ninv_chain_plain(S, iters),
+                                   warmup=1, iters=3)
+    row["library_ms"] = cuda_time_ms(lambda: torch.linalg.inv(S))
+    row.update(ninv_chain_batched_bound(B, r, iters))
+    return row
+
+
 def k2_stack(B: int, m: int, w: int, gen: torch.Generator,
              dev: torch.device) -> torch.Tensor:
     return torch.rand((B, m, w), generator=gen, device=dev) - 0.5
@@ -288,6 +370,10 @@ def main(argv=None) -> int:
         row = k2_batched_row(Pg, r, bf)
         ok = ok and row["ok"]
         print(json.dumps({"k2": name, **row}), flush=True)
+    for name, B, m, r, it in K4_CASES:
+        row = k4_batched_row(k4_stack(B, m, r, gen, dev), it)
+        ok = ok and row["ok"]
+        print(json.dumps({"k4": name, **row}), flush=True)
     if args.serial:
         rows = serial_rows(stacks)
         ok = ok and all(row["serial_equal"] for row in rows.values())

@@ -2,8 +2,9 @@
 
     python3 -m mixedprecisionblockqr_tpu_torch.utils.bounds
 
-prints one JSON line per kernel of the repository (K1-K9, and the Givens
-chains G1-G3) at the shapes ``chip_smoke.py`` times it.  A bound is the larger of two times: the operations
+prints one JSON line per kernel of the repository (K1-K9, the batched K1,
+K2, K4 and K6, and the Givens chains G1-G3) at the shapes ``chip_smoke.py``
+times it.  A bound is the larger of two times: the operations
 the kernel does on these inputs over the peak rate for their type, and the
 bytes it must move (each input read once, each output written once) over
 the memory rate.  The peaks are the H100 SXM data sheet's (dense, 700 W).
@@ -195,6 +196,20 @@ def ninv_chain_bound(r, iters):
     ``cluster_bound``)."""
     return cluster_bound((2 * iters + 1) * 2 * r ** 3, 2 * r * r * 4,
                          ninv_layout(r).ctas)
+
+
+def ninv_chain_batched_bound(B, r, iters):
+    """K4 over a batch of B inverses (``ninv_chain_batched``): B times one
+    inverse's operations and bytes (``ninv_chain_bound``'s) at the whole
+    card's rates; beside it ``member_floor_ms``, what no batch can overlap:
+    one member's chain on the SMs of its own cluster
+    (``cluster_bound_ms`` of ``ninv_chain_bound``), and ``cluster_sms``,
+    that cluster."""
+    one = ninv_chain_bound(r, iters)
+    return {**bound(f32_ops=B * (2 * iters + 1) * 2 * r ** 3,
+                    nbytes=B * 2 * r * r * 4),
+            "cluster_sms": one["cluster_sms"],
+            "member_floor_ms": one["cluster_bound_ms"]}
 
 
 def tri_combine_bound(r):
@@ -398,6 +413,11 @@ def kernel_bounds():
                           **ninv_chain_bound(128, 5)},
         "K4 ninv_chain 12": {"shape": "r=128, 12 iterations",
                              **ninv_chain_bound(128, 12)},
+        **{f"K4 ninv_chain_batched {B}x{r}x{r} {it} it": {
+            "shape": f"{B} x {r} x {r}, {it} iterations",
+            **ninv_chain_batched_bound(B, r, it)}
+           for B, r, it in ((8, 128, 5), (8, 128, 12), (16, 128, 12),
+                            (3, 100, 5), (4, 256, 5))},
         "K5 bgs_group_fused_proj": {
             "shape": "2048 x 1024, g=8, bf16, 1024 previous columns",
             **group_bound(2048, 128, head, (False,) * 7 + (True,), True,

@@ -56,28 +56,34 @@ PHASES = {"setup": 0, "prod_SX": 1, "sync_SX": 2, "cluster_wait": 3,
           "prod_XE": 4, "gather": 5, "cluster_arrive": 6, "residual": 7}
 
 
-def k4_inputs(gen: torch.Generator, dev) -> dict:
-    """name -> (S, iters): Yamamoto S matrices (I - Q1^T, Q1 the sign-fixed
-    top 128 x 128 block of a panel's orthonormal basis) of a 4096 x 128
-    panel (aspect 32, 5 iterations: the polar phase's), a 256 x 128 one
-    (aspect 2, 12: the cholqr scan's), both drawn from ``gen`` in that
-    order, and a near-singular S: the rotation by pi about (1,1,1)/sqrt(3)
-    of the JAX package's ops/cholqr.py:110-115, scaled by 0.999, in the top
-    corner (12 iterations stall above the fallback threshold)."""
+def yamamoto_s(m: int, gen: torch.Generator, dev, r: int = 128,
+               batch: tuple = ()) -> torch.Tensor:
+    """The Yamamoto S = I - Q1^T of a uniform m x r panel drawn from
+    ``gen`` (Q1 the sign-fixed top r x r block of its orthonormal basis),
+    or a (*batch, r, r) stack of them from one (*batch, m, r) draw."""
     from mixedprecisionblockqr_tpu_torch.ops.cholqr import _sign_fix
 
-    def yamamoto_S(m):
-        Qb, _ = torch.linalg.qr(
-            torch.rand((m, 128), generator=gen, device=dev) - 0.5)
-        D = _sign_fix(Qb[:128])
-        return (torch.eye(128, device=dev) - (Qb * D)[:128].T).contiguous()
+    Qb, _ = torch.linalg.qr(
+        torch.rand((*batch, m, r), generator=gen, device=dev) - 0.5)
+    D = _sign_fix(Qb[..., :r, :])
+    return (torch.eye(r, device=dev)
+            - (Qb * D[..., None, :])[..., :r, :].mT).contiguous()
 
+
+def k4_inputs(gen: torch.Generator, dev) -> dict:
+    """name -> (S, iters): Yamamoto S matrices (:func:`yamamoto_s`) of a
+    4096 x 128 panel (aspect 32, 5 iterations: the polar phase's), a 256 x
+    128 one (aspect 2, 12: the cholqr scan's), both drawn from ``gen`` in
+    that order, and a near-singular S: the rotation by pi about
+    (1,1,1)/sqrt(3) of the JAX package's ops/cholqr.py:110-115, scaled by
+    0.999, in the top corner (12 iterations stall above the fallback
+    threshold)."""
     c3 = torch.ones(3, device=dev) / 3 ** 0.5
     S_sing = torch.eye(128, device=dev)
     S_sing[:3, :3] -= 0.999 * (2 * torch.outer(c3, c3)
                                - torch.eye(3, device=dev)).T
-    return {"panel4096_it5": (yamamoto_S(4096), 5),
-            "panel256_it12": (yamamoto_S(256), 12),
+    return {"panel4096_it5": (yamamoto_s(4096, gen, dev), 5),
+            "panel256_it12": (yamamoto_s(256, gen, dev), 12),
             "near_singular_it12": (S_sing.contiguous(), 12)}
 
 

@@ -36,7 +36,10 @@ K6 a panel step), ``block_qr_batched`` (the same 8 x 2048 x 512 stack,
 POLICY_FP32, ``'householder'``, reduced), ``block_qr_batched_bgs1``
 (``chip_smoke.py`` phase 25 (a): 8 x 2048 x 2048, member i from
 ``default_rng(i)``, POLICY_MIXED_FAST, ``'bgs1'``, reduced: 4 batched K2
-entries for 32 groups) and ``autodiff``
+entries for 32 groups), ``block_qr_batched_polar`` (``chip_smoke.py``
+phase 26 (a): 8 x 4096 x 2048, member i from ``default_rng(i)``,
+POLICY_MIXED_FAST, ``'polar'``, complete: 16 batched K1 and 16 batched K4
+launches) and ``autodiff``
 (``qr_autodiff`` forward and backward on 2048 x 1024, POLICY_FP32), and
 ``chip_smoke.py`` phase 19's streaming cells:
 ``rls`` (``rls_update`` of 16 rows from ``default_rng(4)`` into the
@@ -241,6 +244,13 @@ def main(only: Sequence[str] = ()) -> int:
             [np.random.default_rng(i).random((2048, 2048), dtype=np.float32)
              - 0.5 for i in range(8)])).to(dev)
 
+    def polar_stack():
+        """chip_smoke.py phase 26 (a)'s stack: member i the uniform draw of
+        ``default_rng(i)`` - 0.5, so member 0 is the polar cell's input."""
+        return torch.from_numpy(np.stack(
+            [np.random.default_rng(i).random((4096, 2048), dtype=np.float32)
+             - 0.5 for i in range(8)])).to(dev)
+
     def rls_case():
         st = rls_init(*lazy("slam", slam))
         rng4 = np.random.default_rng(4)
@@ -304,6 +314,9 @@ def main(only: Sequence[str] = ()) -> int:
         ("block_qr_batched_bgs1 8x2048x2048", lambda: block_qr_batched(
             lazy("headline_stack", headline_stack), 128, POLICY_MIXED_FAST,
             panel_method="bgs1"), 3),
+        ("block_qr_batched_polar 8x4096x2048", lambda: block_qr_batched(
+            lazy("polar_stack", polar_stack), 128, POLICY_MIXED_FAST,
+            mode="complete", panel_method="polar"), 3),
         ("autodiff", autodiff_step, 5),
         ("rls update 16 rows n=2048",
          lambda: rls_update(*lazy("rls", rls_case)), 5),
