@@ -142,7 +142,9 @@ last line):
                  (the Householder driver on the whole stack: 4 batched
                  panel_factor_fused launches for 32 panels), each against
                  float64, its time beside the member loop of the same
-                 driver and torch.linalg.lstsq on the stack;
+                 driver and torch.linalg.lstsq on the stack, K6's device
+                 time and each batched shape's layout and waves (the
+                 refine call's too);
                  block_qr_batched on the same stack (block 128, POLICY_FP32,
                  'householder', reduced): 4 batched launches for 32
                  panels, each member all_ok and its R within 1e-5
@@ -243,8 +245,10 @@ last line):
                  lstsq(J, b, method='tsqr') on phase 17's system (one
                  4096 x 2048 leaf) against float64, beside phase 17's
                  times; (e) tsqr on 65536 x 256: 7 wide batched calls (14
-                 K6 launches) for 127 panels, metric triple within 2^-23 m,
-                 K6 device time;
+                 K6 launches and 42 product launches, each over the
+                 call's members) for 127 panels, metric triple within
+                 2^-23 m, K6's and the products' device time, each batched
+                 shape's layout and waves;
  25. bgs_batched -- the BGS tiers on the whole stack, only batched K1 /
                  K2 launches (counted): (a) block_qr_batched 8 x 2048^2
                  (member i from default_rng(i)) POLICY_MIXED_FAST bgs1, 4
@@ -338,20 +342,33 @@ def device_kernels(fn):
             "device_events": row["device_events"], "streams": row["streams"]}
 
 
-def k6_device_ms(fn):
-    """Device ms of the K6 kernels (single and batched launches alike) in
-    one call of fn (``torch.profiler``, the last of two profiled calls);
-    None when the profiles saw no device activity."""
+def device_ms_by(fn, **groups):
+    """Device ms and launches, per group, of the kernels whose names hold
+    one of the group's words in one call of fn (``torch.profiler``, the
+    last of two profiled calls): ``{group: {"ms", "launches"}}``; None for
+    each when the profiles saw no device activity."""
     from mixedprecisionblockqr_tpu_torch.utils.group_probe import (
         device_breakdown,
     )
 
     try:
-        row = device_breakdown(fn, calls=2)
+        kernels = device_breakdown(fn, calls=2)["kernels"]
     except RuntimeError:
-        return None
-    return sum(v["ms"] for k, v in row["kernels"].items()
-               if "panel_factor_kernel" in k)
+        return {g: None for g in groups}
+    out = {}
+    for g, words in groups.items():
+        hits = [v for k, v in kernels.items() if any(x in k for x in words)]
+        out[g] = {"ms": sum(v["ms"] for v in hits),
+                  "launches": sum(v["count"] for v in hits)}
+    return out
+
+
+def k6_device_ms(fn):
+    """Device ms of the K6 kernels (single and batched launches alike) in
+    one call of fn (``device_ms_by``); None when the profiles saw no
+    device activity."""
+    row = device_ms_by(fn, k6=("panel_factor_kernel",))["k6"]
+    return row and row["ms"]
 
 
 def max_abs(a, b):
@@ -1119,7 +1136,10 @@ def phase_k6_widths(A, R64, Jn17, bn17, row17, dev):
     from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import WIDE_LAUNCHES
     from mixedprecisionblockqr_tpu_torch.parallel import tsqr as tsqr_mod
     from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
-    from mixedprecisionblockqr_tpu_torch.utils.panel_probe import k6_row
+    from mixedprecisionblockqr_tpu_torch.utils.panel_probe import (
+        k6_row,
+        layouts_of,
+    )
     from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
 
     counted_all, launches = _counter()
@@ -1210,7 +1230,9 @@ def phase_k6_widths(A, R64, Jn17, bn17, row17, dev):
 
     # (e) tsqr on 65536 x 256: the 64 leaves of 1024 x 256 in one wide
     # batched call, then one for each of the 6 tree levels' nodes of 512 x
-    # 256 (127 panels), each call two batched K6 launches
+    # 256 (127 panels), each call two batched K6 launches and 6 product
+    # launches (3 for the trailing update, 3 for T's merge), each over the
+    # call's members
     a = np.random.default_rng(0).random((65536, 256), dtype=np.float32) - 0.5
     At = torch.from_numpy(a).to(dev)
     leaves = tsqr_mod._pick_leaves(65536, 256, None)
@@ -1220,6 +1242,7 @@ def phase_k6_widths(A, R64, Jn17, bn17, row17, dev):
     rep = metrics.evaluate(At, Q, R, POLICY_FP32.precision_bits)
     levels = leaves.bit_length()
     assert w["calls"] == levels == 7 and c == 2 * w["calls"] == 14, (c, w)
+    assert w["products"] == 6 * levels == 42, w
     assert be == {"launches": c, "members": 2 * leaves - 1}, be
     assert rep.all_ok, str(rep)
     out["e"] = {"call": "tsqr(A) 65536 x 256 fp32 (seed 0 uniform - 0.5)",
@@ -1229,7 +1252,10 @@ def phase_k6_widths(A, R64, Jn17, bn17, row17, dev):
                 "lower_trapezoid": rep.lower_trapezoid,
                 "all_ok": rep.all_ok, "tight_ok": rep.tight_ok,
                 "ms": cuda_time_ms(lambda: tsqr(At), warmup=1, iters=5),
-                "k6_device_ms": k6_device_ms(lambda: tsqr(At)),
+                "device_ms": device_ms_by(
+                    lambda: tsqr(At), k6=("panel_factor_kernel",),
+                    products=("gemm_tn", "gemm_nt")),
+                "k6_layouts": layouts_of(lambda: tsqr(At), dev),
                 "library_qr_ms": cuda_time_ms(lambda: torch.linalg.qr(At),
                                               warmup=1, iters=5)}
     del Q, R, At
@@ -1239,9 +1265,10 @@ def phase_k6_widths(A, R64, Jn17, bn17, row17, dev):
         "(a), (b) 16 K6 launches, R within 1e-4 relative (Frobenius) of "
         "phase 8's POLICY_FP64 loop, all_ok and tight_ok; (c) 2 K6, all_ok; "
         "(d) residual 1e-5 and x 1e-4 relative of float64 np.linalg.lstsq; "
-        "(e) 7 wide batched calls, 14 K6 launches, 127 panels, metric "
-        "triple within 2^-23 m; times: CUDA events, median of 5 ((d) 3); "
-        "K6 device ms: torch.profiler")
+        "(e) 7 wide batched calls, 14 K6 launches, 42 product launches, "
+        "127 panels, metric triple within 2^-23 m; times: CUDA events, "
+        "median of 5 ((d) 3); K6's and the products' device ms and "
+        "launches: torch.profiler")
     return out, launches, wide
 
 
@@ -1714,6 +1741,7 @@ def main() -> int:
     from mixedprecisionblockqr_tpu_torch.utils.panel_probe import (
         k6_batched_row,
         k6_row,
+        layouts_of,
     )
     from mixedprecisionblockqr_tpu_torch.utils.batched_probe import (
         K1_CASES,
@@ -2002,27 +2030,41 @@ def main() -> int:
           "card": card})
 
     # K6's batched entry (utils/panel_probe.py::k6_batched_row): tsqr
-    # 100000 x 64's 64 leaves, the refine lstsq's 8 leaves of 512 x 128, and
-    # a wide batch (tsqr 65536 x 256's leaf shape), each against the batched
-    # plain version at K6's tolerance, each member bit for bit a single
-    # launch at the batch's layout, beside the loop of single calls and
-    # torch.geqrf of the stack.  A generator of its own keeps the later
-    # kernels' inputs the draws they were.
+    # 100000 x 64's 64 leaves, the refine lstsq's 8 leaves of 512 x 128, a
+    # wide batch, the batched solve's first panel step (8 x 2048 x 128) and
+    # tsqr 65536 x 256's 64 leaves (the wide route), each against the
+    # batched plain version at K6's tolerance, each member bit for bit a
+    # single launch at the batch's layout, with the clusters the card keeps
+    # resident, the waves and a wide call's product launches, beside the
+    # loop of single calls and torch.geqrf of the stack.  A generator of
+    # its own keeps the later kernels' inputs the draws they were.
     gen21 = torch.Generator(device=dev).manual_seed(21)
     k6b_rows = {}
-    for B, m, w in ((64, 1563, 64), (8, 512, 128), (4, 1024, 256)):
+    for B, m, w in ((64, 1563, 64), (8, 512, 128), (4, 1024, 256),
+                    (8, 2048, 128), (64, 1024, 256)):
         Pb = torch.rand((B, m, w), generator=gen21, device=dev) - 0.5
-        k6b_rows[f"{B}x{m}x{w}"] = row = k6_batched_row(Pb)
+        # the plain version of 64 wide panels takes ~10 s a call: its time
+        # is the one call the error check makes
+        k6b_rows[f"{B}x{m}x{w}"] = row = k6_batched_row(
+            Pb, plain_iters=0 if (B, w) == (64, 256) else 3)
         assert row["ok"], (B, m, w, row)
     assert k6b_rows["4x1024x256"]["route"] == "wide", k6b_rows
+    # the batched layout by the clusters the card keeps resident: the 8
+    # panels of 2048 x 128 in one wave; a wide call's products one launch
+    # each for all its members, 6 for its two sub-panels
+    assert k6b_rows["8x2048x128"]["waves"] == [1], k6b_rows["8x2048x128"]
+    for name in ("4x1024x256", "64x1024x256"):
+        assert k6b_rows[name]["products"] == 6, (name, k6b_rows[name])
     k6b_err = max(max(row[f"max_abs_{x}"] for x in "VTR")
                   for row in k6b_rows.values())
     emit({"phase": "kernels", "kernel": "panel_factor_fused_batched",
           "tolerance": "V, T and R's upper triangle each within 1e-4 * "
                        "max|plain| of panel_factor_fused_batched_plain; two "
                        "batched calls bitwise equal; each member bit for "
-                       "bit a single launch at the batch's layout; plain "
-                       "ms: median of 3, the loop of single calls: of 5",
+                       "bit a single launch at the batch's layout; 8 x "
+                       "2048 x 128 in one wave; plain ms: median of 3 "
+                       "(64 x 1024 x 256: one call), the loop of single "
+                       "calls: of 5",
           "library_call": "torch.geqrf(P) on the (B, m, w) stack",
           "inputs": k6b_rows, "card": card})
 
@@ -3035,6 +3077,7 @@ def main() -> int:
             lambda: panel_factor_fused(A16), warmup=1, iters=5),
         "one_k6_whole_panel_layout": list(panel_layout(
             100000, 64, panel_max_cluster(dev))),
+        "k6_layouts": layouts_of(lambda: tsqr(A16), dev),
         "lstsq_tsqr_ms": cuda_time_ms(
             lambda: lstsq(A16, b16, method="tsqr"), warmup=1, iters=5)})
     emit({"phase": "tsqr", "call": "tsqr(A) 100000 x 64 fp32 (seed 0 "
@@ -3090,6 +3133,8 @@ def main() -> int:
                                warmup=1, iters=3)
     row17["k6_device_ms"] = k6_device_ms(
         lambda: lstsq(J17, b17, refine_steps=2))
+    row17["k6_layouts"] = layouts_of(
+        lambda: lstsq(J17, b17, refine_steps=2), dev)
     row17["blocked_ms"] = cuda_time_ms(lambda: lstsq(J17, b17), warmup=1,
                                        iters=3)
     row17["device_events"] = device_kernels(
@@ -3136,7 +3181,8 @@ def main() -> int:
                   lambda: torch.linalg.lstsq(Ab, bb[..., None]), warmup=1,
                   iters=5),
               "library_call": "torch.linalg.lstsq(Ab, bb[..., None])",
-              "k6_device_ms": k6_device_ms(lambda: lstsq_batched(Ab, bb))}
+              "k6_device_ms": k6_device_ms(lambda: lstsq_batched(Ab, bb)),
+              "k6_layouts": layouts_of(lambda: lstsq_batched(Ab, bb), dev)}
 
     # block_qr_batched on the same stack: the Householder tier on the
     # whole stack, one batched K6 a panel step; each member against its
@@ -3194,7 +3240,8 @@ def main() -> int:
               "library_ms": cuda_time_ms(lambda: torch.linalg.qr(Ab),
                                          warmup=1, iters=5),
               "library_call": "torch.linalg.qr(A) on the stack",
-              "k6_device_ms": k6_device_ms(lambda: qr_batched(Ab))}
+              "k6_device_ms": k6_device_ms(lambda: qr_batched(Ab)),
+              "k6_layouts": layouts_of(lambda: qr_batched(Ab), dev)}
     del Qbb, Rbb
     emit({"phase": "refine", "call": "lstsq(J, b, refine_steps=2), J = "
           "slam_jacobian(4096, 2048, seed=0), b from default_rng(2)",

@@ -55,9 +55,10 @@
 // lie B-strided in contiguous (B, m, w) / (B, w, w) arrays.  Each cluster
 // still runs one panel as above, so a member's result is bit for bit that
 // of a single launch at the same layout.  The batch's layout (fewer CTAs a
-// member, so that the B clusters fill the card in few waves) is ops/
-// kernels/panel.py::batched_layout; mpbqr_panel_factor_resident says how
-// many clusters of a layout the card keeps resident at once.
+// member where that runs the B clusters in fewer waves) is ops/kernels/
+// panel.py::batched_layout, which reads mpbqr_panel_factor_resident: how
+// many clusters of a layout the card keeps resident at once (a cluster
+// lies inside one GPC, so an H100 keeps 7 of 16 CTAs, not 132 / 16).
 //
 // Wider panels (w > 128; the TPU kernel holds any width in VMEM) take the
 // wide route, mpbqr_panel_factor_wide: one C entry that issues the blocked
@@ -74,14 +75,18 @@
 //      C = R[c:, e:] -= Vk (Tk^T (Vk^T C));
 //   c. T's block column is merged, T[:c, c:e] = -T[:c, :c] (V[c:, :c]^T
 //      Vk) Tk, into the zeroed T (gemm_nt's C -= A B on zeros).
-// Steps b and c run member by member (3 products each).
+// Steps b and c are 3 product launches each, whatever B is: each launch
+// holds the B members (panel.cuh's Members, the member folded into the
+// grid's x, every operand at its member stride), and each member's sums
+// are those of a launch for it alone with the same split and tiles.
 // The products are panel.cuh's gemm_tn (split-K over a cluster, fixed
 // order) and gemm_nt, both true fp32 FMA: the rank-1 updates of the TPU
 // kernel's body, blocked.  No library product and no TF32.  The layouts
-// (K6's per sub-panel, the products' splits and tiles) come from ops/
-// kernels/panel.py::wide_layout / wide_batched_layout.  The staging costs
-// three copies of an (m - c) x b block a sub-panel and member, which
-// utils/panel_probe.py times beside the whole route.  The semantics stay
+// (K6's per sub-panel, the products' splits and tiles, chosen from the B
+// members' tiles together) come from ops/kernels/panel.py::wide_layout /
+// wide_batched_layout.  The staging costs three copies of an (m - c) x b
+// block a sub-panel and member, which utils/panel_probe.py times beside
+// the whole route.  The semantics stay
 // K6's: beta = 0 columns leave zero rows and columns in T (Tk's are zero,
 // so the merged block column is too), R is exact zeros below its diagonal
 // (each sub-panel's K6 writes them), and a NaN reaches R through the
@@ -607,9 +612,11 @@ int mpbqr_panel_factor_wide(const float* P, float* V, float* T, float* R,
 // (B x w x w) contiguous, as mpbqr_panel_factor_wide gives each of them.
 // `scratch` holds mpbqr_panel_factor_wide_batched_scratch_floats(B, m, w,
 // sub) floats; `plan` is one member's (ops/kernels/panel.py::
-// wide_batched_layout: each step's K6 layout for the batch).  Each step
-// stages, factors (one K6 launch over the B sub-panels) and copies back by
-// one 3-D copy each; the products run member by member.  Returns
+// wide_batched_layout: each step's K6 layout and product layouts for the
+// batch).  Each step stages, factors (one K6 launch over the B sub-panels)
+// and copies back by one 3-D copy each, then issues each product once for
+// the B members.  Member b's outputs are bit for bit those of
+// mpbqr_panel_factor_wide on its panel with the same plan.  Returns
 // cudaErrorInvalidValue for a shape, B or plan the kernels do not run,
 // else the first error of a copy or launch.
 int mpbqr_panel_factor_wide_batched(const float* P, float* V, float* T,
@@ -654,35 +661,28 @@ int mpbqr_panel_factor_wide_batched(const float* P, float* V, float* T,
                            st));
     MPBQR_PF_TRY(pf_copy3d(T + (size_t)c * w + c, w, w, Tk, b, b, b, b, B,
                            st));
-    for (int i = 0; i < B; ++i) {
-      const float* Vi = Vk + i * kb;
-      const float* Ti = Tk + i * bb;
-      float* Ri = Rc + i * mw;
-      float* Yi = Y + (long long)i * sub * w;
-      float* Zi = Z + (long long)i * sub * w;
-      // b. C = R[c:, e:] -= Vk (Tk^T (Vk^T C)).
-      if (n2 > 0) {
-        float* C = Ri + b;
-        MPBQR_PF_TRY(tn(st, false, b, n2, mk, Vi, b, C, w, Yi, n2, p[4],
-                        p[5]));
-        MPBQR_PF_TRY(tn(st, false, b, n2, b, Ti, b, Yi, n2, Zi, n2, p[6],
-                        p[7]));
-        MPBQR_PF_TRY(nt(st, false, mk, n2, b, Vi, b, Zi, n2, C, w, true,
-                        p[8], p[9]));
-      }
-      // c. T[:c, c:e] = -T[:c, :c] (V[c:, :c]^T Vk) Tk (V's rows above c
-      // are zero in columns c:e, so the sum runs over rows c..m).
-      if (c > 0) {
-        float* Tm = T + i * ww;
-        float* Xi = X + (long long)i * sub * w;
-        float* Y2i = Y2 + (long long)i * sub * w;
-        MPBQR_PF_TRY(tn(st, false, c, b, mk, V + i * mw + (size_t)c * w, w,
-                        Vi, b, Xi, b, p[10], p[11]));
-        MPBQR_PF_TRY(nt(st, false, c, b, c, Tm, w, Xi, b, Y2i, b, false,
-                        p[12], p[13]));
-        MPBQR_PF_TRY(nt(st, false, c, b, b, Y2i, b, Ti, b, Tm + c, w, true,
-                        p[14], p[15]));
-      }
+    // Member strides: Vk (m - c) x b, Tk b x b, R / V m x w, T w x w,
+    // and Y, Z, X, Y2 sub x w each, as the scratch lays them out.
+    const long long sw = (long long)sub * w;
+    // b. C = R[c:, e:] -= Vk (Tk^T (Vk^T C)).
+    if (n2 > 0) {
+      float* C = Rc + b;
+      MPBQR_PF_TRY(tn(st, false, b, n2, mk, Vk, b, C, w, Y, n2, p[4], p[5],
+                      Members{B, kb, mw, sw}));
+      MPBQR_PF_TRY(tn(st, false, b, n2, b, Tk, b, Y, n2, Z, n2, p[6], p[7],
+                      Members{B, bb, sw, sw}));
+      MPBQR_PF_TRY(nt(st, false, mk, n2, b, Vk, b, Z, n2, C, w, true, p[8],
+                      p[9], Members{B, kb, sw, mw}));
+    }
+    // c. T[:c, c:e] = -T[:c, :c] (V[c:, :c]^T Vk) Tk (V's rows above c are
+    // zero in columns c:e, so the sum runs over rows c..m).
+    if (c > 0) {
+      MPBQR_PF_TRY(tn(st, false, c, b, mk, V + (size_t)c * w, w, Vk, b, X, b,
+                      p[10], p[11], Members{B, mw, kb, sw}));
+      MPBQR_PF_TRY(nt(st, false, c, b, c, T, w, X, b, Y2, b, false, p[12],
+                      p[13], Members{B, ww, sw, sw}));
+      MPBQR_PF_TRY(nt(st, false, c, b, b, Y2, b, Tk, b, T + c, w, true,
+                      p[14], p[15], Members{B, sw, bb, ww}));
     }
   }
   return (int)cudaGetLastError();

@@ -131,16 +131,17 @@ class GroupLayout(NamedTuple):
         return (*self[:5], *_c_layout(self.chain))
 
 
-def tn_split(M: int, N: int, K: int) -> Tuple[int, int]:
-    """``(split, chunk)`` of gemm_tn for an M x N output summed over K: the
-    split doubles, up to TN_MAX_SPLIT, while the output tiles times the
-    split fall short of TARGET_CTAS and each chunk keeps a whole
-    TN_STAGE; the chunk is ceil(K / split) rounded up to whole stages, and
-    the split the number of chunks that cover K (none empty)."""
-    if min(M, N, K) < 1:
+def tn_split(M: int, N: int, K: int, members: int = 1) -> Tuple[int, int]:
+    """``(split, chunk)`` of gemm_tn for an M x N output summed over K, in
+    one launch for ``members`` such products: the split doubles, up to
+    TN_MAX_SPLIT, while the members' output tiles times the split fall
+    short of TARGET_CTAS and each chunk keeps a whole TN_STAGE; the chunk
+    is ceil(K / split) rounded up to whole stages, and the split the
+    number of chunks that cover K (none empty)."""
+    if min(M, N, K, members) < 1:
         raise ValueError(f"tn_split takes a nonempty product; got "
-                         f"{M} x {N} over {K}")
-    tiles = -(-M // TN_TILE) * -(-N // TN_TILE)
+                         f"{members} x {M} x {N} over {K}")
+    tiles = members * -(-M // TN_TILE) * -(-N // TN_TILE)
     split = 1
     while (split < TN_MAX_SPLIT and tiles * split < TARGET_CTAS
            and K >= 2 * split * TN_STAGE):

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -65,9 +65,6 @@ MAX_CLUSTER = 16
 ROWS_TARGET = 128
 #: Shared memory one CTA may use on an H100 (bytes).
 SMEM_LIMIT = 232448
-#: Streaming multiprocessors of an H100 SXM: the CTAs a batch's clusters
-#: fill at one CTA an SM.
-CARD_SMS = 132
 #: Floats of shared memory before the reflector entries and the rows, as
 #: csrc/panel_factor.cu carves them (kPfFixedFloats): the pushed dots
 #: [16][128] and norm partials [16][4][2], the row groups' dots [4][128],
@@ -81,6 +78,11 @@ class PanelLayout(NamedTuple):
     rows: int         # rows per CTA (the last may hold fewer)
     in_smem: bool     # rows in shared memory, else in place in R
     smem_bytes: int   # dynamic shared memory per CTA
+
+
+#: The clusters of a layout the card keeps resident at once (the card's
+#: count: :func:`card_resident`; the CPU tests pass a table).
+Resident = Callable[[PanelLayout], int]
 
 
 def _smem_bytes(w: int, rows: int, in_smem: bool) -> int:
@@ -131,30 +133,46 @@ def fewest_layout(m: int, w: int, max_cluster: int = MAX_CLUSTER
     return lay
 
 
+def waves(B: int, lay: PanelLayout, resident: Resident) -> int:
+    """The waves a batch of B clusters of ``lay`` runs in: B over the
+    clusters the card keeps resident at once, rounded up."""
+    return -(-B // resident(lay))
+
+
 @functools.lru_cache(maxsize=None)
-def batched_layout(B: int, m: int, w: int, max_cluster: int = MAX_CLUSTER
-                   ) -> PanelLayout:
+def batched_layout(B: int, m: int, w: int,
+                   resident: Optional[Resident] = None,
+                   max_cluster: int = MAX_CLUSTER) -> PanelLayout:
     """One layout for every member of a batch of B m x w panels (one
-    cluster a member): :func:`panel_layout`'s (128 rows a CTA) while its B
-    clusters fit ``CARD_SMS`` CTAs, one wave at one CTA an SM; beyond that
-    as few CTAs a member as fill the card (``CARD_SMS // B``), but never
-    fewer than
-    :func:`fewest_layout`'s (the rows must fit shared memory) nor more than
-    ``panel_layout``'s.  Reasons: a member's column loop is serial, so
-    more CTAs only shorten its passes over the rows while adding to its two
-    cluster barriers a column, and a layout whose B clusters do not fit
-    the card at once runs in waves, one after another.  At B = 1 it is
-    ``panel_layout``.  A rule on shapes alone: it needs no device.  Raises
-    ``ValueError`` for B < 1 or a shape ``panel_layout`` refuses."""
+    cluster a member).  The candidates hold the rows in shared memory on
+    ``panel_layout``'s cluster (128 rows a CTA) down to
+    :func:`fewest_layout`'s; of them the one whose B clusters run in the
+    fewest :func:`waves` by ``resident`` (the card places a cluster inside
+    one GPC, so it keeps 7 of 16, 13 or 11 CTAs resident on an H100, not
+    132 / 16), then the most CTAs a member within that wave count.
+    Reasons: a wave runs after the one before it, and within a wave a
+    member's serial column loop is shorter the more CTAs share its rows.
+    At B = 1, and for a shape whose rows fit shared memory nowhere, it is
+    ``panel_layout``, and ``resident`` is not asked.  Raises
+    ``ValueError`` for B < 1, for B > 1 without ``resident``, or for a
+    shape ``panel_layout`` refuses."""
     if B < 1:
         raise ValueError(f"batched_layout takes B >= 1 panels, got {B}")
     lay = panel_layout(m, w, max_cluster)
-    if B * lay.cluster <= CARD_SMS or not lay.in_smem:
+    if B == 1 or not lay.in_smem:
         return lay
-    cluster = min(lay.cluster, max(fewest_layout(m, w, max_cluster).cluster,
-                                   CARD_SMS // B))
-    rows = -(-m // cluster)
-    return PanelLayout(cluster, rows, True, _smem_bytes(w, rows, True))
+    if resident is None:
+        raise ValueError("batched_layout of B > 1 panels needs the card's "
+                         "resident cluster counts (card_resident)")
+    best, best_waves = lay, waves(B, lay, resident)
+    for cluster in range(lay.cluster - 1,
+                         fewest_layout(m, w, max_cluster).cluster - 1, -1):
+        rows = -(-m // cluster)
+        cand = PanelLayout(cluster, rows, True, _smem_bytes(w, rows, True))
+        n = waves(B, cand, resident)
+        if n < best_waves:
+            best, best_waves = cand, n
+    return best
 
 
 class WideStep(NamedTuple):
@@ -175,7 +193,7 @@ class WideStep(NamedTuple):
                 *self.update, *self.merge)
 
     def products(self) -> int:
-        """Product launches of the step."""
+        """Product launches of the step, whatever the batch."""
         return 3 * bool(self.update[0]) + 3 * bool(self.merge[0])
 
 
@@ -185,17 +203,18 @@ class WideLayout(NamedTuple):
     steps: Tuple[WideStep, ...]
 
     def products(self) -> int:
-        """Product launches of the whole route."""
+        """Product launches of the whole route, whatever the batch."""
         return sum(step.products() for step in self.steps)
 
 
-def _nt_tiles(M: int, N: int) -> Tuple[int, int]:
-    """gemm_nt's ``(bm, bn)`` for an M x N output in the wide route: the
-    column tile of the smallest of 32, 64, 128 that holds N (128 above),
-    and NT_WIDE_BM rows per CTA when that still gives TARGET_CTAS tiles,
-    else the small row tile of that bn."""
+def _nt_tiles(M: int, N: int, members: int = 1) -> Tuple[int, int]:
+    """gemm_nt's ``(bm, bn)`` for an M x N output in the wide route, in one
+    launch for ``members`` such products: the column tile of the smallest
+    of 32, 64, 128 that holds N (128 above), and NT_WIDE_BM rows per CTA
+    when the members' tiles at that still number TARGET_CTAS, else the
+    small row tile of that bn."""
     bn = 32 if N <= 32 else 64 if N <= 64 else 128
-    tiles = -(-M // NT_WIDE_BM) * -(-N // bn)
+    tiles = members * -(-M // NT_WIDE_BM) * -(-N // bn)
     return (NT_WIDE_BM if tiles >= TARGET_CTAS else NT_SMALL_BM[bn]), bn
 
 
@@ -203,26 +222,28 @@ def wide_layout(m: int, w: int, max_cluster: int = MAX_CLUSTER,
                 sub: int = WIDE_SUB) -> WideLayout:
     """The wide route's layout for one m x w panel:
     :func:`wide_batched_layout` at B = 1."""
-    return wide_batched_layout(1, m, w, max_cluster, sub)
+    return wide_batched_layout(1, m, w, None, max_cluster, sub)
 
 
 @functools.lru_cache(maxsize=None)
 def wide_batched_layout(B: int, m: int, w: int,
+                        resident: Optional[Resident] = None,
                         max_cluster: int = MAX_CLUSTER,
                         sub: int = WIDE_SUB) -> WideLayout:
     """The wide route's layout for B m x w panels: sub-panels ``[c, e)`` of
     ``sub`` columns covering w (the last narrower when ``sub`` does not
     divide w), each factored by one K6 launch over the batch with
-    :func:`batched_layout` of B and its ``(m - c) x (e - c)`` shape
-    (:func:`panel_layout`'s at B = 1); each member's trailing update's two
-    gemm_tn products
-    with :func:`~ns.tn_split` of their shapes (``b x (w - e)`` over
-    ``m - c`` rows, then over ``b``) and its gemm_nt with :func:`_nt_tiles`
-    of ``(m - c) x (w - e)``; T's merge with the split of ``c x b`` over
-    ``m - c`` rows and the tiles of its two ``c x b`` products.  A rule on
-    shapes alone: it needs no device.  ``sub`` is a probe's argument: the
-    wrappers always lay out at ``WIDE_SUB``.  Raises ``ValueError`` unless
-    ``B >= 1``, ``1 <= w <= m`` and ``1 <= sub <= MAX_WIDTH``."""
+    :func:`batched_layout` of B, ``resident`` and its ``(m - c) x (e - c)``
+    shape (:func:`panel_layout`'s at B = 1).  Each product is one launch
+    for the B members, laid out by the B members' output tiles together:
+    the trailing update's two gemm_tn with :func:`~ns.tn_split` of their
+    shapes (``b x (w - e)`` over ``m - c`` rows, then over ``b``) and its
+    gemm_nt with :func:`_nt_tiles` of ``(m - c) x (w - e)``; T's merge with
+    the split of ``c x b`` over ``m - c`` rows and the tiles of its two
+    ``c x b`` products.  At B = 1 a rule on shapes alone.  ``sub`` is a
+    probe's argument: the wrappers always lay out at ``WIDE_SUB``.  Raises
+    ``ValueError`` unless ``B >= 1``, ``1 <= w <= m`` and ``1 <= sub <=
+    MAX_WIDTH``, or as :func:`batched_layout` does."""
     if not (B >= 1 and 1 <= w <= m and 1 <= sub <= MAX_WIDTH):
         raise ValueError(
             f"wide_layout / wide_batched_layout takes B >= 1 panels of m x "
@@ -232,11 +253,12 @@ def wide_batched_layout(B: int, m: int, w: int,
     for c in range(0, w, sub):
         e = min(w, c + sub)
         b, mk, n2 = e - c, m - c, w - e
-        update = ((*tn_split(b, n2, mk), *tn_split(b, n2, b),
-                   *_nt_tiles(mk, n2)) if n2 else (0,) * 6)
-        merge = ((*tn_split(c, b, mk), *_nt_tiles(c, b), *_nt_tiles(c, b))
-                 if c else (0,) * 6)
-        steps.append(WideStep((c, e), batched_layout(B, mk, b, max_cluster),
+        update = ((*tn_split(b, n2, mk, B), *tn_split(b, n2, b, B),
+                   *_nt_tiles(mk, n2, B)) if n2 else (0,) * 6)
+        merge = ((*tn_split(c, b, mk, B), *_nt_tiles(c, b, B),
+                  *_nt_tiles(c, b, B)) if c else (0,) * 6)
+        steps.append(WideStep((c, e), batched_layout(B, mk, b, resident,
+                                                     max_cluster),
                               update, merge))
     return WideLayout(sub, tuple(steps))
 
@@ -356,8 +378,10 @@ def panel_factor_fused_batched(panels: torch.Tensor
     a shape the entries refuse raises, with no loop of single launches in
     its place.  Each K6 launch counts in ``LAUNCHES["panel_factor_fused"]``
     and ``BATCH_LAUNCHES``, the B panels in ``BATCH_MEMBERS``; a wide call
-    counts once in ``WIDE_LAUNCHES["calls"]`` and its members' products in
-    ``WIDE_LAUNCHES["products"]``.
+    counts once in ``WIDE_LAUNCHES["calls"]`` and its product launches
+    (each over the B members) in ``WIDE_LAUNCHES["products"]``.  The
+    layouts read the card's resident cluster counts (:func:`card_resident`);
+    a failed query raises.
     """
     if panels.device.type == "cpu":
         return panel_factor_fused_batched_plain(panels)
@@ -373,16 +397,18 @@ def panel_factor_fused_batched(panels: torch.Tensor
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
 
     B, m, w = panels.shape
+    dev = panels.device
     if w > MAX_WIDTH:
         # wide_batched_layout raises ValueError for a shape it does not take.
-        lay = wide_batched_layout(B, m, w, max_cluster(panels.device))
+        lay = wide_batched_layout(B, m, w, card_resident(dev),
+                                  max_cluster(dev))
         out = _launch_wide(library(), panels, lay)
         launches = len(lay.steps)
         WIDE_LAUNCHES["calls"] += 1
-        WIDE_LAUNCHES["products"] += B * lay.products()
+        WIDE_LAUNCHES["products"] += lay.products()
     else:
         # batched_layout raises ValueError for a shape it does not take.
-        lay = batched_layout(B, m, w, max_cluster(panels.device))
+        lay = batched_layout(B, m, w, card_resident(dev), max_cluster(dev))
         out = _launch(library(), panels, lay)
         launches = 1
     LAUNCHES["panel_factor_fused"] += launches
@@ -414,7 +440,8 @@ def max_cluster(device: torch.device) -> int:
 def resident_clusters(device: torch.device, lay: PanelLayout) -> int:
     """How many clusters of the layout ``lay`` the card of ``device`` keeps
     resident at once (``cudaOccupancyMaxActiveClusters``): a batch of B
-    runs in ``ceil(B / resident_clusters)`` waves."""
+    runs in ``ceil(B / resident_clusters)`` waves.  Raises when the query
+    fails or the card places not even one."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
         check, library,
     )
@@ -424,7 +451,19 @@ def resident_clusters(device: torch.device, lay: PanelLayout) -> int:
         check(library().mpbqr_panel_factor_resident(
             lay.cluster, int(lay.in_smem), lay.smem_bytes,
             ctypes.byref(out)), "panel_factor_fused resident clusters")
+    if out.value < 1:
+        raise RuntimeError(f"panel_factor_fused: the card keeps no cluster "
+                           f"of {lay} resident")
     return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def card_resident(device: torch.device) -> Resident:
+    """:func:`resident_clusters` of the card of ``device`` as the layouts
+    take it, one object per device (so the layouts' caches hold) that asks
+    the card once per layout."""
+    return functools.lru_cache(maxsize=None)(
+        functools.partial(resident_clusters, device))
 
 
 def _launch(lib, panel: torch.Tensor, lay: PanelLayout):

@@ -220,6 +220,23 @@ def tri_combine_bound(r):
     return cluster_bound(combine_ops(r), 4 * r * r * 4, combine_layout(r).ctas)
 
 
+#: Clusters of K6 (``panel_factor_fused``, rows in shared memory) that an
+#: NVIDIA H100 80GB HBM3 keeps resident at once, by CTAs a cluster, as
+#: ``cudaOccupancyMaxActiveClusters`` gives them (``utils/panel_probe.py
+#: --batched``'s resident table: the same at every shared-memory size from
+#: 44,944 to 232,448 bytes a CTA, one CTA an SM).  A cluster lies inside one
+#: GPC, so 10 to 16 CTAs keep 7 resident, not 132 / cluster.
+H100_RESIDENT = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15,
+                 9: 9, **{c: 7 for c in range(10, 17)}}
+
+
+def h100_resident(lay):
+    """The clusters of the K6 layout ``lay`` an H100 keeps resident at once
+    (:data:`H100_RESIDENT`): the counts the layout rules take off the card,
+    for the bounds and the CPU tests."""
+    return H100_RESIDENT[lay.cluster]
+
+
 def householder_panel_ops(m, w):
     """K6's column loop: per column the dots w^T [V | P] over the live
     rows, the rank-1 update of the columns to its right and T's column."""
@@ -227,15 +244,16 @@ def householder_panel_ops(m, w):
                for j in range(w))
 
 
-def wide_loop_ops(m, w, max_cluster=None, B=1):
+def wide_loop_ops(m, w, max_cluster=None, B=1, resident=None):
     """The column loops of K6's wide route: ``(ops, cluster)`` of each
-    sub-panel ``[c, e)`` of ``wide_batched_layout(B, m, w, max_cluster)``
-    (one panel's at B = 1), ``householder_panel_ops(m - c, e - c)`` on that
-    sub-panel's one thread-block cluster.  The rest of
+    sub-panel ``[c, e)`` of ``wide_batched_layout(B, m, w, resident,
+    max_cluster)`` (one panel's at B = 1), ``householder_panel_ops(m - c,
+    e - c)`` on that sub-panel's one thread-block cluster.  The rest of
     ``householder_panel_ops(m, w)`` (the dots and T products across
     sub-panels) is what the route's trailing updates and T merges must do
     at least."""
-    lay = wide_batched_layout(B, m, w, max_cluster or PANEL_MAX_CLUSTER)
+    lay = wide_batched_layout(B, m, w, resident,
+                              max_cluster or PANEL_MAX_CLUSTER)
     return [(householder_panel_ops(m - c, e - c), step.panel.cluster)
             for step in lay.steps for c, e in (step.cols,)]
 
@@ -268,28 +286,38 @@ def panel_factor_bound(m, w, cluster_sms=None):
             "cluster_bound_ms": max(t_ops, t_bytes) * 1e3}
 
 
-def panel_factor_batched_bound(B, m, w):
+def panel_factor_batched_bound(B, m, w, resident=None, max_cluster=None):
     """K6 over a batch of B m x w panels (``panel_factor_fused_batched``):
     B times one panel's operations and bytes (``panel_factor_bound``'s) at
     the whole card's rates; beside it ``member_floor_ms``, what no batch
-    can overlap: one member's w dependent column steps, its operations on
-    the SMs of its own cluster (``batched_layout``'s; above 128 columns
-    each sub-panel's loop on its cluster and the rest card-wide, as
-    ``panel_factor_bound`` counts the wide route), and ``cluster_sms``,
-    that cluster."""
+    can overlap, and ``cluster_sms``, a member's (largest) cluster, both
+    of the layouts ``batched_layout`` / ``wide_batched_layout`` give with
+    ``resident`` (by default :func:`h100_resident`).  Up to 128 columns
+    the floor is one member's w dependent column steps, its operations on
+    the SMs of its own cluster.  Above, it is the whole wide call's: one
+    member's sub-panel loops, each on its cluster (the members' loops
+    overlap), plus ``products_floor_ms``, the B members' remaining
+    operations (the products between sub-panels, issued once for the
+    batch) at the whole card's peak; the B members' bytes at the card's
+    memory rate when that is longer."""
+    resident = resident or h100_resident
+    mc = max_cluster or PANEL_MAX_CLUSTER
     ops = householder_panel_ops(m, w)
     nbytes = (3 * m * w + w * w) * 4
     if w <= PANEL_MAX_WIDTH:
-        sms = batched_layout(B, m, w).cluster
-        floor = cluster_bound(ops, nbytes, sms)["cluster_bound_ms"]
-    else:
-        loops = wide_loop_ops(m, w, None, B)
-        sms = max(cl for _, cl in loops)
-        t_ops = (sum(o * SMS / cl for o, cl in loops)
-                 + ops - sum(o for o, _ in loops)) / PEAK_F32
-        floor = max(t_ops, nbytes / HBM_BYTES_PER_S) * 1e3
-    return {**bound(f32_ops=B * ops, nbytes=B * nbytes), "cluster_sms": sms,
-            "member_floor_ms": floor}
+        sms = batched_layout(B, m, w, resident, mc).cluster
+        return {**bound(f32_ops=B * ops, nbytes=B * nbytes),
+                "cluster_sms": sms,
+                "member_floor_ms": cluster_bound(ops, nbytes, sms)[
+                    "cluster_bound_ms"]}
+    loops = wide_loop_ops(m, w, mc, B, resident)
+    t_loops = sum(o * SMS / cl for o, cl in loops) / PEAK_F32
+    t_products = B * (ops - sum(o for o, _ in loops)) / PEAK_F32
+    return {**bound(f32_ops=B * ops, nbytes=B * nbytes),
+            "cluster_sms": max(cl for _, cl in loops),
+            "products_floor_ms": t_products * 1e3,
+            "member_floor_ms": max(t_loops + t_products,
+                                   B * nbytes / HBM_BYTES_PER_S) * 1e3}
 
 
 def sketch_bound(d, w, r, cluster_sms=None):

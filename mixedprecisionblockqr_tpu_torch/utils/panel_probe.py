@@ -18,16 +18,22 @@ The panels of :data:`WIDE_SHAPES` (w > 128) take the wide route: their
 :data:`WIDE_SUBS` and the staging copies of ``WIDE_SUB`` alone (what
 giving K6 a row stride instead could save at most).  ``--wide-only``
 skips the 128-wide panels.
-With ``--batched`` it times K6's batched entry alone instead, on the
+With ``--batched`` it times K6's batched entry alone instead: first the
+card's resident cluster counts (:func:`resident_table`), then on the
 stacks of :data:`BATCH_SHAPES` (:func:`k6_batched_row`: against the
 batched plain version, each member bit for bit against a single launch
-at the batch's layout, beside the loop of single calls and
-``torch.geqrf`` of the stack), and for each stack of at most 128 columns
-the batched launch under both candidate layouts of ``batched_layout``
-(``panel_layout``'s 128 rows a CTA, ``fewest_layout``'s fewest CTAs in
-shared memory), the rule's and the most CTAs a member whose B clusters
-the card keeps resident at once (one wave), each with its waves: the
-batch's clusters over the clusters the card keeps resident at once.
+at the batch's layout, with the resident clusters and waves, beside the
+loop of single calls and ``torch.geqrf`` of the stack); for each stack
+of at most 128 columns the batched launch at every candidate layout of
+``batched_layout`` with its waves (the batch's clusters over the
+clusters the card keeps resident at once) and which one the rule, the
+shapes-only rule it replaced and ``one_wave`` pick
+(:func:`batched_layout_times`); for each wider stack the route's K6
+launches and products timed apart, under the batch-wide and the
+per-member product tiles (:func:`wide_products_times`).  Then, for each
+main path of :func:`_paths` (tsqr, refine, the batched solve and
+``block_qr_batched``), the batched shapes it lays out and a
+:func:`batched_layout_times` line for each one not timed yet.
 The first line is the card's name and power limit (nvidia-smi).
 ``chip_smoke.py`` phases 3 and 24 run the same rows through :func:`k6_row`,
 phase 3 the stacks through :func:`k6_batched_row`.
@@ -129,29 +135,32 @@ def k6_row(P: torch.Tensor, nan_input: bool = False) -> dict:
     return row
 
 
-def k6_batched_row(P: torch.Tensor) -> dict:
+def k6_batched_row(P: torch.Tensor, plain_iters: int = 3) -> dict:
     """K6's batched entry on the (B, m, w) stack ``P`` against
-    ``panel_factor_fused_batched_plain``: layout and waves, per-output
-    error and limit (V, T and R's upper triangle within ``TOL`` *
-    max|plain|), two batched calls bitwise equal, each member bit for bit
-    a single launch at the batch's layout (the single entry,
-    ``mpbqr_panel_factor`` or ``mpbqr_panel_factor_wide``, with the same
-    plan), and times (CUDA events, median of 20; the plain version's of
-    3): the batched call, the loop of single ``panel_factor_fused`` calls,
-    ``torch.geqrf`` of the stack; the bounds.  Counts
-    nothing on the main paths' counters that a caller keeps: they are set
-    to 0 before each path."""
+    ``panel_factor_fused_batched_plain``: layout, the clusters the card
+    keeps resident and the waves (each sub-panel's on the wide route, with
+    its product launches a call), per-output error and limit (V, T and R's
+    upper triangle within ``TOL`` * max|plain|), two batched calls bitwise
+    equal, each member bit for bit a single launch at the batch's layout
+    (the single entry, ``mpbqr_panel_factor`` or
+    ``mpbqr_panel_factor_wide``, with the same plan), and times (CUDA
+    events, median of 20): the batched call, the loop of single
+    ``panel_factor_fused`` calls (median of 5), ``torch.geqrf`` of the
+    stack, the plain version (median of ``plain_iters``; 0: the one call
+    that the error check makes); the bounds.  Counts nothing on the main
+    paths' counters that a caller keeps: they are set to 0 before each
+    path."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
     from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
         MAX_WIDTH,
         _launch,
         _launch_wide,
         batched_layout,
+        card_resident,
         max_cluster,
         panel_factor_fused,
         panel_factor_fused_batched,
         panel_factor_fused_batched_plain,
-        resident_clusters,
         wide_batched_layout,
     )
     from mixedprecisionblockqr_tpu_torch.utils.bounds import (
@@ -161,8 +170,9 @@ def k6_batched_row(P: torch.Tensor) -> dict:
 
     B, m, w = P.shape
     lib, mc = library(), max_cluster(P.device)
+    resident = card_resident(P.device)
     if w <= MAX_WIDTH:
-        lay = batched_layout(B, m, w, mc)
+        lay = batched_layout(B, m, w, resident, mc)
         steps = [lay]
         row = {"shape": [B, m, w], "cluster": lay.cluster, "rows": lay.rows,
                "route": _route(lay)}
@@ -170,22 +180,23 @@ def k6_batched_row(P: torch.Tensor) -> dict:
         def single(x):
             return _launch(lib, x, lay)
     else:
-        wl = wide_batched_layout(B, m, w, mc)
+        wl = wide_batched_layout(B, m, w, resident, mc)
         steps = [st.panel for st in wl.steps]
         row = {"shape": [B, m, w], "route": "wide", "sub": wl.sub,
                "cluster": max(st.cluster for st in steps),
                "sub_panels": [f"{c}:{e} {st.panel.cluster}x{st.panel.rows} "
                               f"{_route(st.panel)}"
-                              for st in wl.steps for c, e in (st.cols,)]}
+                              for st in wl.steps for c, e in (st.cols,)],
+               "products": wl.products()}
 
         def single(x):
             return _launch_wide(lib, x, wl)
-    row["waves"] = [-(-B // max(1, resident_clusters(P.device, st)))
-                    for st in steps]
+    row["resident_clusters"] = [resident(st) for st in steps]
+    row["waves"] = [-(-B // n) for n in row["resident_clusters"]]
     V, T, R = panel_factor_fused_batched(P)
     V2, T2, R2 = panel_factor_fused_batched(P)
-    Vp, Tp, Rp = panel_factor_fused_batched_plain(P)
-    torch.cuda.synchronize()
+    (Vp, Tp, Rp), first_plain_ms = _timed(
+        lambda: panel_factor_fused_batched_plain(P))
     Rp = torch.triu(Rp)
     ok = all(bool(torch.equal(a, b)) for a, b in ((V, V2), (T, T2), (R, R2)))
     row["bitwise_repeatable"] = ok
@@ -202,51 +213,228 @@ def k6_batched_row(P: torch.Tensor) -> dict:
     row["ms"] = cuda_time_ms(lambda: panel_factor_fused_batched(P))
     row["single_loop_ms"] = cuda_time_ms(
         lambda: [panel_factor_fused(p) for p in P], warmup=1, iters=5)
-    row["plain_ms"] = cuda_time_ms(
-        lambda: panel_factor_fused_batched_plain(P), warmup=1, iters=3)
+    row["plain_ms"] = (cuda_time_ms(
+        lambda: panel_factor_fused_batched_plain(P), warmup=1,
+        iters=plain_iters) if plain_iters else first_plain_ms)
     row["library_ms"] = cuda_time_ms(lambda: torch.geqrf(P))
-    row.update(panel_factor_batched_bound(B, m, w))
+    row.update(panel_factor_batched_bound(B, m, w, resident, mc))
     return row
+
+
+def _timed(fn):
+    """``(fn(), its ms)``: one call between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+#: The CTAs an H100 SXM has: the shapes-only rule that batched_layout
+#: followed before it read the card's resident clusters.
+_CARD_SMS = 132
+
+
+def shapes_only_layout(B: int, m: int, w: int, max_cluster: int):
+    """The batched layout by shapes alone, as ``batched_layout`` chose it
+    before it read the card (kept here to time beside it):
+    ``panel_layout``'s while its B clusters fit 132 CTAs, else ``132 //
+    B`` CTAs a member, no fewer than ``fewest_layout``'s."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        PanelLayout,
+        _smem_bytes,
+        fewest_layout,
+        panel_layout,
+    )
+
+    lay = panel_layout(m, w, max_cluster)
+    if B * lay.cluster <= _CARD_SMS or not lay.in_smem:
+        return lay
+    cluster = min(lay.cluster, max(fewest_layout(m, w, max_cluster).cluster,
+                                   _CARD_SMS // B))
+    rows = -(-m // cluster)
+    return PanelLayout(cluster, rows, True, _smem_bytes(w, rows, True))
 
 
 def batched_layout_times(P: torch.Tensor) -> dict:
     """The batched launch on the (B, m, w) stack ``P`` (at most 128
-    columns; CUDA events, median of 20) under ``batched_layout``'s two
-    candidates, the rule's and ``one_wave`` (the most CTAs a member, from
-    the rule's down to the fewest, at which the card keeps all B clusters
-    resident at once; absent when none does), keyed ``"<candidate>
-    <cluster>x<rows>_<route>"``, each with its waves."""
+    columns; CUDA events, median of 20) at every candidate of
+    ``batched_layout``: the in-shared-memory layouts from
+    ``panel_layout``'s cluster down to ``fewest_layout``'s (or
+    ``panel_layout``'s in-place one alone), each with the clusters the card
+    keeps resident and its waves, keyed by its CTAs a member; then which
+    cluster the rule (``rule``), the shapes-only rule it replaced
+    (``shapes_only``), ``one_wave`` (the most CTAs a member whose B
+    clusters are all resident at once; absent when none) and the fastest
+    candidate picked, and the rule's time over the fastest's."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
     from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
         PanelLayout,
         _launch,
         _smem_bytes,
         batched_layout,
+        card_resident,
         fewest_layout,
         max_cluster,
         panel_layout,
-        resident_clusters,
     )
     from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
 
     B, m, w = P.shape
     lib, mc = library(), max_cluster(P.device)
-    rule, fewest = batched_layout(B, m, w, mc), fewest_layout(m, w, mc)
-    candidates = [("panel_layout", panel_layout(m, w, mc)),
-                  ("fewest", fewest), ("rule", rule)]
-    if rule.in_smem:
-        for cluster in range(rule.cluster, fewest.cluster - 1, -1):
-            rows = -(-m // cluster)
-            lay = PanelLayout(cluster, rows, True, _smem_bytes(w, rows, True))
-            if resident_clusters(P.device, lay) >= B:
-                candidates.append(("one_wave", lay))
-                break
+    resident = card_resident(P.device)
+    top = panel_layout(m, w, mc)
+    cands = [top]
+    if top.in_smem:
+        cands += [PanelLayout(c, -(-m // c), True,
+                              _smem_bytes(w, -(-m // c), True))
+                  for c in range(top.cluster - 1,
+                                 fewest_layout(m, w, mc).cluster - 1, -1)]
+    times = {}
+    for lay in cands:
+        n = resident(lay)
+        times[lay.cluster] = {
+            "rows": lay.rows, "route": _route(lay), "resident_clusters": n,
+            "waves": -(-B // n),
+            "ms": cuda_time_ms(lambda lay=lay: _launch(lib, P, lay))}
+    fastest = min(times, key=lambda c: times[c]["ms"])
+    rule = batched_layout(B, m, w, resident, mc).cluster
+    out = {"candidates": times, "rule": rule,
+           "shapes_only": shapes_only_layout(B, m, w, mc).cluster,
+           "fastest": fastest,
+           "rule_over_fastest": times[rule]["ms"] / times[fastest]["ms"]}
+    one = [c for c in times if times[c]["waves"] == 1]
+    if one:
+        out["one_wave"] = max(one)
+    return out
+
+
+def wide_products_times(P: torch.Tensor) -> dict:
+    """The wide route on the (B, m, w) stack ``P`` (w > 128) under two
+    plans that differ only in the products' splits and tiles: ``batch``
+    (``wide_batched_layout``'s, from the B members' tiles together) and
+    ``per_member`` (each product laid out as for one member, as the route
+    laid them out before it issued each product once for the B members).
+    For each: the call's time (CUDA events, median of 20) and, from
+    ``torch.profiler`` over one call, the device ms and count of its K6
+    launches and of its products (``gemm_tn`` / ``gemm_nt``) apart."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        _launch_wide,
+        card_resident,
+        max_cluster,
+        wide_batched_layout,
+        wide_layout,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.group_probe import (
+        device_breakdown,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
+
+    B, m, w = P.shape
+    lib, mc = library(), max_cluster(P.device)
+    lay = wide_batched_layout(B, m, w, card_resident(P.device), mc)
+    one = wide_layout(m, w, mc)
+    plans = {"batch": lay, "per_member": lay._replace(steps=tuple(
+        st._replace(update=s1.update, merge=s1.merge)
+        for st, s1 in zip(lay.steps, one.steps)))}
     out = {}
-    for name, lay in candidates:
-        res = resident_clusters(P.device, lay)
-        out[f"{name} {lay.cluster}x{lay.rows}_{_route(lay)}"] = {
-            "ms": cuda_time_ms(lambda lay=lay: _launch(lib, P, lay)),
-            "resident_clusters": res, "waves": -(-B // max(1, res))}
+    for name, plan in plans.items():
+        def call(plan=plan):
+            return _launch_wide(lib, P, plan)
+
+        kernels = device_breakdown(call, calls=2)["kernels"]
+        row = {"plan": [st.args() for st in plan.steps],
+               "ms": cuda_time_ms(call)}
+        for part, keys in (("k6", ("panel_factor_kernel",)),
+                           ("products", ("gemm_tn", "gemm_nt"))):
+            hits = [v for k, v in kernels.items()
+                    if any(x in k for x in keys)]
+            row[f"{part}_device_ms"] = sum(v["ms"] for v in hits)
+            row[f"{part}_launches"] = sum(v["count"] for v in hits)
+        out[name] = row
+    return out
+
+
+#: Dynamic shared memory (bytes a CTA) at which :func:`resident_table`
+#: asks the card: 128 rows of 64 / 128 columns, the two-a-SM edge, and
+#: the most a CTA may use.
+RESIDENT_SMEM = (44944, 77840, 100000, 113000, 116000, 150000, 232448)
+
+
+def resident_table(device: torch.device) -> dict:
+    """The clusters of 1 to 16 CTAs (in shared memory) that the card keeps
+    resident at once at each size of :data:`RESIDENT_SMEM`, keyed
+    ``"<smem>"`` then ``"<cluster>"`` (0 where the query raises)."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        PanelLayout,
+        resident_clusters,
+    )
+
+    def count(c, smem):
+        try:
+            return resident_clusters(device, PanelLayout(c, 128, True, smem))
+        except RuntimeError:  # none resident, or the query refused
+            return 0
+
+    return {str(smem): {str(c): count(c, smem) for c in range(1, 17)}
+            for smem in RESIDENT_SMEM}
+
+
+def record_layouts(fn) -> list:
+    """The batched K6 shapes ``(B, m, w)`` (up to 128 columns; a wide
+    call's sub-panels) that one call of ``fn`` lays out, in the order first
+    seen: ``panel.batched_layout`` and ``panel.wide_batched_layout`` are
+    wrapped for the call, so nothing else changes."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels import panel
+
+    seen = []
+    narrow, wide = panel.batched_layout, panel.wide_batched_layout
+
+    def note(shape):
+        if shape not in seen:
+            seen.append(shape)
+
+    def batched_layout(B, m, w, *args, **kw):
+        note((B, m, w))
+        return narrow(B, m, w, *args, **kw)
+
+    def wide_batched_layout(B, m, w, *args, **kw):
+        lay = wide(B, m, w, *args, **kw)
+        for c, e in (st.cols for st in lay.steps):
+            note((B, m - c, e - c))
+        return lay
+
+    panel.batched_layout = batched_layout
+    panel.wide_batched_layout = wide_batched_layout
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        panel.batched_layout, panel.wide_batched_layout = narrow, wide
+    return seen
+
+
+def layouts_of(fn, device: torch.device) -> list:
+    """For each batched K6 shape one call of ``fn`` lays out
+    (:func:`record_layouts`): ``"BxMxW"``, the layout (CTAs x rows and
+    route), the clusters the card keeps resident and the waves."""
+    from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
+        batched_layout,
+        card_resident,
+        max_cluster,
+    )
+
+    resident, mc = card_resident(device), max_cluster(device)
+    out = []
+    for B, m, w in record_layouts(fn):
+        lay = batched_layout(B, m, w, resident, mc)
+        n = resident(lay)
+        out.append({"shape": f"{B}x{m}x{w}",
+                    "layout": f"{lay.cluster}x{lay.rows} {_route(lay)}",
+                    "resident_clusters": n, "waves": -(-B // n)})
     return out
 
 
@@ -428,24 +616,78 @@ def main(argv=None) -> int:
     return 0 if ok else 1
 
 
+def _paths(dev: torch.device) -> dict:
+    """The main paths that run K6's batched entry, on ``chip_smoke.py``'s
+    inputs (phases 16, 17 and 24), as calls by name."""
+    import numpy as np
+
+    from mixedprecisionblockqr_tpu_torch import (
+        POLICY_FP32,
+        block_qr_batched,
+        lstsq,
+        lstsq_batched,
+        tsqr,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.datagen import slam_jacobian
+
+    rng = np.random.default_rng(0)
+    A16 = torch.from_numpy(rng.random((100000, 64), dtype=np.float32)
+                           - 0.5).to(dev)
+    A24 = torch.from_numpy(rng.random((65536, 256), dtype=np.float32)
+                           - 0.5).to(dev)
+    J = torch.from_numpy(slam_jacobian(4096, 2048, seed=0)).to(dev)
+    b = torch.from_numpy(np.random.default_rng(2).standard_normal(4096)
+                         .astype(np.float32)).to(dev)
+    Ab = torch.from_numpy(np.stack([slam_jacobian(2048, 512, seed=i)
+                                    for i in range(8)])).to(dev)
+    bb = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (8, 2048)).astype(np.float32)).to(dev)
+    return {"tsqr 100000x64": lambda: tsqr(A16),
+            "tsqr 65536x256": lambda: tsqr(A24),
+            "refine lstsq 4096x2048": lambda: lstsq(J, b, refine_steps=2),
+            "lstsq_batched 8x2048x512": lambda: lstsq_batched(Ab, bb),
+            "block_qr_batched 8x2048x512": lambda: block_qr_batched(
+                Ab, 128, POLICY_FP32, panel_method="householder")}
+
+
 def _main_batched(dev: torch.device) -> int:
     """``--batched``: a :func:`k6_batched_row` line per stack of
-    :data:`BATCH_SHAPES` and, up to 128 columns, a line of
-    :func:`batched_layout_times`."""
+    :data:`BATCH_SHAPES` with, up to 128 columns, a line of
+    :func:`batched_layout_times`, and above, one of
+    :func:`wide_products_times`; then per main path of :func:`_paths` its
+    batched shapes (:func:`layouts_of`) and a :func:`batched_layout_times`
+    line for each shape of B > 1 not timed yet."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import MAX_WIDTH
 
+    print(json.dumps({"resident_table": resident_table(dev)}), flush=True)
     gen = torch.Generator(device=dev).manual_seed(21)
-    ok = True
+    ok, timed = True, set()
     for B, m, w in BATCH_SHAPES:
         P = torch.rand((B, m, w), generator=gen, device=dev) - 0.5
         name = f"{B}x{m}x{w}"
-        row = k6_batched_row(P)
+        row = k6_batched_row(P, plain_iters=0 if B * m * w > 4e6 else 3)
         ok = ok and row["ok"]
         print(json.dumps({"stack": name, **row}), flush=True)
         if w <= MAX_WIDTH:
+            timed.add((B, m, w))
             print(json.dumps({"stack": name,
                               "layouts": batched_layout_times(P)}),
                   flush=True)
+        else:
+            print(json.dumps({"stack": name,
+                              "wide_products": wide_products_times(P)}),
+                  flush=True)
+    for path, fn in _paths(dev).items():
+        shapes = record_layouts(fn)
+        print(json.dumps({"path": path, "layouts": layouts_of(fn, dev)}),
+              flush=True)
+        for B, m, w in shapes:
+            if B > 1 and (B, m, w) not in timed:
+                timed.add((B, m, w))
+                P = torch.rand((B, m, w), generator=gen, device=dev) - 0.5
+                print(json.dumps({"path": path, "stack": f"{B}x{m}x{w}",
+                                  "layouts": batched_layout_times(P)}),
+                      flush=True)
     return 0 if ok else 1
 
 

@@ -25,6 +25,7 @@ from mixedprecisionblockqr_tpu_torch.ops.kernels import panel as tpanel
 from mixedprecisionblockqr_tpu_torch.ops.policy import POLICY_FP32, POLICY_FP64
 from mixedprecisionblockqr_tpu_torch.parallel import caqr as tc
 from mixedprecisionblockqr_tpu_torch.parallel import tsqr as tt
+from mixedprecisionblockqr_tpu_torch.utils import bounds
 
 
 def _close(t, j, atol):
@@ -72,6 +73,22 @@ def test_batched_plain_is_the_single_plain_per_member(B, m, w):
             assert torch.equal(got, want)
 
 
+# The H100's resident cluster counts as the card reports them
+# (utils/bounds.py::h100_resident, from utils/panel_probe.py --batched's
+# resident table); the layouts read the card's own counts on CUDA.
+H100 = bounds.h100_resident
+
+
+def _candidates(m, w, max_cluster):
+    # batched_layout's candidates: panel_layout's cluster down to
+    # fewest_layout's, rows in shared memory
+    top = tpanel.panel_layout(m, w, max_cluster)
+    low = tpanel.fewest_layout(m, w, max_cluster).cluster
+    return [tpanel.PanelLayout(c, -(-m // c), True,
+                               tpanel._smem_bytes(w, -(-m // c), True))
+            for c in range(top.cluster, low - 1, -1)]
+
+
 @pytest.mark.parametrize("B, m, w", [(1, 1563, 64), (64, 1563, 64),
                                      (64, 128, 64), (8, 512, 128),
                                      (64, 1024, 128), (32, 512, 128),
@@ -80,55 +97,232 @@ def test_batched_plain_is_the_single_plain_per_member(B, m, w):
 @pytest.mark.parametrize("max_cluster", [16, 8])
 def test_batched_layout_rule(B, m, w, max_cluster):
     # (c) every member's rows covered, at most max_cluster CTAs, within the
-    # shared memory, never more CTAs than the single panel's layout, and
-    # the batch fills the card's SMs at one CTA each where panel_layout's
-    # would not.
-    lay = tpanel.batched_layout(B, m, w, max_cluster)
+    # shared memory, never more CTAs than the single panel's layout nor
+    # fewer than fewest_layout's; of those candidates the fewest waves by
+    # the card's resident clusters, then the most CTAs a member.
+    lay = tpanel.batched_layout(B, m, w, H100, max_cluster)
     one = tpanel.panel_layout(m, w, max_cluster)
     assert 1 <= lay.cluster <= min(max_cluster, one.cluster)
     assert lay.cluster * lay.rows >= m and lay.rows == -(-m // lay.cluster)
     assert lay.smem_bytes == tpanel._smem_bytes(w, lay.rows, lay.in_smem)
     assert lay.smem_bytes <= tpanel.SMEM_LIMIT
-    if B * one.cluster <= tpanel.CARD_SMS or not one.in_smem:
+    if B == 1 or not one.in_smem:
         assert lay == one
-    else:
-        assert lay.in_smem
-        assert lay.cluster >= tpanel.fewest_layout(m, w, max_cluster).cluster
-    if B == 1:
-        assert lay == one
+        return
+    assert lay.in_smem
+    assert lay.cluster >= tpanel.fewest_layout(m, w, max_cluster).cluster
+    cands = _candidates(m, w, max_cluster)
+    assert lay in cands
+    best = min(tpanel.waves(B, c, H100) for c in cands)
+    assert tpanel.waves(B, lay, H100) == best
+    assert all(tpanel.waves(B, c, H100) > best
+               for c in cands if c.cluster > lay.cluster)
 
 
 def test_batched_layout_of_the_chip_cells():
     # tsqr 100000 x 64's 64 leaves of 1563 rows: 2 CTAs of 782 rows each
-    # (128 CTAs, one wave) instead of panel_layout's 13; its tree levels
-    # (at most 32 nodes of 128 x 64) keep panel_layout's one CTA
-    assert tpanel.batched_layout(64, 1563, 64) == tpanel.PanelLayout(
+    # (one wave) instead of panel_layout's 13; its tree levels (at most 32
+    # nodes of 128 x 64) keep panel_layout's one CTA
+    assert tpanel.batched_layout(64, 1563, 64, H100) == tpanel.PanelLayout(
         2, 782, True, tpanel._smem_bytes(64, 782, True))
-    assert tpanel.batched_layout(32, 128, 64) == tpanel.panel_layout(128, 64)
+    assert tpanel.batched_layout(32, 128, 64, H100) == tpanel.panel_layout(
+        128, 64)
+
+
+def test_h100_resident_table():
+    # the counts the card reports: a cluster lies inside one GPC, so 7 of
+    # 16, 13 or 11 CTAs are resident at once, and at least 8 of 9 CTAs
+    for cluster, rows, n in ((16, 128, 7), (13, 158, 7), (11, 187, 7)):
+        lay = tpanel.PanelLayout(cluster, rows, True,
+                                 tpanel._smem_bytes(128, rows, True))
+        assert H100(lay) == n, (cluster, H100(lay))
+    nine = tpanel.PanelLayout(9, 228, True,
+                              tpanel._smem_bytes(128, 228, True))
+    assert H100(nine) >= 8
+
+
+@pytest.mark.parametrize("B, m, w, want", [
+    # the batched solve's first panel step: one wave, not panel_layout's
+    # 16 x 128 in two
+    (8, 2048, 128, None),
+    # B = 1 is panel_layout
+    (1, 2048, 128, (16, 128)),
+    # fewest_layout (5 x 410) is the lower limit, however many waves
+    (64, 2048, 128, None),
+    # rows that fit shared memory nowhere keep the in-place route
+    (8, 8192, 128, (16, 512)),
+    (64, 1563, 64, (2, 782)),
+])
+def test_batched_layout_on_the_h100(B, m, w, want):
+    lay = tpanel.batched_layout(B, m, w, H100)
+    one = tpanel.panel_layout(m, w)
+    fewest = tpanel.fewest_layout(m, w)
+    if want is not None:
+        assert (lay.cluster, lay.rows) == want
+    if B == 1 or not one.in_smem:
+        assert lay == one
+    else:
+        assert fewest.cluster <= lay.cluster <= one.cluster
+    if (B, m) == (8, 2048):
+        assert tpanel.waves(B, lay, H100) == 1
+        assert tpanel.waves(B, one, H100) == 2
+        assert lay.cluster < one.cluster
+    if (B, m) == (64, 2048):
+        assert lay.cluster >= fewest.cluster == 5
+
+
+def test_batched_layout_needs_the_counts():
+    # B > 1 asks the card; B = 1 and the in-place route do not
+    with pytest.raises(ValueError, match="resident"):
+        tpanel.batched_layout(8, 2048, 128)
+    assert tpanel.batched_layout(1, 2048, 128) == tpanel.panel_layout(
+        2048, 128)
+    assert tpanel.batched_layout(8, 8192, 128) == tpanel.panel_layout(
+        8192, 128)
+
+    def refuse(lay):
+        raise AssertionError("asked")
+    assert tpanel.batched_layout(8, 8192, 128, refuse) == (
+        tpanel.panel_layout(8192, 128))
 
 
 @pytest.mark.parametrize("B, m, w", [(1, 2048, 256), (64, 1024, 256),
                                      (32, 512, 256), (4, 1024, 256),
                                      (3, 300, 200)])
 def test_wide_batched_layout_rule(B, m, w):
-    lay = tpanel.wide_batched_layout(B, m, w)
+    lay = tpanel.wide_batched_layout(B, m, w, H100)
     one = tpanel.wide_layout(m, w)
     assert [st.cols for st in lay.steps] == [st.cols for st in one.steps]
-    for st, st1 in zip(lay.steps, one.steps):
+    for st in lay.steps:
         c, e = st.cols
-        assert st.panel == tpanel.batched_layout(B, m - c, e - c)
-        # the products are laid out per member, as for one panel
-        assert (st.update, st.merge) == (st1.update, st1.merge)
+        b, mk, n2 = e - c, m - c, w - e
+        assert st.panel == tpanel.batched_layout(B, mk, b, H100)
+        # each product is one launch for the B members, laid out by their
+        # output tiles together
+        if n2:
+            assert st.update == (*tns.tn_split(b, n2, mk, B),
+                                 *tns.tn_split(b, n2, b, B),
+                                 *tpanel._nt_tiles(mk, n2, B))
+        if c:
+            assert st.merge == (*tns.tn_split(c, b, mk, B),
+                                *tpanel._nt_tiles(c, b, B),
+                                *tpanel._nt_tiles(c, b, B))
+    assert lay.products() == one.products() == 6 * (len(lay.steps) - 1)
     if B == 1:
         assert lay == one
 
 
+# wide_layout's plans at B = 1, integer for integer: the single-panel wide
+# route (householder at block 256, cholqr1 at 256, lstsq(method='tsqr')).
+WIDE_PLANS = {
+    (2048, 256): [(16, 128, 1, 77840, 8, 256, 2, 64, 16, 128, 0, 0, 0, 0, 0,
+                   0),
+                  (15, 128, 1, 77840, 0, 0, 0, 0, 0, 0, 8, 256, 16, 128, 16,
+                   128)],
+    (4096, 512): [(16, 256, 1, 143888, 4, 1024, 2, 64, 64, 128, 0, 0, 0, 0,
+                   0, 0),
+                  (16, 248, 1, 139760, 4, 1024, 2, 64, 16, 128, 8, 512, 16,
+                   128, 16, 128),
+                  (16, 240, 1, 135632, 8, 512, 2, 64, 16, 128, 4, 960, 16,
+                   128, 16, 128),
+                  (16, 232, 1, 131504, 0, 0, 0, 0, 0, 0, 4, 960, 16, 128,
+                   16, 128)],
+    (4096, 2048): [
+        (16, 256, 1, 143888, 1, 4096, 1, 128,
+         64, 128, 0, 0, 0, 0, 0, 0),
+        (16, 248, 1, 139760, 1, 3968, 1, 128,
+         64, 128, 8, 512, 16, 128, 16, 128),
+        (16, 240, 1, 135632, 1, 3840, 1, 128,
+         64, 128, 4, 960, 16, 128, 16, 128),
+        (16, 232, 1, 131504, 1, 3712, 1, 128,
+         64, 128, 4, 960, 16, 128, 16, 128),
+        (16, 224, 1, 127376, 1, 3584, 1, 128,
+         64, 128, 2, 1792, 16, 128, 16, 128),
+        (16, 216, 1, 123248, 1, 3456, 1, 128,
+         64, 128, 2, 1728, 16, 128, 16, 128),
+        (16, 208, 1, 119120, 1, 3328, 1, 128,
+         64, 128, 2, 1664, 16, 128, 16, 128),
+        (16, 200, 1, 114992, 1, 3200, 1, 128,
+         64, 128, 2, 1600, 16, 128, 16, 128),
+        (16, 192, 1, 110864, 2, 1536, 2, 64,
+         64, 128, 1, 3072, 16, 128, 16, 128),
+        (16, 184, 1, 106736, 2, 1472, 2, 64,
+         64, 128, 1, 2944, 16, 128, 16, 128),
+        (16, 176, 1, 102608, 2, 1408, 2, 64,
+         64, 128, 1, 2816, 16, 128, 16, 128),
+        (16, 168, 1, 98480, 2, 1344, 2, 64,
+         64, 128, 1, 2688, 16, 128, 16, 128),
+        (16, 160, 1, 94352, 4, 640, 2, 64,
+         16, 128, 1, 2560, 16, 128, 16, 128),
+        (16, 152, 1, 90224, 4, 640, 2, 64,
+         16, 128, 1, 2432, 16, 128, 16, 128),
+        (16, 144, 1, 86096, 8, 320, 2, 64,
+         16, 128, 1, 2304, 16, 128, 16, 128),
+        (16, 136, 1, 81968, 0, 0, 0, 0,
+         0, 0, 1, 2176, 16, 128, 16, 128),
+    ],
+}
+
+
+@pytest.mark.parametrize("m, w", sorted(WIDE_PLANS))
+def test_wide_layout_at_one_panel_is_unchanged(m, w):
+    lay = tpanel.wide_layout(m, w)
+    assert [st.args() for st in lay.steps] == WIDE_PLANS[m, w]
+    assert tpanel.wide_batched_layout(1, m, w, H100) == lay
+
+
+@pytest.mark.parametrize("B", [1, 4, 64])
+def test_wide_products_count_launches_not_members(B):
+    # 3 launches for the trailing update and 3 for T's merge a sub-panel
+    # pair, whatever B is: tsqr 65536 x 256's 7 calls make 42
+    for m, w in ((1024, 256), (512, 256), (300, 200), (2048, 512)):
+        lay = tpanel.wide_batched_layout(B, m, w, H100)
+        assert lay.products() == 6 * (len(lay.steps) - 1)
+
+
+def test_tn_split_counts_the_members_tiles():
+    # the split doubles while the members' tiles times the split fall
+    # short of TARGET_CTAS: one member of 128 x 128 over 1024 rows splits
+    # 8 ways, 64 members' 1024 tiles need no split
+    assert tns.tn_split(128, 128, 1024) == (8, 128)
+    assert tns.tn_split(128, 128, 1024, 1) == tns.tn_split(128, 128, 1024)
+    assert tns.tn_split(128, 128, 1024, 64) == (1, 1024)
+    assert tns.tn_split(128, 128, 1024, 4) == (2, 512)
+    assert tpanel._nt_tiles(128, 128) == (16, 128)
+    assert tpanel._nt_tiles(128, 128, 64) == (64, 128)
+    with pytest.raises(ValueError):
+        tns.tn_split(128, 128, 1024, 0)
+
+
+def test_batched_bound_counts_the_products_over_the_batch():
+    # the wide call's floor: one member's sub-panel loops on their
+    # clusters plus the B members' products at the whole card's peak
+    B, m, w = 64, 1024, 256
+    row = bounds.panel_factor_batched_bound(B, m, w, H100)
+    loops = bounds.wide_loop_ops(m, w, None, B, H100)
+    rest = bounds.householder_panel_ops(m, w) - sum(o for o, _ in loops)
+    assert row["products_floor_ms"] == pytest.approx(
+        B * rest / bounds.PEAK_F32 * 1e3, rel=1e-12)
+    t_loops = sum(o * bounds.SMS / cl for o, cl in loops) / bounds.PEAK_F32
+    assert row["member_floor_ms"] == pytest.approx(
+        max(t_loops * 1e3 + row["products_floor_ms"],
+            B * (3 * m * w + w * w) * 4 / bounds.HBM_BYTES_PER_S * 1e3),
+        rel=1e-12)
+    one = bounds.panel_factor_batched_bound(1, m, w)
+    assert row["member_floor_ms"] > one["member_floor_ms"]
+    narrow = bounds.panel_factor_batched_bound(8, 2048, 128, H100)
+    assert narrow["cluster_sms"] == tpanel.batched_layout(
+        8, 2048, 128, H100).cluster
+    assert "products_floor_ms" not in narrow
+
+
 @pytest.mark.parametrize("call", [
-    lambda: tpanel.batched_layout(0, 64, 8),
-    lambda: tpanel.batched_layout(2, 8, 64),
-    lambda: tpanel.batched_layout(2, 64, 129),
-    lambda: tpanel.wide_batched_layout(0, 300, 200),
-    lambda: tpanel.wide_batched_layout(2, 100, 200),
+    lambda: tpanel.batched_layout(0, 64, 8, H100),
+    lambda: tpanel.batched_layout(2, 8, 64, H100),
+    lambda: tpanel.batched_layout(2, 64, 129, H100),
+    lambda: tpanel.wide_batched_layout(0, 300, 200, H100),
+    lambda: tpanel.wide_batched_layout(2, 100, 200, H100),
+    lambda: tpanel.wide_batched_layout(2, 300, 200),
 ])
 def test_batched_layouts_refuse(call):
     with pytest.raises(ValueError):
@@ -192,13 +386,13 @@ def test_batched_entries_take_the_batch(monkeypatch):
             return fn
 
     monkeypatch.setattr(tpanel, "_stream", lambda t: ctypes.c_void_p(0))
-    lay = tpanel.batched_layout(5, 90, 30)
+    lay = tpanel.batched_layout(5, 90, 30, H100)
     V, T, R = tpanel._launch(Fake(), torch.zeros((5, 90, 30)), lay)
     a = seen["mpbqr_panel_factor_batched"]
     assert a[5:12] == (5, 90, 30, lay.cluster, lay.rows, int(lay.in_smem),
                        lay.smem_bytes)
     assert V.shape == R.shape == (5, 90, 30) and T.shape == (5, 30, 30)
-    wl = tpanel.wide_batched_layout(4, 300, 200)
+    wl = tpanel.wide_batched_layout(4, 300, 200, H100)
     V, T, R = tpanel._launch_wide(Fake(), torch.zeros((4, 300, 200)), wl)
     assert seen["mpbqr_panel_factor_wide_batched_scratch_floats"] == (
         4, 300, 200, 128)
