@@ -45,9 +45,12 @@ last line):
                  entries of ns_chain (8 x 128 x 128 plain, shift, refine,
                  chain_mid; 4 x 256 x 256 on the L2 route, with resident
                  clusters and waves) and bgs_group_fused (8 x 2048 x 512
-                 g4 with a robust last panel, bf16 flags on and off; 2 x
-                 2048 x 1024 at r = 256) against their plain versions on
-                 the stack, each member bit for bit its single call,
+                 g4 with a robust last panel, bf16 flags on and off; 16 x
+                 2048 x 512; 2 x 2048 x 1024 at r = 256; on the stack
+                 route's products, csrc/stack_gemm.cu) against their plain
+                 versions on the stack, each member bit for bit its single
+                 call (K2: at the batch's layout), with K2's device time
+                 by kind,
                  beside the loop of single calls, torch.linalg.cholesky /
                  torch.linalg.qr of the stack and the bound
                  (utils/batched_probe.py); the batched entry of
@@ -2071,11 +2074,13 @@ def main() -> int:
     # K1's and K2's batched entries (utils/batched_probe.py): K1 on 8 Grams
     # of r = 128 (plain, shift, refine, chain_mid) and on 4 of r = 256 (the
     # L2 route); K2 on 8 groups of 2048 x 512 (g4, r = 128, a robust last
-    # panel) under the bf16 and the fp32 flags and on 2 of 2048 x 1024 at
-    # r = 256; each against the batched plain version at this phase's
-    # tolerances, two batched calls bit for bit, each member bit for bit
-    # its single call, beside the loop of single calls, the library call on
-    # the stack and the bound, with K1's resident clusters and waves.  A
+    # panel) under the bf16 and the fp32 flags, on 16 (two waves of
+    # chains) and on 2 of 2048 x 1024 at r = 256, all on the stack route;
+    # each against the batched plain version at this phase's tolerances,
+    # two batched calls bit for bit, each member bit for bit its single
+    # call at the batch's layout, beside the loop of single calls, the
+    # library call on the stack and both floors, with K2's device time by
+    # kind and K1's resident clusters and waves.  A
     # generator of its own keeps the later kernels' inputs as they were.
     gen23 = torch.Generator(device=dev).manual_seed(23)
     k1b_rows = {}
@@ -2108,9 +2113,19 @@ def main() -> int:
                        "||dQ||/||Q||, ||dR||/||R|| <= 5e-3, a member each, "
                        "against bgs_group_fused_plain on the stack; two "
                        "batched calls bitwise equal; each member bit for "
-                       "bit its single call; plain ms: median of 3, the "
-                       "loop of single calls: of 10",
+                       "bit its single call at the batch's layout "
+                       "(group_layout for the B members: the stack route's "
+                       "products at r = 128 / 256); plain ms: median of 3, "
+                       "the loop of single calls: of 10",
           "library_call": "torch.linalg.qr(Pg) on the (B, m, g r) stack",
+          "routes": {name: row["layout"]["product_route"]
+                     for name, row in k2b_rows.items()},
+          "kinds_ms": {name: {k: v["ms"] for k, v in (
+              row.get("kinds") or {}).items() if isinstance(v, dict)}
+              for name, row in k2b_rows.items()},
+          "floors_ms": {name: [row["member_floor_ms"],
+                               row["products_floor_ms"]]
+                        for name, row in k2b_rows.items()},
           "inputs": k2b_rows, "card": card})
 
     # K4's batched entry (utils/batched_probe.py::K4_CASES): Yamamoto S
@@ -3718,6 +3733,8 @@ def main() -> int:
              for name, row in k4b_rows.items()}},
         {"name": "bgs_group_fused_batched", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
+         "products_source": "mixedprecisionblockqr_tpu_torch/csrc/"
+                            "stack_gemm.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:900 under "
                      "jax.vmap (ops/blockqr.py:1988 -> _block_qr_bgs: "
                      ":1258; parallel/batched.py:56)",
@@ -3727,10 +3744,12 @@ def main() -> int:
          "shape": "8 x 2048 x 512, g4, r 128, bf16, robust last panel",
          **{k: k2b_rows["bgs1_8x2048x512"][k] for k in (
              "ms", "plain_ms", "single_loop_ms", "bound_ms", "bound_by",
-             "member_floor_ms", "library_ms")},
-         "stacks": {name: {k: row[k] for k in (
+             "member_floor_ms", "products_floor_ms", "library_ms")},
+         "stacks": {name: {**{k: row[k] for k in (
              "ms", "single_loop_ms", "plain_ms", "bound_ms", "bound_by",
-             "member_floor_ms", "library_ms")}
+             "member_floor_ms", "products_floor_ms", "library_ms")},
+             "product_route": row["layout"]["product_route"],
+             "products_ms": (row.get("kinds") or {}).get("products_ms")}
              for name, row in k2b_rows.items()}},
         {"name": "sketch_qrcp_ranks", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/sketch_qrcp.cu",

@@ -64,9 +64,17 @@
 // (products: the member folded into the grid's x; the chain and the
 // combine: one cluster or CTA set a member, blockIdx.y; the worst
 // residual: one CTA a member), with one scratch a member.  The streams
-// and events order whole batched launches.  The layout is the single
-// group's, so every member gets the bits of its own single entry.
+// and events order whole batched launches.  The layout is the stack's
+// (ops/kernels/ns.py::group_layout for B members): at r = 128 or 256 it
+// selects the stack route, whose products are stack_gemm.cu's Hopper
+// kernels (TMA-fed, bf16 on wgmma), laid out by the B members' tiles, at
+// r = 128 each narrow projection one cluster launch a member
+// (stack_proj); otherwise panel.cuh's products split by the members'
+// tiles.  Every
+// output element's sum has a fixed order whatever the batch, so a member
+// gets the bits of a one-member call at the stack's layout.
 #include "panel.cuh"
+#include "stack_gemm.h"
 
 namespace mpbqr {
 
@@ -239,20 +247,58 @@ static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
   const int w = g * r;
   const long long sq = (long long)m * w, srg = (long long)w * w;
   const cudaStream_t st = sc.crit;
+  const bool stk = lay.route == kStackRoute;
+  // The group buffer and the two scratch panels, B members each.
+  const StackBuf qb{Q, m, w, sq}, ab{s.tmpA, m, r, s.mr},
+      bb{s.tmpB, m, r, s.mr};
   auto mid = [&](int it) {
     return chain_mid ? std::max(0, it - kMidFinal) : 0;
   };
-  // P's Gram into s.G (P with leading dimension ld, member stride sp).
-  auto gram = [&](const float* P, int ld, long long sp) {
-    return tn(st, bg, r, r, m, P, ld, P, ld, s.G, r, lay.split, lay.chunk,
-              Members{B, sp, sp, s.rr});
+  // The Gram of columns [c, c + r) of buffer b into s.G.
+  auto gram = [&](const StackBuf& b, int c) -> cudaError_t {
+    if (stk)
+      return stack_tn(st, bg, r, r, m, b, c, b, c, s.G, r, s.rr, lay.split,
+                      lay.chunk, B);
+    const float* P = b.p + c;
+    return tn(st, bg, r, r, m, P, b.cols, P, b.cols, s.G, r, lay.split,
+              lay.chunk, Members{B, b.stride, b.stride, s.rr});
   };
-  // Q = P X (P with leading dimension ldp and member stride sp, into Qo
-  // with ldo and so; in place when Qo == P).
-  auto qprod = [&](const float* P, int ldp, long long sp, const float* X,
-                   float* Qo, int ldo, long long so) {
-    return nt(st, bg, m, r, r, P, ldp, X, r, Qo, ldo, false, lay.bm_panel,
-              lay.bn, Members{B, sp, s.rr, so});
+  // Columns [c, c + r) of buffer b times X into Qo (leading dimension ldo,
+  // member stride so; in place when Qo is those columns).
+  auto qprod = [&](const StackBuf& b, int c, const float* X, float* Qo,
+                   int ldo, long long so) -> cudaError_t {
+    if (stk)
+      return stack_nt(st, bg, m, r, r, b, c, StackBuf{X, r, r, s.rr}, 0, 0,
+                      Qo, ldo, so, false, lay.bm_panel, B);
+    return nt(st, bg, m, r, r, b.p + c, b.cols, X, r, Qo, ldo, false,
+              lay.bm_panel, lay.bn, Members{B, b.stride, s.rr, so});
+  };
+  // The projection of panel c0's columns out of the n columns at cc, on
+  // stream ss: G1 (in Rg, leading dimension w) = Qk^T C, then C -= Qk G1
+  // with bm rows per CTA; on the stack route at r = 128 the narrow one (the
+  // next panel's columns) in one launch when the split's chunks are whole
+  // 128-row tiles (ns.py::stack_fused_narrow).
+  const bool fuse = stk && r == kStackTile && lay.chunk % kStackTile == 0;
+  auto project = [&](cudaStream_t ss, int c0, int cc, int n, float* G1,
+                     int bm, bool narrow) -> cudaError_t {
+    cudaError_t err;
+    if (fuse && narrow)
+      return stack_proj(ss, bd, m, qb, c0, cc, G1, w, srg, lay.split,
+                        lay.chunk, B);
+    if (stk) {
+      err = stack_tn(ss, bd, r, n, m, qb, c0, qb, cc, G1, w, srg, lay.split,
+                     lay.chunk, B);
+      if (err == cudaSuccess)
+        err = stack_nt(ss, bd, m, n, r, qb, c0, StackBuf{Rg, w, w, srg}, c0,
+                       cc, Q + cc, w, sq, true, bm, B);
+      return err;
+    }
+    err = tn(ss, bd, r, n, m, Q + c0, w, Q + cc, w, G1, w, lay.split,
+             lay.chunk, Members{B, sq, sq, srg});
+    if (err == cudaSuccess)
+      err = nt(ss, bd, m, n, r, Q + c0, w, G1, w, Q + cc, w, true, bm,
+               lay.bn, Members{B, sq, srg, sq});
+    return err;
   };
   // The chain on s.G into X and t (leading dimension ldt, member stride
   // stt), its residual into res.
@@ -266,17 +312,11 @@ static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
   // Panel k's wide part: G1 = Qk^T C and C -= Qk G1 over the columns
   // after panel k+1's, on the wide stream from the last mark().
   auto wide = [&](int k) -> cudaError_t {
-    const int c0 = k * r, cw = w - c0 - 2 * r;
-    const float* Pk = Q + c0;
-    float* C = Q + c0 + 2 * r;
-    float* G1 = Rg + (size_t)c0 * w + c0 + 2 * r;
+    const int c0 = k * r;
     cudaError_t err = sc.fork();
     if (err == cudaSuccess)
-      err = tn(sc.wide, bd, r, cw, m, Pk, w, C, w, G1, w, lay.split,
-               lay.chunk, Members{B, sq, sq, srg});
-    if (err == cudaSuccess)
-      err = nt(sc.wide, bd, m, cw, r, Pk, w, G1, w, C, w, true, lay.bm_wide,
-               lay.bn, Members{B, sq, srg, sq});
+      err = project(sc.wide, c0, c0 + 2 * r, w - c0 - 2 * r,
+                    Rg + (size_t)c0 * w + c0 + 2 * r, lay.bm_wide, false);
     if (err == cudaSuccess) err = sc.wide_done();
     return err;
   };
@@ -285,7 +325,7 @@ static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
     const int c0 = j * r;
     float* Pj = Q + c0;
     float* Rjj = Rg + (size_t)c0 * w + c0;
-    MPBQR_TRY(gram(Pj, w, sq));
+    MPBQR_TRY(gram(qb, c0));
     // The previous panel's wide part runs from this Gram on, under this
     // panel's chain, which is issued first and has the critical stream's
     // priority: its cluster is placed before the wide CTAs.
@@ -302,40 +342,35 @@ static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
     pending = -1;
     if (!robust[j]) {
       if (lay.bn >= r) {
-        MPBQR_TRY(qprod(Pj, w, sq, s.X1, Pj, w, sq));
+        MPBQR_TRY(qprod(qb, c0, s.X1, Pj, w, sq));
       } else {  // several column blocks: not in place
         // The B members' m rows are B m rows of pitch w (and r in tmpA).
         MPBQR_TRY(cudaMemcpy2DAsync(s.tmpA, sizeof(float) * r, Pj,
                                     sizeof(float) * w, sizeof(float) * r,
                                     (size_t)m * B, cudaMemcpyDeviceToDevice,
                                     st));
-        MPBQR_TRY(qprod(s.tmpA, r, s.mr, s.X1, Pj, w, sq));
+        MPBQR_TRY(qprod(ab, 0, s.X1, Pj, w, sq));
       }
     } else {
-      MPBQR_TRY(qprod(Pj, w, sq, s.X1, s.tmpA, r, s.mr));
-      MPBQR_TRY(gram(s.tmpA, r, s.mr));
+      MPBQR_TRY(qprod(qb, c0, s.X1, s.tmpA, r, s.mr));
+      MPBQR_TRY(gram(ab, 0));
       // Pass 2 on the fresh Gram of Q1, t2 = X2^T M1 in full.
       MPBQR_TRY(chain(s.X2, s.T2, r, s.rr, s.resid + j, kRobustIt2, 0.f, 0,
                       mid(kRobustIt2), 0, 0, RESID_RAW));
-      MPBQR_TRY(qprod(s.tmpA, r, s.mr, s.X2, s.tmpB, r, s.mr));
-      MPBQR_TRY(gram(s.tmpB, r, s.mr));
+      MPBQR_TRY(qprod(ab, 0, s.X2, s.tmpB, r, s.mr));
+      MPBQR_TRY(gram(bb, 0));
       // Pass 3: identity-seeded refine with the exact final residual.
       MPBQR_TRY(chain(s.X3, s.T3, r, s.rr, s.resid + j, kRobustIt3, 0.f, 1, 0,
                       1, 0, RESID_SCALE));
-      MPBQR_TRY(qprod(s.tmpB, r, s.mr, s.X3, Pj, w, sq));
+      MPBQR_TRY(qprod(bb, 0, s.X3, Pj, w, sq));
       MPBQR_TRY(launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w, s.comb, B,
                                CombineBatch{s.rr, srg, s.cb}));
     }
     if (j + 1 == g) break;
     // The narrow part, panel j+1's columns, after the wide part of panel
     // j-1 that updated them; panel j's wide part waits for the next Gram.
-    float* Cn = Pj + r;
-    float* G1 = Rjj + r;
     MPBQR_TRY(sc.wait_wide());
-    MPBQR_TRY(tn(st, bd, r, r, m, Pj, w, Cn, w, G1, w, lay.split, lay.chunk,
-                 Members{B, sq, sq, srg}));
-    MPBQR_TRY(nt(st, bd, m, r, r, Pj, w, G1, w, Cn, w, true, lay.bm_panel,
-                 lay.bn, Members{B, sq, srg, sq}));
+    MPBQR_TRY(project(st, c0, c0 + r, r, Rjj + r, lay.bm_panel, true));
     if (w - c0 - 2 * r > 0) pending = j;
   }
   worst_resid<<<B, 32, 0, st>>>(s.resid, g, worst, s.rp);
@@ -363,20 +398,24 @@ long long mpbqr_bgs_group_batched_scratch_floats(int B, int m, int r, int g) {
 // over the B members; the two streams order whole batched launches).  P
 // and Q (B x m x g*r, Q may equal P), Rg (B x g*r x g*r) contiguous,
 // member b at b m g r (b (g r)^2) floats; worst B floats; `scratch` holds
-// mpbqr_bgs_group_batched_scratch_floats(B, m, r, g).  The layout as
-// mpbqr_bgs_group takes it (group_layout(m, r, ...), the same for every
-// B), so member b's outputs are bit for bit those of mpbqr_bgs_group on
-// its group.  Returns cudaErrorInvalidValue for a B outside 1 .. 65535,
-// else as mpbqr_bgs_group.
+// mpbqr_bgs_group_batched_scratch_floats(B, m, r, g).  The layout is
+// group_layout(m, r, ..., members=B, g) with its product route
+// (kPanelRoute or kStackRoute) after bn; whatever B, member b's outputs
+// are bit for bit those of this entry at B = 1 on its group at the same
+// layout (at kPanelRoute: those of mpbqr_bgs_group).  Returns
+// cudaErrorInvalidValue for a B outside 1 .. 65535 or a layout or route
+// the kernels do not take, else as mpbqr_bgs_group.
 int mpbqr_bgs_group_batched(const float* P, float* Q, float* Rg, float* worst,
                             float* scratch, int B, int m, int r, int g,
                             const int* iters, const int* robust,
                             int bf16_dots, int bf16_gram, int chain_mid,
                             int split, int chunk, int bm_panel, int bm_wide,
-                            int bn, int inst, int route, int ctas,
-                            int chain_scratch, int chain_smem, void* stream) {
+                            int bn, int product_route, int inst, int route,
+                            int ctas, int chain_scratch, int chain_smem,
+                            void* stream) {
   using namespace mpbqr;
-  const ProductLayout lay{split, chunk, bm_panel, bm_wide, bn};
+  const ProductLayout lay{split,   chunk, bm_panel,
+                          bm_wide, bn,    product_route};
   const KernelLayout cl{inst, route, ctas, chain_scratch, chain_smem};
   if (!product_layout_ok(m, r, lay) || !chain_layout_ok(r, cl) || B < 1 ||
       B > kMaxBatch)
@@ -414,9 +453,9 @@ int mpbqr_bgs_group(const float* P, float* Q, float* Rg, float* worst,
                     int chain_scratch, int chain_smem, void* stream) {
   return mpbqr_bgs_group_batched(P, Q, Rg, worst, scratch, 1, m, r, g, iters,
                                  robust, bf16_dots, bf16_gram, chain_mid,
-                                 split, chunk, bm_panel, bm_wide, bn, inst,
-                                 route, ctas, chain_scratch, chain_smem,
-                                 stream);
+                                 split, chunk, bm_panel, bm_wide, bn,
+                                 mpbqr::kPanelRoute, inst, route, ctas,
+                                 chain_scratch, chain_smem, stream);
 }
 
 // K5.  P (m x g*r, fp32, raw columns, read only) and Qprev (m x p, leading

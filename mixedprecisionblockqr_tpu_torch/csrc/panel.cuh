@@ -798,9 +798,14 @@ static inline cudaError_t launch_combine(int r, cudaStream_t st,
 
 // The layout a panel product sequence runs with (ops/kernels/ns.py::
 // group_layout): the tall products' split and chunk, the small and wide
-// row tiles of gemm_nt and its column tile.
+// row tiles of gemm_nt and its column tile, and the route of the products
+// (kPanelRoute: this header's gemm_tn / gemm_nt; kStackRoute, a stack's
+// only: stack_gemm.cu's, where bm_panel / bm_wide are rows per CTA).
+constexpr int kPanelRoute = 0, kStackRoute = 1;
+constexpr int kStackTile = 128;  // stack_gemm.cu's output tile
 struct ProductLayout {
   int split, chunk, bm_panel, bm_wide, bn;
+  int route = kPanelRoute;
 };
 
 // gemm_nt's column tile for panel width r (ns.py::_nt_bn).
@@ -811,7 +816,10 @@ static inline int nt_bn(int r) {
 
 // Whether `lay` is one the kernels run for an m x r panel: the split's
 // chunks cover m with none empty and a chunk a whole number of stages,
-// tiles that gemm_nt is built for with bn == nt_bn(r).
+// bn == nt_bn(r), and on the panel route tiles that gemm_nt is built for;
+// on the stack route (ns.py::stack_route) r of 128 or 256, at least one
+// stage of rows and whole 128-row tiles a CTA.  Any other route is
+// refused.
 static inline bool product_layout_ok(int m, int r, const ProductLayout& lay) {
   if (r < 1 || r > kMaxWidth) return false;
   if (lay.split < 1 || lay.split > kTnMaxSplit || lay.chunk < kTnStage ||
@@ -820,7 +828,12 @@ static inline bool product_layout_ok(int m, int r, const ProductLayout& lay) {
   if ((long long)lay.split * lay.chunk < m ||
       (long long)(lay.split - 1) * lay.chunk >= m)
     return false;
-  return lay.bn == nt_bn(r) && nt_tile_ok(lay.bm_panel, lay.bn) &&
+  if (lay.bn != nt_bn(r)) return false;
+  if (lay.route == kStackRoute)
+    return (r == kStackTile || r == 2 * kStackTile) && m >= kTnStage &&
+           lay.bm_panel >= kStackTile && lay.bm_panel % kStackTile == 0 &&
+           lay.bm_wide >= kStackTile && lay.bm_wide % kStackTile == 0;
+  return lay.route == kPanelRoute && nt_tile_ok(lay.bm_panel, lay.bn) &&
          nt_tile_ok(lay.bm_wide, lay.bn);
 }
 

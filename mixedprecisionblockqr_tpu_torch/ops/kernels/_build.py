@@ -26,8 +26,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("ns_chain.cu", "bgs_group.cu", "panel_qr.cu", "sketch_qrcp.cu",
            "ninv_chain.cu", "panel_factor.cu", "tiled_matmul.cu",
-           "chol_rinv.cu", "givens.cu")
-HEADERS = ("ns_chain.cuh", "panel.cuh")
+           "chol_rinv.cu", "givens.cu", "stack_gemm.cu")
+HEADERS = ("ns_chain.cuh", "panel.cuh", "stack_gemm.h")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -78,8 +78,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_bgs_group.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp,
                                     ci, ci, ci, *layout, vp]
     lib.mpbqr_bgs_group.restype = ci
+    # ns.py::GroupLayout.batched_args(): products, route, then chain
     lib.mpbqr_bgs_group_batched.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                            ci, vp, vp, ci, ci, ci, *layout,
+                                            ci, vp, vp, ci, ci, ci,
+                                            *layout[:5], ci, *layout[5:],
                                             vp]
     lib.mpbqr_bgs_group_batched.restype = ci
     lib.mpbqr_bgs_group_proj.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, vp,
@@ -89,6 +91,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_group_product.argtypes = [ci, ci, ci, ci, ci, vp, ci, ci, vp,
                                         ci, vp, ci, ci, ci, ci, ci, ci, vp]
     lib.mpbqr_group_product.restype = ci
+    lib.mpbqr_stack_product.argtypes = [ci, ci, ci, ci, ci, ci, vp, ci, ci,
+                                        ll, ci, vp, ci, ll, ci, vp, ci, ll,
+                                        ci, ci, ci, ci, vp]
+    lib.mpbqr_stack_product.restype = ci
     lib.mpbqr_panel_qr_scratch_floats.argtypes = [ci, ci]
     lib.mpbqr_panel_qr_scratch_floats.restype = ll
     lib.mpbqr_panel_qr.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,

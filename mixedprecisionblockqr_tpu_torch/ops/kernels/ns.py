@@ -97,6 +97,21 @@ NT_SMALL_BM = {128: 16, 64: 16, 32: 32}
 NT_WIDE_BM = 64
 #: CTAs an r x r product aims at (the card has 132 SMs).
 TARGET_CTAS = 128
+#: The stack route of K2 over a batch (csrc/stack_gemm.cu): STACK_TILE x
+#: STACK_TILE output tiles a CTA, one CTA an SM.  Its gemm_tn stops
+#: splitting K before the members' tiles times the split pass STACK_CTAS,
+#: the CTAs of the clusters of 8 that an H100 keeps resident at one CTA an
+#: SM (15 x 8; utils/bounds.py::H100_RESIDENT), so that no launch takes two
+#: waves; its gemm_nt gives a CTA whole STACK_TILE-row tiles, as many as
+#: keep the members' tiles within SMS CTAs.  It takes the panel widths of
+#: STACK_WIDTHS: whole tiles, so no product reads a neighbouring panel's
+#: columns into a sum.
+STACK_TILE = 128
+STACK_CTAS = 120
+STACK_SMS = 132
+STACK_WIDTHS = (128, 256)
+#: The product routes of a group layout, as the C entries number them.
+PRODUCT_ROUTES = ("panel", "stack")
 #: Most rows gemm_nt's grid covers (65,535 row blocks of NT_WIDE_BM).
 MAX_ROWS = 65535 * NT_WIDE_BM
 #: Most members of one batched launch (csrc/ns_chain.cuh::kMaxBatch: the
@@ -125,26 +140,38 @@ class GroupLayout(NamedTuple):
     bm_wide: int   # gemm_nt rows per CTA: wide projection, K5's scrub
     bn: int        # gemm_nt columns per CTA (the instantiation; 128 above)
     chain: NsLayout  # the chain's (ns_layout)
+    #: 'panel': csrc/panel.cuh's gemm_tn / gemm_nt; 'stack' (a stack's
+    #: layout only): csrc/stack_gemm.cu's, fed by TMA, bf16 on wgmma.
+    product_route: str = "panel"
 
     def args(self) -> tuple:
         """The ten integers the group and panel entries take."""
         return (*self[:5], *_c_layout(self.chain))
 
+    def batched_args(self) -> tuple:
+        """The eleven integers the batched group entry takes: the
+        products' five, the product route, the chain's five."""
+        return (*self[:5], PRODUCT_ROUTES.index(self.product_route),
+                *_c_layout(self.chain))
 
-def tn_split(M: int, N: int, K: int, members: int = 1) -> Tuple[int, int]:
+
+def tn_split(M: int, N: int, K: int, members: int = 1, tile: int = TN_TILE,
+             most: int = 0) -> Tuple[int, int]:
     """``(split, chunk)`` of gemm_tn for an M x N output summed over K, in
     one launch for ``members`` such products: the split doubles, up to
-    TN_MAX_SPLIT, while the members' output tiles times the split fall
-    short of TARGET_CTAS and each chunk keeps a whole TN_STAGE; the chunk
-    is ceil(K / split) rounded up to whole stages, and the split the
-    number of chunks that cover K (none empty)."""
+    TN_MAX_SPLIT, while the members' output tiles (``tile`` x ``tile``)
+    times the split fall short of TARGET_CTAS, each chunk keeps a whole
+    TN_STAGE and, with ``most``, the doubled split's CTAs stay within
+    ``most``; the chunk is ceil(K / split) rounded up to whole stages, and
+    the split the number of chunks that cover K (none empty)."""
     if min(M, N, K, members) < 1:
         raise ValueError(f"tn_split takes a nonempty product; got "
                          f"{members} x {M} x {N} over {K}")
-    tiles = members * -(-M // TN_TILE) * -(-N // TN_TILE)
+    tiles = members * -(-M // tile) * -(-N // tile)
     split = 1
     while (split < TN_MAX_SPLIT and tiles * split < TARGET_CTAS
-           and K >= 2 * split * TN_STAGE):
+           and K >= 2 * split * TN_STAGE
+           and not (most and tiles * 2 * split > most)):
         split *= 2
     chunk = -(-(-(-K // split)) // TN_STAGE) * TN_STAGE
     return -(-K // chunk), chunk
@@ -235,25 +262,93 @@ def combine_layout(r: int) -> NsLayout:
                     L2_STAGE_FLOATS * 4)
 
 
+def _stack_rows(m: int, N: int, members: int) -> int:
+    """Rows a CTA of the stack route's gemm_nt takes for an m x N output
+    of ``members`` members: the members' column blocks of STACK_TILE
+    share STACK_SMS CTAs, at least one a block, and each CTA of a block
+    takes an equal run of whole STACK_TILE-row tiles."""
+    blocks = members * -(-N // STACK_TILE)
+    groups = max(1, STACK_SMS // blocks)
+    return STACK_TILE * -(-(-(-m // STACK_TILE)) // groups)
+
+
+def stack_route(m: int, r: int, members: int) -> bool:
+    """Whether a stack of ``members`` groups of m x r panels takes the
+    stack route: more than one member, a width of STACK_WIDTHS (whole
+    output tiles; the TMA boxes start on 512-byte column offsets) and rows
+    for one TN_STAGE at least.  A rule on shapes alone: widths such as 100
+    or 125, whose panels start off 16 bytes, keep csrc/panel.cuh's
+    products."""
+    return members > 1 and r in STACK_WIDTHS and m >= TN_STAGE
+
+
+def stack_fused_narrow(lay: GroupLayout, r: int) -> bool:
+    """Whether the group entry runs each panel's narrow projection (G1 =
+    P^T C, then C -= P G1 over the next panel's columns) as one launch,
+    csrc/stack_gemm.cu::stack_proj: on the stack route at r = STACK_TILE,
+    when the split's chunks are whole STACK_TILE-row tiles (a CTA updates
+    the rows it summed)."""
+    return (lay.product_route == "stack" and r == STACK_TILE
+            and lay.chunk % STACK_TILE == 0)
+
+
 @functools.lru_cache(maxsize=None)
-def group_layout(m: int, r: int, max_cluster: int = L2_MAX_CLUSTER
-                 ) -> GroupLayout:
-    """The layout of the panel products on an m x r panel: the r x r
-    products' :func:`tn_split`; gemm_nt's column tile bn, the instantiation
-    of r (128 above, where an r-wide product spans several column blocks),
-    and its small row tile unless even NT_WIDE_BM rows per CTA give
-    TARGET_CTAS row blocks; and the chain's :func:`ns_layout`.  A rule on
-    shapes alone: it needs no device.  Raises ``ValueError`` for r outside
-    [1, MAX_WIDTH] or m outside [1, MAX_ROWS]."""
-    if not (1 <= r <= MAX_WIDTH and 1 <= m <= MAX_ROWS):
-        raise ValueError(f"the panel products take 1 <= r <= {MAX_WIDTH} "
-                         f"and 1 <= m <= {MAX_ROWS}; got m={m}, r={r}")
-    split, chunk = tn_split(r, r, m)
+def group_layout(m: int, r: int, max_cluster: int = L2_MAX_CLUSTER,
+                 members: int = 1, g: int = 1) -> GroupLayout:
+    """The layout of the panel products on an m x r panel, for one group or
+    one launch over ``members`` groups of g panels: the r x r products'
+    :func:`tn_split` of the members' tiles; gemm_nt's column tile bn, the
+    instantiation of r (128 above, where an r-wide product spans several
+    column blocks), and its small row tile unless even NT_WIDE_BM rows per
+    CTA give the members TARGET_CTAS row blocks (``panel.py::_nt_tiles``);
+    the chain's :func:`ns_layout`; and the product route.  At
+    ``members=1`` (``g`` unused) it is the single group's layout, on
+    csrc/panel.cuh's products.  A stack that :func:`stack_route` admits
+    runs csrc/stack_gemm.cu's products instead: gemm_tn on STACK_TILE
+    tiles split up to STACK_CTAS CTAs, gemm_nt rows per CTA from
+    :func:`_stack_rows` (``bm_panel`` for the r-wide products, ``bm_wide``
+    for the widest projection, g r - 2 r columns).  A rule on shapes alone:
+    it needs no device.  Raises ``ValueError`` for r outside [1, MAX_WIDTH],
+    m outside [1, MAX_ROWS] or members outside [1, MAX_BATCH]."""
+    if not (1 <= r <= MAX_WIDTH and 1 <= m <= MAX_ROWS
+            and 1 <= members <= MAX_BATCH and g >= 1):
+        raise ValueError(f"the panel products take 1 <= r <= {MAX_WIDTH}, "
+                         f"1 <= m <= {MAX_ROWS} and 1 <= members <= "
+                         f"{MAX_BATCH}; got m={m}, r={r}, members={members}, "
+                         f"g={g}")
+    chain = ns_layout(r, max_cluster)
     wide = NT_WIDE_BM
     bn = _inst(r) or KERNEL_WIDTHS[-1]
-    bm = wide if -(-m // wide) >= TARGET_CTAS else NT_SMALL_BM[bn]
-    return GroupLayout(split, chunk, bm, wide, bn,
-                       ns_layout(r, max_cluster))
+    if stack_route(m, r, members):
+        split, chunk = tn_split(r, r, m, members, STACK_TILE, STACK_CTAS)
+        return GroupLayout(split, chunk, _stack_rows(m, r, members),
+                           _stack_rows(m, max(r, (g - 2) * r), members), bn,
+                           chain, "stack")
+    split, chunk = tn_split(r, r, m, members)
+    bm = (wide if members * -(-m // wide) >= TARGET_CTAS
+          else NT_SMALL_BM[bn])
+    return GroupLayout(split, chunk, bm, wide, bn, chain)
+
+
+def layout_ok(m: int, r: int, lay: GroupLayout) -> bool:
+    """Whether the group entries take ``lay`` for an m x r panel: the
+    products' check of csrc/panel.cuh::product_layout_ok (the split's
+    chunks cover m, none empty, a whole number of TN_STAGEs; bn the
+    instantiation of r; on the 'panel' route row tiles gemm_nt is built
+    for, on the 'stack' route r in STACK_WIDTHS, m >= TN_STAGE and whole
+    STACK_TILE-row tiles a CTA; no other route)."""
+    if not (1 <= r <= MAX_WIDTH and 1 <= lay.split <= TN_MAX_SPLIT
+            and lay.chunk >= TN_STAGE and lay.chunk % TN_STAGE == 0
+            and (lay.split - 1) * lay.chunk < m <= lay.split * lay.chunk
+            and lay.bn == (_inst(r) or KERNEL_WIDTHS[-1])):
+        return False
+    if lay.product_route == "stack":
+        return (r in STACK_WIDTHS and m >= TN_STAGE
+                and all(bm >= STACK_TILE and bm % STACK_TILE == 0
+                        for bm in (lay.bm_panel, lay.bm_wide)))
+    tiles = {128: (16, 64), 64: (16, 64), 32: (32, 64)}[lay.bn]
+    return (lay.product_route == "panel" and lay.bm_panel in tiles
+            and lay.bm_wide in tiles)
 
 
 def _card_cluster(t: torch.Tensor, r: int) -> int:
@@ -654,26 +749,40 @@ def _group_buffers(lib, Pg, r, g, iters, robust):
 
 
 def _launch_group(lib, Pg, r, iters, robust, bf16_dots, bf16_gram,
-                  chain_mid):
+                  chain_mid, layout=None):
     """One call of ``mpbqr_bgs_group`` (an (m, w) group) or
     ``mpbqr_bgs_group_batched`` (a (B, m, w) stack) from the kernel library
     ``lib`` on a checked group buffer, with :func:`group_layout`'s layout
-    (the same for a stack); counts nothing.  Returns ``(Q, Rg, worst)``."""
+    for its B members, or ``layout`` when given (an (m, w) group at a
+    stack's layout runs the batched entry at B = 1: only it takes the
+    product route); counts nothing.  Returns ``(Q, Rg, worst)``."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
 
     *batch, m, w = Pg.shape
     g = w // r
+    if layout is None:
+        layout = group_layout(m, r, _card_cluster(Pg, r),
+                              batch[0] if batch else 1, g)
+    elif not layout_ok(m, r, layout):
+        raise ValueError(f"the group entries do not take {layout} for an "
+                         f"{m} x {r} panel")
+    if not batch and layout.product_route != "panel":
+        Q, Rg, worst = _launch_group(lib, Pg[None], r, iters, robust,
+                                     bf16_dots, bf16_gram, chain_mid, layout)
+        return Q[0], Rg[0], worst[0]
     Q, Rg, worst, scratch, it_arr, rb_arr = _group_buffers(
         lib, Pg, r, g, iters, robust)
     ptrs = (Pg.data_ptr(), Q.data_ptr(), Rg.data_ptr(), worst.data_ptr(),
             scratch.data_ptr())
-    tail = (m, r, g, it_arr, rb_arr, int(bf16_dots), int(bf16_gram),
-            int(chain_mid), *group_layout(m, r, _card_cluster(Pg, r)).args(),
-            _stream(Pg))
+    head = (m, r, g, it_arr, rb_arr, int(bf16_dots), int(bf16_gram),
+            int(chain_mid))
     if batch:
-        code = lib.mpbqr_bgs_group_batched(*ptrs, batch[0], *tail)
+        code = lib.mpbqr_bgs_group_batched(*ptrs, batch[0], *head,
+                                           *layout.batched_args(),
+                                           _stream(Pg))
     else:
-        code = lib.mpbqr_bgs_group(*ptrs, *tail)
+        code = lib.mpbqr_bgs_group(*ptrs, *head, *layout.args(),
+                                   _stream(Pg))
     check(code, "bgs_group_fused")
     return Q, Rg, worst
 
@@ -686,6 +795,7 @@ def bgs_group_fused(
     bf16_dots: bool = True,
     bf16_gram=None,
     chain_mid: bool = False,
+    layout=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One whole BGS group: g sequential panel factorizations plus their
     in-group eager projections.
@@ -702,7 +812,9 @@ def bgs_group_fused(
     run with :func:`group_layout`'s layout, on the library's own critical
     and wide streams, which are joined into the current stream before the
     call returns; one host thread at a time may call the group kernels on
-    a device.
+    a device.  ``layout`` (a probe's argument) runs the group at another
+    :class:`GroupLayout`, e.g. a stack's: with it a member of a stack gets
+    the bits it has in the batched call.
     """
     if bf16_gram is None:
         bf16_gram = bf16_dots
@@ -713,7 +825,7 @@ def bgs_group_fused(
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import library
 
     out = _launch_group(library(), Pg, r, iters, robust, bf16_dots,
-                        bf16_gram, chain_mid)
+                        bf16_gram, chain_mid, layout)
     LAUNCHES["bgs_group_fused"] += 1
     return out
 
@@ -735,12 +847,14 @@ def bgs_group_fused_batched(
     member by member as :func:`bgs_group_fused` gives them.  On the CPU it
     runs :func:`bgs_group_fused_plain` on the stack.  On CUDA it is ONE C
     entry that issues the single group's sequence of launches, each over
-    the B members, with :func:`group_layout`'s layout (the single group's,
-    so each member gets the bits of its single call) on the same two
-    streams; a stack that is not contiguous fp32, a width the kernels do
-    not take or a B outside 1 .. ``MAX_BATCH`` raises ``ValueError``, with
-    no loop of single calls in its place.  Counts in ``LAUNCHES`` and
-    ``BATCH_LAUNCHES`` (one) and ``BATCH_MEMBERS`` (B)."""
+    the B members, laid out by :func:`group_layout` for the B members
+    (a stack that :func:`stack_route` admits runs csrc/stack_gemm.cu's
+    products; each member gets the bits of :func:`bgs_group_fused` at the
+    stack's layout) on the same two streams; a stack that is not
+    contiguous fp32, a width the kernels do not take or a B outside 1 ..
+    ``MAX_BATCH`` raises ``ValueError``, with no loop of single calls in
+    its place.  Counts in ``LAUNCHES`` and ``BATCH_LAUNCHES`` (one) and
+    ``BATCH_MEMBERS`` (B)."""
     if bf16_gram is None:
         bf16_gram = bf16_dots
     if Pg.device.type == "cpu":

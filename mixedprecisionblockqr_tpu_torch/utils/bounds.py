@@ -162,15 +162,66 @@ def group_bound(m, r, iters, robust, bf16, proj_cols=0):
     return bound(f32_ops=chain_f32 + tall, nbytes=nbytes)
 
 
+def group_products(m, r, robust):
+    """The tall products one K2 group of ``len(robust)`` panels issues, in
+    the order of csrc/bgs_group.cu::group_body, as ``(kind, M, N, K)``:
+    per panel the Gram (``gram``, r x r over m) and Q = P X (``qpx``,
+    m x r over r; a robust panel three of each), then, before the last
+    panel, the narrow projection of the next panel (``narrow_tn`` r x r
+    over m, ``narrow_nt`` m x r over r) and the wide one of the columns
+    after it (``wide_tn`` r x c over m, ``wide_nt`` m x c over r, c the
+    columns left)."""
+    g, out = len(robust), []
+    for j, rb in enumerate(robust):
+        out += [("gram", r, r, m), ("qpx", m, r, r)] * (3 if rb else 1)
+        if j + 1 < g:
+            out += [("narrow_tn", r, r, m), ("narrow_nt", m, r, r)]
+        c = (g - j - 2) * r
+        if c > 0:
+            out += [("wide_tn", r, c, m), ("wide_nt", m, c, r)]
+    return out
+
+
+def product_work(kind, M, N, K):
+    """``(operations, bytes)`` of one product of ``group_products``: 2 M N
+    K; the operands read once (a Gram's one m x r panel once) and the
+    output written once (a projection's update read as well)."""
+    if kind.endswith("tn") or kind == "gram":
+        nbytes = K * M + (0 if kind == "gram" else K * N) + M * N
+    else:
+        nbytes = M * K + K * N + M * N * (2 if kind != "qpx" else 1)
+    return 2 * M * N * K, 4 * nbytes
+
+
+def group_product_floors(B, m, r, robust, bf16):
+    """The stacked products of K2 over B groups by kind (``group_products``
+    one member's, each launch over the B members): ``{kind: {"launches",
+    "floor_ms"}}``, each kind's B members' operations at the bf16 (with
+    ``bf16``) or fp32 rate and bytes at the memory rate, the larger of the
+    two summed over its launches."""
+    out = {}
+    for kind, M, N, K in group_products(m, r, robust):
+        ops, nbytes = product_work(kind, M, N, K)
+        b = (bound(bf16_ops=B * ops, nbytes=B * nbytes) if bf16
+             else bound(f32_ops=B * ops, nbytes=B * nbytes))
+        row = out.setdefault(kind, {"launches": 0, "floor_ms": 0.0})
+        row["launches"] += 1
+        row["floor_ms"] += b["bound_ms"]
+    return out
+
+
 def group_batched_bound(B, m, r, iters, robust, bf16):
     """K2 over a batch of B groups (``bgs_group_fused_batched``): B times
     one group's operations and bytes (``group_bound``'s) at the whole
     card's rates; beside it ``member_floor_ms``, what no batch can overlap:
     one member's chains one after another on the SMs of the chain's
     cluster (``ns_layout``'s CTAs) and its tall products at the whole
-    card's rate."""
+    card's rate; and ``products_floor_ms``, the B members' tall products
+    launch by launch (``group_product_floors``, summed)."""
     chain_f32, chain_bf16, tall, nbytes = group_work(m, r, iters, robust,
                                                      bf16)
+    products = sum(row["floor_ms"] for row in group_product_floors(
+        B, m, r, robust, bf16).values())
     share = SMS / ns_layout(r).ctas
     t_floor = (share * (chain_f32 / PEAK_F32 + chain_bf16 / PEAK_BF16)
                + tall / (PEAK_BF16 if bf16 else PEAK_F32))
@@ -180,7 +231,8 @@ def group_batched_bound(B, m, r, iters, robust, bf16):
     else:
         whole = bound(f32_ops=B * (chain_f32 + tall), nbytes=B * nbytes)
     return {**whole, "cluster_sms": ns_layout(r).ctas,
-            "member_floor_ms": max(t_floor, nbytes / HBM_BYTES_PER_S) * 1e3}
+            "member_floor_ms": max(t_floor, nbytes / HBM_BYTES_PER_S) * 1e3,
+            "products_floor_ms": products}
 
 
 def panel_qr_bound(m, r):
