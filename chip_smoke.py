@@ -27,7 +27,13 @@ last line):
                  tolerances, route, CTAs and a bitwise repeat
                  (utils/width_probe.py);
                  ns_chain at r = 32, 64, 128 in every option combination
-                 the QR tiers use, bitwise repeatable, NaN in -> NaN resid;
+                 the QR tiers use, bitwise repeatable, NaN in -> NaN resid,
+                 beside torch.linalg.cholesky and beside cholesky + the
+                 triangular inverse; its clock build run once
+                 (-DMPBQR_NS_PROF, utils/ns_probe.py --phases: cycles by
+                 slot a launch and an iteration, outputs bit for bit the
+                 library's) and the serial floor from its measured
+                 cluster exchange;
                  tiled_matmul on both routes (fed by TMA, predicated
                  loaders), the route of each call asserted; chol_rinv at
                  r = 32, 96, 128, 256, 320, 512 (shared-memory route) and
@@ -1734,6 +1740,7 @@ def main() -> int:
         slam_jacobian,
     )
     from mixedprecisionblockqr_tpu_torch.utils import givens_probe
+    from mixedprecisionblockqr_tpu_torch.utils import ns_probe
     from mixedprecisionblockqr_tpu_torch.utils import width_probe
     from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
     from mixedprecisionblockqr_tpu_torch.utils.ninv_probe import (
@@ -1859,6 +1866,30 @@ def main() -> int:
         ns_all[r1] = rows
     ns_rows = ns_all[128]
     lib_k1 = cuda_time_ms(lambda: torch.linalg.cholesky(G))
+    # K1 forms X = R^-1, not only the factor: the yardstick beside
+    # cholesky alone is cholesky and the triangular inverse.
+    lib_k1_inv = cuda_time_ms(lambda: ns_probe.cholesky_inverse(G))
+    # K1's clock build (-DMPBQR_NS_PROF, ns_chain.cu alone; utils/
+    # ns_probe.py --phases): one launch of each option set of the probe,
+    # on Grams from a generator of its own (the later phases' draws stay
+    # as they were); its outputs equal the library's bit for bit, every
+    # slot is named, and one cluster exchange as it measured gives each
+    # option set's serial floor.
+    gen_k1 = torch.Generator(device=dev).manual_seed(27)
+    with _build.instrumented_library(*ns_probe.PROF_BUILD) as prof:
+        k1_phases = ns_probe.phase_rows(prof, ns_probe.grams(gen_k1, dev),
+                                        ns_probe._sm_mhz())
+    k1_floor = {}
+    for name, row in k1_phases.items():
+        assert row["same_as_library"] and row["launch_cycles"] > 0, (name,
+                                                                     row)
+        assert set(row["slots"]) == set(ns_probe.SLOTS), (name, row)
+        assert row["exchange_cycles"] > 0, (name, row)
+        r_k1, _, kw = ns_probe.OPTION_SETS[name]
+        k1_floor[name] = ns_chain_bound(
+            r_k1, kw["iters"], kw.get("chain_mid", False),
+            kw.get("refine", False),
+            exchange_ms=row["exchange_us"] * 1e-3)["serial_floor_ms"]
     emit({"phase": "kernels", "kernel": "ns_chain",
           "tolerance": "max|diff| <= 1e-4 * max|plain| for X and t; same "
                        "canary class (resid < 1e-4); two launches bitwise "
@@ -1866,8 +1897,12 @@ def main() -> int:
           "r128": ns_all[128], "r64": ns_all[64], "r32": ns_all[32],
           "bound_chain_mid_6": ns_chain_bound(128, 6, chain_mid=True),
           "bound_shift_mid_14": ns_chain_bound(128, 14, chain_mid=True),
+          "phases": k1_phases, "serial_floor_ms": k1_floor,
           "library_call": "torch.linalg.cholesky(G)",
-          "library_ms": lib_k1, "card": card})
+          "library_ms": lib_k1,
+          "library_inverse_call": "torch.linalg.cholesky(G) + "
+                                  "solve_triangular(L^T, I)",
+          "library_inverse_ms": lib_k1_inv, "card": card})
 
     Pg = torch.rand((2048, 1024), generator=gen, device=dev) - 0.5
     iters = (12, 6, 6, 6, 6, 6, 6, 10)
@@ -3606,7 +3641,8 @@ def main() -> int:
          "ms": ns_rows["chain_mid"]["ms"],
          "plain_ms": ns_rows["chain_mid"]["plain_ms"],
          **ns_chain_bound(128, 6, chain_mid=True),
-         "library_ms": lib_k1},
+         "serial_floor_ms": k1_floor["chain_mid"],
+         "library_ms": lib_k1, "library_inverse_ms": lib_k1_inv},
         {"name": "bgs_group_fused", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:900",

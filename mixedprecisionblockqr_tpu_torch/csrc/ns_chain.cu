@@ -19,6 +19,16 @@
 
 extern "C" {
 
+#ifdef MPBQR_NS_PROF
+// Copy the phase clocks of the last shared-memory-route launch (8 CTAs x
+// {launch, iterations} x NSP_SLOTS signed 64-bit; ns_chain.cuh) to the
+// host.
+int mpbqr_ns_prof(long long* prof) {
+  return (int)cudaMemcpyFromSymbol(prof, mpbqr::g_ns_prof,
+                                   sizeof(mpbqr::g_ns_prof));
+}
+#endif
+
 // The batched K1: B chains of one width and one set of options in ONE
 // launch of B clusters (grid (ctas, B), blockIdx.y the member).  G, X and
 // t are B x r x r contiguous (member b at b r^2 floats), resid B floats,

@@ -21,8 +21,15 @@
 //     (the zeros beyond the diagonal are not sent: the cluster's network,
 //     at some 10 bytes a clock and SM, is what an iteration waits for
 //     most), and a cluster barrier separates dependent products (two per
-//     fused iteration, three per classic one).  Nothing goes through
-//     global scratch.
+//     fused iteration, three per classic one).  Each warp starts its
+//     stores at another CTA, so that no CTA takes the cluster's first
+//     stores at once, and X is gathered as soon as it is updated, while
+//     the W update runs.  Nothing goes through global scratch.  Measured
+//     (utils/ns_probe.py --phases, H100): an exchange costs ~3.2-3.6k
+//     cycles, a bare cluster barrier ~1.7k of them; arrival barriers
+//     (mbarrier, a fence a thread and a remote arrive a CTA) in place of
+//     the cluster barrier measured 6-10% slower a launch, so the cluster
+//     barrier stays.
 //   * Every product has the form D[p][q] = <P[p, :], Q[q, :]> with P one of
 //     the replicated operands, stored transposed (X^T, C^T) so that both
 //     operands are contiguous along the summed index, and Q a 16-row stripe
@@ -35,15 +42,19 @@
 //     operand is split in registers; hi*hi + hi*lo + lo*hi are three
 //     mma.sync m16n8k16 bf16 products into one fp32 accumulator.  Each
 //     bf16 x bf16 product is exact in fp32, so only the order of the fp32
-//     sum differs from the FMA form.
+//     sum differs from the FMA form.  (Measured on the H100: neither three
+//     accumulators a unit, a stripe split once a product into shared
+//     memory, ldmatrix A fragments nor an unrolled k loop made it faster.)
 //   * The fp32 products (Precision.HIGHEST: the two closing iterations,
 //     refine chains, the exact residual and t = X^T G') stay true fp32 FMA,
 //     never TF32 and never a bf16 split, as 16-byte shared-memory loads of
-//     both operands along k.
+//     both operands along k into 4 x 4 register tiles, four k-classes a
+//     tile pair added in a fixed tree (prod_f32).
 //   * The Jacobi scaling, the spectral guard and the shift's norm estimate
-//     are computed redundantly by every CTA from a shared-memory copy of G
-//     (the same arithmetic in the same order, so all CTAs agree bitwise and
-//     need no exchange).
+//     are computed redundantly by every CTA from a copy of G loaded with
+//     cp.async, each thread holding its share of the rows in registers for
+//     the three passes (the same arithmetic in the same order, so all CTAs
+//     agree bitwise and need no exchange).
 // NaN survives every reduction (nan_max), across the cluster as well: the
 // callers' poison canary depends on it.  Two launches on the same input give
 // the same bits: no atomics, every reduction in a fixed order.
@@ -195,62 +206,87 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// D[p][q] = sum_k P[p][k] Q[q][k] in true fp32 FMA, k ascending.  P is
-// [R][LDF], Q is [16][LDF], both in shared memory.  P is lower triangular
-// (X^T and C^T are: P[p][k] == 0 for k > p), so row p sums k <= p only, and
-// a thread pairs row pw with row R - 1 - pw so that all threads do the same
-// work.  epi(p, q, value) runs once per element of D, after a block barrier
-// when `sync` (for epilogues that overwrite an operand).
+// D[p][q] = sum_k P[p][k] Q[q][k] in true fp32 FMA.  P is [R][LDF], Q is
+// [16][LDF], both in shared memory.  P is lower triangular (X^T and C^T
+// are: P[p][k] == 0 for k > p), so row p sums the k-quads up to its own
+// only.  What bounds it is the shared memory's wavefronts (a warp's
+// 16-byte load costs four, whatever it broadcasts), so a thread keeps a
+// 4-row x 4-q tile: 8 loads a k-quad for 64 FMA.  The tiles of row blocks
+// rb and R / 4 - 1 - rb, together R / 4 + 1 k-quads, go to four threads
+// that take every fourth k-quad of both (k-class s = tid % 4, ascending),
+// so that every thread has the same work and needs no other thread's
+// operands; the four partial sums of an element are then added over the
+// lanes in one fixed tree, (s0 + s1) + (s2 + s3): the same bits every
+// launch.  The 2 R threads this takes are all at R = 128; at 32 and 64 the
+// others idle.  epi(p, q, value) runs once per element of D, after a block
+// barrier when `sync` (for epilogues that overwrite an operand).
 template <int R, class Epi>
 __device__ __forceinline__ void prod_f32(const float* P, const float* Q,
                                          bool sync, Epi epi) {
   using L = ChainLayout<R>;
-  constexpr int HP = R / 2;                // threads along p; each takes 2
-  constexpr int QG = kChainThreads / HP;   // threads along q
-  constexpr int QPT = kStripe / QG;        // q's per thread
-  const int pw = threadIdx.x / QG, qq = threadIdx.x % QG;
-  const int pa = pw, pb = R - 1 - pw;      // pa < pb
-  float acc[2][QPT];
+  constexpr int RB = R / 4;                // 4-row blocks of P
+  constexpr int ACTIVE = 4 * (RB / 2) * 4;  // 4 k-classes x pairs x q blocks
+  constexpr int P4 = L::LDF / 4;           // float4s a row
+  const int s = threadIdx.x & 3, tau = threadIdx.x >> 2;
+  const int rbp = tau >> 2, qb = tau & 3;
+  const int rb[2] = {rbp, RB - 1 - rbp};
+  // Whole warps are active or idle (ACTIVE is a multiple of 32).
+  const bool active = threadIdx.x < ACTIVE;
+  float acc[2][4][4];
 #pragma unroll
-  for (int j = 0; j < QPT; ++j) acc[0][j] = acc[1][j] = 0.f;
-  const float4* p0 = reinterpret_cast<const float4*>(P + pa * L::LDF);
-  const float4* p1 = reinterpret_cast<const float4*>(P + pb * L::LDF);
-  const float4* qb = reinterpret_cast<const float4*>(Q + qq * L::LDF);
-  constexpr int QSTEP = QG * L::LDF / 4;   // float4s between a thread's q's
-  const int na = pa / 4 + 1, nb = pb / 4 + 1;
-#pragma unroll 4
-  for (int k4 = 0; k4 < na; ++k4) {
-    const float4 a0 = p0[k4], a1 = p1[k4];
+  for (int u = 0; u < 2; ++u)
 #pragma unroll
-    for (int j = 0; j < QPT; ++j) {
-      const float4 b = qb[j * QSTEP + k4];
-      acc[0][j] = fmaf(a0.x, b.x, acc[0][j]);
-      acc[0][j] = fmaf(a0.y, b.y, acc[0][j]);
-      acc[0][j] = fmaf(a0.z, b.z, acc[0][j]);
-      acc[0][j] = fmaf(a0.w, b.w, acc[0][j]);
-      acc[1][j] = fmaf(a1.x, b.x, acc[1][j]);
-      acc[1][j] = fmaf(a1.y, b.y, acc[1][j]);
-      acc[1][j] = fmaf(a1.z, b.z, acc[1][j]);
-      acc[1][j] = fmaf(a1.w, b.w, acc[1][j]);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[u][i][j] = 0.f;
+  if (active) {
+    const float4* qp = reinterpret_cast<const float4*>(Q) + 4 * qb * P4;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float4* pp = reinterpret_cast<const float4*>(P) + 4 * rb[u] * P4;
+#pragma unroll 2
+      for (int k4 = s; k4 <= rb[u]; k4 += 4) {
+        float4 a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = pp[i * P4 + k4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = qp[j * P4 + k4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[u][i][j] = fmaf(a[i].x, b[j].x, acc[u][i][j]);
+            acc[u][i][j] = fmaf(a[i].y, b[j].y, acc[u][i][j]);
+            acc[u][i][j] = fmaf(a[i].z, b[j].z, acc[u][i][j]);
+            acc[u][i][j] = fmaf(a[i].w, b[j].w, acc[u][i][j]);
+          }
+      }
     }
   }
-#pragma unroll 4
-  for (int k4 = na; k4 < nb; ++k4) {
-    const float4 a1 = p1[k4];
+  // The four k-classes' sums over the lanes s, s ^ 1, s ^ 2: lane s keeps
+  // tile s & 1 after the first step and its rows 2 (s >> 1) .. + 1 after
+  // the second.
+  float half[16], fin[8];
+  if (active) {
+    const bool t1 = s & 1, r2 = s & 2;
 #pragma unroll
-    for (int j = 0; j < QPT; ++j) {
-      const float4 b = qb[j * QSTEP + k4];
-      acc[1][j] = fmaf(a1.x, b.x, acc[1][j]);
-      acc[1][j] = fmaf(a1.y, b.y, acc[1][j]);
-      acc[1][j] = fmaf(a1.z, b.z, acc[1][j]);
-      acc[1][j] = fmaf(a1.w, b.w, acc[1][j]);
+    for (int v = 0; v < 16; ++v) {
+      const float mine = t1 ? acc[1][v >> 2][v & 3] : acc[0][v >> 2][v & 3];
+      const float other = t1 ? acc[0][v >> 2][v & 3] : acc[1][v >> 2][v & 3];
+      half[v] = mine + __shfl_xor_sync(0xffffffffu, other, 1);
+    }
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      const float mine = r2 ? half[8 + v] : half[v];
+      const float other = r2 ? half[v] : half[8 + v];
+      fin[v] = mine + __shfl_xor_sync(0xffffffffu, other, 2);
     }
   }
   if (sync) __syncthreads();
+  if (active) {
+    const int p0 = 4 * ((s & 1) ? rb[1] : rb[0]) + ((s & 2) ? 2 : 0);
 #pragma unroll
-  for (int j = 0; j < QPT; ++j) {
-    epi(pa, qq + QG * j, acc[0][j]);
-    epi(pb, qq + QG * j, acc[1][j]);
+    for (int v = 0; v < 8; ++v) epi(p0 + (v >> 2), 4 * qb + (v & 3), fin[v]);
   }
 }
 
@@ -415,13 +451,17 @@ __device__ __forceinline__ void chain_prod(bool split, const char* full,
 
 // Write eight consecutive elements of one row of a replicated operand
 // (offset `row`, `col` in elements; col a multiple of 8) into every CTA's
-// copy at byte offset `off`, in the format of `split`.
+// copy at byte offset `off`, in the format of `split`.  A warp starts at
+// the CTA `first` past its own (its warp index and CTA rank: every CTA
+// then receives from every warp of the cluster in turn, and no CTA's
+// network port takes the whole cluster's first stores at once).
 template <int R>
 __device__ __forceinline__ void gather_store8(cg::cluster_group& cluster,
                                               char* smem, int off, bool split,
                                               int row, int col,
                                               const float (&v)[8]) {
   using L = ChainLayout<R>;
+  const int first = (int)(threadIdx.x >> 5) + (int)cluster.block_rank();
   if (split) {
     uint4 hi, lo;
     split_pair(v[0], v[1], hi.x, lo.x);
@@ -430,7 +470,7 @@ __device__ __forceinline__ void gather_store8(cg::cluster_group& cluster,
     split_pair(v[6], v[7], hi.w, lo.w);
     char* dst = smem + off + (row * L::LDH + col) * 2;
     for (int p = 0; p < L::CS; ++p) {
-      char* rp = cluster.map_shared_rank(dst, p);
+      char* rp = cluster.map_shared_rank(dst, (first + p) % L::CS);
       *reinterpret_cast<uint4*>(rp) = hi;
       *reinterpret_cast<uint4*>(rp + R * L::LDH * 2) = lo;
     }
@@ -439,7 +479,8 @@ __device__ __forceinline__ void gather_store8(cg::cluster_group& cluster,
     const float4 b = make_float4(v[4], v[5], v[6], v[7]);
     char* dst = smem + off + (row * L::LDF + col) * 4;
     for (int p = 0; p < L::CS; ++p) {
-      float4* rp = reinterpret_cast<float4*>(cluster.map_shared_rank(dst, p));
+      float4* rp = reinterpret_cast<float4*>(
+          cluster.map_shared_rank(dst, (first + p) % L::CS));
       rp[0] = a;
       rp[1] = b;
     }
@@ -537,14 +578,84 @@ __device__ float norm2_est(int n, Elem elem, float* v0, float* v1,
   return 0.f;  // not reached
 }
 
-// norm2_est of the leading n x n corner of M, [R][LDF] in shared memory.
+// The shared-memory route's setup holds an R x R matrix spread over the
+// block by rows: row i = tid / TPR, this thread's PER consecutive columns
+// from j0 = (tid % TPR) PER, in registers.
 template <int R>
-__device__ float chain_norm2_est(int n, const float* M, float* v0, float* v1,
-                                 float* red) {
-  return norm2_est(
-      n, [&](int i, int j) { return M[i * ChainLayout<R>::LDF + j]; }, v0,
-      v1, red);
+struct RowShare {
+  static constexpr int TPR = kChainThreads / R;  // threads a row
+  static constexpr int PER = R / TPR;            // elements a thread
+};
+
+// norm2_est's estimate (1.05 x two power-iteration steps, scale-normalized)
+// of a matrix held by rows (RowShare), zeros beyond the problem: the same
+// three passes, each from the registers, a row's sum taken by its TPR
+// threads in a fixed xor tree (every one of them gets the same bits).  v0,
+// v1 hold R floats.
+template <int R>
+__device__ float row_norm2_est(const float (&e)[RowShare<R>::PER], float* v0,
+                               float* v1, float* red) {
+  constexpr int TPR = RowShare<R>::TPR, PER = RowShare<R>::PER;
+  const int i = threadIdx.x / TPR, j0 = (threadIdx.x % TPR) * PER;
+  const bool lead = threadIdx.x % TPR == 0;
+  float m = 0.f;
+#pragma unroll
+  for (int c = 0; c < PER; ++c) m = nan_max(m, fabsf(e[c]));
+  m = blk_max(m, red);
+  const float a = nan_max(m, FLT_MIN);
+  const float inv = 1.0f / a;
+  float n1 = 0.f;
+  for (int pass = 0; pass < 3; ++pass) {
+    const float sc = pass == 2 ? 1.0f / (n1 + 1e-30f) : 1.0f;
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < PER; ++c) {
+      const float x = pass == 0 ? 1.0f
+                                : (pass == 1 ? v0[j0 + c] : v1[j0 + c] * sc);
+      s = fmaf(e[c] * inv, x, s);
+    }
+#pragma unroll
+    for (int o = TPR / 2; o > 0; o >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lead && pass == 0) v0[i] = s;
+    if (lead && pass == 1) v1[i] = s;
+    const float tot = blk_sum(lead ? s * s : 0.f, red);  // also the barrier
+    if (pass == 1) n1 = sqrtf(tot);
+    if (pass == 2) return (1.05f * a) * sqrtf(tot);
+  }
+  return 0.f;  // not reached
 }
+
+// Per-CTA clock64 sums of a shared-memory-route launch's phases, compiled
+// in only with -DMPBQR_NS_PROF; read by utils/ns_probe.py --phases, which
+// names the slots (NSP_*, as CTA thread 0 sees them): the setup (G's load,
+// the shift's norm estimate, Jacobi and the guard's norm estimate, the own
+// stripes), the stores of the X, W and C all-gathers, the wait at the
+// cluster barriers, the fresh W = G' X product of the unfused iterations,
+// the correction product, the X and W update products, the closing
+// t = X^T G' product with the stores of t and X, and the residual's
+// cluster max (sent with the closing exchange, or after a refine chain's
+// exact residual with a barrier of its own).  The global loads of G' for
+// t, issued before the iterations, count with the first X gather.  Row 0
+// of a CTA's record sums the whole launch, row 1 the iterations alone.  A
+// batched launch writes them from member 0 only.
+enum {
+  NSP_SETUP, NSP_GATHER_X, NSP_GATHER_W, NSP_BARRIER, NSP_W_PRODUCT,
+  NSP_CORRECTION, NSP_GATHER_C, NSP_UPDATE, NSP_CLOSE_T, NSP_CLUSTER_MAX,
+  NSP_SLOTS
+};
+#ifdef MPBQR_NS_PROF
+static __device__ long long g_ns_prof[8][2][NSP_SLOTS];
+#define NS_PROF_INIT long long pt = clock64(), pacc[NSP_SLOTS] = {}, ploop[NSP_SLOTS] = {};
+#define NS_PROF(k) if (tid == 0) { const long long c = clock64(); pacc[k] += c - pt; pt = c; }
+#define NS_PROF_LOOP(sign) if (tid == 0) for (int k = 0; k < NSP_SLOTS; ++k) ploop[k] = pacc[k] - (sign) * ploop[k];
+#define NS_PROF_SAVE if (tid == 0 && blockIdx.y == 0) for (int k = 0; k < NSP_SLOTS; ++k) { g_ns_prof[rank][0][k] = pacc[k]; g_ns_prof[rank][1][k] = ploop[k]; }
+#else
+#define NS_PROF_INIT
+#define NS_PROF(k)
+#define NS_PROF_LOOP(sign)
+#define NS_PROF_SAVE
+#endif
 
 // One whole chain (ns.py::_ns_kernel with _tri_ns) as one cluster of R / 16
 // CTAs of kChainThreads threads:
@@ -569,6 +680,8 @@ chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
              ChainBatch bt) {
   using L = ChainLayout<R>;
   const int nr = PAD ? n_arg : R;
+  const int tid = threadIdx.x;
+  NS_PROF_INIT
   {
     const long long b = blockIdx.y;
     G += b * bt.g;
@@ -579,7 +692,6 @@ chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
   extern __shared__ __align__(16) char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int tid = threadIdx.x;
   // The 16 rows (of X, W, G') and columns (of T, E, C) that CTA p owns: the
   // p-th group of 8 from the top and the p-th from the bottom, so that every
   // CTA holds the same share of the triangular X and C and the gathers,
@@ -599,17 +711,32 @@ chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
   float* red = v1 + R;
   float* cred = red + 32;
 
-  // Setup, redundantly in every CTA, on a copy of G in the C^T buffer.
+  // Setup, redundantly in every CTA, on a copy of G in the C^T buffer
+  // (cp.async; zeros beyond nr) and, for the norm estimates, on this
+  // thread's share of it by rows (RowShare) in registers.
   float* Gf = reinterpret_cast<float*>(smem + L::OFF_C);
-  for (int e = tid; e < R * R; e += kChainThreads) {
-    const int i = e / R, j = e % R;
-    Gf[i * L::LDF + j] = (i < nr && j < nr) ? G[i * nr + j] : 0.f;
-  }
+  load_full_async<R>(Gf, G, nr, nr);
+  cp_async_wait<0>();
   __syncthreads();
+  constexpr int PER = RowShare<R>::PER;
+  const int ri = tid / RowShare<R>::TPR, rj = (tid % RowShare<R>::TPR) * PER;
+  float ge[PER];
+#pragma unroll
+  for (int c = 0; c < PER; c += 4) {
+    const float4 g4 =
+        *reinterpret_cast<const float4*>(Gf + ri * L::LDF + rj + c);
+    ge[c] = g4.x;
+    ge[c + 1] = g4.y;
+    ge[c + 2] = g4.z;
+    ge[c + 3] = g4.w;
+  }
   float sh = 0.f;
   if (shift != 0.f) {
-    sh = shift * chain_norm2_est<R>(nr, Gf, v0, v1, red);
+    sh = shift * row_norm2_est<R>(ge, v0, v1, red);
     if (tid < nr) Gf[tid * L::LDF + tid] += sh;
+#pragma unroll
+    for (int c = 0; c < PER; ++c)
+      if (rj + c == ri && ri < nr) ge[c] += sh;
     __syncthreads();
   }
   if (refine) {
@@ -617,20 +744,15 @@ chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
     __syncthreads();
   } else {
     // Jacobi scaling d = diag(G')^-1/2 (0 beyond nr) and the spectral guard
-    // on D G' D (held in the X^T buffer, which nothing uses yet).
+    // on D G' D, formed in the registers.
     if (tid < R)
       dv[tid] = tid < nr
                     ? 1.0f / sqrtf(nan_max(Gf[tid * L::LDF + tid], FLT_MIN))
                     : 0.f;
     __syncthreads();
-    float* M0 = reinterpret_cast<float*>(smem + L::OFF_X);
-    for (int e = tid; e < R * R; e += kChainThreads) {
-      const int i = e / R, j = e % R;
-      M0[i * L::LDF + j] = Gf[i * L::LDF + j] * dv[i] * dv[j];
-    }
-    __syncthreads();
-    const float scale =
-        1.0f / sqrtf(chain_norm2_est<R>(nr, M0, v0, v1, red));
+#pragma unroll
+    for (int c = 0; c < PER; ++c) ge[c] = ge[c] * dv[ri] * dv[rj + c];
+    const float scale = 1.0f / sqrtf(row_norm2_est<R>(ge, v0, v1, red));
     if (tid < R) dv[tid] *= scale;
     __syncthreads();
   }
@@ -641,9 +763,11 @@ chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
     Xs[li * L::LDF + j] = (own(li) == j) ? dv[j] : 0.f;
     Ws[li * L::LDF + j] = refine ? g : g * dv[j];
   }
-  // Every CTA has started and is done with its copies of G and D G' D
-  // before any remote store reaches it.
+  NS_PROF(NSP_SETUP)
+  // Every CTA has started and is done with its copy of G before any
+  // remote store reaches it.
   cluster.sync();
+  NS_PROF(NSP_BARRIER)
 
   // All-gathers, one item of eight elements per thread (2 R items each).
   // X^T[i][k] and C^T[n][i] vanish for k > i and i > n: an item wholly
@@ -687,8 +811,11 @@ chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
     chain_prod<R>(split, smem + L::OFF_X, Gs, false,
                   [&](int p, int q, float v) { Ws[q * L::LDF + p] = v; });
     __syncthreads();
+    NS_PROF(NSP_W_PRODUCT)
     gather_W();
+    NS_PROF(NSP_GATHER_W)
     cluster.sync();
+    NS_PROF(NSP_BARRIER)
   };
   // The own 16 columns of E = I - X^T W: D[p = i][q = n] = <X^T[i], W^T[n]>.
   // Keeps max|E| in `em`; with `stage`, leaves C^T's rows in Qc.
@@ -705,44 +832,80 @@ chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
                           j > p ? e : (j == p ? e * 0.5f : 0.f);
                   });
     __syncthreads();
+    NS_PROF(NSP_CORRECTION)
   };
 
+  // G' = G + sh I on the own columns, for the closing t: loaded now, so
+  // that the global loads' latency passes during the iterations.
+  constexpr int TQ = kStripe * R / kChainThreads;
+  float gq[TQ];
+#pragma unroll
+  for (int u = 0; u < TQ; ++u) {
+    const int e = tid + kChainThreads * u;
+    const int k = e / kStripe, j = own(e % kStripe);
+    gq[u] = (k < nr && j < nr) ? G[k * nr + j] + (k == j ? sh : 0.f) : 0.f;
+  }
+
+  // Each iteration's X is gathered as soon as it is updated, and its W
+  // update runs while those stores cross the network: the gather of the
+  // next iteration's X (or the closing one's, in fp32) is issued between
+  // the X and the W update.
   const int n_om = (refine || !omega) ? 0 : min(4, max(0, iters - 4));
   const int n_fused = fuse_xw ? max(0, iters - 2) : 0;
+  gather_X(0 < mid_iters);
+  NS_PROF(NSP_GATHER_X)
+  NS_PROF_LOOP(0)
   for (int it = 0; it < iters; ++it) {
     const float om = it < n_om ? 1.5f : 1.0f;
     const bool split = it < mid_iters;
     const bool fused = it < n_fused;
-    gather_X(split);
     if (fused) gather_W();
+    NS_PROF(NSP_GATHER_W)
     cluster.sync();
+    NS_PROF(NSP_BARRIER)
     if (!fused) fresh_W(split);
     correction(split, true);
     gather_C(split);
+    NS_PROF(NSP_GATHER_C)
     cluster.sync();
+    NS_PROF(NSP_BARRIER)
     // X <- X + om X C on the own rows: D[p = n][q = i] = <C^T[n], X[i]>.
     chain_prod<R>(split, smem + L::OFF_C, Xs, true,
                   [&](int p, int q, float v) { Xs[q * L::LDF + p] += om * v; });
+    __syncthreads();
+    NS_PROF(NSP_UPDATE)
+    gather_X(it + 1 < mid_iters);
+    NS_PROF(NSP_GATHER_X)
     if (fused)
       chain_prod<R>(split, smem + L::OFF_C, Ws, true,
                     [&](int p, int q, float v) {
                       Ws[q * L::LDF + p] += om * v;
                     });
     __syncthreads();
+    NS_PROF(NSP_UPDATE)
   }
-
-  gather_X(false);
+  NS_PROF_LOOP(1)
+  // max|E| over the cluster, in rank order, into rank 0's cred: without
+  // refine the last E is known here, and its max joins the closing
+  // exchange, so that no cluster barrier is left after it.
+  auto send_max = [&]() {
+    em = blk_max(em, red);
+    if (tid == 0) *cluster.map_shared_rank(cred + rank, 0) = em;
+  };
+  if (!refine) send_max();
+  NS_PROF(NSP_CLUSTER_MAX)
   cluster.sync();
+  NS_PROF(NSP_BARRIER)
   if (refine) {
     fresh_W(false);
     correction(false, false);
   }
   // X^{-1} = X^T G' at convergence: R recovered with no solve.  The own 16
   // columns: D[p = i][q = n] = <X^T[i], G'[:, own n]>.
-  for (int e = tid; e < kStripe * R; e += kChainThreads) {
-    const int k = e / kStripe, q = e % kStripe, j = own(q);
-    Qc[q * L::LDF + k] =
-        (k < nr && j < nr) ? G[k * nr + j] + (k == j ? sh : 0.f) : 0.f;
+#pragma unroll
+  for (int u = 0; u < TQ; ++u) {
+    const int e = tid + kChainThreads * u;
+    Qc[(e % kStripe) * L::LDF + e / kStripe] = gq[u];
   }
   __syncthreads();
   prod_f32<R>(reinterpret_cast<const float*>(smem + L::OFF_X), Qc, false,
@@ -755,11 +918,12 @@ chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
     const int i = own(e / R), j = e % R;
     if (i < nr && j < nr) X[i * nr + j] = Xs[(e / R) * L::LDF + j];
   }
+  NS_PROF(NSP_CLOSE_T)
 
-  // max|E| over the cluster, in rank order.
-  em = blk_max(em, red);
-  if (tid == 0) *cluster.map_shared_rank(cred + rank, 0) = em;
-  cluster.sync();  // also: no CTA leaves while another may write into it
+  if (refine) {
+    send_max();
+    cluster.sync();  // also: no CTA leaves while another may write into it
+  }
   if (rank == 0 && tid == 0) {
     float m = cred[0];
     for (int p = 1; p < L::CS; ++p) m = nan_max(m, cred[p]);
@@ -767,6 +931,8 @@ chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
     else if (resid_mode == RESID_SCALE) m = m * 0.01f;
     *resid = m;
   }
+  NS_PROF(NSP_CLUSTER_MAX)
+  NS_PROF_SAVE
 }
 
 // The launch configuration of `batch` thread-block clusters of `ctas` CTAs

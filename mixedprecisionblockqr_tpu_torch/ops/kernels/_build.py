@@ -59,8 +59,9 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    vp, ci, cf, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+def _declare_ns(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C entries of ns_chain.cu (K1)."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     chain = [ci] * 5  # ns.py::NsLayout (ns.py::_c_layout)
     lib.mpbqr_ns_chain.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, ci, ci,
                                    ci, ci, *chain, vp]
@@ -70,6 +71,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_ns_chain_batched.restype = ci
     lib.mpbqr_ns_chain_resident.argtypes = [ci, *chain, ctypes.POINTER(ci)]
     lib.mpbqr_ns_chain_resident.restype = ci
+    return lib
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    vp, ci, cf, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    chain = [ci] * 5  # ns.py::NsLayout (ns.py::_c_layout)
+    _declare_ns(lib)
     lib.mpbqr_bgs_group_scratch_floats.argtypes = [ci, ci, ci]
     lib.mpbqr_bgs_group_scratch_floats.restype = ll
     lib.mpbqr_bgs_group_batched_scratch_floats.argtypes = [ci, ci, ci, ci]
@@ -173,7 +181,7 @@ def _run_all(cmds) -> None:
 
 #: Libraries of one source that :func:`instrumented_library` may build,
 #: with the function that declares their C entries.
-PARTIAL = {("givens.cu",): _declare_givens}
+PARTIAL = {("givens.cu",): _declare_givens, ("ns_chain.cu",): _declare_ns}
 
 
 def build(so: Path, flags=(), sources=SOURCES) -> None:

@@ -634,14 +634,18 @@ def ns_chain(
     return out
 
 
-def _launch_chain(G, iters, shift, refine, chain_mid, omega, fuse_xw):
+def _launch_chain(G, iters, shift, refine, chain_mid, omega, fuse_xw,
+                  lib=None):
     """One launch of ``mpbqr_ns_chain`` (an (r, r) Gram) or
     ``mpbqr_ns_chain_batched`` (a (B, r, r) stack, one L2-route scratch a
-    member) with :func:`ns_layout`'s layout on a checked CUDA tensor;
-    counts nothing.  Returns ``(X, t, resid)``."""
+    member) with :func:`ns_layout`'s layout on a checked CUDA tensor, from
+    ``lib`` (by default the kernel library; a probe passes its clock
+    build); counts nothing.  Returns ``(X, t, resid)``."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
         check, library,
     )
+
+    lib = library() if lib is None else lib
 
     *batch, r, _ = G.shape
     lay = ns_layout(r, _card_cluster(G, r))
@@ -656,9 +660,9 @@ def _launch_chain(G, iters, shift, refine, chain_mid, omega, fuse_xw):
     tail = (r, iters, float(shift), int(refine), mid_iters, int(omega),
             int(fuse_xw), *_c_layout(lay), _stream(G))
     if batch:
-        code = library().mpbqr_ns_chain_batched(*ptrs, batch[0], *tail)
+        code = lib.mpbqr_ns_chain_batched(*ptrs, batch[0], *tail)
     else:
-        code = library().mpbqr_ns_chain(*ptrs, *tail)
+        code = lib.mpbqr_ns_chain(*ptrs, *tail)
     check(code, "ns_chain")
     return X, t, resid
 

@@ -128,7 +128,10 @@ def k1_batched_row(G: torch.Tensor, kw: dict) -> dict:
     """K1's batched entry on the Gram stack ``G`` (B, r, r) with the options
     ``kw``: layout, resident clusters and waves; error against
     ``ns_chain_plain`` on the stack; bitwise repeat; each member bit for
-    bit its single launch; times; bounds.  Counts on the launch counters
+    bit its single launch; times (one launch, and ``loop_ms``: a launch of
+    ``ns_probe.LOOP`` back to back); ``torch.linalg.cholesky`` on the
+    stack, and with the triangular inverse (``library_inverse_ms``,
+    ``ns_probe.cholesky_inverse``); bounds.  Counts on the launch counters
     like any call: callers set them to 0 before a main path."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
         _card_cluster,
@@ -140,6 +143,10 @@ def k1_batched_row(G: torch.Tensor, kw: dict) -> dict:
     )
     from mixedprecisionblockqr_tpu_torch.utils.bounds import (
         ns_chain_batched_bound,
+    )
+    from mixedprecisionblockqr_tpu_torch.utils.ns_probe import (
+        LOOP,
+        cholesky_inverse,
     )
     from mixedprecisionblockqr_tpu_torch.utils.timing import cuda_time_ms
 
@@ -171,11 +178,14 @@ def k1_batched_row(G: torch.Tensor, kw: dict) -> dict:
                  and same_class and row["bitwise_repeatable"]
                  and row["members_bitwise_single_launch"])
     row["ms"] = cuda_time_ms(lambda: ns_chain_batched(G, **kw))
+    row["loop_ms"] = cuda_time_ms(
+        lambda: [ns_chain_batched(G, **kw) for _ in range(LOOP)]) / LOOP
     row["single_loop_ms"] = cuda_time_ms(
         lambda: [ns_chain(g, **kw) for g in G], warmup=1, iters=10)
     row["plain_ms"] = cuda_time_ms(lambda: ns_chain_plain(G, **kw),
                                    warmup=1, iters=3)
     row["library_ms"] = cuda_time_ms(lambda: torch.linalg.cholesky(G))
+    row["library_inverse_ms"] = cuda_time_ms(lambda: cholesky_inverse(G))
     row.update(ns_chain_batched_bound(
         B, r, kw["iters"], chain_mid=kw.get("chain_mid", False),
         refine=kw.get("refine", False)))

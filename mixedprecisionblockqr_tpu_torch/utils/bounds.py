@@ -98,21 +98,44 @@ def robust_ops(r, chain_mid=False):
     return f1 + f2 + f3 + combine_ops(r), b1 + b2
 
 
-def ns_chain_bound(r, iters, chain_mid=False, refine=False):
+def ns_chain_exchanges(iters, refine=False):
+    """Dependent cluster exchanges of one shared-memory-route K1 launch
+    (csrc/ns_chain.cuh::chain_kernel) on the fused schedule (``fuse_xw``,
+    the default that every QR tier runs), each an all-gather that the
+    next product waits for: two an iteration that carries W (X with W,
+    then C), three one that recomputes W = G' X (X, W, C; the final two
+    iterations), the closing X (which carries the residual's cluster
+    max), and a refine chain's closing W and its cluster max after the
+    exact residual."""
+    n_fused = max(0, iters - 2)
+    return 2 * n_fused + 3 * (iters - n_fused) + 1 + (2 if refine else 0)
+
+
+def ns_chain_bound(r, iters, chain_mid=False, refine=False,
+                   exchange_ms=None):
     """K1: G read, X and t written; the operations of ``chain_ops``.
     Beside the whole card's bound, ``cluster_bound_ms`` is the bound of
     the SMs that the one thread-block cluster of a chain can use (its
     ``ns_layout`` CTAs: R / 16 on the instantiation R that holds r, up to
     16 on the L2 route above 128): the same operations at that share of
-    the peak rates (the bytes still at the card's memory rate)."""
+    the peak rates (the bytes still at the card's memory rate).  With
+    ``exchange_ms``, one cluster exchange of the current kernel as a run
+    measured it (``utils/ns_probe.py``), also ``serial_floor_ms``: the
+    launch's ``serial_exchanges`` (``ns_chain_exchanges``) times it, what
+    this design's dependent exchanges cost however fast its products.  It
+    is the current design's exchange cost, not a floor of the function:
+    it moves with the kernel's own exchange."""
     f32, bf16 = chain_ops(r, iters, chain_mid, refine)
     nbytes = 3 * r * r * 4
     whole = bound(f32_ops=f32, bf16_ops=bf16, nbytes=nbytes)
     sms = ns_layout(r).ctas
     share = SMS / sms
     one = bound(f32_ops=f32 * share, bf16_ops=bf16 * share, nbytes=nbytes)
-    return {**whole, "cluster_sms": sms,
-            "cluster_bound_ms": one["bound_ms"]}
+    out = {**whole, "cluster_sms": sms, "cluster_bound_ms": one["bound_ms"]}
+    if exchange_ms is not None:
+        n = ns_chain_exchanges(iters, refine)
+        out.update(serial_exchanges=n, serial_floor_ms=n * exchange_ms)
+    return out
 
 
 def ns_chain_batched_bound(B, r, iters, chain_mid=False, refine=False):

@@ -1,7 +1,7 @@
 """Where the time goes: profile the calls that ``chip_smoke.py`` drives, on
 one CUDA device.
 
-    python3 -m mixedprecisionblockqr_tpu_torch.utils.profile_cells [name ...]
+    python3 -m mixedprecisionblockqr_tpu_torch.utils.profile_cells [--host] [name ...]
 
 With names, only the cells whose name contains one of them.  For each cell
 it prints one JSON line:
@@ -14,7 +14,12 @@ it prints one JSON line:
     which the device had work;
   * ``device_events``: device activities per call;
   * ``top``: the largest device items by time per call, with their counts
-    per call.
+    per call;
+  * with ``--host``, ``host_ms`` and ``host_top``: one more synchronized
+    call under ``cProfile``, its host clock and the Python functions with
+    the most time of their own in it (the wait for the device shows as
+    ``_cuda_synchronize``).  The tracer slows the host side; compare two
+    trees by it only within one call of this script on each.
 The cells: ``headline`` (block_qr 2048^2 POLICY_MIXED_FAST, bgs1), ``qr
 default`` (qr 2048^2 POLICY_MIXED, bgs2), ``band`` (the headline call at
 4096^2), ``lstsq`` (the 4096 x 2048 gauge-deficient system of
@@ -112,6 +117,28 @@ def _sync():
         torch.cuda.synchronize()
 
 
+def host_items(fn: Callable[[], object], k: int = 8) -> Dict:
+    """One synchronized call of ``fn`` under ``cProfile``: its host clock
+    and the k functions with the most time of their own, in ms."""
+    import cProfile
+    import pstats
+    from pathlib import Path
+
+    tracer = cProfile.Profile()
+    t0 = time.perf_counter()
+    tracer.enable()
+    fn()
+    _sync()
+    tracer.disable()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(tracer).stats
+    top = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)[:k]
+    return {"host_ms": host_ms,
+            "host_top": [{"fn": f"{Path(f).name}:{line}({name})",
+                          "ms": tt * 1e3, "calls": nc}
+                         for (f, line, name), (_, nc, tt, _, _) in top]}
+
+
 def profile_cell(fn: Callable[[], object], calls: int) -> Dict:
     """Host walls of ``fn`` and one profile of ``calls`` calls of it."""
     fn()
@@ -140,6 +167,8 @@ def profile_cell(fn: Callable[[], object], calls: int) -> Dict:
 
 
 def main(only: Sequence[str] = ()) -> int:
+    host = "--host" in only
+    only = [o for o in only if o != "--host"]
     if not torch.cuda.is_available():
         print("profile_cells: no CUDA device", file=sys.stderr)
         return 2
@@ -333,8 +362,10 @@ def main(only: Sequence[str] = ()) -> int:
     for name, fn, calls in cells:
         if only and not any(o in name for o in only):
             continue
-        print(json.dumps({"cell": name, **profile_cell(fn, calls),
-                          "card": smi}), flush=True)
+        row = profile_cell(fn, calls)
+        if host:
+            row.update(host_items(fn))
+        print(json.dumps({"cell": name, **row, "card": smi}), flush=True)
     return 0
 
 
