@@ -25,15 +25,18 @@ last line):
                  (the shared-memory route of the instantiation that holds
                  r) and 192, 256 (the L2 route) with their r = 128 rows'
                  tolerances, route, CTAs and a bitwise repeat
-                 (utils/width_probe.py);
+                 (utils/width_probe.py), K1 alone also at 129, 200, 512
+                 and 1024 and on the batched 4 x 256 stack (each member
+                 bit for bit its single launch);
                  ns_chain at r = 32, 64, 128 in every option combination
                  the QR tiers use, bitwise repeatable, NaN in -> NaN resid,
                  beside torch.linalg.cholesky and beside cholesky + the
                  triangular inverse; its clock build run once
                  (-DMPBQR_NS_PROF, utils/ns_probe.py --phases: cycles by
                  slot a launch and an iteration, outputs bit for bit the
-                 library's) and the serial floor from its measured
-                 cluster exchange;
+                 library's, and the L2 route's slots at r = 256 on 16
+                 CTAs) and the serial floor from its measured cluster
+                 exchange;
                  tiled_matmul on both routes (fed by TMA, predicated
                  loaders), the route of each call asserted; chol_rinv at
                  r = 32, 96, 128, 256, 320, 512 (shared-memory route) and
@@ -1875,20 +1878,36 @@ def main() -> int:
     # as they were); its outputs equal the library's bit for bit, every
     # slot is named, and one cluster exchange as it measured gives each
     # option set's serial floor.
+    # The L2 route's clock (r = 256 chain_mid, 16 CTAs) runs once from the
+    # same build, each of its slots asserted with every CTA's record.
     gen_k1 = torch.Generator(device=dev).manual_seed(27)
+    smem_sets = [n for n, (r_k1, _, _) in ns_probe.OPTION_SETS.items()
+                 if r_k1 <= 128]
     with _build.instrumented_library(*ns_probe.PROF_BUILD) as prof:
-        k1_phases = ns_probe.phase_rows(prof, ns_probe.grams(gen_k1, dev),
-                                        ns_probe._sm_mhz())
+        k1_grams = ns_probe.grams(gen_k1, dev)
+        mhz = ns_probe._sm_mhz()
+        k1_phases = ns_probe.phase_rows(prof, k1_grams, mhz, smem_sets)
+        k1_l2_phases = ns_probe.phase_rows(prof, k1_grams, mhz,
+                                           ["l2_chain_mid"])
     k1_floor = {}
-    for name, row in k1_phases.items():
+    for name, row in {**k1_phases, **k1_l2_phases}.items():
         assert row["same_as_library"] and row["launch_cycles"] > 0, (name,
                                                                      row)
-        assert set(row["slots"]) == set(ns_probe.SLOTS), (name, row)
+        slots = ns_probe.L2_SLOTS if row["route"] == "l2" else ns_probe.SLOTS
+        assert set(row["slots"]) == set(slots), (name, row)
         assert row["exchange_cycles"] > 0, (name, row)
         r_k1, _, kw = ns_probe.OPTION_SETS[name]
+        if row["route"] == "l2":
+            assert row["ctas"] == 16 and r_k1 == 256, (name, row)
+            for slot in ("launch", *slots):
+                assert len(row["per_cta"][slot]) == 16, (name, slot)
+            assert all(c > 0 for c in row["per_cta"]["launch"]), row
+            for slot in ("setup", "correction", "x_update", "barrier",
+                         "close_t"):
+                assert row["slots"][slot]["cycles"] > 0, (name, slot, row)
         k1_floor[name] = ns_chain_bound(
             r_k1, kw["iters"], kw.get("chain_mid", False),
-            kw.get("refine", False),
+            kw.get("refine", False), shift=bool(kw.get("shift")),
             exchange_ms=row["exchange_us"] * 1e-3)["serial_floor_ms"]
     emit({"phase": "kernels", "kernel": "ns_chain",
           "tolerance": "max|diff| <= 1e-4 * max|plain| for X and t; same "
@@ -1897,7 +1916,8 @@ def main() -> int:
           "r128": ns_all[128], "r64": ns_all[64], "r32": ns_all[32],
           "bound_chain_mid_6": ns_chain_bound(128, 6, chain_mid=True),
           "bound_shift_mid_14": ns_chain_bound(128, 14, chain_mid=True),
-          "phases": k1_phases, "serial_floor_ms": k1_floor,
+          "phases": k1_phases, "l2_phases": k1_l2_phases,
+          "serial_floor_ms": k1_floor,
           "library_call": "torch.linalg.cholesky(G)",
           "library_ms": lib_k1,
           "library_inverse_call": "torch.linalg.cholesky(G) + "
@@ -2614,10 +2634,21 @@ def main() -> int:
     # CTAs and time.  Each width draws from a generator of its own, so the
     # later phases' inputs stay the draws they were.
     wrows = width_probe.width_rows(dev)
+    # K1 alone at the L2 route's edges (r = 129, 200, 512, 1024: the
+    # narrowest, a width of ragged tiles, and the widest two) with the same
+    # tolerances and bitwise repeat, and the batched 4 x 256 stack above,
+    # each member bit for bit its single launch.
+    wrows["ns_chain"].update(width_probe.k1_l2_rows(dev))
+    k1_l2_stack = k1b_rows["l2_chain_mid_4x256"]
+    assert k1_l2_stack["ok"] and k1_l2_stack["members_bitwise_single_launch"]
     for name, by_r in wrows.items():
         for r_w, row in by_r.items():
             assert row["ok"], (name, r_w, row)
-        emit({"phase": "kernels_widths", "kernel": name,
+        extra = ({"batched_4x256": {k: k1_l2_stack[k] for k in (
+            "ok", "members_bitwise_single_launch", "bitwise_repeatable",
+            "max_abs_err", "resident_clusters", "waves", "loop_ms")}}
+            if name == "ns_chain" else {})
+        emit({"phase": "kernels_widths", "kernel": name, **extra,
               "tolerance": "as the kernel's r = 128 row: fp32 1e-4 of the "
                            "plain version's scale, bf16 flags 5e-3 "
                            "relative; the same canary / fallback class; "

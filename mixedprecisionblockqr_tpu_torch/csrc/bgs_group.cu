@@ -127,6 +127,7 @@ static long long group_scratch_floats(int m, int r, int g, GroupScratch* s,
   take(&d->tmpA, d->mr);
   take(&d->tmpB, d->mr);
   take(&d->resid, d->rp);
+  off = (off + 3) / 4 * 4;  // the L2 chain's cp.async reads 16-byte pieces
   take(&d->chain, d->ch);
   take(&d->comb, d->cb);
   return off;

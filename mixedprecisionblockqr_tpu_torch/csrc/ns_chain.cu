@@ -20,12 +20,16 @@
 extern "C" {
 
 #ifdef MPBQR_NS_PROF
-// Copy the phase clocks of the last shared-memory-route launch (8 CTAs x
-// {launch, iterations} x NSP_SLOTS signed 64-bit; ns_chain.cuh) to the
-// host.
-int mpbqr_ns_prof(long long* prof) {
-  return (int)cudaMemcpyFromSymbol(prof, mpbqr::g_ns_prof,
-                                   sizeof(mpbqr::g_ns_prof));
+// Copy the phase clocks of the last launch of each route to the host:
+// the shared-memory route's (8 CTAs x {launch, iterations} x NSP_SLOTS
+// signed 64-bit; ns_chain.cuh) into `prof`, the L2 route's (16 CTAs x
+// {launch, iterations} x NSL_SLOTS) into `l2`.
+int mpbqr_ns_prof(long long* prof, long long* l2) {
+  cudaError_t err = cudaMemcpyFromSymbol(prof, mpbqr::g_ns_prof,
+                                         sizeof(mpbqr::g_ns_prof));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyFromSymbol(l2, mpbqr::g_ns_l2_prof,
+                                   sizeof(mpbqr::g_ns_l2_prof));
 }
 #endif
 

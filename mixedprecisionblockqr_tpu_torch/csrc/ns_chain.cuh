@@ -82,8 +82,10 @@
 #include <algorithm>
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
@@ -539,45 +541,6 @@ __device__ __forceinline__ void load_full_async(float* dst, const float* src,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Upper estimate of ||M||_2 of the n x n matrix elem(i, j): 1.05 x two
-// power-iteration steps, computed scale-normalized (ns.py::_norm2_est) so
-// that ||M|| >~ 3e8 cannot overflow the sum of squares.  One warp sums one
-// row; v0, v1 hold n floats each.
-template <class Elem>
-__device__ float norm2_est(int n, Elem elem, float* v0, float* v1,
-                           float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float m = 0.f;
-  for (int e = threadIdx.x; e < n * n; e += kChainThreads)
-    m = nan_max(m, fabsf(elem(e / n, e % n)));
-  m = blk_max(m, red);
-  const float a = nan_max(m, FLT_MIN);
-  const float inv = 1.0f / a;
-  // pass 0: v0 = M 1; pass 1: v1 = M v0; pass 2: |M v1 / |v1||^2.
-  float n1 = 0.f;
-  for (int pass = 0; pass < 3; ++pass) {
-    const float sc = pass == 2 ? 1.0f / (n1 + 1e-30f) : 1.0f;
-    float q = 0.f;
-    for (int i = warp; i < n; i += kChainThreads / 32) {
-      float s = 0.f;
-      for (int j = lane; j < n; j += 32) {
-        const float x = pass == 0 ? 1.0f : (pass == 1 ? v0[j] : v1[j] * sc);
-        s = fmaf(elem(i, j) * inv, x, s);
-      }
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) {
-        if (pass == 0) v0[i] = s;
-        if (pass == 1) v1[i] = s;
-        q += s * s;
-      }
-    }
-    const float tot = blk_sum(q, red);  // also the barrier between passes
-    if (pass == 1) n1 = sqrtf(tot);
-    if (pass == 2) return (1.05f * a) * sqrtf(tot);
-  }
-  return 0.f;  // not reached
-}
-
 // The shared-memory route's setup holds an R x R matrix spread over the
 // block by rows: row i = tid / TPR, this thread's PER consecutive columns
 // from j0 = (tid % TPR) PER, in registers.
@@ -587,8 +550,9 @@ struct RowShare {
   static constexpr int PER = R / TPR;            // elements a thread
 };
 
-// norm2_est's estimate (1.05 x two power-iteration steps, scale-normalized)
-// of a matrix held by rows (RowShare), zeros beyond the problem: the same
+// Upper estimate of ||M||_2 (ns.py::_norm2_est: 1.05 x two power-iteration
+// steps, scale-normalized so that ||M|| >~ 3e8 cannot overflow the sum of
+// squares) of a matrix held by rows (RowShare), zeros beyond the problem:
 // three passes, each from the registers, a row's sum taken by its TPR
 // threads in a fixed xor tree (every one of them gets the same bits).  v0,
 // v1 hold R floats.
@@ -644,17 +608,29 @@ enum {
   NSP_CORRECTION, NSP_GATHER_C, NSP_UPDATE, NSP_CLOSE_T, NSP_CLUSTER_MAX,
   NSP_SLOTS
 };
+// The L2 route's clock (chain_l2_kernel) has slots of its own (NSL_*):
+// the setup (norm estimates, Jacobi, seeding G', X and W), the fresh
+// W = G' X product, the correction E = X^T W, the X and W updates, the
+// wait at the cluster barriers with their __threadfence, the closing
+// t = X^T G' product, the X store and the residual's cluster max; one
+// record a CTA of the largest cluster (16), so that the CTAs' imbalance
+// shows.
+enum {
+  NSL_SETUP, NSL_W_PRODUCT, NSL_CORRECTION, NSL_X_UPDATE, NSL_W_UPDATE,
+  NSL_BARRIER, NSL_CLOSE_T, NSL_X_STORE, NSL_CLUSTER_MAX, NSL_SLOTS
+};
 #ifdef MPBQR_NS_PROF
 static __device__ long long g_ns_prof[8][2][NSP_SLOTS];
-#define NS_PROF_INIT long long pt = clock64(), pacc[NSP_SLOTS] = {}, ploop[NSP_SLOTS] = {};
+static __device__ long long g_ns_l2_prof[16][2][NSL_SLOTS];
+#define NS_PROF_INIT(N) constexpr int prof_n = N; long long pt = clock64(), pacc[N] = {}, ploop[N] = {};
 #define NS_PROF(k) if (tid == 0) { const long long c = clock64(); pacc[k] += c - pt; pt = c; }
-#define NS_PROF_LOOP(sign) if (tid == 0) for (int k = 0; k < NSP_SLOTS; ++k) ploop[k] = pacc[k] - (sign) * ploop[k];
-#define NS_PROF_SAVE if (tid == 0 && blockIdx.y == 0) for (int k = 0; k < NSP_SLOTS; ++k) { g_ns_prof[rank][0][k] = pacc[k]; g_ns_prof[rank][1][k] = ploop[k]; }
+#define NS_PROF_LOOP(sign) if (tid == 0) for (int k = 0; k < prof_n; ++k) ploop[k] = pacc[k] - (sign) * ploop[k];
+#define NS_PROF_SAVE(tab) if (tid == 0 && blockIdx.y == 0) for (int k = 0; k < prof_n; ++k) { tab[rank][0][k] = pacc[k]; tab[rank][1][k] = ploop[k]; }
 #else
-#define NS_PROF_INIT
+#define NS_PROF_INIT(N)
 #define NS_PROF(k)
 #define NS_PROF_LOOP(sign)
-#define NS_PROF_SAVE
+#define NS_PROF_SAVE(tab)
 #endif
 
 // One whole chain (ns.py::_ns_kernel with _tri_ns) as one cluster of R / 16
@@ -681,7 +657,7 @@ chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
   using L = ChainLayout<R>;
   const int nr = PAD ? n_arg : R;
   const int tid = threadIdx.x;
-  NS_PROF_INIT
+  NS_PROF_INIT(NSP_SLOTS)
   {
     const long long b = blockIdx.y;
     G += b * bt.g;
@@ -932,7 +908,7 @@ chain_kernel(const float* G, int n_arg, float* X, float* t, int ldt,
     *resid = m;
   }
   NS_PROF(NSP_CLUSTER_MAX)
-  NS_PROF_SAVE
+  NS_PROF_SAVE(g_ns_prof)
 }
 
 // The launch configuration of `batch` thread-block clusters of `ctas` CTAs
@@ -1016,44 +992,36 @@ static inline cudaError_t cluster_resident(void (*kern)(KArgs...), int ctas,
 // What changes beyond 128: the replicated operands no longer fit a CTA, so
 // every r x r operand lives whole in a global scratch, 4 r^2 bytes each
 // (256 KB at r = 256), which stays in the 50 MB L2 (each product reads it
-// through L2 with ld.global.cg, never a stale L1 line).  One thread-block
-// cluster of up to 16 CTAs (ops/kernels/ns.py::ns_layout: ceil(r / 16),
-// capped by the card's largest cluster) runs the chain; CTA p owns the
-// contiguous columns [p cw, (p + 1) cw), cw = ceil(r / CTAs), of every
-// matrix, and every product has the form
+// through L2 with ld.global.cg or cp.async.cg, never a stale L1 line).  One
+// thread-block cluster of up to 16 CTAs (ops/kernels/ns.py::ns_layout:
+// ceil(r / 16), capped by the card's largest cluster) runs a chain, and
+// every product has the form
 //     D[:, own] = op(A) B[:, own]
-// with A whole (X, X^T, W, G' or S) and B the CTA's own columns, so a CTA
-// writes only its own columns and reads the others' only as A.  The
-// operands that change (X and W) are double-buffered, so one cluster
-// barrier an iteration separates the products that read them whole from
-// the ones that write them (a __threadfence() before each barrier makes
-// the global writes visible across the cluster).  Reading remote stripes
-// over DSMEM instead was the other choice: it would hold X and W in shared
-// memory only up to r = 512 at 16 CTAs and still need the whole operand
-// streamed through every CTA, so the L2 scratch, simpler and with no
-// upper limit but the vectors below, was taken.  A product streams A in
-// 128 x 32 tiles and B in 32 x 16 tiles through shared memory (the next
-// stage in registers while the current one is multiplied), 8 consecutive
-// rows of one column a thread (two 16-byte loads of A and one of B per 8
-// FMA), k ascending: every element has one fixed summation order, no
-// atomics, the same bits every launch.  The products of the triangular
-// X and C skip the k-stages of their zero triangles.  The split products
-// of the chain_mid iterations (hi*hi + hi*lo + lo*hi) run on the tensor
-// cores as the shared-memory route's do: both tiles staged k-contiguous in
-// fp32, split into bf16 hi / lo in registers, three mma.sync m16n8k16 into
-// one fp32 accumulator (each bf16 x bf16 product exact), a warp owning 16
-// rows x 16 columns.  What bounds it: the stages of its slowest CTA, the
-// last one, whose columns end the triangles (40 an iteration at r = 256:
-// ~1.4 us each, fp32 or split alike); a 64-deep stage measured slower
-// (utils/width_probe.py --sweep), so a stage is not bound by its loads'
-// latency but by its own work: the fp32 products' shared-memory
-// wavefronts (a warp's 16-byte load costs four, ~9 a k-step per warp for
-// 8 FMA a thread), the staging stores and the splits.
+// with A whole and B the CTA's own columns, so a CTA writes only its own
+// columns and reads the others' only as A.  The operands that change are
+// double-buffered, so one cluster barrier an iteration separates the
+// products that read them whole from the ones that write them (a
+// __threadfence() before each barrier makes the global writes visible
+// across the cluster).  Reading remote stripes over DSMEM instead was the
+// other choice: it would hold X and W in shared memory only up to r = 512
+// at 16 CTAs and still need the whole operand streamed through every CTA,
+// so the L2 scratch, with no upper limit but the vectors, was taken.
+//
+// K4 (ninv_chain.cu) and the R-block combine (panel.cuh) run l2_prod: CTA
+// p owns the contiguous columns [p cw, (p + 1) cw), cw = ceil(r / CTAs);
+// A streams in 128 x 32 tiles and B in 32 x 16 tiles through shared memory
+// (the next stage in registers while the current one is multiplied), 8
+// consecutive rows of one column a thread, k ascending: one fixed
+// summation order, the same bits every launch.  K1's chain runs products
+// of its own (l2_tprod, below chain_l2_scratch_floats), redesigned after
+// its clock (utils/ns_probe.py --phases) showed l2_prod's stages at ~3k
+// cycles each and the last CTA of a cluster running 1.5-7x the first's
+// products.
 constexpr int kMaxWidth = 1024;      // ns.py::MAX_WIDTH
 constexpr int kL2MaxCluster = 16;    // ns.py::L2_MAX_CLUSTER
 constexpr int kL2Rows = 128;         // output rows of a product tile
 constexpr int kL2Cols = 16;          // output columns of a product tile
-constexpr int kL2Depth = 32;         // k per stage (64 measured slower)
+constexpr int kL2Depth = 32;         // k per l2_prod stage (64 slower there)
 constexpr int kL2PitchA = kL2Rows + 4;  // rows of A stay 16-byte aligned
 constexpr int kL2SplitPitch = kL2Depth + 4;  // split tiles: k-contiguous
 // The A and B tiles of a stage in the larger of l2_prod's two layouts
@@ -1224,17 +1192,6 @@ __device__ void l2_prod(int n, const float* A, int lda, const float* B,
   }
 }
 
-template <bool TA, class Epi>
-__device__ __forceinline__ void l2_prod_any(bool split, int n, const float* A,
-                                            int lda, const float* B, int ldb,
-                                            int c0, int c1, int tri,
-                                            float* stage, Epi epi) {
-  if (split)
-    l2_prod<true, TA>(n, A, lda, B, ldb, c0, c1, tri, stage, epi);
-  else
-    l2_prod<false, TA>(n, A, lda, B, ldb, c0, c1, tri, stage, epi);
-}
-
 // This CTA's own columns [c0, c1) of an n-wide operand, cluster of cs.
 __device__ __forceinline__ void l2_own(int n, int rank, int cs, int& c0,
                                        int& c1) {
@@ -1268,21 +1225,542 @@ __device__ __forceinline__ void l2_cluster_max(cg::cluster_group& cluster,
   }
 }
 
-// Floats of the L2 chain's global scratch: G', X and W twice, C.
+// -- K1's chain on the L2 route ------------------------------------------
+//
+// What its clock showed (utils/ns_probe.py --phases, H100, r = 256
+// chain_mid, l2_prod's body): the setup took 16% of a launch (both norm
+// estimates in every CTA, scalar loads); the products of the triangular X
+// and C ran 3-7x longer on the last CTA than on the first, whose barrier
+// waits made up the difference; a 32-deep stage of 128 rows took ~3k
+// cycles, fp32 or split alike.  The design:
+//   * Columns are dealt in tiles of kL2Tile = 8 like a snake: tile j * cs
+//     + p (even rounds j) or j * cs + cs - 1 - p (odd ones) to CTA p of a
+//     cluster of cs, so that the first and the last columns, which end the
+//     triangles soonest and latest, go to the same CTA: at r = 256 CTA p
+//     owns tiles p and 31 - p, and every CTA has about the same work.  A
+//     product takes a CTA's tiles two at a time (a unit of 16 columns) and
+//     the rows in blocks of kL2URows = 256; each warp takes one tile and
+//     64 rows and skips the stages that lie wholly in the zero triangles
+//     its rows and columns see, so the warps of the early tile idle once
+//     their triangle ends.  Inside a stage a warp multiplies every k
+//     (exact zeros past its triangles): no branch between the k-steps.
+//   * Every A is read k-major (A[k][i]: D = A^T B): the scratch keeps X^T
+//     and W^T beside X and W (written by the same epilogues) and G'^T
+//     beside G', so that no tile is transposed on its way in.  A stage,
+//     kL2UDepth = 64 k-rows of A (256 rows, in boxes of 32, the 128-byte
+//     swizzle) and of B (the unit's two tiles), arrives by the copy engine
+//     (TMA: one tensor map over the launch's whole scratch, rows past r
+//     zero-filled) on the stage's `full` mbarrier, into a ring of
+//     kL2Stages buffers two stages ahead of the one multiplied; one
+//     thread starts it once every warp has arrived on the slot's `empty`
+//     mbarrier, and no block barrier runs a stage.
+//   * fp32 (Precision.HIGHEST: the closing iterations, refine chains, t):
+//     a thread keeps a 4-row x 4-column register tile, 8 16-byte loads a
+//     k-quad for 64 FMA (l2_prod: 3 for 8), k ascending.
+//   * split (chain_mid): a warp keeps four m16n8 tiles (64 rows x its 8
+//     columns); both operands' fragments are loaded from the fp32 stages
+//     and split into bf16 hi / lo in registers (a pair by one conversion),
+//     hi*hi + hi*lo + lo*hi in three mma.sync m16n8k16 into one fp32
+//     accumulator, each pass over the four tiles in turn.
+//   * The norm estimates of the setup are split over the cluster: each CTA
+//     takes a stripe of rows for every pass, and the vectors and partial
+//     sums are exchanged through distributed shared memory, a cluster
+//     barrier a pass; every CTA adds the partial sums in rank order, so all
+//     of them hold the same bits.
+// Measured on the way (A / B builds of this file in one call each, H100,
+// PERF.md §6): per-thread cp.async in place of TMA moved the same bytes with
+// 2304 requests a stage through the queue that the products' shared-memory
+// loads use, and loads and products then barely overlapped (0.340 ms
+// `chain_mid` at r = 256; without products 0.218, without loads 0.261,
+// without either 0.110); bulk copies of 64-row pieces, a deeper ring and
+// a stage order rotated by rank were no faster.
+// Every element still has one fixed summation order: two launches give the
+// same bits.
+
+// The L2 chain's scratch: n x l2_ld(n) floats each of G' and G'^T; X,
+// X^T, W and W^T twice; C, in this order (the third coordinate of its
+// tensor maps).
+enum {
+  L2M_GP = 0, L2M_GPT = 1, L2M_X = 2, L2M_XT = 4, L2M_W = 6, L2M_WT = 8,
+  L2M_C = 10, kL2Mats = 11
+};
 __host__ __device__ __forceinline__ long long chain_l2_scratch_floats(int n) {
-  return 6LL * n * l2_ld(n);
+  return (long long)kL2Mats * n * l2_ld(n);
+}
+
+constexpr int kL2Tile = 8;       // columns of a dealt tile
+constexpr int kL2URows = 256;    // rows of a product block (a warp: 64)
+constexpr int kL2UDepth = 64;    // k per stage of the chain's products
+constexpr int kL2Box = 32;       // A arrives in boxes of 64 k x 32 rows
+constexpr int kL2BoxFloats = kL2UDepth * kL2Box;
+constexpr int kL2Stages = 3;     // the ring of stages
+// A stage: A's eight boxes, then B's two tiles [64 k][8 columns].
+constexpr int kL2UStageFloats =
+    (kL2URows / kL2Box) * kL2BoxFloats + 2 * kL2UDepth * kL2Tile;
+// The ring (ns.py::L2_CHAIN_STAGE_FLOATS), and the floats before it
+// (ns.py::L2_RING_SLACK_FLOATS): its mbarriers, and room to start it on
+// a 1024-byte boundary, as the 128-byte swizzle of A's boxes needs.
+constexpr int kL2RingFloats = kL2Stages * kL2UStageFloats;
+constexpr int kL2RingSlack = 512;
+static_assert(kL2UStageFloats % 256 == 0, "every stage 1024-byte aligned");
+
+// Tile of CTA `rank`'s slot j in a cluster of cs (the snake).
+__device__ __forceinline__ int l2_tile(int rank, int cs, int j) {
+  return j * cs + ((j & 1) ? cs - 1 - rank : rank);
+}
+
+// Slots a CTA holds for an n-wide chain on cs CTAs.
+__device__ __forceinline__ int l2_slots(int n, int cs) {
+  const int tiles = (n + kL2Tile - 1) / kL2Tile;
+  return (tiles + cs - 1) / cs;
+}
+
+// The L2 chain's operands by the copy engine.  The launch describes the
+// scratch of all its members as one 3-D tensor (l2_maps): columns (ld,
+// the rows padded to 16 bytes), rows (n: rows past n arrive as zeros) and
+// matrices (kL2Mats a member).  A box lands on the stage's mbarrier.
+__device__ __forceinline__ uint32_t l2_smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void l2_mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void l2_mbar_arrive_tx(uint32_t bar,
+                                                  uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void l2_mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// This thread's global writes, ordered before the copy engine's later
+// reads of them (after a barrier that the reader's issuing thread
+// passes).
+__device__ __forceinline__ void l2_fence_proxy_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// Spin until the barrier's phase differs from `parity`.
+__device__ __forceinline__ void l2_mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// The box at (column c, row k, matrix m) of `map` into shared memory.
+__device__ __forceinline__ void l2_tma_load(float* dst, const CUtensorMap* map,
+                                            uint32_t bar, int c, int k,
+                                            int m) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(l2_smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(k), "r"(m)
+      : "memory");
+}
+
+// split_pair's two-term bf16 split, the pair converted at once (the same
+// bits).
+__device__ __forceinline__ void split_pair2(float x, float y, uint32_t& hi,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Element (k, r) of a stage's A, r < 256: box r / 32, row k of 128 bytes,
+// its 16-byte pieces swizzled by k % 8 (CU_TENSOR_MAP_SWIZZLE_128B).
+__device__ __forceinline__ int l2_a_at(int k, int r) {
+  return (r >> 5) * kL2BoxFloats + k * kL2Box +
+         ((((r & 31) >> 2) ^ (k & 7)) << 2) + (r & 3);
+}
+
+// The L2 ring: kL2Stages stages, each with a `full` mbarrier (its copies
+// landed) and an `empty` one (every warp is done with it).
+struct L2Ring {
+  float* buf;
+  uint32_t bars;
+  int seq;  // stages the ring has taken, the same in every thread
+  __device__ __forceinline__ uint32_t full(int slot) const {
+    return bars + 8 * slot;
+  }
+  __device__ __forceinline__ uint32_t empty(int slot) const {
+    return bars + 8 * (kL2Stages + slot);
+  }
+};
+
+// D[i][c] = sum_k A[k][i] B[k][c] for every i < n and every column c of
+// this CTA's tiles (rank of cs), A and B the matrices ma and mb of the
+// member's scratch (`mats` their n x ld floats each, `maps` their tensor
+// maps: A's boxes, B's tiles; `mat0` the member's first matrix);
+// epi(i, c, value, old(i, c)) once per element, a thread's old values all
+// loaded before its first epilogue (an update's old X or W: 16 L2 reads in
+// flight at once, not one after another behind the stores).  `tri` (L2_*)
+// names the zero triangles of A^T (LOWER: k > i, UPPER: k < i) and of B
+// (k > c), whose k-steps are skipped.  Every thread of the block calls it
+// (it syncs); the epilogue must not write A or B.
+template <bool SPLIT, class Old, class Epi>
+__device__ void l2_tprod(int n, int ma, int mb, const CUtensorMap* mapA,
+                         const CUtensorMap* mapB, int mat0, int ld, int rank,
+                         int cs, int tri, L2Ring& ring, Old old, Epi epi) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int h = warp >> 2, rb = warp & 3;  // the warp's tile and row block
+  const int slots = l2_slots(n, cs);
+  for (int u = 0; u < slots; u += 2) {
+    int tc[2];  // the unit's two tiles' first columns (>= n: none)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      tc[q] = (u + q < slots) ? kL2Tile * l2_tile(rank, cs, u + q) : n;
+    if (tc[0] >= n) continue;
+    for (int i0 = 0; i0 < n; i0 += kL2URows) {
+      // Each warp's k-range, and the block's (the union over its warps).
+      auto range = [&](int hh, int rr, int& kb, int& ke) {
+        const int row = i0 + 64 * rr;
+        kb = (tri & L2_A_UPPER) ? row : 0;
+        ke = n;
+        if (tri & L2_A_LOWER) ke = min(ke, row + 64);
+        if (tri & L2_B_UPPER) ke = min(ke, tc[hh] + kL2Tile);
+        if (row >= n || tc[hh] >= n) ke = kb;  // nothing to do
+      };
+      int kb = n, ke = 0, wb[8], we[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        range(w >> 2, w & 3, wb[w], we[w]);
+        if (wb[w] < we[w]) {
+          kb = min(kb, wb[w]);
+          ke = max(ke, we[w]);
+        }
+      }
+      if (kb >= ke) continue;
+      kb = kb / kL2UDepth * kL2UDepth;
+      const int wkb = wb[warp], wke = we[warp];
+      const int ns = (ke - kb + kL2UDepth - 1) / kL2UDepth;
+      // One stage, by thread 0, once every warp is done with the stage
+      // that last used its slot: A's boxes of 32 rows that a warp of
+      // theirs multiplies in it (none past the padded rows), B's two
+      // tiles.
+      auto fetch = [&](int s) {
+        const int g = ring.seq + s, slot = g % kL2Stages;
+        if (g >= kL2Stages)
+          l2_mbar_wait(ring.empty(slot), (g / kL2Stages - 1) & 1);
+        float* sa = ring.buf + slot * kL2UStageFloats;
+        float* sb = sa + (kL2URows / kL2Box) * kL2BoxFloats;
+        const uint32_t bar = ring.full(slot);
+        const int k0 = kb + s * kL2UDepth;
+        bool need[8];
+        uint32_t bytes = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int q = j >> 1;
+          need[j] = i0 + kL2Box * j < ld &&
+                    ((wb[q] < k0 + kL2UDepth && we[q] > k0) ||
+                     (wb[4 + q] < k0 + kL2UDepth && we[4 + q] > k0));
+          bytes += need[j] ? kL2BoxFloats * 4 : 0;
+        }
+        bytes += (tc[0] < n ? kL2UDepth * kL2Tile * 4 : 0) +
+                 (tc[1] < n ? kL2UDepth * kL2Tile * 4 : 0);
+        l2_mbar_arrive_tx(bar, bytes);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (need[j])
+            l2_tma_load(sa + j * kL2BoxFloats, mapA, bar, i0 + kL2Box * j, k0,
+                        mat0 + ma);
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          if (tc[q] < n)
+            l2_tma_load(sb + q * kL2UDepth * kL2Tile, mapB, bar, tc[q], k0,
+                        mat0 + mb);
+      };
+      // This thread's A offsets in a stage (l2_a_at), the same every
+      // stage.  split: per m-tile, rows ra = 64 rb + 16 mt + g and ra + 8
+      // at k = 2 t4 and 2 t4 + 1 (k % 8 is one of those two at every k of
+      // its fragments); fp32: its box and row start, and its 16-byte piece
+      // (the piece's swizzle by k % 8 is applied per k).
+      int aoff[4][4];
+      if constexpr (SPLIT) {
+        const int t4 = lane & 3;
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          const int ra = 64 * rb + 16 * mt + (lane >> 2);
+          aoff[mt][0] = l2_a_at(2 * t4, ra);
+          aoff[mt][1] = l2_a_at(2 * t4 + 1, ra);
+          aoff[mt][2] = l2_a_at(2 * t4, ra + 8);
+          aoff[mt][3] = l2_a_at(2 * t4 + 1, ra + 8);
+        }
+      } else {
+        const int r0 = 64 * rb + 4 * (lane >> 1);
+        aoff[0][0] = (r0 >> 5) * kL2BoxFloats;
+        aoff[0][1] = (r0 & 31) >> 2;
+      }
+      float acc[16];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) acc[q] = 0.f;
+      if (tid == 0)
+        for (int s = 0; s < kL2Stages - 1 && s < ns; ++s) fetch(s);
+      // No block barrier a stage: each warp waits for its stage's copies
+      // and releases its slot (one arrival a warp).
+      for (int s = 0; s < ns; ++s) {
+        const int slot = (ring.seq + s) % kL2Stages;
+        if (tid == 0 && s + kL2Stages - 1 < ns) fetch(s + kL2Stages - 1);
+        l2_mbar_wait(ring.full(slot), ((ring.seq + s) / kL2Stages) & 1);
+        const float* sa = ring.buf + slot * kL2UStageFloats;
+        const float* sb = sa + (kL2URows / kL2Box) * kL2BoxFloats +
+                          h * kL2UDepth * kL2Tile;
+        const int k0 = kb + s * kL2UDepth;
+        if (wkb < k0 + kL2UDepth && wke > k0) {
+          // Inside a stage a warp multiplies every k of its rows and tile:
+          // past its triangles both operands hold exact zeros (the epilogues
+          // write them; the copy engine fills rows past n), so the k-steps
+          // need no branch, and the loads of the next k-steps and the
+          // products of this one overlap.
+          if constexpr (SPLIT) {
+            // m16n8k16 fragments (prod_split): A rows 16 mt + g (+8), k 2 t4
+            // (+1) (+8); B column g of the warp's tile.  The three passes
+            // hi*hi, hi*lo, lo*hi run over the four m-tiles in turn, each
+            // accumulator in the same order as prod_split's.
+            const int t4 = lane & 3;
+#pragma unroll
+            for (int ks = 0; ks < kL2UDepth; ks += 16) {
+              const int kabs = k0 + ks;
+              if (kabs < wkb || kabs >= wke) continue;
+              const float* bp = sb + (ks + 2 * t4) * kL2Tile + (lane >> 2);
+              uint32_t bh0, bl0, bh1, bl1;
+              split_pair2(bp[0], bp[kL2Tile], bh0, bl0);
+              split_pair2(bp[8 * kL2Tile], bp[9 * kL2Tile], bh1, bl1);
+              const float* sk = sa + ks * kL2Box;
+              constexpr int K8 = 8 * kL2Box;
+              uint32_t ah[4][4], al[4][4];
+#pragma unroll
+              for (int mt = 0; mt < 4; ++mt) {
+                const int* o = aoff[mt];
+                split_pair2(sk[o[0]], sk[o[1]], ah[mt][0], al[mt][0]);
+                split_pair2(sk[o[2]], sk[o[3]], ah[mt][1], al[mt][1]);
+                split_pair2(sk[o[0] + K8], sk[o[1] + K8], ah[mt][2],
+                            al[mt][2]);
+                split_pair2(sk[o[2] + K8], sk[o[3] + K8], ah[mt][3],
+                            al[mt][3]);
+              }
+#pragma unroll
+              for (int mt = 0; mt < 4; ++mt)
+                mma_bf16(*reinterpret_cast<float(*)[4]>(acc + 4 * mt), ah[mt],
+                         bh0, bh1);
+#pragma unroll
+              for (int mt = 0; mt < 4; ++mt)
+                mma_bf16(*reinterpret_cast<float(*)[4]>(acc + 4 * mt), ah[mt],
+                         bl0, bl1);
+#pragma unroll
+              for (int mt = 0; mt < 4; ++mt)
+                mma_bf16(*reinterpret_cast<float(*)[4]>(acc + 4 * mt), al[mt],
+                         bh0, bh1);
+            }
+          } else {
+            // A thread's 4 x 4 tile: rows r0 .. r0 + 3 (one 16-byte piece of
+            // a box row), columns 4 (lane & 1) of the warp's tile.
+            const float* bp = sb + 4 * (lane & 1);
+#pragma unroll
+            for (int kq = 0; kq < kL2UDepth; kq += 4) {
+              float4 a[4], b[4];
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                a[kk] = *reinterpret_cast<const float4*>(sa + aoff[0][0] +
+                                                         (kq + kk) * kL2Box +
+                                                         (((kq + kk) & 7) ^
+                                                          aoff[0][1]) * 4);
+                b[kk] = *reinterpret_cast<const float4*>(
+                    bp + (kq + kk) * kL2Tile);
+              }
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                const float av[4] = {a[kk].x, a[kk].y, a[kk].z, a[kk].w};
+                const float bv[4] = {b[kk].x, b[kk].y, b[kk].z, b[kk].w};
+#pragma unroll
+                for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+                  for (int cc = 0; cc < 4; ++cc)
+                    acc[4 * ii + cc] =
+                        fmaf(av[ii], bv[cc], acc[4 * ii + cc]);
+              }
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) l2_mbar_arrive(ring.empty(slot));
+      }
+      ring.seq += ns;
+      if (tc[h] >= n) continue;
+      // Element q of this thread: split, acc[4 mt + j] in m16n8's layout;
+      // fp32, its 4 x 4 tile by rows.
+      auto at = [&](int q, int& i, int& c) {
+        if constexpr (SPLIT) {
+          i = i0 + 64 * rb + 16 * (q >> 2) + (lane >> 2) + 8 * ((q >> 1) & 1);
+          c = tc[h] + 2 * (lane & 3) + (q & 1);
+        } else {
+          i = i0 + 64 * rb + 4 * (lane >> 1) + (q >> 2);
+          c = tc[h] + 4 * (lane & 1) + (q & 3);
+        }
+      };
+      float prev[16];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        int i, c;
+        at(q, i, c);
+        prev[q] = (i < n && c < n) ? old(i, c) : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        int i, c;
+        at(q, i, c);
+        if (i < n && c < n) epi(i, c, acc[q], prev[q]);
+      }
+    }
+  }
+  l2_fence_proxy_global();  // a later product may read these by TMA
+}
+
+// The ring's mbarriers, initialized once a launch before its first
+// product; the ring starts on the first 1024-byte boundary past them.
+__device__ __forceinline__ L2Ring l2_ring_init(float* sm) {
+  const uint32_t base = l2_smem_u32(sm);
+  const uint32_t at = (base + 64 + 1023) & ~1023u;
+  static_assert(16 * kL2Stages <= 64, "the barriers fit before the ring");
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kL2Stages; ++s) {
+      l2_mbar_init(base + 8 * s, 1);                           // full
+      l2_mbar_init(base + 8 * (kL2Stages + s), kChainThreads / 32);  // empty
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return L2Ring{sm + (at - base) / 4, base, 0};
+}
+
+template <class Old, class Epi>
+__device__ __forceinline__ void l2_tprod_any(bool split, int n, int ma,
+                                             int mb, const CUtensorMap* mapA,
+                                             const CUtensorMap* mapB,
+                                             int mat0, int ld, int rank,
+                                             int cs, int tri, L2Ring& ring,
+                                             Old old, Epi epi) {
+  if (split)
+    l2_tprod<true>(n, ma, mb, mapA, mapB, mat0, ld, rank, cs, tri, ring, old,
+                   epi);
+  else
+    l2_tprod<false>(n, ma, mb, mapA, mapB, mat0, ld, rank, cs, tri, ring, old,
+                    epi);
+}
+
+// The old value of a product whose epilogue reads none.
+struct L2NoOld {
+  __device__ __forceinline__ float operator()(int, int) const { return 0.f; }
+};
+
+// Every element (i, c) of this CTA's tiles' columns, i < n: f(i, c).
+template <class F>
+__device__ __forceinline__ void l2_own_each(int n, int rank, int cs, F f) {
+  const int slots = l2_slots(n, cs);
+#pragma unroll 4
+  for (int e = threadIdx.x; e < slots * kL2Tile * n; e += kChainThreads) {
+    const int j = e / (kL2Tile * n), rest = e % (kL2Tile * n);
+    const int c = kL2Tile * l2_tile(rank, cs, j) + rest % kL2Tile;
+    if (c < n) f(rest / kL2Tile, c);
+  }
+}
+
+// The cluster's vectors and partial sums of l2_norm2_est, in every CTA's
+// shared memory: v0, v1 (n each) and kNormSlots x kL2MaxCluster floats.
+constexpr int kNormSlots = 3;
+
+// The estimate of row_norm2_est (ns.py::_norm2_est) of the n x n matrix
+// elem(i, j), split over the
+// cluster: CTA `rank` of cs takes the rows [rank rw, (rank + 1) rw), one
+// warp a row, and sends its entries of v0 and v1 and its partial maxima
+// and sums to every CTA through distributed shared memory, a cluster
+// barrier a pass; every CTA then reduces the partials in rank order and
+// returns the same bits.  `part` holds kNormSlots x kL2MaxCluster floats;
+// each slot is written once an estimate and read after the next barrier,
+// so two estimates in a row need no barrier between them.  The cluster
+// must have synced once before the first call (remote stores).
+template <class Elem>
+__device__ float l2_norm2_est(cg::cluster_group& cluster, int n, int rank,
+                              int cs, Elem elem, float* v0, float* v1,
+                              float* red, float* part) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = (n + cs - 1) / cs;
+  const int r0 = min(n, rank * rw), r1 = min(n, r0 + rw);
+  auto publish = [&](int slot, float v) {  // thread 0 of the block
+    for (int p = 0; p < cs; ++p)
+      *cluster.map_shared_rank(part + slot * kL2MaxCluster + rank, p) = v;
+  };
+  float m = 0.f;
+  for (int e = threadIdx.x; e < (r1 - r0) * n; e += kChainThreads)
+    m = nan_max(m, fabsf(elem(r0 + e / n, e % n)));
+  m = blk_max(m, red);
+  if (threadIdx.x == 0) publish(0, m);
+  cluster.sync();
+  float a = part[0];
+  for (int p = 1; p < cs; ++p) a = nan_max(a, part[p]);
+  a = nan_max(a, FLT_MIN);
+  const float inv = 1.0f / a;
+  // pass 0: v0 = M 1; pass 1: v1 = M v0; pass 2: |M v1 / |v1||^2.
+  float n1 = 0.f;
+  for (int pass = 0; pass < 3; ++pass) {
+    const float sc = pass == 2 ? 1.0f / (n1 + 1e-30f) : 1.0f;
+    float q = 0.f;
+    for (int i = r0 + warp; i < r1; i += kChainThreads / 32) {
+      float s = 0.f;
+#pragma unroll 4
+      for (int j = lane; j < n; j += 32) {
+        const float x = pass == 0 ? 1.0f : (pass == 1 ? v0[j] : v1[j] * sc);
+        s = fmaf(elem(i, j) * inv, x, s);
+      }
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (pass < 2 && lane < cs)
+        *cluster.map_shared_rank((pass == 0 ? v0 : v1) + i, lane) = s;
+      if (lane == 0) q += s * s;
+    }
+    if (pass == 0) {
+      cluster.sync();
+      continue;
+    }
+    const float tot = blk_sum(q, red);
+    if (threadIdx.x == 0) publish(pass, tot);
+    cluster.sync();
+    float sum = 0.f;
+    for (int p = 0; p < cs; ++p) sum += part[pass * kL2MaxCluster + p];
+    if (pass == 1) n1 = sqrtf(sum);
+    if (pass == 2) return (1.05f * a) * sqrtf(sum);
+  }
+  return 0.f;  // not reached
 }
 
 // The chain of chain_kernel on the L2 route: the same arithmetic, steps
 // and options, for any n <= kMaxWidth, as one cluster of the launch's
 // CTAs.  G (n x n, leading dimension n) -> X (n x n), t (ldt), *resid;
 // member blockIdx.y's, and its own scratch, at the strides of `bt`.
-// Dynamic shared memory: kL2StageFloats + 3 n + 64 floats.
+// mapA / mapB describe the launch's scratch (l2_maps).  Dynamic shared
+// memory: kL2RingSlack + kL2RingFloats + 3 n + 64 + kNormSlots x
+// kL2MaxCluster floats.
 static __global__ void __launch_bounds__(kChainThreads, 1)
 chain_l2_kernel(const float* G, int n, float* X, float* t, int ldt,
                 float* resid, int iters, float shift, int refine,
                 int mid_iters, int omega, int fuse_xw, int triu_t,
-                int resid_mode, float* scratch, ChainBatch bt) {
+                int resid_mode, float* scratch, ChainBatch bt,
+                const __grid_constant__ CUtensorMap mapA,
+                const __grid_constant__ CUtensorMap mapB) {
+  const int tid = threadIdx.x;
+  NS_PROF_INIT(NSL_SLOTS)
   {
     const long long b = blockIdx.y;
     G += b * bt.g;
@@ -1293,118 +1771,165 @@ chain_l2_kernel(const float* G, int n, float* X, float* t, int ldt,
   }
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x;
-  int c0, c1;
-  l2_own(n, (int)cluster.block_rank(), (int)gridDim.x, c0, c1);
-  const int ld = l2_ld(n), cw = c1 - c0;
+  const int rank = (int)cluster.block_rank(), cs = (int)gridDim.x;
+  const int ld = l2_ld(n);
   const size_t mat = (size_t)n * ld;
-  float* Gp = scratch;
-  float* Xb[2] = {scratch + mat, scratch + 2 * mat};
-  float* Wb[2] = {scratch + 3 * mat, scratch + 4 * mat};
-  float* Cb = scratch + 5 * mat;
-  float* stage = sm;
-  float* dv = sm + kL2StageFloats;
+  float* Gp = scratch + L2M_GP * mat;
+  float* GpT = scratch + L2M_GPT * mat;
+  float* Xb[2] = {scratch + L2M_X * mat, scratch + (L2M_X + 1) * mat};
+  float* XTb[2] = {scratch + L2M_XT * mat, scratch + (L2M_XT + 1) * mat};
+  float* Wb[2] = {scratch + L2M_W * mat, scratch + (L2M_W + 1) * mat};
+  float* WTb[2] = {scratch + L2M_WT * mat, scratch + (L2M_WT + 1) * mat};
+  float* Cb = scratch + L2M_C * mat;
+  const int mat0 = kL2Mats * (int)blockIdx.y;  // the member's first matrix
+  const CUtensorMap* mA = &mapA;
+  const CUtensorMap* mB = &mapB;
+  L2Ring ring = l2_ring_init(sm);
+  float* dv = sm + kL2RingSlack + kL2RingFloats;
   float* v0 = dv + n;
   float* v1 = v0 + n;
   float* red = v1 + n;
   float* cred = red + 32;
+  float* part = cred + 32;
 
-  // Setup, redundantly in every CTA (the same arithmetic in the same order
-  // as chain_kernel's, so the CTAs agree bitwise).
+  // Setup: the norm estimates split over the cluster (l2_norm2_est), the
+  // Jacobi scaling in every CTA (n diagonal loads), the own columns of G',
+  // G'^T, X, X^T, W and W^T seeded.
+  if (shift != 0.f || !refine) cluster.sync();  // before any remote store
   float sh = 0.f;
   if (shift != 0.f)
-    sh = shift * norm2_est(
-                     n, [&](int i, int j) { return G[(size_t)i * n + j]; },
-                     v0, v1, red);
+    sh = shift * l2_norm2_est(
+                     cluster, n, rank, cs,
+                     [&](int i, int j) { return __ldg(G + (size_t)i * n + j); },
+                     v0, v1, red, part);
+  // G is read-only here: its loads may run ahead of the stores below.
   auto gs = [&](int i, int j) {  // G' = G + sh I
-    const float g = G[(size_t)i * n + j];
+    const float g = __ldg(G + (size_t)i * n + j);
     return (i == j && shift != 0.f) ? g + sh : g;
   };
   for (int i = tid; i < n; i += kChainThreads)
     dv[i] = refine ? 1.0f : 1.0f / sqrtf(nan_max(gs(i, i), FLT_MIN));
   __syncthreads();
   if (!refine) {
-    const float scale = 1.0f / sqrtf(norm2_est(
-                                   n,
+    const float scale = 1.0f / sqrtf(l2_norm2_est(
+                                   cluster, n, rank, cs,
                                    [&](int i, int j) {
                                      return gs(i, j) * dv[i] * dv[j];
                                    },
-                                   v0, v1, red));
+                                   v0, v1, red, part));
     for (int i = tid; i < n; i += kChainThreads) dv[i] *= scale;
     __syncthreads();
   }
-  for (int e = tid; e < n * cw; e += kChainThreads) {
-    const int i = e / cw, c = c0 + e % cw;
+  l2_own_each(n, rank, cs, [&](int i, int c) {
     const float g = gs(i, c);
     Gp[i * ld + c] = g;
+    GpT[i * ld + c] = gs(c, i);
     Xb[0][i * ld + c] = i == c ? dv[c] : 0.f;
-    Wb[0][i * ld + c] = refine ? g : g * dv[c];
-  }
+    XTb[0][c * ld + i] = i == c ? dv[c] : 0.f;
+    const float w = refine ? g : g * dv[c];
+    Wb[0][i * ld + c] = w;
+    WTb[0][c * ld + i] = w;
+  });
+  l2_fence_proxy_global();
+  NS_PROF(NSL_SETUP)
   l2_barrier(cluster);
+  NS_PROF(NSL_BARRIER)
 
   float em = 1.0f;  // E = I before the first iteration
   const int n_om = (refine || !omega) ? 0 : min(4, max(0, iters - 4));
   const int n_fused = fuse_xw ? max(0, iters - 2) : 0;
+  NS_PROF_LOOP(0)
   for (int it = 0; it < iters; ++it) {
     const float om = it < n_om ? 1.5f : 1.0f;
     const bool split = it < mid_iters;
     const bool fused = it < n_fused;
-    const float* Xc = Xb[it & 1];
-    float* Xn = Xb[(it + 1) & 1];
-    float* Wc = Wb[it & 1];
-    float* Wn = Wb[(it + 1) & 1];
+    const int cur = it & 1, nxt = cur ^ 1;
     if (!fused) {  // W[:, own] = G' X[:, own], read by this CTA only
-      l2_prod_any<false>(split, n, Gp, ld, Xc, ld, c0, c1, L2_B_UPPER, stage,
-                         [&](int i, int c, float v) { Wc[i * ld + c] = v; });
+      float* Wc = Wb[cur];
+      l2_tprod_any(split, n, L2M_GPT, L2M_X + cur, mA, mB, mat0, ld, rank,
+                   cs, L2_B_UPPER, ring, L2NoOld(),
+                   [&](int i, int c, float v, float) { Wc[i * ld + c] = v; });
       __syncthreads();
+      NS_PROF(NSL_W_PRODUCT)
     }
     // E[:, own] = I - X^T W[:, own]; C[:, own] = triu(E, 1) + diag(E) / 2.
     em = 0.f;
-    l2_prod_any<true>(split, n, Xc, ld, Wc, ld, c0, c1, L2_A_LOWER, stage,
-                      [&](int i, int c, float v) {
-                        const float e = (i == c ? 1.f : 0.f) - v;
-                        em = nan_max(em, fabsf(e));
-                        Cb[i * ld + c] =
-                            c > i ? e : (c == i ? e * 0.5f : 0.f);
-                      });
+    l2_tprod_any(split, n, L2M_X + cur, L2M_W + cur, mA, mB, mat0, ld, rank,
+                 cs, L2_A_LOWER, ring, L2NoOld(),
+                 [&](int i, int c, float v, float) {
+                   const float e = (i == c ? 1.f : 0.f) - v;
+                   em = nan_max(em, fabsf(e));
+                   Cb[i * ld + c] = c > i ? e : (c == i ? e * 0.5f : 0.f);
+                 });
     __syncthreads();
-    // X[:, own] <- X[:, own] + om X C[:, own] (and W alike), into the other
-    // buffer: the others still read this one whole.
-    l2_prod_any<false>(split, n, Xc, ld, Cb, ld, c0, c1,
-                       L2_A_UPPER | L2_B_UPPER, stage,
-                       [&](int i, int c, float v) {
-                         Xn[i * ld + c] = __ldcg(Xc + i * ld + c) + om * v;
-                       });
-    if (fused)
-      l2_prod_any<false>(split, n, Wc, ld, Cb, ld, c0, c1, L2_B_UPPER, stage,
-                         [&](int i, int c, float v) {
-                           Wn[i * ld + c] = __ldcg(Wc + i * ld + c) + om * v;
-                         });
+    NS_PROF(NSL_CORRECTION)
+    // X[:, own] <- X[:, own] + om X C[:, own] (and W alike), with their
+    // transposes' own rows, into the other buffers: the others still read
+    // these whole.
+    {
+      const float* Xc = Xb[cur];
+      float* Xn = Xb[nxt];
+      float* XTn = XTb[nxt];
+      l2_tprod_any(split, n, L2M_XT + cur, L2M_C, mA, mB, mat0, ld, rank,
+                   cs, L2_A_UPPER | L2_B_UPPER, ring,
+                   [&](int i, int c) { return __ldcg(Xc + i * ld + c); },
+                   [&](int i, int c, float v, float x0) {
+                     const float x = x0 + om * v;
+                     Xn[i * ld + c] = x;
+                     XTn[c * ld + i] = x;
+                   });
+    }
+    NS_PROF(NSL_X_UPDATE)
+    if (fused) {
+      const float* Wc = Wb[cur];
+      float* Wn = Wb[nxt];
+      float* WTn = WTb[nxt];
+      l2_tprod_any(split, n, L2M_WT + cur, L2M_C, mA, mB, mat0, ld, rank,
+                   cs, L2_B_UPPER, ring,
+                   [&](int i, int c) { return __ldcg(Wc + i * ld + c); },
+                   [&](int i, int c, float v, float w0) {
+                     const float w = w0 + om * v;
+                     Wn[i * ld + c] = w;
+                     WTn[c * ld + i] = w;
+                   });
+    }
+    NS_PROF(NSL_W_UPDATE)
     l2_barrier(cluster);
+    NS_PROF(NSL_BARRIER)
   }
+  NS_PROF_LOOP(1)
 
-  const float* Xf = Xb[iters & 1];
+  const int fin = iters & 1;
+  const float* Xf = Xb[fin];
   if (refine) {  // the exact final residual E = I - X^T G' X
-    float* Wf = Wb[iters & 1];
-    l2_prod_any<false>(false, n, Gp, ld, Xf, ld, c0, c1, L2_B_UPPER, stage,
-                       [&](int i, int c, float v) { Wf[i * ld + c] = v; });
+    float* Wf = Wb[fin];
+    l2_tprod_any(false, n, L2M_GPT, L2M_X + fin, mA, mB, mat0, ld, rank, cs,
+                 L2_B_UPPER, ring, L2NoOld(),
+                 [&](int i, int c, float v, float) { Wf[i * ld + c] = v; });
     __syncthreads();
+    NS_PROF(NSL_W_PRODUCT)
     em = 0.f;
-    l2_prod_any<true>(false, n, Xf, ld, Wf, ld, c0, c1, L2_A_LOWER, stage,
-                      [&](int i, int c, float v) {
-                        em = nan_max(em, fabsf((i == c ? 1.f : 0.f) - v));
-                      });
+    l2_tprod_any(false, n, L2M_X + fin, L2M_W + fin, mA, mB, mat0, ld, rank,
+                 cs, L2_A_LOWER, ring, L2NoOld(),
+                 [&](int i, int c, float v, float) {
+                   em = nan_max(em, fabsf((i == c ? 1.f : 0.f) - v));
+                 });
+    NS_PROF(NSL_CORRECTION)
   }
   // t[:, own] = X^T G'[:, own].
-  l2_prod_any<true>(false, n, Xf, ld, Gp, ld, c0, c1, L2_A_LOWER, stage,
-                    [&](int i, int c, float v) {
-                      t[(size_t)i * ldt + c] = (c >= i || !triu_t) ? v : 0.f;
-                    });
-  for (int e = tid; e < n * cw; e += kChainThreads) {
-    const int i = e / cw, c = c0 + e % cw;
+  l2_tprod_any(false, n, L2M_X + fin, L2M_GP, mA, mB, mat0, ld, rank, cs,
+               L2_A_LOWER, ring, L2NoOld(),
+               [&](int i, int c, float v, float) {
+                 t[(size_t)i * ldt + c] = (c >= i || !triu_t) ? v : 0.f;
+               });
+  NS_PROF(NSL_CLOSE_T)
+  l2_own_each(n, rank, cs, [&](int i, int c) {
     X[(size_t)i * n + c] = __ldcg(Xf + i * ld + c);
-  }
+  });
+  NS_PROF(NSL_X_STORE)
   l2_cluster_max(cluster, em, red, cred, resid_mode, resid);
+  NS_PROF(NSL_CLUSTER_MAX)
+  NS_PROF_SAVE(g_ns_l2_prof)
 }
 
 // Instantiation of the shared-memory route for width r (the smallest of
@@ -1430,7 +1955,9 @@ static inline int chain_smem_bytes(int r) {
     case 32: return ChainLayout<32>::BYTES;
     case 64: return ChainLayout<64>::BYTES;
     case 128: return ChainLayout<128>::BYTES;
-    default: return (kL2StageFloats + 3 * r + 64) * 4;
+    default:
+      return (kL2RingSlack + kL2RingFloats + 3 * r + 64 +
+              kNormSlots * kL2MaxCluster) * 4;
   }
 }
 
@@ -1446,6 +1973,54 @@ static inline bool chain_layout_ok(int r, const KernelLayout& lay) {
   if (inst) return lay.ctas == inst / kStripe && lay.scratch_floats == 0;
   return lay.ctas >= 1 && lay.ctas <= l2_max_ctas(r) &&
          lay.scratch_floats == chain_l2_scratch_floats(r);
+}
+
+typedef CUresult (*L2EncodeFn)(CUtensorMap*, CUtensorMapDataType,
+                               cuuint32_t, void*, const cuuint64_t*,
+                               const cuuint64_t*, const cuuint32_t*,
+                               const cuuint32_t*, CUtensorMapInterleave,
+                               CUtensorMapSwizzle, CUtensorMapL2promotion,
+                               CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the process has already
+// loaded; nullptr if it cannot be found.
+static inline L2EncodeFn l2_encode_fn() {
+  static L2EncodeFn fn = nullptr;
+  if (!fn) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    if (h)
+      fn = reinterpret_cast<L2EncodeFn>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// The L2 chain's scratch of `batch` members (kL2Mats matrices of n x
+// l2_ld(n) floats each, back to back) as one 3-D tensor (columns, rows,
+// matrix): mapA in boxes of kL2Box columns x kL2UDepth rows with the 128B
+// swizzle (l2_a_at), mapB in kL2Tile columns x kL2UDepth rows, unswizzled.
+// Rows past n, and columns past the padded row, arrive as zeros.
+static inline cudaError_t l2_maps(float* scratch, int n, int batch,
+                                  CUtensorMap* mapA, CUtensorMap* mapB) {
+  const L2EncodeFn fn = l2_encode_fn();
+  if (!fn) return cudaErrorNotSupported;
+  const int ld = l2_ld(n);
+  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)n,
+                              (cuuint64_t)kL2Mats * batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 4,
+                                 (cuuint64_t)n * ld * 4};
+  const cuuint32_t boxA[3] = {kL2Box, kL2UDepth, 1};
+  const cuuint32_t boxB[3] = {kL2Tile, kL2UDepth, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  if (fn(mapA, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, scratch, dims, strides,
+         boxA, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      fn(mapB, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, scratch, dims, strides,
+         boxB, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 template <int R>
@@ -1489,12 +2064,17 @@ static inline cudaError_t launch_chain(int r, const KernelLayout& lay,
     default: break;
   }
 #undef MPBQR_CHAIN
+  CUtensorMap mapA, mapB;
+  if (batch > 1 && bt.scratch != chain_l2_scratch_floats(r))
+    return cudaErrorInvalidValue;  // the maps see the members back to back
+  cudaError_t err = l2_maps(scratch, r, batch, &mapA, &mapB);
+  if (err != cudaSuccess) return err;
   static bool fits[kL2MaxCluster + 1] = {};
   return launch_cluster_batch(chain_l2_kernel, lay.ctas, batch,
                               lay.smem_bytes, st, fits[lay.ctas], G, r, X, t,
                               ldt, resid, iters, shift, refine, mid_iters,
                               omega, fuse_xw, triu_t, resid_mode, scratch,
-                              bt);
+                              bt, mapA, mapB);
 }
 
 // How many of the chain's clusters for width r with the layout `lay`

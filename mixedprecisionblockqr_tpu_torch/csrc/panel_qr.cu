@@ -51,6 +51,7 @@ static long long panel_scratch_floats(int m, int r, PanelScratch* s,
   take(&d->T3, rr);
   take(&d->tmpA, mr);
   take(&d->tmpB, mr);
+  off = (off + 3) / 4 * 4;  // the L2 chain's cp.async reads 16-byte pieces
   take(&d->chain, chain_inst(r) ? 0 : chain_l2_scratch_floats(r));
   take(&d->comb, combine_scratch_floats(r));
   return off;

@@ -71,8 +71,22 @@ MAX_WIDTH = 1024
 L2_MAX_CLUSTER = 16
 #: Shared-memory floats of an L2-route product's A and B tiles (128 x 36
 #: and 16 x 36, the larger of its two layouts; csrc/ns_chain.cuh::
-#: kL2StageFloats).
+#: kL2StageFloats): K4's and the combine's.
 L2_STAGE_FLOATS = (128 + 16) * 36
+#: K1's L2 route (csrc/ns_chain.cuh::l2_tprod): its ring of L2_STAGES
+#: stages, each L2_DEPTH k-rows of A (256 rows, in eight boxes of 32
+#: rows) and of B (two tiles of 8 columns), after L2_RING_SLACK_FLOATS
+#: (its mbarriers and the room to start it on 1024 bytes); the operands
+#: G', G'^T, X, X^T, W, W^T (the last four twice) and C in the scratch;
+#: the norm estimates' partial sums (L2_NORM_SLOTS x L2_MAX_CLUSTER
+#: floats); the columns of a dealt tile.
+L2_STAGES = 3
+L2_DEPTH = 64
+L2_CHAIN_STAGE_FLOATS = L2_STAGES * L2_DEPTH * (256 + 2 * 8)
+L2_RING_SLACK_FLOATS = 512
+L2_CHAIN_MATRICES = 11
+L2_NORM_SLOTS = 3
+L2_TILE = 8
 #: Shared memory one CTA may use on an H100 (bytes).
 SMEM_LIMIT = 232448
 #: Columns of X (K4) and of the combine's T1 that one CTA owns.
@@ -212,9 +226,11 @@ def ns_layout(r: int, max_cluster: int = L2_MAX_CLUSTER) -> NsLayout:
     CTAs of the instantiation R = :func:`_inst` (r), each with ChainLayout<R>
     in shared memory (X^T and C^T replicated as fp32 or bf16 hi / lo with
     rows of R + 8, four 16-row stripes of R + 4 floats, 3 R + 64 floats of
-    vectors) and no scratch; above, the L2 route: ``_l2_ctas`` CTAs, the
-    product tiles and 3 r + 64 floats of vectors in shared memory, G', X
-    and W twice and C (6 r x ceil(r / 4) 4 floats) in global scratch.  A
+    vectors) and no scratch; above, the L2 route: ``_l2_ctas`` CTAs, each
+    with the products' ring of L2_CHAIN_STAGE_FLOATS, 3 r + 64 floats of
+    vectors and the norm estimates' partial sums in shared memory, G',
+    G'^T, X, X^T, W and W^T (the last four twice) and C (11 r x ceil(r /
+    4) 4 floats) in global scratch.  A
     rule on shapes alone; ``max_cluster`` is the largest cluster the card
     places.  Raises ``ValueError`` for r outside [1, MAX_WIDTH]."""
     _check_width(r, "ns_chain")
@@ -222,8 +238,10 @@ def ns_layout(r: int, max_cluster: int = L2_MAX_CLUSTER) -> NsLayout:
     if R:
         smem = 2 * 4 * R * (R + 8) + 4 * STRIPE * (R + 4) * 4 + (3 * R + 64) * 4
         return NsLayout(R, "smem", R // STRIPE, 0, smem)
-    return NsLayout(0, "l2", _l2_ctas(r, max_cluster), 6 * r * _l2_ld(r),
-                    (L2_STAGE_FLOATS + 3 * r + 64) * 4)
+    return NsLayout(0, "l2", _l2_ctas(r, max_cluster),
+                    L2_CHAIN_MATRICES * r * _l2_ld(r),
+                    (L2_RING_SLACK_FLOATS + L2_CHAIN_STAGE_FLOATS + 3 * r
+                     + 64 + L2_NORM_SLOTS * L2_MAX_CLUSTER) * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -635,12 +653,13 @@ def ns_chain(
 
 
 def _launch_chain(G, iters, shift, refine, chain_mid, omega, fuse_xw,
-                  lib=None):
+                  lib=None, lay=None):
     """One launch of ``mpbqr_ns_chain`` (an (r, r) Gram) or
     ``mpbqr_ns_chain_batched`` (a (B, r, r) stack, one L2-route scratch a
     member) with :func:`ns_layout`'s layout on a checked CUDA tensor, from
-    ``lib`` (by default the kernel library; a probe passes its clock
-    build); counts nothing.  Returns ``(X, t, resid)``."""
+    ``lib`` (by default the kernel library; a probe passes its clock build,
+    ``utils/ns_variants.py`` a variant build with the layout ``lay`` that
+    build checks); counts nothing.  Returns ``(X, t, resid)``."""
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
         check, library,
     )
@@ -648,7 +667,8 @@ def _launch_chain(G, iters, shift, refine, chain_mid, omega, fuse_xw,
     lib = library() if lib is None else lib
 
     *batch, r, _ = G.shape
-    lay = ns_layout(r, _card_cluster(G, r))
+    if lay is None:
+        lay = ns_layout(r, _card_cluster(G, r))
     X = torch.empty_like(G)
     t = torch.empty_like(G)
     resid = torch.empty(batch, dtype=torch.float32, device=G.device)

@@ -111,8 +111,22 @@ def ns_chain_exchanges(iters, refine=False):
     return 2 * n_fused + 3 * (iters - n_fused) + 1 + (2 if refine else 0)
 
 
+def ns_chain_l2_exchanges(iters, refine=False, shift=False):
+    """Dependent cluster barriers of one L2-route K1 launch
+    (csrc/ns_chain.cuh::chain_l2_kernel): the setup's norm estimates, split
+    over the cluster (one barrier before the first remote store, four an
+    estimate: the maximum and the three passes; the Jacobi guard's unless
+    ``refine``, the shift's with ``shift``), the barrier after the
+    scratch's seeding, one an iteration (the products that read X and W
+    whole wait for every CTA's columns) and the residual's cluster max at
+    the end.  A refine chain's exact residual reads only the CTA's own
+    columns of W: no more."""
+    estimates = int(not refine) + int(bool(shift))
+    return int(estimates > 0) + 4 * estimates + 1 + iters + 1
+
+
 def ns_chain_bound(r, iters, chain_mid=False, refine=False,
-                   exchange_ms=None):
+                   exchange_ms=None, shift=False):
     """K1: G read, X and t written; the operations of ``chain_ops``.
     Beside the whole card's bound, ``cluster_bound_ms`` is the bound of
     the SMs that the one thread-block cluster of a chain can use (its
@@ -121,7 +135,9 @@ def ns_chain_bound(r, iters, chain_mid=False, refine=False,
     the peak rates (the bytes still at the card's memory rate).  With
     ``exchange_ms``, one cluster exchange of the current kernel as a run
     measured it (``utils/ns_probe.py``), also ``serial_floor_ms``: the
-    launch's ``serial_exchanges`` (``ns_chain_exchanges``) times it, what
+    launch's ``serial_exchanges`` (``ns_chain_exchanges``, on the L2 route
+    ``ns_chain_l2_exchanges``, which counts the setup's with ``shift``)
+    times it, what
     this design's dependent exchanges cost however fast its products.  It
     is the current design's exchange cost, not a floor of the function:
     it moves with the kernel's own exchange."""
@@ -133,7 +149,9 @@ def ns_chain_bound(r, iters, chain_mid=False, refine=False,
     one = bound(f32_ops=f32 * share, bf16_ops=bf16 * share, nbytes=nbytes)
     out = {**whole, "cluster_sms": sms, "cluster_bound_ms": one["bound_ms"]}
     if exchange_ms is not None:
-        n = ns_chain_exchanges(iters, refine)
+        n = (ns_chain_l2_exchanges(iters, refine, shift)
+             if ns_layout(r).route == "l2"
+             else ns_chain_exchanges(iters, refine))
         out.update(serial_exchanges=n, serial_floor_ms=n * exchange_ms)
     return out
 

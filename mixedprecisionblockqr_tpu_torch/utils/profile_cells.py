@@ -1,7 +1,8 @@
 """Where the time goes: profile the calls that ``chip_smoke.py`` drives, on
 one CUDA device.
 
-    python3 -m mixedprecisionblockqr_tpu_torch.utils.profile_cells [--host] [name ...]
+    python3 -m mixedprecisionblockqr_tpu_torch.utils.profile_cells [--host]
+        [--enqueue] [name ...]
 
 With names, only the cells whose name contains one of them.  For each cell
 it prints one JSON line:
@@ -19,7 +20,15 @@ it prints one JSON line:
     call under ``cProfile``, its host clock and the Python functions with
     the most time of their own in it (the wait for the device shows as
     ``_cuda_synchronize``).  The tracer slows the host side; compare two
-    trees by it only within one call of this script on each.
+    trees by it only within one call of this script on each;
+  * with ``--enqueue``, ``enqueue``: the ``torch.matmul`` calls of one
+    call of the cell, recorded (shapes, strides, types) and launched again
+    on views of zeroed buffers, once into an idle device queue (after a
+    synchronize) and once behind a busy one (after ``torch.cuda._sleep``
+    of ``BUSY_S`` seconds), idle / busy / busy / idle: the host's time to
+    launch them all, and its median and 90th percentile a call.  It
+    measures what a launch costs the host with and without work ahead of
+    it on the device (the 16384^2 scan's 1280 products).
 The cells: ``headline`` (block_qr 2048^2 POLICY_MIXED_FAST, bgs1), ``qr
 default`` (qr 2048^2 POLICY_MIXED, bgs2), ``band`` (the headline call at
 4096^2), ``lstsq`` (the 4096 x 2048 gauge-deficient system of
@@ -139,6 +148,70 @@ def host_items(fn: Callable[[], object], k: int = 8) -> Dict:
                          for (f, line, name), (_, nc, tt, _, _) in top]}
 
 
+#: Seconds of ``torch.cuda._sleep`` that keep the device busy while the
+#: recorded products are launched behind it (``--enqueue``).
+BUSY_S = 0.25
+
+
+def matmul_calls(fn: Callable[[], object]) -> List[tuple]:
+    """The ``torch.matmul`` calls of one synchronized call of ``fn``: per
+    call, (shape, stride, dtype) of each operand."""
+    calls, real = [], torch.matmul
+
+    def record(a, b, *args, **kw):
+        calls.append(tuple((tuple(x.shape), tuple(x.stride()), x.dtype)
+                           for x in (a, b)))
+        return real(a, b, *args, **kw)
+
+    torch.matmul = record
+    try:
+        fn()
+        _sync()
+    finally:
+        torch.matmul = real
+    return calls
+
+
+def enqueue_times(fn: Callable[[], object]) -> Dict:
+    """``--enqueue``: :func:`matmul_calls` of ``fn`` launched again, idle /
+    busy / busy / idle (see the module's docstring), on operands that are
+    views of one zeroed buffer per type, made before the clock starts."""
+    calls = matmul_calls(fn)
+    dev = torch.device("cuda", 0)
+    need: Dict[torch.dtype, int] = collections.defaultdict(int)
+    for ops in calls:
+        for shape, stride, dtype in ops:
+            need[dtype] = max(need[dtype], 1 + sum(
+                (n - 1) * st for n, st in zip(shape, stride)))
+    bufs = {dt: torch.zeros(n, dtype=dt, device=dev)
+            for dt, n in need.items()}
+    views = [tuple(bufs[dt].as_strided(shape, stride)
+                   for shape, stride, dt in ops) for ops in calls]
+    cycles = int(BUSY_S * 2e9)  # at or below the card's 1.98 GHz maximum
+
+    def once(busy: bool) -> Dict:
+        _sync()
+        if busy:
+            torch.cuda._sleep(cycles)
+        per = []
+        t0 = time.perf_counter()
+        for a, b in views:
+            t = time.perf_counter()
+            torch.matmul(a, b)
+            per.append(time.perf_counter() - t)
+        total = time.perf_counter() - t0
+        _sync()
+        per.sort()
+        return {"ms": total * 1e3, "median_us": per[len(per) // 2] * 1e6,
+                "p90_us": per[int(0.9 * len(per))] * 1e6}
+
+    runs = {"idle": [], "busy": []}
+    for mode in ("idle", "busy", "busy", "idle"):
+        runs[mode].append(once(mode == "busy"))
+    del views, bufs
+    return {"enqueue": {"matmuls": len(calls), "busy_s": BUSY_S, **runs}}
+
+
 def profile_cell(fn: Callable[[], object], calls: int) -> Dict:
     """Host walls of ``fn`` and one profile of ``calls`` calls of it."""
     fn()
@@ -167,8 +240,8 @@ def profile_cell(fn: Callable[[], object], calls: int) -> Dict:
 
 
 def main(only: Sequence[str] = ()) -> int:
-    host = "--host" in only
-    only = [o for o in only if o != "--host"]
+    host, enqueue = "--host" in only, "--enqueue" in only
+    only = [o for o in only if o not in ("--host", "--enqueue")]
     if not torch.cuda.is_available():
         print("profile_cells: no CUDA device", file=sys.stderr)
         return 2
@@ -365,6 +438,8 @@ def main(only: Sequence[str] = ()) -> int:
         row = profile_cell(fn, calls)
         if host:
             row.update(host_items(fn))
+        if enqueue:
+            row.update(enqueue_times(fn))
         print(json.dumps({"cell": name, **row, "card": smi}), flush=True)
     return 0
 

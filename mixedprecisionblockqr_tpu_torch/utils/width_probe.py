@@ -13,7 +13,9 @@ route and CTAs of its layout (``ops/kernels/ns.py``), error, time (CUDA
 events only: many ``torch.profiler`` sessions in one process have come
 back empty) beside the plain version, one library call and the bound
 (``utils/bounds.py``).
-``chip_smoke.py`` phase 3 calls :func:`width_rows`.  ``--sweep`` times
+``chip_smoke.py`` phase 3 calls :func:`width_rows` and, for K1 alone at
+the L2 route's edges (r = 129, 200, 512, 1024), :func:`k1_l2_rows`.
+``--sweep`` times
 K1 and K4 instead at 0, 1, 2, 4 and 8 iterations (K1 also with
 ``chain_mid`` and ``refine``) at each width: the intercept is a launch's
 setup and closing products, the slope one iteration; ``--headline``
@@ -34,6 +36,9 @@ import sys
 import torch
 
 WIDTHS = (48, 100, 125, 192, 256)
+#: K1 alone at the L2 route's edges (:func:`k1_l2_rows`): the narrowest
+#: width on it, a width of ragged dealt tiles, and the widest two.
+K1_L2_WIDTHS = (129, 200, 512, 1024)
 TOL_F32 = 1e-4   # fp32 kernels vs plain: summation order only
 TOL_BF16 = 5e-3  # bf16-rounded operands: a rounding may flip
 #: K1's option combinations (chip_smoke.py phase 3): name -> (Gram, kwargs)
@@ -399,6 +404,13 @@ def width_rows(dev: torch.device, widths=WIDTHS) -> dict:
             gen = torch.Generator(device=dev).manual_seed(1000 + r)
             out[name][r] = fn(r, gen)
     return out
+
+
+def k1_l2_rows(dev: torch.device, widths=K1_L2_WIDTHS) -> dict:
+    """r -> :func:`k1_row` at each of ``widths``, each from a generator
+    seeded with 1000 + r, as :func:`width_rows` draws them."""
+    return {r: k1_row(r, torch.Generator(device=dev).manual_seed(1000 + r))
+            for r in widths}
 
 
 def main(argv=None) -> int:
