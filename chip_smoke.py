@@ -25,9 +25,10 @@ last line):
                  (the shared-memory route of the instantiation that holds
                  r) and 192, 256 (the L2 route) with their r = 128 rows'
                  tolerances, route, CTAs and a bitwise repeat
-                 (utils/width_probe.py), K1 alone also at 129, 200, 512
-                 and 1024 and on the batched 4 x 256 stack (each member
-                 bit for bit its single launch);
+                 (utils/width_probe.py), K1, K4 and the combine alone also
+                 at 129, 200, 512 and 1024 (utils/width_probe.py::
+                 l2_edge_rows), K1 on the batched 4 x 256 stack (each
+                 member bit for bit its single launch);
                  ns_chain at r = 32, 64, 128 in every option combination
                  the QR tiers use, bitwise repeatable, NaN in -> NaN resid,
                  beside torch.linalg.cholesky and beside cholesky + the
@@ -64,8 +65,9 @@ last line):
                  torch.linalg.qr of the stack and the bound
                  (utils/batched_probe.py); the batched entry of
                  ninv_chain (Yamamoto S stacks 8 x 128 at 5 and 12
-                 iterations, 16 x 128, 3 x 100, 4 x 256 on the L2 route,
-                 with resident clusters and waves) against its plain
+                 iterations, 16 x 128, 3 x 100, 4 x 256 and 8 x 256 on the
+                 L2 route, with resident clusters and waves) against its
+                 plain
                  version on the stack, each member bit for bit its single
                  launch, a NaN in member 2's S -> a NaN resid for member 2
                  only, beside the loop of single launches and
@@ -83,7 +85,10 @@ last line):
                  (tri_combine, r = 128), twice, bit for bit; ninv_chain on
                  utils/ninv_probe.py's inputs (5 and 12 iterations, a
                  near-singular S), twice, bit for bit, with its cluster,
-                 and NaN in S -> NaN resid;
+                 and NaN in S -> NaN resid; K4's L2 clock build run once
+                 (-DMPBQR_NINV_PROF, utils/ninv_probe.py --phases --l2: r =
+                 256, 5 iterations, every slot on each of the 16 CTAs,
+                 outputs bit for bit the library's);
                  the kernel's,
                  the plain version's and the library call's times (CUDA
                  events, median of 20 unless a line says otherwise);
@@ -1743,6 +1748,7 @@ def main() -> int:
         slam_jacobian,
     )
     from mixedprecisionblockqr_tpu_torch.utils import givens_probe
+    from mixedprecisionblockqr_tpu_torch.utils import ninv_probe
     from mixedprecisionblockqr_tpu_torch.utils import ns_probe
     from mixedprecisionblockqr_tpu_torch.utils import width_probe
     from mixedprecisionblockqr_tpu_torch.utils.flops import qr_flops
@@ -2047,6 +2053,30 @@ def main() -> int:
           "library_call": "torch.linalg.inv(S)", "inputs": k4_rows,
           "nan_in_S_resid": k4_nan, "card": card})
 
+    # K4's L2 route's clock build (-DMPBQR_NINV_PROF, ninv_chain.cu alone;
+    # utils/ninv_probe.py --phases --l2): one launch at r = 256, 5
+    # iterations, on the probe's own input (a generator of its own, so the
+    # later kernels' draws stay as they were): every slot of the probe's
+    # table recorded by each of the 16 CTAs, and the clock build's X and
+    # resid equal to the library's bit for bit.
+    with _build.instrumented_library(*ninv_probe.PROF_BUILD) as prof:
+        k4_clock = ninv_probe.l2_phase_rows(
+            prof, {256: ninv_probe.l2_inputs(256, dev)},
+            ninv_probe._sm_mhz("clocks.max.sm"),
+            ["r256_it5"])["r256_it5"]
+    assert k4_clock["same_as_library"] and k4_clock["ctas"] == 16, k4_clock
+    assert tuple(k4_clock["slots"]) == ninv_probe.L2_SLOTS, k4_clock
+    for slot in ("launch", *ninv_probe.L2_SLOTS):
+        assert len(k4_clock["per_cta"][slot]) == 16, (slot, k4_clock)
+    assert all(c > 0 for c in k4_clock["per_cta"]["launch"]), k4_clock
+    for slot in ("setup", "prod_sx", "prod_xe", "barrier", "residual",
+                 "cluster_max"):
+        assert k4_clock["slots"][slot]["cycles"] > 0, (slot, k4_clock)
+    emit({"phase": "kernels", "kernel": "ninv_chain_l2_clock",
+          "check": "every slot named, 16 CTA rows each, the clock build's "
+                   "outputs bitwise equal to the library's",
+          **k4_clock, "card": card})
+
     # K6 at the paths' panel shapes (utils/panel_probe.py::k6_row):
     # lstsq's panels (4096, 3072 and 2176 x 128 in its first stage, 2048 x
     # 128 in both), householder_pallas's square last panel (128 x 128), the
@@ -2186,8 +2216,9 @@ def main() -> int:
     # K4's batched entry (utils/batched_probe.py::K4_CASES): Yamamoto S
     # stacks built as the K4 row's (utils/ninv_probe.py::yamamoto_s): 8 x
     # 128 at 5 and at 12 iterations, 16 x 128 (two waves if 15 clusters are
-    # resident), 3 x 100 (the padded instantiation) and 4 x 256 (the L2
-    # route); each against ninv_chain_plain on the stack at K4's tolerance,
+    # resident), 3 x 100 (the padded instantiation), 4 x 256 and 8 x 256
+    # (the L2 route; two waves if 7 clusters of 16 are resident); each
+    # against ninv_chain_plain on the stack at K4's tolerance,
     # two batched calls bit for bit, each member bit for bit its single
     # launch, beside the loop of single launches, torch.linalg.inv on the
     # stack and the bound, with resident clusters and waves.  A NaN in
@@ -2634,11 +2665,13 @@ def main() -> int:
     # CTAs and time.  Each width draws from a generator of its own, so the
     # later phases' inputs stay the draws they were.
     wrows = width_probe.width_rows(dev)
-    # K1 alone at the L2 route's edges (r = 129, 200, 512, 1024: the
-    # narrowest, a width of ragged tiles, and the widest two) with the same
-    # tolerances and bitwise repeat, and the batched 4 x 256 stack above,
-    # each member bit for bit its single launch.
-    wrows["ns_chain"].update(width_probe.k1_l2_rows(dev))
+    # K1, K4 and the combine alone at the L2 route's edges (r = 129, 200,
+    # 512, 1024: the narrowest, a width of ragged tiles, and the widest
+    # two) with the same tolerances and bitwise repeat (K4: a NaN in S
+    # gives a NaN resid at every width, 256 included), and K1's batched 4
+    # x 256 stack above, each member bit for bit its single launch.
+    for name, rows_l2 in width_probe.l2_edge_rows(dev).items():
+        wrows[name].update(rows_l2)
     k1_l2_stack = k1b_rows["l2_chain_mid_4x256"]
     assert k1_l2_stack["ok"] and k1_l2_stack["members_bitwise_single_launch"]
     for name, by_r in wrows.items():
@@ -3700,7 +3733,18 @@ def main() -> int:
          "ms": k3_rows["uniform_robust"]["ms"],
          "plain_ms": k3_rows["uniform_robust"]["plain_ms"],
          **panel_qr_bound(4096, 128),
-         "library_ms": lib_k3, "combine_ms": cmb["device_ms"]},
+         "library_ms": lib_k3, "combine_ms": cmb["device_ms"],
+         "combine_l2_route": {
+             "kernel": "panel.cuh::combine_l2_kernel",
+             "design": "32 x 16 blocks, a cluster the row blocks of a "
+                       "column block; both products on 64-deep TMA stages "
+                       "into a 3-slot mbarrier ring (T2 / T3 read row-major), "
+                       "2 x 4 fp32 register tiles; blocks below the diagonal "
+                       "written as zeros",
+             **{str(r_c): {k: wrows["tri_combine"][r_c][k]
+                           for k in ("ctas", "ms", "bound_ms",
+                                     "cluster_bound_ms", "library_ms")}
+                for r_c in (192, 256, 512, 1024)}}},
         {"name": "ninv_chain", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/ninv_chain.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:384",
@@ -3714,7 +3758,19 @@ def main() -> int:
          "ms": k4_rows["panel4096_it5"]["ms"],
          "plain_ms": k4_rows["panel4096_it5"]["plain_ms"],
          **ninv_chain_bound(128, 5),
-         "library_ms": k4_rows["panel4096_it5"]["library_ms"]},
+         "library_ms": k4_rows["panel4096_it5"]["library_ms"],
+         "l2_route": {
+             "kernel": "ninv_chain.cu::ninv_l2_kernel",
+             "design": "S^T, X, X^T (twice) and E in a padded scratch; every "
+                       "product on l2_tprod: 64-deep TMA stages into a "
+                       "3-slot mbarrier ring, 4 x 4 fp32 register tiles",
+             **{str(r_w): {k: wrows["ninv_chain"][r_w]["inputs"][
+                 "panel4096_it5"][k] for k in ("ms", "bound_ms",
+                                               "cluster_bound_ms",
+                                               "library_ms")}
+                for r_w in (192, 256, 512, 1024)},
+             "clock_r256_it5_us": {k: v["us"] for k, v in
+                                   k4_clock["slots"].items()}}},
         {"name": "bgs_group_fused_proj", "route": "cuda",
          "source": "mixedprecisionblockqr_tpu_torch/csrc/bgs_group.cu",
          "replaces": "mixedprecisionblockqr_tpu/ops/pallas/ns.py:1023",

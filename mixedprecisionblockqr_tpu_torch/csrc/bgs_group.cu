@@ -127,7 +127,10 @@ static long long group_scratch_floats(int m, int r, int g, GroupScratch* s,
   take(&d->tmpA, d->mr);
   take(&d->tmpB, d->mr);
   take(&d->resid, d->rp);
-  off = (off + 3) / 4 * 4;  // the L2 chain's cp.async reads 16-byte pieces
+  // The L2 kernels' tensor maps start on 16 bytes: the chain's scratch
+  // here, and the combine's after it (the chain's is whole 16-byte
+  // pieces).
+  off = (off + 3) / 4 * 4;
   take(&d->chain, d->ch);
   take(&d->comb, d->cb);
   return off;
@@ -364,8 +367,9 @@ static int group_body(Sched& sc, float* Q, float* Rg, float* worst,
       MPBQR_TRY(chain(s.X3, s.T3, r, s.rr, s.resid + j, kRobustIt3, 0.f, 1, 0,
                       1, 0, RESID_SCALE));
       MPBQR_TRY(qprod(bb, 0, s.X3, Pj, w, sq));
-      MPBQR_TRY(launch_combine(r, st, s.T1, s.T2, s.T3, Rjj, w, s.comb, B,
-                               CombineBatch{s.rr, srg, s.cb}));
+      MPBQR_TRY(launch_combine(r, combine_layout(r, cl.ctas), st, s.T1,
+                               s.T2, s.T3, Rjj, w, s.comb, B,
+                               CombineBatch{s.rr, srg}));
     }
     if (j + 1 == g) break;
     // The narrow part, panel j+1's columns, after the wide part of panel

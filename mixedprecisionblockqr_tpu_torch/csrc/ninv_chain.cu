@@ -76,17 +76,29 @@ struct NinvLayout {
 // slots: 0 setup (S's load, X0, the first cluster barrier), 1 S X, 2 the
 // block barrier after it, 3 the wait at the cluster barrier, 4 X E and the
 // block barrier after it, 5 the all-gather's stores, 6 the arrival at the
-// cluster barrier, 7 the residual and X out.  A batched launch writes them
-// from member 0 only.
+// cluster barrier, 7 the residual and X out.  The L2 route
+// (ninv_l2_kernel) has slots of its own (NL_*): the setup (X0 seeded, the
+// first cluster barrier), the products S X (E) and X E, the waits at the
+// iterations' cluster barriers with their __threadfence, the residual's
+// product S X, the X store and the residual's cluster max; one record a
+// CTA of the largest cluster (16).  A batched launch writes them from
+// member 0 only.
+enum {
+  NL_SETUP, NL_PROD_SX, NL_PROD_XE, NL_BARRIER, NL_RESIDUAL, NL_X_STORE,
+  NL_CLUSTER_MAX, NL_SLOTS
+};
 #ifdef MPBQR_NINV_PROF
 __device__ long long g_ninv_prof[8][8];
+__device__ long long g_ninv_l2_prof[16][NL_SLOTS];
 #define PROF_INIT long long pt = clock64(), pacc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
 #define PROF(k) if (tid == 0) { const long long t = clock64(); pacc[k] += t - pt; pt = t; }
 #define PROF_SAVE if (tid == 0 && blockIdx.y == 0) for (int k = 0; k < 8; ++k) g_ninv_prof[rank][k] = pacc[k];
+#define PROF_SAVE_L2 if (tid == 0 && blockIdx.y == 0) for (int k = 0; k < NL_SLOTS; ++k) g_ninv_l2_prof[rank][k] = pacc[k];
 #else
 #define PROF_INIT
 #define PROF(k)
 #define PROF_SAVE
+#define PROF_SAVE_L2
 #endif
 
 // S and X are nr x nr (leading dimension nr), nr = R unless PAD (nr =
@@ -217,17 +229,48 @@ static inline cudaError_t launch_ninv_r(cudaStream_t st, const float* S,
                               nr, X, resid, iters, bt);
 }
 
-// K4 on ns_chain.cuh's L2 route, any n <= kMaxWidth: X and the own columns
-// of E = 2I - S X in the global scratch (X twice), S read in place, CTA p
-// owning the columns [p cw, (p + 1) cw):
-//   E[:, own] = 2I - S X[:, own];  X'[:, own] = X E[:, own]
-// one cluster barrier an iteration (X' goes to the other buffer), then
-// max|I - S X| on the own columns and a rank-ordered max over the cluster.
-// Member blockIdx.y's S, X, resid and scratch at the strides of `bt`.
-// Dynamic shared memory: kL2StageFloats + 64 floats.
+// K4 on ns_chain.cuh's L2 route, any n <= kMaxWidth.
+//
+// What its clock showed (utils/ninv_probe.py --phases --l2, H100, r = 256
+// and 5 iterations on the route's first products: 128 x 16 tiles, 32-deep
+// stages staged through registers, two block barriers a stage, 8 rows x 1
+// column a thread): the products took 95% of a launch of 546k cycles, S X
+// 47.7k and X E 45.0k an iteration on every CTA alike (~22 FMA a cycle of
+// the SM's 128: three shared-memory loads for 8 FMA), the residual's S X
+// 57.4k; the barriers 2.5k an iteration, the setup 4.3k, the X store
+// 5.7k.  The design runs every product on l2_tprod's stages instead
+// (ns_chain.cuh, "K1's chain on the L2 route"): 64-deep stages of A and B
+// by the copy engine into a ring of kL2Stages slots with full / empty
+// mbarriers and no block barrier a stage, 4 x 4 fp32 register tiles (8
+// 16-byte loads a k-quad for 64 FMA), the columns dealt in tiles of 8.
+// Its products are full, so the dealing only spreads the tiles; every A
+// is read k-major (D = A^T B), so the scratch keeps the transposes the
+// products need:
+//   E[:, own] = 2I - S X[:, own]        A = S^T (written once, in the setup)
+//   X'[:, own] = X E[:, own]            A = X^T (written with X' by the
+//                                       same epilogue, into the other buffer)
+//   resid = max|I - S X_f| on the own columns, then over the cluster.
+// E's own columns are read only by their owner, so a block barrier after
+// the epilogue's proxy fence separates the two products; X and X^T are
+// double-buffered, so one cluster barrier an iteration separates the X E
+// that reads X^T whole from the next one that writes it.  The last
+// iteration needs none (the residual reads only the own columns of X_f
+// and the constant S^T) and writes X out from its epilogue.  Each element
+// sums k ascending from 0 by fmaf into one accumulator, as the products
+// before did, so X and resid keep their bits.  Member blockIdx.y's S, X,
+// resid and scratch at the strides of `bt`; mapA / mapB describe the
+// launch's scratch (l2_maps, kL2NinvMats a member).  Dynamic shared
+// memory: kL2RingSlack + kL2RingFloats + 64 floats.
+//
+// The scratch: n x l2_ld(n) floats each of S^T, X (twice), X^T (twice) and
+// E, in this order (the third coordinate of the tensor maps).
+enum { L2N_ST = 0, L2N_X = 1, L2N_XT = 3, L2N_E = 5, kL2NinvMats = 6 };
+
 __global__ void __launch_bounds__(kChainThreads, 1)
 ninv_l2_kernel(const float* S, int n, float* X, float* resid, int iters,
-               float* scratch, ChainBatch bt) {
+               float* scratch, ChainBatch bt,
+               const __grid_constant__ CUtensorMap mapA,
+               const __grid_constant__ CUtensorMap mapB) {
   {
     const long long b = blockIdx.y;
     S += b * bt.g;
@@ -237,44 +280,110 @@ ninv_l2_kernel(const float* S, int n, float* X, float* resid, int iters,
   }
   extern __shared__ __align__(16) float sm[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int tid = threadIdx.x;
-  int c0, c1;
-  l2_own(n, (int)cluster.block_rank(), (int)gridDim.x, c0, c1);
-  const int ld = l2_ld(n), cw = c1 - c0;
+  const int tid = threadIdx.x, rank = (int)cluster.block_rank();
+  const int cs = (int)gridDim.x;
+  (void)tid;  // the clock's (PROF)
+  PROF_INIT
+  const int ld = l2_ld(n);
   const size_t mat = (size_t)n * ld;
-  float* Xb[2] = {scratch, scratch + mat};
-  float* Eb = scratch + 2 * mat;
-  float* stage = sm;
-  float* red = sm + kL2StageFloats;
+  float* ST = scratch + L2N_ST * mat;
+  float* Xb[2] = {scratch + L2N_X * mat, scratch + (L2N_X + 1) * mat};
+  float* XTb[2] = {scratch + L2N_XT * mat, scratch + (L2N_XT + 1) * mat};
+  float* Eb = scratch + L2N_E * mat;
+  const int mat0 = kL2NinvMats * (int)blockIdx.y;  // the member's first
+  const CUtensorMap* mA = &mapA;
+  const CUtensorMap* mB = &mapB;
+  L2Ring ring = l2_ring_init(sm);
+  float* red = sm + kL2RingSlack + kL2RingFloats;
   float* cred = red + 32;
-  for (int e = tid; e < n * cw; e += kChainThreads) {
-    const int i = e / cw, c = c0 + e % cw;
-    Xb[0][i * ld + c] = i == c ? 2.0f / 3.0f : 0.f;
-  }
+
+  // Setup: the own rows of S^T (S's own columns), the own columns of X0 =
+  // (2/3) I and the own rows of X0^T (and X0 itself out when no iteration
+  // will write X).
+  l2_own_each(n, rank, cs, [&](int i, int c) {
+    ST[c * ld + i] = __ldg(S + (size_t)i * n + c);
+    const float x = i == c ? 2.0f / 3.0f : 0.f;
+    Xb[0][i * ld + c] = x;
+    XTb[0][c * ld + i] = x;
+    if (iters == 0) X[(size_t)i * n + c] = x;
+  });
+  l2_fence_proxy_global();
   l2_barrier(cluster);
+  PROF(NL_SETUP)
+  // The products' epilogues take a thread's 4 x 4 tile (l2_tprod's TILE:
+  // rows i .. i + 3, i < n; columns c .. c + 3, c < ld), stored as 16-byte
+  // pieces.  The columns past n of E and X hold whatever their
+  // products give there: a product's column reads only its own column of
+  // B, so they reach no column below n, and no row of X^T past n is
+  // written.
   for (int it = 0; it < iters; ++it) {
-    const float* Xc = Xb[it & 1];
-    float* Xn = Xb[(it + 1) & 1];
-    l2_prod<false, false>(n, S, n, Xc, ld, c0, c1, 0, stage,
-                          [&](int i, int c, float v) {
-                            Eb[i * ld + c] = (i == c ? 2.f : 0.f) - v;
-                          });
+    const int cur = it & 1;
+    const bool last = it + 1 == iters;
+    // E[:, own] = 2I - S X[:, own], read by this CTA only.
+    l2_tprod<false, true>(
+        n, L2N_ST, L2N_X + cur, mA, mB, mat0, ld, rank, cs, 0, ring,
+        L2NoOld(), [&](int i, int c, const float(&acc)[16]) {
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+            if (i + a < n)
+              *reinterpret_cast<float4*>(Eb + (i + a) * ld + c) =
+                  make_float4((i + a == c ? 2.f : 0.f) - acc[4 * a],
+                              (i + a == c + 1 ? 2.f : 0.f) - acc[4 * a + 1],
+                              (i + a == c + 2 ? 2.f : 0.f) - acc[4 * a + 2],
+                              (i + a == c + 3 ? 2.f : 0.f) - acc[4 * a + 3]);
+        });
     __syncthreads();
-    l2_prod<false, false>(n, Xc, ld, Eb, ld, c0, c1, 0, stage,
-                          [&](int i, int c, float v) { Xn[i * ld + c] = v; });
-    l2_barrier(cluster);
+    PROF(NL_PROD_SX)
+    // X'[:, own] = X E[:, own] and the own rows of X'^T, into the other
+    // buffers; the last iteration's X' goes out instead of into X^T.
+    float* Xn = Xb[cur ^ 1];
+    float* XTn = XTb[cur ^ 1];
+    l2_tprod<false, true>(
+        n, L2N_XT + cur, L2N_E, mA, mB, mat0, ld, rank, cs, 0, ring,
+        L2NoOld(), [&](int i, int c, const float(&acc)[16]) {
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            if (i + a >= n) break;
+            *reinterpret_cast<float4*>(Xn + (i + a) * ld + c) =
+                make_float4(acc[4 * a], acc[4 * a + 1], acc[4 * a + 2],
+                            acc[4 * a + 3]);
+            if (last) {
+#pragma unroll
+              for (int b = 0; b < 4; ++b)
+                if (c + b < n) X[(size_t)(i + a) * n + c + b] = acc[4 * a + b];
+            }
+          }
+          if (last) return;
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            if (c + b < n)
+              *reinterpret_cast<float4*>(XTn + (c + b) * ld + i) =
+                  make_float4(acc[b], acc[4 + b], acc[8 + b], acc[12 + b]);
+        });
+    PROF(NL_PROD_XE)
+    if (last)
+      __syncthreads();
+    else
+      l2_barrier(cluster);
+    PROF(NL_BARRIER)
   }
-  const float* Xf = Xb[iters & 1];
+  // max|I - S X_f| on the own columns.
   float m = 0.f;
-  l2_prod<false, false>(n, S, n, Xf, ld, c0, c1, 0, stage,
-                        [&](int i, int c, float v) {
-                          m = nan_max(m, fabsf((i == c ? 1.f : 0.f) - v));
-                        });
-  for (int e = tid; e < n * cw; e += kChainThreads) {
-    const int i = e / cw, c = c0 + e % cw;
-    X[(size_t)i * n + c] = __ldcg(Xf + i * ld + c);
-  }
+  l2_tprod<false>(n, L2N_ST, L2N_X + (iters & 1), mA, mB, mat0, ld, rank,
+                  cs, 0, ring, L2NoOld(), [&](int i, int c, float v, float) {
+                    m = nan_max(m, fabsf((i == c ? 1.f : 0.f) - v));
+                  });
+  PROF(NL_RESIDUAL)
+  // X went out with the last X E (or the setup): nothing is left to store.
+  PROF(NL_X_STORE)
   l2_cluster_max(cluster, m, red, cred, RESID_RAW, resid);
+  PROF(NL_CLUSTER_MAX)
+  PROF_SAVE_L2
+}
+
+// Floats of K4's L2 scratch for width n (one member).
+static inline long long ninv_l2_scratch_floats(int n) {
+  return (long long)kL2NinvMats * n * l2_ld(n);
 }
 
 static inline int ninv_smem_bytes(int r) {
@@ -282,7 +391,7 @@ static inline int ninv_smem_bytes(int r) {
     case 32: return NinvLayout<32>::BYTES;
     case 64: return NinvLayout<64>::BYTES;
     case 128: return NinvLayout<128>::BYTES;
-    default: return (kL2StageFloats + 64) * 4;
+    default: return (kL2RingSlack + kL2RingFloats + 64) * 4;
   }
 }
 
@@ -295,7 +404,7 @@ static inline bool ninv_layout_ok(int r, const KernelLayout& lay) {
     return false;
   if (inst) return lay.ctas == inst / kStripe && lay.scratch_floats == 0;
   return lay.ctas >= 1 && lay.ctas <= l2_max_ctas(r) &&
-         lay.scratch_floats == 3LL * r * l2_ld(r);
+         lay.scratch_floats == ninv_l2_scratch_floats(r);
 }
 
 // How many K4 clusters of the layout `lay` (checked by the caller) the card
@@ -322,10 +431,15 @@ static inline cudaError_t ninv_resident(int r, const KernelLayout& lay,
 extern "C" {
 
 #ifdef MPBQR_NINV_PROF
-// Copy the phase clocks (8 x 8 signed 64-bit) to the host.
-int mpbqr_ninv_prof(long long* prof) {
-  return (int)cudaMemcpyFromSymbol(prof, mpbqr::g_ninv_prof,
-                                   sizeof(mpbqr::g_ninv_prof));
+// Copy the phase clocks to the host: the shared-memory route's (8 x 8
+// signed 64-bit) into `prof`, the L2 route's (16 x NL_SLOTS) into
+// `prof_l2`.
+int mpbqr_ninv_prof(long long* prof, long long* prof_l2) {
+  cudaError_t err = cudaMemcpyFromSymbol(prof, mpbqr::g_ninv_prof,
+                                         sizeof(mpbqr::g_ninv_prof));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyFromSymbol(prof_l2, mpbqr::g_ninv_l2_prof,
+                                   sizeof(mpbqr::g_ninv_l2_prof));
 }
 #endif
 
@@ -357,10 +471,14 @@ int mpbqr_ninv_chain_batched(const float* S, float* X, float* resid,
       err = launch_ninv_r<128>(st, S, r, X, resid, iters, B, bt);
       break;
     default: {
+      // One pair of tensor maps over the B members' scratch, back to back.
+      CUtensorMap mapA, mapB;
+      err = l2_maps(scratch, r, B, kL2NinvMats, &mapA, &mapB);
+      if (err != cudaSuccess) return (int)err;
       static bool fits[kL2MaxCluster + 1] = {};
       err = launch_cluster_batch(ninv_l2_kernel, ctas, B, smem_bytes, st,
                                  fits[ctas], S, r, X, resid, iters, scratch,
-                                 bt);
+                                 bt, mapA, mapB);
     }
   }
   if (err != cudaSuccess) return (int)err;

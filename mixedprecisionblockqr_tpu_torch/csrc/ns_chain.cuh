@@ -992,7 +992,7 @@ static inline cudaError_t cluster_resident(void (*kern)(KArgs...), int ctas,
 // What changes beyond 128: the replicated operands no longer fit a CTA, so
 // every r x r operand lives whole in a global scratch, 4 r^2 bytes each
 // (256 KB at r = 256), which stays in the 50 MB L2 (each product reads it
-// through L2 with ld.global.cg or cp.async.cg, never a stale L1 line).  One
+// by the copy engine, never through a stale L1 line).  One
 // thread-block cluster of up to 16 CTAs (ops/kernels/ns.py::ns_layout:
 // ceil(r / 16), capped by the card's largest cluster) runs a chain, and
 // every product has the form
@@ -1007,197 +1007,18 @@ static inline cudaError_t cluster_resident(void (*kern)(KArgs...), int ctas,
 // at 16 CTAs and still need the whole operand streamed through every CTA,
 // so the L2 scratch, with no upper limit but the vectors, was taken.
 //
-// K4 (ninv_chain.cu) and the R-block combine (panel.cuh) run l2_prod: CTA
-// p owns the contiguous columns [p cw, (p + 1) cw), cw = ceil(r / CTAs);
-// A streams in 128 x 32 tiles and B in 32 x 16 tiles through shared memory
-// (the next stage in registers while the current one is multiplied), 8
-// consecutive rows of one column a thread, k ascending: one fixed
-// summation order, the same bits every launch.  K1's chain runs products
-// of its own (l2_tprod, below chain_l2_scratch_floats), redesigned after
-// its clock (utils/ns_probe.py --phases) showed l2_prod's stages at ~3k
-// cycles each and the last CTA of a cluster running 1.5-7x the first's
-// products.
+// Every L2-route kernel runs its products through l2_tprod (below
+// chain_l2_scratch_floats): K1's chain, K4 (ninv_chain.cu) and the R-block
+// combine (panel.cuh), each with a scratch of its own matrices, described
+// to the copy engine by l2_maps.
 constexpr int kMaxWidth = 1024;      // ns.py::MAX_WIDTH
 constexpr int kL2MaxCluster = 16;    // ns.py::L2_MAX_CLUSTER
-constexpr int kL2Rows = 128;         // output rows of a product tile
-constexpr int kL2Cols = 16;          // output columns of a product tile
-constexpr int kL2Depth = 32;         // k per l2_prod stage (64 slower there)
-constexpr int kL2PitchA = kL2Rows + 4;  // rows of A stay 16-byte aligned
-constexpr int kL2SplitPitch = kL2Depth + 4;  // split tiles: k-contiguous
-// The A and B tiles of a stage in the larger of l2_prod's two layouts
-// (split: 128 x 36 + 16 x 36; fp32: 32 x 132 + 32 x 16): ns.py::
-// L2_STAGE_FLOATS.
-constexpr int kL2StageFloats = (kL2Rows + kL2Cols) * kL2SplitPitch;
 enum { L2_A_LOWER = 1, L2_A_UPPER = 2, L2_B_UPPER = 4 };
 
 // Leading dimension of an n x n operand in the L2 scratch: rows padded to
 // 16 bytes.
 __host__ __device__ __forceinline__ int l2_ld(int n) {
   return (n + 3) / 4 * 4;
-}
-
-// D[i][c] = sum_k op(A)[i][k] B[k][c] for i < n and c in [c0, c1), with
-// op(A)[i][k] = A[i lda + k] or, with TA, A[k lda + i]; epi(i, c, value)
-// once per element, after its tile's sum.  `tri` (L2_*) names the zero
-// triangles of op(A) (LOWER: k > i, UPPER: k < i) and B (k > c) whose
-// k-stages are skipped.  `stage` holds kL2StageFloats of shared memory.
-// Every thread of the block calls it (it syncs); the epilogue must not
-// write A or B.
-template <bool SPLIT, bool TA, class Epi>
-__device__ void l2_prod(int n, const float* A, int lda, const float* B,
-                        int ldb, int c0, int c1, int tri, float* stage,
-                        Epi epi) {
-  constexpr int QA = kL2Rows * kL2Depth / kChainThreads;  // A loads a thread
-  constexpr int QB = kL2Depth * kL2Cols / kChainThreads;  // B loads
-  constexpr int RT = kL2Rows * kL2Cols / kChainThreads;   // outputs
-  // fp32: A [Depth][PitchA] (k-major), B [Depth][Cols]; split: A
-  // [Rows][SP] and B [Cols][SP], k-contiguous for the mma fragments.
-  constexpr int SP = kL2SplitPitch;
-  float* sa = stage;
-  float* sb = stage + (SPLIT ? kL2Rows * SP : kL2Depth * kL2PitchA);
-  static_assert(kL2Rows * SP + kL2Cols * SP <= kL2StageFloats &&
-                    kL2Depth * kL2PitchA + kL2Depth * kL2Cols <=
-                        kL2StageFloats,
-                "both tile layouts fit the stage");
-  const int tid = threadIdx.x, tc = tid % kL2Cols;
-  const int r0 = RT * (tid / kL2Cols);                // fp32: first of RT rows
-  const int warp = tid >> 5, g = (tid & 31) >> 2, t4 = tid & 3;  // split
-  static_assert(RT == 8 && kL2Rows == RT * (kChainThreads / kL2Cols) &&
-                    kL2Rows == 16 * (kChainThreads / 32) && kL2Cols == 16,
-                "fp32: a thread's rows are two float4 of a tile row; split: "
-                "a warp's 16 rows x 16 columns are two m16n8 tiles");
-  for (int cb = c0; cb < c1; cb += kL2Cols) {
-    for (int i0 = 0; i0 < n; i0 += kL2Rows) {
-      int kb = 0, ke = n;
-      if (tri & L2_A_LOWER) ke = min(ke, i0 + kL2Rows);
-      if (tri & L2_A_UPPER) kb = i0;
-      if (tri & L2_B_UPPER) ke = min(ke, cb + kL2Cols);
-      float acc[RT];  // split: two m16n8 accumulators, acc[4 nt + j]
-#pragma unroll
-      for (int q = 0; q < RT; ++q) acc[q] = 0.f;
-      float ra[QA], rb[QB];
-      auto a_at = [&](int u, int& ii, int& kk) {
-        const int e = tid + kChainThreads * u;
-        if constexpr (TA) {
-          kk = e / kL2Rows;
-          ii = e % kL2Rows;
-        } else {
-          ii = e / kL2Depth;
-          kk = e % kL2Depth;
-        }
-      };
-      auto load = [&](int k0) {
-#pragma unroll
-        for (int u = 0; u < QA; ++u) {
-          int ii, kk;
-          a_at(u, ii, kk);
-          const int i = i0 + ii, k = k0 + kk;
-          ra[u] = (i < n && k < ke)
-                      ? __ldcg(TA ? A + (size_t)k * lda + i
-                                  : A + (size_t)i * lda + k)
-                      : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < QB; ++u) {
-          const int e = tid + kChainThreads * u;
-          const int k = k0 + e / kL2Cols, c = cb + e % kL2Cols;
-          rb[u] = (k < ke && c < c1) ? __ldcg(B + (size_t)k * ldb + c) : 0.f;
-        }
-      };
-      auto store = [&]() {
-#pragma unroll
-        for (int u = 0; u < QA; ++u) {
-          int ii, kk;
-          a_at(u, ii, kk);
-          if constexpr (SPLIT)
-            sa[ii * SP + kk] = ra[u];
-          else
-            sa[kk * kL2PitchA + ii] = ra[u];
-        }
-#pragma unroll
-        for (int u = 0; u < QB; ++u) {
-          const int e = tid + kChainThreads * u;
-          if constexpr (SPLIT)
-            sb[(e % kL2Cols) * SP + e / kL2Cols] = rb[u];
-          else
-            sb[e] = rb[u];
-        }
-      };
-      if (kb < ke) load(kb);
-      for (int k0 = kb; k0 < ke; k0 += kL2Depth) {
-        __syncthreads();  // every thread is done with the previous tiles
-        store();
-        __syncthreads();
-        if (k0 + kL2Depth < ke) load(k0 + kL2Depth);
-        if constexpr (SPLIT) {
-          // Fragments of m16n8k16 (ns_chain.cuh::prod_split): A rows
-          // 16 warp + g (+8), k 2 t4 (+1) (+8); B column 8 nt + g.
-#pragma unroll
-          for (int ks = 0; ks < kL2Depth; ks += 16) {
-            const float* a0 = sa + (16 * warp + g) * SP + ks + 2 * t4;
-            const float* a1 = a0 + 8 * SP;
-            uint32_t ah[4], al[4];
-            const float2 x0 = *reinterpret_cast<const float2*>(a0);
-            const float2 x1 = *reinterpret_cast<const float2*>(a1);
-            const float2 x2 = *reinterpret_cast<const float2*>(a0 + 8);
-            const float2 x3 = *reinterpret_cast<const float2*>(a1 + 8);
-            split_pair(x0.x, x0.y, ah[0], al[0]);
-            split_pair(x1.x, x1.y, ah[1], al[1]);
-            split_pair(x2.x, x2.y, ah[2], al[2]);
-            split_pair(x3.x, x3.y, ah[3], al[3]);
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-              const float* bp = sb + (8 * nt + g) * SP + ks + 2 * t4;
-              const float2 y0 = *reinterpret_cast<const float2*>(bp);
-              const float2 y1 = *reinterpret_cast<const float2*>(bp + 8);
-              uint32_t bh0, bl0, bh1, bl1;
-              split_pair(y0.x, y0.y, bh0, bl0);
-              split_pair(y1.x, y1.y, bh1, bl1);
-              float(&d)[4] = *reinterpret_cast<float(*)[4]>(acc + 4 * nt);
-              mma_bf16(d, ah, bh0, bh1);
-              mma_bf16(d, ah, bl0, bl1);
-              mma_bf16(d, al, bh0, bh1);
-            }
-          }
-        } else {
-#pragma unroll 4
-          for (int kk = 0; kk < kL2Depth; ++kk) {
-            const float bh = sb[kk * kL2Cols + tc];
-            const float4* ap =
-                reinterpret_cast<const float4*>(sa + kk * kL2PitchA + r0);
-            const float4 h0 = ap[0], h1 = ap[1];
-            const float ah[RT] = {h0.x, h0.y, h0.z, h0.w,
-                                  h1.x, h1.y, h1.z, h1.w};
-#pragma unroll
-            for (int q = 0; q < RT; ++q) acc[q] = fmaf(ah[q], bh, acc[q]);
-          }
-        }
-      }
-      if constexpr (SPLIT) {
-#pragma unroll
-        for (int q = 0; q < RT; ++q) {  // acc[4 nt + j]: m16n8's layout
-          const int i = i0 + 16 * warp + g + 8 * ((q >> 1) & 1);
-          const int c = cb + 8 * (q >> 2) + 2 * t4 + (q & 1);
-          if (i < n && c < c1) epi(i, c, acc[q]);
-        }
-      } else {
-        const int c = cb + tc;
-#pragma unroll
-        for (int q = 0; q < RT; ++q) {
-          const int i = i0 + r0 + q;
-          if (i < n && c < c1) epi(i, c, acc[q]);
-        }
-      }
-    }
-  }
-}
-
-// This CTA's own columns [c0, c1) of an n-wide operand, cluster of cs.
-__device__ __forceinline__ void l2_own(int n, int rank, int cs, int& c0,
-                                       int& c1) {
-  const int cw = (n + cs - 1) / cs;
-  c0 = min(n, rank * cw);
-  c1 = min(n, c0 + cw);
 }
 
 // Publish this CTA's global writes to the cluster and wait for everyone's.
@@ -1228,7 +1049,8 @@ __device__ __forceinline__ void l2_cluster_max(cg::cluster_group& cluster,
 // -- K1's chain on the L2 route ------------------------------------------
 //
 // What its clock showed (utils/ns_probe.py --phases, H100, r = 256
-// chain_mid, l2_prod's body): the setup took 16% of a launch (both norm
+// chain_mid, on the route's first products): the setup took 16% of a
+// launch (both norm
 // estimates in every CTA, scalar loads); the products of the triangular X
 // and C ran 3-7x longer on the last CTA than on the first, whose barrier
 // waits made up the difference; a 32-deep stage of 128 rows took ~3k
@@ -1256,7 +1078,7 @@ __device__ __forceinline__ void l2_cluster_max(cg::cluster_group& cluster,
 //     mbarrier, and no block barrier runs a stage.
 //   * fp32 (Precision.HIGHEST: the closing iterations, refine chains, t):
 //     a thread keeps a 4-row x 4-column register tile, 8 16-byte loads a
-//     k-quad for 64 FMA (l2_prod: 3 for 8), k ascending.
+//     k-quad for 64 FMA (the first products: 3 for 8), k ascending.
 //   * split (chain_mid): a warp keeps four m16n8 tiles (64 rows x its 8
 //     columns); both operands' fragments are loaded from the fp32 stages
 //     and split into bf16 hi / lo in registers (a pair by one conversion),
@@ -1315,10 +1137,11 @@ __device__ __forceinline__ int l2_slots(int n, int cs) {
   return (tiles + cs - 1) / cs;
 }
 
-// The L2 chain's operands by the copy engine.  The launch describes the
-// scratch of all its members as one 3-D tensor (l2_maps): columns (ld,
-// the rows padded to 16 bytes), rows (n: rows past n arrive as zeros) and
-// matrices (kL2Mats a member).  A box lands on the stage's mbarrier.
+// The L2 operands by the copy engine.  The launch describes the scratch
+// of all its members as one 3-D tensor (l2_maps): columns (ld, the rows
+// padded to 16 bytes), rows (n: rows past n arrive as zeros) and matrices
+// (the kernel's own count a member: kL2Mats for K1's chain).  A box lands
+// on the stage's mbarrier.
 __device__ __forceinline__ uint32_t l2_smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
@@ -1410,8 +1233,12 @@ struct L2Ring {
 // flight at once, not one after another behind the stores).  `tri` (L2_*)
 // names the zero triangles of A^T (LOWER: k > i, UPPER: k < i) and of B
 // (k > c), whose k-steps are skipped.  Every thread of the block calls it
-// (it syncs); the epilogue must not write A or B.
-template <bool SPLIT, class Old, class Epi>
+// (it syncs); the epilogue must not write A or B.  With TILE (fp32 only;
+// `old` unused) the epilogue takes a thread's whole 4 x 4 tile at once,
+// epi(i, c, acc) with rows i .. i + 3 and columns c .. c + 3, acc[4 row +
+// column], rows and columns past n included (i < n and c < ld, both
+// multiples of 4), so that it can store 16-byte pieces.
+template <bool SPLIT, bool TILE = false, class Old, class Epi>
 __device__ void l2_tprod(int n, int ma, int mb, const CUtensorMap* mapA,
                          const CUtensorMap* mapB, int mat0, int ld, int rank,
                          int cs, int tri, L2Ring& ring, Old old, Epi epi) {
@@ -1600,29 +1427,37 @@ __device__ void l2_tprod(int n, int ma, int mb, const CUtensorMap* mapA,
       }
       ring.seq += ns;
       if (tc[h] >= n) continue;
-      // Element q of this thread: split, acc[4 mt + j] in m16n8's layout;
-      // fp32, its 4 x 4 tile by rows.
-      auto at = [&](int q, int& i, int& c) {
-        if constexpr (SPLIT) {
-          i = i0 + 64 * rb + 16 * (q >> 2) + (lane >> 2) + 8 * ((q >> 1) & 1);
-          c = tc[h] + 2 * (lane & 3) + (q & 1);
-        } else {
-          i = i0 + 64 * rb + 4 * (lane >> 1) + (q >> 2);
-          c = tc[h] + 4 * (lane & 1) + (q & 3);
+      if constexpr (TILE) {
+        static_assert(!SPLIT, "a tile epilogue takes the fp32 tiles");
+        const int i = i0 + 64 * rb + 4 * (lane >> 1);
+        const int c = tc[h] + 4 * (lane & 1);
+        if (i < n && c < ld) epi(i, c, acc);
+      } else {
+        // Element q of this thread: split, acc[4 mt + j] in m16n8's
+        // layout; fp32, its 4 x 4 tile by rows.
+        auto at = [&](int q, int& i, int& c) {
+          if constexpr (SPLIT) {
+            i = i0 + 64 * rb + 16 * (q >> 2) + (lane >> 2) +
+                8 * ((q >> 1) & 1);
+            c = tc[h] + 2 * (lane & 3) + (q & 1);
+          } else {
+            i = i0 + 64 * rb + 4 * (lane >> 1) + (q >> 2);
+            c = tc[h] + 4 * (lane & 1) + (q & 3);
+          }
+        };
+        float prev[16];
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          int i, c;
+          at(q, i, c);
+          prev[q] = (i < n && c < n) ? old(i, c) : 0.f;
         }
-      };
-      float prev[16];
 #pragma unroll
-      for (int q = 0; q < 16; ++q) {
-        int i, c;
-        at(q, i, c);
-        prev[q] = (i < n && c < n) ? old(i, c) : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < 16; ++q) {
-        int i, c;
-        at(q, i, c);
-        if (i < n && c < n) epi(i, c, acc[q], prev[q]);
+        for (int q = 0; q < 16; ++q) {
+          int i, c;
+          at(q, i, c);
+          if (i < n && c < n) epi(i, c, acc[q], prev[q]);
+        }
       }
     }
   }
@@ -1630,15 +1465,17 @@ __device__ void l2_tprod(int n, int ma, int mb, const CUtensorMap* mapA,
 }
 
 // The ring's mbarriers, initialized once a launch before its first
-// product; the ring starts on the first 1024-byte boundary past them.
-__device__ __forceinline__ L2Ring l2_ring_init(float* sm) {
+// product (`empty` counts `warps` arrivals: one a warp of the block); the
+// ring starts on the first 1024-byte boundary past them.
+__device__ __forceinline__ L2Ring l2_ring_init(
+    float* sm, uint32_t warps = kChainThreads / 32) {
   const uint32_t base = l2_smem_u32(sm);
   const uint32_t at = (base + 64 + 1023) & ~1023u;
   static_assert(16 * kL2Stages <= 64, "the barriers fit before the ring");
   if (threadIdx.x == 0) {
     for (int s = 0; s < kL2Stages; ++s) {
       l2_mbar_init(base + 8 * s, 1);                           // full
-      l2_mbar_init(base + 8 * (kL2Stages + s), kChainThreads / 32);  // empty
+      l2_mbar_init(base + 8 * (kL2Stages + s), warps);  // empty
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1994,18 +1831,21 @@ static inline L2EncodeFn l2_encode_fn() {
   return fn;
 }
 
-// The L2 chain's scratch of `batch` members (kL2Mats matrices of n x
-// l2_ld(n) floats each, back to back) as one 3-D tensor (columns, rows,
-// matrix): mapA in boxes of kL2Box columns x kL2UDepth rows with the 128B
-// swizzle (l2_a_at), mapB in kL2Tile columns x kL2UDepth rows, unswizzled.
-// Rows past n, and columns past the padded row, arrive as zeros.
-static inline cudaError_t l2_maps(float* scratch, int n, int batch,
+// An L2 kernel's scratch of `batch` members (`mats` matrices of n x
+// l2_ld(n) floats each a member, back to back; 16-byte aligned) as one 3-D
+// tensor (columns, rows, matrix): mapA in boxes of kL2Box columns x
+// kL2UDepth rows with the 128B swizzle (l2_a_at), mapB in kL2Tile columns
+// x kL2UDepth rows, unswizzled.  Rows past n, and columns past the padded
+// row, arrive as zeros.
+static inline cudaError_t l2_maps(float* scratch, int n, int batch, int mats,
                                   CUtensorMap* mapA, CUtensorMap* mapB) {
   const L2EncodeFn fn = l2_encode_fn();
   if (!fn) return cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    return cudaErrorInvalidValue;
   const int ld = l2_ld(n);
   const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)n,
-                              (cuuint64_t)kL2Mats * batch};
+                              (cuuint64_t)mats * batch};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * 4,
                                  (cuuint64_t)n * ld * 4};
   const cuuint32_t boxA[3] = {kL2Box, kL2UDepth, 1};
@@ -2067,7 +1907,7 @@ static inline cudaError_t launch_chain(int r, const KernelLayout& lay,
   CUtensorMap mapA, mapB;
   if (batch > 1 && bt.scratch != chain_l2_scratch_floats(r))
     return cudaErrorInvalidValue;  // the maps see the members back to back
-  cudaError_t err = l2_maps(scratch, r, batch, &mapA, &mapB);
+  cudaError_t err = l2_maps(scratch, r, batch, kL2Mats, &mapA, &mapB);
   if (err != cudaSuccess) return err;
   static bool fits[kL2MaxCluster + 1] = {};
   return launch_cluster_batch(chain_l2_kernel, lay.ctas, batch,

@@ -645,9 +645,10 @@ struct CombineLayout {
 };
 
 // The combine's members: member blockIdx.y's T1..T3 lie b * t floats past
-// member 0's, its output b * out, its L2-route scratch b * scratch.
+// member 0's, its output b * out (the L2 route lays out its members'
+// scratch itself: launch_combine).
 struct CombineBatch {
-  long long t, out, scratch;
+  long long t, out;
 };
 
 template <int R, bool PAD>
@@ -693,35 +694,218 @@ combine_kernel(const float* T1, const float* T2, const float* T3, int n_arg,
   }
 }
 
-// The combine on ns_chain.cuh's L2 route (r > 128, where T2 and T3 no
-// longer fit a CTA): min(16, ceil(r / 16)) CTAs owning ceil(r / CTAs)
-// columns each (l2_own), a plain grid (no exchange), T1..T3 read in place
-// through L2 and the own columns of A = T2 T1 in a global scratch
-// (r x l2_ld(r)):
-//   A[:, own] = T2 T1[:, own],   out[:, own] = triu(T3 A[:, own]).
-// Dynamic shared memory: kL2StageFloats floats.
-static __global__ void __launch_bounds__(kChainThreads, 1)
-combine_l2_kernel(const float* T1, const float* T2, const float* T3, int n,
-                  float* out, int ldo, float* scratch, CombineBatch bt) {
-  {
-    const long long b = blockIdx.y;
-    T1 += b * bt.t;
-    T2 += b * bt.t;
-    T3 += b * bt.t;
-    out += b * bt.out;
-    scratch += b * bt.scratch;
+// The combine on the L2 route (r > 128, where T2 and T3 no longer fit a
+// CTA):
+//   A = T2 T1,   out = triu(T3 A)
+// cut into blocks of kCmbRows = 32 rows x kCmbCols = 16 columns, one CTA
+// of kCmbThreads = 64 threads a block: a grid of ceil(r / 32) x ceil(r /
+// 16) CTAs (128 at r = 256), each thread-block cluster the row blocks of
+// one column block (combine_layout's CTAs: ceil(r / 32), at most the
+// card's largest cluster; a CTA takes several row blocks when the cluster
+// is smaller).  A CTA computes its block of A, the cluster barrier makes
+// the column block of A whole, and the CTA computes its block of the
+// output from it; a block wholly below the diagonal is written as zeros
+// without its product.  Each product runs 64-deep stages by the copy
+// engine (TMA; the descriptors prefetched at the start) into a ring of
+// kL2Stages slots with full / empty mbarriers and no block barrier a
+// stage, as ns_chain.cuh's l2_tprod; the first operand is read row-major
+// (k contiguous) in boxes of 32 k x 32 rows with the 128-byte swizzle, the
+// second in the two 8-column tiles of the block; a warp takes a tile and
+// a thread a 2 x 4 fp32 register tile (rows lane / 2 + 16 j, columns 4
+// (lane % 2) + c of its warp's tile), a stage unrolled whole.  Each
+// element sums k ascending from 0 by fmaf into one accumulator, as the
+// products before did: the same bits.
+//
+// Why this cut (A / B on the H100, PERF.md section 6): with one cluster of
+// up to 16 CTAs over contiguous or dealt columns (the first L2 design, and
+// l2_tprod's with T2^T and T3^T copied k-major) every CTA reads both r x r
+// operands whole, 512 KB at r = 256, and it took 0.050 / 0.034 ms device
+// against 0.013 for T3 @ (T2 @ T1) on the whole card; row blocks of 64
+// rows (64 CTAs, 4 x 4 tiles) took 0.013, and of 32 rows 0.010: two warps
+// a CTA, so more SMs and fewer products a warp are what shortens it.
+// Reading T2 and T3 row-major needs no transposed copy; its one condition,
+// rows of whole 16-byte pieces for the tensor maps, is met by copying
+// T1..T3 into the scratch with rows padded to l2_ld(r) (cudaMemcpy2DAsync)
+// when r is not a multiple of 4 (or a T not 16-byte aligned); A = T2 T1
+// always lives there.  The scratch of B members: T1, T2, T3 (used only by
+// the copy) and A, each B x r x l2_ld(r) floats, member b's at b r
+// l2_ld(r) floats past member 0's.  What bounds it: each CTA's two 32 x 16
+// x r products at two warps' issue rate, the copy engine's first stage of
+// each, and the cluster barrier between them.
+constexpr int kCmbRows = 32;     // rows of a CTA's block
+constexpr int kCmbRT = kCmbRows / 16;  // rows of a thread's tile
+constexpr int kCmbCols = 16;     // columns of a CTA's block: two tiles
+constexpr int kCmbThreads = 64;  // a warp a tile of 8 columns
+constexpr int kCmbBox = 32;      // k of a box of the first operand
+// A stage: the first operand's two boxes [32 rows][32 k] (swizzled), then
+// the second's two tiles [64 k][8 columns]; the ring after kL2RingSlack
+// floats (its mbarriers and room to start it on 1024 bytes):
+// ns.py::COMBINE_RING_FLOATS.
+constexpr int kCmbStageFloats = kL2UDepth * (kCmbRows + kCmbCols);
+constexpr int kCmbRingFloats = kL2Stages * kCmbStageFloats;
+static_assert(kCmbStageFloats % 256 == 0, "every stage 1024-byte aligned");
+static_assert(kCmbCols == 2 * kL2Tile && kCmbThreads == 32 * 2,
+              "a warp a tile");
+
+// D[i][c] = sum_k P[i][k] Q[k][c] for the rows [i0, i0 + kCmbRows) and
+// the columns [c0, c0 + 16) (P from mapP's boxes, Q from mapQ's tiles,
+// member coordinate b; the stages through `ring`, whose `empty` barriers
+// count the block's two warps); epi(i, c, value) once an element i, c <
+// n, or with TILE epi(i, c, acc) once a thread: rows i + 16 j (j <
+// kCmbRT), columns c .. c + 3 (c < l2_ld(n), a multiple of 4; rows and
+// columns past n included), acc[4 j + column].  Every thread of the block
+// calls it.
+template <bool TILE = false, class Epi>
+__device__ void cmb_prod(int n, const CUtensorMap* mapP,
+                         const CUtensorMap* mapQ, int b, int i0, int c0,
+                         L2Ring& ring, Epi epi) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ns = (n + kL2UDepth - 1) / kL2UDepth;
+  // One stage, by thread 0, once both warps are done with the slot: the
+  // boxes that hold some k < n (a box wholly past n is not read).
+  auto fetch = [&](int s) {
+    const int g = ring.seq + s, slot = g % kL2Stages;
+    if (g >= kL2Stages)
+      l2_mbar_wait(ring.empty(slot), (g / kL2Stages - 1) & 1);
+    float* sp = ring.buf + slot * kCmbStageFloats;
+    float* sq = sp + kL2UDepth * kCmbRows;
+    const uint32_t bar = ring.full(slot);
+    const int k0 = s * kL2UDepth;
+    const bool second = k0 + kCmbBox < n;
+    const bool tile1 = c0 + kL2Tile < n;
+    l2_mbar_arrive_tx(bar, 4 * (kCmbBox * kCmbRows * (second ? 2 : 1) +
+                                kL2UDepth * kL2Tile * (tile1 ? 2 : 1)));
+    l2_tma_load(sp, mapP, bar, k0, i0, b);
+    if (second)
+      l2_tma_load(sp + kCmbBox * kCmbRows, mapP, bar, k0 + kCmbBox, i0, b);
+    l2_tma_load(sq, mapQ, bar, c0, k0, b);
+    if (tile1)
+      l2_tma_load(sq + kL2UDepth * kL2Tile, mapQ, bar, c0 + kL2Tile, k0, b);
+  };
+  const int rl = lane >> 1, sw = rl & 7;
+  float acc[4 * kCmbRT];
+#pragma unroll
+  for (int q = 0; q < 4 * kCmbRT; ++q) acc[q] = 0.f;
+  if (tid == 0)
+    for (int s = 0; s < kL2Stages - 1 && s < ns; ++s) fetch(s);
+  for (int s = 0; s < ns; ++s) {
+    const int slot = (ring.seq + s) % kL2Stages;
+    if (tid == 0 && s + kL2Stages - 1 < ns) fetch(s + kL2Stages - 1);
+    l2_mbar_wait(ring.full(slot), ((ring.seq + s) / kL2Stages) & 1);
+    const float* sp = ring.buf + slot * kCmbStageFloats;
+    const float* sq = sp + kL2UDepth * kCmbRows + warp * kL2UDepth * kL2Tile +
+                      4 * (lane & 1);
+    // One k-quad: P's 16-byte piece of k-quad kq in row r lies in box kq
+    // / 32, piece (kq % 32) / 4 ^ r % 8 (CU_TENSOR_MAP_SWIZZLE_128B).
+    auto quad = [&](int kq) {
+      const float* pb = sp + (kq >> 5) * (kCmbBox * kCmbRows) +
+                        ((((kq & 31) >> 2) ^ sw) << 2);
+      float4 a[kCmbRT], q4[4];
+#pragma unroll
+      for (int j = 0; j < kCmbRT; ++j)
+        a[j] = *reinterpret_cast<const float4*>(pb + (rl + 16 * j) * kCmbBox);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        q4[kk] = *reinterpret_cast<const float4*>(sq + (kq + kk) * kL2Tile);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float bv[4] = {q4[kk].x, q4[kk].y, q4[kk].z, q4[kk].w};
+#pragma unroll
+        for (int j = 0; j < kCmbRT; ++j) {
+          const float av = kk == 0 ? a[j].x : kk == 1 ? a[j].y
+                         : kk == 2 ? a[j].z : a[j].w;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[4 * j + c] = fmaf(av, bv[c], acc[4 * j + c]);
+        }
+      }
+    };
+    // The k of this stage: a whole stage unrolled, so that the loads of
+    // the next k-quads run under this one's products (two warps an SM
+    // hide little); past n the last quad's k arrive as zeros, and a box
+    // wholly past n is never read.
+    const int kn = min(kL2UDepth, n - s * kL2UDepth);
+    if (kn == kL2UDepth) {
+#pragma unroll
+      for (int kq = 0; kq < kL2UDepth; kq += 4) quad(kq);
+    } else {
+#pragma unroll 4
+      for (int kq = 0; kq < kn; kq += 4) quad(kq);
+    }
+    __syncwarp();
+    if (lane == 0) l2_mbar_arrive(ring.empty(slot));
   }
+  ring.seq += ns;
+  if constexpr (TILE) {
+    const int c = c0 + kL2Tile * warp + 4 * (lane & 1);
+    if (c < l2_ld(n)) epi(i0 + rl, c, acc);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4 * kCmbRT; ++q) {
+      const int i = i0 + rl + 16 * (q >> 2);
+      const int c = c0 + kL2Tile * warp + 4 * (lane & 1) + (q & 3);
+      if (i < n && c < n) epi(i, c, acc[q]);
+    }
+  }
+}
+
+// Member blockIdx.y of the launch: its output at b out_stride floats past
+// member 0's, its A at b n l2_ld(n) floats past At; CTA x of the grid the
+// row blocks [rank nb, (rank + 1) nb) of column block x / cluster.
+static __global__ void __launch_bounds__(kCmbThreads)
+combine_l2_kernel(int n, int nb, float* out, int ldo, long long out_stride,
+                  float* At, const __grid_constant__ CUtensorMap mapT1,
+                  const __grid_constant__ CUtensorMap mapT2,
+                  const __grid_constant__ CUtensorMap mapT3,
+                  const __grid_constant__ CUtensorMap mapA) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = (int)blockIdx.y, ld = l2_ld(n);
+  const int c0 = kCmbCols * ((int)blockIdx.x / cs);
+  out += b * out_stride;
+  At += (size_t)b * n * ld;
   extern __shared__ __align__(16) float sm[];
-  int c0, c1;
-  l2_own(n, (int)blockIdx.x, (int)gridDim.x, c0, c1);
-  const int ld = l2_ld(n);
-  l2_prod<false, false>(n, T2, n, T1, n, c0, c1, 0, sm,
-                        [&](int i, int c, float v) { scratch[i * ld + c] = v; });
-  __syncthreads();
-  l2_prod<false, false>(n, T3, n, scratch, ld, c0, c1, 0, sm,
-                        [&](int i, int c, float v) {
-                          out[(size_t)i * ldo + c] = c >= i ? v : 0.f;
-                        });
+  if (threadIdx.x == 0) {  // the four descriptors, ahead of the first copy
+    const CUtensorMap* maps[4] = {&mapT1, &mapT2, &mapT3, &mapA};
+    for (int k = 0; k < 4; ++k)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                       reinterpret_cast<uint64_t>(maps[k]))
+                   : "memory");
+  }
+  L2Ring ring = l2_ring_init(sm, kCmbThreads / 32);
+  // A[rows, cols] = T2[rows, :] T1[:, cols].
+  for (int j = 0; j < nb; ++j) {
+    const int i0 = kCmbRows * (rank * nb + j);
+    if (i0 >= n) break;
+    cmb_prod<true>(n, &mapT2, &mapT1, b, i0, c0, ring,
+                   [&](int i, int c, const float(&acc)[4 * kCmbRT]) {
+#pragma unroll
+                     for (int q = 0; q < kCmbRT; ++q)
+                       if (i + 16 * q < n)
+                         *reinterpret_cast<float4*>(
+                             At + (size_t)(i + 16 * q) * ld + c) =
+                             make_float4(acc[4 * q], acc[4 * q + 1],
+                                         acc[4 * q + 2], acc[4 * q + 3]);
+                   });
+  }
+  l2_fence_proxy_global();  // the cluster's TMA reads these next
+  l2_barrier(cluster);
+  // out[rows, cols] = triu(T3[rows, :] A[:, cols]).
+  for (int j = 0; j < nb; ++j) {
+    const int i0 = kCmbRows * (rank * nb + j);
+    if (i0 >= n) break;
+    if (i0 > c0 + kCmbCols - 1) {  // wholly below the diagonal
+      for (int e = threadIdx.x; e < kCmbRows * kCmbCols; e += kCmbThreads) {
+        const int i = i0 + e / kCmbCols, c = c0 + e % kCmbCols;
+        if (i < n && c < n) out[(size_t)i * ldo + c] = 0.f;
+      }
+      continue;
+    }
+    cmb_prod(n, &mapT3, &mapA, b, i0, c0, ring, [&](int i, int c, float v) {
+      out[(size_t)i * ldo + c] = c >= i ? v : 0.f;
+    });
+  }
 }
 
 static inline int combine_smem_bytes(int r) {
@@ -729,22 +913,43 @@ static inline int combine_smem_bytes(int r) {
     case 32: return CombineLayout<32>::BYTES;
     case 64: return CombineLayout<64>::BYTES;
     case 128: return CombineLayout<128>::BYTES;
-    default: return kL2StageFloats * 4;
+    default: return (kL2RingSlack + kCmbRingFloats) * 4;
   }
 }
 
-// Floats of the combine's global scratch for width r (the L2 route's A).
+// The L2 route's matrices: T1..T3 (the padded copies) and A.
+constexpr int kL2CombineMats = 4;
+
+// Floats of the combine's global scratch for width r (one member): the L2
+// route's four matrices; none on the shared-memory route.
 static inline long long combine_scratch_floats(int r) {
-  return chain_inst(r) ? 0 : (long long)r * l2_ld(r);
+  return chain_inst(r) ? 0 : (long long)kL2CombineMats * r * l2_ld(r);
 }
 
-// The combine's layout for width r (ns.py::combine_layout): no choice is
-// left to the caller, so the entries compute it.
-static inline KernelLayout combine_layout(int r) {
+// Most CTAs of the L2 combine's cluster for width r: its row blocks.
+static inline int combine_max_ctas(int r) {
+  return std::min(kL2MaxCluster, (r + kCmbRows - 1) / kCmbRows);
+}
+
+// The combine's layout for width r (ns.py::combine_layout): up to 128 a
+// plain grid of ceil(r / 16) CTAs; above, clusters of `l2_ctas` CTAs
+// (ns.py's min(ceil(r / 32), the card's largest cluster, 16)), one a
+// column block of 16.
+static inline KernelLayout combine_layout(int r, int l2_ctas) {
   const int inst = chain_inst(r);
   return KernelLayout{inst, inst ? 0 : 1,
-                      inst ? (r + kStripe - 1) / kStripe : l2_max_ctas(r),
+                      inst ? (r + kStripe - 1) / kStripe : l2_ctas,
                       (int)combine_scratch_floats(r), combine_smem_bytes(r)};
+}
+
+// Whether `lay` is the combine's layout for width r.
+static inline bool combine_layout_ok(int r, const KernelLayout& lay) {
+  if (r < 1 || r > kMaxWidth) return false;
+  const KernelLayout want = combine_layout(r, lay.ctas);
+  return lay.inst == want.inst && lay.route == want.route &&
+         lay.ctas == want.ctas && lay.scratch_floats == want.scratch_floats &&
+         lay.smem_bytes == want.smem_bytes &&
+         (lay.inst || (lay.ctas >= 1 && lay.ctas <= combine_max_ctas(r)));
 }
 
 template <int R>
@@ -762,37 +967,118 @@ static inline cudaError_t launch_combine_r(cudaStream_t st, dim3 grid,
   return cudaGetLastError();
 }
 
-// The combine for width r (1 .. kMaxWidth, checked by the caller) on
-// `st`; T1..T3 r x r, row-major; `scratch` holds
-// combine_scratch_floats(r).  With `batch` > 1 one launch (grid (CTAs,
-// batch)) runs that many members at the strides of `bt`.  Returns the
-// launch's error.
-static inline cudaError_t launch_combine(int r, cudaStream_t st,
-                                         const float* T1, const float* T2,
-                                         const float* T3, float* out,
-                                         int ldo, float* scratch,
+// A tensor map of `members` n x n matrices (rows of `pitch` floats, member
+// b at b * mstride floats past `base`): the first operand's boxes (32 k x
+// kCmbRows rows, 128-byte swizzle) or, with `tiles`, the second's (8
+// columns x 64 k).  Elements past n arrive as zeros.
+static inline cudaError_t cmb_map(CUtensorMap* map, const float* base, int n,
+                                  long long pitch, int members,
+                                  long long mstride, bool tiles) {
+  const L2EncodeFn fn = l2_encode_fn();
+  if (!fn) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)n, (cuuint64_t)n,
+                              (cuuint64_t)members};
+  const cuuint64_t strides[2] = {(cuuint64_t)pitch * 4,
+                                 (cuuint64_t)mstride * 4};
+  const cuuint32_t boxP[3] = {kCmbBox, kCmbRows, 1};
+  const cuuint32_t boxQ[3] = {kL2Tile, kL2UDepth, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base),
+         dims, strides, tiles ? boxQ : boxP, estr,
+         CU_TENSOR_MAP_INTERLEAVE_NONE,
+         tiles ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// The combine for width r (1 .. kMaxWidth, checked by the caller) with the
+// layout `lay` (combine_layout_ok) on `st`; T1..T3 r x r, row-major;
+// `scratch` holds lay.scratch_floats a member (16-byte aligned).  With
+// `batch` > 1 one launch (grid (CTAs, batch)) runs that many members at
+// the strides of `bt` (the scratch: batch members, as the L2 route lays
+// them out).  Returns the first error met.
+static inline cudaError_t launch_combine(int r, const KernelLayout& lay,
+                                         cudaStream_t st, const float* T1,
+                                         const float* T2, const float* T3,
+                                         float* out, int ldo, float* scratch,
                                          int batch = 1,
                                          const CombineBatch& bt =
                                              CombineBatch{}) {
-  const KernelLayout lay = combine_layout(r);
   if (batch < 1 || batch > kMaxBatch) return cudaErrorInvalidValue;
-  const dim3 grid(lay.ctas, batch, 1);
   switch (lay.inst) {
 #define MPBQR_COMBINE(RR)                                                    \
   case RR:                                                                   \
-    return launch_combine_r<RR>(st, grid, T1, T2, T3, r, out, ldo, bt)
+    return launch_combine_r<RR>(st, dim3(lay.ctas, batch, 1), T1, T2, T3,    \
+                                r, out, ldo, bt)
     MPBQR_COMBINE(32);
     MPBQR_COMBINE(64);
     MPBQR_COMBINE(128);
 #undef MPBQR_COMBINE
     default: break;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      combine_l2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      lay.smem_bytes);
+  if (reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const int ld = l2_ld(r);
+  const long long mat = (long long)r * ld;
+  const long long tstride = batch > 1 ? bt.t : (long long)r * r;
+  const float* T[3] = {T1, T2, T3};
+  long long pitch = r, mstride = tstride;
+  bool direct = r % 4 == 0 && tstride % 4 == 0;
+  for (const float* t : T)
+    direct = direct && reinterpret_cast<uintptr_t>(t) % 16 == 0;
+  cudaError_t err = cudaSuccess;
+  if (!direct) {  // T1..T3 into the scratch, rows padded to ld
+    for (int k = 0; k < 3; ++k) {
+      float* dst = scratch + k * batch * mat;
+      if (batch == 1 || tstride == (long long)r * r) {
+        err = cudaMemcpy2DAsync(dst, ld * 4, T[k], r * 4, r * 4,
+                                (size_t)r * batch, cudaMemcpyDeviceToDevice,
+                                st);
+      } else {
+        for (int m = 0; m < batch && err == cudaSuccess; ++m)
+          err = cudaMemcpy2DAsync(dst + m * mat, ld * 4, T[k] + m * tstride,
+                                  r * 4, r * 4, r, cudaMemcpyDeviceToDevice,
+                                  st);
+      }
+      if (err != cudaSuccess) return err;
+      T[k] = dst;
+    }
+    pitch = ld;
+    mstride = mat;
+  }
+  float* At = scratch + 3 * batch * mat;
+  CUtensorMap maps[4];
+  for (int k = 0; k < 3 && err == cudaSuccess; ++k)
+    err = cmb_map(&maps[k], T[k], r, pitch, batch, mstride, k == 0);
+  if (err == cudaSuccess) err = cmb_map(&maps[3], At, r, ld, batch, mat, true);
   if (err != cudaSuccess) return err;
-  combine_l2_kernel<<<grid, kChainThreads, lay.smem_bytes, st>>>(
-      T1, T2, T3, r, out, ldo, scratch, bt);
+  const int cs = lay.ctas;
+  const int nb = ((r + kCmbRows - 1) / kCmbRows + cs - 1) / cs;
+  err = cudaFuncSetAttribute(combine_l2_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             lay.smem_bytes);
+  if (err == cudaSuccess && cs > 8)
+    err = cudaFuncSetAttribute(combine_l2_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs * ((r + kCmbCols - 1) / kCmbCols), batch, 1);
+  cfg.blockDim = dim3(kCmbThreads, 1, 1);
+  cfg.dynamicSmemBytes = lay.smem_bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, combine_l2_kernel, r, nb, out, ldo, bt.out,
+                           At, maps[0], maps[1], maps[2], maps[3]);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

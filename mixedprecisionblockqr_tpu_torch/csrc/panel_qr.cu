@@ -14,7 +14,8 @@
 // tall Q = P X products (gemm_nt, a CTA owning whole rows) into scratch
 // panels (L2-resident at these sizes), and the triangular combine of the
 // robust R block (panel.cuh's combine_kernel: r / 16 CTAs, both of its
-// r x r products in shared memory).  Every product is true fp32 FMA (the reference's
+// r x r products in shared memory; above 128 combine_l2_kernel: blocks
+// of 32 x 16, a cluster a column block).  Every product is true fp32 FMA (the reference's
 // Precision.HIGHEST for this kernel); the layout is ops/kernels/ns.py::
 // group_layout(m, r)'s.  Its chains are serial, so it has no look-ahead.
 // What bounds it: the r x r chains are latency-bound on one cluster (26 + 4
@@ -51,7 +52,10 @@ static long long panel_scratch_floats(int m, int r, PanelScratch* s,
   take(&d->T3, rr);
   take(&d->tmpA, mr);
   take(&d->tmpB, mr);
-  off = (off + 3) / 4 * 4;  // the L2 chain's cp.async reads 16-byte pieces
+  // The L2 kernels' tensor maps start on 16 bytes: the chain's scratch
+  // here, and the combine's after it (the chain's is whole 16-byte
+  // pieces).
+  off = (off + 3) / 4 * 4;
   take(&d->chain, chain_inst(r) ? 0 : chain_l2_scratch_floats(r));
   take(&d->comb, combine_scratch_floats(r));
   return off;
@@ -124,29 +128,26 @@ int mpbqr_panel_qr(const float* P, float* Q, float* t, float* resid,
   if (err == cudaSuccess) err = chain(s.X3, s.T3, kRobustIt3, 0.f, 1, 0, 1, 0);
   if (err == cudaSuccess) err = qprod(s.tmpB, s.X3, Q);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_combine(r, st, s.T1, s.T2, s.T3, t, r, s.comb);
+  return (int)launch_combine(r, combine_layout(r, cl.ctas), st, s.T1, s.T2,
+                             s.T3, t, r, s.comb);
 }
 
 // out = triu(T3 @ (T2 @ T1)) (r x r each, fp32, row-major; out with
 // leading dimension ldo), device pointers, launched on `stream`: the
 // combine that closes a robust panel of K2 and K3, on its own; `scratch`
-// holds the layout's scratch floats.  inst, route, ctas, scratch_floats,
-// smem_bytes: ops/kernels/ns.py::combine_layout(r).  Returns the launch's
-// error, or cudaErrorInvalidValue for an r outside 1 .. kMaxWidth or a
-// layout that differs from the kernel's.
+// holds the layout's scratch floats (16-byte aligned).  inst, route,
+// ctas, scratch_floats, smem_bytes: ops/kernels/ns.py::combine_layout(r,
+// ...).  Returns the launch's error, or cudaErrorInvalidValue for an r
+// outside 1 .. kMaxWidth or a layout that differs from the kernel's.
 int mpbqr_tri_combine(const float* T1, const float* T2, const float* T3,
                       float* out, float* scratch, int r, int ldo, int inst,
                       int route, int ctas, int scratch_floats,
                       int smem_bytes, void* stream) {
   using namespace mpbqr;
-  if (r < 1 || r > kMaxWidth) return (int)cudaErrorInvalidValue;
-  const KernelLayout want = combine_layout(r);
-  if (inst != want.inst || route != want.route || ctas != want.ctas ||
-      scratch_floats != want.scratch_floats ||
-      smem_bytes != want.smem_bytes)
-    return (int)cudaErrorInvalidValue;
-  return (int)launch_combine(r, (cudaStream_t)stream, T1, T2, T3, out, ldo,
-                             scratch);
+  const KernelLayout lay{inst, route, ctas, scratch_floats, smem_bytes};
+  if (!combine_layout_ok(r, lay)) return (int)cudaErrorInvalidValue;
+  return (int)launch_combine(r, lay, (cudaStream_t)stream, T1, T2, T3, out,
+                             ldo, scratch);
 }
 
 }  // extern "C"

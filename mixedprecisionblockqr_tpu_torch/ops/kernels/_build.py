@@ -74,6 +74,21 @@ def _declare_ns(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _declare_ninv(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C entries of ninv_chain.cu (K4)."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    chain = [ci] * 5  # ns.py::NsLayout (ns.py::_c_layout)
+    lib.mpbqr_ninv_chain.argtypes = [vp, vp, vp, vp, ci, ci, *chain, vp]
+    lib.mpbqr_ninv_chain.restype = ci
+    lib.mpbqr_ninv_chain_batched.argtypes = [vp, vp, vp, vp, ci, ci, ci,
+                                             *chain, vp]
+    lib.mpbqr_ninv_chain_batched.restype = ci
+    lib.mpbqr_ninv_chain_resident.argtypes = [ci, *chain,
+                                              ctypes.POINTER(ci)]
+    lib.mpbqr_ninv_chain_resident.restype = ci
+    return lib
+
+
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci, cf, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     chain = [ci] * 5  # ns.py::NsLayout (ns.py::_c_layout)
@@ -111,14 +126,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mpbqr_sketch_qrcp.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                       vp]
     lib.mpbqr_sketch_qrcp.restype = ci
-    lib.mpbqr_ninv_chain.argtypes = [vp, vp, vp, vp, ci, ci, *chain, vp]
-    lib.mpbqr_ninv_chain.restype = ci
-    lib.mpbqr_ninv_chain_batched.argtypes = [vp, vp, vp, vp, ci, ci, ci,
-                                             *chain, vp]
-    lib.mpbqr_ninv_chain_batched.restype = ci
-    lib.mpbqr_ninv_chain_resident.argtypes = [ci, *chain,
-                                              ctypes.POINTER(ci)]
-    lib.mpbqr_ninv_chain_resident.restype = ci
+    _declare_ninv(lib)
     lib.mpbqr_tri_combine.argtypes = [vp, vp, vp, vp, vp, ci, ci, *chain, vp]
     lib.mpbqr_tri_combine.restype = ci
     lib.mpbqr_panel_factor.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
@@ -181,7 +189,8 @@ def _run_all(cmds) -> None:
 
 #: Libraries of one source that :func:`instrumented_library` may build,
 #: with the function that declares their C entries.
-PARTIAL = {("givens.cu",): _declare_givens, ("ns_chain.cu",): _declare_ns}
+PARTIAL = {("givens.cu",): _declare_givens, ("ns_chain.cu",): _declare_ns,
+           ("ninv_chain.cu",): _declare_ninv}
 
 
 def build(so: Path, flags=(), sources=SOURCES) -> None:

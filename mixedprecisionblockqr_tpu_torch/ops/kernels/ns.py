@@ -69,22 +69,29 @@ MAX_WIDTH = 1024
 #: Most CTAs of an L2-route cluster (a non-portable size, capped by the
 #: card's largest cluster: ops/kernels/panel.py::max_cluster).
 L2_MAX_CLUSTER = 16
-#: Shared-memory floats of an L2-route product's A and B tiles (128 x 36
-#: and 16 x 36, the larger of its two layouts; csrc/ns_chain.cuh::
-#: kL2StageFloats): K4's and the combine's.
-L2_STAGE_FLOATS = (128 + 16) * 36
-#: K1's L2 route (csrc/ns_chain.cuh::l2_tprod): its ring of L2_STAGES
-#: stages, each L2_DEPTH k-rows of A (256 rows, in eight boxes of 32
-#: rows) and of B (two tiles of 8 columns), after L2_RING_SLACK_FLOATS
-#: (its mbarriers and the room to start it on 1024 bytes); the operands
-#: G', G'^T, X, X^T, W, W^T (the last four twice) and C in the scratch;
-#: the norm estimates' partial sums (L2_NORM_SLOTS x L2_MAX_CLUSTER
-#: floats); the columns of a dealt tile.
+#: The L2 route's products (csrc/ns_chain.cuh::l2_tprod), K1's and K4's:
+#: a ring of L2_STAGES stages, each L2_DEPTH k-rows of A (256 rows, in
+#: eight boxes of 32 rows) and of B (two tiles of 8 columns), after
+#: L2_RING_SLACK_FLOATS (its mbarriers and the room to start it on 1024
+#: bytes); the columns of a dealt tile.  The matrices of each kernel's
+#: scratch: K1's G', G'^T, X, X^T, W, W^T (the last four twice) and C;
+#: K4's S^T, X and X^T (twice each) and E; the combine's T1, T2, T3 (the
+#: padded copies) and A = T2 T1.  K1's norm estimates' partial sums
+#: (L2_NORM_SLOTS x L2_MAX_CLUSTER floats).
 L2_STAGES = 3
 L2_DEPTH = 64
 L2_CHAIN_STAGE_FLOATS = L2_STAGES * L2_DEPTH * (256 + 2 * 8)
 L2_RING_SLACK_FLOATS = 512
 L2_CHAIN_MATRICES = 11
+L2_NINV_MATRICES = 6
+L2_COMBINE_MATRICES = 4
+#: The L2 combine (csrc/panel.cuh::combine_l2_kernel): blocks of
+#: COMBINE_ROWS rows x COMBINE_COLS columns, a CTA each; its ring of
+#: L2_STAGES stages, each L2_DEPTH k of the first operand's rows and of
+#: the second's two 8-column tiles.
+COMBINE_ROWS = 32
+COMBINE_COLS = 16
+COMBINE_RING_FLOATS = L2_STAGES * L2_DEPTH * (COMBINE_ROWS + COMBINE_COLS)
 L2_NORM_SLOTS = 3
 L2_TILE = 8
 #: Shared memory one CTA may use on an H100 (bytes).
@@ -250,34 +257,45 @@ def ninv_layout(r: int, max_cluster: int = L2_MAX_CLUSTER) -> NsLayout:
     STRIPE CTAs (R = :func:`_inst` (r)), each holding S and two buffers of X
     whole, its own columns of X and E transposed (rows padded to R + 4
     floats), the product's 16 R partial sums and 64 floats of reductions;
-    above, the L2 route: ``_l2_ctas`` CTAs, X twice and E in global scratch
-    (3 r x ceil(r / 4) 4 floats), the product tiles in shared memory.
-    Raises ``ValueError`` for r outside [1, MAX_WIDTH]."""
+    above, the L2 route: ``_l2_ctas`` CTAs, each with the products' ring
+    (L2_RING_SLACK_FLOATS + L2_CHAIN_STAGE_FLOATS) and 64 floats of
+    reductions in shared memory, S^T, X and X^T (twice each) and E in
+    global scratch (L2_NINV_MATRICES r x ceil(r / 4) 4 floats).  Raises
+    ``ValueError`` for r outside [1, MAX_WIDTH]."""
     _check_width(r, "ninv_chain")
     R = _inst(r)
     if R:
         floats = (3 * R + 2 * STRIPE) * (R + 4) + 16 * R + 64
         return NsLayout(R, "smem", R // STRIPE, 0, 4 * floats)
-    return NsLayout(0, "l2", _l2_ctas(r, max_cluster), 3 * r * _l2_ld(r),
-                    (L2_STAGE_FLOATS + 64) * 4)
+    return NsLayout(0, "l2", _l2_ctas(r, max_cluster),
+                    L2_NINV_MATRICES * r * _l2_ld(r),
+                    (L2_RING_SLACK_FLOATS + L2_CHAIN_STAGE_FLOATS + 64) * 4)
 
 
 @functools.lru_cache(maxsize=None)
-def combine_layout(r: int) -> NsLayout:
-    """The R-block combine's layout (csrc/panel.cuh), a plain grid (no
-    exchange): up to 128 ceil(r / STRIPE) CTAs of STRIPE own columns, T2
+def combine_layout(r: int, max_cluster: int = L2_MAX_CLUSTER) -> NsLayout:
+    """The R-block combine's layout (csrc/panel.cuh): up to 128 a plain
+    grid (no exchange) of ceil(r / STRIPE) CTAs of STRIPE own columns, T2
     and T3 whole in shared memory on the instantiation R (rows of R + 4
     floats, the own columns of T1 and A, 16 R partial sums); above, the L2
-    route: ``_l2_ctas`` CTAs of ceil(r / CTAs) columns, A's own columns in
-    global scratch (r x ceil(r / 4) 4 floats), the product tiles in shared
-    memory.  Raises ``ValueError`` for r outside [1, MAX_WIDTH]."""
+    route: a CTA a block of COMBINE_ROWS x COMBINE_COLS, a cluster the row
+    blocks of one column block, ``ctas`` = min(ceil(r / COMBINE_ROWS),
+    ``max_cluster`` (the largest cluster the card places), L2_MAX_CLUSTER)
+    CTAs a cluster and ceil(r / COMBINE_COLS) clusters; each CTA with its
+    ring (L2_RING_SLACK_FLOATS + COMBINE_RING_FLOATS) in shared memory; T1,
+    T2, T3 (copies with padded rows, when r is not a multiple of 4) and A
+    = T2 T1 in global scratch (L2_COMBINE_MATRICES r x ceil(r / 4) 4
+    floats).  Raises ``ValueError`` for r outside [1, MAX_WIDTH]."""
     _check_width(r, "tri_combine")
     R = _inst(r)
     if R:
         floats = 2 * R * (R + 4) + 2 * STRIPE * (R + 4) + 16 * R
         return NsLayout(R, "smem", -(-r // STRIPE), 0, 4 * floats)
-    return NsLayout(0, "l2", _l2_ctas(r, L2_MAX_CLUSTER), r * _l2_ld(r),
-                    L2_STAGE_FLOATS * 4)
+    return NsLayout(0, "l2",
+                    max(1, min(L2_MAX_CLUSTER, max_cluster,
+                               -(-r // COMBINE_ROWS))),
+                    L2_COMBINE_MATRICES * r * _l2_ld(r),
+                    (L2_RING_SLACK_FLOATS + COMBINE_RING_FLOATS) * 4)
 
 
 def _stack_rows(m: int, N: int, members: int) -> int:
@@ -1107,9 +1125,10 @@ def tri_combine(T1: torch.Tensor, T2: torch.Tensor, T3: torch.Tensor
     passes' full products ``T_k = X_k^T G_k`` (r x r each): the combine
     that closes K2's and K3's robust panels, launched on its own.  On CUDA
     the three are contiguous fp32 on one device, r any of 1 ..
-    ``MAX_WIDTH``; the kernel runs :func:`combine_layout`'s ceil(r / STRIPE)
-    CTAs in true fp32, both products in shared memory up to 128 and through
-    an L2-resident scratch above."""
+    ``MAX_WIDTH``; the kernel runs :func:`combine_layout`'s CTAs in true
+    fp32, both products in shared memory up to 128 and above in blocks of
+    COMBINE_ROWS x COMBINE_COLS, a cluster a column block, A = T2 T1 in
+    an L2-resident scratch."""
     if T1.device.type == "cpu":
         return tri_combine_plain(T1, T2, T3)
     r = T1.shape[0]
@@ -1119,7 +1138,7 @@ def tri_combine(T1: torch.Tensor, T2: torch.Tensor, T3: torch.Tensor
             raise ValueError(f"tri_combine takes three r x r tensors on one "
                              f"device; got {name} {tuple(T.shape)} on "
                              f"{T.device}")
-    lay = combine_layout(r)
+    lay = combine_layout(r, _card_cluster(T1, r))
     from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
         check, library,
     )

@@ -89,13 +89,15 @@ K2_ITERS = (12, 6, 6, 10)
 #: m x r panels (``ninv_probe.yamamoto_s``): the polar driver's tall panel
 #: (aspect 32, 5 iterations) and its aspect-2 panel (12, the LU fallback
 #: armed), 16 of them (two waves if 15 clusters are resident), the padded
-#: instantiation (r = 100 on R = 128) and the L2 route (r = 256).
+#: instantiation (r = 100 on R = 128) and the L2 route (r = 256: 4
+#: members, and 8 in two waves if 7 clusters of 16 are resident).
 K4_CASES = (
     ("panel4096_it5", 8, 4096, 128, 5),
     ("panel256_it12", 8, 256, 128, 12),
     ("panel256_it12_B16", 16, 256, 128, 12),
     ("padded_r100_it5", 3, 3200, 100, 5),
     ("l2_r256_it5", 4, 8192, 256, 5),
+    ("l2_r256_it5_waves", 8, 4096, 256, 5),
 )
 #: The drivers' LU fallback threshold on K4's residual (ops/blockqr.py).
 K4_FALLBACK = 1e-3

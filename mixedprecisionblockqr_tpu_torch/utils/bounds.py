@@ -18,6 +18,7 @@ import json
 
 from mixedprecisionblockqr_tpu_torch.ops.kernels.chol import chol_layout
 from mixedprecisionblockqr_tpu_torch.ops.kernels.ns import (
+    COMBINE_COLS,
     combine_layout,
     ninv_layout,
     ns_layout,
@@ -308,9 +309,13 @@ def ninv_chain_batched_bound(B, r, iters):
 def tri_combine_bound(r):
     """The combine that closes K2's and K3's robust panels: ``combine_ops``;
     T1..T3 read, the r x r R block written.  Beside the whole card's bound,
-    the bound of the SMs its CTAs run on (``combine_layout``'s,
-    ``cluster_bound``)."""
-    return cluster_bound(combine_ops(r), 4 * r * r * 4, combine_layout(r).ctas)
+    the bound of the SMs its CTAs run on (``cluster_bound``): up to 128
+    ``combine_layout``'s CTAs; above, its clusters of ``ctas`` row blocks,
+    one a column block of COMBINE_COLS, at most the card."""
+    lay = combine_layout(r)
+    sms = (lay.ctas if lay.route == "smem"
+           else min(SMS, lay.ctas * -(-r // COMBINE_COLS)))
+    return cluster_bound(combine_ops(r), 4 * r * r * 4, sms)
 
 
 #: Clusters of K6 (``panel_factor_fused``, rows in shared memory) that an

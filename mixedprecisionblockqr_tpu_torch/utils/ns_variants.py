@@ -4,15 +4,17 @@
         [--parent TREE] [name ...]
 
 A developer's tool for A / B work on ``csrc/ns_chain.cuh``'s L2 route.
-Each variant of :data:`VARIANTS` (all, or those named) is this tree's
+Each variant of :data:`VARIANTS` (all, or those named; none when
+``--parent`` is given without names) is this tree's
 ``ns_chain.cu`` and ``ns_chain.cuh`` with a few text edits, each of which
 must match exactly once, built alone with ``nvcc`` into a temporary
 directory under ``_build/``; ``--parent`` adds the ``csrc/`` of another
 tree as it stands (laid out as the L2 route was before it had its own
 products: when its header has no ``kL2UDepth``, a scratch of 6 r ld floats
-and (L2_STAGE_FLOATS + 3 r + 64) floats of shared memory).  Every build
-runs K1 on the same Grams, first against ``ns_chain_plain`` (1e-4 of
-max|plain|) and bit for bit against this tree's library, then
+and (:data:`OLD_STAGE_FLOATS` + 3 r + 64) floats of shared memory).  Every
+build runs K1 on the same Grams, first against ``ns_chain_plain`` (1e-4 of
+max|plain|) and bit for bit against this tree's library in each option
+set of :data:`CHECKS`, then
 ``loop_ms`` (:data:`LOOP` launches back to back over LOOP, median of 5)
 of each option set of :data:`SETS`, the builds in turns for
 :data:`ROUNDS` rounds, the order reversed every other round.  It prints
@@ -38,6 +40,9 @@ import torch
 
 LOOP = 20
 ROUNDS = 4
+#: Shared-memory floats of a product stage on the L2 route before it had
+#: its own products (128 x 36 and 16 x 36 floats: A's and B's tiles).
+OLD_STAGE_FLOATS = (128 + 16) * 36
 #: name -> (r, options) of the timed chains.
 SETS = {
     "chain_mid_r256": (256, dict(iters=6, chain_mid=True)),
@@ -45,6 +50,13 @@ SETS = {
     "chain_mid_r192": (192, dict(iters=6, chain_mid=True)),
     "chain_mid_r512": (512, dict(iters=6, chain_mid=True)),
 }
+#: name -> (r, Gram kind, options) of the bitwise checks: the timed sets,
+#: and ``plain`` and ``refine`` at every width (``refine`` on the Gram of
+#: a near-orthonormal panel, as its callers give it).
+CHECKS = {**{name: (r, "well", kw) for name, (r, kw) in SETS.items()},
+          **{f"plain_r{r}": (r, "well", dict(iters=10)) for r in (192, 512)},
+          **{f"refine_r{r}": (r, "near_identity", dict(iters=4, refine=True))
+             for r in (192, 256, 512)}}
 _STAGE_CHECK = "        if (wkb < k0 + kL2UDepth && wke > k0) {"
 _NO_STAGE = "        if (wkb < k0 + kL2UDepth && wke > k0 && false) {"
 _FETCH_ARRIVE = "        l2_mbar_arrive_tx(bar, bytes);"
@@ -89,7 +101,6 @@ def variant_layout(header: str, r: int, max_cluster: int):
         L2_MAX_CLUSTER,
         L2_NORM_SLOTS,
         L2_RING_SLACK_FLOATS,
-        L2_STAGE_FLOATS,
         NsLayout,
         _l2_ctas,
         _l2_ld,
@@ -103,7 +114,7 @@ def variant_layout(header: str, r: int, max_cluster: int):
 
     if "kL2UDepth" not in header:
         return NsLayout(0, "l2", ctas, 6 * r * ld,
-                        (L2_STAGE_FLOATS + 3 * r + 64) * 4)
+                        (OLD_STAGE_FLOATS + 3 * r + 64) * 4)
     ring = const("kL2Stages") * const("kL2UDepth") * (const("kL2URows")
                                                       + 2 * const("kL2Tile"))
     return NsLayout(0, "l2", ctas, 11 * r * ld,
@@ -138,9 +149,10 @@ def build_variants(csrc: Path, names, parent=None) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("names", nargs="*", default=list(VARIANTS))
+    ap.add_argument("names", nargs="*")
     ap.add_argument("--parent", default=None)
     args = ap.parse_args(argv)
+    names = args.names or ([] if args.parent else list(VARIANTS))
     if not torch.cuda.is_available():
         print("ns_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -161,29 +173,34 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    G_of = {r: k1_stack("well", 1, r, gen, dev)[0]
-            for r in sorted({r for r, _ in SETS.values()})}
-    built = build_variants(_build.CSRC, args.names, args.parent)
+    G_of = {(kind, r): k1_stack(kind, 1, r, gen, dev)[0]
+            for kind, r in sorted({(kind, r) for r, kind, _
+                                   in CHECKS.values()})}
+    built = build_variants(_build.CSRC, names, args.parent)
     try:
         builds = {"this": (None, None)}
         for name, (header, d) in built.items():
             lib = _build._declare_ns(ctypes.CDLL(str(d / "libns.so")))
             builds[name] = (lib, header)
 
-        def launch(name, r, kw):
+        lays = {}  # parsed once: a launch's host time is what 256 reads
+
+        def launch(name, r, kw, kind="well"):
             lib, header = builds[name]
-            G = G_of[r]
-            lay = (None if lib is None else
-                   variant_layout(header, r, _card_cluster(G, r)))
-            return _launch_chain(G, kw["iters"], 0.0, False,
+            G = G_of[kind, r]
+            if lib is not None and (name, r) not in lays:
+                lays[name, r] = variant_layout(header, r,
+                                               _card_cluster(G, r))
+            lay = lays.get((name, r))
+            return _launch_chain(G, kw["iters"], 0.0, kw.get("refine", False),
                                  kw.get("chain_mid", False), True, True,
                                  lib=lib, lay=lay)
 
-        for sname, (r, kw) in SETS.items():
-            Xp, tp, _ = ns_chain_plain(G_of[r], **kw)
-            Xr, tr, _ = launch("this", r, kw)
+        for sname, (r, kind, kw) in CHECKS.items():
+            Xp, tp, _ = ns_chain_plain(G_of[kind, r], **kw)
+            Xr, tr, _ = launch("this", r, kw, kind)
             for name in builds:
-                X, t, _ = launch(name, r, kw)
+                X, t, _ = launch(name, r, kw, kind)
                 torch.cuda.synchronize()
                 err = max(float((X - Xp).abs().max()),
                           float((t - tp).abs().max()))

@@ -13,8 +13,9 @@ route and CTAs of its layout (``ops/kernels/ns.py``), error, time (CUDA
 events only: many ``torch.profiler`` sessions in one process have come
 back empty) beside the plain version, one library call and the bound
 (``utils/bounds.py``).
-``chip_smoke.py`` phase 3 calls :func:`width_rows` and, for K1 alone at
-the L2 route's edges (r = 129, 200, 512, 1024), :func:`k1_l2_rows`.
+``chip_smoke.py`` phase 3 calls :func:`width_rows` and, for K1, K4 and
+the combine alone at the L2 route's edges (r = 129, 200, 512, 1024),
+:func:`l2_edge_rows`.
 ``--sweep`` times
 K1 and K4 instead at 0, 1, 2, 4 and 8 iterations (K1 also with
 ``chain_mid`` and ``refine``) at each width: the intercept is a launch's
@@ -36,9 +37,12 @@ import sys
 import torch
 
 WIDTHS = (48, 100, 125, 192, 256)
-#: K1 alone at the L2 route's edges (:func:`k1_l2_rows`): the narrowest
-#: width on it, a width of ragged dealt tiles, and the widest two.
-K1_L2_WIDTHS = (129, 200, 512, 1024)
+#: K1, K4 and the combine alone at the L2 route's edges
+#: (:func:`l2_edge_rows`): the narrowest width on it, a width of ragged
+#: dealt tiles, and the widest two.
+L2_EDGE_WIDTHS = (129, 200, 512, 1024)
+#: The kernels :func:`l2_edge_rows` takes there: those with an L2 route.
+L2_EDGE_KERNELS = ("ns_chain", "ninv_chain", "tri_combine")
 TOL_F32 = 1e-4   # fp32 kernels vs plain: summation order only
 TOL_BF16 = 5e-3  # bf16-rounded operands: a rounding may flip
 #: K1's option combinations (chip_smoke.py phase 3): name -> (Gram, kwargs)
@@ -167,7 +171,8 @@ def combine_row(r: int, gen: torch.Generator) -> dict:
 
     P = torch.rand((4096, r), generator=gen, device=gen.device) - 0.5
     row = ninv_probe.combine_row(*ns.robust_products(P), profiled=False)
-    return {"kernel": "tri_combine", **row, **_route(ns.combine_layout(r))}
+    return {"kernel": "tri_combine", **row,
+            **_route(ns.combine_layout(r, ns._card_cluster(P, r)))}
 
 
 def k3_row(r: int, gen: torch.Generator) -> dict:
@@ -406,11 +411,13 @@ def width_rows(dev: torch.device, widths=WIDTHS) -> dict:
     return out
 
 
-def k1_l2_rows(dev: torch.device, widths=K1_L2_WIDTHS) -> dict:
-    """r -> :func:`k1_row` at each of ``widths``, each from a generator
-    seeded with 1000 + r, as :func:`width_rows` draws them."""
-    return {r: k1_row(r, torch.Generator(device=dev).manual_seed(1000 + r))
-            for r in widths}
+def l2_edge_rows(dev: torch.device, widths=L2_EDGE_WIDTHS) -> dict:
+    """kernel name -> {r: row} for each kernel of :data:`L2_EDGE_KERNELS`
+    at each of ``widths``, each row from a generator seeded with 1000 + r,
+    as :func:`width_rows` draws them."""
+    return {name: {r: KERNELS[name](
+        r, torch.Generator(device=dev).manual_seed(1000 + r))
+        for r in widths} for name in L2_EDGE_KERNELS}
 
 
 def main(argv=None) -> int:

@@ -31,12 +31,13 @@ def test_ninv_layout_is_one_cluster_of_r_over_16_ctas(r):
                                                (256, 0, "l2", 16)])
 def test_ninv_layout_refuses_other_widths(r, inst, route, ctas):
     # Every width runs: 16 and 96 on the smallest instantiation that holds
-    # them (zeros beyond r), 256 on the L2 route (X twice and E in global
-    # scratch, 16 CTAs); only widths outside 1 .. MAX_WIDTH are refused.
+    # them (zeros beyond r), 256 on the L2 route (S^T, X and X^T twice and
+    # E in global scratch, 16 CTAs); only widths outside 1 .. MAX_WIDTH are
+    # refused.
     lay = tns.ninv_layout(r)
     assert (lay.inst, lay.route, lay.ctas) == (inst, route, ctas)
     assert lay.smem_bytes <= SMEM_LIMIT
-    assert lay.scratch_floats == (3 * r * r if route == "l2" else 0)
+    assert lay.scratch_floats == (6 * r * r if route == "l2" else 0)
     with pytest.raises(ValueError, match="ninv_chain"):
         tns.ninv_layout(tns.MAX_WIDTH + r)
 

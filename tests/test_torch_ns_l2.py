@@ -148,8 +148,13 @@ def test_l2_constants_match_the_kernel():
     assert ("return (kL2RingSlack + kL2RingFloats + 3 * r + 64 +\n"
             "              kNormSlots * kL2MaxCluster) * 4;" in src)
     assert tns.L2_CHAIN_STAGE_FLOATS == tns.L2_STAGES * 64 * (256 + 16)
-    # K4 and the combine keep l2_prod's stage
-    assert tns.L2_STAGE_FLOATS == (128 + 16) * 36
+    # K4 runs the same ring (and 64 floats of reductions beside it), the
+    # combine a ring of the same stages' depth over its 32-row blocks
+    slack = tns.L2_RING_SLACK_FLOATS
+    assert tns.ninv_layout(256).smem_bytes == (
+        slack + tns.L2_CHAIN_STAGE_FLOATS + 64) * 4
+    assert tns.combine_layout(256).smem_bytes == (
+        slack + tns.L2_STAGES * tns.L2_DEPTH * (32 + 16)) * 4
 
 
 def test_l2_clock_names_every_slot():
@@ -242,6 +247,6 @@ def test_variant_builds_edit_the_kernel_once_and_fit(name):
     old = ns_variants.variant_layout("constexpr int kL2Depth = 32;", 256,
                                      16)
     assert old.scratch_floats == 6 * 256 * 256
-    assert old.smem_bytes == (tns.L2_STAGE_FLOATS + 3 * 256 + 64) * 4
+    assert old.smem_bytes == ((128 + 16) * 36 + 3 * 256 + 64) * 4
     with pytest.raises(ValueError, match="not once"):
         ns_variants.variant_header(src, [("no such text", "")])

@@ -49,10 +49,12 @@ def test_layout_rules_take_every_width(rule, r):
 @pytest.mark.parametrize("r", [129, 192, 256, 512, 1024])
 def test_l2_route_clusters_follow_the_card(r):
     # ceil(r / 16) CTAs, at most 16 and at most the card's largest
-    # cluster; the combine is a plain grid and ignores the card's cluster.
+    # cluster; the combine's L2 route a cluster of its ceil(r / 32) row
+    # blocks a column block, capped alike.
     assert tns.ns_layout(r).ctas == min(16, -(-r // 16))
     assert tns.ns_layout(r, 8).ctas == tns.ninv_layout(r, 8).ctas == 8
-    assert tns.combine_layout(r).ctas == min(16, -(-r // 16))
+    assert tns.combine_layout(r).ctas == min(16, -(-r // 32))
+    assert tns.combine_layout(r, 2).ctas == 2
 
 
 @pytest.mark.parametrize("r", [0, tns.MAX_WIDTH + 1])
