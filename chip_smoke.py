@@ -46,8 +46,13 @@ last line):
                  panel_factor_fused at 2048, 4096, 3072 and 2176 x 128
                  (lstsq's panels, in shared memory), 8192 x 128 (in
                  place), 128 x 128, 208 x 128 and 80 x 80, a zero column
-                 and a NaN, with its cluster, rows per CTA and route,
-                 bitwise repeatable; its batched entry on 64 x 1563 x 64,
+                 and a NaN, 6480 and 6481 x 128 (either side of the
+                 shared-memory route's 16 x 405 rows), with its cluster,
+                 rows per CTA and route, bitwise repeatable; its clock
+                 build run once (-DMPBQR_PANEL_PROF, utils/panel_probe.py
+                 --phases: 2048 and 8192 x 128, every slot of every CTA,
+                 outputs bit for bit the library's); its batched entry on
+                 64 x 1563 x 64,
                  8 x 512 x 128 and (wide) 4 x 1024 x 256 stacks against
                  the batched plain version, each member bit for bit a
                  single launch at the batch's layout, beside the loop of
@@ -1757,6 +1762,7 @@ def main() -> int:
         k4_inputs,
         k4_row,
     )
+    from mixedprecisionblockqr_tpu_torch.utils import panel_probe
     from mixedprecisionblockqr_tpu_torch.utils.panel_probe import (
         k6_batched_row,
         k6_row,
@@ -2098,14 +2104,43 @@ def main() -> int:
     for m in (3072, 2176):
         k6_inputs[f"{m}x128"] = torch.rand((m, 128), generator=gen6,
                                            device=dev) - 0.5
+    # The shared-memory route's row limit at w = 128 (16 CTAs of 405 rows):
+    # one panel at it, one just over (in place), from a generator of their
+    # own.
+    gen30 = torch.Generator(device=dev).manual_seed(30)
+    for m in (6480, 6481):
+        k6_inputs[f"{m}x128"] = torch.rand((m, 128), generator=gen30,
+                                           device=dev) - 0.5
     k6_rows = {name: k6_row(Pm, nan_input=name.endswith("nan"))
                for name, Pm in k6_inputs.items()}
     k6_err = max(max(row[f"max_abs_{x}"] for x in "VTR")
                  for row in k6_rows.values())
     for name, row in k6_rows.items():
         assert row["ok"], (name, row)
-    for name in ("4096x128", "3072x128", "2176x128", "2048x128"):
+    for name in ("4096x128", "3072x128", "2176x128", "2048x128",
+                 "6480x128"):
         assert k6_rows[name]["route"] == "smem", (name, k6_rows[name])
+    for name in ("8192x128", "6481x128"):
+        assert k6_rows[name]["route"] == "in_place", (name, k6_rows[name])
+    # K6's clock build (-DMPBQR_PANEL_PROF, panel_factor.cu alone;
+    # utils/panel_probe.py --phases): one launch at 2048 x 128 (shared
+    # memory) and 8192 x 128 (in place) on the probe's own draws; every
+    # slot of the probe's table recorded by every CTA, one exchange a
+    # column, and the clock build's V, T and R bit for bit the library's.
+    gen_pf = torch.Generator(device=dev).manual_seed(30)
+    with _build.instrumented_library(*panel_probe.PROF_BUILD) as prof:
+        k6_phases = {f"{m}x128": panel_probe.phase_row(
+            prof, torch.rand((m, 128), generator=gen_pf, device=dev) - 0.5,
+            panel_probe._sm_mhz()) for m in (2048, 8192)}
+    for name, row in k6_phases.items():
+        assert row["same_as_library"] and row["cluster"] == 16, (name, row)
+        assert set(row["per_cta_us"]) == set(panel_probe.PHASES), row
+        for slot, per_cta in row["per_cta_us"].items():
+            assert len(per_cta) == 16, (name, slot, row)
+        assert all(v > 0 for v in row["per_cta_us"]["exchange"]), row
+        for slot in ("scalars", "x_subpass", "fused_pass", "push",
+                     "outputs", "t_build"):
+            assert row["cta0_us"][slot] > 0, (name, slot, row)
     emit({"phase": "kernels", "kernel": "panel_factor_fused",
           "max_cluster": panel_max_cluster(dev),
           "tolerance": "V, T and R's upper triangle each within 1e-4 * "
@@ -2115,7 +2150,7 @@ def main() -> int:
                        "reaches R, in the plain version's places; plain "
                        "ms: median of 3",
           "library_call": "torch.geqrf(P)", "inputs": k6_rows,
-          "card": card})
+          "phases": k6_phases, "card": card})
 
     # K6's batched entry (utils/panel_probe.py::k6_batched_row): tsqr
     # 100000 x 64's 64 leaves, the refine lstsq's 8 leaves of 512 x 128, a
@@ -3799,6 +3834,7 @@ def main() -> int:
          "plain_ms": k6_rows["4096x128"]["plain_ms"],
          **panel_factor_bound(4096, 128, k6_rows["4096x128"]["cluster"]),
          "library_ms": k6_rows["4096x128"]["library_ms"],
+         "phases": {name: row["share"] for name, row in k6_phases.items()},
          "wide_route": {"launches": wide24, **{
              name: {k: row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")}

@@ -11,42 +11,61 @@
 // loop.  A 4096 x 128 panel is 2 MB, far beyond one SM's 227 KB, so here a
 // thread-block cluster of up to 16 CTAs (a non-portable size) splits the
 // panel's rows: each CTA holds its rows in its own shared memory -- up to
-// 428 rows at w = 128, so 16 CTAs keep 6848 rows -- or, when they do not
+// 405 rows at w = 128, so 16 CTAs keep 6480 rows -- or, when they do not
 // fit, works on them in place in R, which stays in L2.  The layout rule is
 // ops/kernels/panel.py::panel_layout (128 rows per CTA aimed at, which
 // utils/panel_probe.py measured fastest); the entry below only checks that
-// a layout is one the kernel can run.  Thread (k, g) owns column k of the
-// rows g, g + 4, ... of its CTA.  Per column j:
-//   * after the first cluster barrier every warp adds the pushed (tail^2,
-//     alpha) partials of column j in a butterfly, so every thread of every
-//     CTA holds the same scalars (sigma, u, beta); one pass over the rows
-//     writes w = x / |u| and turns column j - 1 below its diagonal into V;
-//   * one pass gives the CTA's dots w^T work[:, k] for all k, in four
-//     independent partial sums per thread (fixed order: runs repeat bit for
-//     bit); the CTA pushes them into every CTA's shared memory, then the
-//     second cluster barrier;
-//   * every thread sums the pushed dots of its column itself and applies
-//     the rank-1 update to its rows, column j included, four rows at a time
-//     and with no branch per row; the squares of column j + 1 ride along,
-//     and its four threads push them for the next step.
+// a layout is one the kernel can run.  Thread (k, g) owns column k of
+// every fourth live row of its CTA.  With x the live part of column j
+// (alpha = x_j) and A the working rows, the reflector is w = x / |u| with
+// u = alpha + sign(alpha) sigma at row j, so for every column c
+//   w^T A_c = (sum over rows i > j of x_i A_ic + u A_jc) / |u|,
+// which needs only sums that are known before u: the partial dots of the
+// rows below j and row j itself.  Per column j, ONE cluster barrier:
+//   * the exchange: after the barrier every warp adds the pushed partial
+//     sums of columns j and j + 1 in one tree over the CTAs, so every
+//     thread of every CTA holds the same scalars (sigma = sqrt(alpha^2 +
+//     sum x_i^2), u, beta) and the dots d_j, d_{j+1}; the first row group
+//     adds each column's pushed partial dots and keeps beta d_k in shared
+//     memory for the CTA;
+//   * the x' sub-pass: one thread a row writes w_i as column j's V below
+//     the diagonal (row j: R[j, j]) and x'_i, column j + 1 after the
+//     update, into the rows and beside w_i in a per-row vector (one copy,
+//     so the fused pass and the pushed dots see the same rounding), then a
+//     CTA barrier;
+//   * the fused pass: thread (k, g) applies the rank-1 update to column
+//     k > j + 1 over its rows and in the same pass sums c_k = x'_i A'_ik
+//     over its rows i > j + 1 (A' the updated column, V's column for
+//     k <= j, x' for k = j + 1), in four independent partial sums (fixed
+//     order: runs repeat bit for bit); row j + 1's entries are kept apart;
+//     a CTA barrier;
+//   * the push: each CTA adds its four row groups' sums and stores them,
+//     16 bytes a store, into slot `rank` of every CTA's shared memory;
+//     the CTA that holds row j + 1 pushes that row beside them, and one
+//     thread a CTA the sums of columns j + 1 and j + 2 as a pair.  The
+//     buffers have two copies by column parity: a CTA that is a column
+//     ahead never overwrites what a slower one still reads.
 // V is kept strictly below the diagonal of the working rows (as LAPACK
-// does; its diagonal goes to `vdiag`), so for column j, w^T work[:, k] is
-// (V^T w)_k for k < j and (w^T P)_k for k >= j.  Nothing in the loop reads
-// T: rank 0 only stores the dots (V^T w)_k, k < j -- column j of
-// G = triu(V^T V, 1) -- in the global scratch G.  After the loop every CTA
+// does; its diagonal goes to `vdiag`), so the dots of a column k <= j are
+// (V^T w_{j+1})_k.  Nothing in the loop reads T: rank 0 stores those dots
+// -- column j of G = triu(V^T V, 1) -- in the global scratch G at column
+// j's exchange.  After the loop every CTA
 // copies G into its shared memory and one warp per row of T runs that
 // row's own forward recurrence T[i, j] = -beta_j sum_{i <= k < j} T[i, k]
 // G[k, j], T[i, i] = beta_i, with the rows spread over the whole cluster.
 // The output R is the upper triangle (exact zeros below the diagonal, where
 // the TPU kernel leaves rounding residue); a NaN in the input reaches R
-// through the dots, as on the TPU.
+// through the dots, as on the TPU.  A beta = 0 column has w = 0: its dots
+// are 0 * (its sums), which keeps a NaN or inf of another column (as a
+// sum of 0 * A_ic would), except that a column that is itself NaN passes
+// its NaN to its own R[j, j] only.
 //
-// What bounds it: the column loop is sequential (w steps, each two cluster
-// barriers, two CTA barriers and two passes over the live rows), so it is
-// latency-bound, far from its 4 m w^2 fp32 operations or its bytes: at
-// 2048 x 128 on 16 CTAs a column takes about 5 us, more than half of it in
-// the two cluster barriers.  utils/panel_probe.py --phases reads the
-// phases' times from the kernel's own clock.
+// What bounds it: the column loop is sequential (w steps, each one cluster
+// barrier, two CTA barriers and one pass over the live rows), so it is
+// latency-bound, far from its 4 m w^2 fp32 operations or its bytes.
+// utils/panel_probe.py --phases reads the phases' times from the kernel's
+// own clock (PERF.md: at 2048 x 128 on 16 CTAs the loop this one replaced
+// took 4.5 us a column, 2.2 of them in its two cluster barriers).
 //
 // A batch of B panels of one shape (the TSQR / CAQR leaves and tree levels,
 // which the TPU reference factors under jax.vmap) is one launch,
@@ -107,28 +126,37 @@ constexpr int kPfCols = 128;                      // widest one-launch panel
 constexpr int kPfGroups = kPfThreads / kPfCols;   // row groups per column
 constexpr int kPfMaxCluster = 16;                 // non-portable cluster
 constexpr long long kPfSmemLimit = 232448;        // bytes a block may use
-// Floats of shared memory before the reflector entries and the rows: the
-// pushed dots [16][128] and norm partials [16][4][2], the row groups' dots
-// [4][128], beta [128], V's diagonal [128] and a pad of 4.
+// Shared memory every launch reserves at least: more than half an SM's
+// 228 KB, so two CTAs never share an SM (the batched layouts count the
+// clusters the card keeps resident as clusters of whole SMs).
+constexpr int kPfOneCtaSmem = 116 * 1024;
+// Floats of shared memory before the per-row vectors and the rows: the
+// pushed partial dots [2][16][128], pivot rows [2][128] and the partial
+// sums of the next two columns [2][16][2] (two copies each, by column
+// parity), the row groups' dots [4][128], the CTA's pivot row [128], the
+// scaled dots of the update [128], beta [128] and V's diagonal [128].
 // ops/kernels/panel.py::_FIXED_FLOATS mirrors it.
-constexpr int kPfFixedFloats = kPfMaxCluster * kPfCols +
-                               2 * kPfMaxCluster * kPfGroups +
-                               kPfGroups * kPfCols + 2 * kPfCols + 4;
+constexpr int kPfFixedFloats = 2 * kPfMaxCluster * kPfCols + 2 * kPfCols +
+                               4 * kPfMaxCluster + kPfGroups * kPfCols +
+                               4 * kPfCols;
 
-// Dynamic shared memory of a layout: the fixed carve-out, the reflector
-// entries of `rows` rows (padded to 4), and a region that holds the rows
-// (in_smem) and, after the loop, G (w x w).
+// Dynamic shared memory of a layout: the fixed carve-out, two vectors of
+// `rows` entries (the reflector and the next column, each padded to 4),
+// and a region that holds the rows (in_smem) and, after the loop, G
+// (w x w).
 static inline long long pf_smem_bytes(int w, int rows, int in_smem) {
   const long long region = (long long)w * w;
   const long long held = in_smem ? (long long)rows * w : 0;
-  return 4 * (kPfFixedFloats + ((rows + 3) & ~3) +
+  return 4 * (kPfFixedFloats + 2 * ((rows + 3) & ~3) +
               (held > region ? held : region));
 }
 
 // Per-CTA clock64 sums of a launch's phases, as the CTA's last thread
-// (column 127 of the last row group, live on every column) sees them,
-// compiled in only with -DMPBQR_PANEL_PROF; read by utils/panel_probe.py
-// --phases, which names the slots.
+// (column 127 of the last row group) sees them, compiled in only with
+// -DMPBQR_PANEL_PROF; read by utils/panel_probe.py --phases, which names
+// the slots: 0 the exchange (the one cluster barrier a column), 1 the
+// scalars and dots, 2 the x' sub-pass, 3 the fused pass, 4 the push, 5 the
+// outputs, 6 the T build.
 #ifdef MPBQR_PANEL_PROF
 __device__ long long g_pf_prof[kPfMaxCluster][8];
 #define PROF_INIT long long pt = clock64(), pacc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
@@ -158,13 +186,19 @@ panel_factor_kernel(const float* __restrict__ P, float* V, float* Tout,
   const int rank = (int)cluster.block_rank();
   const int csize = (int)cluster.num_blocks();
 
-  float* rdots = pf_smem;                           // [16][128] pushed dots
-  float* rnorm = rdots + kPfMaxCluster * kPfCols;   // [16][4] (tail^2, alpha)
-  float* grp = rnorm + 2 * kPfMaxCluster * kPfGroups;  // [4][128] group dots
-  float* betas = grp + kPfGroups * kPfCols;         // beta of each column
-  float* vdiag = betas + kPfCols;                   // V's diagonal
-  float* wv = vdiag + kPfCols + 4;                  // reflector, own rows
-  float* region = wv + ((rows + 3) & ~3);           // rows, then G
+  constexpr int kSlab = kPfMaxCluster * kPfCols;
+  float* pdots = pf_smem;                        // [2][16][128] partial dots
+  float* prow = pdots + 2 * kSlab;               // [2][128] pivot row
+  float2* pn = reinterpret_cast<float2*>(prow + 2 * kPfCols);  // [2][16]
+  float* grp = prow + 2 * kPfCols + 4 * kPfMaxCluster;  // [4][128] groups
+  float* grow = grp + kPfGroups * kPfCols;       // the CTA's pivot row
+  float* bdk = grow + kPfCols;                   // beta w^T A_k, k > j + 1
+  float* betas = bdk + kPfCols;                  // beta of each column
+  float* vdiag = betas + kPfCols;                // V's diagonal
+  // (w_i, x'_i) of the own rows: column j's reflector and column j + 1
+  // after the update.
+  float2* wx = reinterpret_cast<float2*>(vdiag + kPfCols);
+  float* region = vdiag + kPfCols + 2 * ((rows + 3) & ~3);  // rows, then G
   const int r0 = rank * rows;
   const int nr = max(0, min(rows, m - r0));
   // The route is a template argument, so that on the shared-memory route
@@ -179,153 +213,215 @@ panel_factor_kernel(const float* __restrict__ P, float* V, float* Tout,
     work[e] = P[(long long)r0 * w + e];
   cluster.sync();  // every CTA runs before any shared memory is pushed
 
-  // A row group's (tail^2, alpha) of a column, pushed by its one thread
-  // into slot (rank, g) of every CTA, while the other threads still work.
-  auto push_norm = [&](float tail, float alpha) {
-    for (int q = 0; q < csize; ++q)
-      reinterpret_cast<float2*>(cluster.map_shared_rank(rnorm, q))
-          [rank * kPfGroups + g] = make_float2(tail, alpha);
-  };
-
-  // Column 0's norm partial, by the kPfGroups threads of column 0.
-  if (k == 0) {
-    float ta = 0.f, tb = 0.f, alpha = 0.f;
-    int li = g;
-    for (; li + kPfGroups < nr; li += 2 * kPfGroups) {
-      const float v0 = work[(long long)li * w];
-      const float v1 = work[(long long)(li + kPfGroups) * w];
-      if (r0 + li > 0) ta = fmaf(v0, v0, ta); else alpha = v0;
-      tb = fmaf(v1, v1, tb);  // row r0 + li + 4 > 0
-    }
-    if (li < nr) {
-      const float v0 = work[(long long)li * w];
-      if (r0 + li > 0) ta = fmaf(v0, v0, ta); else alpha = v0;
-    }
-    push_norm(ta + tb, alpha);
-  }
-
-  for (int j = 0; j < w; ++j) {
+  // j = -1 is the prologue: column 0's partial dots and row 0, no update.
+  for (int j = -1; j < w; ++j) {
     const int lstart = max(0, j - r0);
-    cluster.sync();  // every CTA's (tail^2, alpha) of column j is pushed
-    PROF(0)
-    // The column's scalars: every warp adds the csize x 4 pushed pairs in
-    // a butterfly, which leaves the same sums in every lane, warp and CTA.
-    const int lane = t & 31;
-    const float2* rn = reinterpret_cast<const float2*>(rnorm);
-    const int np = csize * kPfGroups;
-    float tail2 = lane < np ? rn[lane].x : 0.f;
-    float alpha = lane < np ? rn[lane].y : 0.f;
-    if (lane + 32 < np) {
-      tail2 += rn[lane + 32].x;
-      alpha += rn[lane + 32].y;
-    }
+    const bool next = j + 1 < w;  // a column j + 1 whose dots to take
+    if (j >= 0) {
+      cluster.sync();  // column j's partial dots and row j are pushed
+      PROF(0)
+      // Column j's and j + 1's sums of the pushed partials (tail^2 = the
+      // sum over rows i > j of x_i^2), in every warp the same tree over
+      // the CTAs: lanes 0-15 add column j's, lanes 16-31 column j + 1's.
+      const float* pr = prow + (j & 1) * kPfCols;
+      const int lane = t & 31, q = lane & 15;
+      float v = q < csize ? (lane < 16 ? pn[(j & 1) * kPfMaxCluster + q].x
+                                       : pn[(j & 1) * kPfMaxCluster + q].y)
+                          : 0.f;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      tail2 += __shfl_xor_sync(0xffffffffu, tail2, o);
-      alpha += __shfl_xor_sync(0xffffffffu, alpha, o);
-    }
-    const float sigma = sqrtf(fmaf(alpha, alpha, tail2));
-    const float sgn = alpha >= 0.f ? 1.f : -1.f;
-    const float u = alpha + sgn * sigma;
-    const float unorm = sqrtf(fmaf(u, u, tail2));
-    const bool live = sigma > 1e-30f;
-    const float beta = live ? 2.f : 0.f;
-    if (t == 0) {
-      betas[j] = beta;
-      vdiag[j] = live ? u / unorm : 0.f;
-    }
-    // Column j's reflector; column j - 1 below its diagonal becomes V here
-    // (the update left its rows as it left every other column's).
-    for (int li = lstart + t; li < nr; li += kPfThreads) {
-      const int i = r0 + li;
-      float* p = work + (long long)li * w + j;
-      const float x = i == j ? u : *p;
-      if (j > 0) p[-1] = wv[li];
-      wv[li] = live ? x / unorm : 0.f;
-    }
-    __syncthreads();
-    PROF(1)
-
-    // d_k = sum over own rows i >= j of w_i work[i, k], every k < w, in
-    // four independent partial sums of the group's rows.
-    if (k < w) {
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      int li = lstart + g;
-      for (; li + 3 * kPfGroups < nr; li += 4 * kPfGroups) {
-        const float* p = work + (long long)li * w + k;
-        a0 = fmaf(wv[li], p[0], a0);
-        a1 = fmaf(wv[li + kPfGroups], p[kPfGroups * w], a1);
-        a2 = fmaf(wv[li + 2 * kPfGroups], p[2 * kPfGroups * w], a2);
-        a3 = fmaf(wv[li + 3 * kPfGroups], p[3 * kPfGroups * w], a3);
+      for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      const float tail2 = __shfl_sync(0xffffffffu, v, 0);
+      const float sj1 = __shfl_sync(0xffffffffu, v, 16);
+      const float alpha = pr[j];
+      const float sigma = sqrtf(fmaf(alpha, alpha, tail2));
+      const float sgn = alpha >= 0.f ? 1.f : -1.f;
+      const float u = alpha + sgn * sigma;
+      const float unorm = sqrtf(fmaf(u, u, tail2));
+      const bool live = sigma > 1e-30f;
+      const float beta = live ? 2.f : 0.f;
+      const float rinv = 1.f / unorm;
+      // w^T A_c = (sum over rows i > j of x_i A_ic + u A_jc) / |u|, from
+      // the sum s of the partial dots: row j never entered them, so
+      // nothing cancels.  A beta = 0 column keeps zero dots as 0 * s: a
+      // NaN or inf in column c (or in column j itself) still reaches
+      // them, as a sum of 0 * A_ic would; where column j is NaN only its
+      // own dot is.
+      const bool xnum = !isnan(sigma);
+      auto dot = [&](int c, float s) {
+        s = fmaf(u, pr[c], s);
+        return live ? s * rinv : (xnum || c == j ? 0.f * s : 0.f);
+      };
+      if (g == 0 && k < w) {
+        // The first row group sums column k's partials (in CTA order,
+        // their loads issued before the adds) for the whole CTA.
+        const float* pd = pdots + (j & 1) * kSlab + k;
+        float vk[kPfMaxCluster];
+#pragma unroll
+        for (int c = 0; c < kPfMaxCluster; ++c)
+          vk[c] = c < csize ? pd[c * kPfCols] : 0.f;
+        float sk = 0.f;
+#pragma unroll
+        for (int c = 0; c < kPfMaxCluster; ++c) sk += vk[c];
+        const float dk = dot(k, sk);
+        bdk[k] = k > j + 1 ? beta * dk : 0.f;
+        // (V^T w)_k, k < j: column j of G, stored by rank 0 for the T
+        // build.
+        if (rank == 0 && k < j) G[(long long)k * w + j] = dk;
       }
-      for (; li < nr; li += kPfGroups)
-        a0 = fmaf(wv[li], work[(long long)li * w + k], a0);
-      grp[g * kPfCols + k] = (a0 + a1) + (a2 + a3);
+      const float bj = beta * dot(j, tail2);
+      const float b1 = next ? beta * dot(j + 1, sj1) : 0.f;
+      if (t == 0) {
+        betas[j] = beta;
+        vdiag[j] = live ? u * rinv : 0.f;
+      }
+      PROF(1)
+      // The x' sub-pass, one thread a row i >= j: w_i = x_i / |u| (row j:
+      // u / |u|) becomes column j's V below the diagonal (row j: R[j, j]),
+      // and column j + 1 takes the update, x'_i, kept with w_i in wx (and
+      // in the rows) before any thread reads it in the fused pass.
+      for (int li = lstart + t; li < nr; li += kPfThreads) {
+        const bool diag = r0 + li == j;
+        const float wl = live ? (diag ? u : wx[li].y) * rinv : 0.f;
+        float* p = work + (long long)li * w + j;
+        p[0] = diag ? fmaf(-bj, wl, alpha) : wl;
+        const float x = next ? fmaf(-b1, wl, p[1]) : 0.f;
+        if (next) p[1] = x;
+        wx[li] = make_float2(wl, x);
+      }
+    } else {
+      for (int li = t; li < nr; li += kPfThreads)
+        wx[li] = make_float2(0.f, work[(long long)li * w]);
     }
     __syncthreads();
     PROF(2)
-    // The CTA's dots, pushed into slot `rank` of every CTA.
-    for (int e = t; e < csize * kPfCols; e += kPfThreads) {
-      const int q = e / kPfCols, kk = e % kPfCols;
-      if (kk < w) {
-        const float s = (grp[kk] + grp[kPfCols + kk]) +
-                        (grp[2 * kPfCols + kk] + grp[3 * kPfCols + kk]);
-        cluster.map_shared_rank(rdots, q)[rank * kPfCols + kk] = s;
-      }
-    }
-    cluster.sync();  // every CTA's partial dots are pushed
-    PROF(3)
 
-    if (k < w && k < j && rank == 0 && g == 0) {
-      // (V^T w)_k: column j of G, stored by rank 0 for the T build.
-      float dk = 0.f;
-      for (int q = 0; q < csize; ++q) dk += rdots[q * kPfCols + k];
-      G[(long long)k * w + j] = dk;
-    } else if (k < w && k >= j) {
-      // The full dot of column k, by every thread of it in the same order.
-      float dk = 0.f;
-      for (int q = 0; q < csize; ++q) dk += rdots[q * kPfCols + k];
-      // Rank-1 update of column k over the live rows, column j included
-      // (its rows below the diagonal become V in the next step's pass).
-      // Column j + 1's norm partial rides along: every lane adds the squares
-      // of rows i >= j + 2 in two sums (cheaper than a select), and only the
-      // thread of column j + 1 pushes them; the at most one row i <= j + 1
-      // of the group comes first and gives alpha.  Four rows at a time,
-      // their loads issued before the stores.
-      const bool ncol = k == j + 1;
-      float ta = 0.f, tb = 0.f, al = 0.f;
+    // The fused pass of thread (k, g) over the group's rows i >= j: the
+    // rank-1 update of column k > j + 1 and, in the same pass, the
+    // partial dot of the next column, c_k = sum over rows i > j + 1 of
+    // x'_i A'_ik (A'_k the updated column, V's column for k <= j, x'
+    // itself for k = j + 1), in four independent sums (fixed order: runs
+    // repeat bit for bit), and row j + 1's entry A'_{j+1,k}, which the
+    // dots leave out.
+    float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f, rv = 0.f;
+    if (k < w && next) {
+      const bool upd = j >= 0 && k > j + 1;
+      const float bd = upd ? bdk[k] : 0.f;
       constexpr int kS = kPfGroups;
       int li = lstart + g;
+      // The at most one row i <= j + 1 of the group.
       for (; li < nr && r0 + li <= j + 1; li += kS) {
         float* p = work + (long long)li * w + k;
-        const float v = *p - beta * (wv[li] * dk);
-        *p = v;
-        if (r0 + li == j + 1) al = v;
+        float v = *p;
+        if (upd) {
+          v = fmaf(-bd, wx[li].x, v);
+          *p = v;
+        }
+        rv = v;
+      }
+      // Eight rows at a time, then four, their loads issued before the
+      // stores; the r-th of them adds into sum r % 4.
+      for (; li + 7 * kS < nr; li += 8 * kS) {
+        float* p = work + (long long)li * w + k;
+        float a[8];
+        float2 e[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          a[r] = p[r * kS * w];
+          e[r] = wx[li + r * kS];
+        }
+        if (upd) {
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            a[r] = fmaf(-bd, e[r].x, a[r]);
+            p[r * kS * w] = a[r];
+          }
+        }
+        c0 = fmaf(e[0].y, a[0], c0);
+        c1 = fmaf(e[1].y, a[1], c1);
+        c2 = fmaf(e[2].y, a[2], c2);
+        c3 = fmaf(e[3].y, a[3], c3);
+        c0 = fmaf(e[4].y, a[4], c0);
+        c1 = fmaf(e[5].y, a[5], c1);
+        c2 = fmaf(e[6].y, a[6], c2);
+        c3 = fmaf(e[7].y, a[7], c3);
       }
       for (; li + 3 * kS < nr; li += 4 * kS) {
         float* p = work + (long long)li * w + k;
-        const float x0 = p[0], x1 = p[kS * w], x2 = p[2 * kS * w],
-                    x3 = p[3 * kS * w];
-        const float w0 = wv[li], w1 = wv[li + kS], w2 = wv[li + 2 * kS],
-                    w3 = wv[li + 3 * kS];
-        const float v0 = x0 - beta * (w0 * dk), v1 = x1 - beta * (w1 * dk),
-                    v2 = x2 - beta * (w2 * dk), v3 = x3 - beta * (w3 * dk);
-        p[0] = v0;
-        p[kS * w] = v1;
-        p[2 * kS * w] = v2;
-        p[3 * kS * w] = v3;
-        ta = fmaf(v0, v0, ta);
-        tb = fmaf(v1, v1, tb);
-        ta = fmaf(v2, v2, ta);
-        tb = fmaf(v3, v3, tb);
+        float a[4];
+        float2 e[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          a[r] = p[r * kS * w];
+          e[r] = wx[li + r * kS];
+        }
+        if (upd) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            a[r] = fmaf(-bd, e[r].x, a[r]);
+            p[r * kS * w] = a[r];
+          }
+        }
+        c0 = fmaf(e[0].y, a[0], c0);
+        c1 = fmaf(e[1].y, a[1], c1);
+        c2 = fmaf(e[2].y, a[2], c2);
+        c3 = fmaf(e[3].y, a[3], c3);
       }
       for (; li < nr; li += kS) {
         float* p = work + (long long)li * w + k;
-        const float v = *p - beta * (wv[li] * dk);
-        *p = v;
-        ta = fmaf(v, v, ta);
+        const float2 e = wx[li];
+        float a = *p;
+        if (upd) {
+          a = fmaf(-bd, e.x, a);
+          *p = a;
+        }
+        c0 = fmaf(e.y, a, c0);
       }
-      if (ncol) push_norm(ta + tb, al);
+    }
+    if (next) {
+      grp[g * kPfCols + k] = (c0 + c1) + (c2 + c3);
+      // Row j + 1, from the group that passed it if this CTA holds it
+      // (a step's groups start at row lstart).
+      const int l1 = j + 1 - r0;
+      if (l1 >= 0 && l1 < nr && (l1 - lstart) % kPfGroups == g)
+        grow[k] = rv;
+    }
+    __syncthreads();
+    PROF(3)
+    if (next) {
+      // The CTA's partial dots (the four groups' sums added), into slot
+      // `rank` of every CTA, and, from the CTA that holds it, row j + 1:
+      // 16-byte stores of four columns, the first four warps the dots,
+      // the next four the row; then one thread a CTA q the partial sums
+      // of columns j + 1 and j + 2 (added as the dots are) into slot
+      // `rank` of q's pairs.
+      const int par = (j + 1) & 1;
+      const int piece = t % 32, kk = 4 * piece, wq = (t / 32) % 4;
+      const float4* g4 = reinterpret_cast<const float4*>(grp);
+      if (t < 128 && kk < w) {
+        const float4 a = g4[piece], b = g4[32 + piece], c = g4[64 + piece],
+                     d = g4[96 + piece];
+        const float4 sum = make_float4((a.x + b.x) + (c.x + d.x),
+                                       (a.y + b.y) + (c.y + d.y),
+                                       (a.z + b.z) + (c.z + d.z),
+                                       (a.w + b.w) + (c.w + d.w));
+        for (int qq = wq; qq < csize; qq += 4)
+          *reinterpret_cast<float4*>(cluster.map_shared_rank(pdots, qq) +
+                                     par * kSlab + rank * kPfCols + kk) =
+              sum;
+      } else if (t < 256 && kk < w && j + 1 >= r0 && j + 1 < r0 + nr) {
+        const float4 row = reinterpret_cast<const float4*>(grow)[piece];
+        for (int qq = wq; qq < csize; qq += 4)
+          *reinterpret_cast<float4*>(cluster.map_shared_rank(prow, qq) +
+                                     par * kPfCols + kk) = row;
+      } else if (t >= 256 && t - 256 < csize) {
+        auto col = [&](int c) {
+          return c < w ? (grp[c] + grp[kPfCols + c]) +
+                             (grp[2 * kPfCols + c] + grp[3 * kPfCols + c])
+                       : 0.f;
+        };
+        cluster.map_shared_rank(pn, t - 256)[par * kPfMaxCluster + rank] =
+            make_float2(col(j + 1), col(j + 2));
+      }
     }
     PROF(4)
   }
@@ -336,8 +432,7 @@ panel_factor_kernel(const float* __restrict__ P, float* V, float* Tout,
     const float v = work[e];
     const long long o = (long long)i * w + c;
     R[o] = c >= i ? v : 0.f;
-    // Column w - 1 below its diagonal is still its reflector in wv.
-    V[o] = c < i ? (c == w - 1 ? wv[li] : v) : (c == i ? vdiag[c] : 0.f);
+    V[o] = c < i ? v : (c == i ? vdiag[c] : 0.f);
   }
   __threadfence();
   cluster.sync();  // G is complete; no CTA reads the rows any more
@@ -359,11 +454,11 @@ panel_factor_kernel(const float* __restrict__ P, float* V, float* Tout,
         if ((kk >> 5) == c) a = acc[c];
       const float mine = kk == i ? betas[i] : -betas[kk] * a;
       const float tk = __shfl_sync(0xffffffffu, mine, kk & 31);
-      const float* grow = region + (long long)kk * w;
+      const float* gk = region + (long long)kk * w;
 #pragma unroll
       for (int c = 0; c < kPfCols / 32; ++c) {
         const int jp = lane + 32 * c;
-        if (jp > kk && jp < w) acc[c] = fmaf(tk, grow[jp], acc[c]);
+        if (jp > kk && jp < w) acc[c] = fmaf(tk, gk[jp], acc[c]);
       }
     }
 #pragma unroll
@@ -392,22 +487,23 @@ static bool pf_layout_ok(int m, int w, int cluster, int rows, int in_smem,
 
 // The launch configuration of `batch` clusters of `cluster` CTAs, after
 // the kernel's attributes (non-portable cluster size, `smem_bytes` of
-// dynamic shared memory) are set.
+// dynamic shared memory, at least kPfOneCtaSmem) are set.
 template <bool kInSmem>
 static cudaError_t pf_config(cudaLaunchConfig_t* cfg,
                              cudaLaunchAttribute* attr, int cluster,
                              int smem_bytes, void* stream, int batch = 1) {
   auto kern = panel_factor_kernel<kInSmem>;
+  const int reserve = smem_bytes > kPfOneCtaSmem ? smem_bytes : kPfOneCtaSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, reserve);
   if (err != cudaSuccess) return err;
   *cfg = {};
   cfg->gridDim = dim3(cluster, batch, 1);
   cfg->blockDim = dim3(kPfThreads, 1, 1);
-  cfg->dynamicSmemBytes = (size_t)smem_bytes;
+  cfg->dynamicSmemBytes = (size_t)reserve;
   cfg->stream = (cudaStream_t)stream;
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cluster;

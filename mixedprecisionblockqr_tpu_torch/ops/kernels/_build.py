@@ -89,6 +89,34 @@ def _declare_ninv(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _declare_panel(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C entries of panel_factor.cu (K6)."""
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mpbqr_panel_factor.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                       ci, ci, vp]
+    lib.mpbqr_panel_factor.restype = ci
+    lib.mpbqr_panel_factor_wide_scratch_floats.argtypes = [ci, ci, ci]
+    lib.mpbqr_panel_factor_wide_scratch_floats.restype = ll
+    lib.mpbqr_panel_factor_wide.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                            vp, ci, vp]
+    lib.mpbqr_panel_factor_wide.restype = ci
+    lib.mpbqr_panel_factor_max_cluster.argtypes = [ci, ctypes.POINTER(ci)]
+    lib.mpbqr_panel_factor_max_cluster.restype = ci
+    lib.mpbqr_panel_factor_resident.argtypes = [ci, ci, ci,
+                                                ctypes.POINTER(ci)]
+    lib.mpbqr_panel_factor_resident.restype = ci
+    lib.mpbqr_panel_factor_batched.argtypes = [vp, vp, vp, vp, vp, ci, ci,
+                                               ci, ci, ci, ci, ci, vp]
+    lib.mpbqr_panel_factor_batched.restype = ci
+    lib.mpbqr_panel_factor_wide_batched_scratch_floats.argtypes = [ci, ci, ci,
+                                                                   ci]
+    lib.mpbqr_panel_factor_wide_batched_scratch_floats.restype = ll
+    lib.mpbqr_panel_factor_wide_batched.argtypes = [vp, vp, vp, vp, vp, ci,
+                                                    ci, ci, ci, vp, ci, vp]
+    lib.mpbqr_panel_factor_wide_batched.restype = ci
+    return lib
+
+
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci, cf, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     chain = [ci] * 5  # ns.py::NsLayout (ns.py::_c_layout)
@@ -129,28 +157,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     _declare_ninv(lib)
     lib.mpbqr_tri_combine.argtypes = [vp, vp, vp, vp, vp, ci, ci, *chain, vp]
     lib.mpbqr_tri_combine.restype = ci
-    lib.mpbqr_panel_factor.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                       ci, ci, vp]
-    lib.mpbqr_panel_factor.restype = ci
-    lib.mpbqr_panel_factor_wide_scratch_floats.argtypes = [ci, ci, ci]
-    lib.mpbqr_panel_factor_wide_scratch_floats.restype = ll
-    lib.mpbqr_panel_factor_wide.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                            vp, ci, vp]
-    lib.mpbqr_panel_factor_wide.restype = ci
-    lib.mpbqr_panel_factor_max_cluster.argtypes = [ci, ctypes.POINTER(ci)]
-    lib.mpbqr_panel_factor_max_cluster.restype = ci
-    lib.mpbqr_panel_factor_resident.argtypes = [ci, ci, ci,
-                                                ctypes.POINTER(ci)]
-    lib.mpbqr_panel_factor_resident.restype = ci
-    lib.mpbqr_panel_factor_batched.argtypes = [vp, vp, vp, vp, vp, ci, ci,
-                                               ci, ci, ci, ci, ci, vp]
-    lib.mpbqr_panel_factor_batched.restype = ci
-    lib.mpbqr_panel_factor_wide_batched_scratch_floats.argtypes = [ci, ci, ci,
-                                                                   ci]
-    lib.mpbqr_panel_factor_wide_batched_scratch_floats.restype = ll
-    lib.mpbqr_panel_factor_wide_batched.argtypes = [vp, vp, vp, vp, vp, ci,
-                                                    ci, ci, ci, vp, ci, vp]
-    lib.mpbqr_panel_factor_wide_batched.restype = ci
+    _declare_panel(lib)
     lib.mpbqr_tiled_matmul.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                        ci, vp]
     lib.mpbqr_tiled_matmul.restype = ci
@@ -190,7 +197,8 @@ def _run_all(cmds) -> None:
 #: Libraries of one source that :func:`instrumented_library` may build,
 #: with the function that declares their C entries.
 PARTIAL = {("givens.cu",): _declare_givens, ("ns_chain.cu",): _declare_ns,
-           ("ninv_chain.cu",): _declare_ninv}
+           ("ninv_chain.cu",): _declare_ninv,
+           ("panel_factor.cu",): _declare_panel}
 
 
 def build(so: Path, flags=(), sources=SOURCES) -> None:

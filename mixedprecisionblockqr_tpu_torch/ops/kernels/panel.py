@@ -65,11 +65,13 @@ MAX_CLUSTER = 16
 ROWS_TARGET = 128
 #: Shared memory one CTA may use on an H100 (bytes).
 SMEM_LIMIT = 232448
-#: Floats of shared memory before the reflector entries and the rows, as
-#: csrc/panel_factor.cu carves them (kPfFixedFloats): the pushed dots
-#: [16][128] and norm partials [16][4][2], the row groups' dots [4][128],
-#: beta and V's diagonal [128] each, a pad of 4.
-_FIXED_FLOATS = 16 * 128 + 16 * 4 * 2 + 4 * 128 + 2 * 128 + 4
+#: Floats of shared memory before the per-row vectors and the rows, as
+#: csrc/panel_factor.cu carves them (kPfFixedFloats): the pushed partial
+#: dots [2][16][128], pivot rows [2][128] and the next two columns' partial
+#: sums [2][16][2] (two copies each, by column parity), the row groups'
+#: dots [4][128], the CTA's pivot row, the update's scaled dots, beta and
+#: V's diagonal [128] each.
+_FIXED_FLOATS = 2 * 16 * 128 + 2 * 128 + 4 * 16 + 4 * 128 + 4 * 128
 
 
 class PanelLayout(NamedTuple):
@@ -86,11 +88,12 @@ Resident = Callable[[PanelLayout], int]
 
 
 def _smem_bytes(w: int, rows: int, in_smem: bool) -> int:
-    """The kernel's carve-out: the fixed floats, the reflector entries of
-    ``rows`` rows (padded to 4) and a region that holds the rows (when
-    ``in_smem``) and, after the column loop, the w x w G."""
+    """The kernel's carve-out: the fixed floats, two vectors of ``rows``
+    entries (the reflector and the next column, each padded to 4) and a
+    region that holds the rows (when ``in_smem``) and, after the column
+    loop, the w x w G."""
     held = rows * w if in_smem else 0
-    return 4 * (_FIXED_FLOATS + (rows + 3) // 4 * 4 + max(held, w * w))
+    return 4 * (_FIXED_FLOATS + 2 * ((rows + 3) // 4 * 4) + max(held, w * w))
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,7 +103,7 @@ def panel_layout(m: int, w: int, max_cluster: int = MAX_CLUSTER,
     clusters of up to ``max_cluster`` CTAs: ``ceil(m / rows_target)`` CTAs
     (1 to ``max_cluster``), more while a CTA's ``ceil(m / cluster)`` rows
     do not fit its shared memory; the rows in shared memory when they fit
-    ``SMEM_LIMIT`` (428 rows at w = 128, so 16 CTAs hold 6848), else the
+    ``SMEM_LIMIT`` (405 rows at w = 128, so 16 CTAs hold 6480), else the
     in-place route on ``max_cluster`` CTAs.  A rule on shapes alone: it
     needs no device."""
     if not (1 <= w <= MAX_WIDTH and m >= w and 1 <= max_cluster

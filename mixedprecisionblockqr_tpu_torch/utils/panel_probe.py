@@ -38,13 +38,17 @@ The first line is the card's name and power limit (nvidia-smi).
 ``chip_smoke.py`` phases 3 and 24 run the same rows through :func:`k6_row`,
 phase 3 the stacks through :func:`k6_batched_row`.
 
-With ``--phases``, the kernel library is built a second time with
-``-DMPBQR_PANEL_PROF`` (``_build.instrumented_library``); one more launch
-per panel from it gives a line per panel: the microseconds that CTA 0's
-last thread (column 127, live on every column) spent in each phase
-(summed over the columns; the T build after the loop), at the SM clock
-that ``nvidia-smi`` reads beside it, each phase's share, and every CTA's
-microseconds.  It
+With ``--phases``, ``panel_factor.cu`` is built alone a second time with
+``-DMPBQR_PANEL_PROF`` (:data:`PROF_BUILD`, ``_build.instrumented_library``);
+one launch from it on each panel of :data:`PHASE_PANELS` gives a line
+(:func:`phase_row`): the microseconds that CTA 0's last thread spent in
+each slot of :data:`PHASES` (summed over the columns; the outputs and T
+build after the loop), at the SM clock that ``nvidia-smi`` reads beside
+it, each slot's share, every CTA's microseconds, and whether the clock
+build's outputs equal the library's bit for bit.  ``--parent-slots`` names
+the slots by :data:`PARENT_PHASES`, for another tree's build run with this
+file (``PYTHONPATH=<tree> python3 -P .../panel_probe.py --phases
+--parent-slots``).  It
 needs a CUDA device and ``nvcc``.
 """
 
@@ -62,8 +66,8 @@ import torch
 PROBE_SHAPES = ((2048, 128), (4096, 128), (3072, 128), (2176, 128),
                 (8192, 128))
 #: Rows per CTA the layout may aim at: 128 and 256 (16 x 128 and 8 x 256 at
-#: 2048 rows), 342 (12 x 342 at 4096) and 428 (the most a CTA holds).
-ROWS_TARGETS = (128, 256, 342, 428)
+#: 2048 rows), 342 (12 x 342 at 4096) and 405 (the most a CTA holds).
+ROWS_TARGETS = (128, 256, 342, 405)
 #: Wide-route panels: the 'householder' tiers at block 256 and 2000^2 at
 #: 200, 512 columns, in-place sub-panels (8192 rows), lstsq(method='tsqr')'s
 #: one 4096 x 2048 leaf.
@@ -528,36 +532,74 @@ def layout_times(P: torch.Tensor) -> dict:
 
 
 #: Slots of the kernel's phase clocks (csrc/panel_factor.cu, PROF), as a
-#: CTA's last thread sees them: the first cluster barrier (the wait for every row
-#: group's pushed norm partial), the scalars and w, the dot pass, the dot
-#: push and the second barrier, the update (with the norm push), the
-#: outputs' write (after the loop) and the T build.
-PHASES = {"norm_exchange": 0, "wv": 1, "dot_pass": 2,
-          "dot_exchange": 3, "update": 4, "outputs": 5, "t_build": 6}
+#: CTA's last thread sees them, summed over the columns: the exchange (the
+#: one cluster barrier a column, the wait for every CTA's pushed partial
+#: dots and pivot row), the scalars and dots (with G's column), the x'
+#: sub-pass (the reflector and the next column, then a CTA barrier), the
+#: fused pass (update, V, the next column's partial dots, then a CTA
+#: barrier), the push, and after the loop the outputs' write and the T
+#: build.  The prologue (column 0's dots) falls in the last three of the
+#: loop's slots.
+PHASES = {"exchange": 0, "scalars": 1, "x_subpass": 2, "fused_pass": 3,
+          "push": 4, "outputs": 5, "t_build": 6}
+#: The slots of the loop before it (two cluster barriers a column), to
+#: read a tree of that loop with ``--parent-slots`` (which builds every
+#: source: such a tree's ``_build`` cannot build ``panel_factor.cu``
+#: alone).
+PARENT_PHASES = {"norm_exchange": 0, "wv": 1, "dot_pass": 2,
+                 "dot_exchange": 3, "update": 4, "outputs": 5, "t_build": 6}
+#: The clock build: panel_factor.cu alone with -DMPBQR_PANEL_PROF, and its
+#: entry that copies the 16 x 8 clocks out (``_build.instrumented_library``).
+PROF_BUILD = ("-DMPBQR_PANEL_PROF", "mpbqr_panel_prof", 1,
+              ("panel_factor.cu",))
+
+#: Panels the clock reads: the single launches (lstsq's 2048 and 4096 x
+#: 128, the in-place 8192 x 128, the cholqr hybrid's 208 x 128 tail) and
+#: the batched solve's first panel step, 8 x 2048 x 128, whose clocks are
+#: those of one member (every member's cluster writes the same slots).
+PHASE_PANELS = ((2048, 128), (4096, 128), (8192, 128), (208, 128),
+                (8, 2048, 128))
 
 
-def _phases(lib, P: torch.Tensor, mhz: float) -> dict:
+def phase_row(lib, P: torch.Tensor, mhz: float, phases=None) -> dict:
+    """One launch of the clock build ``lib`` on the panel or stack ``P``
+    at the layout the main path gives it: CTA 0's microseconds by slot of
+    ``phases`` (:data:`PHASES` by default; summed over the columns) at
+    ``mhz``, each slot's share, every CTA's microseconds, and whether V, T
+    and R equal the library build's bit for bit (``same_as_library``)."""
     import numpy as np
 
-    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import check
+    from mixedprecisionblockqr_tpu_torch.ops.kernels._build import (
+        check,
+        library,
+    )
     from mixedprecisionblockqr_tpu_torch.ops.kernels.panel import (
         _launch,
+        batched_layout,
+        card_resident,
         max_cluster,
         panel_layout,
     )
 
-    lay = panel_layout(*P.shape, max_cluster(P.device))
-    _launch(lib, P, lay)
+    mc = max_cluster(P.device)
+    lay = (batched_layout(*P.shape, card_resident(P.device), mc)
+           if P.dim() == 3 else panel_layout(*P.shape, mc))
+    out = _launch(lib, P, lay)
     torch.cuda.synchronize()
     prof = np.zeros((16, 8), np.int64)
     check(lib.mpbqr_panel_prof(prof.ctypes.data), "panel_prof")
-    us = {name: float(prof[0][k]) / mhz for name, k in PHASES.items()}
+    same = all(bool(torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+               for a, b in zip(out, _launch(library(), P, lay)))
+    phases = phases or PHASES
+    us = {name: float(prof[0][k]) / mhz for name, k in phases.items()}
     total = sum(us.values())
-    return {"cluster": lay.cluster, "rows": lay.rows, "cta0_us": us,
+    return {"cluster": lay.cluster, "rows": lay.rows, "route": _route(lay),
+            "sm_mhz": mhz, "cta0_us": us,
             "share": {k: v / total for k, v in us.items()},
             "per_cta_us": {name: [round(float(p[k]) / mhz, 1)
                                   for p in prof[:lay.cluster]]
-                           for name, k in PHASES.items()}}
+                           for name, k in phases.items()},
+            "same_as_library": same}
 
 
 def _sm_mhz() -> float:
@@ -572,6 +614,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--wide-only", action="store_true")
     ap.add_argument("--batched", action="store_true")
+    ap.add_argument("--parent-slots", action="store_true",
+                    help="name the clock's slots by PARENT_PHASES")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("panel_probe: no CUDA device", file=sys.stderr)
@@ -607,12 +651,17 @@ def main(argv=None) -> int:
         print(json.dumps({"panel": f"{m}x{w}", **wide_times(P)}),
               flush=True)
     if args.phases:
-        with _build.instrumented_library("-DMPBQR_PANEL_PROF",
-                                         "mpbqr_panel_prof", 1) as prof:
-            for name, P in panels.items():
-                mhz = _sm_mhz()
-                print(json.dumps({"panel": name, "sm_mhz": mhz,
-                                  **_phases(prof, P, mhz)}), flush=True)
+        gen_p = torch.Generator(device=dev).manual_seed(30)
+        phases, build = PHASES, PROF_BUILD
+        if args.parent_slots:
+            phases, build = PARENT_PHASES, PROF_BUILD[:3] + (_build.SOURCES,)
+        with _build.instrumented_library(*build) as prof:
+            for shape in PHASE_PANELS:
+                P = torch.rand(shape, generator=gen_p, device=dev) - 0.5
+                row = phase_row(prof, P, _sm_mhz(), phases)
+                ok = ok and row["same_as_library"]
+                print(json.dumps({"panel": "x".join(map(str, shape)),
+                                  **row}), flush=True)
     return 0 if ok else 1
 
 

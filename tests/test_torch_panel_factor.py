@@ -92,7 +92,7 @@ def test_panel_factor_fused_cpu_never_counts_and_rejects_others():
 
 # (m, w, max_cluster) -> (cluster, rows, in_smem): 128 rows per CTA aimed
 # at, more CTAs while the rows do not fit, the in-place route past what
-# max_cluster CTAs of at most 428 rows (w = 128) hold.
+# max_cluster CTAs of at most 405 rows (w = 128) hold.
 LAYOUTS = {
     (80, 80, 8): (1, 80, True), (80, 80, 16): (1, 80, True),
     (2048, 128, 8): (8, 256, True), (2048, 128, 16): (16, 128, True),
@@ -109,11 +109,12 @@ def test_panel_layout(case):
     assert (lay.cluster, lay.rows, lay.in_smem) == LAYOUTS[case]
     assert lay.cluster * lay.rows >= m > (lay.cluster - 1) * lay.rows
     assert lay.smem_bytes <= tpanel.SMEM_LIMIT == 232448
-    # The kernel's carve-out: fixed floats, the reflector entries, and the
-    # rows (shared-memory route) or at least G (w x w).
+    # The kernel's carve-out: fixed floats, the reflector's and the next
+    # column's entries, and the rows (shared-memory route) or at least G
+    # (w x w).
     held = lay.rows * w if lay.in_smem else 0
     assert lay.smem_bytes == 4 * (tpanel._FIXED_FLOATS
-                                  + -(-lay.rows // 4) * 4
+                                  + 2 * (-(-lay.rows // 4) * 4)
                                   + max(held, w * w))
     if not lay.in_smem:
         # the rows would not have fit
@@ -135,7 +136,7 @@ def test_panel_layout_rejects_what_the_kernel_does_not_take():
     ("cuda", torch.float32, 129, True),
     ("cuda", torch.bfloat16, 128, False),
 ])
-def test_householder_routes_to_k6_only_for_cuda_fp32_up_to_128(
+def test_householder_routes_every_cuda_fp32_panel_to_k6_at_any_width(
         device_type, dtype, w, fused):
     # The width w no longer decides: K6 takes every fp32 panel on the card,
     # those wider than 128 by its wide route.

@@ -115,7 +115,7 @@ def test_wide_layout(m, w):
     n = len(lay.steps)
     assert lay.products() == 6 * (n - 1)
     if m >= 8192:
-        # sub-panels taller than 16 CTAs of 428 rows take the in-place route
+        # sub-panels taller than 16 CTAs of 405 rows take the in-place route
         assert not lay.steps[0].panel.in_smem
 
 
